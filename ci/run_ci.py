@@ -78,6 +78,11 @@ PACKAGES: dict[str, list[str]] = {
     # device cost-attribution plane: PeakSpec/rooflines, AOT cost
     # persistence, goodput ledger, xprof capture surface, schema v6
     "attribution": ["test_attribution.py"],
+    # the PyTorch/CUDA port (mmlspark_torch) against this package on the
+    # CPU; its cuda-marked kernel test skips without a GPU
+    "torch": ["test_torch_binning.py", "test_torch_core.py",
+              "test_torch_engine.py", "test_torch_hist.py",
+              "test_torch_isolation.py", "test_torch_lightgbm.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

@@ -1,0 +1,414 @@
+"""Booster: the trained GBDT model — prediction, persistence, introspection.
+
+Role of the reference's ``lightgbm/booster/LightGBMBooster.scala:196-517``:
+score (raw/probability), predict leaf indices, feature importances (split /
+gain), save to / load from the LightGBM *text model format* so models
+interchange with native LightGBM and with the JAX package
+(``saveNativeModel`` / ``loadNativeModelFromFile`` parity).
+
+Trees live as stacked fixed-capacity numpy arrays [T, NN] on the host (the
+same ``arrays`` dict as ``mmlspark_tpu/lightgbm/booster.py``); prediction
+copies them to the device once and advances every (row, tree) pair one level
+per step with tensor gathers. Scoring uses no kernel, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.utils import stable_sigmoid
+from ..device import resolve_device
+from .objectives import LATER_SLICE
+
+
+class Booster:
+    """Stacked-tree GBDT model.
+
+    Arrays (numpy, host-resident; copied to the device lazily for predict):
+      feature      i32 [T, NN]
+      threshold    f32 [T, NN]  — raw-value threshold (go left iff x <= thr;
+                                  NaN goes left unless default_left says
+                                  otherwise)
+      left/right   i32 [T, NN]
+      leaf_value   f32 [T, NN]  — shrunk by learning_rate already
+      is_leaf      bool[T, NN]
+      split_gain, node_weight, node_count, node_value f32 [T, NN]
+      num_nodes    i32 [T]
+      default_left bool[T, NN]
+    """
+
+    def __init__(self, arrays: dict, *, num_class: int = 1,
+                 objective: str = "regression", sigmoid: float = 1.0,
+                 init_score: float | np.ndarray = 0.0,
+                 feature_names: list[str] | None = None,
+                 max_depth_bound: int = 64,
+                 tree_weights: np.ndarray | None = None,
+                 average_output: bool = False):
+        self.arrays = {k: np.asarray(v) for k, v in arrays.items()}
+        if "cat_flag" in self.arrays and self.arrays["cat_flag"].any():
+            raise NotImplementedError(
+                "boosters with categorical splits are not ported yet; they "
+                f"come with {LATER_SLICE}")
+        self.arrays.pop("cat_flag", None)
+        self.arrays.pop("cat_left", None)
+        if "default_left" not in self.arrays and "feature" in self.arrays:
+            # our trained trees always send missing (bin 0) left
+            self.arrays["default_left"] = np.ones_like(
+                self.arrays["feature"], bool)
+        self.num_class = num_class
+        self.objective = objective
+        self.sigmoid = sigmoid
+        self.init_score = np.asarray(init_score, dtype=np.float32)
+        T = self.arrays["feature"].shape[0] if "feature" in arrays else 0
+        self.feature_names = feature_names
+        self.max_depth_bound = max_depth_bound
+        self.tree_weights = (np.ones(T, np.float32) if tree_weights is None
+                             else np.asarray(tree_weights, np.float32))
+        self.average_output = average_output
+        self._dev_cache = None
+
+    # ------------------------------------------------------------ prediction
+    @property
+    def num_trees(self) -> int:
+        return self.arrays["feature"].shape[0]
+
+    @property
+    def num_iterations(self) -> int:
+        return self.num_trees // self.num_class
+
+    def _effective_trees(self, num_iteration: int | None = None) -> int:
+        if num_iteration is None:
+            return self.num_trees
+        return min(self.num_trees, num_iteration * self.num_class)
+
+    def raw_scores(self, x, num_iteration: int | None = None,
+                   start_iteration: int = 0,
+                   device: str | torch.device | None = None) -> np.ndarray:
+        """Raw margin scores [n] or [n, K] for a dense [n, F] matrix (numpy
+        or tensor), computed on ``device`` (default CUDA).
+        ``start_iteration`` skips the first k iterations' trees (reference
+        ``setStartIteration``)."""
+        if not isinstance(x, (np.ndarray, torch.Tensor)):
+            raise NotImplementedError(
+                f"scoring {type(x).__name__} input is not ported yet (sparse "
+                f"input comes with {LATER_SLICE})")
+        dev = resolve_device(device)
+        n_rows, width = x.shape
+        if self.num_trees and "feature" in self.arrays:
+            need = int(self.arrays["feature"].max()) + 1
+            if width < need:
+                raise ValueError(
+                    f"model splits on feature {need - 1} but input has only "
+                    f"{width} features")
+        t_end = self._effective_trees(num_iteration)
+        if t_end == 0:
+            base = np.broadcast_to(
+                self.init_score,
+                (n_rows, self.num_class)).astype(np.float32)
+            return base[:, 0] if self.num_class == 1 else base
+        xt = torch.as_tensor(x, dtype=torch.float32).to(dev)
+        arrays = self._device_arrays(t_end, dev)
+        leaves = _predict_leaf_nodes(arrays, xt,
+                                     max_depth=self.max_depth_bound)
+        w = np.array(self.tree_weights[:t_end])
+        t_start = max(int(start_iteration), 0) * self.num_class
+        if t_start:
+            w[:t_start] = 0.0      # skipped iterations contribute nothing
+        avg_div = max((t_end - t_start) // self.num_class, 1) \
+            if self.average_output else 1
+        scores = _score_math(
+            arrays[4], leaves, torch.as_tensor(w, device=dev),
+            torch.as_tensor(self.init_score, device=dev).reshape(-1),
+            num_class=self.num_class, avg_div=avg_div)
+        out = scores.cpu().numpy()
+        return out[:, 0] if self.num_class == 1 else out
+
+    def predict_leaf(self, x, num_iteration: int | None = None,
+                     start_iteration: int = 0,
+                     device: str | torch.device | None = None) -> np.ndarray:
+        """Leaf *index* per (row, tree) — reference ``predictLeaf``: leaf
+        ordinals in node-creation order within each tree."""
+        dev = resolve_device(device)
+        t_end = self._effective_trees(num_iteration)
+        t_start = max(int(start_iteration), 0) * self.num_class
+        xt = torch.as_tensor(x, dtype=torch.float32).to(dev)
+        leaves = _predict_leaf_nodes(self._device_arrays(t_end, dev), xt,
+                                     max_depth=self.max_depth_bound)
+        leaves = leaves.cpu().numpy()
+        is_leaf = self.arrays["is_leaf"][:t_end]
+        out = np.zeros((leaves.shape[0], max(t_end - t_start, 0)),
+                       leaves.dtype)
+        for t in range(t_start, t_end):
+            ordinal = np.cumsum(is_leaf[t]) - 1   # node id -> leaf ordinal
+            out[:, t - t_start] = ordinal[leaves[:, t]]
+        return out
+
+    def transform_scores(self, raw: np.ndarray) -> np.ndarray:
+        """Raw scores → the objective's output (a probability for
+        ``binary``); the other objectives' transforms come with them."""
+        if self.objective == "binary":
+            return stable_sigmoid(self.sigmoid * raw)
+        raise NotImplementedError(
+            f"scoring objective {self.objective!r} is not ported yet; it "
+            f"comes with {LATER_SLICE}")
+
+    def _device_arrays(self, t_end: int, dev: torch.device):
+        # cached per (arrays identity, t_end, device): re-uploading every
+        # tree array on each predict would dominate small-batch scoring
+        cache = self._dev_cache
+        if cache is not None and cache[0] is self.arrays \
+                and cache[1] == t_end and cache[2] == dev:
+            return cache[3]
+        a = self.arrays
+        out = tuple(torch.as_tensor(a[k][:t_end], device=dev) for k in
+                    ("feature", "threshold", "left", "right",
+                     "leaf_value", "is_leaf", "default_left"))
+        out = tuple(t.to(torch.int64) if t.dtype == torch.int32 else t
+                    for t in out)
+        self._dev_cache = (self.arrays, t_end, dev, out)
+        return out
+
+    # ---------------------------------------------------------- importances
+    def feature_importances(self, importance_type: str = "split",
+                            num_features: int | None = None) -> np.ndarray:
+        """Reference ``getFeatureImportances`` (split counts or total gain)."""
+        a = self.arrays
+        F = num_features or int(a["feature"].max() + 1 if a["feature"].size
+                                else 0)
+        out = np.zeros(F, dtype=np.float64)
+        internal = ~a["is_leaf"] & (a["left"] >= 0)
+        feats = a["feature"][internal]
+        if importance_type == "split":
+            np.add.at(out, feats, 1.0)
+        elif importance_type == "gain":
+            np.add.at(out, feats, a["split_gain"][internal])
+        else:
+            raise ValueError("importance_type must be 'split' or 'gain'")
+        return out
+
+    # ------------------------------------------------- LightGBM text format
+    def save_native(self, num_features: int | None = None) -> str:
+        """Serialize to the LightGBM text model format (model-string parity
+        with reference ``saveToString`` / ``saveNativeModel``)."""
+        a = self.arrays
+        F = num_features or (len(self.feature_names)
+                             if self.feature_names else
+                             int(a["feature"].max() + 1))
+        names = self.feature_names or [f"Column_{i}" for i in range(F)]
+        obj = {"binary": f"binary sigmoid:{self.sigmoid:g}",
+               "multiclass": f"multiclass num_class:{self.num_class}",
+               "multiclassova": (f"multiclassova num_class:"
+                                 f"{self.num_class} "
+                                 f"sigmoid:{self.sigmoid:g}"),
+               }.get(self.objective, self.objective)
+        lines = [
+            "tree", "version=v3", f"num_class={self.num_class}",
+            f"num_tree_per_iteration={self.num_class}",
+            "label_index=0", f"max_feature_idx={F - 1}",
+            f"objective={obj}",
+            "feature_names=" + " ".join(names),
+            "feature_infos=" + " ".join(["none"] * F), "",
+        ]
+        if self.average_output:
+            # real LightGBM rf models carry this header flag
+            lines.insert(lines.index("feature_infos=" + " ".join(
+                ["none"] * F)) + 1, "average_output")
+        init = np.asarray(self.init_score, dtype=np.float64).reshape(-1)
+        T = self.num_trees
+        denom = max(T // self.num_class, 1) if self.average_output else 1
+        for t in range(T):
+            # LightGBM text models carry no separate init score: fold the
+            # boost-from-average base into the first tree of each class
+            fold = float(init[t % self.num_class]) * denom \
+                if t < self.num_class and init.size else 0.0
+            # tree weights are baked into leaf values so the text model is
+            # self-contained (LightGBM does the same)
+            lines.extend(self._tree_to_text(
+                t, leaf_shift=fold, leaf_scale=float(self.tree_weights[t])))
+            lines.append("")
+        lines.append("end of trees")
+        lines.append("")
+        lines.append("parameters:")
+        lines.append("end of parameters")
+        return "\n".join(lines)
+
+    def _tree_to_text(self, t: int, leaf_shift: float = 0.0,
+                      leaf_scale: float = 1.0) -> list[str]:
+        a = self.arrays
+        nn = int(a["num_nodes"][t])
+        is_leaf = a["is_leaf"][t]
+        # internal nodes in creation order; leaves in creation order
+        internal_ids = [i for i in range(nn) if not is_leaf[i]]
+        leaf_ids = [i for i in range(nn) if is_leaf[i]]
+        int_ord = {nid: i for i, nid in enumerate(internal_ids)}
+        leaf_ord = {nid: i for i, nid in enumerate(leaf_ids)}
+
+        def child_code(c):
+            return leaf_ord[c] * -1 - 1 if is_leaf[c] else int_ord[c]
+
+        dl = a["default_left"][t]
+        rows = {
+            "split_feature": [int(a["feature"][t, i]) for i in internal_ids],
+            "split_gain": [float(a["split_gain"][t, i])
+                           for i in internal_ids],
+            "threshold": [float(a["threshold"][t, i])
+                          for i in internal_ids],
+            # 2: missing goes left (what trained trees do, and what the JAX
+            # package writes); 8: NaN-missing, default right (loaded models)
+            "decision_type": [2 if dl[i] else 8 for i in internal_ids],
+            "left_child": [child_code(int(a["left"][t, i]))
+                           for i in internal_ids],
+            "right_child": [child_code(int(a["right"][t, i]))
+                            for i in internal_ids],
+            "leaf_value": [float(a["leaf_value"][t, i]) * leaf_scale
+                           + leaf_shift for i in leaf_ids],
+            "leaf_weight": [float(a["node_weight"][t, i]) for i in leaf_ids],
+            "leaf_count": [int(a["node_count"][t, i]) for i in leaf_ids],
+            "internal_value": [float(a["node_value"][t, i])
+                               for i in internal_ids],
+            "internal_weight": [float(a["node_weight"][t, i])
+                                for i in internal_ids],
+            "internal_count": [int(a["node_count"][t, i])
+                               for i in internal_ids],
+        }
+        out = [f"Tree={t}", f"num_leaves={len(leaf_ids)}", "num_cat=0"]
+        for key, vals in rows.items():
+            out.append(f"{key}=" + " ".join(_fmt(v) for v in vals))
+        out.append("shrinkage=1")
+        return out
+
+    @staticmethod
+    def load_native(model_str: str) -> "Booster":
+        """Parse a LightGBM text model (either package's or native
+        LightGBM's). Categorical splits raise ``NotImplementedError``."""
+        header, trees = {}, []
+        average_output = False
+        cur: dict | None = None
+        for line in model_str.splitlines():
+            line = line.strip()
+            if line.startswith("Tree="):
+                cur = {}
+                trees.append(cur)
+                continue
+            if line == "end of trees":
+                cur = None
+                continue
+            if line == "average_output" and cur is None:
+                average_output = True
+                continue
+            if "=" in line:
+                k, v = line.split("=", 1)
+                (header if cur is None else cur)[k] = v
+        num_class = int(header.get("num_class", 1))
+        objective = header.get("objective", "regression").split()[0]
+        sigmoid = 1.0
+        for tokenised in header.get("objective", "").split():
+            if tokenised.startswith("sigmoid:"):
+                sigmoid = float(tokenised.split(":")[1])
+        T = len(trees)
+        max_leaves = max((int(t["num_leaves"]) for t in trees), default=1)
+        NN = 2 * max_leaves - 1
+        arr = {k: np.zeros((T, NN), dt) for k, dt in [
+            ("feature", np.int32), ("threshold", np.float32),
+            ("leaf_value", np.float32), ("is_leaf", bool),
+            ("split_gain", np.float32), ("node_weight", np.float32),
+            ("node_count", np.float32), ("node_value", np.float32)]}
+        # unused padded slots must read "no child" (-1), not node 0 —
+        # feature_importances treats left >= 0 as a real split
+        arr["left"] = np.full((T, NN), -1, np.int32)
+        arr["right"] = np.full((T, NN), -1, np.int32)
+        arr["num_nodes"] = np.zeros(T, np.int32)
+        arr["default_left"] = np.ones((T, NN), bool)
+        for t, td in enumerate(trees):
+            nl = int(td["num_leaves"])
+            ni = nl - 1
+
+            def parse(key, dtype=float):
+                raw = td.get(key, "")
+                return [dtype(v) for v in raw.split()] if raw else []
+            dt = parse("decision_type", int)
+            if int(td.get("num_cat", "0")) > 0 or any(d & 1 for d in dt):
+                raise NotImplementedError(
+                    "text models with categorical splits are not ported "
+                    f"yet; they come with {LATER_SLICE}")
+            sf = parse("split_feature", int)
+            thr = parse("threshold", float)
+            lc = parse("left_child", int)
+            rc = parse("right_child", int)
+            lv = parse("leaf_value", float)
+            lw = parse("leaf_weight", float)
+            lcnt = parse("leaf_count", float)
+            sg = parse("split_gain", float)
+            iv = parse("internal_value", float)
+            iw = parse("internal_weight", float)
+            icnt = parse("internal_count", float)
+            arr["num_nodes"][t] = ni + nl
+
+            # internal node i -> id i; leaf j -> id ni + j
+            def to_id(code):
+                return ni + (-code - 1) if code < 0 else code
+            for i in range(ni):
+                arr["feature"][t, i] = sf[i]
+                arr["threshold"][t, i] = thr[i]
+                arr["left"][t, i] = to_id(lc[i])
+                arr["right"][t, i] = to_id(rc[i])
+                # decision_type bit 1 = default-left for missing values
+                arr["default_left"][t, i] = bool(dt[i] & 2) \
+                    if i < len(dt) else True
+                arr["split_gain"][t, i] = sg[i] if i < len(sg) else 0
+                arr["node_value"][t, i] = iv[i] if i < len(iv) else 0
+                arr["node_weight"][t, i] = iw[i] if i < len(iw) else 0
+                arr["node_count"][t, i] = icnt[i] if i < len(icnt) else 0
+            for j in range(nl):
+                nid = ni + j
+                arr["is_leaf"][t, nid] = True
+                arr["leaf_value"][t, nid] = lv[j] if j < len(lv) else 0
+                arr["node_weight"][t, nid] = lw[j] if j < len(lw) else 0
+                arr["node_count"][t, nid] = lcnt[j] if j < len(lcnt) else 0
+            if nl == 1 and not lv:
+                arr["is_leaf"][t, 0] = True
+        names = header.get("feature_names", "").split()
+        return Booster(arr, num_class=num_class, objective=objective,
+                       sigmoid=sigmoid, feature_names=names or None,
+                       max_depth_bound=max_leaves,
+                       average_output=average_output)
+
+
+def _fmt(v) -> str:
+    if isinstance(v, int):
+        return str(v)
+    return np.format_float_scientific(v, unique=True).replace("e+0", "e+") \
+        .replace("e-0", "e-") if abs(v) > 1e4 or (v != 0 and abs(v) < 1e-4) \
+        else repr(float(v))
+
+
+# ------------------------------------------------------------------ predict
+def _score_math(leaf_value, leaves, w, init_score, *, num_class: int,
+                avg_div: int):
+    """Post-leaf scoring: gather each (row, tree) leaf value, weight it,
+    reduce per class, add the init score."""
+    n, T = leaves.shape
+    t_idx = torch.arange(T, device=leaves.device)[None, :]
+    weighted = leaf_value[t_idx, leaves] * w[None, :]
+    scores = weighted.reshape(n, T // num_class, num_class).sum(dim=1)
+    return scores / avg_div + init_score[None, :]
+
+
+def _predict_leaf_nodes(tree_arrays, x, *, max_depth: int):
+    """Route every (row, tree) pair ``max_depth`` levels → leaf node ids
+    [n, T] (i64)."""
+    (feature, threshold, left, right, _, is_leaf, default_left) = tree_arrays
+    T = feature.shape[0]
+    n = x.shape[0]
+    node = torch.zeros((n, T), dtype=torch.int64, device=x.device)
+    t_idx = torch.arange(T, device=x.device)[None, :]
+    for _ in range(max_depth):
+        f = feature[t_idx, node]                      # [n, T]
+        thr = threshold[t_idx, node]
+        xv = torch.gather(x, 1, f)
+        missing = torch.isnan(xv)
+        go_left = torch.where(missing, default_left[t_idx, node], xv <= thr)
+        nxt = torch.where(go_left, left[t_idx, node], right[t_idx, node])
+        node = torch.where(is_leaf[t_idx, node], node, nxt)
+    return node

@@ -1,0 +1,166 @@
+"""K1: the masked histogram build — CUDA kernel, plain version, and switch.
+
+The hot op of GBDT training: accumulate (grad, hess, count) into
+per-(feature, bin) cells. The JAX package runs it as the Pallas TPU kernel
+``_hist_kernel`` (``mmlspark_tpu/lightgbm/pallas_hist.py:45``) on TPU and as
+one scatter-add elsewhere (``engine.py:300-303``). Here:
+
+- :func:`hist_cuda` launches the hand-written Hopper kernel in
+  ``csrc/hist.cu`` (built with nvcc for ``sm_90a`` on first use, bound with
+  ctypes); see the source for its design and what bounds it;
+- :func:`hist_torch` is the plain PyTorch version: one ``index_add_`` over
+  ``f*B + bin`` keys, the JAX scatter path's formulation;
+- :func:`hist` picks one: the kernel for CUDA tensors, the plain version
+  for CPU tensors. A build or launch failure raises; nothing falls back.
+
+Contract of all three: bins uint8 or int32 ``[n, F]``, vals float32
+``[n, 3]`` (pre-masked) → float32 ``[F, num_bins, 3]``. Bin ids outside
+``[0, num_bins)`` add nothing. Rows at or past ``count`` (an int or a
+one-element int tensor on the bins' device; default ``n``) add nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..native.loader import CudaLoader
+
+FEAT_BLOCK = 8            # features per CTA: 8 x 256 bins x 3 x 4 B = 24 KB
+THREADS = 256
+CTAS_PER_SM = 2           # grid target: row chunks x feature blocks ~ 2/SM
+SMEM_LIMIT = 48 * 1024    # static shared-memory limit without an opt-in
+
+_LOADER = CudaLoader("mmlspark_hist", ["lightgbm/csrc/hist.cu"])
+
+
+def _check_inputs(bins: torch.Tensor, vals: torch.Tensor,
+                  num_bins: int) -> None:
+    if bins.dim() != 2:
+        raise ValueError(f"bins must be [n, F], got shape {tuple(bins.shape)}")
+    if bins.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"bins must be uint8 or int32, got {bins.dtype}")
+    if vals.shape != (bins.shape[0], 3):
+        raise ValueError(f"vals must be [n, 3] = [{bins.shape[0]}, 3], got "
+                         f"{tuple(vals.shape)}")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"vals must be float32, got {vals.dtype}")
+    if vals.device != bins.device:
+        raise ValueError(f"bins on {bins.device} but vals on {vals.device}")
+    if int(num_bins) < 1:
+        raise ValueError(f"num_bins must be >= 1, got {num_bins}")
+
+
+def hist_torch(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
+               count: int | torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch histogram: one ``index_add_`` over ``f*B + bin`` keys
+    (the JAX scatter path, ``engine.py:300-303``). Out-of-range bins and
+    rows at or past ``count`` are routed to a trash cell that is dropped."""
+    _check_inputs(bins, vals, num_bins)
+    n, F = bins.shape
+    B = int(num_bins)
+    b = bins.to(torch.int64)
+    keep = (b >= 0) & (b < B)
+    if count is not None:
+        rows = torch.arange(n, device=bins.device)
+        keep = keep & (rows < torch.as_tensor(count, device=bins.device)
+                       .reshape(()))[:, None]
+    offsets = torch.arange(F, device=bins.device, dtype=torch.int64) * B
+    keys = torch.where(keep, b + offsets[None, :], F * B)
+    src = vals[:, None, :].expand(n, F, 3).reshape(n * F, 3)
+    out = torch.zeros(F * B + 1, 3, dtype=torch.float32, device=bins.device)
+    out.index_add_(0, keys.reshape(-1), src)
+    return out[:F * B].reshape(F, B, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _LOADER.load()
+    c_void_p, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mmlspark_hist_launch.argtypes = [
+        c_void_p, c_int, c_void_p, c_void_p,   # bins, bin bytes, vals, out
+        c_ll, c_int, c_int, c_int, c_ll,       # n, F, B, feat block, chunks
+        c_ll, c_void_p,                        # count (host, device ptr)
+        c_int, c_int, c_void_p]                # threads, device, stream
+    lib.mmlspark_hist_launch.restype = c_int
+    lib.mmlspark_cuda_error_string.argtypes = [c_int]
+    lib.mmlspark_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_kernel() -> str:
+    """Build (if needed) and load K1; returns nvcc's output for the build
+    (registers, shared memory, spills), or "" if it was built earlier."""
+    _library()
+    return _LOADER.build_log()
+
+
+def hist_cuda(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
+              count: int | torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the K1 kernel (``csrc/hist.cu``) on PyTorch's current stream.
+    Raises for tensors that are not on a CUDA device, and when the kernel
+    does not build or does not launch."""
+    _check_inputs(bins, vals, num_bins)
+    if bins.device.type != "cuda":
+        raise ValueError(
+            f"hist_cuda needs CUDA tensors, got {bins.device}; use "
+            "hist_torch (or hist) for CPU tensors")
+    n, F = bins.shape
+    B = int(num_bins)
+    bins = bins.contiguous()
+    vals = vals.contiguous()
+    out = torch.zeros(F, B, 3, dtype=torch.float32, device=bins.device)
+    if n == 0 or F == 0:
+        return out
+    feat_block = min(FEAT_BLOCK, F, SMEM_LIMIT // (B * 12))
+    if feat_block < 1:
+        raise ValueError(f"num_bins={B} needs {B * 12} B of shared memory "
+                         f"per feature, over the {SMEM_LIMIT} B limit")
+    count_host, count_dev = n, None
+    if isinstance(count, torch.Tensor):
+        if count.device != bins.device:
+            raise ValueError(f"count on {count.device}, bins on "
+                             f"{bins.device}")
+        count_dev = count.reshape(1).to(torch.int32)
+    elif count is not None:
+        count_host = max(0, min(int(count), n))
+    props = torch.cuda.get_device_properties(bins.device)
+    feat_blocks = -(-F // feat_block)
+    row_chunks = max(1, min(-(-n // THREADS),
+                            -(-CTAS_PER_SM * props.multi_processor_count
+                              // feat_blocks)))
+    lib = _library()
+    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    err = lib.mmlspark_hist_launch(
+        bins.data_ptr(), bins.element_size(), vals.data_ptr(),
+        out.data_ptr(), n, F, B, feat_block, row_chunks, count_host,
+        None if count_dev is None else count_dev.data_ptr(), THREADS,
+        bins.device.index, stream)
+    if err != 0:
+        raise RuntimeError(
+            "K1 histogram kernel launch failed: "
+            f"{lib.mmlspark_cuda_error_string(err).decode()} (cudaError "
+            f"{err})")
+    hist_cuda.launches += 1
+    return out
+
+
+hist_cuda.launches = 0
+
+
+def hist(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
+         count: int | torch.Tensor | None = None,
+         impl: str | None = None) -> torch.Tensor:
+    """The switch: ``impl=None`` takes the kernel (``"cuda"``) for CUDA
+    tensors and the plain version (``"torch"``) for CPU tensors.
+    ``impl="cuda"`` on CPU tensors raises; ``impl="torch"`` runs the plain
+    version on any device (the card's comparison path)."""
+    if impl is None:
+        impl = "cuda" if bins.device.type == "cuda" else "torch"
+    if impl == "cuda":
+        return hist_cuda(bins, vals, num_bins=num_bins, count=count)
+    if impl == "torch":
+        return hist_torch(bins, vals, num_bins=num_bins, count=count)
+    raise ValueError(f"impl must be None, 'cuda' or 'torch', got {impl!r}")

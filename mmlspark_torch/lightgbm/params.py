@@ -1,0 +1,132 @@
+"""LightGBM-style parameters the port's classifier reads.
+
+The subset of ``mmlspark_tpu/lightgbm/params.py`` (reference
+``lightgbm/params/LightGBMParams.scala``) this slice reads, with the same
+names and defaults, plus ``device``. Some select configurations outside the
+slice (boosting types, bagging, categorical slots, continuation, more than
+one shard): the estimator raises ``NotImplementedError`` when one is set to
+such a value. The JAX package's other params (DART and GOSS knobs,
+validation metrics, sparse widths, socket settings) come with the slices
+that read them.
+"""
+
+from __future__ import annotations
+
+from ..core import Param, TypeConverters as TC, UDFParam
+from ..core.contracts import (HasFeaturesCol, HasInitScoreCol, HasLabelCol,
+                              HasPredictionCol, HasValidationIndicatorCol,
+                              HasWeightCol)
+
+
+class LightGBMExecutionParams:
+    """Execution topology params — reference ``LightGBMParams.scala``;
+    ``device`` picks the torch device."""
+    device = Param("device", "torch device: 'cuda' (default) or 'cpu'",
+                   TC.toString, default="cuda")
+    numShards = Param("numShards",
+                      "device shards for training (0 = auto: one device "
+                      "here; more than one is not ported yet)",
+                      TC.toInt, default=0)
+    numBatches = Param("numBatches",
+                       "split training into sequential batches with model "
+                       "continuation", TC.toInt, default=0)
+
+
+class LightGBMLearnerParams:
+    numIterations = Param("numIterations", "boosting rounds", TC.toInt,
+                          default=100)
+    learningRate = Param("learningRate", "shrinkage rate", TC.toFloat,
+                         default=0.1)
+    numLeaves = Param("numLeaves", "max leaves per tree", TC.toInt,
+                      default=31)
+    maxDepth = Param("maxDepth", "max tree depth (<=0 unlimited)", TC.toInt,
+                     default=-1)
+    maxBin = Param("maxBin", "max feature bins", TC.toInt, default=255)
+    binSampleCount = Param("binSampleCount",
+                           "rows sampled for bin boundaries", TC.toInt,
+                           default=200000)
+    lambdaL1 = Param("lambdaL1", "L1 regularization", TC.toFloat, default=0.0)
+    lambdaL2 = Param("lambdaL2", "L2 regularization", TC.toFloat, default=0.0)
+    minSumHessianInLeaf = Param("minSumHessianInLeaf",
+                                "min hessian mass per leaf", TC.toFloat,
+                                default=1e-3)
+    minDataInLeaf = Param("minDataInLeaf", "min rows per leaf", TC.toInt,
+                          default=20)
+    minGainToSplit = Param("minGainToSplit", "min split gain", TC.toFloat,
+                           default=0.0)
+    featureFraction = Param("featureFraction", "feature subsample per tree",
+                            TC.toFloat, default=1.0)
+    baggingFraction = Param("baggingFraction", "row subsample fraction",
+                            TC.toFloat, default=1.0)
+    baggingFreq = Param("baggingFreq", "re-bag every k iterations", TC.toInt,
+                        default=0)
+    boostingType = Param("boostingType", "gbdt | rf | dart | goss",
+                         TC.toString, default="gbdt")
+    earlyStoppingRound = Param("earlyStoppingRound",
+                               "stop after k rounds without val improvement",
+                               TC.toInt, default=0)
+    boostFromAverage = Param("boostFromAverage",
+                             "init score from label average", TC.toBoolean,
+                             default=True)
+    seed = Param("seed", "random seed", TC.toInt, default=0)
+    maxDeltaStep = Param("maxDeltaStep", "cap on leaf output magnitude "
+                         "(0 = unconstrained)", TC.toFloat, default=0.0)
+    maxBinByFeature = Param("maxBinByFeature",
+                            "per-feature bin budgets (dense path)",
+                            TC.toListInt, default=[])
+    posBaggingFraction = Param("posBaggingFraction",
+                               "bagging keep-rate for positive rows",
+                               TC.toFloat, default=1.0)
+    negBaggingFraction = Param("negBaggingFraction",
+                               "bagging keep-rate for negative rows",
+                               TC.toFloat, default=1.0)
+    categoricalSlotIndexes = Param("categoricalSlotIndexes",
+                                   "feature slots treated as categorical",
+                                   TC.toListInt, default=[])
+    categoricalSlotNames = Param("categoricalSlotNames",
+                                 "feature names treated as categorical",
+                                 TC.toListString, default=[])
+    slotNames = Param("slotNames", "feature names", TC.toListString,
+                      default=[])
+    modelString = Param("modelString",
+                        "initial model string for continuation", TC.toString,
+                        default="")
+    fobj = UDFParam("fobj",
+                    "custom objective: (scores, labels, weights) -> "
+                    "(grad, hess)")
+    isProvideTrainingMetric = Param("isProvideTrainingMetric",
+                                    "record metrics on training data",
+                                    TC.toBoolean, default=False)
+
+
+class LightGBMSharedParams(LightGBMExecutionParams, LightGBMLearnerParams,
+                           HasFeaturesCol, HasLabelCol, HasWeightCol,
+                           HasInitScoreCol, HasValidationIndicatorCol,
+                           HasPredictionCol):
+    """The classifier's params and their ``TrainConfig`` fields."""
+
+    def _train_config_kwargs(self) -> dict:
+        return dict(
+            num_iterations=self.getNumIterations(),
+            learning_rate=self.getLearningRate(),
+            num_leaves=self.getNumLeaves(),
+            max_depth=self.getMaxDepth(),
+            max_bin=self.getMaxBin(),
+            lambda_l1=self.getLambdaL1(),
+            lambda_l2=self.getLambdaL2(),
+            min_data_in_leaf=self.getMinDataInLeaf(),
+            min_sum_hessian_in_leaf=self.getMinSumHessianInLeaf(),
+            min_gain_to_split=self.getMinGainToSplit(),
+            feature_fraction=self.getFeatureFraction(),
+            bagging_fraction=self.getBaggingFraction(),
+            bagging_freq=self.getBaggingFreq(),
+            boosting_type=self.getBoostingType(),
+            boost_from_average=self.getBoostFromAverage(),
+            seed=self.getSeed(),
+            bin_sample_count=self.getBinSampleCount(),
+            early_stopping_round=self.getEarlyStoppingRound(),
+            max_delta_step=self.getMaxDeltaStep(),
+            max_bin_by_feature=tuple(self.getMaxBinByFeature() or ()),
+            pos_bagging_fraction=self.getPosBaggingFraction(),
+            neg_bagging_fraction=self.getNegBaggingFraction(),
+        )

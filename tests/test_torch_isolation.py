@@ -1,0 +1,126 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package,
+and it never moves to the CPU unless asked."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mmlspark_torch.core import DataFrame
+from mmlspark_torch.device import resolve_device
+from mmlspark_torch.lightgbm import Booster, LightGBMClassifier
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
+
+SLICE_SCRIPT = r"""
+import sys
+import numpy as np
+from mmlspark_torch import DataFrame
+from mmlspark_torch.lightgbm import LightGBMClassifier
+from mmlspark_torch.train import ComputeModelStatistics
+
+rng = np.random.default_rng(7)
+x = rng.normal(size=(600, 6)).astype(np.float32)
+y = (x[:, 0] + x[:, 1] * x[:, 2] + rng.normal(size=600) > 0).astype(
+    np.float32)
+df = DataFrame({"features": x, "label": y})
+model = LightGBMClassifier(device="cpu", numIterations=3,
+                           numLeaves=7).fit(df)
+auc = float(ComputeModelStatistics(labelCol="label")
+            .transform(model.transform(df))["AUC"][0])
+assert auc > 0.8, auc
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in %r)
+assert not bad, bad
+print("ISOLATED", auc)
+""" % (FORBIDDEN,)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Single-threaded torch for this module: tier-1 runs in several
+    worker processes at once, and torch's intra-op threads in each of
+    them oversubscribe the cores (small ops then wait on spinning
+    threads, ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_slice_runs_without_importing_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"          # see one_torch_thread
+    proc = subprocess.run([sys.executable, "-c", SLICE_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ISOLATED" in proc.stdout
+
+
+def _port_sources():
+    root = os.path.join(REPO, "mmlspark_torch")
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tools", "profile_torch_gbdt.py")
+
+
+def _imported_modules(path):
+    """Every module named by an import statement, importlib.import_module
+    or __import__ call with a literal name."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str):
+            fn = node.func
+            name = getattr(fn, "attr", getattr(fn, "id", ""))
+            if name in ("import_module", "__import__"):
+                yield node.args[0].value
+
+
+def test_static_scan_finds_no_jax_import():
+    sources = list(_port_sources())
+    assert any(p.endswith("chip_smoke.py") for p in sources)
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
+           for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        resolve_device("cuda:0")
+    rng = np.random.default_rng(0)
+    df = DataFrame({"features": rng.normal(size=(50, 3)).astype(np.float32),
+                    "label": (rng.random(50) > 0.5).astype(np.float32)})
+    clf = LightGBMClassifier(numIterations=2)
+    assert clf.getDevice() == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        clf.fit(df)
+    model = LightGBMClassifier(device="cpu", numIterations=2,
+                               minDataInLeaf=5).fit(df)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        model.booster.raw_scores(df["features"])
+    model.setDevice("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        model.transform(df)
+    assert isinstance(model.booster, Booster)
+    assert resolve_device("cpu") == torch.device("cpu")
