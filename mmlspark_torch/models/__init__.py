@@ -1,0 +1,6 @@
+from .convert import text_encoder_from_flax
+from .zoo import (LoadedModel, ModelSchema, get_model, register_model,
+                  register_text_encoder)
+
+__all__ = ["LoadedModel", "ModelSchema", "get_model", "register_model",
+           "register_text_encoder", "text_encoder_from_flax"]

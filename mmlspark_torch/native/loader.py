@@ -48,7 +48,9 @@ def find_nvcc() -> str:
 class CudaLoader:
     """Build and load one shared library from CUDA sources in the package."""
 
-    _lock = threading.Lock()
+    # one lock per library, so different kernels build in parallel
+    _guard = threading.Lock()
+    _locks: dict[str, threading.Lock] = {}
     _loaded: dict[str, ctypes.CDLL] = {}
 
     def __init__(self, name: str, sources: list[str],
@@ -89,7 +91,9 @@ class CudaLoader:
                 os.unlink(tmp)
 
     def load(self) -> ctypes.CDLL:
-        with CudaLoader._lock:
+        with CudaLoader._guard:
+            lock = CudaLoader._locks.setdefault(self.name, threading.Lock())
+        with lock:
             lib = CudaLoader._loaded.get(self.name)
             if lib is not None:
                 return lib

@@ -34,6 +34,18 @@ model = LightGBMClassifier(device="cpu", numIterations=3,
 auc = float(ComputeModelStatistics(labelCol="label")
             .transform(model.transform(df))["AUC"][0])
 assert auc > 0.8, auc
+
+from mmlspark_torch.dl import TextEncoderFeaturizer
+from mmlspark_torch.featurize import TokenIdEncoder
+
+docs = DataFrame({"text": np.asarray(
+    ["long context models embed entire documents in one pass",
+     "short note", ""], object)})
+ids = TokenIdEncoder(maxLength=32, vocabSize=512).transform(docs)
+emb = TextEncoderFeaturizer(attentionImpl="pallas", device="cpu",
+                            vocabSize=512, width=32, depth=1, heads=2,
+                            seqChunk=32).transform(ids)["features"]
+assert emb.shape == (3, 32) and np.isfinite(emb).all(), emb
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -71,6 +83,7 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "profile_torch_gbdt.py")
+    yield os.path.join(REPO, "tools", "profile_torch_text.py")
 
 
 def _imported_modules(path):
