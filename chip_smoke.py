@@ -37,12 +37,34 @@ nvcc per source, all started together), then:
    transform, then the same transform with ``attentionImpl="dense"``, and
    holds the two sets of pooled embeddings together; the same encoder run
    through K2a with the key mask dropped (a planted fault) must fail that
-   comparison.
+   comparison;
+7. holds K2b (``flash_lse_cuda``), K2d (``flash_dq_cuda``) and K2e
+   (``flash_dkv_cuda``) against their plain versions at the training path's
+   attention shape (B=8, H=8, T=2048, D=64, bf16, q/k/v as views of one
+   fused projection, the key mask of the first 8 documents plus one fully
+   masked row, whose outputs and gradients must be exactly 0), with a
+   nonzero lse cotangent, at a ragged T=2000 in f32, and at a ragged T=300
+   at head dims 32, 64 and 128 in both dtypes; times each kernel, its plain
+   version and ``scaled_dot_product_attention``'s forward and backward (the
+   library yardstick only) beside the bound;
+8. runs masked-LM pretraining at full width: the documents →
+   ``TokenIdEncoder(maxLength=2048, vocabSize=32767)`` →
+   ``pretrain_masked_lm`` of a seeded ``MaskedLMModel`` over the same
+   encoder shape with ``make_attention_fn("pallas")``, batch 8, the default
+   AdamW: one warm-up step, then timed windows of ``--train-steps`` steps,
+   counting K2b, K2d and K2e launches per step (8 each, one per block) and
+   K2a's (0); holds one step's loss and every parameter's gradient through
+   the kernels against autograd through dense attention, on the same
+   weights and batch, and a planted fault (K2d/K2e with ``dsum`` zeroed)
+   must fail those limits; then embeds the documents with the trained
+   trunk through ``TextEncoderFeaturizer`` (K2a) and dense attention and
+   holds the pooled embeddings together as phase 6 does, with limits set
+   for the trained trunk and the same planted fault.
 
 Any failed build, launch or comparison exits non-zero. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
-``--rows``/``--iterations``/``--docs`` shrink the run for a quick first
-check.
+``--rows``/``--iterations``/``--docs``/``--batch``/``--train-steps``
+shrink the run for a quick first check.
 """
 
 from __future__ import annotations
@@ -83,13 +105,44 @@ FLASH_F32_ATOL = 2e-5
 # sinusoidal positions add a part common to every row that no attention
 # fault moves, so the cosine is also taken after subtracting the dense
 # rows' mean; a planted fault (K2a with the key mask dropped) must fail
-# these limits.
-POOLED_COS_FLOOR = 0.99999
-POOLED_CENTRED_COS_FLOOR = 0.9999
-POOLED_MAX_ABS = 5e-3
+# these limits. (raw cosine floor, centred cosine floor, max |diff|)
+POOLED_LIMITS = (0.99999, 0.9999, 5e-3)
+# the same comparison for the trunk after phase 8's 16 AdamW steps: its
+# rows share more of their pooled vector than the random encoder's, so the
+# same bf16 noise weighs more in the centred cosine and in |diff| (first
+# full-size readings 0.9964787 and 0.006342, PERF.md §6); limits ~3-6x
+# those, and the planted fault must fail them here too.
+TRUNK_POOLED_LIMITS = (0.99999, 0.98, 0.02)
 TEXT_SHAPE = dict(vocab=32768, width=512, depth=8, heads=8, mlp_dim=2048)
 TEXT_T = 2048
 TRANSFORM_RUNS = 3            # warm transforms timed in phase 6 (median)
+# K2b's lse against its plain version: the logsumexp in f32 of the same
+# scores summed in other orders (l to ~1e-6 relative, so lse to ~1e-6);
+# 1e-4 leaves room for two libraries' exp and log.
+LSE_ATOL = 1e-4
+# K2d/K2e in bf16 against their plain versions, which take the same inputs
+# (q, k, v, dO, lse, dsum) and round at the same points: the f32 sums differ
+# in order only, so the final bf16 rounding of dq/dk/dv may differ by one
+# ulp (2^-7 relative, taken twice for margin); for elements near 0 a ds or p
+# whose bf16 rounding falls the other way in the two orders moves the sum by
+# a fraction of one term, covered by one bf16 ulp of the tensor's largest
+# element.
+BWD_BF16_RTOL, BWD_BF16_ATOL_OF_MAX = 2 * BF16_EPS, BF16_EPS
+# f32: the same arithmetic in other summation orders over <= 2048 terms and
+# expf against PyTorch's exp: ~1e-6 relative expected; 1e-4 of the tensor's
+# largest element (and of each element) leaves room and still fails any
+# wrong term.
+BWD_F32_RTOL, BWD_F32_ATOL_OF_MAX = 1e-4, 1e-4
+TRAIN_BATCH = 8               # bench.py:693's text-encoder training batch
+TRAIN_RUNS = 3                # timed pretraining windows in phase 8
+# phase 8: per-parameter gradients through the kernels (pallas) against
+# autograd through dense attention, same weights and batch. Readings at
+# batch 8: worst ||dg||/||g|| 9.2e-3, cosine 0.99996, |dloss| 1.2e-5
+# (PERF.md §6); the limits leave 5x, 24x and 80x, and a planted fault
+# (K2d/K2e with dsum zeroed, 2.4 and 0.39) must fail them.
+GRAD_REL_MAX = 0.05
+GRAD_COS_MIN = 0.999
+LOSS_ABS_MAX = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -171,7 +224,8 @@ def check_hist(torch, k1, name, bins, vals, B, count=None):
         worst = int(torch.argmax(diff - limit))
         fail(f"K1 {name}: grad/hess outside {SUM_TOL_EPS}*eps*sum|x| "
              f"(worst flat cell {worst}: |diff| "
-             f"{diff.reshape(-1)[worst]:.6g} > {limit.reshape(-1)[worst]:.6g})")
+             f"{diff.reshape(-1)[worst]:.6g} > "
+             f"{limit.reshape(-1)[worst]:.6g})")
     err = float(diff.max())
     print(f"K1 {name}: count exact, grad/hess max |diff| {err:.3g} "
           f"(limit {SUM_TOL_EPS}*eps*sum|x| per cell)")
@@ -240,7 +294,49 @@ def check_flash(torch, k2, name, q, k, v, mask, rtol, atol):
     return err
 
 
-def text_phases(torch, k1, k2, dev, bw, flush, n_docs):
+def pooled_agreement(name, got, dense, limits) -> bool:
+    """Per-row cosine (raw and centred on the dense rows' mean) and max
+    |diff| of pooled embeddings ``got`` against ``dense``; True when all
+    three are within ``limits`` (raw floor, centred floor, max |diff|)."""
+    def min_cos(a, b):
+        return float(((a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                                        * np.linalg.norm(b, axis=1))).min())
+    cos_floor, centred_floor, max_abs = limits
+    centre = dense.mean(0)
+    cos = min_cos(got, dense)
+    ccos = min_cos(got - centre, dense - centre)
+    delta = float(np.abs(got - dense).max())
+    ok = cos >= cos_floor and ccos >= centred_floor and delta <= max_abs
+    print(f"{name} vs dense pooled embeddings: per-row cosine min "
+          f"{cos:.7f} (floor {cos_floor}), centred {ccos:.7f} (floor "
+          f"{centred_floor}), max |diff| {delta:.4g} (limit {max_abs}): "
+          f"{'within' if ok else 'outside'} the limits")
+    return ok
+
+
+def hold_pooled(torch, k2, dev, phase, module, ids, pooled, dense, limits):
+    """Hold the pallas pooled embeddings against dense ones within
+    ``limits``, then show that the limits catch a faulty attention: the
+    same encoder through K2a with the key mask dropped must fail them."""
+    print(f"{phase}: dense pooled |x| median {np.median(np.abs(dense)):.4g}, "
+          f"max {np.abs(dense).max():.4g}; centred on the rows' mean, median "
+          f"{np.median(np.abs(dense - dense.mean(0))):.4g}")
+    if not pooled_agreement(f"{phase}: pallas", pooled, dense, limits):
+        fail(f"{phase}: pallas and dense pooled embeddings disagree beyond "
+             "the stated tolerance")
+    no_mask = module.with_attention(
+        lambda q, k, v, key_mask=None: k2.flash_cuda(q, k, v, None))
+    with torch.inference_mode():
+        faulty = no_mask.to(dev).eval()(torch.from_numpy(
+            np.asarray(ids)).to(dev))["pooled"].float().cpu().numpy()
+    del no_mask
+    if pooled_agreement(f"{phase}: planted fault (key mask dropped)", faulty,
+                        dense, limits):
+        fail(f"{phase}: the pooled-embedding limits pass K2a with the key "
+             "mask dropped: they cannot tell a faulty attention")
+
+
+def text_phases(torch, k1, k2, dev, bw, flush, texts, lengths):
     """Phases 5 and 6: K2a against its plain version, then the text path at
     full width. Returns K2a's record for the kernels line."""
     import torch.nn.functional as F
@@ -249,8 +345,7 @@ def text_phases(torch, k1, k2, dev, bw, flush, n_docs):
     from mmlspark_torch.featurize import TokenIdEncoder
     from mmlspark_torch.models import LoadedModel, register_text_encoder
 
-    texts, lengths = make_documents(n_docs)
-    B, T = n_docs, TEXT_T
+    B, T = len(texts), TEXT_T
     H, W = TEXT_SHAPE["heads"], TEXT_SHAPE["width"]
     D = W // H
 
@@ -357,43 +452,8 @@ def text_phases(torch, k1, k2, dev, bw, flush, n_docs):
     if k2.flash_cuda.launches != 0:
         fail("the dense transform launched K2a")
 
-    def agreement(name, got):
-        """Per-row cosine (raw and centred on the dense rows' mean) and
-        max |diff| of ``got`` against the dense embeddings; True when all
-        three are within the limits."""
-        def min_cos(a, b):
-            return float(((a * b).sum(1) / (np.linalg.norm(a, axis=1)
-                                            * np.linalg.norm(b, axis=1))
-                          ).min())
-        centre = dense.mean(0)
-        cos = min_cos(got, dense)
-        ccos = min_cos(got - centre, dense - centre)
-        delta = float(np.abs(got - dense).max())
-        ok = (cos >= POOLED_COS_FLOOR and ccos >= POOLED_CENTRED_COS_FLOOR
-              and delta <= POOLED_MAX_ABS)
-        print(f"phase 6: {name} vs dense pooled embeddings: per-row cosine "
-              f"min {cos:.7f} (floor {POOLED_COS_FLOOR}), centred "
-              f"{ccos:.7f} (floor {POOLED_CENTRED_COS_FLOOR}), max |diff| "
-              f"{delta:.4g} (limit {POOLED_MAX_ABS}): "
-              f"{'within' if ok else 'outside'} the limits")
-        return ok
-
-    print(f"phase 6: dense pooled |x| median {np.median(np.abs(dense)):.4g}, "
-          f"max {np.abs(dense).max():.4g}; centred on the rows' mean, median "
-          f"{np.median(np.abs(dense - dense.mean(0))):.4g}")
-    if not agreement("pallas", pooled):
-        fail("pallas and dense pooled embeddings disagree beyond the "
-             "stated tolerance")
-    # a planted fault: K2a with the key mask dropped must fail the limits
-    no_mask = loaded.module.with_attention(
-        lambda q, k, v, key_mask=None: k2.flash_cuda(q, k, v, None))
-    with torch.inference_mode():
-        faulty = no_mask.to(dev).eval()(torch.from_numpy(
-            np.asarray(ids["tokens"])).to(dev))["pooled"].float().cpu().numpy()
-    del no_mask
-    if agreement("planted fault (key mask dropped)", faulty):
-        fail("the pooled-embedding limits pass K2a with the key mask "
-             "dropped: they cannot tell a faulty attention")
+    hold_pooled(torch, k2, dev, "phase 6", loaded.module, ids["tokens"],
+                pooled, dense, POOLED_LIMITS)
     return {"name": "flash", "route": "cuda",
             "source": "mmlspark_torch/dl/csrc/flash_attn.cu",
             "replaces": "mmlspark_tpu/dl/pallas_attention.py:77",
@@ -402,11 +462,369 @@ def text_phases(torch, k1, k2, dev, bw, flush, n_docs):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def hold(torch, name, got, want, rtol, atol):
+    """Hold a kernel's output against its plain version: every element
+    within ``atol + rtol * |want|``. Returns the largest |difference|."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {got.dtype} {tuple(got.shape)} vs plain {want.dtype} "
+             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite output")
+    if got.numel() == 0:
+        return 0.0
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    limit = atol + rtol * w.abs()
+    if (diff > limit).any():
+        worst = int(torch.argmax(diff - limit))
+        fail(f"{name}: outside atol {atol:.4g} + rtol {rtol:g} (worst flat "
+             f"element {worst}: |diff| {diff.reshape(-1)[worst]:.6g} > "
+             f"{limit.reshape(-1)[worst]:.6g}; max|ref| "
+             f"{float(w.abs().max()):.4g})")
+    return float(diff.max())
+
+
+def hold_grad(torch, name, got, want, rtol, of_max):
+    """``hold`` with the absolute term a fraction of the largest |want|."""
+    return hold(torch, name, got, want, rtol,
+                of_max * float(want.float().abs().max()))
+
+
+def check_training_kernels(torch, k2, name, q, k, v, dout, mask,
+                           dlse=None):
+    """Hold K2b, K2d and K2e against their plain versions on one input;
+    the fully masked rows' outputs, lse and gradients, and the gradients of
+    every invalid key, must be exact. Returns the largest |difference| of
+    each kernel (K2b's over o and lse)."""
+    bf16 = q.dtype == torch.bfloat16
+    o, lse = k2.flash_lse_cuda(q, k, v, mask)
+    want_o, want_lse = k2.flash_lse_torch(q, k, v, mask)
+    err_b = max(
+        hold(torch, f"K2b o {name}", o, want_o,
+             FLASH_BF16_RTOL if bf16 else 0.0,
+             FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL),
+        hold(torch, f"K2b lse {name}", lse[mask.any(1)],
+             want_lse[mask.any(1)], 0.0, LSE_ATOL))
+    empty = ~mask.any(1)
+    if not (o[empty] == 0).all() or not (lse[empty] <= -1e29).all():
+        fail(f"K2b {name}: a fully masked row's o is not exactly 0 or its "
+             "lse is above -1e29")
+    # the backward from the kernel's own o and lse, as training runs it
+    dsum = k2.flash_dsum(o, dout, dlse)
+    rtol, of_max = ((BWD_BF16_RTOL, BWD_BF16_ATOL_OF_MAX) if bf16
+                    else (BWD_F32_RTOL, BWD_F32_ATOL_OF_MAX))
+    dq = k2.flash_dq_cuda(q, k, v, mask, dout, lse, dsum)
+    dk, dv = k2.flash_dkv_cuda(q, k, v, mask, dout, lse, dsum)
+    want_dq = k2.flash_dq_torch(q, k, v, mask, dout, lse, dsum)
+    want_dk, want_dv = k2.flash_dkv_torch(q, k, v, mask, dout, lse, dsum)
+    err_d = hold_grad(torch, f"K2d dq {name}", dq, want_dq, rtol, of_max)
+    err_e = max(hold_grad(torch, f"K2e dk {name}", dk, want_dk, rtol, of_max),
+                hold_grad(torch, f"K2e dv {name}", dv, want_dv, rtol, of_max))
+    invalid = ~mask
+    if not (dq[empty] == 0).all():
+        fail(f"K2d {name}: a fully masked row's dq is not exactly 0")
+    if not ((dk.transpose(1, 2)[invalid] == 0).all()
+            and (dv.transpose(1, 2)[invalid] == 0).all()):
+        fail(f"K2e {name}: dk/dv of an invalid key is not exactly 0")
+    print(f"K2b/K2d/K2e {name}: max |diff| o/lse {err_b:.3g}, dq "
+          f"{err_d:.3g}, dk/dv {err_e:.3g}; {int(empty.sum())} fully masked "
+          f"row(s) and {int(invalid.sum())} invalid keys exactly 0")
+    return err_b, err_d, err_e
+
+
+def train_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
+    """Phase 7: K2b, K2d and K2e against their plain versions at the
+    training path's attention shape and beside, then their times. Returns
+    the kernels' records (launches filled in by phase 8)."""
+    import torch.nn.functional as F
+    T, H, W = TEXT_T, TEXT_SHAPE["heads"], TEXT_SHAPE["width"]
+    D = W // H
+    mask_np = np.arange(T)[None, :] < lengths[:B, None]
+    mask_np[-1] = False                           # one fully masked row
+    mask = torch.from_numpy(mask_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    qkv = torch.randn(B, T, 3 * W, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = (a.view(B, T, H, D).transpose(1, 2)
+               for a in qkv.split(W, dim=-1))
+    # the incoming gradient as the head merge's backward hands it over
+    dout = torch.randn(B, T, H, D, generator=gen, device=dev,
+                       dtype=torch.bfloat16).transpose(1, 2)
+    dlse = torch.randn(B, H, T, generator=gen, device=dev)
+    shape = f"B={B} H={H} T={T} D={D}"
+    errs = check_training_kernels(torch, k2, f"bf16 {shape}", q, k, v, dout,
+                                  mask)
+    errs_lse = check_training_kernels(torch, k2, f"bf16 {shape} with dlse",
+                                      q, k, v, dout, mask, dlse)
+    errs = [max(a, b) for a, b in zip(errs, errs_lse)]
+    Tf = 2000
+    xf = [torch.randn(B, H, Tf, D, generator=gen, device=dev)
+          for _ in range(4)]
+    mask_f = mask[:, :Tf].clone()
+    mask_f[0] = False
+    check_training_kernels(torch, k2, f"f32 ragged B={B} H={H} T={Tf} "
+                           f"D={D}", *xf, mask_f, dlse[:, :, :Tf])
+    del xf
+    for d in (32, 64, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = [torch.randn(2, 4, 300, d, generator=gen, device=dev,
+                             dtype=dtype) for _ in range(4)]
+            check_training_kernels(
+                torch, k2, f"{str(dtype)[6:]} B=2 H=4 T=300 D={d}", *x,
+                mask_f[:2, :300], torch.randn(2, 4, 300, generator=gen,
+                                              device=dev))
+
+    o, lse = k2.flash_lse_cuda(q, k, v, mask)
+    dsum = k2.flash_dsum(o, dout)
+    args = (q, k, v, mask, dout, lse, dsum)
+    ms = {"K2b": time_ms(lambda: k2.flash_lse_cuda(q, k, v, mask), torch,
+                         flush=flush),
+          "K2d": time_ms(lambda: k2.flash_dq_cuda(*args), torch,
+                         flush=flush),
+          "K2e": time_ms(lambda: k2.flash_dkv_cuda(*args), torch,
+                         flush=flush)}
+    plain_ms = {
+        "K2b": time_ms(lambda: k2.flash_lse_torch(q, k, v, mask), torch,
+                       runs=5, flush=flush),
+        "K2d": time_ms(lambda: k2.flash_dq_torch(*args), torch, runs=5,
+                       flush=flush),
+        "K2e": time_ms(lambda: k2.flash_dkv_torch(*args), torch, runs=5,
+                       flush=flush)}
+    # the library yardstick: SDPA with the bool mask, forward alone and
+    # forward + backward through autograd (its backward computes dq, dk and
+    # dv together, so it stands beside K2d + K2e)
+    sdpa_mask = mask[:, None, None, :]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        *leaves, attn_mask=sdpa_mask), torch, flush=flush)
+    sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask),
+        leaves, dout), torch, flush=flush)
+    sdpa_bwd = sdpa_fwd_bwd - sdpa_fwd
+    del leaves
+    # the work this mask needs: every query row against the valid keys of
+    # its document (P pairs per head); key tiles with no valid key are
+    # skipped
+    valid = int(mask.sum())
+    pairs = H * T * valid
+    tensor = B * H * T * D * 2                   # one bf16 [B, H, T, D]
+    rows = B * H * T * 4                         # one f32 [B, H, T]
+    work = {"K2b": (4 * pairs * D, 4 * tensor + rows + B * T),
+            "K2d": (6 * pairs * D, 5 * tensor + 2 * rows + B * T),
+            "K2e": (8 * pairs * D, 6 * tensor + 2 * rows + B * T)}
+    records = []
+    for (kid, fn, src, line), err in zip(
+            (("K2b", "flash_lse", "flash_attn.cu", 126),
+             ("K2d", "flash_bwd_dq", "flash_bwd.cu", 350),
+             ("K2e", "flash_bwd_dkv", "flash_bwd.cu", 388)), errs):
+        ops, nbytes = work[kid]
+        bound_ops_ms = ops / BF16_PEAK_FLOPS * 1e3
+        bound_bytes_ms = nbytes / bw * 1e3
+        bound_ms = max(bound_ops_ms, bound_bytes_ms)
+        bound_by = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
+        library_ms = sdpa_fwd if kid == "K2b" else sdpa_bwd
+        print(f"phase 7: {kid} {ms[kid]:.4f} ms; plain {plain_ms[kid]:.4f} "
+              f"ms; bound {bound_ms:.4f} ms by {bound_by} ({ops / 1e9:.1f} "
+              f"GFLOP over {valid} valid keys at 989 TFLOP/s; "
+              f"{nbytes / 1e6:.1f} MB); median of CUDA-event runs, L2 "
+              "flushed")
+        records.append({
+            "name": fn, "route": "cuda",
+            "source": f"mmlspark_torch/dl/csrc/{src}",
+            "replaces": f"mmlspark_tpu/dl/pallas_attention.py:{line}",
+            "launches": 0, "max_abs_err": err, "ms": ms[kid],
+            "plain_ms": plain_ms[kid], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+    print(f"phase 7: scaled_dot_product_attention forward {sdpa_fwd:.4f} ms "
+          f"(beside K2b), backward {sdpa_bwd:.4f} ms (forward + backward "
+          f"{sdpa_fwd_bwd:.4f} ms minus the forward; beside K2d + K2e "
+          f"{ms['K2d'] + ms['K2e']:.4f} ms)")
+    return records
+
+
+def train_phases(torch, k1, k2, dev, bw, flush, texts, lengths, args):
+    """Phases 7 and 8: the training kernels against their plain versions,
+    then masked-LM pretraining at full width. Returns the K2b, K2d and K2e
+    records for the kernels line."""
+    import copy
+
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import (MaskedLMModel, TextEncoder,
+                                   TextEncoderFeaturizer, encoder_variables,
+                                   make_attention_fn, mask_batch,
+                                   masked_xent, pretrain_masked_lm)
+    from mmlspark_torch.featurize import TokenIdEncoder
+    from mmlspark_torch.models import LoadedModel, get_model
+
+    B, S = args.batch, args.train_steps
+    records = train_kernel_phase(torch, k2, dev, bw, flush, lengths, B)
+
+    # ---- phase 8: documents -> ids -> pretrain_masked_lm at full width
+    vocab = TEXT_SHAPE["vocab"]
+    ids = np.asarray(TokenIdEncoder(maxLength=TEXT_T, vocabSize=vocab - 1)
+                     .transform(DataFrame({"text": texts}))["tokens"])
+    if ids.max() >= vocab - 1:
+        fail(f"token id {ids.max()} collides with the mask id {vocab - 1}")
+
+    def new_model():
+        gen = torch.Generator().manual_seed(0)
+        return MaskedLMModel(TextEncoder(
+            **TEXT_SHAPE, attention_fn=make_attention_fn("pallas"),
+            generator=gen), gen)
+
+    counters = {"K2a": k2.flash_cuda, "K2b": k2.flash_lse_cuda,
+                "K2d": k2.flash_dq_cuda, "K2e": k2.flash_dkv_cuda,
+                "K1": k1.hist_cuda}
+    model = new_model()
+    pretrain_masked_lm(model, ids, steps=1, batch_size=B, seed=100)  # warm
+    torch.cuda.synchronize()
+    windows, counts, losses = [], [], []
+    for run in range(TRAIN_RUNS):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state, run_losses = pretrain_masked_lm(model, ids, steps=S,
+                                               batch_size=B, seed=run)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+        counts.append({name: fn.launches for name, fn in counters.items()})
+        losses += run_losses
+    depth = TEXT_SHAPE["depth"]
+    want = {"K2a": 0, "K2b": depth * S, "K2d": depth * S, "K2e": depth * S,
+            "K1": 0}
+    if any(c != want for c in counts):
+        fail(f"launches per window of {S} steps {counts}: expected {want}, "
+             "one K2b, K2d and K2e launch per block per step and no K2a")
+    if not np.isfinite(losses).all():
+        fail(f"non-finite pretraining losses {losses}")
+    step_s = float(np.median(windows)) / S
+    # the same batches on the host: what mask_batch costs, and the tokens
+    tokens, t_mask = [], 0.0
+    for run in range(TRAIN_RUNS):              # the timed windows' seeds
+        rng = np.random.default_rng(run)
+        for _ in range(S):
+            t0 = time.perf_counter()
+            rows = ids[rng.integers(0, len(ids), size=B)]
+            x, y = mask_batch(rows, rng, mask_id=vocab - 1)
+            t_mask += time.perf_counter() - t0
+            tokens.append(int((rows != 0).sum()))
+    t0 = time.perf_counter()
+    for _ in range(S):
+        xd = torch.from_numpy(x).pin_memory().to(dev, non_blocking=True)
+        yd = torch.from_numpy(y).pin_memory().to(dev, non_blocking=True)
+    torch.cuda.synchronize()
+    t_copy = (time.perf_counter() - t0) / S
+    print(f"phase 8: pretrain_masked_lm, batch {B} x T={TEXT_T}, "
+          f"{TEXT_SHAPE}, AdamW: step {step_s:.4f} s, median over "
+          f"{TRAIN_RUNS} windows of {S} steps "
+          f"({', '.join(f'{w:.4f}' for w in windows)} "
+          f"s): {B / step_s:.2f} seqs/s, {np.mean(tokens) / step_s:,.0f} "
+          f"non-pad tokens/s; launches per step K2b {counts[-1]['K2b'] // S}, "
+          f"K2d {counts[-1]['K2d'] // S}, K2e {counts[-1]['K2e'] // S}, K2a "
+          f"{counts[-1]['K2a']}; losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"phase 8: host per step: row draw and mask_batch "
+          f"{t_mask / len(tokens) * 1e3:.3f} ms; batch copy (pinned, "
+          f"non_blocking, then a synchronize) "
+          f"{t_copy * 1e3:.3f} ms")
+    for r in records:
+        r["launches"] = counts[-1][{"flash_lse": "K2b", "flash_bwd_dq": "K2d",
+                                   "flash_bwd_dkv": "K2e"}[r["name"]]] // S
+
+    # one step's loss and gradients through the kernels against autograd
+    # through dense attention, on the same weights and batch
+    base = new_model()
+    rng = np.random.default_rng(0)
+    rows = ids[rng.integers(0, len(ids), size=B)]
+    x, y = (torch.from_numpy(a).to(dev)
+            for a in mask_batch(rows, rng, mask_id=vocab - 1))
+
+    def loss_and_grads(impl):
+        m = copy.deepcopy(base)
+        m.encoder = m.encoder.with_attention(make_attention_fn(impl))
+        m.to(dev)
+        loss = masked_xent(m(x, train=True)["logits"], y)
+        loss.backward()
+        grads = {n: p.grad.float() for n, p in m.named_parameters()}
+        return float(loss.detach()), grads
+
+    loss_k, grads_k = loss_and_grads("pallas")
+    loss_d, grads_d = loss_and_grads("dense")
+
+    def compare(name, loss, grads, verbose):
+        worst_rel, worst_cos = 0.0, 1.0
+        for n, gd in grads_d.items():
+            g = grads[n]
+            rel = float((g - gd).norm() / gd.norm().clamp_min(1e-30))
+            cos = float((g * gd).sum() / (g.norm() * gd.norm())
+                        .clamp_min(1e-30))
+            worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+            if verbose:
+                print(f"  {n:28s} |g| {float(gd.norm()):.4e} rel "
+                      f"{rel:.3e} cos {cos:.7f}")
+        dl = abs(loss - loss_d)
+        ok = (worst_rel <= GRAD_REL_MAX and worst_cos >= GRAD_COS_MIN
+              and dl <= LOSS_ABS_MAX)
+        print(f"phase 8: {name} vs dense: loss {loss:.6f} vs {loss_d:.6f} "
+              f"(|diff| {dl:.3g}, limit {LOSS_ABS_MAX}); over "
+              f"{len(grads_d)} parameter tensors worst ||dg||/||g|| "
+              f"{worst_rel:.3e} (limit {GRAD_REL_MAX}), worst cosine "
+              f"{worst_cos:.7f} (floor {GRAD_COS_MIN}): "
+              f"{'within' if ok else 'outside'} the limits")
+        return ok
+
+    print("phase 8: per-parameter gradients, kernels (pallas) vs dense:")
+    if not compare("pallas", loss_k, grads_k, True):
+        fail("gradients through the kernels and through dense attention "
+             "disagree beyond the limits")
+    del grads_k
+    def zero_dsum(real):
+        def planted(*a):                  # dsum is the last argument
+            return real(*a[:-1], torch.zeros_like(a[-1]))
+        planted.launches = 0              # the real wrapper counts here
+        return planted
+
+    real_dq, real_dkv = k2.flash_dq_cuda, k2.flash_dkv_cuda
+    k2.flash_dq_cuda, k2.flash_dkv_cuda = zero_dsum(real_dq), \
+        zero_dsum(real_dkv)
+    try:
+        loss_f, grads_f = loss_and_grads("pallas")
+    finally:
+        k2.flash_dq_cuda, k2.flash_dkv_cuda = real_dq, real_dkv
+    if compare("planted fault (dsum zeroed in K2d/K2e)", loss_f, grads_f,
+               False):
+        fail("the gradient limits pass K2d/K2e with dsum zeroed: they "
+             "cannot tell a faulty backward")
+    del grads_f, grads_d, base
+
+    # the trained trunk serves the embedding path (K2a)
+    trunk = encoder_variables(state)
+    loaded = LoadedModel(get_model("TextEncoderLong"), trunk)
+    kw = dict(vocabSize=vocab, width=TEXT_SHAPE["width"],
+              depth=depth, heads=TEXT_SHAPE["heads"], model=loaded)
+    df = DataFrame({"tokens": ids})
+    k2.flash_cuda.launches = 0
+    pooled = TextEncoderFeaturizer(attentionImpl="pallas", inputCol="tokens",
+                                   **kw).transform(df)["features"]
+    if k2.flash_cuda.launches != depth:
+        fail(f"the trained trunk's transform launched K2a "
+             f"{k2.flash_cuda.launches} times, expected {depth}")
+    dense = TextEncoderFeaturizer(attentionImpl="dense", inputCol="tokens",
+                                  **kw).transform(df)["features"]
+    if not np.isfinite(pooled).all():
+        fail("the trained trunk's pooled embeddings are not finite")
+    hold_pooled(torch, k2, dev, "phase 8: trained trunk", trunk, ids, pooled,
+                dense, TRUNK_POOLED_LIMITS)
+    return records
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=500_000)
     ap.add_argument("--iterations", type=int, default=20)
     ap.add_argument("--docs", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=TRAIN_BATCH)
+    ap.add_argument("--train-steps", type=int, default=5)
     args = ap.parse_args()
 
     import torch
@@ -435,13 +853,15 @@ def main() -> None:
     # ---- phase 1: build every kernel of the paths, one nvcc each, at once
     t0 = time.perf_counter()
     builds = build_all({"K1 (lightgbm/csrc/hist.cu)": k1.build_kernel,
-                        "K2a (dl/csrc/flash_attn.cu)": k2.build_kernel})
+                        "K2a, K2b (dl/csrc/flash_attn.cu)": k2.build_kernel,
+                        "K2d, K2e (dl/csrc/flash_bwd.cu)":
+                            k2.build_bwd_kernel})
     print(f"phase 1: built every kernel (sm_90a) in "
           f"{time.perf_counter() - t0:.2f} s, in parallel")
     for name, (secs, log) in builds.items():
         print(f"  {name}: {secs:.2f} s")
         for line in log.splitlines():
-            if "ptxas" in line or "error" in line.lower():
+            if any(w in line.lower() for w in ("ptxas", "spill", "error")):
                 print(f"    {line.strip()}")
     print(card)
     bw, bw_src = memory_bandwidth(torch)
@@ -577,7 +997,10 @@ def main() -> None:
     if root != plain_root:
         fail(f"tree 0 root split differs: {root} vs {plain_root}")
 
-    flash = text_phases(torch, k1, k2, dev, bw, flush, args.docs)
+    texts, lengths = make_documents(args.docs)
+    flash = text_phases(torch, k1, k2, dev, bw, flush, texts, lengths)
+    train_records = train_phases(torch, k1, k2, dev, bw, flush, texts,
+                                 lengths, args)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -592,7 +1015,7 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }, flash]}))
+    }, flash, *train_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

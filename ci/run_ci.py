@@ -82,8 +82,9 @@ PACKAGES: dict[str, list[str]] = {
     # CPU; its cuda-marked kernel test skips without a GPU
     "torch": ["test_torch_binning.py", "test_torch_core.py",
               "test_torch_engine.py", "test_torch_flash.py",
-              "test_torch_hist.py", "test_torch_isolation.py",
-              "test_torch_lightgbm.py", "test_torch_text_encoder.py"],
+              "test_torch_flash_bwd.py", "test_torch_hist.py",
+              "test_torch_isolation.py", "test_torch_lightgbm.py",
+              "test_torch_pretrain.py", "test_torch_text_encoder.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

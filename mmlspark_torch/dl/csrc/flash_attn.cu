@@ -1,9 +1,13 @@
-// K2a: non-causal flash-attention forward with a key mask, hand-written for
-// Hopper (sm_90a).
+// K2a and K2b: non-causal flash-attention forward with a key mask, and the
+// same forward with a per-row logsumexp output, hand-written for Hopper
+// (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_flash_kernel`
+// Replaces the Pallas TPU kernels `_flash_kernel`
 // (mmlspark_tpu/dl/pallas_attention.py:77, launched at :337 with
-// causal=False, with_lse=False). For q, k, v [B, H, T, D] (any batch, head
+// causal=False, with_lse=False) and `_flash_kernel_lse` (:126, launched at
+// :320 with with_lse=True; it wraps `_flash_kernel` and adds the lse). The
+// template flag kLse selects K2b, so the two keep separate kernel names in
+// a profile. For q, k, v [B, H, T, D] (any batch, head
 // and row strides; unit stride on D) and a key mask [B, T] (nonzero = valid;
 // null = all valid) it computes, per (b, h) and query row,
 //   s   = (q . k^T) * D^-0.5 in f32, invalid keys set to -1e30;
@@ -12,7 +16,10 @@
 //   would otherwise give exp(0) = 1), acc = acc * corr + p.astype(v) @ v in
 //   f32 with the UNNORMALISED p rounded to v's dtype (the TPU kernel's
 //   `p.astype(v_ref.dtype)`);
-//   o   = acc / max(l, 1e-35) in v's dtype, so a fully masked row is 0.
+//   o   = acc / max(l, 1e-35) in v's dtype, so a fully masked row is 0;
+//   K2b also writes lse = m + log(max(l, 1e-35)) in f32 to a contiguous
+//   [B, H, T] buffer: -1e30 for a fully masked row (m = -1e30, l = 0), as on
+//   the TPU. The fused backward (flash_bwd.cu) recomputes p from it.
 // Keys past T (the ragged last tile) are invalid and staged as zeros.
 //
 // What bounds it on an H100: operations. The two products are 4*B*H*T^2*D
@@ -58,6 +65,7 @@ struct Params {
   const void* v;
   const uint8_t* mask;  // [B, T] with batch stride mask_sb; null = all valid
   void* o;
+  float* lse;  // [B*H, T] f32 (K2b); unused by K2a
   int H, T;
   long long q_sb, q_sh, q_st;
   long long k_sb, k_sh, k_st;
@@ -104,7 +112,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16(const Params p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -260,6 +268,11 @@ __global__ void __launch_bounds__(kThreads)
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
   const float den_lo = fmaxf(l_lo, 1e-35f), den_hi = fmaxf(l_hi, 1e-35f);
+  if (kLse && t4 == 0) {
+    float* lse = p.lse + static_cast<long long>(bh) * T;
+    if (r_lo < T) lse[r_lo] = m_lo + logf(den_lo);
+    if (r_hi < T) lse[r_hi] = m_hi + logf(den_hi);
+  }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + t4 * 2;
@@ -277,7 +290,7 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kBQ32 = kThreads / 4;  // 4 threads per query row
 constexpr int kBK32 = 32;
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const Params p) {
   static_assert(D % 4 == 0, "head dim must be a multiple of 4");
@@ -364,31 +377,46 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < DP; ++i)
       ob[row * p.o_st + part + 4 * i] = acc[i] / den;
+    if (kLse && part == 0)
+      p.lse[static_cast<long long>(bh) * T + row] = m + logf(den);
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 cudaError_t launch_dtype(const Params& p, int dtype, int bh, cudaStream_t s) {
   if (dtype == 0) {
     const dim3 grid(bh, (p.T + kBQ16 - 1) / kBQ16);
-    flash_fwd_bf16<D><<<grid, kThreads, 0, s>>>(p);
+    flash_fwd_bf16<D, kLse><<<grid, kThreads, 0, s>>>(p);
   } else {
     const dim3 grid(bh, (p.T + kBQ32 - 1) / kBQ32);
-    flash_fwd_f32<D><<<grid, kThreads, 0, s>>>(p);
+    flash_fwd_f32<D, kLse><<<grid, kThreads, 0, s>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <bool kLse>
+cudaError_t launch_dim(const Params& p, int dtype, int D, int bh,
+                       cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_dtype<32, kLse>(p, dtype, bh, s);
+    case 64: return launch_dtype<64, kLse>(p, dtype, bh, s);
+    case 128: return launch_dtype<128, kLse>(p, dtype, bh, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch K2a on `stream` (a cudaStream_t from PyTorch) on device `device`.
+// Launch K2a (lse null) or K2b (lse a contiguous [B, H, T] f32 buffer) on
+// `stream` (a cudaStream_t from PyTorch) on device `device`.
 // dtype: 0 = bf16, 1 = f32 (q, k, v and o all of it). Strides are in
 // elements; D must be 32, 64 or 128 with unit stride. Returns the
 // cudaError_t of the launch.
 int mmlspark_flash_launch(const void* q, const void* k, const void* v,
-                          const void* mask, void* o, int dtype, int B, int H,
+                          const void* mask, void* o, float* lse, int dtype,
+                          int B, int H,
                           int T, int D, long long q_sb, long long q_sh,
                           long long q_st, long long k_sb, long long k_sh,
                           long long k_st, long long v_sb, long long v_sh,
@@ -406,6 +434,7 @@ int mmlspark_flash_launch(const void* q, const void* k, const void* v,
   p.v = v;
   p.mask = static_cast<const uint8_t*>(mask);
   p.o = o;
+  p.lse = lse;
   p.H = H;
   p.T = T;
   p.q_sb = q_sb, p.q_sh = q_sh, p.q_st = q_st;
@@ -415,12 +444,9 @@ int mmlspark_flash_launch(const void* q, const void* k, const void* v,
   p.mask_sb = mask_sb;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return static_cast<int>(launch_dtype<32>(p, dtype, B * H, s));
-    case 64: return static_cast<int>(launch_dtype<64>(p, dtype, B * H, s));
-    case 128: return static_cast<int>(launch_dtype<128>(p, dtype, B * H, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(lse == nullptr
+                              ? launch_dim<false>(p, dtype, D, B * H, s)
+                              : launch_dim<true>(p, dtype, D, B * H, s));
 }
 
 const char* mmlspark_flash_error_string(int err) {

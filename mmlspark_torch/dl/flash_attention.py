@@ -1,29 +1,46 @@
-"""K2a: the flash-attention forward — CUDA kernel, plain version, and switch.
+"""K2a, K2b, K2d, K2e: the flash-attention kernels — CUDA, plain versions,
+autograd, and switch.
 
-The long-context encoder's hot op. The JAX package runs it as the Pallas TPU
-kernel ``_flash_kernel`` (``mmlspark_tpu/dl/pallas_attention.py:77``,
-launched by ``_flash_forward`` at ``:337``) behind ``flash_attention``
-(``:696-740``). Here:
+The long-context encoder's hot op. The JAX package runs it as Pallas TPU
+kernels in ``mmlspark_tpu/dl/pallas_attention.py``: the forward
+``_flash_kernel`` (K2a, ``:77``, launched at ``:337``), the forward with the
+row logsumexp ``_flash_kernel_lse`` (K2b, ``:126``, launched at ``:320``),
+and the fused backward ``_bwd_dq_kernel`` (K2d, ``:350``, launched at
+``:462``) and ``_bwd_dkv_kernel`` (K2e, ``:388``, launched at ``:483``),
+behind the custom VJPs of ``flash_attention`` and ``flash_attention_lse``
+(``:516-693``). Here:
 
-- :func:`flash_cuda` launches the hand-written Hopper kernel in
-  ``csrc/flash_attn.cu`` (built with nvcc for ``sm_90a`` on first use, bound
-  with ctypes); see the source for its design and what bounds it;
-- :func:`flash_torch` is the plain PyTorch version: dense f32 scores with
-  the kernel's masking semantics (the tests and the CPU route use it);
-- :func:`flash_attention` is the switch: the kernel for CUDA tensors, the
-  plain version for CPU tensors. A build or launch failure raises; nothing
-  falls back.
+- :func:`flash_cuda` (K2a) and :func:`flash_lse_cuda` (K2b) launch the
+  hand-written Hopper forward in ``csrc/flash_attn.cu``;
+  :func:`flash_dq_cuda` (K2d) and :func:`flash_dkv_cuda` (K2e) the backward
+  in ``csrc/flash_bwd.cu``; each is built with nvcc for ``sm_90a`` on first
+  use and bound with ctypes (see the sources for their design and what
+  bounds them), and each counts its launches;
+- :func:`flash_torch`, :func:`flash_lse_torch`, :func:`flash_dq_torch`,
+  :func:`flash_dkv_torch` and :func:`flash_bwd_torch` are the plain PyTorch
+  versions: dense f32 scores with the kernels' masking and rounding points
+  (the tests and the CPU route use them);
+- :func:`flash_attention` and :func:`flash_attention_lse` are the switches:
+  the kernels for CUDA tensors, the plain versions for CPU tensors. Under
+  grad they run a ``torch.autograd.Function`` whose forward saves the lse
+  (K2b) and whose backward is K2d + K2e; without grad (e.g. under
+  ``torch.inference_mode()``) ``flash_attention`` runs K2a alone. A build
+  or launch failure raises; nothing falls back.
 
 Contract: q/k/v ``[B, H, T, D]`` of one dtype (bf16 or f32), ``key_mask``
 ``[B, T]`` bool (True = valid, None = all valid) → ``[B, H, T, D]`` in v's
 dtype. Invalid keys score ``-1e30`` (not ``-inf``), ``p`` is zeroed again
 at invalid keys after ``exp``, the unnormalised ``p`` is cast to v's dtype
 before the PV product, and the output is ``acc / max(l, 1e-35)``: a row
-with no valid key is exactly 0.
+with no valid key is exactly 0, and its lse is ``-1e30``. The backward
+recomputes ``p = exp(s - lse)`` (zeroed at invalid keys), ``ds = p·(dp -
+dsum)·scale`` with ``dsum = Σ_d dO·o`` (minus ``dlse`` for the lse
+variant), rounds ``ds`` to k's dtype for dq and to q's for dk and ``p`` to
+dO's for dv, and sums in f32.
 
-Not ported here: the causal variants and the logsumexp output (K2b, K2c;
-ROADMAP.md §2), the backward kernels (K2d, K2e), and the TPU's block-size
-resolution and autotune lookup, which size blocks for VMEM.
+Not ported here: the causal variants (K2c and causal K2a; ROADMAP.md §2),
+and the TPU's block-size resolution and autotune lookup, which size blocks
+for VMEM.
 """
 
 from __future__ import annotations
@@ -34,18 +51,19 @@ import functools
 import torch
 
 from ..native.loader import CudaLoader
+from ..parallel.ring_attention import blockwise_attention
 
 HEAD_DIMS = (32, 64, 128)
 NEG = -1e30               # the TPU kernel's additive mask value
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-_ALIGN = 16               # the kernel stages K/V rows as 16-byte vectors
+_ALIGN = 16               # the kernels stage rows as 16-byte vectors
+BWD_IMPLS = ("auto", "pallas", "blockwise")
 
 _LOADER = CudaLoader("mmlspark_flash", ["dl/csrc/flash_attn.cu"])
+_LOADER_BWD = CudaLoader("mmlspark_flash_bwd", ["dl/csrc/flash_bwd.cu"])
 
 LATER_CAUSAL = ("causal flash attention (K2c and causal K2a) comes with the "
                 "LLM slice (ROADMAP.md §1 item 8, §2)")
-LATER_LSE = ("flash_attention_lse (K2b) comes with text-encoder training "
-             "(ROADMAP.md §1 item 7, §2)")
 
 
 def _check_inputs(q, k, v, key_mask) -> None:
@@ -69,23 +87,116 @@ def _check_inputs(q, k, v, key_mask) -> None:
                              f"{q.device}")
 
 
+def _check_rows(q, dout, lse, dsum) -> None:
+    """The backward's extra inputs: dO like q, lse and dsum f32 [B, H, T]."""
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or dout.device != q.device:
+        raise ValueError(f"dO must match q ({q.dtype} {tuple(q.shape)} on "
+                         f"{q.device}), got {dout.dtype} "
+                         f"{tuple(dout.shape)} on {dout.device}")
+    for name, t in (("lse", lse), ("dsum", dsum)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be f32 {tuple(q.shape[:3])} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+
+
+# ------------------------------------------------------------ plain versions
+
+def _allowed(key_mask):
+    return None if key_mask is None else key_mask[:, None, None, :]
+
+
+def _plain_forward(q, k, v, key_mask):
+    """The forward in f32 all at once (one k-block of the TPU kernel): the
+    output in v's dtype, the row max ``m`` and the row sum ``l``."""
+    _check_inputs(q, k, v, key_mask)
+    D = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * D ** -0.5
+    allowed = _allowed(key_mask)
+    if allowed is not None:
+        s = torch.where(allowed, s, NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if allowed is not None:
+        p = torch.where(allowed, p, 0.0)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return (acc / l.clamp_min(1e-35)).to(v.dtype), m, l
+
+
 def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 key_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch K2a: the whole score matrix in f32 at once, with the
     kernel's masking and casting (one k-block of the TPU kernel)."""
-    _check_inputs(q, k, v, key_mask)
-    D = q.shape[-1]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * D ** -0.5
-    if key_mask is not None:
-        allowed = key_mask[:, None, None, :]
-        s = torch.where(allowed, s, NEG)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    if key_mask is not None:
-        p = torch.where(allowed, p, 0.0)
-    l = p.sum(-1, keepdim=True)
-    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return (acc / l.clamp_min(1e-35)).to(v.dtype)
+    return _plain_forward(q, k, v, key_mask)[0]
 
+
+def flash_lse_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_mask: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K2b: :func:`flash_torch`'s output and the f32 row
+    logsumexp ``m + log(max(l, 1e-35))`` ``[B, H, T]`` (``-1e30`` for a row
+    with no valid key)."""
+    o, m, l = _plain_forward(q, k, v, key_mask)
+    return o, (m + torch.log(l.clamp_min(1e-35)))[..., 0]
+
+
+def _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum):
+    """``p = exp(s - lse)`` zeroed at invalid keys (a select: at an invalid
+    key the exp may be inf) and ``ds = p·(dp - dsum)·scale``, in f32."""
+    _check_inputs(q, k, v, key_mask)
+    _check_rows(q, dout, lse, dsum)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    allowed = _allowed(key_mask)
+    if allowed is not None:
+        p = torch.where(allowed, p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    return p, p * (dp - dsum[..., None]) * scale
+
+
+def flash_dq_torch(q, k, v, key_mask, dout, lse, dsum) -> torch.Tensor:
+    """Plain PyTorch K2d: ``dq = ds.astype(k) · k`` in q's dtype."""
+    _, ds = _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum)
+    return torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                        k.float()).to(q.dtype)
+
+
+def flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K2e: ``dk = ds.astype(q)ᵀ · q`` in k's dtype and
+    ``dv = p.astype(dO)ᵀ · dO`` in v's dtype."""
+    p, ds = _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
+                      dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_dsum(o: torch.Tensor, dout: torch.Tensor,
+               dlse: torch.Tensor | None = None) -> torch.Tensor:
+    """The backward's D-term ``Σ_d dO·o`` in f32 ``[B, H, T]``, minus the lse
+    cotangent ``dlse`` for the lse variant (∂lse/∂s = p folds into it). Plain
+    PyTorch beside the kernels, as the JAX package computes it in XLA."""
+    dsum = (dout.float() * o.float()).sum(-1)
+    if dlse is not None:
+        dsum = dsum - dlse.float()
+    return dsum.contiguous()
+
+
+def flash_bwd_torch(q, k, v, key_mask, o, lse, dout, dlse=None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch fused backward (K2d + K2e) from the saved output and
+    lse: ``(dq, dk, dv)``."""
+    dsum = flash_dsum(o, dout, dlse)
+    return (flash_dq_torch(q, k, v, key_mask, dout, lse, dsum),
+            *flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum))
+
+
+# ------------------------------------------------------------- the kernels
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
@@ -93,6 +204,7 @@ def _library() -> ctypes.CDLL:
     c_void_p, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mmlspark_flash_launch.argtypes = [
         c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,  # q k v mask o
+        c_void_p,                                          # lse (K2b)
         c_int, c_int, c_int, c_int, c_int,                 # dtype B H T D
         *[c_ll] * 12,                                      # q/k/v/o strides
         c_ll, ctypes.c_float,                              # mask stride, scale
@@ -103,76 +215,122 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _library_bwd() -> ctypes.CDLL:
+    lib = _LOADER_BWD.load()
+    c_void_p, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mmlspark_flash_bwd_launch.argtypes = [
+        c_int,                                             # 0 = dq, 1 = dk/dv
+        *[c_void_p] * 10,                  # q k v dO mask lse dsum dq dk dv
+        c_int, c_int, c_int, c_int, c_int,                 # dtype B H T D
+        ctypes.POINTER(c_ll), c_ll, ctypes.c_float,   # strides, mask, scale
+        c_int, c_void_p]                                   # device, stream
+    lib.mmlspark_flash_bwd_launch.restype = c_int
+    lib.mmlspark_flash_bwd_error_string.argtypes = [c_int]
+    lib.mmlspark_flash_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build_kernel() -> str:
-    """Build (if needed) and load K2a; returns nvcc's output for the build
-    (registers, shared memory, spills), or "" if it was built earlier."""
+    """Build (if needed) and load K2a/K2b; returns nvcc's output for the
+    build (registers, shared memory, spills), or "" if it was built
+    earlier."""
     _library()
     return _LOADER.build_log()
 
 
+def build_bwd_kernel() -> str:
+    """Build (if needed) and load K2d/K2e; returns nvcc's output as
+    :func:`build_kernel` does."""
+    _library_bwd()
+    return _LOADER_BWD.build_log()
+
+
 def _check_layout(name: str, t: torch.Tensor) -> None:
-    """Unit stride on D and 16-byte-aligned rows: what the kernel's vector
+    """Unit stride on D and 16-byte-aligned rows: what the kernels' vector
     loads need. Strided views (the split of a fused qkv projection) pass;
     nothing is copied to make a tensor fit."""
+    if not _fits_layout(t):
+        raise ValueError(f"{name} needs unit stride on D and rows that "
+                         f"start on {_ALIGN}-byte boundaries, got strides "
+                         f"{t.stride()} with {t.element_size()}-byte "
+                         "elements")
+
+
+def _fits_layout(t: torch.Tensor) -> bool:
     size = t.element_size()
-    if t.stride(3) != 1:
-        raise ValueError(f"{name} needs unit stride on D, got strides "
-                         f"{t.stride()}")
-    if t.data_ptr() % _ALIGN or any(s * size % _ALIGN for s in t.stride()[:3]):
-        raise ValueError(f"{name} rows must start on {_ALIGN}-byte "
-                         f"boundaries (strides {t.stride()}, "
-                         f"{size}-byte elements)")
+    return (t.stride(3) == 1 and t.data_ptr() % _ALIGN == 0
+            and not any(s * size % _ALIGN for s in t.stride()[:3]))
+
+
+def _check_kernel_inputs(fn: str, q, k, v) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn} needs CUDA tensors, got {q.device}; use the "
+                         "plain version (or the flash_attention switch) for "
+                         "CPU tensors")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn} takes bf16 or f32, got {q.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{fn} takes head dims {HEAD_DIMS}, got "
+                         f"{q.shape[-1]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(name, t)
+
+
+def _heads_last(q: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A ``[B, H, T, D]`` view of a new ``[B, T, H, D]`` buffer: the head
+    merge after attention (or the qkv split's backward) is then free."""
+    B, H, T, D = q.shape
+    return torch.empty(B, T, H, D, dtype=dtype,
+                       device=q.device).permute(0, 2, 1, 3)
+
+
+def _mask_arg(key_mask, T):
+    """The kernels' mask pointer and batch stride ([B, T] bytes)."""
+    if key_mask is None:
+        return None, T
+    mask = key_mask.contiguous()
+    return mask, mask.stride(0)
+
+
+def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool):
+    _check_inputs(q, k, v, key_mask)
+    _check_kernel_inputs(fn, q, k, v)
+    B, H, T, D = q.shape
+    out = _heads_last(q, v.dtype)
+    lse = (torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if T == 0 or B * H == 0:
+        return out, lse
+    mask, mask_sb = _mask_arg(key_mask, T)
+    lib = _library()
+    err = lib.mmlspark_flash_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        _DTYPE_CODES[q.dtype], B, H, T, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], mask_sb, D ** -0.5, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{'K2b' if with_lse else 'K2a'} flash-attention kernel launch "
+            f"failed: {lib.mmlspark_flash_error_string(err).decode()} "
+            f"(cudaError {err})")
+    return out, lse
 
 
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                key_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch K2a (``csrc/flash_attn.cu``) on PyTorch's current stream.
-    Forward only: raises when an input requires grad with grad mode on
-    (the backward kernels come with training). Raises for tensors that are
-    not on a CUDA device, for a dtype other than bf16/f32 or a head dim
-    other than 32/64/128, and when the kernel does not build or launch.
+    """Launch K2a (``csrc/flash_attn.cu``) on PyTorch's current stream: the
+    forward alone, with no autograd graph (:func:`flash_attention` takes the
+    autograd Function under grad). Raises for tensors that are not on a
+    CUDA device, for a dtype other than bf16/f32 or a head dim other than
+    32/64/128, and when the kernel does not build or launch.
 
     Returns a ``[B, H, T, D]`` view of a ``[B, T, H, D]`` buffer, so the
     caller's head merge is a free reshape."""
-    _check_inputs(q, k, v, key_mask)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_cuda is forward-only: an input requires grad, and the "
-            "backward kernels (K2d/K2e) come with text-encoder training "
-            "(ROADMAP.md §1 item 7); run under torch.inference_mode() or "
-            "use flash_torch")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_cuda needs CUDA tensors, got {q.device}; "
-                         "use flash_torch (or flash_attention) for CPU "
-                         "tensors")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_cuda takes bf16 or f32, got {q.dtype}")
-    B, H, T, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_cuda takes head dims {HEAD_DIMS}, got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_layout(name, t)
-    out = torch.empty(B, T, H, D, dtype=v.dtype,
-                      device=q.device).permute(0, 2, 1, 3)
-    if T == 0 or B * H == 0:
-        return out
-    mask = None
-    if key_mask is not None:
-        mask = key_mask.contiguous()      # [B, T] bytes, not q/k/v
-    lib = _library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.mmlspark_flash_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, H, T, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], T if mask is None else mask.stride(0),
-        D ** -0.5, q.device.index, stream)
-    if err != 0:
-        raise RuntimeError(
-            "K2a flash-attention kernel launch failed: "
-            f"{lib.mmlspark_flash_error_string(err).decode()} (cudaError "
-            f"{err})")
+    out, _ = _launch_forward("flash_cuda", q, k, v, key_mask, False)
     flash_cuda.launches += 1
     return out
 
@@ -180,28 +338,203 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_cuda.launches = 0
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    key_mask: torch.Tensor | None = None, *,
-                    causal: bool = False, q_offset: int = 0,
-                    k_offset: int = 0, impl: str | None = None
-                    ) -> torch.Tensor:
-    """Fused flash attention, the port of ``pallas_attention.flash_attention``
-    (non-causal forward). q/k/v ``[B, H, T, D]``; ``key_mask`` ``[B, T]``
-    bool (True = valid). ``impl=None`` takes the kernel (``"cuda"``) for
-    CUDA tensors and the plain version (``"torch"``) for CPU tensors;
-    ``impl="cuda"`` on CPU tensors raises; ``impl="torch"`` runs the plain
-    version on any device."""
+def flash_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   key_mask: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2b: :func:`flash_cuda`'s output and the f32 row logsumexp
+    ``[B, H, T]`` (contiguous), which the fused backward reads."""
+    out, lse = _launch_forward("flash_lse_cuda", q, k, v, key_mask, True)
+    flash_lse_cuda.launches += 1
+    return out, lse
+
+
+flash_lse_cuda.launches = 0
+
+
+def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
+                     dsum):
+    """Launch K2d (``dkv=False``: returns dq) or K2e (returns dk, dv). A
+    dO without unit stride on D or with unaligned rows (an incoming
+    gradient may have any strides) is copied to a contiguous buffer
+    first; q/k/v must fit as they are."""
+    _check_inputs(q, k, v, key_mask)
+    _check_rows(q, dout, lse, dsum)
+    _check_kernel_inputs(fn, q, k, v)
+    if not _fits_layout(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    lse, dsum = lse.contiguous(), dsum.contiguous()
+    B, H, T, D = q.shape
+    outs = ((_heads_last(k, k.dtype), _heads_last(v, v.dtype)) if dkv
+            else (_heads_last(q, q.dtype),))
+    if T == 0 or B * H == 0:
+        return outs
+    dq, dk, dv = (None, *outs) if dkv else (outs[0], None, None)
+    mask, mask_sb = _mask_arg(key_mask, T)
+    strides = [s for t in (q, k, v, dout, dq, dk, dv)
+               for s in (t.stride()[:3] if t is not None else (0, 0, 0))]
+    lib = _library_bwd()
+    err = lib.mmlspark_flash_bwd_launch(
+        int(dkv), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        None if mask is None else mask.data_ptr(), lse.data_ptr(),
+        dsum.data_ptr(), *(None if t is None else t.data_ptr()
+                           for t in (dq, dk, dv)),
+        _DTYPE_CODES[q.dtype], B, H, T, D,
+        (ctypes.c_longlong * 21)(*strides), mask_sb, D ** -0.5,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{'K2e' if dkv else 'K2d'} flash-attention backward kernel "
+            "launch failed: "
+            f"{lib.mmlspark_flash_bwd_error_string(err).decode()} "
+            f"(cudaError {err})")
+    return outs
+
+
+def flash_dq_cuda(q, k, v, key_mask, dout, lse, dsum) -> torch.Tensor:
+    """Launch K2d (``csrc/flash_bwd.cu``): dq in q's dtype, as a
+    ``[B, H, T, D]`` view of a ``[B, T, H, D]`` buffer."""
+    (dq,) = _launch_backward("flash_dq_cuda", False, q, k, v, key_mask,
+                             dout, lse, dsum)
+    flash_dq_cuda.launches += 1
+    return dq
+
+
+flash_dq_cuda.launches = 0
+
+
+def flash_dkv_cuda(q, k, v, key_mask, dout, lse, dsum
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2e (``csrc/flash_bwd.cu``): dk and dv in k's and v's dtypes,
+    as ``[B, H, T, D]`` views of ``[B, T, H, D]`` buffers."""
+    dk, dv = _launch_backward("flash_dkv_cuda", True, q, k, v, key_mask,
+                              dout, lse, dsum)
+    flash_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_dkv_cuda.launches = 0
+
+
+def flash_bwd_cuda(q, k, v, key_mask, o, lse, dout, dlse=None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused backward on the card: ``dsum`` in plain PyTorch, then K2d
+    and K2e. Returns ``(dq, dk, dv)``."""
+    dsum = flash_dsum(o, dout, dlse)
+    return (flash_dq_cuda(q, k, v, key_mask, dout, lse, dsum),
+            *flash_dkv_cuda(q, k, v, key_mask, dout, lse, dsum))
+
+
+# ----------------------------------------------------------------- autograd
+
+class _Flash(torch.autograd.Function):
+    """``flash_attention`` under grad. ``bwd_impl`` ``"auto"``/``"pallas"``:
+    the forward runs K2b and saves the output and the lse, the backward is
+    K2d + K2e (the plain versions for CPU tensors). ``"blockwise"``: the
+    forward runs K2a and the backward is autograd through
+    ``blockwise_attention`` from q, k, v (the JAX package's recompute
+    backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, use_cuda, bwd_impl):
+        ctx.use_cuda, ctx.bwd_impl = use_cuda, bwd_impl
+        if bwd_impl == "blockwise":
+            o = (flash_cuda if use_cuda else flash_torch)(q, k, v, key_mask)
+            ctx.save_for_backward(q, k, v, key_mask)
+            return o
+        o, lse = (flash_lse_cuda if use_cuda else flash_lse_torch)(
+            q, k, v, key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        if ctx.bwd_impl == "blockwise":
+            q, k, v, key_mask = ctx.saved_tensors
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = blockwise_attention(*leaves, key_mask=key_mask)
+                grads = torch.autograd.grad(out, leaves, dout)
+            return (*grads, None, None, None)
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        bwd = flash_bwd_cuda if ctx.use_cuda else flash_bwd_torch
+        return (*bwd(q, k, v, key_mask, o, lse, dout), None, None, None)
+
+
+class _FlashLse(torch.autograd.Function):
+    """``flash_attention_lse`` under grad: K2b forward, K2d + K2e backward
+    with the lse cotangent folded into ``dsum``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, use_cuda):
+        ctx.use_cuda = use_cuda
+        o, lse = (flash_lse_cuda if use_cuda else flash_lse_torch)(
+            q, k, v, key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        bwd = flash_bwd_cuda if ctx.use_cuda else flash_bwd_torch
+        return (*bwd(q, k, v, key_mask, o, lse, dout, dlse), None, None)
+
+
+def _route(q, causal, q_offset, k_offset, impl) -> bool:
+    """True for the kernels, False for the plain versions."""
     if causal or q_offset or k_offset:
         raise NotImplementedError(LATER_CAUSAL)
     if impl is None:
-        impl = "cuda" if q.device.type == "cuda" else "torch"
-    if impl == "cuda":
-        return flash_cuda(q, k, v, key_mask)
-    if impl == "torch":
-        return flash_torch(q, k, v, key_mask)
-    raise ValueError(f"impl must be None, 'cuda' or 'torch', got {impl!r}")
+        return q.device.type == "cuda"
+    if impl not in ("cuda", "torch"):
+        raise ValueError(f"impl must be None, 'cuda' or 'torch', got "
+                         f"{impl!r}")
+    if impl == "cuda" and q.device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {q.device}")
+    return impl == "cuda"
 
 
-def flash_attention_lse(*args, **kwargs):
-    """The logsumexp-returning variant (K2b): not ported yet."""
-    raise NotImplementedError(LATER_LSE)
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_mask: torch.Tensor | None = None, *,
+                    causal: bool = False, q_offset: int = 0,
+                    k_offset: int = 0, impl: str | None = None,
+                    bwd_impl: str = "auto") -> torch.Tensor:
+    """Fused flash attention, the port of ``pallas_attention.flash_attention``
+    (non-causal). q/k/v ``[B, H, T, D]``; ``key_mask`` ``[B, T]`` bool (True
+    = valid). ``impl=None`` takes the kernels (``"cuda"``) for CUDA tensors
+    and the plain versions (``"torch"``) for CPU tensors; ``impl="cuda"`` on
+    CPU tensors raises; ``impl="torch"`` runs the plain versions on any
+    device.
+
+    Without grad this is K2a. Under grad it is an autograd Function:
+    ``bwd_impl`` ``"auto"`` or ``"pallas"`` save the lse in the forward
+    (K2b) and run the fused backward (K2d, K2e); ``"blockwise"`` runs K2a
+    forward and autograd through ``blockwise_attention`` backward."""
+    use_cuda = _route(q, causal, q_offset, k_offset, impl)
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"bwd_impl={bwd_impl!r} is not one of "
+                         f"{'|'.join(BWD_IMPLS)}")
+    if _needs_grad(q, k, v):
+        return _Flash.apply(q, k, v, key_mask, use_cuda, bwd_impl)
+    return (flash_cuda if use_cuda else flash_torch)(q, k, v, key_mask)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_mask: torch.Tensor | None = None, *,
+                        causal: bool = False, q_offset: int = 0,
+                        k_offset: int = 0, impl: str | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention that also returns the per-row logsumexp of the
+    scaled scores, ``(o [B, H, T, D], lse [B, H, T] f32)``, the port of
+    ``pallas_attention.flash_attention_lse`` (non-causal): K2b, and under
+    grad the fused backward with the lse cotangent folded into ``dsum``, so
+    it is differentiable in both outputs. A row with no valid key has o = 0
+    and lse = -1e30. ``impl`` as for :func:`flash_attention`."""
+    use_cuda = _route(q, causal, q_offset, k_offset, impl)
+    if _needs_grad(q, k, v):
+        return _FlashLse.apply(q, k, v, key_mask, use_cuda)
+    return (flash_lse_cuda if use_cuda else flash_lse_torch)(
+        q, k, v, key_mask)

@@ -1,13 +1,15 @@
 """Long-context transformer text encoder and its pipeline stage.
 
-The port of ``mmlspark_tpu/dl/text_encoder.py``'s inference path: a compact
-pre-LN transformer encoder whose attention implementation is pluggable
+The port of ``mmlspark_tpu/dl/text_encoder.py``'s encoder and stage: a
+compact pre-LN transformer encoder whose attention implementation is pluggable
 (``make_attention_fn``):
 
 - ``dense``     — standard softmax attention, the whole score matrix;
-- ``pallas``    — the fused flash-attention kernel (K2a,
-  ``flash_attention.py``): the hand-written CUDA kernel on the card, its
-  plain version on the CPU;
+- ``pallas``    — the fused flash-attention kernels (``flash_attention.py``):
+  the hand-written CUDA kernels on the card, their plain versions on the
+  CPU. Without grad (the featurizer runs under ``torch.inference_mode()``)
+  that is the forward K2a; under grad (training, ``dl/pretrain.py``) the
+  forward that saves the lse (K2b) and the fused backward (K2d, K2e);
 - ``blockwise`` — single-device flash-style blocks in plain PyTorch.
 
 ``TextEncoderFeaturizer`` wraps the encoder as a pipeline stage: token-id
@@ -19,7 +21,8 @@ f32 cast to the compute dtype.
 Not ported yet: cached decoding (``decode_step``, ``prefill``,
 ``decode_window``, ``embed_token``, …) with the LLM slice (ROADMAP.md §1
 item 8); ``ring``/``ulysses`` attention with the parallel slice (item 10);
-``quantize`` and ``modelName`` with the DL model slice (item 6).
+``quantize`` and ``modelName`` with the DL model slice (item 6);
+``remat`` with the rest of the training slice (item 7).
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ LATER_ZOO = ("zoo text models by name (modelName, ModelDownloader) come "
              "a LoadedModel")
 LATER_QUANT = ("the int8 quantized encoder (quantize=True) comes with the DL "
                "model slice (ROADMAP.md §1 item 6)")
+LATER_REMAT = ("rematerialized blocks (remat=True) come with the rest of the "
+               "training slice (ROADMAP.md §1 item 7)")
 
 LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to ±2
 
@@ -77,6 +82,14 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
         self.dtype = dtype
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """flax's Dense init: truncated lecun-normal weight, zero bias."""
+        std = self.weight.shape[1] ** -0.5 / LECUN_TRUNC
+        nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x):
         return (F.linear(x.to(self.dtype), self.weight.to(self.dtype))
@@ -152,13 +165,17 @@ class TextEncoder(nn.Module):
     A fresh module draws its weights from ``generator`` with flax's
     initialisers (truncated lecun-normal Dense kernels, zero biases,
     LayerNorm 1/0, embedding normal with std W^-½): the same distributions
-    as the JAX package, not the same bits."""
+    as the JAX package, not the same bits. ``remat=True`` (the JAX
+    module's rematerialized blocks) is not ported yet and raises."""
 
     def __init__(self, vocab: int = 32768, width: int = 256, depth: int = 4,
                  heads: int = 8, mlp_dim: int = 1024,
                  attention_fn: Callable = _dense_attention,
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 remat: bool = False):
+        if remat:
+            raise NotImplementedError(LATER_REMAT)
         super().__init__()
         self.vocab, self.width, self.depth = vocab, width, depth
         self.heads, self.mlp_dim = heads, mlp_dim
@@ -182,10 +199,7 @@ class TextEncoder(nn.Module):
                         generator=generator)
         for m in self.modules():
             if isinstance(m, Dense):
-                std = m.weight.shape[1] ** -0.5 / LECUN_TRUNC
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                nn.init.zeros_(m.bias)
+                m.reset_parameters(generator)
             elif isinstance(m, nn.LayerNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
@@ -219,7 +233,9 @@ class TextEncoder(nn.Module):
         pooled = (x * mask).sum(1) / mask.sum(1).clamp_min(1.0)
         return {"tokens": x, "pooled": pooled}
 
-    def forward(self, ids):
+    def forward(self, ids, train: bool = False):
+        """``train`` is the JAX module's flag; the encoder has no dropout,
+        so both modes compute the same function."""
         x = self.embed_ids(ids)
         key_mask = ids != 0
         for block in self.blocks:
@@ -239,8 +255,9 @@ def _blockwise_fn(q, k, v, key_mask=None, *, block_size: int = 512):
 def make_attention_fn(impl: str = "dense",
                       block_size: int | None = None) -> Callable:
     """Resolve an attention implementation by name: ``dense``, ``pallas``
-    (K2a; the port sizes its own blocks, so ``block_size`` applies to
-    ``blockwise`` only) or ``blockwise``. The returned functions pickle, so
+    (the flash kernels, differentiable through the fused backward; the port
+    sizes its own blocks, so ``block_size`` applies to ``blockwise`` only)
+    or ``blockwise``. The returned functions pickle, so
     a stage holding an encoder saves. The JAX version's ``mesh``/``axis``
     (ring, ulysses) and ``causal`` come with the parallel and LLM slices
     (ROADMAP.md §1 items 10 and 8)."""

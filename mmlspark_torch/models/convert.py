@@ -3,7 +3,8 @@
 The JAX package's ``models/convert.py`` goes the other way (torch
 checkpoints → flax). Here a flax ``TextEncoder``'s params, as numpy arrays,
 become a port ``TextEncoder`` with identical weights, so both packages
-embed the same text the same way.
+embed the same text the same way; a flax ``MaskedLMModel``'s params become
+a port ``MaskedLMModel``, so both can train from the same weights.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..dl.pretrain import MaskedLMModel
 from ..dl.text_encoder import TextEncoder, _dense_attention
 
 _DENSE = ("qkv", "out", "mlp_1", "mlp_2")
@@ -54,4 +56,21 @@ def text_encoder_from_flax(params: dict, *, heads: int,
                              attention_fn=attention_fn, dtype=dtype)
     module.load_state_dict({k: v.contiguous() for k, v in state.items()},
                            strict=True, assign=True)
+    return module
+
+
+def masked_lm_from_flax(params: dict, *, heads: int,
+                        dtype: torch.dtype = torch.bfloat16,
+                        attention_fn: Callable = _dense_attention
+                        ) -> MaskedLMModel:
+    """``params``: the flax ``MaskedLMModel``'s ``params`` tree (or the
+    variables dict holding it), leaves as numpy arrays. The trunk under
+    ``encoder`` goes through :func:`text_encoder_from_flax`; the head's
+    ``lm_head/kernel`` ``[W, V]`` becomes ``weight`` ``[V, W]``."""
+    p = params.get("params", params)
+    module = MaskedLMModel(text_encoder_from_flax(
+        p["encoder"], heads=heads, dtype=dtype, attention_fn=attention_fn))
+    module.lm_head.load_state_dict(
+        {"weight": _f32(p["lm_head"]["kernel"]).T.contiguous(),
+         "bias": _f32(p["lm_head"]["bias"])}, strict=True)
     return module

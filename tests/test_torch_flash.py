@@ -9,7 +9,8 @@ The same seeded inputs (numpy) go through
   counterparts, f32 at atol 2e-5.
 
 On the card, one ``cuda``-marked test holds ``flash_cuda`` against
-``flash_torch``; it skips without a GPU.
+``flash_torch``; it skips without a GPU. The lse variant and the backward
+(K2b, K2d, K2e) are held in ``tests/test_torch_flash_bwd.py``.
 """
 
 import jax.numpy as jnp
@@ -185,24 +186,41 @@ class TestSwitchAndRaises:
         assert flash_cuda.launches == launches
 
     def test_cuda_route_refuses_inputs_that_need_grad(self):
+        # K2a alone is the forward without a graph; under grad the switch
+        # takes the autograd Function instead (K2b forward, K2d/K2e
+        # backward; their plain versions for CPU tensors), so inputs that
+        # need grad train through it
         q, k, v, mask = make_inputs(T=40, seed=9)
         t = [torch.from_numpy(x) for x in (q, k, v)]
         t[1].requires_grad_(True)
-        with pytest.raises(RuntimeError, match="forward-only"):
-            flash_cuda(*t, torch.from_numpy(mask))
-        # the plain route is differentiable
-        flash_torch(*t, torch.from_numpy(mask)).sum().backward()
+        m = torch.from_numpy(mask)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            flash_cuda(*t, m)
+        out = flash_attention(*t, m)
+        assert type(out.grad_fn).__name__ == "_FlashBackward"
+        out.sum().backward()
         assert t[1].grad is not None and torch.isfinite(t[1].grad).all()
+        # the plain route is differentiable too, to the same gradient
+        grad = t[1].grad.clone()
+        t[1].grad = None
+        flash_torch(*t, m).sum().backward()
+        torch.testing.assert_close(t[1].grad, grad, rtol=1e-5, atol=ATOL)
 
     def test_causal_offsets_and_lse_wait_for_later_slices(self):
-        q, k, v, _ = make_inputs(T=16, masked=False)
+        q, k, v, mask = make_inputs(T=16)
         t = [torch.from_numpy(x) for x in (q, k, v)]
+        m = torch.from_numpy(mask)
         with pytest.raises(NotImplementedError, match="LLM slice"):
             flash_attention(*t, causal=True)
         with pytest.raises(NotImplementedError, match="LLM slice"):
             flash_attention(*t, q_offset=4)
-        with pytest.raises(NotImplementedError, match="K2b"):
-            flash_attention_lse(*t)
+        with pytest.raises(NotImplementedError, match="LLM slice"):
+            flash_attention_lse(*t, m, k_offset=4)
+        # the lse variant (K2b) is ported: the output of flash_torch and
+        # the row logsumexp
+        o, lse = flash_attention_lse(*t, m)
+        assert torch.equal(o, flash_torch(*t, m))
+        assert lse.shape == (2, 2, 16) and lse.dtype == torch.float32
 
     def test_rejects_bad_inputs(self):
         q, k, v, mask = make_inputs(T=16)

@@ -46,6 +46,16 @@ emb = TextEncoderFeaturizer(attentionImpl="pallas", device="cpu",
                             vocabSize=512, width=32, depth=1, heads=2,
                             seqChunk=32).transform(ids)["features"]
 assert emb.shape == (3, 32) and np.isfinite(emb).all(), emb
+
+from mmlspark_torch.dl import (TextEncoder, encoder_variables,
+                               make_attention_fn, pretrain_masked_lm)
+
+enc = TextEncoder(vocab=513, width=32, depth=1, heads=2, mlp_dim=64,
+                  attention_fn=make_attention_fn("pallas"))
+state, losses = pretrain_masked_lm(enc, ids["tokens"], steps=2,
+                                   batch_size=2, device="cpu")
+assert len(losses) == 2 and np.isfinite(losses).all(), losses
+assert encoder_variables(state) is enc
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -84,6 +94,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "profile_torch_gbdt.py")
     yield os.path.join(REPO, "tools", "profile_torch_text.py")
+    yield os.path.join(REPO, "tools", "profile_torch_train.py")
 
 
 def _imported_modules(path):
