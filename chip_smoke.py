@@ -61,16 +61,49 @@ nvcc per source, all started together), then:
    holds the pooled embeddings together as phase 6 does, with limits set
    for the trained trunk and the same planted fault.
 
-Any failed build, launch or comparison exits non-zero. The last two lines
-are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
-``--rows``/``--iterations``/``--docs``/``--batch``/``--train-steps``
-shrink the run for a quick first check.
+9. holds K2c (``flash_causal_cuda``) against the causal ``flash_torch`` at
+   the causal shapes of ``bench.py`` (``[2, 8, 2048, 64]``,
+   ``[1, 8, 8192, 64]``), the ``generate`` prefill ``[32, 8, 128, 64]``,
+   phase 7's document mask with one fully masked row, offsets ``(2048, 0)``
+   (every key reachable) and ``(0, 2048)`` (exactly 0), a ragged T=2000 in
+   f32 and head dims 32/64/128 at T=300 in both dtypes; holds K3
+   (``paged_cuda``) against ``paged_torch`` at ``w`` = 1, 5 and 128 over 32
+   slots of seeded context lengths (``BL`` 16, shuffled chains padded with
+   the trash block, one all-trash slot that must be exactly 0) and at
+   ``w = 4096`` over one 4096-token chain of ``BL`` 128, in both dtypes and
+   at head dims 32 and 128; times each beside its bound, its plain version
+   and a PyTorch yardstick (``scaled_dot_product_attention``; for K3 over a
+   dense cache gathered beforehand);
+10. runs ``generate`` at full width: the causal LM of ``bench.py:896-930``
+    (the encoder shape above with an f32 LM head, seeded weights, causal
+    ``pallas`` attention) on 32 seeded prompts of 129 tokens with 128 new
+    tokens, counting K2c launches (24 in the first call: the causality
+    probe and the prefill; 8 in each later one), timing the prefill and the
+    decode step against dense causal attention, reading the probe's drift
+    (exactly 0), and re-scoring every generated token with the dense
+    causal forward; K2c with its causal bound one tile late (a planted
+    fault) must fail the re-score limit;
+11. runs ``LLMEngine`` on the same model: cold and warm rounds over prompts
+    sharing a 112-token prefix (TTFT from the registry, prefix hit rate),
+    the 32 prompts of phase 10 at once (16 slots, ``block_len`` 16), self-
+    draft speculation with ``spec_k=4``, and one 4064-token prompt with
+    ``block_len`` 128, counting K3 launches per prefill batch and decode
+    step and re-scoring every output; K3 with ``pos`` ignored (a planted
+    fault) must fail the re-score limit.
+
+Any failed build, launch or comparison exits non-zero. Each phase prints
+its seconds. The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``. ``--rows``/``--iterations``/``--docs``/
+``--batch``/``--train-steps``/``--new-tokens`` shrink the run for a quick
+first check, and ``--phases`` runs some of the phase groups after the build
+(``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -143,6 +176,25 @@ TRAIN_RUNS = 3                # timed pretraining windows in phase 8
 GRAD_REL_MAX = 0.05
 GRAD_COS_MIN = 0.999
 LOSS_ABS_MAX = 1e-3
+# the LLM slice: bench.py:931-951's generation traffic (32 prompts of 129
+# tokens, 128 new tokens, greedy)
+GEN_BATCH, GEN_T, GEN_NEW = 32, 129, 128
+# K3 against its plain version: the online softmax over chain tiles against
+# one dense product over the gathered chain, as K2a against its plain
+# version (one final bf16 rounding after other summation orders, p rounded
+# against other running maxima); f32 over <= 4096 keys as K2a's f32
+PAGED_BF16_RTOL, PAGED_BF16_ATOL = FLASH_BF16_RTOL, FLASH_BF16_ATOL
+PAGED_F32_ATOL = FLASH_F32_ATOL
+# re-scoring generated tokens with the dense causal forward: every chosen
+# token's dense logit lies within RESCORE_DELTA of the dense maximum. The
+# kernels and dense attention differ by bf16 roundings through 8 blocks, so
+# near-ties among 32,768 random-weight logits flip; a planted fault (K2c
+# one tile late, K3 with pos ignored) must fail the limit.
+RESCORE_DELTA = 0.25
+# self-draft speculation accepts every proposal on the CPU; on the card the
+# draft's width-1 walks and the target's width-5 walk round differently, so
+# a near-tie may part them
+SPEC_ACCEPT_MIN = 0.9
 
 
 def fail(msg: str) -> None:
@@ -230,6 +282,39 @@ def check_hist(torch, k1, name, bins, vals, B, count=None):
     print(f"K1 {name}: count exact, grad/hess max |diff| {err:.3g} "
           f"(limit {SUM_TOL_EPS}*eps*sum|x| per cell)")
     return err
+
+
+_KERNEL = re.compile(r"(hist_kernel|flash_fwd_bf16|flash_fwd_f32|bwd_dq_bf16|"
+                     r"bwd_dkv_bf16|bwd_dq_f32|bwd_dkv_f32|paged_bf16|"
+                     r"paged_f32)I(\w*?)E+v")
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel from nvcc's ``-Xptxas -v`` output: its name with
+    the template arguments (head dim, then the kLse and kCausal flags, or
+    the bin type), registers, shared memory and any spills."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = _KERNEL.search(line)
+            name = line.split("'")[1] if m is None else \
+                f"{m.group(1)}<" + ",".join(
+                    re.findall(r"L[ib](\d+)", m.group(2))
+                    or [{"h": "u8", "i": "i32"}.get(m.group(2), m.group(2))]
+                ) + ">"
+        elif "spill" in line and name is not None:
+            spill = re.findall(r"(\d+) bytes spill", line)
+            spills = "" if set(spill) <= {"0"} else \
+                f", spills {spill[0]} B stores / {spill[1]} B loads"
+        elif "Used" in line and name is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers, "
+                       f"{smem.group(1) if smem else 0} B smem{spills}")
+            name = None
+        elif "error" in line.lower():
+            out.append(line.strip())
+    return out
 
 
 def build_all(builders: dict) -> dict:
@@ -818,54 +903,15 @@ def train_phases(torch, k1, k2, dev, bw, flush, texts, lengths, args):
     return records
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--rows", type=int, default=500_000)
-    ap.add_argument("--iterations", type=int, default=20)
-    ap.add_argument("--docs", type=int, default=32)
-    ap.add_argument("--batch", type=int, default=TRAIN_BATCH)
-    ap.add_argument("--train-steps", type=int, default=5)
-    args = ap.parse_args()
-
-    import torch
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this script needs an "
-             "NVIDIA GPU")
-    try:
-        import mmlspark_torch.dl.flash_attention as k2
-        import mmlspark_torch.lightgbm.hist as k1
-        from mmlspark_torch.core import DataFrame
-        from mmlspark_torch.lightgbm import LightGBMClassifier
-        from mmlspark_torch.lightgbm.binning import (bin_features,
-                                                     compute_bin_boundaries)
-        from mmlspark_torch.train import ComputeModelStatistics
-    except ImportError as e:
-        fail(f"cannot import mmlspark_torch ({e}): run from the root of a "
-             "checkout")
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    card = nvidia_smi("name,power.limit")
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
-
-    # ---- phase 1: build every kernel of the paths, one nvcc each, at once
-    t0 = time.perf_counter()
-    builds = build_all({"K1 (lightgbm/csrc/hist.cu)": k1.build_kernel,
-                        "K2a, K2b (dl/csrc/flash_attn.cu)": k2.build_kernel,
-                        "K2d, K2e (dl/csrc/flash_bwd.cu)":
-                            k2.build_bwd_kernel})
-    print(f"phase 1: built every kernel (sm_90a) in "
-          f"{time.perf_counter() - t0:.2f} s, in parallel")
-    for name, (secs, log) in builds.items():
-        print(f"  {name}: {secs:.2f} s")
-        for line in log.splitlines():
-            if any(w in line.lower() for w in ("ptxas", "spill", "error")):
-                print(f"    {line.strip()}")
-    print(card)
-    bw, bw_src = memory_bandwidth(torch)
-    print(f"memory bandwidth {bw / 1e12:.3f} TB/s ({bw_src})")
+def gbdt_phases(torch, k1, dev, bw, flush, args):
+    """Phases 2-4: K1 against its plain version, the GBDT main path through
+    K1, and the same fit with the plain histogram. Returns K1's record for
+    the kernels line."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+    from mmlspark_torch.lightgbm.binning import (bin_features,
+                                                 compute_bin_boundaries)
+    from mmlspark_torch.train import ComputeModelStatistics
 
     n, F, B, iters = args.rows, 28, 256, args.iterations
     feats, labels = higgs_like(n)
@@ -894,7 +940,6 @@ def main() -> None:
         check_hist(torch, k1, "root, int32 bins", bins.to(torch.int32),
                    root_vals, B))
 
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     ms = time_ms(lambda: k1.hist_cuda(bins, root_vals, num_bins=B),
                  torch, flush=flush)
     ms_masked = time_ms(lambda: k1.hist_cuda(bins, masked_vals,
@@ -997,25 +1042,697 @@ def main() -> None:
     if root != plain_root:
         fail(f"tree 0 root split differs: {root} vs {plain_root}")
 
+    return {"name": "hist", "route": "cuda",
+            "source": "mmlspark_torch/lightgbm/csrc/hist.cu",
+            "replaces": "mmlspark_tpu/lightgbm/pallas_hist.py:45",
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------- LLM slice
+
+def causal_empty_rows(torch, mask, B, T, q_off, k_off, dev):
+    """[B, T] bool: the query rows of a causal call with no allowed key
+    (their output must be exactly 0)."""
+    if mask is None:
+        first = torch.zeros(B, dtype=torch.long, device=dev)
+    else:
+        first = torch.where(mask.any(1), mask.long().argmax(1), T)
+    r = torch.arange(T, device=dev)
+    return (k_off + first[:, None]) > (q_off + r[None, :])
+
+
+def fused_qkv(torch, gen, dev, B, T, H, D, dtype):
+    """q, k, v [B, H, T, D] as views of one fused projection, the
+    encoder's layout."""
+    qkv = torch.randn(B, T, 3 * H * D, generator=gen, device=dev,
+                      dtype=dtype)
+    return tuple(a.view(B, T, H, D).transpose(1, 2)
+                 for a in qkv.split(H * D, dim=-1))
+
+
+def check_causal(torch, k2, name, q, k, v, mask, q_off=0, k_off=0):
+    """Hold K2c against the causal plain version on one input; rows with no
+    allowed key must be exactly 0. Returns the largest |difference|."""
+    bf16 = q.dtype == torch.bfloat16
+    want = k2.flash_torch(q, k, v, mask, causal=True, q_offset=q_off,
+                          k_offset=k_off)
+    got = k2.flash_causal_cuda(q, k, v, mask, q_offset=q_off,
+                               k_offset=k_off)
+    err = hold(torch, f"K2c {name}", got, want,
+               FLASH_BF16_RTOL if bf16 else 0.0,
+               FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL)
+    B, _, T, _ = q.shape
+    empty = causal_empty_rows(torch, mask, B, T, q_off, k_off, q.device)
+    if not (got.transpose(1, 2)[empty] == 0).all():
+        fail(f"K2c {name}: a row with no allowed key is not exactly 0")
+    print(f"K2c {name}: max |diff| {err:.3g}; {int(empty.sum())} (b, row) "
+          "pairs with no allowed key exactly 0")
+    return err
+
+
+def paged_case(torch, dev, seed, S, w, BL, MB, H, hd, dtype, full=False):
+    """A seeded K3 input: context lengths in [w, MB*BL] (all MB*BL with
+    ``full``), each slot's chain of distinct block ids shuffled across the
+    pool and padded with TRASH_BLOCK to MB, the last slot inactive (an
+    all-trash row) unless S == 1; the window sits at the end of each
+    context (pos = ctx - w). The pools, trash block included, are random."""
+    rng = np.random.default_rng(seed)
+    cap = MB * BL
+    ctx = np.full(S, cap) if full else rng.integers(w, cap + 1, size=S)
+    nblk = -(-ctx // BL)
+    active = np.ones(S, bool)
+    if S > 1:
+        active[-1] = False
+        nblk[-1] = 0
+    NB = 1 + int(nblk.sum())
+    ids = rng.permutation(np.arange(1, NB))
+    rows = np.zeros((S, MB), np.int32)
+    at = 0
+    for s in range(S):
+        rows[s, :nblk[s]] = ids[at:at + nblk[s]]
+        at += nblk[s]
+    pos = (ctx - w).astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pools = [torch.randn(NB, BL, H, hd, generator=gen, device=dev,
+                         dtype=dtype) for _ in range(2)]
+    qkv = torch.randn(S, w, 3 * H * hd, generator=gen, device=dev,
+                      dtype=dtype)
+    q = qkv[..., :H * hd].view(S, w, H, hd).transpose(1, 2)
+    return dict(q=q, k_pool=pools[0], v_pool=pools[1],
+                rows=torch.from_numpy(rows).to(dev),
+                pos=torch.from_numpy(pos).to(dev), active=active,
+                nblk=-(-(pos + w) // BL) * active)
+
+
+def check_paged(torch, k3, name, c):
+    """Hold K3 against its plain version on the active slots; an inactive
+    (all-trash) slot must be exactly 0. Returns the largest |difference|."""
+    bf16 = c["q"].dtype == torch.bfloat16
+    args = (c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"])
+    want = k3.paged_torch(*args)
+    got = k3.paged_cuda(*args)
+    act = torch.from_numpy(c["active"]).to(got.device)
+    err = hold(torch, f"K3 {name}", got[act], want[act],
+               PAGED_BF16_RTOL if bf16 else 0.0,
+               PAGED_BF16_ATOL if bf16 else PAGED_F32_ATOL)
+    if not (got[~act] == 0).all():
+        fail(f"K3 {name}: an all-trash slot is not exactly 0")
+    print(f"K3 {name}: max |diff| {err:.3g}; {int((~act).sum())} all-trash "
+          "slot(s) exactly 0")
+    return err
+
+
+def bound(ops, nbytes, bw, peak=BF16_PEAK_FLOPS):
+    """(bound ms, bound_by): the larger of the operations over the peak
+    and the bytes over the memory rate."""
+    ops_ms, bytes_ms = ops / peak * 1e3, nbytes / bw * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
+    """Phase 9: K2c and K3 against their plain versions on the card, and
+    their times. Returns the two records (launches filled in by phases 10
+    and 11)."""
+    import torch.nn.functional as F
+    H, D = TEXT_SHAPE["heads"], TEXT_SHAPE["width"] // TEXT_SHAPE["heads"]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    # ---- K2c at the causal shapes of bench.py:835 and :885, the generate
+    # prefill, the document mask of phase 7, offsets, ragged T, head dims
+    big = fused_qkv(torch, gen, dev, 2, 2048, H, D, bf16)
+    errs = [check_causal(torch, k2, "bf16 [2, 8, 2048, 64]", *big, None),
+            check_causal(torch, k2, "bf16 [2, 8, 2048, 64] offsets (2048, 0)",
+                         *big, None, 2048, 0),
+            check_causal(torch, k2, "bf16 [2, 8, 2048, 64] offsets (0, 2048)",
+                         *big, None, 0, 2048)]
+    long_ = fused_qkv(torch, gen, dev, 1, 8192, H, D, bf16)
+    errs.append(check_causal(torch, k2, "bf16 [1, 8, 8192, 64]", *long_,
+                             None))
+    prefill = fused_qkv(torch, gen, dev, GEN_BATCH, GEN_T - 1, H, D, bf16)
+    errs.append(check_causal(torch, k2, f"bf16 [{GEN_BATCH}, 8, "
+                             f"{GEN_T - 1}, 64] (generate prefill)",
+                             *prefill, None))
+    B = min(TRAIN_BATCH, len(lengths))
+    mask_np = np.arange(TEXT_T)[None, :] < lengths[:B, None]
+    mask_np[-1] = False                           # one fully masked row
+    mask = torch.from_numpy(mask_np).to(dev)
+    docs = fused_qkv(torch, gen, dev, B, TEXT_T, H, D, bf16)
+    errs.append(check_causal(torch, k2, f"bf16 [{B}, 8, 2048, 64] document "
+                             "mask", *docs, mask))
+    del docs
+    Tf = 2000
+    xf = fused_qkv(torch, gen, dev, B, Tf, H, D, torch.float32)
+    mask_f = mask[:, :Tf].clone()
+    mask_f[0] = False
+    check_causal(torch, k2, f"f32 ragged [{B}, 8, {Tf}, 64] document mask",
+                 *xf, mask_f)
+    del xf
+    for d in (32, 64, 128):
+        for dtype in (bf16, torch.float32):
+            x = fused_qkv(torch, gen, dev, 2, 300, 4, d, dtype)
+            check_causal(torch, k2, f"{str(dtype)[6:]} [2, 4, 300, {d}] "
+                         "document mask", *x, mask_f[:2, :300])
+            check_causal(torch, k2, f"{str(dtype)[6:]} [2, 4, 300, {d}] "
+                         "offsets (100, 37)", *x, mask_f[:2, :300], 100, 37)
+
+    def time_causal(label, q, k, v, runs=25):
+        B, _, T, _ = q.shape
+        ms = time_ms(lambda: k2.flash_causal_cuda(q, k, v), torch, runs=runs,
+                     flush=flush)
+        full_ms = time_ms(lambda: k2.flash_cuda(q, k, v), torch, runs=runs,
+                          flush=flush)
+        plain_ms = time_ms(lambda: k2.flash_torch(q, k, v, causal=True),
+                           torch, runs=5, warmup=1, flush=flush)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), torch, runs=runs, flush=flush)
+        pairs = B * H * T * (T + 1) // 2
+        bound_ms, by = bound(4 * pairs * D, 4 * B * H * T * D * 2, bw)
+        print(f"phase 9: K2c {label}: {ms:.4f} ms; non-causal K2a "
+              f"{full_ms:.4f} ms (K2a / K2c {full_ms / ms:.2f}: the pruning); "
+              f"plain {plain_ms:.4f} ms; scaled_dot_product_attention"
+              f"(is_causal=True) {lib_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+              f"{by} ({4 * pairs * D / 1e9:.2f} GFLOP over {pairs} allowed "
+              "pairs at 989 TFLOP/s); median of CUDA-event runs, L2 flushed")
+        return ms, plain_ms, bound_ms, by, lib_ms
+
+    time_causal("bf16 [2, 8, 2048, 64]", *big)
+    time_causal("bf16 [1, 8, 8192, 64]", *long_, runs=10)
+    del big, long_
+    c_ms, c_plain, c_bound, c_by, c_lib = time_causal(
+        f"bf16 [{GEN_BATCH}, 8, {GEN_T - 1}, 64] (generate prefill)",
+        *prefill)
+    k2c = {"name": "flash_causal", "route": "cuda",
+           "source": "mmlspark_torch/dl/csrc/flash_attn.cu",
+           "replaces": "mmlspark_tpu/dl/pallas_attention.py:142",
+           "launches": 0, "max_abs_err": max(errs), "ms": c_ms,
+           "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
+           "library_ms": c_lib}
+
+    # ---- K3: decode, the verify window, a prefill window, the long prompt
+    cases = [("w=1 S=32 BL=16 (decode)", 61, 32, 1, 16, 256, D, False),
+             ("w=5 S=32 BL=16 (verify)", 62, 32, 5, 16, 256, D, False),
+             ("w=128 S=32 BL=16 (prefill window)", 63, 32, 128, 16, 256, D,
+              False),
+             ("w=4096 S=1 BL=128 (long prompt)", 64, 1, 4096, 128, 32, D,
+              True),
+             ("w=5 S=32 BL=16 hd=32", 65, 32, 5, 16, 256, 32, False),
+             ("w=5 S=32 BL=16 hd=128", 66, 32, 5, 16, 256, 128, False)]
+    k3_err, record = 0.0, None
+    for name, seed, S, w, BL, MB, hd, full in cases:
+        for dtype in (torch.float32, bf16):       # the bf16 case is timed
+            c = paged_case(torch, dev, seed, S, w, BL, MB, H, hd, dtype, full)
+            k3_err = max(k3_err, check_paged(
+                torch, k3, f"{str(dtype)[6:]} {name}", c))
+        if hd != D:
+            continue
+        args = (c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"])
+        ms = time_ms(lambda: k3.paged_cuda(*args), torch, flush=flush)
+        plain_ms = time_ms(lambda: k3.paged_torch(*args), torch, runs=5,
+                           warmup=1, flush=flush)
+        # the library yardstick: SDPA over a dense cache gathered before
+        # the clock starts, with a bool mask
+        NB = c["k_pool"].shape[0]
+        L = MB * BL
+        idx = (c["rows"].long()[:, :, None] * BL
+               + torch.arange(BL, device=dev)).reshape(S, L)
+
+        def gather():
+            return [p.view(NB * BL, H, hd)[idx].transpose(1, 2).contiguous()
+                    for p in (c["k_pool"], c["v_pool"])]
+
+        gather_ms = time_ms(gather, torch, runs=10, flush=flush)
+        kd, vd = gather()
+        lim = c["pos"].long()[:, None] + torch.arange(w, device=dev)
+        allowed = (torch.arange(L, device=dev) <= lim[:, :, None])[:, None]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            c["q"], kd, vd, attn_mask=allowed), torch, runs=10, flush=flush)
+        del kd, vd, allowed
+        pos = c["pos"].cpu().numpy().astype(np.int64) * c["active"]
+        pairs = int(H * (w * (pos + 1) + w * (w - 1) // 2)[c["active"]].sum())
+        nbytes = (2 * int(c["nblk"].sum()) * BL * H * hd * 2
+                  + 2 * S * H * w * hd * 2)
+        bound_ms, by = bound(4 * pairs * hd, nbytes, bw)
+        print(f"phase 9: K3 bf16 {name}: {ms:.4f} ms; plain {plain_ms:.4f} "
+              f"ms; scaled_dot_product_attention on the gathered cache "
+              f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {by} "
+              f"({nbytes / 1e6:.2f} MB of reached K/V blocks, q and o; "
+              f"{4 * pairs * hd / 1e9:.3f} GFLOP over {pairs} allowed pairs); "
+              "median of CUDA-event runs, L2 flushed")
+        print(f"phase 9: K3 {name}: the dense gather alone {gather_ms:.4f} ms")
+        if record is None:                        # the decode shape
+            record = {"name": "paged_attention", "route": "cuda",
+                      "source": "mmlspark_torch/dl/csrc/paged_attn.cu",
+                      "replaces":
+                          "mmlspark_tpu/dl/pallas_paged_attention.py:89",
+                      "launches": 0, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": by,
+                      "library_ms": lib_ms}
+        del c
+    record["max_abs_err"] = k3_err
+    return [k2c, record]
+
+
+def lm_model(torch, impl):
+    """The causal LM of bench.py:896-930 at full width: the text encoder
+    shape with an f32 LM head, weights seeded from torch.Generator 0."""
+    from mmlspark_torch.dl import MaskedLMModel, TextEncoder, make_attention_fn
+    gen = torch.Generator().manual_seed(0)
+    return MaskedLMModel(TextEncoder(
+        **TEXT_SHAPE, attention_fn=make_attention_fn(impl, causal=True),
+        generator=gen), gen)
+
+
+def rescore(torch, dense, seqs, start, dev, chunk=8):
+    """Run the dense causal forward over each sequence (prompt plus
+    generated) and read, at every generated position, how far the chosen
+    token's logit lies below the dense maximum (pad excluded, as
+    generation never emits it). Returns (share of positions where the
+    chosen token is the dense argmax, largest gap)."""
+    hits, total, worst = 0, 0, 0.0
+    with torch.inference_mode():
+        for i in range(0, len(seqs), chunk):
+            ids = torch.from_numpy(np.ascontiguousarray(
+                seqs[i:i + chunk])).to(dev)
+            logits = dense(ids)["logits"][:, start - 1:-1].float()
+            logits[..., 0] = float("-inf")
+            chosen = ids[:, start:].long()
+            best, arg = logits.max(-1)
+            gap = best - logits.gather(-1, chosen[..., None])[..., 0]
+            hits += int((arg == chosen).sum())
+            total += chosen.numel()
+            worst = max(worst, float(gap.max()))
+            del logits
+    return hits / total, worst
+
+
+def hold_rescore(torch, name, dense, seqs, start, dev, fault=False):
+    """Re-score ``seqs`` and hold every generated token within
+    RESCORE_DELTA of the dense maximum; with ``fault`` the same limit must
+    FAIL (a planted fault that passes means the limit is slack)."""
+    share, gap = rescore(torch, dense, seqs, start, dev)
+    ok = gap <= RESCORE_DELTA
+    print(f"{name}: re-scored {len(seqs)} x {seqs.shape[1] - start} generated "
+          f"tokens with the dense causal forward: {share:.4f} are the dense "
+          f"argmax, largest gap {gap:.4f} (limit {RESCORE_DELTA}): "
+          f"{'within' if ok else 'outside'} the limit")
+    if ok == fault:
+        fail(f"{name}: " + ("a planted fault passes the re-score limit: it "
+                            "cannot tell a faulty kernel" if fault else
+                            "generated tokens fail the re-score limit"))
+    return share, gap
+
+
+def counts(fns):
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def reset(fns):
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def generate_phase(torch, k2, k3, dev, args):
+    """Phase 10: ``generate`` at full width through K2c, against dense
+    causal attention, with launch counts, the causality probe's drift and
+    the re-scored tokens. Returns what phase 11 needs and K2c's launches
+    in one steady generate call."""
+    import copy
+
+    from mmlspark_torch.dl import assert_causal, generate, make_attention_fn
+    depth, vocab = TEXT_SHAPE["depth"], TEXT_SHAPE["vocab"]
+    new = args.new_tokens
+    fns = {"K2c": k2.flash_causal_cuda, "K2a": k2.flash_cuda,
+           "K3": k3.paged_cuda}
+    model = lm_model(torch, "pallas").to(dev).eval()
+    dense = copy.deepcopy(model)
+    dense.encoder = dense.encoder.with_attention(
+        make_attention_fn("dense", causal=True))
+    prompts = np.random.default_rng(11).integers(
+        2, vocab, size=(GEN_BATCH, GEN_T)).astype(np.int32)
+
+    reset(fns)
+    t0 = time.perf_counter()
+    out = generate(model, prompts, max_new_tokens=new)
+    first_s = time.perf_counter() - t0
+    got = counts(fns)
+    want = {"K2c": 3 * depth, "K2a": 0, "K3": 0}
+    if got != want:
+        fail(f"launches in the first generate call {got}: expected {want} "
+             "(16 for the causality probe's two forwards, 8 for the "
+             "prefill)")
+    if out.shape != (GEN_BATCH, GEN_T + new) or (out[:, GEN_T:] == 0).any():
+        fail(f"generate returned {out.shape} with pad among the new tokens")
+
+    def timed(m, n_new, runs=3):
+        generate(m, prompts, max_new_tokens=n_new, max_len=GEN_T + new + 1)
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            generate(m, prompts, max_new_tokens=n_new,
+                     max_len=GEN_T + new + 1)
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    for impl, m in (("pallas", model), ("dense", dense)):
+        reset(fns)
+        t_one, t_full = timed(m, 1), timed(m, new + 1)
+        calls = counts(fns)
+        want = {"K2c": 8 * depth if impl == "pallas" else 0, "K2a": 0,
+                "K3": 0}
+        if calls != want:
+            fail(f"launches over 8 {impl} generate calls {calls}: expected "
+                 f"{want} (one K2c launch per block per call with pallas)")
+        if impl == "pallas":
+            per_call = calls["K2c"] // 8
+        step = (t_full - t_one) / new
+        print(f"phase 10: generate, {impl} causal attention: prefill + one "
+              f"step {t_one:.4f} s ({GEN_BATCH * GEN_T / t_one:,.0f} prompt "
+              f"tokens/s); decode {step * 1e3:.3f} ms per step "
+              f"({GEN_BATCH / step:,.0f} tokens/s), from {new + 1} against 1 "
+              f"new tokens at max_len {GEN_T + new + 1}, medians of 3 calls")
+    print(f"phase 10: first call (with the causality probe) {first_s:.3f} s; "
+          f"launches K2c {got['K2c']}, then {per_call} per call; K3 0")
+    drift = assert_causal(model, prompts[:1], vocab)
+    print(f"phase 10: assert_causal drift {drift!r} (must be exactly 0)")
+    if drift != 0.0:
+        fail(f"the causality probe reads a drift of {drift} through K2c")
+    hold_rescore(torch, "phase 10: generate", dense, out, GEN_T, dev)
+
+    # a planted fault: K2c with its causal bound shifted by one tile
+    real = k2.flash_causal_cuda
+
+    def shifted(q, k, v, key_mask=None, *, q_offset=0, k_offset=0):
+        return real(q, k, v, key_mask, q_offset=q_offset + 64,
+                    k_offset=k_offset)
+
+    shifted.launches = 0
+    k2.flash_causal_cuda = shifted
+    try:
+        faulty = generate(model, prompts, max_new_tokens=new)
+    finally:
+        k2.flash_causal_cuda = real
+    hold_rescore(torch, "phase 10: planted fault (K2c bound one tile late)",
+                 dense, faulty, GEN_T, dev, fault=True)
+    return model, dense, prompts, out, per_call
+
+
+def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
+    """Phase 11: the paged engine at full width through K3: cold and warm
+    rounds with prefix hits, the 32-prompt throughput round, self-draft
+    speculation and the 4096-token context, each re-scored; and a planted
+    fault. Returns K3's launches in the throughput round."""
+    from mmlspark_torch.obs import MetricsRegistry
+    from mmlspark_torch.serving import LLMEngine
+    from mmlspark_torch.serving.llm import _bucket_window
+    depth, vocab = TEXT_SHAPE["depth"], TEXT_SHAPE["vocab"]
+    new, svc = args.new_tokens, "llm"
+    fns = {"K2c": k2.flash_causal_cuda, "K2a": k2.flash_cuda,
+           "K3": k3.paged_cuda}
+
+    def attn(reg, phase):
+        h = reg.metrics("gen_decode_attn_seconds")[0]
+        return h.count(service=svc, phase=phase), h.sum(service=svc,
+                                                        phase=phase)
+
+    def hold_k3(reg, label, before, per_prefill=depth, per_step=depth):
+        """K3 launches = per_prefill x prefill batches + per_step x decode
+        steps since ``before``; K2c and K2a 0."""
+        (pb, _), (st, _) = attn(reg, "prefill"), attn(reg, "decode")
+        pb, st = pb - before[0], st - before[1]
+        got = counts(fns)
+        want = {"K2c": 0, "K2a": 0, "K3": per_prefill * pb + per_step * st}
+        if got != want:
+            fail(f"{label}: launches {got}, expected {want} ({per_prefill} "
+                 f"per prefill batch x {pb}, {per_step} per decode step x "
+                 f"{st})")
+        return pb, st
+
+    reg = MetricsRegistry()
+    max_seq = 18 * 16
+    num_blocks = 1 + 2 * 16 * 18
+    eng = LLMEngine(model, slots=16, block_len=16, max_seq_len=max_seq,
+                    num_blocks=num_blocks, prefill_batch=4, registry=reg,
+                    device=dev)
+    print(f"phase 11: engine slots 16, block_len 16, max_seq_len {max_seq}, "
+          f"num_blocks {num_blocks} (given; blocks_for_hbm_budget would "
+          "size the pools to half the free memory), prefill_batch 4")
+    eng.warm(prefill_windows=(_bucket_window(GEN_T), 1))
+
+    # rounds 1-2: one sequence in flight at a time, so TTFT is pure prefill
+    rng = np.random.default_rng(13)
+    shared = rng.integers(2, vocab, size=112)
+    shared_prompts = [np.concatenate([shared, rng.integers(2, vocab, 17)])
+                      for _ in range(4)]
+    reset(fns)
+    for rnd in range(2):
+        for i, p in enumerate(shared_prompts):
+            eng.submit(f"r{rnd}-{i}", p, 8)
+            eng.run_until_drained()
+    pb, st = hold_k3(reg, "rounds 1-2", (0, 0))
+    snap = reg.snapshot()
+    hits = snap.get(f'kv_prefix_hits_total{{service="{svc}"}}', 0.0)
+    misses = snap.get(f'kv_prefix_misses_total{{service="{svc}"}}', 0.0)
+    h = reg.metrics("gen_ttft_seconds")[0]
+    ttft = {r: (h.quantile(0.5, service=svc, reuse=r) * 1e3,
+                h.count(service=svc, reuse=r)) for r in ("cold", "warm")}
+    print(f"phase 11: rounds 1-2 (4 prompts of {GEN_T} tokens sharing a "
+          f"112-token prefix, 8 new each, one at a time): TTFT p50 cold "
+          f"{ttft['cold'][0]:.3f} ms ({ttft['cold'][1]} sequences), warm "
+          f"{ttft['warm'][0]:.3f} ms ({ttft['warm'][1]}), from the registry's "
+          f"buckets; prefix hit rate {hits / max(hits + misses, 1):.3f} "
+          f"({int(hits)} hits, {int(misses)} misses); K3 launches per "
+          f"prefill batch {depth} ({pb} batches, {st} decode steps)")
+
+    # round 3: the 32 prompts of phase 10 at once
+    before = (attn(reg, "prefill")[0], attn(reg, "decode")[0])
+    dec0 = attn(reg, "decode")
+    reset(fns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(i, p, new)
+    out = eng.run_until_drained()
+    wall = time.perf_counter() - t0
+    pb, st = hold_k3(reg, "round 3", before)
+    k3_launches = fns["K3"].launches
+    dec1 = attn(reg, "decode")
+    seqs = np.stack([out[i] for i in range(len(prompts))])
+    same = int(sum(np.array_equal(seqs[i], gen_out[i, :GEN_T + new])
+                   for i in range(len(prompts))))
+    print(f"phase 11: round 3 ({len(prompts)} prompts, {new} new tokens, all "
+          f"at once): {wall:.3f} s, {len(prompts) * new / wall:,.0f} "
+          f"tokens/s; {st} decode steps, "
+          f"{(dec1[1] - dec0[1]) / max(st, 1) * 1e3:.3f} ms per step (host "
+          f"clock, upload to fetch); {pb} prefill batches; K3 launches "
+          f"{k3_launches} ({depth} per prefill batch and per decode step), "
+          f"K2c 0; {same} of {len(prompts)} sequences identical to phase 10's")
+    hold_rescore(torch, "phase 11: round 3", dense, seqs, GEN_T, dev)
+    del eng
+
+    # self-draft speculation, k = 4, on 8 prompts
+    k, spec_new = 4, min(new, 32)
+    reg_s = MetricsRegistry()
+    blocks = -(-(GEN_T + spec_new + k) // 16)
+    eng = LLMEngine(model, draft_module=model, spec_k=k, slots=8,
+                    block_len=16, max_seq_len=blocks * 16,
+                    num_blocks=1 + 2 * 8 * blocks, prefill_batch=4,
+                    registry=reg_s, device=dev)
+    eng.warm(prefill_windows=(_bucket_window(GEN_T), 1))
+    reset(fns)
+    before = (attn(reg_s, "prefill")[0], attn(reg_s, "decode")[0])
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts[:8]):
+        eng.submit(i, p, spec_new)
+    out = eng.run_until_drained()
+    wall = time.perf_counter() - t0
+    pb, st = hold_k3(reg_s, "speculation", before, 2 * depth,
+                     (k + 1) * depth + depth)
+    ratio = reg_s.snapshot()[f'gen_spec_accept_ratio{{service="{svc}"}}']
+    print(f"phase 11: self-draft spec_k={k}, 8 prompts, {spec_new} new: "
+          f"{wall:.3f} s, {8 * spec_new / wall:,.0f} tokens/s, {st} decode "
+          f"steps; accept ratio {ratio:.4f} (floor {SPEC_ACCEPT_MIN}); K3 "
+          f"launches per decode step {(k + 1) * depth + depth} (draft "
+          f"{(k + 1) * depth}, target {depth}), per prefill batch "
+          f"{2 * depth}")
+    if ratio < SPEC_ACCEPT_MIN:
+        fail(f"self-draft accept ratio {ratio} below {SPEC_ACCEPT_MIN}")
+    hold_rescore(torch, "phase 11: speculation", dense,
+                 np.stack([out[i] for i in range(8)]), GEN_T, dev)
+    del eng
+
+    # the long context of llm_decode_scenario: 4064 prompt tokens, 32 new
+    ctx, long_new = 4096, 32
+    reg_l = MetricsRegistry()
+    eng = LLMEngine(model, slots=1, block_len=128, max_seq_len=ctx,
+                    num_blocks=1 + 2 * (ctx // 128), registry=reg_l,
+                    device=dev)
+    eng.warm(prefill_windows=(_bucket_window(ctx - long_new), 1))
+    prompt = np.random.default_rng(23).integers(2, vocab, ctx - long_new)
+    reset(fns)
+    eng.submit("ctx", prompt, long_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dict(eng.step())            # admit + prefill + first decode step
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out.update(eng.run_until_drained())
+    decode_s = time.perf_counter() - t0
+    hold_k3(reg_l, "long context", (0, 0))
+    tokens = reg_l.snapshot()[f'gen_tokens_total{{service="{svc}"}}']
+    # K3 alone at this context: one layer's launch over a 32-block chain
+    pools = eng.pools[0]
+    H = TEXT_SHAPE["heads"]
+    q = torch.randn(1, H, 1, TEXT_SHAPE["width"] // H, device=dev,
+                    dtype=torch.bfloat16)
+    rows = torch.arange(1, ctx // 128 + 1, device=dev, dtype=torch.int32)
+    k3_ms = time_ms(lambda: k3.paged_cuda(q, *pools, rows[None],
+                                          torch.tensor([ctx - 1], device=dev,
+                                                       dtype=torch.int32)),
+                    torch)
+    print(f"phase 11: long context ({ctx - long_new} prompt tokens, "
+          f"{long_new} new, block_len 128): prefill + first step "
+          f"{prefill_s:.3f} s; decode {tokens - 1:.0f} steps in {decode_s:.3f} "
+          f"s, {(tokens - 1) / decode_s:,.1f} tokens/s; K3 "
+          f"{k3_ms * depth:.4f} ms per step ({depth} x {k3_ms:.4f} ms at "
+          f"{ctx} positions, CUDA events)")
+    hold_rescore(torch, "phase 11: long context", dense,
+                 out["ctx"][None], ctx - long_new, dev)
+    del eng
+
+    # a planted fault: K3 with pos ignored (every row attends its whole
+    # chain, unwritten and later positions included)
+    real = k3.paged_cuda
+
+    def no_pos(q, k_pool, v_pool, rows, pos):
+        return real(q, k_pool, v_pool, rows,
+                    torch.full_like(pos, rows.shape[1] * k_pool.shape[1]))
+
+    no_pos.launches = 0
+    eng = LLMEngine(model, slots=8, block_len=16, max_seq_len=max_seq,
+                    num_blocks=1 + 2 * 8 * 18, prefill_batch=4,
+                    registry=MetricsRegistry(), device=dev)
+    k3.paged_cuda = no_pos
+    try:
+        for i, p in enumerate(prompts[:8]):
+            eng.submit(i, p, 16)
+        out = eng.run_until_drained()
+    finally:
+        k3.paged_cuda = real
+    hold_rescore(torch, "phase 11: planted fault (K3 with pos ignored)",
+                 dense, np.stack([out[i] for i in range(8)]), GEN_T, dev,
+                 fault=True)
+    return k3_launches
+
+
+def llm_phases(torch, k1, k2, k3, dev, bw, flush, lengths, args):
+    """Phases 9-11. Returns the K2c and K3 records for the kernels line."""
+    with Phase("phase 9"):
+        k2c, k3rec = llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths)
+    with Phase("phase 10"):
+        model, dense, prompts, out, k2c["launches"] = generate_phase(
+            torch, k2, k3, dev, args)
+    with Phase("phase 11"):
+        k3rec["launches"] = engine_phase(torch, k2, k3, dev, args, model,
+                                         dense, prompts, out)
+    return [k2c, k3rec]
+
+
+PHASE_GROUPS = ("gbdt", "text", "train", "llm")
+
+
+class Phase:
+    """``with Phase("phase 3"):`` prints the seconds the phase took."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            print(f"{self.name}: {time.perf_counter() - self.t0:.1f} s")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", type=int, default=500_000)
+    ap.add_argument("--iterations", type=int, default=20)
+    ap.add_argument("--docs", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=TRAIN_BATCH)
+    ap.add_argument("--train-steps", type=int, default=5)
+    ap.add_argument("--new-tokens", type=int, default=GEN_NEW,
+                    help="tokens generated per prompt in phases 10-11")
+    ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
+                    help="phase groups to run after the build: gbdt (2-4), "
+                    "text (5-6), train (7-8), llm (9-11)")
+    args = ap.parse_args()
+    groups = set(args.phases.split(","))
+    if not groups <= set(PHASE_GROUPS):
+        fail(f"--phases {args.phases}: groups are {', '.join(PHASE_GROUPS)}")
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an "
+             "NVIDIA GPU")
+    try:
+        import mmlspark_torch.dl.flash_attention as k2
+        import mmlspark_torch.dl.paged_attention as k3
+        import mmlspark_torch.lightgbm.hist as k1
+    except ImportError as e:
+        fail(f"cannot import mmlspark_torch ({e}): run from the root of a "
+             "checkout")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    card = nvidia_smi("name,power.limit")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+
+    # ---- phase 1: build every kernel of the paths, one nvcc each, at once
+    with Phase("phase 1"):
+        t0 = time.perf_counter()
+        builds = build_all({
+            "K1 (lightgbm/csrc/hist.cu)": k1.build_kernel,
+            "K2a, K2b, K2c (dl/csrc/flash_attn.cu)": k2.build_kernel,
+            "K2d, K2e (dl/csrc/flash_bwd.cu)": k2.build_bwd_kernel,
+            "K3 (dl/csrc/paged_attn.cu)": k3.build_kernel})
+        print(f"phase 1: built every kernel (sm_90a) in "
+              f"{time.perf_counter() - t0:.2f} s, in parallel")
+        for name, (secs, log) in builds.items():
+            print(f"  {name}: {secs:.2f} s")
+            for line in ptxas_summary(log):
+                print(f"    {line}")
+    print(card)
+    bw, bw_src = memory_bandwidth(torch)
+    print(f"memory bandwidth {bw / 1e12:.3f} TB/s ({bw_src})")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+
+    records = []
+    if "gbdt" in groups:
+        with Phase("phases 2-4"):
+            records.append(gbdt_phases(torch, k1, dev, bw, flush, args))
     texts, lengths = make_documents(args.docs)
-    flash = text_phases(torch, k1, k2, dev, bw, flush, texts, lengths)
-    train_records = train_phases(torch, k1, k2, dev, bw, flush, texts,
-                                 lengths, args)
+    if "text" in groups:
+        with Phase("phases 5-6"):
+            records.append(text_phases(torch, k1, k2, dev, bw, flush, texts,
+                                       lengths))
+    if "train" in groups:
+        with Phase("phases 7-8"):
+            records += train_phases(torch, k1, k2, dev, bw, flush, texts,
+                                    lengths, args)
+    if "llm" in groups:
+        records += llm_phases(torch, k1, k2, k3, dev, bw, flush, lengths,
+                              args)
 
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "hist",
-        "route": "cuda",
-        "source": "mmlspark_torch/lightgbm/csrc/hist.cu",
-        "replaces": "mmlspark_tpu/lightgbm/pallas_hist.py:45",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-    }, flash, *train_records]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

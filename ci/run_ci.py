@@ -80,11 +80,13 @@ PACKAGES: dict[str, list[str]] = {
     "attribution": ["test_attribution.py"],
     # the PyTorch/CUDA port (mmlspark_torch) against this package on the
     # CPU; its cuda-marked kernel test skips without a GPU
-    "torch": ["test_torch_binning.py", "test_torch_core.py",
-              "test_torch_engine.py", "test_torch_flash.py",
-              "test_torch_flash_bwd.py", "test_torch_hist.py",
-              "test_torch_isolation.py", "test_torch_lightgbm.py",
-              "test_torch_pretrain.py", "test_torch_text_encoder.py"],
+    "torch": ["test_torch_binning.py", "test_torch_causal.py",
+              "test_torch_core.py", "test_torch_engine.py",
+              "test_torch_flash.py", "test_torch_flash_bwd.py",
+              "test_torch_hist.py", "test_torch_isolation.py",
+              "test_torch_lightgbm.py", "test_torch_llm_serving.py",
+              "test_torch_paged.py", "test_torch_pretrain.py",
+              "test_torch_text_encoder.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

@@ -1,13 +1,17 @@
-// K2a and K2b: non-causal flash-attention forward with a key mask, and the
-// same forward with a per-row logsumexp output, hand-written for Hopper
-// (sm_90a).
+// K2a, K2b and K2c: the flash-attention forward with a key mask, the same
+// forward with a per-row logsumexp output, and the causal forward,
+// hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels `_flash_kernel`
-// (mmlspark_tpu/dl/pallas_attention.py:77, launched at :337 with
-// causal=False, with_lse=False) and `_flash_kernel_lse` (:126, launched at
-// :320 with with_lse=True; it wraps `_flash_kernel` and adds the lse). The
-// template flag kLse selects K2b, so the two keep separate kernel names in
-// a profile. For q, k, v [B, H, T, D] (any batch, head
+// (mmlspark_tpu/dl/pallas_attention.py:77, launched at :337; K2a, and with
+// causal=True the streaming causal forward "causal K2a", whose
+// `_block_reachable` (:64) skips the k-blocks above the diagonal),
+// `_flash_kernel_lse` (:126, launched at :320 with with_lse=True; it wraps
+// `_flash_kernel` and adds the lse) and `_flash_kernel_causal_packed`
+// (K2c, :142, launched at :297 without the lse; the causal forward over
+// only the reachable k-blocks). The template flags kLse and kCausal select
+// K2b and K2c, so the kernels keep separate names in a profile; K2c with
+// the lse (:285) is not built yet. For q, k, v [B, H, T, D] (any batch, head
 // and row strides; unit stride on D) and a key mask [B, T] (nonzero = valid;
 // null = all valid) it computes, per (b, h) and query row,
 //   s   = (q . k^T) * D^-0.5 in f32, invalid keys set to -1e30;
@@ -21,11 +25,19 @@
 //   [B, H, T] buffer: -1e30 for a fully masked row (m = -1e30, l = 0), as on
 //   the TPU. The fused backward (flash_bwd.cu) recomputes p from it.
 // Keys past T (the ragged last tile) are invalid and staged as zeros.
+// Causal (K2c): positions are global, query row r at q_offset + r and key c
+// at k_offset + c (the offsets are the caller's ints and may exceed T, as a
+// ring shard's coordinates do); a pair is allowed iff the key is valid and
+// k_offset + c <= q_offset + r, masked like an invalid key (-1e30, p = 0 by
+// a select), so a row with no allowed key is exactly 0 and a key after a
+// row's position never touches its max, its sum or its output.
 //
 // What bounds it on an H100: operations. The two products are 4*B*H*T^2*D
 // flops (2.75e11 at B=32, H=8, T=2048, D=64: 0.28 ms at 989 TFLOP/s bf16
 // dense, NVIDIA H100 SXM data sheet) against 4*B*H*T*D*2 bytes of q/k/v/o
-// (0.27 GB: 0.08 ms at 3.35 TB/s).
+// (0.27 GB: 0.08 ms at 3.35 TB/s). K2c does 4*P*D over the allowed pairs P,
+// T(T+1)/2 per (b, h) at q_offset = k_offset: operations bind at long T;
+// at the generate prefill's [32, 8, 128, 64] the bytes of q/k/v/o do.
 //
 // Design (right and simple first; wgmma, TMA and warp specialisation are
 // later work):
@@ -45,6 +57,12 @@
 //  - A key tile whose keys are all invalid is skipped: its update is the
 //    identity (m and l unchanged, corr = 1, p = 0), so skipping is exact and
 //    saves the padded tail of short documents.
+//  - Causal: a CTA loops only over the key tiles its last row can reach,
+//    n_reach = clamp(floor((q_offset + q0 + BQ - 1 - k_offset) / BK) + 1,
+//    0, n_tiles). That one bound is both TPU kernels' pruning: K2c's
+//    packed n_reach and the streaming kernel's per-cell skip. At
+//    q_offset = k_offset it halves the work of a long row (the bound counts
+//    T(T+1)/2 pairs per (b, h)).
 //  - The output is written through its own strides, so the wrapper can hand
 //    back a [B, H, T, D] view of a [B, T, H, D] buffer and the head merge
 //    after attention needs no copy.
@@ -72,8 +90,25 @@ struct Params {
   long long v_sb, v_sh, v_st;
   long long o_sb, o_sh, o_st;
   long long mask_sb;
+  long long qk_shift;  // q_offset - k_offset (K2c): key c <= row r + shift
   float scale;
 };
+
+// the key tiles a causal CTA visits: those its last query row can reach
+__device__ __forceinline__ int reach_tiles(const Params& p, int last_row,
+                                           int bk, int n_tiles) {
+  const long long last = static_cast<long long>(last_row) + p.qk_shift;
+  if (last < 0) return 0;
+  const long long n = last / bk + 1;
+  return n < n_tiles ? static_cast<int>(n) : n_tiles;
+}
+
+// the last local key row `row` may attend (causal), clamped into
+// [-1, T] so the per-pair compare runs on 32-bit ints
+__device__ __forceinline__ int row_limit(const Params& p, int row) {
+  const long long lim = static_cast<long long>(row) + p.qk_shift;
+  return lim < -1 ? -1 : lim > p.T ? p.T : static_cast<int>(lim);
+}
 
 __device__ __forceinline__ bool key_valid(const Params& p, int b, int key) {
   return key < p.T &&
@@ -112,7 +147,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
-template <int D, bool kLse>
+template <int D, bool kLse, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16(const Params p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -160,7 +195,11 @@ __global__ void __launch_bounds__(kThreads)
   float m_lo = kNeg, m_hi = kNeg;  // running max of rows r_lo, r_hi
   float l_lo = 0.f, l_hi = 0.f;    // this thread's share of the running sum
 
-  const int n_tiles = (T + kBK16 - 1) / kBK16;
+  // causal: the last local key each of this thread's rows may attend
+  const int lim_lo = row_limit(p, r_lo), lim_hi = row_limit(p, r_hi);
+  int n_tiles = (T + kBK16 - 1) / kBK16;
+  if (kCausal)
+    n_tiles = reach_tiles(p, blockIdx.y * kBQ16 + kBQ16 - 1, kBK16, n_tiles);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK16;
     __syncthreads();  // the previous tile is consumed
@@ -202,14 +241,20 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
+    // causal: key n * 8 + e of this thread's columns is allowed for a row
+    // iff n * 8 + e <= that row's limit less k0 + t4 * 2, a compare with a
+    // constant once the loops unroll
+    const int d_lo = lim_lo - k0 - t4 * 2, d_hi = lim_hi - k0 - t4 * 2;
     float mx_lo = kNeg, mx_hi = kNeg;
 #pragma unroll
     for (int n = 0; n < kBK16 / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool valid = allowed[n * 8 + t4 * 2 + e];
-        s[n][e] = valid ? s[n][e] * p.scale : kNeg;
-        s[n][2 + e] = valid ? s[n][2 + e] * p.scale : kNeg;
+        const int c = n * 8 + t4 * 2 + e;
+        const bool ok_lo = allowed[c] && (!kCausal || n * 8 + e <= d_lo);
+        const bool ok_hi = allowed[c] && (!kCausal || n * 8 + e <= d_hi);
+        s[n][e] = ok_lo ? s[n][e] * p.scale : kNeg;
+        s[n][2 + e] = ok_hi ? s[n][2 + e] * p.scale : kNeg;
         mx_lo = fmaxf(mx_lo, s[n][e]);
         mx_hi = fmaxf(mx_hi, s[n][2 + e]);
       }
@@ -229,9 +274,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < kBK16 / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool valid = allowed[n * 8 + t4 * 2 + e];
-        s[n][e] = valid ? expf(s[n][e] - mn_lo) : 0.f;
-        s[n][2 + e] = valid ? expf(s[n][2 + e] - mn_hi) : 0.f;
+        const int c = n * 8 + t4 * 2 + e;
+        const bool ok_lo = allowed[c] && (!kCausal || n * 8 + e <= d_lo);
+        const bool ok_hi = allowed[c] && (!kCausal || n * 8 + e <= d_hi);
+        s[n][e] = ok_lo ? expf(s[n][e] - mn_lo) : 0.f;
+        s[n][2 + e] = ok_hi ? expf(s[n][2 + e] - mn_hi) : 0.f;
         ps_lo += s[n][e];
         ps_hi += s[n][2 + e];
       }
@@ -290,7 +337,7 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kBQ32 = kThreads / 4;  // 4 threads per query row
 constexpr int kBK32 = 32;
 
-template <int D, bool kLse>
+template <int D, bool kLse, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const Params p) {
   static_assert(D % 4 == 0, "head dim must be a multiple of 4");
@@ -319,7 +366,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   float m = kNeg, l = 0.f;
 
-  const int n_tiles = (T + kBK32 - 1) / kBK32;
+  const int lim = row_limit(p, row);  // causal: last allowed local key
+  int n_tiles = (T + kBK32 - 1) / kBK32;
+  if (kCausal)
+    n_tiles = reach_tiles(p, blockIdx.y * kBQ32 + kBQ32 - 1, kBK32, n_tiles);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK32;
     __syncthreads();
@@ -338,6 +388,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
+    const int d = lim - k0;  // causal: key j is allowed iff j <= d
+    auto pair_ok = [&](int j) { return allowed[j] && (!kCausal || j <= d); };
     float s[kBK32];
     float mx = kNeg;
 #pragma unroll
@@ -349,7 +401,7 @@ __global__ void __launch_bounds__(kThreads)
       // the four partial dots of the row; every thread gets the same sum
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      s[j] = allowed[j] ? dot * p.scale : kNeg;
+      s[j] = pair_ok(j) ? dot * p.scale : kNeg;
       mx = fmaxf(mx, s[j]);
     }
     const float mn = fmaxf(m, mx);
@@ -358,7 +410,7 @@ __global__ void __launch_bounds__(kThreads)
     float ps = 0.f;
 #pragma unroll
     for (int j = 0; j < kBK32; ++j) {
-      s[j] = allowed[j] ? expf(s[j] - mn) : 0.f;
+      s[j] = pair_ok(j) ? expf(s[j] - mn) : 0.f;
       ps += s[j];
     }
     l = l * corr + ps;
@@ -382,25 +434,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool kLse>
+template <int D, bool kLse, bool kCausal>
 cudaError_t launch_dtype(const Params& p, int dtype, int bh, cudaStream_t s) {
   if (dtype == 0) {
     const dim3 grid(bh, (p.T + kBQ16 - 1) / kBQ16);
-    flash_fwd_bf16<D, kLse><<<grid, kThreads, 0, s>>>(p);
+    flash_fwd_bf16<D, kLse, kCausal><<<grid, kThreads, 0, s>>>(p);
   } else {
     const dim3 grid(bh, (p.T + kBQ32 - 1) / kBQ32);
-    flash_fwd_f32<D, kLse><<<grid, kThreads, 0, s>>>(p);
+    flash_fwd_f32<D, kLse, kCausal><<<grid, kThreads, 0, s>>>(p);
   }
   return cudaGetLastError();
 }
 
-template <bool kLse>
+template <bool kLse, bool kCausal>
 cudaError_t launch_dim(const Params& p, int dtype, int D, int bh,
                        cudaStream_t s) {
   switch (D) {
-    case 32: return launch_dtype<32, kLse>(p, dtype, bh, s);
-    case 64: return launch_dtype<64, kLse>(p, dtype, bh, s);
-    case 128: return launch_dtype<128, kLse>(p, dtype, bh, s);
+    case 32: return launch_dtype<32, kLse, kCausal>(p, dtype, bh, s);
+    case 64: return launch_dtype<64, kLse, kCausal>(p, dtype, bh, s);
+    case 128: return launch_dtype<128, kLse, kCausal>(p, dtype, bh, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -409,11 +461,13 @@ cudaError_t launch_dim(const Params& p, int dtype, int D, int bh,
 
 extern "C" {
 
-// Launch K2a (lse null) or K2b (lse a contiguous [B, H, T] f32 buffer) on
-// `stream` (a cudaStream_t from PyTorch) on device `device`.
-// dtype: 0 = bf16, 1 = f32 (q, k, v and o all of it). Strides are in
-// elements; D must be 32, 64 or 128 with unit stride. Returns the
-// cudaError_t of the launch.
+// Launch K2a (lse null, causal 0), K2b (lse a contiguous [B, H, T] f32
+// buffer) or K2c (causal 1, lse null; q_offset/k_offset the global
+// positions of row 0 and key 0) on `stream` (a cudaStream_t from PyTorch)
+// on device `device`. dtype: 0 = bf16, 1 = f32 (q, k, v and o all of it).
+// Strides are in elements; D must be 32, 64 or 128 with unit stride.
+// Returns the cudaError_t of the launch (causal with an lse is refused:
+// K2c's lse output is not built yet).
 int mmlspark_flash_launch(const void* q, const void* k, const void* v,
                           const void* mask, void* o, float* lse, int dtype,
                           int B, int H,
@@ -422,11 +476,13 @@ int mmlspark_flash_launch(const void* q, const void* k, const void* v,
                           long long k_st, long long v_sb, long long v_sh,
                           long long v_st, long long o_sb, long long o_sh,
                           long long o_st, long long mask_sb, float scale,
+                          int causal, long long q_offset, long long k_offset,
                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((dtype != 0 && dtype != 1) || B < 1 || H < 1 || T < 1 ||
-      static_cast<long long>(B) * H > 0x7fffffffLL)
+      static_cast<long long>(B) * H > 0x7fffffffLL ||
+      (causal && lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -442,11 +498,14 @@ int mmlspark_flash_launch(const void* q, const void* k, const void* v,
   p.v_sb = v_sb, p.v_sh = v_sh, p.v_st = v_st;
   p.o_sb = o_sb, p.o_sh = o_sh, p.o_st = o_st;
   p.mask_sb = mask_sb;
+  p.qk_shift = q_offset - k_offset;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (causal)
+    return static_cast<int>(launch_dim<false, true>(p, dtype, D, B * H, s));
   return static_cast<int>(lse == nullptr
-                              ? launch_dim<false>(p, dtype, D, B * H, s)
-                              : launch_dim<true>(p, dtype, D, B * H, s));
+                              ? launch_dim<false, false>(p, dtype, D, B * H, s)
+                              : launch_dim<true, false>(p, dtype, D, B * H, s));
 }
 
 const char* mmlspark_flash_error_string(int err) {

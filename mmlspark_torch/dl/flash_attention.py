@@ -1,5 +1,5 @@
-"""K2a, K2b, K2d, K2e: the flash-attention kernels — CUDA, plain versions,
-autograd, and switch.
+"""K2a, K2b, K2c, K2d, K2e: the flash-attention kernels — CUDA, plain
+versions, autograd, and switch.
 
 The long-context encoder's hot op. The JAX package runs it as Pallas TPU
 kernels in ``mmlspark_tpu/dl/pallas_attention.py``: the forward
@@ -8,9 +8,13 @@ row logsumexp ``_flash_kernel_lse`` (K2b, ``:126``, launched at ``:320``),
 and the fused backward ``_bwd_dq_kernel`` (K2d, ``:350``, launched at
 ``:462``) and ``_bwd_dkv_kernel`` (K2e, ``:388``, launched at ``:483``),
 behind the custom VJPs of ``flash_attention`` and ``flash_attention_lse``
-(``:516-693``). Here:
+(``:516-693``), and the causal forward ``_flash_kernel_causal_packed``
+(K2c, ``:142``, launched at ``:297``) with the causal branch of
+``_flash_kernel`` (causal K2a). Here:
 
-- :func:`flash_cuda` (K2a) and :func:`flash_lse_cuda` (K2b) launch the
+- :func:`flash_cuda` (K2a), :func:`flash_lse_cuda` (K2b) and
+  :func:`flash_causal_cuda` (K2c, which also stands for causal K2a: one
+  kernel visits only the key tiles a q tile can reach) launch the
   hand-written Hopper forward in ``csrc/flash_attn.cu``;
   :func:`flash_dq_cuda` (K2d) and :func:`flash_dkv_cuda` (K2e) the backward
   in ``csrc/flash_bwd.cu``; each is built with nvcc for ``sm_90a`` on first
@@ -38,9 +42,15 @@ dsum)·scale`` with ``dsum = Σ_d dO·o`` (minus ``dlse`` for the lse
 variant), rounds ``ds`` to k's dtype for dq and to q's for dk and ``p`` to
 dO's for dv, and sums in f32.
 
-Not ported here: the causal variants (K2c and causal K2a; ROADMAP.md §2),
-and the TPU's block-size resolution and autotune lookup, which size blocks
-for VMEM.
+Causal (K2c): query row ``r`` sits at global position ``q_offset + r`` and
+key ``c`` at ``k_offset + c``; a pair is allowed iff the key is valid and
+``k_offset + c <= q_offset + r``, masked as an invalid key is. As in the JAX
+package the offsets only matter with ``causal=True``.
+
+Not ported here: causal attention under grad and the causal lse variant
+(K2c's lse output and the causal K2b/K2d/K2e; the causal-training slice,
+ROADMAP.md §1 item 8, §2), and the TPU's block-size resolution and autotune
+lookup, which size blocks for VMEM.
 """
 
 from __future__ import annotations
@@ -62,8 +72,11 @@ BWD_IMPLS = ("auto", "pallas", "blockwise")
 _LOADER = CudaLoader("mmlspark_flash", ["dl/csrc/flash_attn.cu"])
 _LOADER_BWD = CudaLoader("mmlspark_flash_bwd", ["dl/csrc/flash_bwd.cu"])
 
-LATER_CAUSAL = ("causal flash attention (K2c and causal K2a) comes with the "
-                "LLM slice (ROADMAP.md §1 item 8, §2)")
+LATER_CAUSAL_TRAIN = (
+    "causal attention under grad and the causal lse variant (K2c's lse "
+    "output and the causal K2b/K2d/K2e) come with the causal-training "
+    "slice (ROADMAP.md §1 item 8, §2); causal attention without grad "
+    "(e.g. under torch.inference_mode()) runs K2c")
 
 
 def _check_inputs(q, k, v, key_mask) -> None:
@@ -104,17 +117,28 @@ def _check_rows(q, dout, lse, dsum) -> None:
 
 # ------------------------------------------------------------ plain versions
 
-def _allowed(key_mask):
-    return None if key_mask is None else key_mask[:, None, None, :]
+def _allowed(key_mask, T=None, causal=False, q_offset=0, k_offset=0,
+             device=None):
+    """The allowed (query, key) pairs, broadcastable to ``[B, H, T, T]``:
+    the key mask, and with ``causal`` ``k_offset + c <= q_offset + r``;
+    None when every pair is allowed."""
+    allowed = None if key_mask is None else key_mask[:, None, None, :]
+    if causal:
+        pos = torch.arange(T, device=device)
+        tri = (k_offset + pos)[None, :] <= (q_offset + pos)[:, None]
+        allowed = tri if allowed is None else allowed & tri
+    return allowed
 
 
-def _plain_forward(q, k, v, key_mask):
+def _plain_forward(q, k, v, key_mask, causal=False, q_offset=0,
+                   k_offset=0):
     """The forward in f32 all at once (one k-block of the TPU kernel): the
     output in v's dtype, the row max ``m`` and the row sum ``l``."""
     _check_inputs(q, k, v, key_mask)
     D = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * D ** -0.5
-    allowed = _allowed(key_mask)
+    allowed = _allowed(key_mask, q.shape[2], causal, q_offset, k_offset,
+                       q.device)
     if allowed is not None:
         s = torch.where(allowed, s, NEG)
     m = s.amax(-1, keepdim=True)
@@ -127,10 +151,13 @@ def _plain_forward(q, k, v, key_mask):
 
 
 def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                key_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch K2a: the whole score matrix in f32 at once, with the
-    kernel's masking and casting (one k-block of the TPU kernel)."""
-    return _plain_forward(q, k, v, key_mask)[0]
+                key_mask: torch.Tensor | None = None, *,
+                causal: bool = False, q_offset: int = 0,
+                k_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch K2a (and, with ``causal``, K2c): the whole score
+    matrix in f32 at once, with the kernel's masking and casting (one
+    k-block of the TPU kernel)."""
+    return _plain_forward(q, k, v, key_mask, causal, q_offset, k_offset)[0]
 
 
 def flash_lse_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -208,6 +235,7 @@ def _library() -> ctypes.CDLL:
         c_int, c_int, c_int, c_int, c_int,                 # dtype B H T D
         *[c_ll] * 12,                                      # q/k/v/o strides
         c_ll, ctypes.c_float,                              # mask stride, scale
+        c_int, c_ll, c_ll,                     # causal, q_offset, k_offset
         c_int, c_void_p]                                   # device, stream
     lib.mmlspark_flash_launch.restype = c_int
     lib.mmlspark_flash_error_string.argtypes = [c_int]
@@ -232,7 +260,7 @@ def _library_bwd() -> ctypes.CDLL:
 
 
 def build_kernel() -> str:
-    """Build (if needed) and load K2a/K2b; returns nvcc's output for the
+    """Build (if needed) and load K2a/K2b/K2c; returns nvcc's output for the
     build (registers, shared memory, spills), or "" if it was built
     earlier."""
     _library()
@@ -293,7 +321,9 @@ def _mask_arg(key_mask, T):
     return mask, mask.stride(0)
 
 
-def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool):
+def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
+                    causal: bool = False, q_offset: int = 0,
+                    k_offset: int = 0):
     _check_inputs(q, k, v, key_mask)
     _check_kernel_inputs(fn, q, k, v)
     B, H, T, D = q.shape
@@ -310,12 +340,14 @@ def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool):
         None if lse is None else lse.data_ptr(),
         _DTYPE_CODES[q.dtype], B, H, T, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], mask_sb, D ** -0.5, q.device.index,
+        *out.stride()[:3], mask_sb, D ** -0.5, int(causal), int(q_offset),
+        int(k_offset), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
+        kid = "K2c" if causal else "K2b" if with_lse else "K2a"
         raise RuntimeError(
-            f"{'K2b' if with_lse else 'K2a'} flash-attention kernel launch "
-            f"failed: {lib.mmlspark_flash_error_string(err).decode()} "
+            f"{kid} flash-attention kernel launch failed: "
+            f"{lib.mmlspark_flash_error_string(err).decode()} "
             f"(cudaError {err})")
     return out, lse
 
@@ -349,6 +381,23 @@ def flash_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_lse_cuda.launches = 0
+
+
+def flash_causal_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      key_mask: torch.Tensor | None = None, *,
+                      q_offset: int = 0, k_offset: int = 0) -> torch.Tensor:
+    """Launch K2c (``csrc/flash_attn.cu``, K2a's kernel with the causal
+    flag): the causal forward with global positions ``q_offset + r`` and
+    ``k_offset + c``, each q tile visiting only the key tiles it can reach.
+    No autograd graph. Raises as :func:`flash_cuda` does. Counts its own
+    launches, apart from K2a's."""
+    out, _ = _launch_forward("flash_causal_cuda", q, k, v, key_mask, False,
+                             True, q_offset, k_offset)
+    flash_causal_cuda.launches += 1
+    return out
+
+
+flash_causal_cuda.launches = 0
 
 
 def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
@@ -479,10 +528,8 @@ class _FlashLse(torch.autograd.Function):
         return (*bwd(q, k, v, key_mask, o, lse, dout, dlse), None, None)
 
 
-def _route(q, causal, q_offset, k_offset, impl) -> bool:
+def _route(q, impl) -> bool:
     """True for the kernels, False for the plain versions."""
-    if causal or q_offset or k_offset:
-        raise NotImplementedError(LATER_CAUSAL)
     if impl is None:
         return q.device.type == "cuda"
     if impl not in ("cuda", "torch"):
@@ -502,21 +549,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, q_offset: int = 0,
                     k_offset: int = 0, impl: str | None = None,
                     bwd_impl: str = "auto") -> torch.Tensor:
-    """Fused flash attention, the port of ``pallas_attention.flash_attention``
-    (non-causal). q/k/v ``[B, H, T, D]``; ``key_mask`` ``[B, T]`` bool (True
-    = valid). ``impl=None`` takes the kernels (``"cuda"``) for CUDA tensors
-    and the plain versions (``"torch"``) for CPU tensors; ``impl="cuda"`` on
-    CPU tensors raises; ``impl="torch"`` runs the plain versions on any
-    device.
+    """Fused flash attention, the port of ``pallas_attention.flash_attention``.
+    q/k/v ``[B, H, T, D]``; ``key_mask`` ``[B, T]`` bool (True = valid).
+    ``impl=None`` takes the kernels (``"cuda"``) for CUDA tensors and the
+    plain versions (``"torch"``) for CPU tensors; ``impl="cuda"`` on CPU
+    tensors raises; ``impl="torch"`` runs the plain versions on any device.
 
-    Without grad this is K2a. Under grad it is an autograd Function:
-    ``bwd_impl`` ``"auto"`` or ``"pallas"`` save the lse in the forward
-    (K2b) and run the fused backward (K2d, K2e); ``"blockwise"`` runs K2a
-    forward and autograd through ``blockwise_attention`` backward."""
-    use_cuda = _route(q, causal, q_offset, k_offset, impl)
+    Without grad this is K2a, or with ``causal=True`` K2c (lower-triangular
+    masking on the global positions ``q_offset + r``, ``k_offset + c``;
+    the offsets are ignored without ``causal``, as in the JAX package).
+    Under grad it is an autograd Function: ``bwd_impl`` ``"auto"`` or
+    ``"pallas"`` save the lse in the forward (K2b) and run the fused
+    backward (K2d, K2e); ``"blockwise"`` runs K2a forward and autograd
+    through ``blockwise_attention`` backward. Causal under grad raises
+    ``NotImplementedError`` (the causal-training slice)."""
+    use_cuda = _route(q, impl)
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"bwd_impl={bwd_impl!r} is not one of "
                          f"{'|'.join(BWD_IMPLS)}")
+    if causal:
+        if _needs_grad(q, k, v):
+            raise NotImplementedError(LATER_CAUSAL_TRAIN)
+        if use_cuda:
+            return flash_causal_cuda(q, k, v, key_mask, q_offset=q_offset,
+                                     k_offset=k_offset)
+        return flash_torch(q, k, v, key_mask, causal=True,
+                           q_offset=q_offset, k_offset=k_offset)
     if _needs_grad(q, k, v):
         return _Flash.apply(q, k, v, key_mask, use_cuda, bwd_impl)
     return (flash_cuda if use_cuda else flash_torch)(q, k, v, key_mask)
@@ -532,8 +590,12 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``pallas_attention.flash_attention_lse`` (non-causal): K2b, and under
     grad the fused backward with the lse cotangent folded into ``dsum``, so
     it is differentiable in both outputs. A row with no valid key has o = 0
-    and lse = -1e30. ``impl`` as for :func:`flash_attention`."""
-    use_cuda = _route(q, causal, q_offset, k_offset, impl)
+    and lse = -1e30. ``impl`` as for :func:`flash_attention`. ``causal``
+    and the offsets raise ``NotImplementedError`` (the causal-training
+    slice)."""
+    if causal or q_offset or k_offset:
+        raise NotImplementedError(LATER_CAUSAL_TRAIN)
+    use_cuda = _route(q, impl)
     if _needs_grad(q, k, v):
         return _FlashLse.apply(q, k, v, key_mask, use_cuda)
     return (flash_lse_cuda if use_cuda else flash_lse_torch)(

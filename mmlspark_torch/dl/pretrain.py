@@ -20,8 +20,13 @@ seeded from ``seed`` (flax's distributions, not its bits), or passed in
 ready-made (``models.masked_lm_from_flax`` carries the JAX package's
 weights across), and training updates it in place.
 
-Not ported yet: ``pretrain_causal_lm`` and ``assert_causal`` (they need
-causal attention, the LLM slice, ROADMAP.md §1 item 8); ``mesh`` and
+``MaskedLMModel`` also carries the cached-decoding entry points
+(``decode_step``, ``prefill``, ``decode_window``) that ``dl.generate`` and
+the paged engine run, and :func:`assert_causal` is the causality probe that
+guards them.
+
+Not ported yet: ``pretrain_causal_lm`` (it needs causal attention under
+grad: the causal-training slice, ROADMAP.md §1 item 8); ``mesh`` and
 ``dtype_policy`` (the parallel slice, item 10).
 """
 
@@ -38,8 +43,9 @@ from ..device import resolve_device
 from .text_encoder import Dense, TextEncoder
 from .train import TrainState, make_train_step, train_epoch
 
-LATER_CAUSAL = ("causal-LM pretraining needs causal attention, which comes "
-                "with the LLM slice (ROADMAP.md §1 item 8)")
+LATER_CAUSAL = ("causal-LM pretraining needs causal attention under grad "
+                "(K2c's lse output and the causal K2b/K2d/K2e), which comes "
+                "with the causal-training slice (ROADMAP.md §1 item 8)")
 LATER_MESH = ("pretraining over a mesh (mesh, dtype_policy) comes with the "
               "parallel slice (ROADMAP.md §1 item 10)")
 
@@ -64,6 +70,23 @@ class MaskedLMModel(nn.Module):
     def forward(self, ids, train: bool = False):
         out = self.encoder(ids, train)
         return {"logits": self.lm_head(out["tokens"]), **out}
+
+    def decode_step(self, tok, caches, pos: int):
+        """One cached step: [B] token ids at position ``pos`` → [B, V]
+        logits; the per-block caches are written in place."""
+        x = self.encoder.embed_token(tok, pos)
+        return self.lm_head(self.encoder.decode_blocks(x, caches, pos))[:, 0]
+
+    def prefill(self, ids_prefix, caches):
+        """Seed the caches for positions ``[0, P)`` in one causal forward
+        (``TextEncoder.prefill_caches``); returns them."""
+        return self.encoder.prefill_caches(ids_prefix, caches)
+
+    def decode_window(self, toks, caches, pos: int):
+        """[B, w] token ids at positions ``[pos, pos + w)`` → [B, w, V]
+        logits, the caches written in place (speculative verification)."""
+        x = self.encoder.embed_window(toks, pos)
+        return self.lm_head(self.encoder.decode_window_blocks(x, caches, pos))
 
 
 def masked_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -166,10 +189,34 @@ def encoder_variables(state: TrainState) -> TextEncoder:
 
 
 def pretrain_causal_lm(*args, **kwargs):
-    """Next-token pretraining: not ported yet (needs causal attention)."""
+    """Next-token pretraining: not ported yet (the causal-training slice)."""
     raise NotImplementedError(LATER_CAUSAL)
 
 
-def assert_causal(*args, **kwargs):
-    """The causality probe of causal-LM pretraining: not ported yet."""
-    raise NotImplementedError(LATER_CAUSAL)
+CAUSAL_DRIFT_MAX = 1e-4
+
+
+def assert_causal(module: MaskedLMModel, sample_ids, vocab: int) -> float:
+    """Causality probe: perturb the LAST position of ``sample_ids`` [1, T];
+    logits at earlier positions must not move by more than 1e-4 (the JAX
+    package's probe and limit). Catches a bidirectional encoder passed
+    where causality is required (generation), which would otherwise
+    condition on its own padding silently. Runs two forwards on the
+    module's device under ``torch.inference_mode()``; returns the drift
+    (0.0 when ``sample_ids`` has fewer than two positions)."""
+    probe = np.asarray(sample_ids, np.int32)[:1].copy()
+    if probe.shape[1] < 2:
+        return 0.0
+    probe2 = probe.copy()
+    probe2[0, -1] = (probe2[0, -1] % (vocab - 2)) + 1
+    dev = next(module.parameters()).device
+    with torch.inference_mode():
+        base = module(torch.from_numpy(probe).to(dev))["logits"]
+        alt = module(torch.from_numpy(probe2).to(dev))["logits"]
+        drift = float((base[0, :-1] - alt[0, :-1]).abs().max())
+    if drift > CAUSAL_DRIFT_MAX:
+        raise ValueError(
+            "encoder attends to FUTURE positions (logit drift "
+            f"{drift:.2e} after perturbing the last token) — build it "
+            "with make_attention_fn(..., causal=True)")
+    return drift

@@ -12,15 +12,21 @@ compact pre-LN transformer encoder whose attention implementation is pluggable
   forward that saves the lse (K2b) and the fused backward (K2d, K2e);
 - ``blockwise`` — single-device flash-style blocks in plain PyTorch.
 
+Every implementation takes ``causal`` (``make_attention_fn(impl,
+causal=True)``): lower-triangular masking, the decoder pattern; the
+``pallas`` forward is then K2c. The decode side (``EncoderBlock.decode_step``,
+``prefill``, ``decode_window`` and the ``TextEncoder`` methods around them)
+keeps per-block KV caches ``[B, H, L, hd]`` that it writes in place at the
+current position (the JAX package returns new caches instead); ``dl.generate``
+and the paged engine (``serving/llm.py``) run on it.
+
 ``TextEncoderFeaturizer`` wraps the encoder as a pipeline stage: token-id
 rows → mean-pooled embeddings. The numerics follow the flax modules: weights
 stored in f32 and cast to the compute dtype (bf16 by default) at each use,
 LayerNorm in f32 with eps 1e-6, the tanh GELU, sinusoidal positions in
 f32 cast to the compute dtype.
 
-Not ported yet: cached decoding (``decode_step``, ``prefill``,
-``decode_window``, ``embed_token``, …) with the LLM slice (ROADMAP.md §1
-item 8); ``ring``/``ulysses`` attention with the parallel slice (item 10);
+Not ported yet: ``ring``/``ulysses`` attention with the parallel slice (item 10);
 ``quantize`` and ``modelName`` with the DL model slice (item 6);
 ``remat`` with the rest of the training slice (item 7).
 """
@@ -55,15 +61,19 @@ LATER_REMAT = ("rematerialized blocks (remat=True) come with the rest of the "
 LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to ±2
 
 
-def _dense_attention(q, k, v, key_mask=None):
-    """Dense attention: f32 scores, ``-inf`` masking, NaN→0 for rows with
-    no valid key, ``p`` cast to v's dtype before the PV product."""
+def _dense_attention(q, k, v, key_mask=None, causal: bool = False):
+    """Dense attention: f32 scores, ``-inf`` masking (the key mask and,
+    with ``causal``, keys after the row), NaN→0 for rows with no allowed
+    key, ``p`` cast to v's dtype before the PV product."""
     D = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * D ** -0.5
+    if causal:
+        pos = torch.arange(q.shape[2], device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
     if key_mask is not None:
         s = s.masked_fill(~key_mask[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
-    if key_mask is not None:
+    if key_mask is not None or causal:
         # a fully-masked row: softmax over -inf is NaN; emit zeros like
         # the blockwise and flash accumulators
         p = torch.nan_to_num(p, nan=0.0)
@@ -154,6 +164,42 @@ class EncoderBlock(nn.Module):
     def forward(self, x, key_mask=None):
         return self.ffn(self.attend(x, key_mask))
 
+    def decode_step(self, x_tok, k_cache, v_cache, pos: int):
+        """One cached decode step: ``x_tok`` [B, 1, W] at position ``pos``;
+        this position's k/v are written into the caches [B, H, L, hd] in
+        place, and attention runs over cache entries ``<= pos`` (the
+        causal row) with the dense formulation. Returns y [B, 1, W]."""
+        return self.decode_window(x_tok, k_cache, v_cache, pos)
+
+    def prefill(self, x):
+        """The whole prefix [B, P, W] in one forward through the block's own
+        ``attention_fn`` (causal for an LM; K2c with ``pallas``). Returns
+        ``(y [B, P, W], k, v [B, H, P, hd])`` to seed the caches."""
+        q, k, v = self._project_qkv(x)
+        o = self.attention_fn(q, k, v, None)
+        return self.ffn(x + self._merge_out(o)), k, v
+
+    def decode_window(self, x_win, k_cache, v_cache, pos: int):
+        """``decode_step`` over a window ``x_win`` [B, w, W] at positions
+        ``[pos, pos + w)``: the window's k/v are written into the caches in
+        place and row i attends cache entries ``<= pos + i`` (f32 scores,
+        ``-inf`` outside, softmax, NaN→0, ``p`` in v's dtype: the JAX
+        ``decode_window``'s formulation). Returns y [B, w, W]."""
+        w = x_win.shape[1]
+        q, k, v = self._project_qkv(x_win)            # [B, H, w, hd]
+        k_cache[:, :, pos:pos + w] = k
+        v_cache[:, :, pos:pos + w] = v
+        L = k_cache.shape[2]
+        scale = (self.width // self.heads) ** -0.5
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                         k_cache.float()) * scale
+        keys = torch.arange(L, device=x_win.device)
+        rows = pos + torch.arange(w, device=x_win.device)
+        s = s.masked_fill(keys[None, :] > rows[:, None], float("-inf"))
+        p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+        o = torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache)
+        return self.ffn(x_win + self._merge_out(o))
+
 
 class TextEncoder(nn.Module):
     """Token ids [N, T] → ``{"tokens": [N, T, W] f32, "pooled": [N, W]
@@ -213,18 +259,56 @@ class TextEncoder(nn.Module):
             block.attention_fn = attention_fn
         return new
 
-    def embed_ids(self, ids):
-        """Embedding + fixed sinusoidal positions → [N, T, W] block input.
-        Positions are ``concat(sin, cos)`` of ``pos / 10000^(2·dim/W)`` in
+    def positions(self, pos):
+        """The sinusoidal encoding of positions ``pos`` (any shape) →
+        ``[..., W]``: ``concat(sin, cos)`` of ``pos / 10000^(2·dim/W)`` in
         f32, cast to the compute dtype."""
-        T = ids.shape[1]
-        x = self.embed(ids).to(self.dtype)
-        pos = torch.arange(T, dtype=torch.float32, device=ids.device)[:, None]
         dim = torch.arange(self.width // 2, dtype=torch.float32,
-                           device=ids.device)[None, :]
-        ang = pos / 10000.0 ** (2 * dim / self.width)
-        pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
-        return x + pe[None].to(self.dtype)
+                           device=pos.device)
+        ang = pos.float()[..., None] / 10000.0 ** (2 * dim / self.width)
+        return torch.cat([torch.sin(ang), torch.cos(ang)],
+                         dim=-1).to(self.dtype)
+
+    def embed_ids(self, ids):
+        """Embedding + fixed sinusoidal positions → [N, T, W] block input."""
+        pos = torch.arange(ids.shape[1], device=ids.device)
+        return self.embed(ids).to(self.dtype) + self.positions(pos)[None]
+
+    def embed_token(self, tok, pos: int):
+        """Single-position prologue for cached decoding: [B] token ids at
+        position ``pos`` → [B, 1, W], the constants of ``embed_ids``."""
+        return self.embed_window(tok[:, None], pos)
+
+    def embed_window(self, toks, pos: int):
+        """[B, w] token ids at positions ``[pos, pos + w)`` → [B, w, W]."""
+        at = pos + torch.arange(toks.shape[1], device=toks.device)
+        return self.embed(toks).to(self.dtype) + self.positions(at)[None]
+
+    def decode_blocks(self, x_tok, caches, pos: int):
+        """One position through every block with its KV caches (``caches``:
+        a sequence of (k, v) ``[B, H, L, hd]`` per block, written in place).
+        Returns the final-LN'd [B, 1, W] activation in f32."""
+        return self.decode_window_blocks(x_tok, caches, pos)
+
+    def decode_window_blocks(self, x_win, caches, pos: int):
+        """A window [B, w, W] at positions ``[pos, pos + w)`` through every
+        block (``EncoderBlock.decode_window``), caches written in place.
+        Returns the final-LN'd [B, w, W] in f32."""
+        for block, (kc, vc) in zip(self.blocks, caches):
+            x_win = block.decode_window(x_win, kc, vc, pos)
+        return self.ln(x_win.float())
+
+    def prefill_caches(self, ids_prefix, caches):
+        """Seed the caches for positions ``[0, P)`` with one batched causal
+        forward over ``ids_prefix`` [B, P] (real tokens only in every row:
+        no key mask). Writes the caches in place and returns them."""
+        x = self.embed_ids(ids_prefix)
+        P = ids_prefix.shape[1]
+        for block, (kc, vc) in zip(self.blocks, caches):
+            x, k, v = block.prefill(x)
+            kc[:, :, :P] = k
+            vc[:, :, :P] = v
+        return caches
 
     def finalize(self, x, ids):
         """Final LN + masked mean pool over non-pad tokens, in f32."""
@@ -243,31 +327,37 @@ class TextEncoder(nn.Module):
         return self.finalize(x, ids)
 
 
-def _flash_fn(q, k, v, key_mask=None):
-    return flash_attention(q, k, v, key_mask=key_mask)
+def _flash_fn(q, k, v, key_mask=None, *, causal: bool = False):
+    return flash_attention(q, k, v, key_mask=key_mask, causal=causal)
 
 
-def _blockwise_fn(q, k, v, key_mask=None, *, block_size: int = 512):
+def _blockwise_fn(q, k, v, key_mask=None, *, block_size: int = 512,
+                  causal: bool = False):
     return blockwise_attention(q, k, v, block_size=block_size,
-                               key_mask=key_mask)
+                               key_mask=key_mask, causal=causal)
 
 
-def make_attention_fn(impl: str = "dense",
-                      block_size: int | None = None) -> Callable:
+def make_attention_fn(impl: str = "dense", block_size: int | None = None,
+                      causal: bool = False) -> Callable:
     """Resolve an attention implementation by name: ``dense``, ``pallas``
     (the flash kernels, differentiable through the fused backward; the port
     sizes its own blocks, so ``block_size`` applies to ``blockwise`` only)
-    or ``blockwise``. The returned functions pickle, so
-    a stage holding an encoder saves. The JAX version's ``mesh``/``axis``
-    (ring, ulysses) and ``causal`` come with the parallel and LLM slices
-    (ROADMAP.md §1 items 10 and 8)."""
+    or ``blockwise``. ``causal``: lower-triangular masking, for every
+    implementation (``pallas`` then runs K2c without grad; under grad it
+    raises until the causal-training slice). The returned functions
+    pickle, so a stage holding an encoder saves. The JAX version's
+    ``mesh``/``axis`` (ring, ulysses) come with the parallel slice
+    (ROADMAP.md §1 item 10)."""
     if impl == "dense":
-        return _dense_attention
+        return functools.partial(_dense_attention, causal=True) if causal \
+            else _dense_attention
     if impl == "pallas":
-        return _flash_fn
+        return functools.partial(_flash_fn, causal=True) if causal \
+            else _flash_fn
     if impl == "blockwise":
         return functools.partial(_blockwise_fn,
-                                 block_size=block_size or 512)
+                                 block_size=block_size or 512,
+                                 causal=causal)
     if impl in ("ring", "ring_flash", "ulysses", "ulysses_flash"):
         raise NotImplementedError(f"attention impl {impl!r}: "
                                   f"{LATER_SHARDED}")

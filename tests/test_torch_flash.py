@@ -210,16 +210,27 @@ class TestSwitchAndRaises:
         q, k, v, mask = make_inputs(T=16)
         t = [torch.from_numpy(x) for x in (q, k, v)]
         m = torch.from_numpy(mask)
-        with pytest.raises(NotImplementedError, match="LLM slice"):
+        # causal without grad is ported (K2c; its plain version here)
+        with torch.inference_mode():
+            out = flash_attention(*t, m, causal=True, q_offset=4)
+        assert torch.equal(out, flash_torch(*t, m, causal=True, q_offset=4))
+        assert not torch.allclose(out, flash_torch(*t, m))
+        # offsets without causal change nothing, as in the JAX package
+        assert torch.equal(flash_attention(*t, m, q_offset=4),
+                           flash_torch(*t, m))
+        # causal under grad and the causal lse variant wait for the
+        # causal-training slice
+        t[0].requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="causal-training"):
             flash_attention(*t, causal=True)
-        with pytest.raises(NotImplementedError, match="LLM slice"):
-            flash_attention(*t, q_offset=4)
-        with pytest.raises(NotImplementedError, match="LLM slice"):
+        with pytest.raises(NotImplementedError, match="causal-training"):
+            flash_attention_lse(*t, m, causal=True)
+        with pytest.raises(NotImplementedError, match="causal-training"):
             flash_attention_lse(*t, m, k_offset=4)
         # the lse variant (K2b) is ported: the output of flash_torch and
         # the row logsumexp
         o, lse = flash_attention_lse(*t, m)
-        assert torch.equal(o, flash_torch(*t, m))
+        torch.testing.assert_close(o, flash_torch(*t, m), rtol=0, atol=0)
         assert lse.shape == (2, 2, 16) and lse.dtype == torch.float32
 
     def test_rejects_bad_inputs(self):

@@ -289,7 +289,7 @@ class TestSwitch:
             k2.flash_attention(tq, tk, tv, tm, bwd_impl="xla")
         with pytest.raises(ValueError, match="lse must be f32"):
             k2.flash_dq_torch(tq, tk, tv, tm, tg, lse.double(), lse)
-        with pytest.raises(NotImplementedError, match="LLM slice"):
+        with pytest.raises(NotImplementedError, match="causal-training"):
             k2.flash_attention_lse(tq, tk, tv, causal=True)
 
     def test_layout_rule_for_the_incoming_gradient(self):

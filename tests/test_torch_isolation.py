@@ -56,6 +56,22 @@ state, losses = pretrain_masked_lm(enc, ids["tokens"], steps=2,
                                    batch_size=2, device="cpu")
 assert len(losses) == 2 and np.isfinite(losses).all(), losses
 assert encoder_variables(state) is enc
+
+from mmlspark_torch.dl import MaskedLMModel, generate
+from mmlspark_torch.obs import MetricsRegistry
+from mmlspark_torch.serving import LLMEngine
+
+lm = MaskedLMModel(TextEncoder(vocab=64, width=32, depth=1, heads=2,
+                               mlp_dim=64, attention_fn=make_attention_fn(
+                                   "pallas", causal=True)))
+prompts = np.array([[5, 6, 7, 8], [9, 10, 11, 0]], np.int32)
+out = generate(lm, prompts, max_new_tokens=3, device="cpu")
+assert out.shape == (2, 7) and (out[0, 4:] != 0).all(), out
+engine = LLMEngine(lm, slots=2, block_len=4, max_seq_len=16,
+                   registry=MetricsRegistry(), device="cpu")
+engine.submit("a", prompts[0], 3)
+served = engine.run_until_drained()
+assert served["a"].shape == (7,), served
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -95,6 +111,7 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "profile_torch_gbdt.py")
     yield os.path.join(REPO, "tools", "profile_torch_text.py")
     yield os.path.join(REPO, "tools", "profile_torch_train.py")
+    yield os.path.join(REPO, "tools", "profile_torch_llm.py")
 
 
 def _imported_modules(path):

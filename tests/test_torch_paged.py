@@ -1,0 +1,297 @@
+"""K3 (paged window attention), the paged KV cache's bookkeeping and
+scatter, the slot scheduler and the metrics registry against the JAX
+package.
+
+- ``paged_torch`` (K3's plain version) against the JAX ``_paged_reference``
+  and ``_paged_pallas`` in Pallas interpret mode at w = 1, 3 and 8 with
+  block_len 4 and 8: chains of distinct block ids shuffled across the pool,
+  trash padding and an inactive (all-trash) slot; the trash block holds
+  zeros, as the engine's pools start, so all three agree there; f32 at
+  atol 2e-5;
+- ``scatter_positions`` (in place) against the JAX function (new pools),
+  invalid rows included: every block but the trash block exactly, since
+  colliding trash writes may land in either order;
+- ``PagedKVManager`` against the JAX one over one scripted sequence of
+  allocate, publish, prefix reuse, ensure_capacity, advance, export/adopt,
+  budget eviction and release: ``block_rows`` and ``stats()`` after every
+  step, and the ``kv_*`` series, exactly;
+- ``SlotScheduler`` the same way, deadline shedding included;
+- ``MetricsRegistry``: snapshot and exposition of the same observations,
+  and histogram quantiles, exactly.
+
+On the card, one ``cuda``-marked class holds ``paged_cuda`` and
+``flash_causal_cuda`` against their plain versions; it skips without a GPU.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmlspark_tpu.dl import paged_kv as jkv
+from mmlspark_tpu.dl.pallas_paged_attention import (_paged_pallas,
+                                                    _paged_reference)
+from mmlspark_tpu.obs.metrics import MetricsRegistry as JRegistry
+from mmlspark_tpu.sched.continuous import SlotScheduler as JSlotScheduler
+from mmlspark_torch.dl import paged_kv
+from mmlspark_torch.dl.flash_attention import flash_causal_cuda, flash_torch
+from mmlspark_torch.dl.paged_attention import (paged_cuda, paged_torch,
+                                               paged_window_attention)
+from mmlspark_torch.obs import MetricsRegistry
+from mmlspark_torch.sched import SlotScheduler
+
+ATOL = 2e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Single-threaded torch for this module: tier-1 runs in several
+    worker processes at once, and torch's intra-op threads in each of
+    them oversubscribe the cores (small ops then wait on spinning
+    threads, ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def paged_inputs(S=4, H=2, hd=8, w=1, BL=4, MB=5, seed=0):
+    """Seeded q [S, H, w, hd], pools [NB, BL, H, hd] with a zero trash block,
+    a block table of shuffled distinct chains padded with the trash block
+    (the last slot all trash: inactive) and positions with the window at
+    the end of each context."""
+    rng = np.random.default_rng(seed)
+    ctx = rng.integers(w, MB * BL + 1, size=S)
+    nblk = -(-ctx // BL)
+    nblk[-1] = 0
+    NB = 1 + int(nblk.sum()) + 2                 # two spare blocks
+    ids = rng.permutation(np.arange(1, NB))
+    rows = np.zeros((S, MB), np.int32)
+    at = 0
+    for s in range(S):
+        rows[s, :nblk[s]] = ids[at:at + nblk[s]]
+        at += nblk[s]
+    pools = rng.normal(size=(2, NB, BL, H, hd)).astype(np.float32)
+    pools[:, 0] = 0.0                            # the trash block
+    q = rng.normal(size=(S, H, w, hd)).astype(np.float32)
+    pos = np.maximum(ctx - w, 0).astype(np.int32)
+    return q, pools[0], pools[1], rows, pos
+
+
+# (w, block_len)
+PAGED_CASES = [(1, 4), (3, 4), (8, 8), (3, 8)]
+
+
+class TestPagedTorch:
+    @pytest.mark.parametrize("w,BL", PAGED_CASES)
+    def test_matches_jax_reference_and_pallas(self, w, BL):
+        q, kp, vp, rows, pos = paged_inputs(w=w, BL=BL, seed=w * 10 + BL)
+        jargs = [jnp.asarray(a) for a in (q, kp, vp, rows, pos)]
+        ref = np.asarray(_paged_reference(*jargs))
+        pallas = np.asarray(_paged_pallas(*jargs, block_kv=BL, slots_tile=2,
+                                          interpret=True))
+        got = paged_torch(*[torch.from_numpy(a)
+                            for a in (q, kp, vp, rows, pos)]).numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+        np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
+        assert (got[-1] == 0).all()              # the inactive slot
+
+    def test_switch(self):
+        q, kp, vp, rows, pos = (torch.from_numpy(a)
+                                for a in paged_inputs(w=3, seed=5))
+        # CPU tensors take the plain version
+        assert torch.equal(paged_window_attention(q, kp, vp, rows, pos),
+                           paged_torch(q, kp, vp, rows, pos))
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            paged_cuda(q, kp, vp, rows, pos)
+        with pytest.raises(ValueError, match="heads"):
+            paged_torch(q[:, :1], kp, vp, rows, pos)
+
+
+class TestScatter:
+    def test_matches_jax_with_invalid_rows(self):
+        rng = np.random.default_rng(3)
+        S, w, BL, H, hd, NB = 3, 4, 4, 2, 8, 9
+        rows = np.array([[3, 5, 0], [7, 1, 0], [0, 0, 0]], np.int32)
+        pos = np.array([[2, 3, 4, 5], [0, 1, 2, 3], [0, 1, 2, 3]], np.int32)
+        valid = np.array([[1, 1, 1, 0], [1, 1, 1, 1], [0, 0, 0, 0]], bool)
+        pools = rng.normal(size=(2, NB, BL, H, hd)).astype(np.float32)
+        kv = rng.normal(size=(2, S, w, H, hd)).astype(np.float32)
+        (jk, jv), = jkv.scatter_positions(
+            ((jnp.asarray(pools[0]), jnp.asarray(pools[1])),),
+            jnp.asarray(rows), jnp.asarray(pos),
+            ((jnp.asarray(kv[0]), jnp.asarray(kv[1])),),
+            valid=jnp.asarray(valid))
+        tp = [tuple(torch.from_numpy(p.copy()) for p in pools)]
+        out = paged_kv.scatter_positions(
+            tp, torch.from_numpy(rows).long(), torch.from_numpy(pos).long(),
+            [tuple(torch.from_numpy(a) for a in kv)],
+            valid=torch.from_numpy(valid))
+        assert out is tp
+        for got, want in zip(tp[0], (jk, jv)):
+            np.testing.assert_array_equal(got.numpy()[1:],
+                                          np.asarray(want)[1:])
+        # slot 0's position 4 lands in its second block (5) at offset 0
+        assert np.array_equal(tp[0][0].numpy()[5, 0], kv[0][0, 2])
+
+
+def step_both(port, ref, fn):
+    """Apply ``fn`` to both managers; an exception of the same name (each
+    package has its own ``OutOfBlocks``), or the same result, in both."""
+    try:
+        want = fn(ref)
+    except Exception as e:                      # noqa: BLE001
+        with pytest.raises(Exception) as info:
+            fn(port)
+        assert type(info.value).__name__ == type(e).__name__
+        return None
+    got = fn(port)
+    if isinstance(want, jkv.SequenceHandle):
+        assert got.to_state() == want.to_state()
+    elif not isinstance(want, (type(None), jkv.SequenceHandle)):
+        assert got == want
+    return got
+
+
+class TestPagedKVManager:
+    def test_scripted_lifecycle_matches_jax(self):
+        jreg, reg = JRegistry(), MetricsRegistry()
+        ref = jkv.PagedKVManager(12, 4, service="t", registry=jreg)
+        port = paged_kv.PagedKVManager(12, 4, service="t", registry=reg)
+        prefix = [5, 6, 7, 8, 9, 10, 11, 12]
+        script = [
+            lambda m: m.allocate("a", prefix + [3, 4]),
+            lambda m: m.publish("a"),
+            lambda m: m.advance("a", 10),
+            lambda m: m.allocate("b", prefix + [13]),        # reuses 2 blocks
+            lambda m: m.ensure_capacity("a", 15),
+            lambda m: m.advance("a", 5),
+            lambda m: m.advance("a", 9),                     # past capacity
+            lambda m: m.publish("b"),
+            lambda m: m.export_seq("b"),
+            lambda m: m.adopt({"seq_id": "b", "chain": [1, 2, 11],
+                               "length": 9, "prompt_len": 9,
+                               "reused_tokens": 8}),         # unowned block
+            lambda m: m.adopt({"seq_id": "b", "chain": [1, 2, 4],
+                               "length": 9, "prompt_len": 9,
+                               "reused_tokens": 8}),
+            lambda m: m.release("a"),
+            lambda m: m.allocate("c", [1, 2, 3, 4, 9, 9, 9, 9, 2]),
+            lambda m: m.publish("c"),
+            lambda m: m.release("b"),            # prefix blocks to the cache
+            lambda m: m.set_block_budget(5),     # evicts one
+            lambda m: m.allocate("d", list(range(2, 30))),   # OutOfBlocks
+            lambda m: m.allocate("e", prefix),   # evicts the other, misses
+            lambda m: m.capacity("e"),
+            lambda m: m.length("c"),
+        ]
+        for i, fn in enumerate(script):
+            step_both(port, ref, fn)
+            live = [s for s in ("a", "b", "c", "e") if s in ref._seqs]
+            assert port.stats() == ref.stats(), i
+            np.testing.assert_array_equal(
+                port.block_rows(live + [None], 8),
+                ref.block_rows(live + [None], 8))
+        snap = reg.snapshot()
+        assert snap == jreg.snapshot()
+        # the script reached reuse and eviction
+        assert snap['kv_prefix_hits_total{service="t"}'] >= 2
+        assert snap['kv_evictions_total{service="t"}'] >= 1
+        assert port.block_budget == ref.block_budget
+
+    def test_budget_and_pools(self):
+        assert paged_kv.blocks_for_hbm_budget(1024, default=7) == 7
+        assert paged_kv.blocks_for_hbm_budget(1024, default=7,
+                                              device="cpu") == 7
+
+        class Enc:
+            width, heads, depth, dtype = 16, 2, 3, torch.bfloat16
+
+        pools = paged_kv.init_pools(Enc, 5, 4, "cpu")
+        assert len(pools) == 3
+        for k, v in pools:
+            assert k.shape == (5, 4, 2, 8) and k.dtype == torch.bfloat16
+            assert not k.any() and not v.any()
+
+
+class TestSlotScheduler:
+    def test_matches_jax(self):
+        now = [0.0]
+        jreg, reg = JRegistry(), MetricsRegistry()
+        ref = JSlotScheduler(2, service="s", registry=jreg,
+                             clock=lambda: now[0])
+        port = SlotScheduler(2, service="s", registry=reg,
+                             clock=lambda: now[0])
+        for m in (ref, port):
+            m.offer("a", [1], 2)
+            m.offer("b", [2], 1)
+            m.offer("late", [3], 3, deadline=0.5)
+            m.offer("c", [4], 2)
+        script = [lambda m: [(a.slot, a.seq_id, a.max_new_tokens)
+                             for a in m.admit()],
+                  lambda m: m.step(),
+                  lambda m: (now.__setitem__(0, 1.0), [
+                      (a.slot, a.seq_id) for a in m.admit()])[1],
+                  lambda m: m.drain_expired(),
+                  lambda m: m.step({0: 0, 1: 2}),
+                  lambda m: (m.busy, m.pending_count, m.active_slots),
+                  lambda m: m.step(),
+                  lambda m: (m.busy, m.active_slots)]
+        for fn in script:
+            assert fn(port) == fn(ref)
+        with pytest.raises(ValueError):
+            port.offer("x", [1], 0)
+        assert reg.snapshot() == jreg.snapshot()
+
+
+class TestMetricsRegistry:
+    def test_snapshot_exposition_and_quantiles_match_jax(self):
+        regs = (JRegistry(), MetricsRegistry())
+        for r in regs:
+            r.counter("gen_tokens_total", "tokens").inc(3, service="llm")
+            r.gauge("kv_blocks_used", "used").set(4, service="llm")
+            h = r.histogram("gen_ttft_seconds", "ttft",
+                            buckets=(.001, .01, .1, 1.))
+            for v in (.002, .004, .05, 2.):
+                h.observe(v, service="llm", reuse="cold")
+        (jr, pr) = regs
+        assert pr.snapshot() == jr.snapshot()
+        assert pr.exposition() == jr.exposition()
+        jh, ph = (r.metrics("gen_ttft_seconds")[0] for r in regs)
+        for q in (0.1, 0.5, 0.99):
+            assert ph.quantile(q, service="llm", reuse="cold") == \
+                jh.quantile(q, service="llm", reuse="cold")
+        with pytest.raises(TypeError):
+            pr.gauge("gen_tokens_total")
+
+
+@pytest.mark.cuda
+class TestCudaKernels:
+    def test_kernels_match_plain_on_card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (K2c and K3 are CUDA-only; "
+                        "their plain versions are held against the JAX "
+                        "package on the CPU)")
+        dev = torch.device("cuda")
+        for dtype, atol in ((torch.float32, ATOL), (torch.bfloat16, 2e-2)):
+            q, kp, vp, rows, pos = (torch.from_numpy(a).to(dev)
+                                    for a in paged_inputs(w=5, hd=64,
+                                                          BL=8, seed=1))
+            q, kp, vp = (x.to(dtype) for x in (q, kp, vp))
+            got = paged_cuda(q, kp, vp, rows, pos)
+            torch.testing.assert_close(got.float(),
+                                       paged_torch(q, kp, vp, rows,
+                                                   pos).float(),
+                                       rtol=0, atol=atol)
+            assert (got[-1] == 0).all()
+            x = [torch.randn(2, 2, 100, 64, device=dev, dtype=dtype)
+                 for _ in range(3)]
+            mask = torch.rand(2, 100, device=dev) > 0.3
+            for offs in ((0, 0), (20, 3), (0, 200)):
+                got = flash_causal_cuda(*x, mask, q_offset=offs[0],
+                                        k_offset=offs[1])
+                want = flash_torch(*x, mask, causal=True, q_offset=offs[0],
+                                   k_offset=offs[1])
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=0, atol=atol)
+        torch.cuda.synchronize()

@@ -355,8 +355,7 @@ class TestRaises:
     def test_not_ported_yet(self, monkeypatch):
         ids = np.ones((2, 8), np.int32)
         enc = TextEncoder(**ARCH, dtype=torch.float32)
-        for fn, item in ((pretrain_causal_lm, "item 8"),
-                         (assert_causal, "item 8"),
+        for fn, item in ((pretrain_causal_lm, "causal-training slice"),
                          (port_train.partition_train_state, "item 10"),
                          (port_train.make_partitioned_train_step, "item 10"),
                          (port_train.shard_train_state, "item 10"),
@@ -366,6 +365,13 @@ class TestRaises:
         with pytest.raises(NotImplementedError, match="item 10"):
             pretrain_masked_lm(enc, ids, mesh=object(), device="cpu")
         model = MaskedLMModel(enc)
+        # the causality probe is ported (the LLM slice): this bidirectional
+        # model fails it, its causal twin passes
+        with pytest.raises(ValueError, match="FUTURE"):
+            assert_causal(model, ids, ARCH["vocab"])
+        causal = MaskedLMModel(enc.with_attention(
+            make_attention_fn("dense", causal=True)))
+        assert assert_causal(causal, ids, ARCH["vocab"]) <= 1e-4
         opt = torch.optim.SGD(model.parameters(), lr=0.1)
         with pytest.raises(NotImplementedError, match="item 7"):
             make_train_step(model, opt, accum_steps=2)
