@@ -89,14 +89,41 @@ nvcc per source, all started together), then:
     draft speculation with ``spec_k=4``, and one 4064-token prompt with
     ``block_len`` 128, counting K3 launches per prefill batch and decode
     step and re-scoring every output; K3 with ``pos`` ignored (a planted
-    fault) must fail the re-score limit.
+    fault) must fail the re-score limit;
+12. holds K2c-lse (``flash_lse_cuda(causal=True)``, K2c with the lse, which
+    also stands for causal K2b), causal K2d and causal K2e
+    (``flash_dq_cuda``/``flash_dkv_cuda(causal=True)``) against their plain
+    versions at the training shape of phase 7 (``[8, 8, 2048, 64]`` bf16,
+    q/k/v views of one projection, the documents' mask with one fully
+    masked row, a nonzero lse cotangent) at offsets ``(0, 0)``,
+    ``(2048, 0)``, ``(100, 37)`` and ``(0, 2048)`` (o, dq, dk, dv exactly 0
+    and lse -1e30 wherever no pair is allowed), at a ragged T=2000 in f32
+    and at head dims 32/64/128 at T=300 in both dtypes; times each beside
+    its plain version, its bound over the causally allowed valid pairs and
+    ``scaled_dot_product_attention`` (with the causal key mask, and
+    ``is_causal`` without it: yardsticks only);
+13. runs causal-LM pretraining at full width: the documents →
+    ``TokenIdEncoder(maxLength=2049, vocabSize=32768)`` →
+    ``pretrain_causal_lm`` of phase 10's seeded causal LM, batch 8 at
+    T=2048, the default AdamW: one warm-up step, then timed calls of
+    ``--train-steps`` steps, counting launches (K2c-lse, causal K2d and
+    causal K2e 8 a step; the causality probe's 16 K2c a call; no
+    non-causal launch); holds one step's loss and every gradient against
+    dense causal attention (causal K2e with its bound one q tile late, a
+    planted fault, must fail the limits) and a ``remat=True`` step against
+    the plain one (K2c-lse 16 launches); then ``generate`` on the trained
+    weights, 8 prompts of 129 document tokens with 32 new, re-scored
+    against the dense causal forward, and the trained model's forward
+    through K2c held against the dense one logit by logit at the
+    generated positions (K2c one tile late must fail that).
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. ``--rows``/``--iterations``/``--docs``/
 ``--batch``/``--train-steps``/``--new-tokens`` shrink the run for a quick
 first check, and ``--phases`` runs some of the phase groups after the build
-(``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11).
+(``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
+12-13).
 """
 
 from __future__ import annotations
@@ -191,6 +218,20 @@ PAGED_F32_ATOL = FLASH_F32_ATOL
 # near-ties among 32,768 random-weight logits flip; a planted fault (K2c
 # one tile late, K3 with pos ignored) must fail the limit.
 RESCORE_DELTA = 0.25
+# phase 13: the trained causal LM generates 32 tokens after 8 prompts of
+# 129 document tokens, each re-scored as in phase 10 (RESCORE_DELTA); its
+# causal forward through K2c is held against the dense one logit by logit
+# at the generated positions. First full-size readings: max |dlogit| 0.0100
+# through the kernels, 0.1241 with K2c one tile late (PERF.md §6); the
+# limit leaves 4x the first and is 3x under the second.
+CAUSAL_GEN_NEW = 32
+LOGIT_DRIFT_MAX = 0.04
+# phase 13: a remat=True step recomputes each block's forward with the same
+# deterministic kernels on the same inputs, so its loss and gradients
+# should equal the plain step's; the limits only leave room for a GEMM
+# that picks another algorithm on the recompute
+REMAT_LOSS_MAX = 1e-6
+REMAT_GRAD_REL_MAX = 1e-5
 # self-draft speculation accepts every proposal on the CPU; on the card the
 # draft's width-1 walks and the target's width-5 walk round differently, so
 # a near-tie may part them
@@ -576,53 +617,167 @@ def hold_grad(torch, name, got, want, rtol, of_max):
                 of_max * float(want.float().abs().max()))
 
 
+def compare_grads(phase, name, got, dense, verbose):
+    """Hold one step's (loss, {parameter: gradient}) ``got`` against
+    ``dense``'s: per-parameter ||dg||/||g|| and cosine, and |dloss|, within
+    GRAD_REL_MAX, GRAD_COS_MIN and LOSS_ABS_MAX. Prints the worst of each
+    (with ``verbose`` every parameter's) and returns whether they pass."""
+    (loss, grads), (loss_d, grads_d) = got, dense
+    worst_rel, worst_cos = 0.0, 1.0
+    for n, gd in grads_d.items():
+        g = grads[n]
+        rel = float((g - gd).norm() / gd.norm().clamp_min(1e-30))
+        cos = float((g * gd).sum() / (g.norm() * gd.norm()).clamp_min(1e-30))
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        if verbose:
+            print(f"  {n:28s} |g| {float(gd.norm()):.4e} rel "
+                  f"{rel:.3e} cos {cos:.7f}")
+    dl = abs(loss - loss_d)
+    ok = (worst_rel <= GRAD_REL_MAX and worst_cos >= GRAD_COS_MIN
+          and dl <= LOSS_ABS_MAX)
+    print(f"{phase}: {name} vs dense: loss {loss:.6f} vs {loss_d:.6f} "
+          f"(|diff| {dl:.3g}, limit {LOSS_ABS_MAX}); over "
+          f"{len(grads_d)} parameter tensors worst ||dg||/||g|| "
+          f"{worst_rel:.3e} (limit {GRAD_REL_MAX}), worst cosine "
+          f"{worst_cos:.7f} (floor {GRAD_COS_MIN}): "
+          f"{'within' if ok else 'outside'} the limits")
+    return ok
+
+
 def check_training_kernels(torch, k2, name, q, k, v, dout, mask,
-                           dlse=None):
-    """Hold K2b, K2d and K2e against their plain versions on one input;
-    the fully masked rows' outputs, lse and gradients, and the gradients of
-    every invalid key, must be exact. Returns the largest |difference| of
-    each kernel (K2b's over o and lse)."""
+                           dlse=None, q_off=None, k_off=0):
+    """Hold K2b, K2d and K2e against their plain versions on one input, or
+    with ``q_off`` given their causal branches (K2c-lse, causal K2d and K2e)
+    at the offsets ``(q_off, k_off)``. Rows with no allowed key must have o
+    and dq exactly 0 and lse exactly -1e30; keys no row may see (invalid,
+    or when causal after every row's position) dk and dv exactly 0.
+    Returns the largest |difference| of each kernel (the forward's over o
+    and lse)."""
     bf16 = q.dtype == torch.bfloat16
-    o, lse = k2.flash_lse_cuda(q, k, v, mask)
-    want_o, want_lse = k2.flash_lse_torch(q, k, v, mask)
-    err_b = max(
-        hold(torch, f"K2b o {name}", o, want_o,
-             FLASH_BF16_RTOL if bf16 else 0.0,
-             FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL),
-        hold(torch, f"K2b lse {name}", lse[mask.any(1)],
-             want_lse[mask.any(1)], 0.0, LSE_ATOL))
-    empty = ~mask.any(1)
-    if not (o[empty] == 0).all() or not (lse[empty] <= -1e29).all():
-        fail(f"K2b {name}: a fully masked row's o is not exactly 0 or its "
-             "lse is above -1e29")
+    causal = q_off is not None
+    pos = dict(causal=causal, q_offset=q_off or 0, k_offset=k_off)
+    fwd, kd, ke = KERNEL_IDS[causal]
+    B, _, T, _ = q.shape
+    o, lse = k2.flash_lse_cuda(q, k, v, mask, **pos)
+    want_o, want_lse = k2.flash_lse_torch(q, k, v, mask, **pos)
+    if causal:
+        empty = causal_empty_rows(torch, mask, B, T, q_off, k_off, q.device)
+        unseen = ~mask | (k_off + torch.arange(T, device=q.device)
+                          > q_off + T - 1)[None, :]
+    else:
+        empty, unseen = (~mask.any(1, keepdim=True)).expand(B, T), ~mask
+    lse_r, want_r = lse.transpose(1, 2), want_lse.transpose(1, 2)
+    err_f = max(hold(torch, f"{fwd} o {name}", o, want_o,
+                     FLASH_BF16_RTOL if bf16 else 0.0,
+                     FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL),
+                hold(torch, f"{fwd} lse {name}", lse_r[~empty],
+                     want_r[~empty], 0.0, LSE_ATOL))
+    if not ((o.transpose(1, 2)[empty] == 0).all()
+            and (lse_r[empty] == -1e30).all()):
+        fail(f"{fwd} {name}: a row with no allowed key has o not exactly 0 "
+             "or lse not -1e30")
     # the backward from the kernel's own o and lse, as training runs it
     dsum = k2.flash_dsum(o, dout, dlse)
     rtol, of_max = ((BWD_BF16_RTOL, BWD_BF16_ATOL_OF_MAX) if bf16
                     else (BWD_F32_RTOL, BWD_F32_ATOL_OF_MAX))
-    dq = k2.flash_dq_cuda(q, k, v, mask, dout, lse, dsum)
-    dk, dv = k2.flash_dkv_cuda(q, k, v, mask, dout, lse, dsum)
-    want_dq = k2.flash_dq_torch(q, k, v, mask, dout, lse, dsum)
-    want_dk, want_dv = k2.flash_dkv_torch(q, k, v, mask, dout, lse, dsum)
-    err_d = hold_grad(torch, f"K2d dq {name}", dq, want_dq, rtol, of_max)
-    err_e = max(hold_grad(torch, f"K2e dk {name}", dk, want_dk, rtol, of_max),
-                hold_grad(torch, f"K2e dv {name}", dv, want_dv, rtol, of_max))
-    invalid = ~mask
-    if not (dq[empty] == 0).all():
-        fail(f"K2d {name}: a fully masked row's dq is not exactly 0")
-    if not ((dk.transpose(1, 2)[invalid] == 0).all()
-            and (dv.transpose(1, 2)[invalid] == 0).all()):
-        fail(f"K2e {name}: dk/dv of an invalid key is not exactly 0")
-    print(f"K2b/K2d/K2e {name}: max |diff| o/lse {err_b:.3g}, dq "
-          f"{err_d:.3g}, dk/dv {err_e:.3g}; {int(empty.sum())} fully masked "
-          f"row(s) and {int(invalid.sum())} invalid keys exactly 0")
-    return err_b, err_d, err_e
+    args = (q, k, v, mask, dout, lse, dsum)
+    dq = k2.flash_dq_cuda(*args, **pos)
+    dk, dv = k2.flash_dkv_cuda(*args, **pos)
+    want_dq = k2.flash_dq_torch(*args, **pos)
+    want_dk, want_dv = k2.flash_dkv_torch(*args, **pos)
+    err_d = hold_grad(torch, f"{kd} dq {name}", dq, want_dq, rtol, of_max)
+    err_e = max(hold_grad(torch, f"{ke} dk {name}", dk, want_dk, rtol,
+                          of_max),
+                hold_grad(torch, f"{ke} dv {name}", dv, want_dv, rtol,
+                          of_max))
+    if not (dq.transpose(1, 2)[empty] == 0).all():
+        fail(f"{kd} {name}: a row with no allowed key has dq not exactly 0")
+    if not ((dk.transpose(1, 2)[unseen] == 0).all()
+            and (dv.transpose(1, 2)[unseen] == 0).all()):
+        fail(f"{ke} {name}: a key no row may see has dk/dv not exactly 0")
+    print(f"{fwd}/{kd}/{ke} {name}: max |diff| o/lse {err_f:.3g}, dq "
+          f"{err_d:.3g}, dk/dv {err_e:.3g}; {int(empty.sum())} (b, row) "
+          f"with no allowed key and {int(unseen.sum())} (b, key) no row may "
+          "see exactly 0")
+    return err_f, err_d, err_e
+
+
+# the forward with the lse and the two backward kernels, non-causal and
+# causal: the ids printed, and the names and TPU kernel lines of their
+# records
+KERNEL_IDS = {False: ("K2b", "K2d", "K2e"),
+              True: ("K2c-lse", "causal K2d", "causal K2e")}
+KERNEL_RECORDS = {
+    False: (("flash_lse", "flash_attn.cu", 126),
+            ("flash_bwd_dq", "flash_bwd.cu", 350),
+            ("flash_bwd_dkv", "flash_bwd.cu", 388)),
+    True: (("flash_lse_causal", "flash_attn.cu", 142),
+           ("flash_bwd_dq_causal", "flash_bwd.cu", 350),
+           ("flash_bwd_dkv_causal", "flash_bwd.cu", 388))}
+
+
+def sdpa_times(torch, q, k, v, dout, flush, **kw):
+    """``scaled_dot_product_attention``'s forward alone and its backward
+    (forward + backward through autograd less the forward), in ms: the
+    library yardstick beside the forward kernel and beside K2d + K2e."""
+    import torch.nn.functional as F
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(*leaves, **kw),
+                  torch, flush=flush)
+    both = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, **kw), leaves, dout),
+        torch, flush=flush)
+    return fwd, both - fwd
+
+
+def training_kernel_records(torch, k2, phase, q, k, v, mask, dout, causal,
+                            pairs, library, errs, bw, flush):
+    """Time the forward with the lse and K2d/K2e (``causal``: their causal
+    branches at offsets (0, 0)) on one input, each beside its plain version
+    and its bound for ``pairs`` allowed (query, key) pairs, and build their
+    records for the kernels line (launches filled in later). ``library``:
+    the library's (forward, backward) ms."""
+    pos = dict(causal=causal)
+    o, lse = k2.flash_lse_cuda(q, k, v, mask, **pos)
+    dsum = k2.flash_dsum(o, dout)
+    args = (q, k, v, mask, dout, lse, dsum)
+    kernels = ((lambda: k2.flash_lse_cuda(q, k, v, mask, **pos),
+                lambda: k2.flash_lse_torch(q, k, v, mask, **pos)),
+               (lambda: k2.flash_dq_cuda(*args, **pos),
+                lambda: k2.flash_dq_torch(*args, **pos)),
+               (lambda: k2.flash_dkv_cuda(*args, **pos),
+                lambda: k2.flash_dkv_torch(*args, **pos)))
+    B, H, T, D = q.shape
+    tensor = B * H * T * D * 2                   # one bf16 [B, H, T, D]
+    rows = B * H * T * 4                         # one f32 [B, H, T]
+    work = ((4 * pairs * D, 4 * tensor + rows + B * T),
+            (6 * pairs * D, 5 * tensor + 2 * rows + B * T),
+            (8 * pairs * D, 6 * tensor + 2 * rows + B * T))
+    records = []
+    for kid, (fn, src, line), (run, plain), (ops, nbytes), err, lib in zip(
+            KERNEL_IDS[causal], KERNEL_RECORDS[causal], kernels, work, errs,
+            (library[0], library[1], library[1])):
+        ms = time_ms(run, torch, flush=flush)
+        plain_ms = time_ms(plain, torch, runs=5, flush=flush)
+        bound_ms, by = bound(ops, nbytes, bw)
+        print(f"{phase}: {kid} {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by {by} ({ops / 1e9:.1f} GFLOP over "
+              f"{pairs} allowed pairs at 989 TFLOP/s; {nbytes / 1e6:.1f} "
+              "MB); median of CUDA-event runs, L2 flushed")
+        records.append({
+            "name": fn, "route": "cuda",
+            "source": f"mmlspark_torch/dl/csrc/{src}",
+            "replaces": f"mmlspark_tpu/dl/pallas_attention.py:{line}",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib})
+    return records
 
 
 def train_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
     """Phase 7: K2b, K2d and K2e against their plain versions at the
     training path's attention shape and beside, then their times. Returns
     the kernels' records (launches filled in by phase 8)."""
-    import torch.nn.functional as F
     T, H, W = TEXT_T, TEXT_SHAPE["heads"], TEXT_SHAPE["width"]
     D = W // H
     mask_np = np.arange(T)[None, :] < lengths[:B, None]
@@ -660,71 +815,21 @@ def train_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
                 mask_f[:2, :300], torch.randn(2, 4, 300, generator=gen,
                                               device=dev))
 
-    o, lse = k2.flash_lse_cuda(q, k, v, mask)
-    dsum = k2.flash_dsum(o, dout)
-    args = (q, k, v, mask, dout, lse, dsum)
-    ms = {"K2b": time_ms(lambda: k2.flash_lse_cuda(q, k, v, mask), torch,
-                         flush=flush),
-          "K2d": time_ms(lambda: k2.flash_dq_cuda(*args), torch,
-                         flush=flush),
-          "K2e": time_ms(lambda: k2.flash_dkv_cuda(*args), torch,
-                         flush=flush)}
-    plain_ms = {
-        "K2b": time_ms(lambda: k2.flash_lse_torch(q, k, v, mask), torch,
-                       runs=5, flush=flush),
-        "K2d": time_ms(lambda: k2.flash_dq_torch(*args), torch, runs=5,
-                       flush=flush),
-        "K2e": time_ms(lambda: k2.flash_dkv_torch(*args), torch, runs=5,
-                       flush=flush)}
-    # the library yardstick: SDPA with the bool mask, forward alone and
-    # forward + backward through autograd (its backward computes dq, dk and
-    # dv together, so it stands beside K2d + K2e)
-    sdpa_mask = mask[:, None, None, :]
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        *leaves, attn_mask=sdpa_mask), torch, flush=flush)
-    sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask),
-        leaves, dout), torch, flush=flush)
-    sdpa_bwd = sdpa_fwd_bwd - sdpa_fwd
-    del leaves
+    # the library yardstick: SDPA with the bool mask (its backward computes
+    # dq, dk and dv together, so it stands beside K2d + K2e)
+    sdpa = sdpa_times(torch, q, k, v, dout, flush,
+                      attn_mask=mask[:, None, None, :])
     # the work this mask needs: every query row against the valid keys of
     # its document (P pairs per head); key tiles with no valid key are
     # skipped
-    valid = int(mask.sum())
-    pairs = H * T * valid
-    tensor = B * H * T * D * 2                   # one bf16 [B, H, T, D]
-    rows = B * H * T * 4                         # one f32 [B, H, T]
-    work = {"K2b": (4 * pairs * D, 4 * tensor + rows + B * T),
-            "K2d": (6 * pairs * D, 5 * tensor + 2 * rows + B * T),
-            "K2e": (8 * pairs * D, 6 * tensor + 2 * rows + B * T)}
-    records = []
-    for (kid, fn, src, line), err in zip(
-            (("K2b", "flash_lse", "flash_attn.cu", 126),
-             ("K2d", "flash_bwd_dq", "flash_bwd.cu", 350),
-             ("K2e", "flash_bwd_dkv", "flash_bwd.cu", 388)), errs):
-        ops, nbytes = work[kid]
-        bound_ops_ms = ops / BF16_PEAK_FLOPS * 1e3
-        bound_bytes_ms = nbytes / bw * 1e3
-        bound_ms = max(bound_ops_ms, bound_bytes_ms)
-        bound_by = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
-        library_ms = sdpa_fwd if kid == "K2b" else sdpa_bwd
-        print(f"phase 7: {kid} {ms[kid]:.4f} ms; plain {plain_ms[kid]:.4f} "
-              f"ms; bound {bound_ms:.4f} ms by {bound_by} ({ops / 1e9:.1f} "
-              f"GFLOP over {valid} valid keys at 989 TFLOP/s; "
-              f"{nbytes / 1e6:.1f} MB); median of CUDA-event runs, L2 "
-              "flushed")
-        records.append({
-            "name": fn, "route": "cuda",
-            "source": f"mmlspark_torch/dl/csrc/{src}",
-            "replaces": f"mmlspark_tpu/dl/pallas_attention.py:{line}",
-            "launches": 0, "max_abs_err": err, "ms": ms[kid],
-            "plain_ms": plain_ms[kid], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms})
-    print(f"phase 7: scaled_dot_product_attention forward {sdpa_fwd:.4f} ms "
-          f"(beside K2b), backward {sdpa_bwd:.4f} ms (forward + backward "
-          f"{sdpa_fwd_bwd:.4f} ms minus the forward; beside K2d + K2e "
-          f"{ms['K2d'] + ms['K2e']:.4f} ms)")
+    pairs = H * T * int(mask.sum())
+    records = training_kernel_records(torch, k2, "phase 7", q, k, v, mask,
+                                      dout, False, pairs, sdpa, errs, bw,
+                                      flush)
+    print(f"phase 7: scaled_dot_product_attention forward {sdpa[0]:.4f} ms "
+          f"(beside K2b), backward {sdpa[1]:.4f} ms (forward + backward "
+          "minus the forward; beside K2d + K2e "
+          f"{records[1]['ms'] + records[2]['ms']:.4f} ms)")
     return records
 
 
@@ -812,9 +917,8 @@ def train_phases(torch, k1, k2, dev, bw, flush, texts, lengths, args):
           f"{t_mask / len(tokens) * 1e3:.3f} ms; batch copy (pinned, "
           f"non_blocking, then a synchronize) "
           f"{t_copy * 1e3:.3f} ms")
-    for r in records:
-        r["launches"] = counts[-1][{"flash_lse": "K2b", "flash_bwd_dq": "K2d",
-                                   "flash_bwd_dkv": "K2e"}[r["name"]]] // S
+    for r, kid in zip(records, KERNEL_IDS[False]):
+        r["launches"] = counts[-1][kid] // S
 
     # one step's loss and gradients through the kernels against autograd
     # through dense attention, on the same weights and batch
@@ -834,29 +938,10 @@ def train_phases(torch, k1, k2, dev, bw, flush, texts, lengths, args):
         return float(loss.detach()), grads
 
     loss_k, grads_k = loss_and_grads("pallas")
-    loss_d, grads_d = loss_and_grads("dense")
+    dense = loss_and_grads("dense")
 
     def compare(name, loss, grads, verbose):
-        worst_rel, worst_cos = 0.0, 1.0
-        for n, gd in grads_d.items():
-            g = grads[n]
-            rel = float((g - gd).norm() / gd.norm().clamp_min(1e-30))
-            cos = float((g * gd).sum() / (g.norm() * gd.norm())
-                        .clamp_min(1e-30))
-            worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
-            if verbose:
-                print(f"  {n:28s} |g| {float(gd.norm()):.4e} rel "
-                      f"{rel:.3e} cos {cos:.7f}")
-        dl = abs(loss - loss_d)
-        ok = (worst_rel <= GRAD_REL_MAX and worst_cos >= GRAD_COS_MIN
-              and dl <= LOSS_ABS_MAX)
-        print(f"phase 8: {name} vs dense: loss {loss:.6f} vs {loss_d:.6f} "
-              f"(|diff| {dl:.3g}, limit {LOSS_ABS_MAX}); over "
-              f"{len(grads_d)} parameter tensors worst ||dg||/||g|| "
-              f"{worst_rel:.3e} (limit {GRAD_REL_MAX}), worst cosine "
-              f"{worst_cos:.7f} (floor {GRAD_COS_MIN}): "
-              f"{'within' if ok else 'outside'} the limits")
-        return ok
+        return compare_grads("phase 8", name, (loss, grads), dense, verbose)
 
     print("phase 8: per-parameter gradients, kernels (pallas) vs dense:")
     if not compare("pallas", loss_k, grads_k, True):
@@ -864,8 +949,8 @@ def train_phases(torch, k1, k2, dev, bw, flush, texts, lengths, args):
              "disagree beyond the limits")
     del grads_k
     def zero_dsum(real):
-        def planted(*a):                  # dsum is the last argument
-            return real(*a[:-1], torch.zeros_like(a[-1]))
+        def planted(*a, **kw):            # dsum is the last argument
+            return real(*a[:-1], torch.zeros_like(a[-1]), **kw)
         planted.launches = 0              # the real wrapper counts here
         return planted
 
@@ -880,7 +965,7 @@ def train_phases(torch, k1, k2, dev, bw, flush, texts, lengths, args):
                False):
         fail("the gradient limits pass K2d/K2e with dsum zeroed: they "
              "cannot tell a faulty backward")
-    del grads_f, grads_d, base
+    del grads_f, dense, base
 
     # the trained trunk serves the embedding path (K2a)
     trunk = encoder_variables(state)
@@ -1057,10 +1142,12 @@ def causal_empty_rows(torch, mask, B, T, q_off, k_off, dev):
     (their output must be exactly 0)."""
     if mask is None:
         first = torch.zeros(B, dtype=torch.long, device=dev)
+        none_valid = torch.zeros(B, 1, dtype=torch.bool, device=dev)
     else:
-        first = torch.where(mask.any(1), mask.long().argmax(1), T)
+        first = mask.long().argmax(1)
+        none_valid = ~mask.any(1, keepdim=True)
     r = torch.arange(T, device=dev)
-    return (k_off + first[:, None]) > (q_off + r[None, :])
+    return none_valid | ((k_off + first[:, None]) > (q_off + r[None, :]))
 
 
 def fused_qkv(torch, gen, dev, B, T, H, D, dtype):
@@ -1355,6 +1442,23 @@ def reset(fns):
         fn.launches = 0
 
 
+def with_k2c_one_tile_late(k2, fn):
+    """Run ``fn()`` with a planted fault: K2c with its causal bound one tile
+    (64 positions) late, so every row also sees the next 64 keys."""
+    real = k2.flash_causal_cuda
+
+    def shifted(q, k, v, key_mask=None, *, q_offset=0, k_offset=0):
+        return real(q, k, v, key_mask, q_offset=q_offset + 64,
+                    k_offset=k_offset)
+
+    shifted.launches = 0                  # the real wrapper counts here
+    k2.flash_causal_cuda = shifted
+    try:
+        return fn()
+    finally:
+        k2.flash_causal_cuda = real
+
+
 def generate_phase(torch, k2, k3, dev, args):
     """Phase 10: ``generate`` at full width through K2c, against dense
     causal attention, with launch counts, the causality probe's drift and
@@ -1422,19 +1526,8 @@ def generate_phase(torch, k2, k3, dev, args):
         fail(f"the causality probe reads a drift of {drift} through K2c")
     hold_rescore(torch, "phase 10: generate", dense, out, GEN_T, dev)
 
-    # a planted fault: K2c with its causal bound shifted by one tile
-    real = k2.flash_causal_cuda
-
-    def shifted(q, k, v, key_mask=None, *, q_offset=0, k_offset=0):
-        return real(q, k, v, key_mask, q_offset=q_offset + 64,
-                    k_offset=k_offset)
-
-    shifted.launches = 0
-    k2.flash_causal_cuda = shifted
-    try:
-        faulty = generate(model, prompts, max_new_tokens=new)
-    finally:
-        k2.flash_causal_cuda = real
+    faulty = with_k2c_one_tile_late(k2, lambda: generate(
+        model, prompts, max_new_tokens=new))
     hold_rescore(torch, "phase 10: planted fault (K2c bound one tile late)",
                  dense, faulty, GEN_T, dev, fault=True)
     return model, dense, prompts, out, per_call
@@ -1641,7 +1734,304 @@ def llm_phases(torch, k1, k2, k3, dev, bw, flush, lengths, args):
     return [k2c, k3rec]
 
 
-PHASE_GROUPS = ("gbdt", "text", "train", "llm")
+# ------------------------------------------------------ causal training
+
+def causal_counters(k2):
+    """The launch counters phase 13 reads: each kernel's causal and
+    non-causal launches apart."""
+    return {"K2c-lse": (k2.flash_lse_cuda, "causal_launches"),
+            "causal K2d": (k2.flash_dq_cuda, "causal_launches"),
+            "causal K2e": (k2.flash_dkv_cuda, "causal_launches"),
+            "K2c": (k2.flash_causal_cuda, "launches"),
+            "K2a": (k2.flash_cuda, "launches"),
+            "K2b": (k2.flash_lse_cuda, "launches"),
+            "K2d": (k2.flash_dq_cuda, "launches"),
+            "K2e": (k2.flash_dkv_cuda, "launches")}
+
+
+def read_counts(counters):
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+
+def zero_counts(counters):
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def causal_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
+    """Phase 12: K2c-lse, causal K2d and causal K2e against their plain
+    versions at the causal training path's attention shape and beside, then
+    their times. Returns the three records (launches filled in by phase
+    13)."""
+    T, H, W = TEXT_T, TEXT_SHAPE["heads"], TEXT_SHAPE["width"]
+    D = W // H
+    mask_np = np.arange(T)[None, :] < lengths[:B, None]
+    mask_np[-1] = False                           # one fully masked row
+    mask = torch.from_numpy(mask_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(51)
+    q, k, v = fused_qkv(torch, gen, dev, B, T, H, D, torch.bfloat16)
+    dout = torch.randn(B, T, H, D, generator=gen, device=dev,
+                       dtype=torch.bfloat16).transpose(1, 2)
+    dlse = torch.randn(B, H, T, generator=gen, device=dev)
+    shape = f"bf16 [{B}, {H}, {T}, {D}]"
+    errs = [0.0, 0.0, 0.0]
+    for q_off, k_off in ((0, 0), (2048, 0), (100, 37), (0, 2048)):
+        got = check_training_kernels(
+            torch, k2, f"{shape} offsets ({q_off}, {k_off})", q, k, v, dout,
+            mask, dlse, q_off, k_off)
+        errs = [max(a, b) for a, b in zip(errs, got)]
+    Tf = 2000
+    xf = fused_qkv(torch, gen, dev, B, Tf, H, D, torch.float32)
+    mask_f = mask[:, :Tf].clone()
+    mask_f[0] = False
+    check_training_kernels(
+        torch, k2, f"f32 ragged [{B}, {H}, {Tf}, {D}] offsets (100, 37)",
+        *xf, torch.randn(B, H, Tf, D, generator=gen, device=dev), mask_f,
+        dlse[:, :, :Tf], 100, 37)
+    del xf
+    for d in (32, 64, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = fused_qkv(torch, gen, dev, 2, 300, 4, d, dtype)
+            check_training_kernels(
+                torch, k2, f"{str(dtype)[6:]} [2, 4, 300, {d}] offsets "
+                "(5, 23)", *x, torch.randn(2, 4, 300, d, generator=gen,
+                                           device=dev, dtype=dtype),
+                mask_f[:2, :300],
+                torch.randn(2, 4, 300, generator=gen, device=dev), 5, 23)
+
+    # the library yardsticks: SDPA with the causal and key mask as one bool
+    # mask (the same function), and SDPA is_causal=True without the key
+    # mask (its causal fast path)
+    allowed = mask[:, None, None, :] & torch.ones(
+        T, T, dtype=torch.bool, device=dev).tril()
+    sdpa = sdpa_times(torch, q, k, v, dout, flush, attn_mask=allowed)
+    del allowed
+    sdpa_causal = sdpa_times(torch, q, k, v, dout, flush, is_causal=True)
+    # the work this input needs: each query row against the valid keys at
+    # or before it (P allowed pairs per head); skipped tiles are not work
+    pairs = H * int(mask.long().cumsum(1).sum())
+    records = training_kernel_records(torch, k2, "phase 12", q, k, v, mask,
+                                      dout, True, pairs, sdpa, errs, bw,
+                                      flush)
+    print(f"phase 12: scaled_dot_product_attention with the causal key mask "
+          f"forward {sdpa[0]:.4f} ms (beside K2c-lse), backward "
+          f"{sdpa[1]:.4f} ms (beside causal K2d + K2e "
+          f"{records[1]['ms'] + records[2]['ms']:.4f} ms); is_causal=True "
+          f"without the key mask forward {sdpa_causal[0]:.4f} ms, backward "
+          f"{sdpa_causal[1]:.4f} ms")
+    return records
+
+
+def causal_train_phase(torch, k2, dev, texts, args, records):
+    """Phase 13: causal-LM pretraining at full width through the causal
+    training kernels: launch counts and timed windows, one step's gradients
+    against dense causal attention with a planted fault, a remat step, then
+    ``generate`` on the trained weights, re-scored. Fills in the records'
+    launches."""
+    import copy
+
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import (assert_causal, generate,
+                                   make_attention_fn, masked_xent,
+                                   pretrain_causal_lm)
+    from mmlspark_torch.featurize import TokenIdEncoder
+
+    B, S = args.batch, args.train_steps
+    depth, vocab = TEXT_SHAPE["depth"], TEXT_SHAPE["vocab"]
+    ids = np.asarray(TokenIdEncoder(maxLength=TEXT_T + 1, vocabSize=vocab)
+                     .transform(DataFrame({"text": texts}))["tokens"])
+    counters = causal_counters(k2)
+    model = lm_model(torch, "pallas")
+    pretrain_causal_lm(model, ids, steps=1, batch_size=B, seed=100)  # warm
+    torch.cuda.synchronize()
+    probe = []
+    for _ in range(TRAIN_RUNS):
+        t0 = time.perf_counter()
+        assert_causal(model, ids[:1], vocab)
+        torch.cuda.synchronize()
+        probe.append(time.perf_counter() - t0)
+    probe_s = float(np.median(probe))
+    windows, counts, losses = [], [], []
+    for run in range(TRAIN_RUNS):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        state, run_losses = pretrain_causal_lm(model, ids, steps=S,
+                                               batch_size=B, seed=run)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+        counts.append(read_counts(counters))
+        losses += run_losses
+    want = {"K2c-lse": depth * S, "causal K2d": depth * S,
+            "causal K2e": depth * S, "K2c": 2 * depth, "K2a": 0, "K2b": 0,
+            "K2d": 0, "K2e": 0}
+    if any(c != want for c in counts):
+        fail(f"launches per pretrain_causal_lm call of {S} steps {counts}: "
+             f"expected {want}: one K2c-lse, causal K2d and causal K2e "
+             "launch per block per step, the probe's two forwards through "
+             "K2c, and no non-causal launch")
+    if not np.isfinite(losses).all():
+        fail(f"non-finite causal pretraining losses {losses}")
+    step_s = (float(np.median(windows)) - probe_s) / S
+    targets = []
+    for run in range(TRAIN_RUNS):              # the timed windows' batches
+        rng = np.random.default_rng(run)
+        for _ in range(S):
+            rows = ids[rng.integers(0, len(ids), size=B)]
+            targets.append(int((rows[:, 1:] != 0).sum()))
+    print(f"phase 13: pretrain_causal_lm, batch {B} x T={TEXT_T} (rows of "
+          f"{TEXT_T + 1} tokens), {TEXT_SHAPE}, causal pallas, AdamW: step "
+          f"{step_s:.4f} s ({B / step_s:.2f} seqs/s, "
+          f"{np.mean(targets) / step_s:,.0f} non-pad target tokens/s): "
+          f"median over {TRAIN_RUNS} calls of {S} steps "
+          f"({', '.join(f'{w:.4f}' for w in windows)} s) less the "
+          f"causality probe each call runs first ({probe_s:.4f} s, median "
+          f"of {TRAIN_RUNS}); launches per step K2c-lse "
+          f"{counts[-1]['K2c-lse'] // S}, causal K2d "
+          f"{counts[-1]['causal K2d'] // S}, causal K2e "
+          f"{counts[-1]['causal K2e'] // S}, per call K2c "
+          f"{counts[-1]['K2c']} (the probe), K2a/K2b/K2d/K2e 0; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    for r, kid in zip(records, KERNEL_IDS[True]):
+        r["launches"] = counts[-1][kid] // S
+
+    # one step's loss and gradients through the kernels against autograd
+    # through dense causal attention, on the same weights and batch
+    base = lm_model(torch, "pallas")
+    rng = np.random.default_rng(0)
+    rows = ids[rng.integers(0, len(ids), size=B)]
+    x = torch.from_numpy(np.ascontiguousarray(rows[:, :-1])).to(dev)
+    y = torch.from_numpy(np.where(rows[:, 1:] != 0, rows[:, 1:], -1)
+                         .astype(np.int32)).to(dev)
+
+    def loss_and_grads(impl, remat=False):
+        m = copy.deepcopy(base)
+        m.encoder = m.encoder.with_attention(make_attention_fn(
+            impl, causal=True))
+        m.encoder.remat = remat
+        m.to(dev)
+        loss = masked_xent(m(x, train=True)["logits"], y)
+        loss.backward()
+        grads = {n: p.grad.float() for n, p in m.named_parameters()}
+        return float(loss.detach()), grads
+
+    zero_counts(counters)
+    kernels = loss_and_grads("pallas")
+    step_counts = read_counts(counters)
+    dense = loss_and_grads("dense")
+    print("phase 13: per-parameter gradients, kernels (pallas) vs dense "
+          "causal attention:")
+    if not compare_grads("phase 13", "pallas", kernels, dense, True):
+        fail("causal gradients through the kernels and through dense "
+             "attention disagree beyond the limits")
+    real_dkv = k2.flash_dkv_cuda
+
+    def late(*a, causal=False, q_offset=0, k_offset=0):
+        return real_dkv(*a, causal=causal, q_offset=q_offset - 64,
+                        k_offset=k_offset)
+
+    late.launches = late.causal_launches = 0  # the real wrapper counts
+    k2.flash_dkv_cuda = late
+    try:
+        faulty = loss_and_grads("pallas")
+    finally:
+        k2.flash_dkv_cuda = real_dkv
+    if compare_grads("phase 13", "planted fault (causal K2e's bound one q "
+                     "tile late)", faulty, dense, False):
+        fail("the gradient limits pass causal K2e starting one q tile late: "
+             "they cannot tell a backward that drops the diagonal tiles")
+    del faulty, dense
+
+    # remat: the same step with every block recomputed in the backward
+    zero_counts(counters)
+    remat = loss_and_grads("pallas", remat=True)
+    remat_counts = read_counts(counters)
+    want_step = dict(want, **{"K2c-lse": depth, "causal K2d": depth,
+                              "causal K2e": depth, "K2c": 0})
+    if step_counts != want_step or remat_counts != dict(
+            want_step, **{"K2c-lse": 2 * depth}):
+        fail(f"launches in one step {step_counts}, with remat "
+             f"{remat_counts}: expected {depth} of each causal kernel, and "
+             f"{2 * depth} K2c-lse with remat (the forward runs again in "
+             "the backward)")
+    worst = max(float((remat[1][n] - g).norm() / g.norm().clamp_min(1e-30))
+                for n, g in kernels[1].items())
+    dloss = abs(remat[0] - kernels[0])
+    print(f"phase 13: remat=True step vs the plain step through the "
+          f"kernels: |dloss| {dloss:.3g}, worst ||dg||/||g|| {worst:.3g} "
+          f"(limits {REMAT_LOSS_MAX}, {REMAT_GRAD_REL_MAX}); K2c-lse "
+          f"launches {remat_counts['K2c-lse']} (plain step "
+          f"{step_counts['K2c-lse']}), causal K2d/K2e "
+          f"{remat_counts['causal K2d']}/{remat_counts['causal K2e']}")
+    if dloss > REMAT_LOSS_MAX or worst > REMAT_GRAD_REL_MAX:
+        fail("the remat step's loss or gradients differ from the plain "
+             "step's")
+    del kernels, remat, base
+
+    # the trained weights generate through K2c, re-scored by dense
+    trained = state.model.eval()
+    dense_lm = copy.deepcopy(trained)
+    dense_lm.encoder = dense_lm.encoder.with_attention(
+        make_attention_fn("dense", causal=True))
+    prompts = np.ascontiguousarray(ids[:8, :GEN_T])
+    if (prompts == 0).any():
+        fail("a generate prompt holds pad")
+    zero_counts(counters)
+    out = generate(trained, prompts, max_new_tokens=CAUSAL_GEN_NEW)
+    got = read_counts(counters)
+    if got != dict({n: 0 for n in got}, K2c=3 * depth):
+        fail(f"launches in generate on the trained model {got}: expected "
+             f"K2c {3 * depth} (the probe and the prefill) and nothing else")
+    hold_rescore(torch, "phase 13: generate on the trained weights",
+                 dense_lm, out, GEN_T, dev)
+    # a few AdamW steps from random weights favour the corpus' frequent
+    # tokens by a wide margin, so the argmax rarely depends on the context
+    # and a faulty prefill need not change a token: the trained model's own
+    # causal forward (K2c) over the generated sequences is held against
+    # the dense one logit by logit, and a planted fault must fail that
+    drift = logit_drift(torch, trained, dense_lm, out, GEN_T, dev)
+    faulty = with_k2c_one_tile_late(k2, lambda: logit_drift(
+        torch, trained, dense_lm, out, GEN_T, dev))
+    print(f"phase 13: the trained model's causal forward through K2c vs "
+          f"dense over the generated sequences: max |dlogit| {drift:.4f} at "
+          f"the {CAUSAL_GEN_NEW} generated positions (limit "
+          f"{LOGIT_DRIFT_MAX}); planted fault (K2c bound one tile late) "
+          f"{faulty:.4f}")
+    if drift > LOGIT_DRIFT_MAX:
+        fail("the trained model's logits through K2c and through dense "
+             "causal attention disagree beyond the limit")
+    if faulty <= LOGIT_DRIFT_MAX:
+        fail("the logit limit passes K2c one tile late: it cannot tell a "
+             "faulty kernel")
+
+
+def logit_drift(torch, model, dense, seqs, start, dev, chunk=8):
+    """The largest |logit difference| between ``model``'s causal forward
+    (its own attention, without grad) and ``dense``'s over ``seqs``, at
+    the positions that predict tokens ``start`` onwards."""
+    worst = 0.0
+    with torch.inference_mode():
+        for i in range(0, len(seqs), chunk):
+            ids = torch.from_numpy(np.ascontiguousarray(
+                seqs[i:i + chunk])).to(dev)
+            a = model(ids)["logits"][:, start - 1:-1].float()
+            b = dense(ids)["logits"][:, start - 1:-1].float()
+            worst = max(worst, float((a - b).abs().max()))
+            del a, b
+    return worst
+
+
+def causal_phases(torch, k2, dev, bw, flush, texts, lengths, args):
+    """Phases 12-13. Returns the K2c-lse, causal K2d and causal K2e
+    records for the kernels line."""
+    with Phase("phase 12"):
+        records = causal_kernel_phase(torch, k2, dev, bw, flush, lengths,
+                                      args.batch)
+    with Phase("phase 13"):
+        causal_train_phase(torch, k2, dev, texts, args, records)
+    return records
+
+
+PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal")
 
 
 class Phase:
@@ -1670,7 +2060,7 @@ def main() -> None:
                     help="tokens generated per prompt in phases 10-11")
     ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
                     help="phase groups to run after the build: gbdt (2-4), "
-                    "text (5-6), train (7-8), llm (9-11)")
+                    "text (5-6), train (7-8), llm (9-11), causal (12-13)")
     args = ap.parse_args()
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
@@ -1730,6 +2120,9 @@ def main() -> None:
     if "llm" in groups:
         records += llm_phases(torch, k1, k2, k3, dev, bw, flush, lengths,
                               args)
+    if "causal" in groups:
+        records += causal_phases(torch, k2, dev, bw, flush, texts, lengths,
+                                 args)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -9,9 +9,12 @@
 // `_flash_kernel_lse` (:126, launched at :320 with with_lse=True; it wraps
 // `_flash_kernel` and adds the lse) and `_flash_kernel_causal_packed`
 // (K2c, :142, launched at :297 without the lse; the causal forward over
-// only the reachable k-blocks). The template flags kLse and kCausal select
-// K2b and K2c, so the kernels keep separate names in a profile; K2c with
-// the lse (:285) is not built yet. For q, k, v [B, H, T, D] (any batch, head
+// only the reachable k-blocks; launched at :285 with the lse, which the
+// causal training forward saves). The template flags kLse and kCausal
+// select K2b and K2c, so the kernels keep separate names in a profile; both
+// flags together are K2c with the lse, which is also the port of the causal
+// branch of `_flash_kernel_lse` (:320): one loop bound covers the packed and
+// the streaming kernel. For q, k, v [B, H, T, D] (any batch, head
 // and row strides; unit stride on D) and a key mask [B, T] (nonzero = valid;
 // null = all valid) it computes, per (b, h) and query row,
 //   s   = (q . k^T) * D^-0.5 in f32, invalid keys set to -1e30;
@@ -23,7 +26,11 @@
 //   o   = acc / max(l, 1e-35) in v's dtype, so a fully masked row is 0;
 //   K2b also writes lse = m + log(max(l, 1e-35)) in f32 to a contiguous
 //   [B, H, T] buffer: -1e30 for a fully masked row (m = -1e30, l = 0), as on
-//   the TPU. The fused backward (flash_bwd.cu) recomputes p from it.
+//   the TPU. The fused backward (flash_bwd.cu) recomputes p from it. With
+//   kCausal a row with no allowed key gets the same -1e30 and o = 0,
+//   whether its CTA visits no key tile at all (m and l keep their initial
+//   -1e30 and 0) or visits tiles where every pair is masked, as
+//   `_flash_kernel_causal_packed` writes them (:195-198).
 // Keys past T (the ragged last tile) are invalid and staged as zeros.
 // Causal (K2c): positions are global, query row r at q_offset + r and key c
 // at k_offset + c (the offsets are the caller's ints and may exceed T, as a
@@ -462,12 +469,11 @@ cudaError_t launch_dim(const Params& p, int dtype, int D, int bh,
 extern "C" {
 
 // Launch K2a (lse null, causal 0), K2b (lse a contiguous [B, H, T] f32
-// buffer) or K2c (causal 1, lse null; q_offset/k_offset the global
-// positions of row 0 and key 0) on `stream` (a cudaStream_t from PyTorch)
-// on device `device`. dtype: 0 = bf16, 1 = f32 (q, k, v and o all of it).
-// Strides are in elements; D must be 32, 64 or 128 with unit stride.
-// Returns the cudaError_t of the launch (causal with an lse is refused:
-// K2c's lse output is not built yet).
+// buffer) or K2c (causal 1; q_offset/k_offset the global positions of row
+// 0 and key 0), with or without the lse, on `stream` (a cudaStream_t from
+// PyTorch) on device `device`. dtype: 0 = bf16, 1 = f32 (q, k, v and o all
+// of it). Strides are in elements; D must be 32, 64 or 128 with unit
+// stride. Returns the cudaError_t of the launch.
 int mmlspark_flash_launch(const void* q, const void* k, const void* v,
                           const void* mask, void* o, float* lse, int dtype,
                           int B, int H,
@@ -481,8 +487,7 @@ int mmlspark_flash_launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((dtype != 0 && dtype != 1) || B < 1 || H < 1 || T < 1 ||
-      static_cast<long long>(B) * H > 0x7fffffffLL ||
-      (causal && lse != nullptr))
+      static_cast<long long>(B) * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -502,7 +507,9 @@ int mmlspark_flash_launch(const void* q, const void* k, const void* v,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (causal)
-    return static_cast<int>(launch_dim<false, true>(p, dtype, D, B * H, s));
+    return static_cast<int>(
+        lse == nullptr ? launch_dim<false, true>(p, dtype, D, B * H, s)
+                       : launch_dim<true, true>(p, dtype, D, B * H, s));
   return static_cast<int>(lse == nullptr
                               ? launch_dim<false, false>(p, dtype, D, B * H, s)
                               : launch_dim<true, false>(p, dtype, D, B * H, s));

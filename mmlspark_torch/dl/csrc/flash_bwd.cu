@@ -1,11 +1,11 @@
-// K2d and K2e: the fused flash-attention backward (non-causal, key mask),
-// hand-written for Hopper (sm_90a).
+// K2d and K2e: the fused flash-attention backward (key mask; causal or
+// not), hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels `_bwd_dq_kernel` (K2d,
 // mmlspark_tpu/dl/pallas_attention.py:350, launched at :462) and
-// `_bwd_dkv_kernel` (K2e, :388, launched at :483), which `_flash_backward`
-// (:435) runs for the custom VJP of `flash_attention` and
-// `flash_attention_lse`. For q, k, v, dO [B, H, T, D] (any batch, head and
+// `_bwd_dkv_kernel` (K2e, :388, launched at :483), with their causal
+// branches, which `_flash_backward` (:435) runs for the custom VJP of
+// `flash_attention` and `flash_attention_lse`. For q, k, v, dO [B, H, T, D] (any batch, head and
 // row strides; unit stride on D), a key mask [B, T] (nonzero = valid; null
 // = all valid), and per-row f32 lse and dsum [B, H, T] (contiguous), with
 // scale = D^-0.5:
@@ -18,13 +18,19 @@
 //   K2e: dv = p.astype(dO)^T . dO,  dk = ds.astype(q)^T . q
 // dsum = sum_d dO * o (minus dlse for the lse variant) is computed by the
 // caller in plain PyTorch, as the JAX package computes it in XLA.
+// Causal (the template flag kCausal): query row r sits at q_offset + r and
+// key c at k_offset + c (64-bit offsets, the forward's); a pair is allowed
+// iff the key is valid and k_offset + c <= q_offset + r, and p of any other
+// pair is 0 by the same select, so a row with no allowed key (lse = -1e30)
+// gets dq = 0 and a key no row may see gets dk = dv = 0, exactly.
 //
 // What bounds it on an H100: operations. K2d does three products (s, dp,
-// dq) and K2e four (s, dp, dv, dk): 6*P*D and 8*P*D flops for P valid
+// dq) and K2e four (s, dp, dv, dk): 6*P*D and 8*P*D flops for P allowed
 // (query, key) pairs, against 4 or 5 [B, H, T, D] tensors of bytes. At the
 // training path's shape (B=8, H=8, T=2048, D=64, every key valid) that is
 // 103 and 137 GFLOP, 0.10 and 0.14 ms at 989 TFLOP/s bf16 dense (NVIDIA H100
-// SXM data sheet), against 8 MB per tensor (2.5 us each at 3.35 TB/s).
+// SXM data sheet), against 8 MB per tensor (2.5 us each at 3.35 TB/s);
+// causal at q_offset = k_offset, P is T(T+1)/2 per (b, h), about half.
 //
 // Design (right and simple first; wgmma, TMA, ldmatrix and pipelining are
 // later work):
@@ -51,6 +57,15 @@
 //    tiles, plain FMA in f32, one key (K2d) or query (K2e) at a time.
 //  - Key tiles with no valid key are skipped in K2d (their p is 0, so the
 //    skip is exact); a K2e CTA whose 64 keys are all invalid writes zeros.
+//  - Causal: a K2d CTA loops only over the key tiles its last row reaches,
+//    n_reach = clamp(floor((q0 + BQ - 1 + shift) / BK) + 1, 0, nk) with
+//    shift = q_offset - k_offset (the forward's bound, flash_attn.cu); a K2e
+//    CTA starts its q-tile loop at the first tile whose last row reaches
+//    its first key, clamp(floor((k0 - shift) / BQ), 0, nq), the mirror of
+//    `_block_reachable`. Both floors are signed and on 64-bit values, so
+//    offsets need not be multiples of the tile and may exceed T. Inside a
+//    tile each pair is tested on its global positions, as a compare of the
+//    fragment's column with a per-thread constant (the forward's trick).
 //  - The ragged tail is bounds-checked and staged as zeros (0 * garbage
 //    cannot make NaN); rows past T of lse and dsum are never read.
 //  - dq, dk and dv are written through their own strides, so the wrapper
@@ -85,10 +100,45 @@ struct Params {
   // batch, head, row strides (elements) of q, k, v, dO, dq, dk, dv
   long long st[7][3];
   long long mask_sb;
+  long long qk_shift;  // q_offset - k_offset (causal): key c <= row r + shift
   float scale;
 };
 
 enum { kQ, kK, kV, kDO, kDQ, kDK, kDV };
+
+// causal: the key tiles (of bk keys) that a q tile whose last row is
+// `last_row` reaches: the forward's n_reach
+__device__ __forceinline__ int reach_tiles(const Params& p, int last_row,
+                                           int bk, int n_tiles) {
+  const long long last = static_cast<long long>(last_row) + p.qk_shift;
+  if (last < 0) return 0;
+  const long long n = last / bk + 1;
+  return n < n_tiles ? static_cast<int>(n) : n_tiles;
+}
+
+// causal: the first q tile (of bq rows) whose last row reaches key k0,
+// clamp(floor((k0 - shift) / bq), 0, n_tiles)
+__device__ __forceinline__ int first_q_tile(const Params& p, int k0, int bq,
+                                            int n_tiles) {
+  const long long first = static_cast<long long>(k0) - p.qk_shift;
+  if (first <= 0) return 0;
+  const long long t = first / bq;
+  return t < n_tiles ? static_cast<int>(t) : n_tiles;
+}
+
+// causal: the last local key row `row` may attend, clamped into [-1, T]
+// so the per-pair compare runs on 32-bit ints
+__device__ __forceinline__ int row_limit(const Params& p, int row) {
+  const long long lim = static_cast<long long>(row) + p.qk_shift;
+  return lim < -1 ? -1 : lim > p.T ? p.T : static_cast<int>(lim);
+}
+
+// causal: the first local query row that may attend key `key`, clamped
+// into [0, T]
+__device__ __forceinline__ int key_first_row(const Params& p, int key) {
+  const long long first = static_cast<long long>(key) - p.qk_shift;
+  return first < 0 ? 0 : first > p.T ? p.T : static_cast<int>(first);
+}
 
 __device__ __forceinline__ bool key_valid(const Params& p, int b, int key) {
   return key < p.T &&
@@ -229,7 +279,7 @@ constexpr int smem_bf16() {
 }
 
 // K2d: dq for one (b*h, 64-row q tile)
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads) bwd_dq_bf16(const Params p) {
   constexpr int KP = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -266,7 +316,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_bf16(const Params p) {
   for (int n = 0; n < D / 8; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  const int n_tiles = (T + kTile16 - 1) / kTile16;
+  // causal: the last local key each of this thread's rows may attend
+  const int lim_lo = row_limit(p, r_lo), lim_hi = row_limit(p, r_hi);
+  int n_tiles = (T + kTile16 - 1) / kTile16;
+  if (kCausal) n_tiles = reach_tiles(p, q0 + kTile16 - 1, kTile16, n_tiles);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile16;
     __syncthreads();  // the previous tile is consumed
@@ -280,13 +333,18 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_bf16(const Params p) {
     float s[8][4], dp[8][4];
     scores<D>(s, qs, ks, warp, g, t4);
     scores<D>(dp, dos, vs, warp, g, t4);
+    // causal: key n * 8 + e of this thread's columns is allowed for a row
+    // iff n * 8 + e <= that row's limit less k0 + t4 * 2
+    const int d_lo = lim_lo - k0 - t4 * 2, d_hi = lim_hi - k0 - t4 * 2;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool valid = allowed[n * 8 + t4 * 2 + e];
-        const float pl = valid ? expf(s[n][e] * p.scale - lse_lo) : 0.f;
-        const float ph = valid ? expf(s[n][2 + e] * p.scale - lse_hi) : 0.f;
+        const bool ok_lo = valid && (!kCausal || n * 8 + e <= d_lo);
+        const bool ok_hi = valid && (!kCausal || n * 8 + e <= d_hi);
+        const float pl = ok_lo ? expf(s[n][e] * p.scale - lse_lo) : 0.f;
+        const float ph = ok_hi ? expf(s[n][2 + e] * p.scale - lse_hi) : 0.f;
         s[n][e] = pl * (dp[n][e] - dsum_lo) * p.scale;  // ds
         s[n][2 + e] = ph * (dp[n][2 + e] - dsum_hi) * p.scale;
       }
@@ -298,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_bf16(const Params p) {
 }
 
 // K2e: dk and dv for one (b*h, 64-key tile)
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads) bwd_dkv_bf16(const Params p) {
   constexpr int KP = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -321,6 +379,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_bf16(const Params p) {
   const bool kval_hi = key_valid(p, b, key_hi);
   const bool any = __syncthreads_or(tid < kTile16 &&
                                     key_valid(p, b, k0 + tid));
+  // causal: the first local q row that may see each of this thread's keys
+  const int f_lo = key_first_row(p, key_lo), f_hi = key_first_row(p, key_hi);
 
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
@@ -338,7 +398,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_bf16(const Params p) {
     stage_rows<D>(vso, head_ptr<const bf16>(p.v, p, kV, b, h), p.st[kV][2],
                   k0, T, tid);
     const int n_tiles = (T + kTile16 - 1) / kTile16;
-    for (int qt = 0; qt < n_tiles; ++qt) {
+    const int qt0 = kCausal ? first_q_tile(p, k0, kTile16, n_tiles) : 0;
+    for (int qt = qt0; qt < n_tiles; ++qt) {
       const int q0 = qt * kTile16;
       __syncthreads();  // the previous tile is consumed
       stage_rows<D>(qs, qb, p.st[kQ][2], q0, T, tid);
@@ -353,17 +414,22 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_bf16(const Params p) {
       float s[8][4], dp[8][4];  // rows: this warp's 16 keys; columns: q
       scores<D>(s, kso, qs, warp, g, t4);
       scores<D>(dp, vso, dos, warp, g, t4);
+      // causal: query n * 8 + e of this thread's columns may see a key iff
+      // n * 8 + e >= that key's first row less q0 + t4 * 2
+      const int d_lo = f_lo - q0 - t4 * 2, d_hi = f_hi - q0 - t4 * 2;
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = n * 8 + t4 * 2 + e;
           const bool qv = q0 + c < T;
+          const bool ok_lo =
+              kval_lo && qv && (!kCausal || n * 8 + e >= d_lo);
+          const bool ok_hi =
+              kval_hi && qv && (!kCausal || n * 8 + e >= d_hi);
           const float l = lse_s[c], d = dsum_s[c];
-          const float pl =
-              kval_lo && qv ? expf(s[n][e] * p.scale - l) : 0.f;
-          const float ph =
-              kval_hi && qv ? expf(s[n][2 + e] * p.scale - l) : 0.f;
+          const float pl = ok_lo ? expf(s[n][e] * p.scale - l) : 0.f;
+          const float ph = ok_hi ? expf(s[n][2 + e] * p.scale - l) : 0.f;
           s[n][e] = pl;  // p^T, for dv
           s[n][2 + e] = ph;
           dp[n][e] = pl * (dp[n][e] - d) * p.scale;  // ds^T, for dk
@@ -403,7 +469,7 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // K2d in f32: dq for one (b*h, 32-row q tile), 4 threads a row
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const Params p) {
   constexpr int DP = D / 4;  // dims per thread: part, part + 4, ...
   __shared__ __align__(16) float ks[kTile32 * D];
@@ -431,7 +497,11 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const Params p) {
   const float lse = row < T ? p.lse[r] : 0.f;
   const float dsum = row < T ? p.dsum[r] : 0.f;
 
-  const int n_tiles = (T + kTile32 - 1) / kTile32;
+  const int lim = row_limit(p, row);  // causal: last allowed local key
+  int n_tiles = (T + kTile32 - 1) / kTile32;
+  if (kCausal)
+    n_tiles = reach_tiles(p, blockIdx.y * kTile32 + kTile32 - 1, kTile32,
+                          n_tiles);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile32;
     __syncthreads();
@@ -450,7 +520,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const Params p) {
       }
       s = row_sum(s);
       dp = row_sum(dp);
-      const float pj = allowed[j] ? expf(s * p.scale - lse) : 0.f;
+      const bool ok = allowed[j] && (!kCausal || k0 + j <= lim);
+      const float pj = ok ? expf(s * p.scale - lse) : 0.f;
       const float ds = pj * (dp - dsum) * p.scale;
 #pragma unroll
       for (int i = 0; i < DP; ++i)
@@ -466,7 +537,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const Params p) {
 }
 
 // K2e in f32: dk and dv for one (b*h, 32-key tile), 4 threads a key
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(const Params p) {
   constexpr int DP = D / 4;
   __shared__ __align__(16) float qs[kTile32 * D];
@@ -477,9 +548,11 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(const Params p) {
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int T = p.T;
-  const int key = blockIdx.y * kTile32 + (tid >> 2);
+  const int k0 = blockIdx.y * kTile32;
+  const int key = k0 + (tid >> 2);
   const bool kval = key_valid(p, b, key);
   const bool any = __syncthreads_or(kval);
+  const int first = key_first_row(p, key);  // causal: first row to see it
   const float* kb = head_ptr<const float>(p.k, p, kK, b, h);
   const float* vb = head_ptr<const float>(p.v, p, kV, b, h);
 
@@ -496,7 +569,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(const Params p) {
     const float* lse = p.lse + static_cast<long long>(bh) * T;
     const float* dsum = p.dsum + static_cast<long long>(bh) * T;
     const int n_tiles = (T + kTile32 - 1) / kTile32;
-    for (int qt = 0; qt < n_tiles; ++qt) {
+    const int qt0 = kCausal ? first_q_tile(p, k0, kTile32, n_tiles) : 0;
+    for (int qt = qt0; qt < n_tiles; ++qt) {
       const int q0 = qt * kTile32;
       __syncthreads();
       stage_rows_f32<D>(qs, qb, p.st[kQ][2], q0, T, tid);
@@ -516,8 +590,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(const Params p) {
         }
         s = row_sum(s);
         dp = row_sum(dp);
-        const float pj =
-            kval && q0 + j < T ? expf(s * p.scale - lse_s[j]) : 0.f;
+        const bool ok = kval && q0 + j < T &&
+                        (!kCausal || q0 + j >= first);
+        const float pj = ok ? expf(s * p.scale - lse_s[j]) : 0.f;
         const float ds = pj * (dp - dsum_s[j]) * p.scale;
 #pragma unroll
         for (int i = 0; i < DP; ++i) {
@@ -538,15 +613,15 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(const Params p) {
   }
 }
 
-template <int D>
+template <int D, bool kCausal>
 cudaError_t launch(const Params& p, int dkv, int dtype, int bh,
                    cudaStream_t s) {
   if (dtype == 1) {
     const dim3 grid(bh, (p.T + kTile32 - 1) / kTile32);
     if (dkv)
-      bwd_dkv_f32<D><<<grid, kThreads, 0, s>>>(p);
+      bwd_dkv_f32<D, kCausal><<<grid, kThreads, 0, s>>>(p);
     else
-      bwd_dq_f32<D><<<grid, kThreads, 0, s>>>(p);
+      bwd_dq_f32<D, kCausal><<<grid, kThreads, 0, s>>>(p);
     return cudaGetLastError();
   }
   // above 48 KB (D=128) only after raising the kernel's dynamic limit
@@ -556,15 +631,26 @@ cudaError_t launch(const Params& p, int dkv, int dtype, int bh,
       cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
   if (dkv) {
-    err = cudaFuncSetAttribute(bwd_dkv_bf16<D>, kMax, bytes);
+    err = cudaFuncSetAttribute(bwd_dkv_bf16<D, kCausal>, kMax, bytes);
     if (err == cudaSuccess)
-      bwd_dkv_bf16<D><<<grid, kThreads, bytes, s>>>(p);
+      bwd_dkv_bf16<D, kCausal><<<grid, kThreads, bytes, s>>>(p);
   } else {
-    err = cudaFuncSetAttribute(bwd_dq_bf16<D>, kMax, bytes);
+    err = cudaFuncSetAttribute(bwd_dq_bf16<D, kCausal>, kMax, bytes);
     if (err == cudaSuccess)
-      bwd_dq_bf16<D><<<grid, kThreads, bytes, s>>>(p);
+      bwd_dq_bf16<D, kCausal><<<grid, kThreads, bytes, s>>>(p);
   }
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool kCausal>
+cudaError_t launch_dim(const Params& p, int dkv, int dtype, int D, int bh,
+                       cudaStream_t s) {
+  switch (D) {
+    case 32: return launch<32, kCausal>(p, dkv, dtype, bh, s);
+    case 64: return launch<64, kCausal>(p, dkv, dtype, bh, s);
+    case 128: return launch<128, kCausal>(p, dkv, dtype, bh, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -577,15 +663,17 @@ extern "C" {
 // 21 element strides: batch, head and row of q, k, v, dO, dq, dk, dv (the
 // pointers of the outputs a launch does not write may be null). lse and
 // dsum are contiguous [B, H, T] f32. D must be 32, 64 or 128 with unit
-// stride. Returns the cudaError_t of the launch.
+// stride. causal 1 masks on the global positions q_offset + r and
+// k_offset + c (the forward's). Returns the cudaError_t of the launch.
 int mmlspark_flash_bwd_launch(int dkv, const void* q, const void* k,
                               const void* v, const void* dout,
                               const void* mask, const float* lse,
                               const float* dsum, void* dq, void* dk,
                               void* dv, int dtype, int B, int H, int T,
                               int D, const long long* strides,
-                              long long mask_sb, float scale, int device,
-                              void* stream) {
+                              long long mask_sb, float scale, int causal,
+                              long long q_offset, long long k_offset,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((dtype != 0 && dtype != 1) || (dkv != 0 && dkv != 1) || B < 1 ||
@@ -607,14 +695,12 @@ int mmlspark_flash_bwd_launch(int dkv, const void* q, const void* k,
   for (int i = 0; i < 7; ++i)
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
   p.mask_sb = mask_sb;
+  p.qk_shift = q_offset - k_offset;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return static_cast<int>(launch<32>(p, dkv, dtype, B * H, s));
-    case 64: return static_cast<int>(launch<64>(p, dkv, dtype, B * H, s));
-    case 128: return static_cast<int>(launch<128>(p, dkv, dtype, B * H, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(
+      causal ? launch_dim<true>(p, dkv, dtype, D, B * H, s)
+             : launch_dim<false>(p, dkv, dtype, D, B * H, s));
 }
 
 const char* mmlspark_flash_bwd_error_string(int err) {

@@ -9,17 +9,22 @@ and the fused backward ``_bwd_dq_kernel`` (K2d, ``:350``, launched at
 ``:462``) and ``_bwd_dkv_kernel`` (K2e, ``:388``, launched at ``:483``),
 behind the custom VJPs of ``flash_attention`` and ``flash_attention_lse``
 (``:516-693``), and the causal forward ``_flash_kernel_causal_packed``
-(K2c, ``:142``, launched at ``:297``) with the causal branch of
-``_flash_kernel`` (causal K2a). Here:
+(K2c, ``:142``, launched at ``:297``, and with the lse at ``:285``) with
+the causal branches of ``_flash_kernel`` (causal K2a), ``_flash_kernel_lse``
+(causal K2b) and the backward kernels. Here:
 
 - :func:`flash_cuda` (K2a), :func:`flash_lse_cuda` (K2b) and
   :func:`flash_causal_cuda` (K2c, which also stands for causal K2a: one
   kernel visits only the key tiles a q tile can reach) launch the
-  hand-written Hopper forward in ``csrc/flash_attn.cu``;
+  hand-written Hopper forward in ``csrc/flash_attn.cu``; with
+  ``causal=True`` :func:`flash_lse_cuda` is K2c with the lse (K2c-lse,
+  which is also causal K2b);
   :func:`flash_dq_cuda` (K2d) and :func:`flash_dkv_cuda` (K2e) the backward
-  in ``csrc/flash_bwd.cu``; each is built with nvcc for ``sm_90a`` on first
-  use and bound with ctypes (see the sources for their design and what
-  bounds them), and each counts its launches;
+  in ``csrc/flash_bwd.cu``, causal or not; each is built with nvcc for
+  ``sm_90a`` on first use and bound with ctypes (see the sources for their
+  design and what bounds them), and each counts its launches
+  (``.launches``), and the wrappers that take ``causal`` count their causal
+  launches apart (``.causal_launches``);
 - :func:`flash_torch`, :func:`flash_lse_torch`, :func:`flash_dq_torch`,
   :func:`flash_dkv_torch` and :func:`flash_bwd_torch` are the plain PyTorch
   versions: dense f32 scores with the kernels' masking and rounding points
@@ -27,9 +32,10 @@ behind the custom VJPs of ``flash_attention`` and ``flash_attention_lse``
 - :func:`flash_attention` and :func:`flash_attention_lse` are the switches:
   the kernels for CUDA tensors, the plain versions for CPU tensors. Under
   grad they run a ``torch.autograd.Function`` whose forward saves the lse
-  (K2b) and whose backward is K2d + K2e; without grad (e.g. under
-  ``torch.inference_mode()``) ``flash_attention`` runs K2a alone. A build
-  or launch failure raises; nothing falls back.
+  (K2b, or K2c-lse when causal) and whose backward is K2d + K2e (causal
+  when the forward was); without grad (e.g. under
+  ``torch.inference_mode()``) ``flash_attention`` runs K2a or K2c alone. A
+  build or launch failure raises; nothing falls back.
 
 Contract: q/k/v ``[B, H, T, D]`` of one dtype (bf16 or f32), ``key_mask``
 ``[B, T]`` bool (True = valid, None = all valid) → ``[B, H, T, D]`` in v's
@@ -42,15 +48,14 @@ dsum)·scale`` with ``dsum = Σ_d dO·o`` (minus ``dlse`` for the lse
 variant), rounds ``ds`` to k's dtype for dq and to q's for dk and ``p`` to
 dO's for dv, and sums in f32.
 
-Causal (K2c): query row ``r`` sits at global position ``q_offset + r`` and
-key ``c`` at ``k_offset + c``; a pair is allowed iff the key is valid and
-``k_offset + c <= q_offset + r``, masked as an invalid key is. As in the JAX
-package the offsets only matter with ``causal=True``.
+Causal: query row ``r`` sits at global position ``q_offset + r`` and key
+``c`` at ``k_offset + c``; a pair is allowed iff the key is valid and
+``k_offset + c <= q_offset + r``, masked as an invalid key is, in the
+forward and the backward alike. As in the JAX package the offsets only
+matter with ``causal=True``.
 
-Not ported here: causal attention under grad and the causal lse variant
-(K2c's lse output and the causal K2b/K2d/K2e; the causal-training slice,
-ROADMAP.md §1 item 8, §2), and the TPU's block-size resolution and autotune
-lookup, which size blocks for VMEM.
+Not ported here: the TPU's block-size resolution and autotune lookup,
+which size blocks for VMEM.
 """
 
 from __future__ import annotations
@@ -71,13 +76,6 @@ BWD_IMPLS = ("auto", "pallas", "blockwise")
 
 _LOADER = CudaLoader("mmlspark_flash", ["dl/csrc/flash_attn.cu"])
 _LOADER_BWD = CudaLoader("mmlspark_flash_bwd", ["dl/csrc/flash_bwd.cu"])
-
-LATER_CAUSAL_TRAIN = (
-    "causal attention under grad and the causal lse variant (K2c's lse "
-    "output and the causal K2b/K2d/K2e) come with the causal-training "
-    "slice (ROADMAP.md §1 item 8, §2); causal attention without grad "
-    "(e.g. under torch.inference_mode()) runs K2c")
-
 
 def _check_inputs(q, k, v, key_mask) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -161,42 +159,52 @@ def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_lse_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    key_mask: torch.Tensor | None = None
+                    key_mask: torch.Tensor | None = None, *,
+                    causal: bool = False, q_offset: int = 0,
+                    k_offset: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K2b: :func:`flash_torch`'s output and the f32 row
-    logsumexp ``m + log(max(l, 1e-35))`` ``[B, H, T]`` (``-1e30`` for a row
-    with no valid key)."""
-    o, m, l = _plain_forward(q, k, v, key_mask)
+    """Plain PyTorch K2b (and, with ``causal``, K2c-lse):
+    :func:`flash_torch`'s output and the f32 row logsumexp ``m + log(max(l,
+    1e-35))`` ``[B, H, T]`` (``-1e30`` for a row with no allowed key)."""
+    o, m, l = _plain_forward(q, k, v, key_mask, causal, q_offset, k_offset)
     return o, (m + torch.log(l.clamp_min(1e-35)))[..., 0]
 
 
-def _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum):
-    """``p = exp(s - lse)`` zeroed at invalid keys (a select: at an invalid
-    key the exp may be inf) and ``ds = p·(dp - dsum)·scale``, in f32."""
+def _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum, causal=False,
+                           q_offset=0, k_offset=0):
+    """``p = exp(s - lse)`` zeroed outside the allowed pairs (a select: at a
+    masked pair the exp may be inf) and ``ds = p·(dp - dsum)·scale``, in
+    f32."""
     _check_inputs(q, k, v, key_mask)
     _check_rows(q, dout, lse, dsum)
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     p = torch.exp(s - lse[..., None])
-    allowed = _allowed(key_mask)
+    allowed = _allowed(key_mask, q.shape[2], causal, q_offset, k_offset,
+                       q.device)
     if allowed is not None:
         p = torch.where(allowed, p, 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
     return p, p * (dp - dsum[..., None]) * scale
 
 
-def flash_dq_torch(q, k, v, key_mask, dout, lse, dsum) -> torch.Tensor:
+def flash_dq_torch(q, k, v, key_mask, dout, lse, dsum, *,
+                   causal: bool = False, q_offset: int = 0,
+                   k_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch K2d: ``dq = ds.astype(k) · k`` in q's dtype."""
-    _, ds = _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum)
+    _, ds = _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum,
+                                   causal, q_offset, k_offset)
     return torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
                         k.float()).to(q.dtype)
 
 
-def flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum, *,
+                    causal: bool = False, q_offset: int = 0,
+                    k_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K2e: ``dk = ds.astype(q)ᵀ · q`` in k's dtype and
     ``dv = p.astype(dO)ᵀ · dO`` in v's dtype."""
-    p, ds = _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum)
+    p, ds = _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum,
+                                   causal, q_offset, k_offset)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
                       dout.float())
@@ -214,13 +222,16 @@ def flash_dsum(o: torch.Tensor, dout: torch.Tensor,
     return dsum.contiguous()
 
 
-def flash_bwd_torch(q, k, v, key_mask, o, lse, dout, dlse=None
+def flash_bwd_torch(q, k, v, key_mask, o, lse, dout, dlse=None, *,
+                    causal: bool = False, q_offset: int = 0,
+                    k_offset: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch fused backward (K2d + K2e) from the saved output and
     lse: ``(dq, dk, dv)``."""
     dsum = flash_dsum(o, dout, dlse)
-    return (flash_dq_torch(q, k, v, key_mask, dout, lse, dsum),
-            *flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum))
+    pos = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    return (flash_dq_torch(q, k, v, key_mask, dout, lse, dsum, **pos),
+            *flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum, **pos))
 
 
 # ------------------------------------------------------------- the kernels
@@ -252,6 +263,7 @@ def _library_bwd() -> ctypes.CDLL:
         *[c_void_p] * 10,                  # q k v dO mask lse dsum dq dk dv
         c_int, c_int, c_int, c_int, c_int,                 # dtype B H T D
         ctypes.POINTER(c_ll), c_ll, ctypes.c_float,   # strides, mask, scale
+        c_int, c_ll, c_ll,                     # causal, q_offset, k_offset
         c_int, c_void_p]                                   # device, stream
     lib.mmlspark_flash_bwd_launch.restype = c_int
     lib.mmlspark_flash_bwd_error_string.argtypes = [c_int]
@@ -344,7 +356,8 @@ def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
         int(k_offset), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        kid = "K2c" if causal else "K2b" if with_lse else "K2a"
+        kid = ("K2c-lse" if with_lse else "K2c") if causal else \
+            "K2b" if with_lse else "K2a"
         raise RuntimeError(
             f"{kid} flash-attention kernel launch failed: "
             f"{lib.mmlspark_flash_error_string(err).decode()} "
@@ -370,17 +383,32 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_cuda.launches = 0
 
 
+def _count(wrapper, causal: bool) -> None:
+    """One launch on ``wrapper``'s causal or non-causal counter."""
+    if causal:
+        wrapper.causal_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 def flash_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   key_mask: torch.Tensor | None = None
+                   key_mask: torch.Tensor | None = None, *,
+                   causal: bool = False, q_offset: int = 0,
+                   k_offset: int = 0
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2b: :func:`flash_cuda`'s output and the f32 row logsumexp
-    ``[B, H, T]`` (contiguous), which the fused backward reads."""
-    out, lse = _launch_forward("flash_lse_cuda", q, k, v, key_mask, True)
-    flash_lse_cuda.launches += 1
+    """Launch K2b, or with ``causal`` K2c-lse (K2c's kernel with the lse
+    flag, which also stands for causal K2b): :func:`flash_cuda`'s or
+    :func:`flash_causal_cuda`'s output and the f32 row logsumexp
+    ``[B, H, T]`` (contiguous), which the fused backward reads. Counts
+    non-causal launches in ``.launches`` and causal ones in
+    ``.causal_launches``."""
+    out, lse = _launch_forward("flash_lse_cuda", q, k, v, key_mask, True,
+                               causal, q_offset, k_offset)
+    _count(flash_lse_cuda, causal)
     return out, lse
 
 
-flash_lse_cuda.launches = 0
+flash_lse_cuda.launches = flash_lse_cuda.causal_launches = 0
 
 
 def flash_causal_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -401,8 +429,9 @@ flash_causal_cuda.launches = 0
 
 
 def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
-                     dsum):
-    """Launch K2d (``dkv=False``: returns dq) or K2e (returns dk, dv). A
+                     dsum, causal=False, q_offset=0, k_offset=0):
+    """Launch K2d (``dkv=False``: returns dq) or K2e (returns dk, dv),
+    causal on the global positions ``q_offset + r``, ``k_offset + c``. A
     dO without unit stride on D or with unaligned rows (an incoming
     gradient may have any strides) is copied to a contiguous buffer
     first; q/k/v must fit as they are."""
@@ -429,69 +458,80 @@ def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
                            for t in (dq, dk, dv)),
         _DTYPE_CODES[q.dtype], B, H, T, D,
         (ctypes.c_longlong * 21)(*strides), mask_sb, D ** -0.5,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+        int(causal), int(q_offset), int(k_offset), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"{'K2e' if dkv else 'K2d'} flash-attention backward kernel "
+            f"{'causal ' if causal else ''}{'K2e' if dkv else 'K2d'} "
+            "flash-attention backward kernel "
             "launch failed: "
             f"{lib.mmlspark_flash_bwd_error_string(err).decode()} "
             f"(cudaError {err})")
     return outs
 
 
-def flash_dq_cuda(q, k, v, key_mask, dout, lse, dsum) -> torch.Tensor:
-    """Launch K2d (``csrc/flash_bwd.cu``): dq in q's dtype, as a
-    ``[B, H, T, D]`` view of a ``[B, T, H, D]`` buffer."""
+def flash_dq_cuda(q, k, v, key_mask, dout, lse, dsum, *,
+                  causal: bool = False, q_offset: int = 0,
+                  k_offset: int = 0) -> torch.Tensor:
+    """Launch K2d (``csrc/flash_bwd.cu``; causal K2d with ``causal``): dq
+    in q's dtype, as a ``[B, H, T, D]`` view of a ``[B, T, H, D]`` buffer.
+    Counts as :func:`flash_lse_cuda` does."""
     (dq,) = _launch_backward("flash_dq_cuda", False, q, k, v, key_mask,
-                             dout, lse, dsum)
-    flash_dq_cuda.launches += 1
+                             dout, lse, dsum, causal, q_offset, k_offset)
+    _count(flash_dq_cuda, causal)
     return dq
 
 
-flash_dq_cuda.launches = 0
+flash_dq_cuda.launches = flash_dq_cuda.causal_launches = 0
 
 
-def flash_dkv_cuda(q, k, v, key_mask, dout, lse, dsum
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2e (``csrc/flash_bwd.cu``): dk and dv in k's and v's dtypes,
-    as ``[B, H, T, D]`` views of ``[B, T, H, D]`` buffers."""
+def flash_dkv_cuda(q, k, v, key_mask, dout, lse, dsum, *,
+                   causal: bool = False, q_offset: int = 0,
+                   k_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2e (``csrc/flash_bwd.cu``; causal K2e with ``causal``): dk
+    and dv in k's and v's dtypes, as ``[B, H, T, D]`` views of
+    ``[B, T, H, D]`` buffers. Counts as :func:`flash_lse_cuda` does."""
     dk, dv = _launch_backward("flash_dkv_cuda", True, q, k, v, key_mask,
-                              dout, lse, dsum)
-    flash_dkv_cuda.launches += 1
+                              dout, lse, dsum, causal, q_offset, k_offset)
+    _count(flash_dkv_cuda, causal)
     return dk, dv
 
 
-flash_dkv_cuda.launches = 0
+flash_dkv_cuda.launches = flash_dkv_cuda.causal_launches = 0
 
 
-def flash_bwd_cuda(q, k, v, key_mask, o, lse, dout, dlse=None
+def flash_bwd_cuda(q, k, v, key_mask, o, lse, dout, dlse=None, *,
+                   causal: bool = False, q_offset: int = 0,
+                   k_offset: int = 0
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused backward on the card: ``dsum`` in plain PyTorch, then K2d
     and K2e. Returns ``(dq, dk, dv)``."""
     dsum = flash_dsum(o, dout, dlse)
-    return (flash_dq_cuda(q, k, v, key_mask, dout, lse, dsum),
-            *flash_dkv_cuda(q, k, v, key_mask, dout, lse, dsum))
+    pos = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    return (flash_dq_cuda(q, k, v, key_mask, dout, lse, dsum, **pos),
+            *flash_dkv_cuda(q, k, v, key_mask, dout, lse, dsum, **pos))
 
 
 # ----------------------------------------------------------------- autograd
 
 class _Flash(torch.autograd.Function):
     """``flash_attention`` under grad. ``bwd_impl`` ``"auto"``/``"pallas"``:
-    the forward runs K2b and saves the output and the lse, the backward is
-    K2d + K2e (the plain versions for CPU tensors). ``"blockwise"``: the
-    forward runs K2a and the backward is autograd through
-    ``blockwise_attention`` from q, k, v (the JAX package's recompute
-    backward)."""
+    the forward runs K2b (K2c-lse when causal) and saves the output and the
+    lse, the backward is K2d + K2e (the plain versions for CPU tensors).
+    ``"blockwise"``: the forward runs K2a (K2c when causal) and the backward
+    is autograd through ``blockwise_attention`` from q, k, v with the same
+    causal mask and offsets (the JAX package's recompute backward).
+    ``pos`` holds ``causal``, ``q_offset`` and ``k_offset``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, use_cuda, bwd_impl):
-        ctx.use_cuda, ctx.bwd_impl = use_cuda, bwd_impl
+    def forward(ctx, q, k, v, key_mask, use_cuda, bwd_impl, pos):
+        ctx.use_cuda, ctx.bwd_impl, ctx.pos = use_cuda, bwd_impl, pos
         if bwd_impl == "blockwise":
-            o = (flash_cuda if use_cuda else flash_torch)(q, k, v, key_mask)
+            o = _forward(q, k, v, key_mask, use_cuda, pos)
             ctx.save_for_backward(q, k, v, key_mask)
             return o
         o, lse = (flash_lse_cuda if use_cuda else flash_lse_torch)(
-            q, k, v, key_mask)
+            q, k, v, key_mask, **pos)
         ctx.save_for_backward(q, k, v, key_mask, o, lse)
         return o
 
@@ -501,23 +541,26 @@ class _Flash(torch.autograd.Function):
             q, k, v, key_mask = ctx.saved_tensors
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-                out = blockwise_attention(*leaves, key_mask=key_mask)
+                out = blockwise_attention(*leaves, key_mask=key_mask,
+                                          **ctx.pos)
                 grads = torch.autograd.grad(out, leaves, dout)
-            return (*grads, None, None, None)
+            return (*grads, None, None, None, None)
         q, k, v, key_mask, o, lse = ctx.saved_tensors
         bwd = flash_bwd_cuda if ctx.use_cuda else flash_bwd_torch
-        return (*bwd(q, k, v, key_mask, o, lse, dout), None, None, None)
+        return (*bwd(q, k, v, key_mask, o, lse, dout, **ctx.pos), None,
+                None, None, None)
 
 
 class _FlashLse(torch.autograd.Function):
-    """``flash_attention_lse`` under grad: K2b forward, K2d + K2e backward
-    with the lse cotangent folded into ``dsum``."""
+    """``flash_attention_lse`` under grad: K2b (K2c-lse when causal)
+    forward, K2d + K2e backward with the lse cotangent folded into
+    ``dsum``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, use_cuda):
-        ctx.use_cuda = use_cuda
+    def forward(ctx, q, k, v, key_mask, use_cuda, pos):
+        ctx.use_cuda, ctx.pos = use_cuda, pos
         o, lse = (flash_lse_cuda if use_cuda else flash_lse_torch)(
-            q, k, v, key_mask)
+            q, k, v, key_mask, **pos)
         ctx.save_for_backward(q, k, v, key_mask, o, lse)
         return o, lse
 
@@ -525,7 +568,28 @@ class _FlashLse(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         q, k, v, key_mask, o, lse = ctx.saved_tensors
         bwd = flash_bwd_cuda if ctx.use_cuda else flash_bwd_torch
-        return (*bwd(q, k, v, key_mask, o, lse, dout, dlse), None, None)
+        return (*bwd(q, k, v, key_mask, o, lse, dout, dlse, **ctx.pos),
+                None, None, None)
+
+
+def _forward(q, k, v, key_mask, use_cuda, pos):
+    """The forward alone: K2a, or K2c with ``pos["causal"]`` (their plain
+    versions for ``use_cuda=False``)."""
+    if not use_cuda:
+        return flash_torch(q, k, v, key_mask, **pos)
+    if pos["causal"]:
+        return flash_causal_cuda(q, k, v, key_mask,
+                                 q_offset=pos["q_offset"],
+                                 k_offset=pos["k_offset"])
+    return flash_cuda(q, k, v, key_mask)
+
+
+def _positions(causal, q_offset, k_offset) -> dict:
+    """The causal flag and offsets the kernels take; without ``causal``
+    the offsets are ignored, as in the JAX package."""
+    if not causal:
+        return dict(causal=False, q_offset=0, k_offset=0)
+    return dict(causal=True, q_offset=int(q_offset), k_offset=int(k_offset))
 
 
 def _route(q, impl) -> bool:
@@ -559,25 +623,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masking on the global positions ``q_offset + r``, ``k_offset + c``;
     the offsets are ignored without ``causal``, as in the JAX package).
     Under grad it is an autograd Function: ``bwd_impl`` ``"auto"`` or
-    ``"pallas"`` save the lse in the forward (K2b) and run the fused
-    backward (K2d, K2e); ``"blockwise"`` runs K2a forward and autograd
-    through ``blockwise_attention`` backward. Causal under grad raises
-    ``NotImplementedError`` (the causal-training slice)."""
+    ``"pallas"`` save the lse in the forward (K2b, or K2c-lse when causal)
+    and run the fused backward (K2d, K2e, causal when the forward is);
+    ``"blockwise"`` runs the forward alone (K2a or K2c) and autograd through
+    ``blockwise_attention`` with the same mask and offsets backward."""
     use_cuda = _route(q, impl)
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"bwd_impl={bwd_impl!r} is not one of "
                          f"{'|'.join(BWD_IMPLS)}")
-    if causal:
-        if _needs_grad(q, k, v):
-            raise NotImplementedError(LATER_CAUSAL_TRAIN)
-        if use_cuda:
-            return flash_causal_cuda(q, k, v, key_mask, q_offset=q_offset,
-                                     k_offset=k_offset)
-        return flash_torch(q, k, v, key_mask, causal=True,
-                           q_offset=q_offset, k_offset=k_offset)
+    pos = _positions(causal, q_offset, k_offset)
     if _needs_grad(q, k, v):
-        return _Flash.apply(q, k, v, key_mask, use_cuda, bwd_impl)
-    return (flash_cuda if use_cuda else flash_torch)(q, k, v, key_mask)
+        return _Flash.apply(q, k, v, key_mask, use_cuda, bwd_impl, pos)
+    return _forward(q, k, v, key_mask, use_cuda, pos)
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -587,16 +644,15 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Flash attention that also returns the per-row logsumexp of the
     scaled scores, ``(o [B, H, T, D], lse [B, H, T] f32)``, the port of
-    ``pallas_attention.flash_attention_lse`` (non-causal): K2b, and under
-    grad the fused backward with the lse cotangent folded into ``dsum``, so
-    it is differentiable in both outputs. A row with no valid key has o = 0
-    and lse = -1e30. ``impl`` as for :func:`flash_attention`. ``causal``
-    and the offsets raise ``NotImplementedError`` (the causal-training
-    slice)."""
-    if causal or q_offset or k_offset:
-        raise NotImplementedError(LATER_CAUSAL_TRAIN)
+    ``pallas_attention.flash_attention_lse``: K2b, or with ``causal`` K2c-lse
+    (offsets as for :func:`flash_attention`, ignored without ``causal``),
+    and under grad the fused backward with the lse cotangent folded into
+    ``dsum``, so it is differentiable in both outputs. A row with no allowed
+    key has o = 0 and lse = -1e30. ``impl`` as for
+    :func:`flash_attention`."""
     use_cuda = _route(q, impl)
+    pos = _positions(causal, q_offset, k_offset)
     if _needs_grad(q, k, v):
-        return _FlashLse.apply(q, k, v, key_mask, use_cuda)
+        return _FlashLse.apply(q, k, v, key_mask, use_cuda, pos)
     return (flash_lse_cuda if use_cuda else flash_lse_torch)(
-        q, k, v, key_mask)
+        q, k, v, key_mask, **pos)

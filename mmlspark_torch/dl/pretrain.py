@@ -1,16 +1,18 @@
-"""Masked-LM pretraining of the text encoder.
+"""Masked-LM and causal-LM pretraining of the text encoder.
 
-The port of ``mmlspark_tpu/dl/pretrain.py``'s masked-LM half: BERT-style
-masked-token prediction over token-id rows produces encoder weights in the
-framework, which ``TextEncoderFeaturizer(model=LoadedModel(...))`` then
-serves. Masking is host-side numpy, drawn from the same
+The port of ``mmlspark_tpu/dl/pretrain.py``: BERT-style masked-token
+prediction (``pretrain_masked_lm``) or next-token prediction
+(``pretrain_causal_lm``) over token-id rows produces encoder weights in the
+framework, which ``TextEncoderFeaturizer(model=LoadedModel(...))`` or
+``dl.generate`` then serve. Batches are host-side numpy, drawn from the same
 ``np.random.default_rng(seed)`` in the same order as the JAX package, so
 both packages train on identical batches; batches stream through
 ``train_epoch``'s overlapped copy loop.
 
 With an encoder built on ``make_attention_fn("pallas")``, every block's
 forward runs the flash forward that saves the lse (K2b) and its backward
-the fused backward kernels (K2d, K2e).
+the fused backward kernels (K2d, K2e); with ``make_attention_fn("pallas",
+causal=True)`` their causal branches (K2c-lse, causal K2d and K2e).
 
 Idiom: flax keeps parameters apart from the module, and
 ``pretrain_masked_lm`` there draws them from ``PRNGKey(seed)`` and returns
@@ -25,9 +27,8 @@ weights across), and training updates it in place.
 the paged engine run, and :func:`assert_causal` is the causality probe that
 guards them.
 
-Not ported yet: ``pretrain_causal_lm`` (it needs causal attention under
-grad: the causal-training slice, ROADMAP.md §1 item 8); ``mesh`` and
-``dtype_policy`` (the parallel slice, item 10).
+Not ported yet: ``mesh`` and ``dtype_policy`` (the parallel slice, item
+10).
 """
 
 from __future__ import annotations
@@ -43,9 +44,6 @@ from ..device import resolve_device
 from .text_encoder import Dense, TextEncoder
 from .train import TrainState, make_train_step, train_epoch
 
-LATER_CAUSAL = ("causal-LM pretraining needs causal attention under grad "
-                "(K2c's lse output and the causal K2b/K2d/K2e), which comes "
-                "with the causal-training slice (ROADMAP.md §1 item 8)")
 LATER_MESH = ("pretraining over a mesh (mesh, dtype_policy) comes with the "
               "parallel slice (ROADMAP.md §1 item 10)")
 
@@ -151,12 +149,8 @@ def pretrain_masked_lm(encoder: TextEncoder | MaskedLMModel,
 
     Returns the train state (the model, the optimizer, the step count) and
     the per-batch losses; :func:`encoder_variables` lifts the trunk."""
-    if mesh is not None or dtype_policy is not None:
-        raise NotImplementedError(LATER_MESH)
-    dev = resolve_device(device)
-    ids = np.asarray(ids, np.int32)
-    model = encoder if isinstance(encoder, MaskedLMModel) else \
-        MaskedLMModel(encoder, torch.Generator().manual_seed(seed))
+    model, dev, ids = _lm_setup(encoder, ids, seed, device, mesh,
+                                dtype_policy)
     vocab = model.encoder.vocab
     if mask_id is None:
         mask_id = vocab - 1
@@ -164,10 +158,6 @@ def pretrain_masked_lm(encoder: TextEncoder | MaskedLMModel,
         raise ValueError(
             f"corpus uses id {ids.max()} but mask_id={mask_id}; give the "
             "encoder a spare top slot (vocab >= tokenizer vocab + 1)")
-    model.to(dev)
-    opt = (optimizer or default_optimizer(learning_rate))(
-        list(model.parameters()))
-    state = TrainState(model=model, optimizer=opt)
     rng = np.random.default_rng(seed)
 
     def batches():
@@ -176,8 +166,29 @@ def pretrain_masked_lm(encoder: TextEncoder | MaskedLMModel,
             yield mask_batch(rows, rng, mask_id=mask_id,
                              mask_frac=mask_frac)
 
+    return _train(model, dev, batches(), optimizer, learning_rate)
+
+
+def _lm_setup(encoder, ids, seed, device, mesh, dtype_policy):
+    """What both pretraining entry points start with: the refusals, the
+    device, the token rows as int32 and the LM (``encoder`` itself when it
+    is a ``MaskedLMModel``, else a new head drawn from ``seed``) on the
+    device."""
+    if mesh is not None or dtype_policy is not None:
+        raise NotImplementedError(LATER_MESH)
+    dev = resolve_device(device)
+    model = encoder if isinstance(encoder, MaskedLMModel) else \
+        MaskedLMModel(encoder, torch.Generator().manual_seed(seed))
+    return model.to(dev), dev, np.asarray(ids, np.int32)
+
+
+def _train(model, dev, batches, optimizer, learning_rate):
+    """Train ``model`` in place over host batches with ``masked_xent``."""
+    opt = (optimizer or default_optimizer(learning_rate))(
+        list(model.parameters()))
+    state = TrainState(model=model, optimizer=opt)
     step = make_train_step(model, opt, loss_fn=masked_xent, fetch="logits")
-    return train_epoch(step, state, batches(), device=dev)
+    return train_epoch(step, state, batches, device=dev)
 
 
 def encoder_variables(state: TrainState) -> TextEncoder:
@@ -188,9 +199,41 @@ def encoder_variables(state: TrainState) -> TextEncoder:
     return state.model.encoder
 
 
-def pretrain_causal_lm(*args, **kwargs):
-    """Next-token pretraining: not ported yet (the causal-training slice)."""
-    raise NotImplementedError(LATER_CAUSAL)
+def pretrain_causal_lm(encoder: TextEncoder | MaskedLMModel,
+                       ids: np.ndarray, *, steps: int = 200,
+                       batch_size: int = 32, learning_rate: float = 1e-3,
+                       seed: int = 0, optimizer: Callable | None = None,
+                       device: str | torch.device | None = None,
+                       mesh=None, dtype_policy=None
+                       ) -> tuple[TrainState, list[float]]:
+    """Next-token pretraining on token-id rows ``ids`` ``[N, T + 1]`` (pad
+    id 0), the decoder-side twin of :func:`pretrain_masked_lm` and the port
+    of the JAX function: the logits at position t predict token t + 1, and
+    pad targets are ignored. ``encoder``, ``optimizer``, ``device`` and the
+    return value are as for :func:`pretrain_masked_lm`.
+
+    The encoder must run causal attention (``make_attention_fn(impl,
+    causal=True)``): :func:`assert_causal` probes the first row before
+    training and raises for a model that sees future positions, where the
+    objective is trivially cheatable by copying the next token.
+
+    Each step draws ``batch_size`` rows with ``rng.integers(0, len(ids),
+    size=batch_size)``, ``rng = np.random.default_rng(seed)``, and trains on
+    ``x = rows[:, :-1]`` against ``y = rows[:, 1:]`` with pad set to -1:
+    the JAX package's batches, bit for bit. With ``pallas`` attention every
+    block's forward runs K2c-lse and its backward causal K2d and K2e."""
+    model, dev, ids = _lm_setup(encoder, ids, seed, device, mesh,
+                                dtype_policy)
+    assert_causal(model, ids[:1], model.encoder.vocab)
+    rng = np.random.default_rng(seed)
+
+    def batches():
+        for _ in range(steps):
+            rows = ids[rng.integers(0, len(ids), size=batch_size)]
+            y = np.where(rows[:, 1:] != 0, rows[:, 1:], -1).astype(np.int32)
+            yield rows[:, :-1], y
+
+    return _train(model, dev, batches(), optimizer, learning_rate)
 
 
 CAUSAL_DRIFT_MAX = 1e-4

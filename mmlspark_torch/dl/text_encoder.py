@@ -9,16 +9,20 @@ compact pre-LN transformer encoder whose attention implementation is pluggable
   the hand-written CUDA kernels on the card, their plain versions on the
   CPU. Without grad (the featurizer runs under ``torch.inference_mode()``)
   that is the forward K2a; under grad (training, ``dl/pretrain.py``) the
-  forward that saves the lse (K2b) and the fused backward (K2d, K2e);
+  forward that saves the lse (K2b) and the fused backward (K2d, K2e), and
+  with ``causal=True`` their causal branches (K2c-lse, causal K2d/K2e);
 - ``blockwise`` — single-device flash-style blocks in plain PyTorch.
 
 Every implementation takes ``causal`` (``make_attention_fn(impl,
 causal=True)``): lower-triangular masking, the decoder pattern; the
-``pallas`` forward is then K2c. The decode side (``EncoderBlock.decode_step``,
-``prefill``, ``decode_window`` and the ``TextEncoder`` methods around them)
-keeps per-block KV caches ``[B, H, L, hd]`` that it writes in place at the
-current position (the JAX package returns new caches instead); ``dl.generate``
-and the paged engine (``serving/llm.py``) run on it.
+``pallas`` forward is then K2c (K2c-lse under grad).
+``TextEncoder(remat=True)`` recomputes each block's forward in the backward
+(``torch.utils.checkpoint``, the counterpart of ``nn.remat``). The decode
+side (``EncoderBlock.decode_step``, ``prefill``, ``decode_window`` and the
+``TextEncoder`` methods around them) keeps per-block KV caches
+``[B, H, L, hd]`` that it writes in place at the current position (the JAX
+package returns new caches instead); ``dl.generate`` and the paged engine
+(``serving/llm.py``) run on it.
 
 ``TextEncoderFeaturizer`` wraps the encoder as a pipeline stage: token-id
 rows → mean-pooled embeddings. The numerics follow the flax modules: weights
@@ -27,8 +31,7 @@ LayerNorm in f32 with eps 1e-6, the tanh GELU, sinusoidal positions in
 f32 cast to the compute dtype.
 
 Not ported yet: ``ring``/``ulysses`` attention with the parallel slice (item 10);
-``quantize`` and ``modelName`` with the DL model slice (item 6);
-``remat`` with the rest of the training slice (item 7).
+``quantize`` and ``modelName`` with the DL model slice (item 6).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import ComplexParam, Param, Transformer, TypeConverters as TC
 from ..core.contracts import HasInputCol, HasOutputCol
@@ -55,8 +59,6 @@ LATER_ZOO = ("zoo text models by name (modelName, ModelDownloader) come "
              "a LoadedModel")
 LATER_QUANT = ("the int8 quantized encoder (quantize=True) comes with the DL "
                "model slice (ROADMAP.md §1 item 6)")
-LATER_REMAT = ("rematerialized blocks (remat=True) come with the rest of the "
-               "training slice (ROADMAP.md §1 item 7)")
 
 LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to ±2
 
@@ -211,8 +213,14 @@ class TextEncoder(nn.Module):
     A fresh module draws its weights from ``generator`` with flax's
     initialisers (truncated lecun-normal Dense kernels, zero biases,
     LayerNorm 1/0, embedding normal with std W^-½): the same distributions
-    as the JAX package, not the same bits. ``remat=True`` (the JAX
-    module's rematerialized blocks) is not ported yet and raises."""
+    as the JAX package, not the same bits.
+
+    ``remat=True`` is the JAX module's ``nn.remat(EncoderBlock)``: under
+    grad each block runs through ``torch.utils.checkpoint`` (non-reentrant),
+    so its activations are recomputed in the backward instead of stored; the
+    block's attention forward then runs twice a step (with ``pallas``, two
+    lse-forward launches per block). The function computed, and its
+    gradients, are the same."""
 
     def __init__(self, vocab: int = 32768, width: int = 256, depth: int = 4,
                  heads: int = 8, mlp_dim: int = 1024,
@@ -220,10 +228,9 @@ class TextEncoder(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  generator: torch.Generator | None = None,
                  remat: bool = False):
-        if remat:
-            raise NotImplementedError(LATER_REMAT)
         super().__init__()
         self.vocab, self.width, self.depth = vocab, width, depth
+        self.remat = remat
         self.heads, self.mlp_dim = heads, mlp_dim
         self.attention_fn = attention_fn
         self.dtype = dtype
@@ -322,8 +329,10 @@ class TextEncoder(nn.Module):
         so both modes compute the same function."""
         x = self.embed_ids(ids)
         key_mask = ids != 0
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, key_mask)
+            x = (checkpoint(block, x, key_mask, use_reentrant=False)
+                 if remat else block(x, key_mask))
         return self.finalize(x, ids)
 
 
@@ -343,8 +352,10 @@ def make_attention_fn(impl: str = "dense", block_size: int | None = None,
     (the flash kernels, differentiable through the fused backward; the port
     sizes its own blocks, so ``block_size`` applies to ``blockwise`` only)
     or ``blockwise``. ``causal``: lower-triangular masking, for every
-    implementation (``pallas`` then runs K2c without grad; under grad it
-    raises until the causal-training slice). The returned functions
+    implementation (``pallas`` then runs K2c without grad, and under grad
+    the causal forward that saves the lse, K2c-lse, with the causal fused
+    backward, K2d and K2e, so a causal LM trains through the kernels). The
+    returned functions
     pickle, so a stage holding an encoder saves. The JAX version's
     ``mesh``/``axis`` (ring, ulysses) come with the parallel slice
     (ROADMAP.md §1 item 10)."""

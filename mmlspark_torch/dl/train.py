@@ -9,11 +9,9 @@ forward, loss, ``backward``, ``optimizer.step()``. Kernel launches queue on
 the device's stream, so the host returns from a step before the device
 finishes it, as JAX's asynchronous dispatch does.
 
-Not ported yet: ``accum_steps > 1`` (gradient accumulation) with the rest
-of the training slice (ROADMAP.md §1 item 7); the mesh half
-(``partition_train_state``, ``make_partitioned_train_step``,
-``shard_train_state``, a ``mesh`` argument) with the parallel slice
-(item 10).
+Not ported yet: the mesh half (``partition_train_state``,
+``make_partitioned_train_step``, ``shard_train_state``, a ``mesh``
+argument) with the parallel slice (item 10).
 """
 
 from __future__ import annotations
@@ -26,8 +24,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LATER_ACCUM = ("gradient accumulation (accum_steps > 1) comes with the rest "
-               "of the training slice (ROADMAP.md §1 item 7)")
 LATER_MESH = ("sharded training over a mesh comes with the parallel slice "
               "(ROADMAP.md §1 item 10)")
 
@@ -57,11 +53,20 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     0-d device tensor; nothing in the step waits for the device.
     ``model(x, train=True)`` may return a dict, whose ``fetch`` entry the
     loss reads. ``model`` and ``optimizer`` are the ones the ``state``
-    passed to the step holds."""
+    passed to the step holds.
+
+    ``accum_steps > 1``: the batch splits into that many microbatches, each
+    runs forward and backward in turn (so only one microbatch's activations
+    live at a time), their gradients are summed and divided by
+    ``accum_steps``, and one optimizer update follows; the loss is the mean
+    of the microbatch losses. The batch size must divide by
+    ``accum_steps``. The JAX step does the same under one ``lax.scan``."""
     if mesh is not None:
         raise NotImplementedError(LATER_MESH)
-    if accum_steps > 1:
-        raise NotImplementedError(LATER_ACCUM)
+
+    def loss_of(x, y):
+        out = model(x, train=True)
+        return loss_fn(out[fetch] if isinstance(out, dict) else out, y)
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         if state.model is not model or state.optimizer is not optimizer:
@@ -69,9 +74,24 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                              "than the step was built for")
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out = model(x, train=True)
-        loss = loss_fn(out[fetch] if isinstance(out, dict) else out, y)
-        loss.backward()
+        if accum_steps <= 1:
+            loss = loss_of(x, y)
+            loss.backward()
+        else:
+            n = x.shape[0]
+            if n % accum_steps:
+                raise ValueError(f"batch size {n} must divide by "
+                                 f"accum_steps={accum_steps}")
+            loss = 0.0
+            for xm, ym in zip(x.chunk(accum_steps), y.chunk(accum_steps)):
+                loss_m = loss_of(xm, ym)
+                loss_m.backward()       # the gradients add up in .grad
+                loss = loss + loss_m.detach()
+            inv = 1.0 / accum_steps
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+            loss = loss * inv
         optimizer.step()
         state.step += 1
         return state, loss.detach()

@@ -107,9 +107,14 @@ class TestCausalFlashTorch:
         with torch.inference_mode():
             got = flash_attention(tq, tk, tv, tm, causal=True, q_offset=4)
         assert torch.equal(got, want)
+        # under grad (the causal-training slice) the same output through
+        # the autograd Function, with a gradient
         tk.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="causal-training"):
-            flash_attention(tq, tk, tv, tm, causal=True)
+        out = flash_attention(tq, tk, tv, tm, causal=True, q_offset=4)
+        assert type(out.grad_fn).__name__ == "_FlashBackward"
+        assert torch.equal(out.detach(), want)
+        out.sum().backward()
+        assert torch.isfinite(tk.grad).all()
 
 
 class TestDenseAndSwitches:

@@ -218,18 +218,28 @@ class TestSwitchAndRaises:
         # offsets without causal change nothing, as in the JAX package
         assert torch.equal(flash_attention(*t, m, q_offset=4),
                            flash_torch(*t, m))
-        # causal under grad and the causal lse variant wait for the
-        # causal-training slice
+        # causal under grad (the causal-training slice: K2c-lse and the
+        # causal fused backward, their plain versions here) is the causal
+        # forward, differentiable
         t[0].requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="causal-training"):
-            flash_attention(*t, causal=True)
-        with pytest.raises(NotImplementedError, match="causal-training"):
-            flash_attention_lse(*t, m, causal=True)
-        with pytest.raises(NotImplementedError, match="causal-training"):
-            flash_attention_lse(*t, m, k_offset=4)
+        out = flash_attention(*t, causal=True)
+        assert type(out.grad_fn).__name__ == "_FlashBackward"
+        torch.testing.assert_close(out.detach(),
+                                   flash_torch(*t, causal=True),
+                                   rtol=0, atol=0)
+        out.sum().backward()
+        assert torch.isfinite(t[0].grad).all()
+        # the causal lse variant is the causal forward and its row
+        # logsumexp; offsets without causal change nothing
+        o, lse = flash_attention_lse(*t, m, causal=True, q_offset=4)
+        torch.testing.assert_close(o, flash_torch(*t, m, causal=True,
+                                                  q_offset=4),
+                                   rtol=0, atol=0)
+        o4, lse4 = flash_attention_lse(*t, m, k_offset=4)
+        o, lse = flash_attention_lse(*t, m)
+        assert torch.equal(o4, o) and torch.equal(lse4, lse)
         # the lse variant (K2b) is ported: the output of flash_torch and
         # the row logsumexp
-        o, lse = flash_attention_lse(*t, m)
         torch.testing.assert_close(o, flash_torch(*t, m), rtol=0, atol=0)
         assert lse.shape == (2, 2, 16) and lse.dtype == torch.float32
 

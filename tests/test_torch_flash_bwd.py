@@ -289,8 +289,14 @@ class TestSwitch:
             k2.flash_attention(tq, tk, tv, tm, bwd_impl="xla")
         with pytest.raises(ValueError, match="lse must be f32"):
             k2.flash_dq_torch(tq, tk, tv, tm, tg, lse.double(), lse)
-        with pytest.raises(NotImplementedError, match="causal-training"):
-            k2.flash_attention_lse(tq, tk, tv, causal=True)
+        # the causal lse variant runs (its plain version on CPU tensors),
+        # and its kernel refuses CPU tensors like the others
+        o, lse = k2.flash_attention_lse(tq, tk, tv, causal=True)
+        assert o.shape == tq.shape and lse.shape == (2, 2, 16)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            k2.flash_lse_cuda(tq, tk, tv, tm, causal=True)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            k2.flash_dq_cuda(tq, tk, tv, tm, tg, lse, lse, causal=True)
 
     def test_layout_rule_for_the_incoming_gradient(self):
         # the backward wrapper copies a dO that its vector loads cannot

@@ -72,6 +72,14 @@ engine = LLMEngine(lm, slots=2, block_len=4, max_seq_len=16,
 engine.submit("a", prompts[0], 3)
 served = engine.run_until_drained()
 assert served["a"].shape == (7,), served
+
+from mmlspark_torch.dl import pretrain_causal_lm
+
+rows = np.array([[5, 6, 7, 8, 9], [9, 10, 11, 0, 0]], np.int32)
+state, losses = pretrain_causal_lm(lm, rows, steps=1, batch_size=2,
+                                   device="cpu")
+assert len(losses) == 1 and np.isfinite(losses).all(), losses
+assert state.model is lm
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad

@@ -355,8 +355,7 @@ class TestRaises:
     def test_not_ported_yet(self, monkeypatch):
         ids = np.ones((2, 8), np.int32)
         enc = TextEncoder(**ARCH, dtype=torch.float32)
-        for fn, item in ((pretrain_causal_lm, "causal-training slice"),
-                         (port_train.partition_train_state, "item 10"),
+        for fn, item in ((port_train.partition_train_state, "item 10"),
                          (port_train.make_partitioned_train_step, "item 10"),
                          (port_train.shard_train_state, "item 10"),
                          (CheckpointManager, "item 7")):
@@ -372,13 +371,23 @@ class TestRaises:
         causal = MaskedLMModel(enc.with_attention(
             make_attention_fn("dense", causal=True)))
         assert assert_causal(causal, ids, ARCH["vocab"]) <= 1e-4
+        # causal-LM pretraining is ported (the causal-training slice): it
+        # refuses the bidirectional encoder and trains its causal twin
+        with pytest.raises(ValueError, match="FUTURE"):
+            pretrain_causal_lm(enc, ids, steps=1, device="cpu")
+        _, losses = pretrain_causal_lm(causal, ids, steps=1, batch_size=2,
+                                       device="cpu")
+        assert len(losses) == 1 and np.isfinite(losses).all()
         opt = torch.optim.SGD(model.parameters(), lr=0.1)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            make_train_step(model, opt, accum_steps=2)
+        # gradient accumulation and remat are ported: a step over two
+        # microbatches, and an encoder whose blocks recompute
+        step = make_train_step(model, opt, accum_steps=2)
+        with pytest.raises(ValueError, match="must divide by accum_steps"):
+            step(TrainState(model, opt), torch.from_numpy(ids[:1]),
+                 torch.from_numpy(ids[:1]))
         with pytest.raises(NotImplementedError, match="item 10"):
             make_train_step(model, opt, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 7"):
-            TextEncoder(**ARCH, remat=True)
+        assert TextEncoder(**ARCH, remat=True).remat
         with pytest.raises(ValueError, match="mask_id"):
             pretrain_masked_lm(enc, np.full((2, 8), 63, np.int32),
                                device="cpu")
