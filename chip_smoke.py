@@ -9,7 +9,9 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 It builds every CUDA kernel of the port from the checkout's sources (one
 nvcc per source, all started together), then:
 
-1. prints the build times, each kernel's ptxas lines, and the card
+1. prints the build times, each kernel's ptxas lines (registers, shared
+   memory, spills; a spill in the bf16 forward fails), its design line
+   (CTA shape, tiles, ring stages, shared memory) and the card
    (``nvidia-smi`` name, power limit);
 2. holds K1 (``hist_cuda``) against ``hist_torch`` at the main path's
    shapes: the root histogram, a masked one (~30 % of rows) and a
@@ -25,7 +27,8 @@ nvcc per source, all started together), then:
    attention shape (B=32, H=8, T=2048, D=64, bf16, q/k/v as views of one
    fused projection, the key mask of the seeded documents plus one fully
    masked row, which must come out exactly 0), at a ragged T=2000 in f32,
-   and at a ragged T=300 at head dims 32, 64 and 128 in both dtypes;
+   and at a ragged T=300 at head dims 16, 32, 64, 96 and 128 in both dtypes
+   (16 and 96 zero-padded to the kernel's 32 and 128);
    times the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick only) beside
    the bound;
@@ -44,7 +47,8 @@ nvcc per source, all started together), then:
    fused projection, the key mask of the first 8 documents plus one fully
    masked row, whose outputs and gradients must be exactly 0), with a
    nonzero lse cotangent, at a ragged T=2000 in f32, and at a ragged T=300
-   at head dims 32, 64 and 128 in both dtypes; times each kernel, its plain
+   at head dims 32, 64, 96 (padded) and 128 in both dtypes; times each
+   kernel, its plain
    version and ``scaled_dot_product_attention``'s forward and backward (the
    library yardstick only) beside the bound;
 8. runs masked-LM pretraining at full width: the documents →
@@ -71,7 +75,8 @@ nvcc per source, all started together), then:
    slots of seeded context lengths (``BL`` 16, shuffled chains padded with
    the trash block, one all-trash slot that must be exactly 0) and at
    ``w = 4096`` over one 4096-token chain of ``BL`` 128, in both dtypes and
-   at head dims 32 and 128; times each beside its bound, its plain version
+   at head dims 32, 128 and 16 (pools padded to 32, as the engine allocates
+   them); times each beside its bound, its plain version
    and a PyTorch yardstick (``scaled_dot_product_attention``; for K3 over a
    dense cache gathered beforehand);
 10. runs ``generate`` at full width: the causal LM of ``bench.py:896-930``
@@ -89,7 +94,10 @@ nvcc per source, all started together), then:
     draft speculation with ``spec_k=4``, and one 4064-token prompt with
     ``block_len`` 128, counting K3 launches per prefill batch and decode
     step and re-scoring every output; K3 with ``pos`` ignored (a planted
-    fault) must fail the re-score limit;
+    fault) must fail the re-score limit; then an engine at head dim 16
+    sized by ``num_blocks=None``, whose pools (at K3's head dim 32, a
+    self-draft's included) must hold exactly ``num_blocks`` x the block
+    bytes, within half the free memory, and whose tokens are re-scored;
 12. holds K2c-lse (``flash_lse_cuda(causal=True)``, K2c with the lse, which
     also stands for causal K2b), causal K2d and causal K2e
     (``flash_dq_cuda``/``flash_dkv_cuda(causal=True)``) against their plain
@@ -495,7 +503,8 @@ def text_phases(torch, k1, k2, dev, bw, flush, texts, lengths):
     check_flash(torch, k2, f"f32 ragged B={Bf} H={H} T={Tf} D={D}",
                 qf, kf, vf, mask_f, 0.0, FLASH_F32_ATOL)
     del qf, kf, vf
-    for d in (32, 64, 128):
+    # 16 and 96 run zero-padded to the kernel's 32 and 128
+    for d in (16, 32, 64, 96, 128):
         for dtype in (torch.bfloat16, torch.float32):
             x = [torch.randn(2, 4, 300, d, generator=gen, device=dev,
                              dtype=dtype) for _ in range(3)]
@@ -806,7 +815,7 @@ def train_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
     check_training_kernels(torch, k2, f"f32 ragged B={B} H={H} T={Tf} "
                            f"D={D}", *xf, mask_f, dlse[:, :, :Tf])
     del xf
-    for d in (32, 64, 128):
+    for d in (32, 64, 96, 128):                   # 96: padded to 128
         for dtype in (torch.bfloat16, torch.float32):
             x = [torch.randn(2, 4, 300, d, generator=gen, device=dev,
                              dtype=dtype) for _ in range(4)]
@@ -1184,7 +1193,9 @@ def paged_case(torch, dev, seed, S, w, BL, MB, H, hd, dtype, full=False):
     ``full``), each slot's chain of distinct block ids shuffled across the
     pool and padded with TRASH_BLOCK to MB, the last slot inactive (an
     all-trash row) unless S == 1; the window sits at the end of each
-    context (pos = ctx - w). The pools, trash block included, are random."""
+    context (pos = ctx - w). The pools, trash block included, are random;
+    at a head dim the kernel is not built for they are zero-padded to the
+    next one, as the engine allocates them."""
     rng = np.random.default_rng(seed)
     cap = MB * BL
     ctx = np.full(S, cap) if full else rng.integers(w, cap + 1, size=S)
@@ -1202,8 +1213,11 @@ def paged_case(torch, dev, seed, S, w, BL, MB, H, hd, dtype, full=False):
         at += nblk[s]
     pos = (ctx - w).astype(np.int32)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    pools = [torch.randn(NB, BL, H, hd, generator=gen, device=dev,
-                         dtype=dtype) for _ in range(2)]
+    from mmlspark_torch.dl.flash_attention import (kernel_head_dim,
+                                                   pad_head_dim)
+    pools = [pad_head_dim(torch.randn(NB, BL, H, hd, generator=gen,
+                                      device=dev, dtype=dtype),
+                          kernel_head_dim(hd)) for _ in range(2)]
     qkv = torch.randn(S, w, 3 * H * hd, generator=gen, device=dev,
                       dtype=dtype)
     q = qkv[..., :H * hd].view(S, w, H, hd).transpose(1, 2)
@@ -1327,7 +1341,9 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
              ("w=4096 S=1 BL=128 (long prompt)", 64, 1, 4096, 128, 32, D,
               True),
              ("w=5 S=32 BL=16 hd=32", 65, 32, 5, 16, 256, 32, False),
-             ("w=5 S=32 BL=16 hd=128", 66, 32, 5, 16, 256, 128, False)]
+             ("w=5 S=32 BL=16 hd=128", 66, 32, 5, 16, 256, 128, False),
+             ("w=5 S=32 BL=16 hd=16 (pools padded to 32)", 67, 32, 5, 16,
+              256, 16, False)]
     k3_err, record = 0.0, None
     for name, seed, S, w, BL, MB, hd, full in cases:
         for dtype in (torch.float32, bf16):       # the bf16 case is timed
@@ -1718,7 +1734,62 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
     hold_rescore(torch, "phase 11: planted fault (K3 with pos ignored)",
                  dense, np.stack([out[i] for i in range(8)]), GEN_T, dev,
                  fault=True)
+    padded_engine(torch, k3, dev)
     return k3_launches
+
+
+def padded_engine(torch, k3, dev):
+    """Phase 11: an engine at hd 16 (width 128, 8 heads) sized by
+    ``num_blocks=None`` at the default ``hbm_fraction`` 0.5, with a self-
+    draft: the pools (the draft's too) are allocated at K3's head dim 32,
+    their bytes must equal ``num_blocks`` x the engine's block bytes and
+    stay within half the free memory; the engine serves 4 prompts through
+    K3 and its tokens are re-scored with the dense forward."""
+    import copy
+
+    from mmlspark_torch.dl import (MaskedLMModel, TextEncoder,
+                                   make_attention_fn)
+    from mmlspark_torch.dl.paged_kv import pool_block_bytes
+    from mmlspark_torch.obs import MetricsRegistry
+    from mmlspark_torch.serving import LLMEngine
+    gen = torch.Generator().manual_seed(0)
+    model = MaskedLMModel(TextEncoder(
+        vocab=4096, width=128, depth=2, heads=8, mlp_dim=512,
+        attention_fn=make_attention_fn("pallas", causal=True),
+        generator=gen), gen).to(dev).eval()
+    dense = copy.deepcopy(model)
+    dense.encoder = dense.encoder.with_attention(
+        make_attention_fn("dense", causal=True))
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    eng = LLMEngine(model, draft_module=model, spec_k=2, slots=4,
+                    block_len=16, max_seq_len=64, registry=MetricsRegistry(),
+                    device=dev)
+    pools = [t for layer in eng.pools + eng.draft_pools for t in layer]
+    held = sum(t.numel() * t.element_size() for t in pools)
+    block_bytes = 2 * pool_block_bytes(model.encoder, 16)
+    hd = {t.shape[-1] for t in pools}
+    print(f"phase 11: hd-16 engine sized by num_blocks=None: "
+          f"{eng.kv.num_blocks} blocks of {block_bytes} B (pools at head "
+          f"dim {sorted(hd)}), {held / 2**30:.3f} GiB held of "
+          f"{free / 2**30:.3f} GiB free before")
+    if hd != {32} or held != eng.kv.num_blocks * block_bytes \
+            or held > 0.5 * free:
+        fail(f"hd-16 engine: pools at head dims {hd} (want {{32}}) hold "
+             f"{held} B for {eng.kv.num_blocks} blocks of {block_bytes} B, "
+             f"limit half of {free} B free")
+    prompts = np.random.default_rng(17).integers(
+        2, 4096, size=(4, 40)).astype(np.int32)
+    before = k3.paged_cuda.launches
+    for i, p in enumerate(prompts):
+        eng.submit(i, p, 16)
+    out = eng.run_until_drained()
+    if k3.paged_cuda.launches == before:
+        fail("hd-16 engine: K3 was not launched")
+    hold_rescore(torch, "phase 11: hd-16 engine", dense,
+                 np.stack([out[i] for i in range(4)]), 40, dev)
+    del eng, pools
+    torch.cuda.empty_cache()
 
 
 def llm_phases(torch, k1, k2, k3, dev, bw, flush, lengths, args):
@@ -2099,6 +2170,9 @@ def main() -> None:
             print(f"  {name}: {secs:.2f} s")
             for line in ptxas_summary(log):
                 print(f"    {line}")
+                if line.startswith("flash_fwd_bf16") and ", spills" in line:
+                    fail(f"ptxas spilled registers: {line}")
+        print(f"  K2a/K2b/K2c design: {k2.kernel_design()}")
     print(card)
     bw, bw_src = memory_bandwidth(torch)
     print(f"memory bandwidth {bw / 1e12:.3f} TB/s ({bw_src})")

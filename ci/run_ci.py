@@ -81,8 +81,10 @@ PACKAGES: dict[str, list[str]] = {
     # the PyTorch/CUDA port (mmlspark_torch) against this package on the
     # CPU; its cuda-marked kernel test skips without a GPU
     "torch": ["test_torch_binning.py", "test_torch_causal.py",
+              "test_torch_compat.py",
               "test_torch_causal_train.py", "test_torch_core.py",
               "test_torch_engine.py", "test_torch_flash.py", "test_torch_flash_bwd.py",
+              "test_torch_head_dims.py",
               "test_torch_hist.py", "test_torch_isolation.py",
               "test_torch_lightgbm.py", "test_torch_llm_serving.py",
               "test_torch_paged.py", "test_torch_pretrain.py",

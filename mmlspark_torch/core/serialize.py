@@ -5,6 +5,15 @@ Role of the reference's ``ComplexParamsWritable``/``ComplexParamsReadable`` +
 simple params) goes to ``metadata.json``; complex params (models, stage lists,
 arrays, functions) each persist to their own subdirectory via the param's own
 codec. Classes self-register on definition so ``load_stage`` can resolve them.
+
+One format for both packages: ``metadata.json`` names a stage by the JAX
+package's qualified class name (``mmlspark_tpu.<module>.<Class>``; the
+port's modules mirror its paths), so the JAX package's loader finds its own
+class, and ``"library"`` says which package wrote it. The port resolves such
+a name to its own registered class by the bare class name, importing at
+most its own mirror module, never the JAX package. A complex param that the
+JAX package pickled holds objects of that package, which cannot be read
+without importing JAX: loading one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -14,6 +23,8 @@ import json
 import os
 from typing import Any
 
+from .param import ComplexParam, Params
+
 _STAGE_REGISTRY: dict[str, type] = {}
 
 
@@ -22,11 +33,42 @@ def register_stage(cls: type) -> None:
     _STAGE_REGISTRY[f"{cls.__module__}.{cls.__name__}"] = cls
 
 
+_REFERENCE, _PORT = "mmlspark_tpu", "mmlspark_torch"
+LATER_FOREIGN_PICKLE = (
+    "a complex param pickled by the JAX package holds that package's "
+    "objects, which the port cannot read without importing JAX; a neutral "
+    "payload for it (numpy weights and the architecture) comes with the "
+    "rest of the text-encoder slice (ROADMAP.md module queue item 7)")
+
+
+def saved_class_name(cls: type) -> str:
+    """The name ``save`` writes: the JAX package's qualified name of the
+    class this port class mirrors."""
+    module = cls.__module__
+    if module == _PORT or module.startswith(_PORT + "."):
+        module = _REFERENCE + module[len(_PORT):]
+    return f"{module}.{cls.__name__}"
+
+
 def resolve_stage_class(qualified: str) -> type:
     if qualified in _STAGE_REGISTRY:
         return _STAGE_REGISTRY[qualified]
     module, _, name = qualified.rpartition(".")
-    if module:
+    if module == _REFERENCE or module.startswith(_REFERENCE + "."):
+        # the JAX package's name: the port's mirror module, never JAX's
+        module = _PORT + module[len(_REFERENCE):]
+        if name not in _STAGE_REGISTRY:
+            try:
+                importlib.import_module(module)
+            except ModuleNotFoundError as e:
+                # no mirror module (the class is not ported): say so below;
+                # a port module that fails on its own imports raises
+                if e.name is None or not (module == e.name
+                                          or module.startswith(e.name + ".")):
+                    raise
+        if name in _STAGE_REGISTRY:
+            return _STAGE_REGISTRY[name]
+    elif module:
         importlib.import_module(module)
         if qualified in _STAGE_REGISTRY:
             return _STAGE_REGISTRY[qualified]
@@ -51,7 +93,7 @@ class SaveLoadMixin:
             else:
                 simple[p.name] = p.encode(value)
         meta = {
-            "class": f"{type(self).__module__}.{type(self).__name__}",
+            "class": saved_class_name(type(self)),
             "uid": self.uid,
             "paramMap": simple,
             "complexParams": complex_names,
@@ -90,7 +132,6 @@ def load_stage(path: str) -> Any:
     cls = resolve_stage_class(meta["class"])
     stage = cls.__new__(cls)
     # Re-run Params init without subclass __init__ side effects.
-    from .param import Params
     Params.__init__(stage)
     stage.uid = meta["uid"]
     for name, payload in meta["paramMap"].items():
@@ -101,8 +142,12 @@ def load_stage(path: str) -> Any:
         if stage.has_param(name):
             stage._defaultOverrides[name] = \
                 stage.get_param(name).decode(payload)
+    foreign = meta.get("library", _REFERENCE) != _PORT
     for name in meta["complexParams"]:
         p = stage.get_param(name)
+        if foreign and type(p).load_value is ComplexParam.load_value:
+            raise NotImplementedError(
+                f"{cls.__name__}.{name} at {path}: {LATER_FOREIGN_PICKLE}")
         stage._paramMap[name] = p.load_value(
             os.path.join(path, "params", name))
     stage._load_extra(path)

@@ -12,26 +12,26 @@
 // only the reachable k-blocks; launched at :285 with the lse, which the
 // causal training forward saves). The template flags kLse and kCausal
 // select K2b and K2c, so the kernels keep separate names in a profile; both
-// flags together are K2c with the lse, which is also the port of the causal
-// branch of `_flash_kernel_lse` (:320): one loop bound covers the packed and
-// the streaming kernel. For q, k, v [B, H, T, D] (any batch, head
-// and row strides; unit stride on D) and a key mask [B, T] (nonzero = valid;
-// null = all valid) it computes, per (b, h) and query row,
-//   s   = (q . k^T) * D^-0.5 in f32, invalid keys set to -1e30;
+// flags together are K2c with the lse (K2c-lse), which is also the port of
+// the causal branch of `_flash_kernel_lse` (:320): one loop bound covers the
+// packed and the streaming kernel. For q, k, v [B, H, T, D] (any batch,
+// head and row strides; unit stride on D) and a key mask [B, T] (nonzero =
+// valid; null = all valid) it computes, per (b, h) and query row,
+//   s   = (q . k^T) * scale in f32 (scale = D^-0.5 of the caller's true head
+//   dim), invalid keys set to -1e30;
 //   online softmax over key tiles: m = running max, l = running sum of
 //   p = exp(s - m) with p zeroed again at invalid keys (a fully masked tile
 //   would otherwise give exp(0) = 1), acc = acc * corr + p.astype(v) @ v in
 //   f32 with the UNNORMALISED p rounded to v's dtype (the TPU kernel's
 //   `p.astype(v_ref.dtype)`);
 //   o   = acc / max(l, 1e-35) in v's dtype, so a fully masked row is 0;
-//   K2b also writes lse = m + log(max(l, 1e-35)) in f32 to a contiguous
-//   [B, H, T] buffer: -1e30 for a fully masked row (m = -1e30, l = 0), as on
+//   K2b also writes lse = m + log(max(l, 1e-35)) in f32, natural-log units,
+//   to a contiguous [B, H, T] buffer: -1e30 for a fully masked row, as on
 //   the TPU. The fused backward (flash_bwd.cu) recomputes p from it. With
 //   kCausal a row with no allowed key gets the same -1e30 and o = 0,
-//   whether its CTA visits no key tile at all (m and l keep their initial
-//   -1e30 and 0) or visits tiles where every pair is masked, as
-//   `_flash_kernel_causal_packed` writes them (:195-198).
-// Keys past T (the ragged last tile) are invalid and staged as zeros.
+//   whether its CTA visits no key tile at all or only tiles where every
+//   pair is masked, as `_flash_kernel_causal_packed` writes them (:195-198).
+// Keys past T (the ragged last tile) are invalid.
 // Causal (K2c): positions are global, query row r at q_offset + r and key c
 // at k_offset + c (the offsets are the caller's ints and may exceed T, as a
 // ring shard's coordinates do); a pair is allowed iff the key is valid and
@@ -44,45 +44,96 @@
 // dense, NVIDIA H100 SXM data sheet) against 4*B*H*T*D*2 bytes of q/k/v/o
 // (0.27 GB: 0.08 ms at 3.35 TB/s). K2c does 4*P*D over the allowed pairs P,
 // T(T+1)/2 per (b, h) at q_offset = k_offset: operations bind at long T;
-// at the generate prefill's [32, 8, 128, 64] the bytes of q/k/v/o do.
+// at the generate prefill's [32, 8, 128, 64] the bytes of q/k/v/o do. Only
+// wgmma reaches the tensor cores' full rate on Hopper; beside it the
+// exponentials (one per score, on the 16-per-clock MUFU) cost about as much
+// as both products at D = 64.
 //
-// Design (right and simple first; wgmma, TMA and warp specialisation are
-// later work):
-//  - bf16: one CTA of 4 warps per (b*h, 64-row q tile); each warp owns 16
-//    query rows and keeps its Q fragments, the 16 x 64 score tile, the
-//    running max/sum and the 16 x D f32 accumulator in registers. Both
-//    products run on the tensor cores as mma.sync.m16n8k16 bf16 -> f32; the
-//    score accumulator's layout is the A-operand layout of the next product,
-//    so P never leaves registers. K tiles are staged row-major and V tiles
-//    transposed in shared memory (padded rows: conflict-free fragment loads).
-//  - f32 (the tight check of the same algorithm): 4 threads per query row,
-//    32-row q tiles, 32-key tiles, plain FMA in f32.
-//  - The TPU grid's sequential k axis (m/l/acc carried in VMEM scratch)
-//    becomes a loop over key tiles inside the CTA.
-//  - The mask is read as [B, T] through b = bh / H, and the ragged tail by
-//    bounds checks: no padded copies of q/k/v or of the mask.
-//  - A key tile whose keys are all invalid is skipped: its update is the
-//    identity (m and l unchanged, corr = 1, p = 0), so skipping is exact and
-//    saves the padded tail of short documents.
-//  - Causal: a CTA loops only over the key tiles its last row can reach,
-//    n_reach = clamp(floor((q_offset + q0 + BQ - 1 - k_offset) / BK) + 1,
-//    0, n_tiles). That one bound is both TPU kernels' pruning: K2c's
-//    packed n_reach and the streaming kernel's per-cell skip. At
-//    q_offset = k_offset it halves the work of a long row (the bound counts
-//    T(T+1)/2 pairs per (b, h)).
+// The first design was right and simple: 4 warps per 64-row q
+// tile, mma.sync m16n8k16, K and V staged by plain loads with V transposed
+// by hand, two block barriers per tile and no copy in flight during the
+// products. It took 2.9803 ms (K2a [32, 8, 2048, 64] with the documents'
+// mask), 0.6947 ms (K2b [8, 8, 2048, 64]), 0.0279 ms (K2c [32, 8, 128,
+// 64]) and 0.4607 ms (K2c-lse [8, 8, 2048, 64]) on an NVIDIA H100 80GB HBM3
+// at 700 W (`chip_smoke.py`), 3.0x SDPA's time for K2a.
+//
+// Design now, bf16 (the f32 path below is the tight check of the same
+// algorithm and keeps the simple design):
+//  - A persistent grid, one CTA per SM, walks the work items (b*h, 128-row
+//    q tile). A CTA is two consumer warpgroups, which own 64 query rows of
+//    an item each, and one producer warp, 288 threads at one CTA per SM,
+//    so a thread may hold up to 224 registers; ptxas uses 155-168 with
+//    no spill. setmaxnreg is not used: one attempt with a producer
+//    warpgroup (384 threads, setmaxnreg 24/240) spilled at D = 128 with
+//    128-key tiles, and with 40/232 ptxas still reported 168 registers.
+//    That report is the launch share, so whether setmaxnreg took effect
+//    in that code is unverified, and retrying it is open (`PERF.md` §7).
+//    D = 128 takes 64-key tiles (BK/2 + D/2 accumulator registers a
+//    thread), and the consumers run a plain loop: a ping-pong of the two
+//    warpgroups (turns on named barriers) and an overlap inside each (a
+//    tile's S = Q K^T issued beside the last P V, the softmax while it
+//    runs) were both slower than this loop when timed against it on an
+//    NVIDIA H100; neither is kept (`PERF.md` §6).
+//  - Copies by TMA: the producer loads each item's Q tile into one of two
+//    Q buffers (so the next item's Q arrives while this one is consumed)
+//    and keeps a ring of 4 stages of K and V tiles (128 keys; 64 at
+//    D = 128) in flight across items, each buffer and stage with a full
+//    and an empty mbarrier; one item's epilogue overlaps the next one's
+//    copies. Tensor maps over the
+//    caller's strided [B, H, T, D] views (dims D, T, H, B) are encoded on
+//    the host (the last 32 are cached: encoding costs more host time than
+//    the launch) and passed as __grid_constant__ parameters; rows past T
+//    come zero-filled from TMA's out-of-bounds
+//    handling, so the loop has no bounds checks. Tiles land with TMA's
+//    128-byte swizzle (64-byte at D = 32); D = 128 is two 64-column boxes.
+//  - Both products on wgmma: S = Q K^T as m64n<BK>k16 with Q and K read from
+//    shared memory through descriptors (K-major); P is rounded to bf16 in
+//    registers (the accumulator's layout is the A-fragment layout) and fed
+//    as the register A operand of O += P V (m64nDk16), with V read in its
+//    row-major (MN-major) layout through the descriptor's transpose bit:
+//    nothing is transposed in shared memory.
+//  - Online softmax in registers with exp2: the running max m is kept on
+//    the raw scores, and p = 2^(s * c - m * c) with c = scale * log2(e) is
+//    one FFMA and the exp2 per score; masked pairs score -1e30 and p is
+//    re-zeroed by a select. A tile whose pairs are all allowed (every key
+//    valid, off the causal diagonal) takes neither select. The lse is
+//    m * scale + log(l) in natural-log units, and exactly -1e30 for a row
+//    with l = 0 (no allowed key), so no sentinel passes through the exp2
+//    domain.
+//  - The key mask: the producer reads a tile's mask bytes with one warp,
+//    writes the tile's validity as BK/32 32-bit words into the stage's
+//    slot before it arrives on the full barrier, and posts every tile: a
+//    tile with no valid key arrives without a copy, and the consumers skip
+//    its products (its update is the identity). So both sides walk the
+//    same tile list by construction, and the validity reaches the consumers
+//    through the mbarrier's release/acquire, with no block barrier.
+//  - Causal: producer and consumers loop to the same n_reach, taken for the
+//    CTA's last row; a consumer warpgroup skips a tile none of its rows can
+//    reach and runs the per-pair compare only on tiles that cross its
+//    diagonal. Causal items go longest first (every head's last q tile,
+//    then the one before), which balances the persistent CTAs; otherwise a
+//    head's q tiles are neighbours in the walk and share its K and V in
+//    L2. A warpgroup whose rows all lie past T skips the products.
 //  - The output is written through its own strides, so the wrapper can hand
 //    back a [B, H, T, D] view of a [B, T, H, D] buffer and the head merge
 //    after attention needs no copy.
+//  - A wait that does not complete within ~2^24 polls traps, so a fault in
+//    a copy ends the launch with an error instead of hanging the card.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 #include <string.h>
+
+#include <mutex>
 
 namespace {
 
 constexpr float kNeg = -1e30f;  // the TPU kernel's _NEG
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;   // the f32 path's CTA
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -91,7 +142,7 @@ struct Params {
   const uint8_t* mask;  // [B, T] with batch stride mask_sb; null = all valid
   void* o;
   float* lse;  // [B*H, T] f32 (K2b); unused by K2a
-  int H, T;
+  int BH, H, T;
   long long q_sb, q_sh, q_st;
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
@@ -125,28 +176,145 @@ __device__ __forceinline__ bool key_valid(const Params& p, int b, int key) {
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ16 = 16 * kWarps;  // query rows per CTA
-constexpr int kBK16 = 64;           // keys per tile
+constexpr int kBQ = 128;  // query rows per CTA: 64 per consumer warpgroup
+constexpr int kStages = 4;  // K/V tiles in flight
+constexpr int kWgThreads = 128;
+// two consumer warpgroups and one producer warp: at one CTA per SM
+// (__launch_bounds__(288, 1)) ptxas may give every thread 224 registers,
+// which the consumers need; setmaxnreg, which needs a whole producer
+// warpgroup, is not used (see the note above)
+constexpr int kConsumerThreads = 2 * kWgThreads;
+constexpr int kHopperThreads = kConsumerThreads + 32;
+constexpr uint32_t kSpinLimit = 1u << 24;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// shared-memory layout of one head dim: the Q tile, then STAGES of (K, V),
+// then each stage's four validity words, then the barriers
+template <int D>
+struct Tile {
+  // keys per tile: 64 at D = 128 keeps the score and output accumulators
+  // (BK/2 + D/2 registers a thread) small; 128-key tiles spilled at
+  // D = 128 in the one 3-warpgroup attempt (see the note above)
+  static constexpr int BK = D == 128 ? 64 : 128;
+  static constexpr int NW = BK / 32;          // validity words per tile
+  static constexpr int CW = D < 64 ? D : 64;  // columns per TMA box
+  static constexpr int NCH = D / CW;          // boxes per row
+  static constexpr int ROWB = CW * 2;         // bytes per swizzled row
+  static constexpr int KPC = CW / 16;         // k16 steps per box
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
+  static constexpr uint64_t SWZ = ROWB == 128 ? 1 : 2;
+  static constexpr int STAGES = kStages;
+  static constexpr int Q_BYTES = kBQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;  // one of K or V
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int META = STAGES * 16;
+  static constexpr int BARS = (2 * STAGES + 4) * 8;  // + Q full/empty x 2
+  // + 1024: the dynamic base is rounded up to the swizzle atom; Q is
+  // double-buffered, so the next work item's Q loads during this one
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + STAGES * STAGE_BYTES + META + BARS;
+  static_assert(D % 16 == 0 && D <= 128, "head dim 32, 64 or 128");
+  static_assert(SMEM <= 232448, "more shared memory than a CTA may have");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait for the phase of parity `parity` to complete; trap after
+// kSpinLimit polls rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == kSpinLimit) __trap();
+  }
+}
+
+// one box of a rank-4 tensor map (coordinates innermost first) into shared
+// memory, completing `bytes` on the mbarrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (all >> 4) and the swizzle layout type
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// a consumer warp is done with a stage: lane 0 arrives on its empty barrier
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// registers an asynchronous wgmma reads or writes: keep the compiler from
+// moving their uses across the fence/wait
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two f32 -> one register of two bf16 (round to nearest even), lo in the
-// low half as mma.sync's fragments expect
+// low half as the A fragments expect
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   uint32_t r;
@@ -154,189 +322,437 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
+// S (64 x 128, f32) = A (64 x 16) B^T (128 x 16), both K-major in shared
+// memory; O (64 x N) += A (registers) B (16 x N, MN-major: transposed)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int BK>
+__device__ __forceinline__ void wgmma_s(float (&s)[BK / 2], uint64_t a,
+                                        uint64_t b, int acc) {
+  if constexpr (BK == 64) wgmma_ss_n64(s, a, b, acc);
+  else wgmma_ss_n128(s, a, b, acc);
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 32) wgmma_rs_n32(acc, a, b);
+  else if constexpr (D == 64) wgmma_rs_n64(acc, a, b);
+  else wgmma_rs_n128(acc, a, b);
+}
+
+// O += P V over one key tile in steps of 16 keys, V read MN-major from the
+// stage at `vs`; issued and committed as one group
+template <int D>
+__device__ __forceinline__ void pv_products(float (&acc)[D / 2],
+                                            const uint32_t (&pa)[Tile<D>::BK /
+                                                                 16][4],
+                                            uint32_t vs) {
+  using C = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk)
+    wgmma_pv<D>(acc, pa[kk],
+                smem_desc(vs + kk * 16 * C::ROWB, C::BK * C::ROWB,
+                          8 * C::ROWB, C::SWZ));
+  wg_commit();
+}
+
 template <int D, bool kLse, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16(const Params p) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int KP = D + 8;      // K tile row pitch (elements)
-  constexpr int VP = kBK16 + 8;  // V^T tile row pitch (elements)
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK16 * KP];
-  __shared__ __align__(16) __nv_bfloat16 vt[D * VP];
-  __shared__ uint8_t allowed[kBK16];
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = Tile<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base;                   // Q buffer i at + i * Q_BYTES
+  const uint32_t kv_s = base + 2 * C::Q_BYTES;  // stage s: K, then V
+  const uint32_t meta_off = 2 * C::Q_BYTES + C::STAGES * C::STAGE_BYTES;
+  uint32_t* const meta =
+      reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + meta_off);
+  const uint32_t bars = base + meta_off + C::META;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (C::STAGES + s); };
+  auto qfull = [&](int i) { return bars + 8u * (2 * C::STAGES + i); };
+  auto qempty = [&](int i) { return bars + 8u * (2 * C::STAGES + 2 + i); };
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row / column pair
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H;
   const int T = p.T;
-  const int r_lo = blockIdx.y * kBQ16 + warp * 16 + g;
-  const int r_hi = r_lo + 8;
+  const int n_qt = (T + kBQ - 1) / kBQ;
+  const int n_work = n_qt * p.BH;
+  // work item w -> (b*h, q tile): causal takes every head's last q tile
+  // first (the longest rows: the longest-first order balances the
+  // persistent CTAs), the rest go head by head so that a head's q tiles
+  // run together and share its K and V in L2
+  auto work_at = [&](int w, int& bh, int& qt) {
+    if (kCausal) {
+      qt = n_qt - 1 - w / p.BH;
+      bh = w % p.BH;
+    } else {
+      bh = w / n_qt;
+      qt = w % n_qt;
+    }
+  };
+  auto tiles_of = [&](int qt) {
+    const int n = (T + BK - 1) / BK;
+    return kCausal ? reach_tiles(p, qt * kBQ + kBQ - 1, BK, n) : n;
+  };
 
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) +
-                            b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) +
-                            b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) +
-                            b * p.v_sb + h * p.v_sh;
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
-                      h * p.o_sh;
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);   // the producer's one arrival (+ the bytes)
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(qfull(i), 1);
+      mbar_init(qempty(i), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // A fragments of this warp's 16 query rows, for every 16-wide D step
-  uint32_t qf[D / 16][4];
+  if (tid >= kConsumerThreads) {
+    // ---------------------------------------------------------- producer
+    const int lane = tid - kConsumerThreads;
+    int stage = 0;
+    uint32_t phase = 0;
+    int it = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
+      int bh, qt;
+      work_at(w, bh, qt);
+      const int b = bh / p.H, h = bh % p.H;
+      // Q into buffer it % 2 once the consumers are done with the Q two
+      // items back: the next item's Q loads while this one is consumed
+      if (lane == 0) {
+        const int qb = it & 1;
+        mbar_wait(qempty(qb), ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(qfull(qb), C::Q_BYTES);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    const __nv_bfloat16* lo = qb + r_lo * p.q_st + c;
-    const __nv_bfloat16* hi = qb + r_hi * p.q_st + c;
-    qf[kk][0] = r_lo < T ? ld32(lo) : 0u;
-    qf[kk][1] = r_hi < T ? ld32(hi) : 0u;
-    qf[kk][2] = r_lo < T ? ld32(lo + 8) : 0u;
-    qf[kk][3] = r_hi < T ? ld32(hi + 8) : 0u;
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load(q_s + qb * C::Q_BYTES + c * kBQ * C::ROWB, &tq, qfull(qb),
+                   c * C::CW, qt * kBQ, h, b);
+      }
+      const int n_tiles = tiles_of(qt);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int k0 = kt * BK;
+        uint32_t wv[C::NW], any = 0;
+#pragma unroll
+        for (int i = 0; i < C::NW; ++i) {
+          wv[i] = __ballot_sync(0xffffffffu,
+                                key_valid(p, b, k0 + 32 * i + lane));
+          any |= wv[i];
+        }
+        if (lane == 0) {
+          mbar_wait(empty(stage), phase ^ 1);
+          uint32_t* m = meta + 4 * stage;
+#pragma unroll
+          for (int i = 0; i < C::NW; ++i) m[i] = wv[i];
+          if (any) {
+            mbar_expect_tx(full(stage), C::STAGE_BYTES);
+            const uint32_t ks = kv_s + stage * C::STAGE_BYTES;
+#pragma unroll
+            for (int c = 0; c < C::NCH; ++c) {
+              tma_load(ks + c * BK * C::ROWB, &tk, full(stage), c * C::CW,
+                       k0, h, b);
+              tma_load(ks + C::KV_BYTES + c * BK * C::ROWB, &tv, full(stage),
+                       c * C::CW, k0, h, b);
+            }
+          } else {
+            mbar_arrive(full(stage));  // no valid key: no copy, same list
+          }
+        }
+        if (++stage == C::STAGES) stage = 0, phase ^= 1;
+      }
+    }
+    return;
   }
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_lo = kNeg, m_hi = kNeg;  // running max of rows r_lo, r_hi
-  float l_lo = 0.f, l_hi = 0.f;    // this thread's share of the running sum
+  // ------------------------------------------------------------ consumers
+  const int cw = tid / kWgThreads;  // this warpgroup: rows 64 * cw + ...
+  const int t = tid % kWgThreads;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row / column pair
+  const float scale2 = p.scale * kLog2e;
+  int stage = 0;
+  uint32_t phase = 0;
+  int it = 0;
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
+    int bh, qt;
+    work_at(w, bh, qt);
+    const int b = bh / p.H, h = bh % p.H;
+    const int n_tiles = tiles_of(qt);
+    const int wg_row0 = qt * kBQ + 64 * cw;
+    const int r_lo = wg_row0 + warp * 16 + g, r_hi = r_lo + 8;
+    // causal: the last key the first and the last row of the warpgroup reach
+    const long long reach_first = wg_row0 + p.qk_shift;
+    const long long reach_last = wg_row0 + 63 + p.qk_shift;
+    // causal: key column 8j + e of this thread's pairs is allowed iff
+    // 8j + e <= row limit - k0 - 2 * t4
+    const int lim_lo = row_limit(p, r_lo) - 2 * t4;
+    const int lim_hi = row_limit(p, r_hi) - 2 * t4;
+    const int qb = it & 1;
+    const uint32_t qa = q_s + qb * C::Q_BYTES + 64 * cw * C::ROWB;
 
-  // causal: the last local key each of this thread's rows may attend
-  const int lim_lo = row_limit(p, r_lo), lim_hi = row_limit(p, r_hi);
-  int n_tiles = (T + kBK16 - 1) / kBK16;
-  if (kCausal)
-    n_tiles = reach_tiles(p, blockIdx.y * kBQ16 + kBQ16 - 1, kBK16, n_tiles);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK16;
-    __syncthreads();  // the previous tile is consumed
-    const bool ok = tid < kBK16 && key_valid(p, b, k0 + tid);
-    if (tid < kBK16) allowed[tid] = ok;
-    if (!__syncthreads_or(ok)) continue;  // all keys invalid: identity
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_lo = kNeg, m_hi = kNeg;  // running max of the raw scores
+    float l_lo = 0.f, l_hi = 0.f;    // this thread's share of the running sum
 
-    constexpr int VEC = D / 8;  // 16-byte vectors per row
-    for (int i = tid; i < kBK16 * VEC; i += kThreads) {
-      const int r = i / VEC, c = (i % VEC) * 8;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < T)
-        x = *reinterpret_cast<const uint4*>(kb + (k0 + r) * p.k_st + c);
-      *reinterpret_cast<uint4*>(&ks[r * KP + c]) = x;
-    }
-    // V transposed: consecutive threads take consecutive keys, so the
-    // scalar stores into a V^T row do not collide on a bank
-    for (int i = tid; i < kBK16 * VEC; i += kThreads) {
-      const int r = i % kBK16, c = (i / kBK16) * 8;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < T)
-        x = *reinterpret_cast<const uint4*>(vb + (k0 + r) * p.v_st + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
+    mbar_wait(qfull(qb), (it >> 1) & 1);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * BK;
+      mbar_wait(full(stage), phase);
+      const uint32_t* mw = meta + 4 * stage;
+      uint32_t w[C::NW], any = 0, all = 0xffffffffu;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(c + j) * VP + r] = e[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys per warp, as 8 n-tiles of 8 keys
-    float s[kBK16 / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK16 / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = &ks[(n * 8 + g) * KP + kk * 16 + t4 * 2];
-        mma_bf16(s[n], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], ld32(kr),
-                 ld32(kr + 8));
+      for (int i = 0; i < C::NW; ++i) {
+        w[i] = mw[i];
+        any |= w[i];
+        all &= w[i];
       }
-    }
-
-    // causal: key n * 8 + e of this thread's columns is allowed for a row
-    // iff n * 8 + e <= that row's limit less k0 + t4 * 2, a compare with a
-    // constant once the loops unroll
-    const int d_lo = lim_lo - k0 - t4 * 2, d_hi = lim_hi - k0 - t4 * 2;
-    float mx_lo = kNeg, mx_hi = kNeg;
+      // a warpgroup with no row before T, or (causal) none that reaches the
+      // tile, only releases it
+      const bool reach = wg_row0 < T && (!kCausal || k0 <= reach_last);
+      if (any != 0 && reach) {
+        const uint32_t ks = kv_s + stage * C::STAGE_BYTES;
+        const uint32_t vs = ks + C::KV_BYTES;
+        float s[BK / 2];
 #pragma unroll
-    for (int n = 0; n < kBK16 / 8; ++n) {
+        for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+        keep(s);
+        keep(acc);
+        wg_fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = n * 8 + t4 * 2 + e;
-        const bool ok_lo = allowed[c] && (!kCausal || n * 8 + e <= d_lo);
-        const bool ok_hi = allowed[c] && (!kCausal || n * 8 + e <= d_hi);
-        s[n][e] = ok_lo ? s[n][e] * p.scale : kNeg;
-        s[n][2 + e] = ok_hi ? s[n][2 + e] * p.scale : kNeg;
-        mx_lo = fmaxf(mx_lo, s[n][e]);
-        mx_hi = fmaxf(mx_hi, s[n][2 + e]);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off =
+              (kk / C::KPC) * BK * C::ROWB + (kk % C::KPC) * 32;
+          wgmma_s<BK>(
+              s,
+              smem_desc(qa + (kk / C::KPC) * kBQ * C::ROWB + (kk % C::KPC) * 32,
+                        16, 8 * C::ROWB, C::SWZ),
+              smem_desc(ks + off, 16, 8 * C::ROWB, C::SWZ), kk > 0);
+        }
+        wg_commit();
+        wg_wait0();
+        keep(s);
+        const bool diag = kCausal && k0 + BK - 1 > reach_first;
+        const bool full = !diag && all == 0xffffffffu;
+        if (!full) {
+          const int d_lo = lim_lo - k0, d_hi = lim_hi - k0;
+#pragma unroll
+          for (int i = 0; i < C::NW; ++i) w[i] >>= 2 * t4;
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const bool valid = (w[j / 4] >> (8 * (j % 4) + e)) & 1u;
+              const bool ok_lo = valid && (!diag || 8 * j + e <= d_lo);
+              const bool ok_hi = valid && (!diag || 8 * j + e <= d_hi);
+              s[4 * j + e] = ok_lo ? s[4 * j + e] : kNeg;
+              s[4 * j + 2 + e] = ok_hi ? s[4 * j + 2 + e] : kNeg;
+            }
+          }
+        }
+        float mx_lo = kNeg, mx_hi = kNeg;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+          mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+        }
+        const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+        const float ms_lo = mn_lo * scale2, ms_hi = mn_hi * scale2;
+        const float corr_lo = ex2((m_lo - mn_lo) * scale2);
+        const float corr_hi = ex2((m_hi - mn_hi) * scale2);
+        m_lo = mn_lo;
+        m_hi = mn_hi;
+        float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& a = s[4 * j + e];
+            float& c = s[4 * j + 2 + e];
+            const float pa_ = ex2(fmaf(a, scale2, -ms_lo));
+            const float pc_ = ex2(fmaf(c, scale2, -ms_hi));
+            a = full || a > kNeg ? pa_ : 0.f;
+            c = full || c > kNeg ? pc_ : 0.f;
+            ps_lo += a;
+            ps_hi += c;
+          }
+        }
+        l_lo = l_lo * corr_lo + ps_lo;
+        l_hi = l_hi * corr_hi + ps_hi;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j] *= corr_lo;
+          acc[4 * j + 1] *= corr_lo;
+          acc[4 * j + 2] *= corr_hi;
+          acc[4 * j + 3] *= corr_hi;
+        }
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        keep(acc);
+        keep(pa);
+        wg_fence();
+        pv_products<D>(acc, pa, vs);
+        wg_wait0();
+        keep(acc);
+        keep(pa);
       }
+      release(empty(stage), lane);
+      if (++stage == C::STAGES) stage = 0, phase ^= 1;
     }
-    // the 4 threads of a fragment row hold its 64 scores between them
+    release(qempty(qb), lane);  // the products that read this Q are done
+
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
     }
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float corr_lo = expf(m_lo - mn_lo), corr_hi = expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float ps_lo = 0.f, ps_hi = 0.f;
-#pragma unroll
-    for (int n = 0; n < kBK16 / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = n * 8 + t4 * 2 + e;
-        const bool ok_lo = allowed[c] && (!kCausal || n * 8 + e <= d_lo);
-        const bool ok_hi = allowed[c] && (!kCausal || n * 8 + e <= d_hi);
-        s[n][e] = ok_lo ? expf(s[n][e] - mn_lo) : 0.f;
-        s[n][2 + e] = ok_hi ? expf(s[n][2 + e] - mn_hi) : 0.f;
-        ps_lo += s[n][e];
-        ps_hi += s[n][2 + e];
-      }
+    const float den_lo = fmaxf(l_lo, 1e-35f), den_hi = fmaxf(l_hi, 1e-35f);
+    if (kLse && t4 == 0) {
+      // natural-log units; l = 0 only for a row with no allowed key
+      float* lse = p.lse + static_cast<long long>(bh) * T;
+      if (r_lo < T) lse[r_lo] = l_lo > 0.f ? m_lo * p.scale + logf(l_lo) : kNeg;
+      if (r_hi < T) lse[r_hi] = l_hi > 0.f ? m_hi * p.scale + logf(l_hi) : kNeg;
     }
-    l_lo = l_lo * corr_lo + ps_lo;
-    l_hi = l_hi * corr_hi + ps_hi;
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
+                        h * p.o_sh;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr_lo;
-      acc[n][1] *= corr_lo;
-      acc[n][2] *= corr_hi;
-      acc[n][3] *= corr_hi;
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + t4 * 2;
+      if (r_lo < T)
+        *reinterpret_cast<uint32_t*>(ob + r_lo * p.o_st + c) =
+            pack_bf16(acc[4 * j] / den_lo, acc[4 * j + 1] / den_lo);
+      if (r_hi < T)
+        *reinterpret_cast<uint32_t*>(ob + r_hi * p.o_st + c) =
+            pack_bf16(acc[4 * j + 2] / den_hi, acc[4 * j + 3] / den_hi);
     }
-
-    // O += P V with P rounded to bf16: score n-tiles 2j and 2j+1 are the
-    // A fragment of the j-th 16-key step
-#pragma unroll
-    for (int j = 0; j < kBK16 / 16; ++j) {
-      const uint32_t a0 = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      const uint32_t a1 = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      const uint32_t a2 = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vr = &vt[(n * 8 + g) * VP + j * 16 + t4 * 2];
-        mma_bf16(acc[n], a0, a1, a2, a3, ld32(vr), ld32(vr + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float den_lo = fmaxf(l_lo, 1e-35f), den_hi = fmaxf(l_hi, 1e-35f);
-  if (kLse && t4 == 0) {
-    float* lse = p.lse + static_cast<long long>(bh) * T;
-    if (r_lo < T) lse[r_lo] = m_lo + logf(den_lo);
-    if (r_hi < T) lse[r_hi] = m_hi + logf(den_hi);
-  }
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + t4 * 2;
-    if (r_lo < T)
-      *reinterpret_cast<uint32_t*>(ob + r_lo * p.o_st + c) =
-          pack_bf16(acc[n][0] / den_lo, acc[n][1] / den_lo);
-    if (r_hi < T)
-      *reinterpret_cast<uint32_t*>(ob + r_hi * p.o_st + c) =
-          pack_bf16(acc[n][2] / den_hi, acc[n][3] / den_hi);
-  }
+  }  // work items
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -441,26 +857,162 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool kLse, bool kCausal>
-cudaError_t launch_dtype(const Params& p, int dtype, int bh, cudaStream_t s) {
-  if (dtype == 0) {
-    const dim3 grid(bh, (p.T + kBQ16 - 1) / kBQ16);
-    flash_fwd_bf16<D, kLse, kCausal><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    const dim3 grid(bh, (p.T + kBQ32 - 1) / kBQ32);
-    flash_fwd_f32<D, kLse, kCausal><<<grid, kThreads, 0, s>>>(p);
+// ------------------------------------------------------------------ launch
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so the library links no libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// errors of the tensor-map encoding, returned below cudaError_t's range
+constexpr int kErrNoEncoder = -1;
+constexpr int kErrEncodeBase = -1000;  // kErrEncodeBase - CUresult
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
-  return cudaGetLastError();
+  return fn;
+}
+
+// a rank-4 bf16 tensor map over a strided [B, H, T, D] view (dims D, T, H,
+// B innermost first; strides in elements), boxes of `rows` rows by
+// Tile<D>::CW columns, swizzled as the wgmma descriptors read them; rows
+// past T read as zeros
+// The last tensor maps encoded, keyed by everything that goes into them:
+// encoding costs the host more than the launch, and a caller's tensors
+// come back at the same addresses call after call.
+struct MapKey {
+  const void* ptr;
+  long long b, h, t, sb, sh, st, rows, d;
+  bool operator==(const MapKey& o) const {
+    return memcmp(this, &o, sizeof(MapKey)) == 0;
+  }
+};
+struct MapSlot {
+  MapKey key;
+  CUtensorMap map;
+  bool used;
+};
+constexpr int kMapSlots = 32;
+MapSlot g_maps[kMapSlots];
+int g_next_slot = 0;
+std::mutex g_maps_mutex;
+
+template <int D>
+int encode_view(CUtensorMap* map, const void* ptr, int B, int H, int T,
+                long long sb, long long sh, long long st, int rows) {
+  using C = Tile<D>;
+  MapKey key;
+  memset(&key, 0, sizeof(key));
+  key.ptr = ptr, key.b = B, key.h = H, key.t = T;
+  key.sb = sb, key.sh = sh, key.st = st, key.rows = rows, key.d = D;
+  std::lock_guard<std::mutex> lock(g_maps_mutex);
+  for (const MapSlot& slot : g_maps)
+    if (slot.used && slot.key == key) {
+      *map = slot.map;
+      return 0;
+    }
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const long long given[3] = {st * 2, sh * 2, sb * 2};
+  cuuint64_t strides[3];
+  cuuint64_t span = D * 2;  // bytes one step of the previous dim covers
+  for (int i = 0; i < 3; ++i) {
+    // a dim of extent 1 is never stepped: any stride TMA accepts will do
+    strides[i] = dims[i + 1] == 1 ? span
+                                  : static_cast<cuuint64_t>(given[i]);
+    span = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C::CW),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      C::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return kErrEncodeBase - static_cast<int>(res);
+  MapSlot& slot = g_maps[g_next_slot];
+  g_next_slot = (g_next_slot + 1) % kMapSlots;
+  slot.key = key, slot.map = *map, slot.used = true;
+  return 0;
+}
+
+template <int D, bool kLse, bool kCausal>
+int launch_bf16(const Params& p, int B, cudaStream_t s) {
+  using C = Tile<D>;
+  CUtensorMap tq, tk, tv;
+  int err = encode_view<D>(&tq, p.q, B, p.H, p.T, p.q_sb, p.q_sh, p.q_st,
+                           kBQ);
+  if (err == 0)
+    err = encode_view<D>(&tk, p.k, B, p.H, p.T, p.k_sb, p.k_sh, p.k_st,
+                         C::BK);
+  if (err == 0)
+    err = encode_view<D>(&tv, p.v, B, p.H, p.T, p.v_sb, p.v_sh, p.v_st,
+                         C::BK);
+  if (err != 0) return err;
+  auto kernel = flash_fwd_bf16<D, kLse, kCausal>;
+  // the shared-memory opt-in, once per instance and device
+  static unsigned long long opted = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(opted & bit)) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted |= bit;
+  }
+  // a persistent grid: one CTA per SM walks the work items
+  static int sms[64] = {0};
+  int& n_sm = sms[dev & 63];
+  if (n_sm == 0) {
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long work = static_cast<long long>((p.T + kBQ - 1) / kBQ) * p.BH;
+  if (work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(work < n_sm ? work : n_sm);
+  kernel<<<grid, kHopperThreads, C::SMEM, s>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kLse, bool kCausal>
+int launch_dtype(const Params& p, int dtype, int B, cudaStream_t s) {
+  if (dtype == 0) return launch_bf16<D, kLse, kCausal>(p, B, s);
+  const dim3 grid(B * p.H, (p.T + kBQ32 - 1) / kBQ32);
+  flash_fwd_f32<D, kLse, kCausal><<<grid, kThreads, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kLse, bool kCausal>
-cudaError_t launch_dim(const Params& p, int dtype, int D, int bh,
-                       cudaStream_t s) {
+int launch_dim(const Params& p, int dtype, int D, int B, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_dtype<32, kLse, kCausal>(p, dtype, bh, s);
-    case 64: return launch_dtype<64, kLse, kCausal>(p, dtype, bh, s);
-    case 128: return launch_dtype<128, kLse, kCausal>(p, dtype, bh, s);
-    default: return cudaErrorInvalidValue;
+    case 32: return launch_dtype<32, kLse, kCausal>(p, dtype, B, s);
+    case 64: return launch_dtype<64, kLse, kCausal>(p, dtype, B, s);
+    case 128: return launch_dtype<128, kLse, kCausal>(p, dtype, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -473,7 +1025,9 @@ extern "C" {
 // 0 and key 0), with or without the lse, on `stream` (a cudaStream_t from
 // PyTorch) on device `device`. dtype: 0 = bf16, 1 = f32 (q, k, v and o all
 // of it). Strides are in elements; D must be 32, 64 or 128 with unit
-// stride. Returns the cudaError_t of the launch.
+// stride, and for bf16 the q/k/v base addresses and strides multiples of
+// 16 bytes (the tensor maps' rule). Returns 0, a cudaError_t of the launch,
+// or a negative code of the tensor-map encoding (see the error string).
 int mmlspark_flash_launch(const void* q, const void* k, const void* v,
                           const void* mask, void* o, float* lse, int dtype,
                           int B, int H,
@@ -496,6 +1050,7 @@ int mmlspark_flash_launch(const void* q, const void* k, const void* v,
   p.mask = static_cast<const uint8_t*>(mask);
   p.o = o;
   p.lse = lse;
+  p.BH = B * H;
   p.H = H;
   p.T = T;
   p.q_sb = q_sb, p.q_sh = q_sh, p.q_st = q_st;
@@ -507,16 +1062,37 @@ int mmlspark_flash_launch(const void* q, const void* k, const void* v,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (causal)
-    return static_cast<int>(
-        lse == nullptr ? launch_dim<false, true>(p, dtype, D, B * H, s)
-                       : launch_dim<true, true>(p, dtype, D, B * H, s));
-  return static_cast<int>(lse == nullptr
-                              ? launch_dim<false, false>(p, dtype, D, B * H, s)
-                              : launch_dim<true, false>(p, dtype, D, B * H, s));
+    return lse == nullptr ? launch_dim<false, true>(p, dtype, D, B, s)
+                          : launch_dim<true, true>(p, dtype, D, B, s);
+  return lse == nullptr ? launch_dim<false, false>(p, dtype, D, B, s)
+                        : launch_dim<true, false>(p, dtype, D, B, s);
 }
 
 const char* mmlspark_flash_error_string(int err) {
+  static thread_local char buf[96];
+  if (err == kErrNoEncoder)
+    return "the driver entry point cuTensorMapEncodeTiled was not found";
+  if (err <= kErrEncodeBase) {
+    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed (CUresult %d)",
+             kErrEncodeBase - err);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The bf16 forward's design, one line: grid and CTA shape, tiles, ring
+// stages and dynamic shared memory per head dim.
+const char* mmlspark_flash_design() {
+  static char buf[384];
+  snprintf(buf, sizeof(buf),
+           "bf16 forward: persistent, one CTA per SM; %d threads = 2 "
+           "consumer warpgroups + 1 TMA producer warp; q tile %d rows, "
+           "2 Q buffers; key tiles %d/%d/%d, TMA ring of "
+           "%d stages, dynamic smem %d/%d/%d B at D = 32/64/128; wgmma "
+           "m64n<key tile>k16 (S, SS) and m64nDk16 (PV, RS, V MN-major)",
+           kHopperThreads, kBQ, Tile<32>::BK, Tile<64>::BK, Tile<128>::BK,
+           kStages, Tile<32>::SMEM, Tile<64>::SMEM, Tile<128>::SMEM);
+  return buf;
 }
 
 }  // extern "C"

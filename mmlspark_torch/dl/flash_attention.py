@@ -54,6 +54,16 @@ Causal: query row ``r`` sits at global position ``q_offset + r`` and key
 forward and the backward alike. As in the JAX package the offsets only
 matter with ``causal=True``.
 
+Head dims: the kernels are built for D = 32, 64 and 128. The wrappers run
+any other D up to 128 at the next of those (:func:`kernel_head_dim`),
+zero-padding q, k, v (and dO) on D (:func:`pad_head_dim`) and scaling by
+the true ``D^-0.5``; zero columns leave every ``q·k`` unchanged and give
+zero output columns, which are sliced off the outputs and the gradients.
+D above 128 raises, as a fault the ROADMAP keeps. The reference pads every
+head dim to 128 lanes the same way (``pallas_attention.py:19-21``). The
+plain versions take ``scale`` too, so the tests can hold the padding
+against the unpadded computation on the CPU.
+
 Not ported here: the TPU's block-size resolution and autotune lookup,
 which size blocks for VMEM.
 """
@@ -64,6 +74,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from ..native.loader import CudaLoader
 from ..parallel.ring_attention import blockwise_attention
@@ -113,6 +124,28 @@ def _check_rows(q, dout, lse, dsum) -> None:
                              f"on {t.device}")
 
 
+def kernel_head_dim(D: int) -> int:
+    """The head dim the kernels run ``D`` at: the smallest of
+    :data:`HEAD_DIMS` that holds it. Raises ``ValueError`` above 128."""
+    for dim in HEAD_DIMS:
+        if D <= dim:
+            return dim
+    raise ValueError(f"the CUDA attention kernels take head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {D}")
+
+
+def pad_head_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with zero columns appended on its last axis up to ``dim`` (``t``
+    itself when it is that wide already)."""
+    return t if t.shape[-1] == dim else F.pad(t, (0, dim - t.shape[-1]))
+
+
+def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
+    """The first ``D`` columns of a kernel output (``t`` itself when it has
+    no padding: indexing costs the host a few microseconds a call)."""
+    return t if t.shape[-1] == D else t[..., :D]
+
+
 # ------------------------------------------------------------ plain versions
 
 def _allowed(key_mask, T=None, causal=False, q_offset=0, k_offset=0,
@@ -128,13 +161,18 @@ def _allowed(key_mask, T=None, causal=False, q_offset=0, k_offset=0,
     return allowed
 
 
+def _scale(q, scale):
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
 def _plain_forward(q, k, v, key_mask, causal=False, q_offset=0,
-                   k_offset=0):
+                   k_offset=0, scale=None):
     """The forward in f32 all at once (one k-block of the TPU kernel): the
-    output in v's dtype, the row max ``m`` and the row sum ``l``."""
+    output in v's dtype, the row max ``m`` and the row sum ``l``. ``scale``
+    defaults to ``D^-0.5``."""
     _check_inputs(q, k, v, key_mask)
-    D = q.shape[-1]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * D ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        * _scale(q, scale)
     allowed = _allowed(key_mask, q.shape[2], causal, q_offset, k_offset,
                        q.device)
     if allowed is not None:
@@ -151,33 +189,36 @@ def _plain_forward(q, k, v, key_mask, causal=False, q_offset=0,
 def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 key_mask: torch.Tensor | None = None, *,
                 causal: bool = False, q_offset: int = 0,
-                k_offset: int = 0) -> torch.Tensor:
+                k_offset: int = 0, scale: float | None = None
+                ) -> torch.Tensor:
     """Plain PyTorch K2a (and, with ``causal``, K2c): the whole score
     matrix in f32 at once, with the kernel's masking and casting (one
     k-block of the TPU kernel)."""
-    return _plain_forward(q, k, v, key_mask, causal, q_offset, k_offset)[0]
+    return _plain_forward(q, k, v, key_mask, causal, q_offset, k_offset,
+                          scale)[0]
 
 
 def flash_lse_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_mask: torch.Tensor | None = None, *,
                     causal: bool = False, q_offset: int = 0,
-                    k_offset: int = 0
+                    k_offset: int = 0, scale: float | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K2b (and, with ``causal``, K2c-lse):
     :func:`flash_torch`'s output and the f32 row logsumexp ``m + log(max(l,
     1e-35))`` ``[B, H, T]`` (``-1e30`` for a row with no allowed key)."""
-    o, m, l = _plain_forward(q, k, v, key_mask, causal, q_offset, k_offset)
+    o, m, l = _plain_forward(q, k, v, key_mask, causal, q_offset, k_offset,
+                             scale)
     return o, (m + torch.log(l.clamp_min(1e-35)))[..., 0]
 
 
 def _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum, causal=False,
-                           q_offset=0, k_offset=0):
+                           q_offset=0, k_offset=0, scale=None):
     """``p = exp(s - lse)`` zeroed outside the allowed pairs (a select: at a
     masked pair the exp may be inf) and ``ds = p·(dp - dsum)·scale``, in
     f32."""
     _check_inputs(q, k, v, key_mask)
     _check_rows(q, dout, lse, dsum)
-    scale = q.shape[-1] ** -0.5
+    scale = _scale(q, scale)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     p = torch.exp(s - lse[..., None])
     allowed = _allowed(key_mask, q.shape[2], causal, q_offset, k_offset,
@@ -190,21 +231,23 @@ def _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum, causal=False,
 
 def flash_dq_torch(q, k, v, key_mask, dout, lse, dsum, *,
                    causal: bool = False, q_offset: int = 0,
-                   k_offset: int = 0) -> torch.Tensor:
+                   k_offset: int = 0, scale: float | None = None
+                   ) -> torch.Tensor:
     """Plain PyTorch K2d: ``dq = ds.astype(k) · k`` in q's dtype."""
     _, ds = _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum,
-                                   causal, q_offset, k_offset)
+                                   causal, q_offset, k_offset, scale)
     return torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
                         k.float()).to(q.dtype)
 
 
 def flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum, *,
                     causal: bool = False, q_offset: int = 0,
-                    k_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                    k_offset: int = 0, scale: float | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K2e: ``dk = ds.astype(q)ᵀ · q`` in k's dtype and
     ``dv = p.astype(dO)ᵀ · dO`` in v's dtype."""
     p, ds = _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum,
-                                   causal, q_offset, k_offset)
+                                   causal, q_offset, k_offset, scale)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
                       dout.float())
@@ -224,12 +267,13 @@ def flash_dsum(o: torch.Tensor, dout: torch.Tensor,
 
 def flash_bwd_torch(q, k, v, key_mask, o, lse, dout, dlse=None, *,
                     causal: bool = False, q_offset: int = 0,
-                    k_offset: int = 0
+                    k_offset: int = 0, scale: float | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch fused backward (K2d + K2e) from the saved output and
     lse: ``(dq, dk, dv)``."""
     dsum = flash_dsum(o, dout, dlse)
-    pos = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    pos = dict(causal=causal, q_offset=q_offset, k_offset=k_offset,
+               scale=scale)
     return (flash_dq_torch(q, k, v, key_mask, dout, lse, dsum, **pos),
             *flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum, **pos))
 
@@ -251,6 +295,8 @@ def _library() -> ctypes.CDLL:
     lib.mmlspark_flash_launch.restype = c_int
     lib.mmlspark_flash_error_string.argtypes = [c_int]
     lib.mmlspark_flash_error_string.restype = ctypes.c_char_p
+    lib.mmlspark_flash_design.argtypes = []
+    lib.mmlspark_flash_design.restype = ctypes.c_char_p
     return lib
 
 
@@ -277,6 +323,12 @@ def build_kernel() -> str:
     earlier."""
     _library()
     return _LOADER.build_log()
+
+
+def kernel_design() -> str:
+    """One line on the bf16 forward's design (CTA shape, tiles, ring
+    stages, shared memory, register split), from the built library."""
+    return _library().mmlspark_flash_design().decode()
 
 
 def build_bwd_kernel() -> str:
@@ -310,11 +362,10 @@ def _check_kernel_inputs(fn: str, q, k, v) -> None:
                          "CPU tensors")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{fn} takes bf16 or f32, got {q.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{fn} takes head dims {HEAD_DIMS}, got "
-                         f"{q.shape[-1]}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_layout(name, t)
+    kernel_head_dim(q.shape[-1])
+    if q.shape[-1] in HEAD_DIMS:  # padded tensors are laid out afresh
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_layout(name, t)
 
 
 def _heads_last(q: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -338,19 +389,22 @@ def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
                     k_offset: int = 0):
     _check_inputs(q, k, v, key_mask)
     _check_kernel_inputs(fn, q, k, v)
-    B, H, T, D = q.shape
+    D = q.shape[-1]
+    Dk = kernel_head_dim(D)
+    q, k, v = (pad_head_dim(t, Dk) for t in (q, k, v))
+    B, H, T, _ = q.shape
     out = _heads_last(q, v.dtype)
     lse = (torch.empty(B, H, T, dtype=torch.float32, device=q.device)
            if with_lse else None)
     if T == 0 or B * H == 0:
-        return out, lse
+        return _unpad(out, D), lse
     mask, mask_sb = _mask_arg(key_mask, T)
     lib = _library()
     err = lib.mmlspark_flash_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, H, T, D,
+        _DTYPE_CODES[q.dtype], B, H, T, Dk,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], mask_sb, D ** -0.5, int(causal), int(q_offset),
         int(k_offset), q.device.index,
@@ -362,7 +416,7 @@ def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
             f"{kid} flash-attention kernel launch failed: "
             f"{lib.mmlspark_flash_error_string(err).decode()} "
             f"(cudaError {err})")
-    return out, lse
+    return _unpad(out, D), lse
 
 
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -370,8 +424,9 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K2a (``csrc/flash_attn.cu``) on PyTorch's current stream: the
     forward alone, with no autograd graph (:func:`flash_attention` takes the
     autograd Function under grad). Raises for tensors that are not on a
-    CUDA device, for a dtype other than bf16/f32 or a head dim other than
-    32/64/128, and when the kernel does not build or launch.
+    CUDA device, for a dtype other than bf16/f32 or a head dim above 128,
+    and when the kernel does not build or launch. Other head dims run
+    zero-padded to the next of 32/64/128.
 
     Returns a ``[B, H, T, D]`` view of a ``[B, T, H, D]`` buffer, so the
     caller's head merge is a free reshape."""
@@ -438,14 +493,17 @@ def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
     _check_inputs(q, k, v, key_mask)
     _check_rows(q, dout, lse, dsum)
     _check_kernel_inputs(fn, q, k, v)
+    D = q.shape[-1]
+    Dk = kernel_head_dim(D)
+    q, k, v, dout = (pad_head_dim(t, Dk) for t in (q, k, v, dout))
     if not _fits_layout(dout):
         dout = dout.clone(memory_format=torch.contiguous_format)
     lse, dsum = lse.contiguous(), dsum.contiguous()
-    B, H, T, D = q.shape
+    B, H, T, _ = q.shape
     outs = ((_heads_last(k, k.dtype), _heads_last(v, v.dtype)) if dkv
             else (_heads_last(q, q.dtype),))
     if T == 0 or B * H == 0:
-        return outs
+        return tuple(_unpad(t, D) for t in outs)
     dq, dk, dv = (None, *outs) if dkv else (outs[0], None, None)
     mask, mask_sb = _mask_arg(key_mask, T)
     strides = [s for t in (q, k, v, dout, dq, dk, dv)
@@ -456,7 +514,7 @@ def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
         None if mask is None else mask.data_ptr(), lse.data_ptr(),
         dsum.data_ptr(), *(None if t is None else t.data_ptr()
                            for t in (dq, dk, dv)),
-        _DTYPE_CODES[q.dtype], B, H, T, D,
+        _DTYPE_CODES[q.dtype], B, H, T, Dk,
         (ctypes.c_longlong * 21)(*strides), mask_sb, D ** -0.5,
         int(causal), int(q_offset), int(k_offset), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -467,7 +525,7 @@ def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
             "launch failed: "
             f"{lib.mmlspark_flash_bwd_error_string(err).decode()} "
             f"(cudaError {err})")
-    return outs
+    return tuple(_unpad(t, D) for t in outs)
 
 
 def flash_dq_cuda(q, k, v, key_mask, dout, lse, dsum, *,

@@ -29,6 +29,14 @@ kernel skips trash entries whole (a slot whose row is all trash gives
 exactly 0); the plain version, as ``_paged_reference``, masks by position
 only, so the two agree wherever the chain covers ``[0, pos + w)``, which is
 every live slot of the engine.
+
+Head dims: K3 is built for hd = 32, 64 and 128. The engine allocates its
+pools at the kernel's head dim on every device (``paged_kv.pool_head_dim``:
+hd padded up to the next of those, once), the window's k/v are zero-padded
+as they are scattered, and both versions take pools wider than q: q is
+zero-padded to the pools' width, scores are scaled by q's true
+``hd^-0.5`` and the output is sliced back to hd. hd above 128 raises on
+CUDA.
 """
 
 from __future__ import annotations
@@ -39,8 +47,7 @@ import functools
 import torch
 
 from ..native.loader import CudaLoader
-
-HEAD_DIMS = (32, 64, 128)
+from .flash_attention import HEAD_DIMS, _unpad, pad_head_dim
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _ALIGN = 16               # the kernel stages rows as 16-byte vectors
 
@@ -74,7 +81,10 @@ def paged_torch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                 rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K3: gather each chain through the table, then dense
     attention with the ``decode_window`` formulation. Returns
-    ``[S, H, w, hd]`` in v's dtype."""
+    ``[S, H, w, hd]`` in v's dtype, hd being q's; pools wider than q are
+    zero-padded columns (scores scaled by q's own ``hd^-0.5``)."""
+    d = q.shape[-1]
+    q = pad_head_dim(q, k_pool.shape[-1])
     _check_inputs(q, k_pool, v_pool, rows, pos)
     S, H, w, hd = q.shape
     NB, BL = k_pool.shape[:2]
@@ -84,12 +94,12 @@ def paged_torch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
            + torch.arange(BL, device=dev)).reshape(S, L)
     k = k_pool.reshape(NB * BL, H, hd)[idx].transpose(1, 2)  # [S, H, L, hd]
     v = v_pool.reshape(NB * BL, H, hd)[idx].transpose(1, 2)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * hd ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * d ** -0.5
     limit = pos.long()[:, None] + torch.arange(w, device=dev)    # [S, w]
     allowed = torch.arange(L, device=dev) <= limit[:, :, None]   # [S, w, L]
     s = s.masked_fill(~allowed[:, None], float("-inf"))
     p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)[..., :d]
 
 
 # ------------------------------------------------------------- the kernel
@@ -120,12 +130,16 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Launch K3 (``csrc/paged_attn.cu``) on PyTorch's current stream.
     Raises for tensors that are not on a CUDA device, a dtype other than
-    bf16/f32, a head dim other than 32/64/128, a q without unit stride on
-    hd or with unaligned rows, pools that are not contiguous, and when the
-    kernel does not build or launch.
+    bf16/f32, pools whose head dim is not 32/64/128 (``init_pools`` makes
+    them so up to 128), a q without unit stride on hd or with unaligned
+    rows, pools that are not contiguous, and when the kernel does not
+    build or launch. A q narrower than the pools is zero-padded and scaled by its own
+    ``hd^-0.5``; the output is sliced back to its width.
 
     Returns a ``[S, H, w, hd]`` view of a ``[S, w, H, hd]`` buffer, so the
     caller's head merge is a free reshape."""
+    d = q.shape[-1]
+    q = pad_head_dim(q, k_pool.shape[-1])
     _check_inputs(q, k_pool, v_pool, rows, pos)
     if q.device.type != "cuda":
         raise ValueError(f"paged_cuda needs CUDA tensors, got {q.device}; "
@@ -135,7 +149,8 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         raise TypeError(f"paged_cuda takes bf16 or f32, got {q.dtype}")
     S, H, w, hd = q.shape
     if hd not in HEAD_DIMS:
-        raise ValueError(f"paged_cuda takes head dims {HEAD_DIMS}, got {hd}")
+        raise ValueError(f"paged_cuda takes pools of head dims {HEAD_DIMS}, "
+                         f"got {hd}")
     size = q.element_size()
     if q.stride(3) != 1 or q.data_ptr() % _ALIGN or any(
             st * size % _ALIGN for st in q.stride()[:3]):
@@ -150,14 +165,14 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     out = torch.empty(S, w, H, hd, dtype=v_pool.dtype,
                       device=q.device).permute(0, 2, 1, 3)
     if S * H * w == 0:
-        return out
+        return _unpad(out, d)
     NB, BL = k_pool.shape[:2]
     lib = _library()
     err = lib.mmlspark_paged_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), rows.data_ptr(),
         pos.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], S, H, w, hd,
         NB, BL, rows.shape[1], *q.stride()[:3], *out.stride()[:3],
-        hd ** -0.5, q.device.index,
+        d ** -0.5, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -165,7 +180,7 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             f"{lib.mmlspark_paged_error_string(err).decode()} "
             f"(cudaError {err})")
     paged_cuda.launches += 1
-    return out
+    return _unpad(out, d)
 
 
 paged_cuda.launches = 0

@@ -13,8 +13,9 @@ popular prompt prefix is shared copy-free between sequences via refcounts.
   semantics line for line.
 - **Device half**: :func:`init_pools` (``torch.zeros``: a masked key still
   meets its value in the attention product, so pools never hold stale
-  NaNs) and :func:`scatter_positions`, which writes a window's k/v through
-  the block table IN PLACE (the JAX package returns new pools instead).
+  NaNs; head dim padded to the paged kernel's, :func:`pool_head_dim`)
+  and :func:`scatter_positions`, which writes a window's k/v through the
+  block table IN PLACE (the JAX package returns new pools instead).
 
 Block 0 is RESERVED as the trash block: padded batch rows and inactive
 slots point their block-table entries at it, so fixed-shape steps can
@@ -36,10 +37,11 @@ import numpy as np
 import torch
 
 from ..obs import registry as _default_registry
+from .flash_attention import HEAD_DIMS, kernel_head_dim, pad_head_dim
 
 __all__ = ["PagedKVManager", "SequenceHandle", "OutOfBlocks", "TRASH_BLOCK",
            "blocks_for_hbm_budget", "init_pools", "paged_attention_enabled",
-           "scatter_positions"]
+           "pool_block_bytes", "pool_head_dim", "scatter_positions"]
 
 #: the reserved trash block — device steps route padded/inactive writes
 #: here; the host half never hands it to a sequence
@@ -461,12 +463,30 @@ def blocks_for_hbm_budget(block_bytes: int, *, fraction: float = 0.5,
 
 # --------------------------------------------------------------- device half
 
+def pool_head_dim(encoder) -> int:
+    """The head dim of ``encoder``'s KV pools on every device: K3's
+    (``kernel_head_dim``: the next of 32/64/128), so the kernel reads the
+    pools in place and the extra columns stay zero. A head dim above 128
+    stays as it is (K3 raises for it on CUDA)."""
+    hd = encoder.width // encoder.heads
+    return kernel_head_dim(hd) if hd <= HEAD_DIMS[-1] else hd
+
+
+def pool_block_bytes(encoder, block_len: int) -> int:
+    """Bytes one block takes in ``encoder``'s k and v pools over all its
+    layers, as :func:`init_pools` allocates them."""
+    return (2 * encoder.depth * int(block_len) * encoder.heads
+            * pool_head_dim(encoder)
+            * torch.empty(0, dtype=encoder.dtype).element_size())
+
+
 def init_pools(encoder, num_blocks: int, block_len: int,
                device: str | torch.device | None = None):
-    """Per-layer ``[num_blocks, block_len, heads, head_dim]`` k and v pools
-    for ``encoder`` (a ``TextEncoder``), zeroed, in its compute dtype."""
-    hd = encoder.width // encoder.heads
-    shape = (int(num_blocks), int(block_len), encoder.heads, hd)
+    """Per-layer ``[num_blocks, block_len, heads, pool_head_dim]`` k and v
+    pools for ``encoder`` (a ``TextEncoder``), zeroed, in its compute
+    dtype: ``num_blocks * pool_block_bytes(encoder, block_len)`` bytes."""
+    shape = (int(num_blocks), int(block_len), encoder.heads,
+             pool_head_dim(encoder))
     return [tuple(torch.zeros(shape, dtype=encoder.dtype, device=device)
                   for _ in range(2)) for _ in range(encoder.depth)]
 
@@ -487,9 +507,11 @@ def scatter_positions(pools, rows, pos, new_kv, valid=None):
     trash block's first row: every step writes a fixed index set without
     touching a live chain. Live chains are disjoint, so real blocks never
     collide; trash writes may, harmlessly (the trash block is never
-    attended). Returns ``pools``."""
+    attended). The window's head dim is zero-padded to the pools'
+    (:func:`pool_head_dim`). Returns ``pools``."""
     for (k_pool, v_pool), (kw, vw) in zip(pools, new_kv):
         NB, BL, H, hd = k_pool.shape
+        kw, vw = pad_head_dim(kw, hd), pad_head_dim(vw, hd)
         fidx = _flat_positions(rows, pos, BL)
         if valid is not None:
             fidx = torch.where(valid, fidx, TRASH_BLOCK * BL)

@@ -64,6 +64,11 @@ class LightGBMClassifier(Estimator, LightGBMSharedParams,
             raise _later("numBatches > 1")
         if self.getNumShards() > 1:
             raise _later("training on more than one shard or device")
+        if self.getParallelism() not in ("data_parallel", "voting_parallel"):
+            raise ValueError(f"parallelism={self.getParallelism()!r}; "
+                             "expected data_parallel | voting_parallel")
+        if self.getXgboostDartMode():
+            raise _later("xgboost-style DART (xgboostDartMode)")
         for name, what in (("validationIndicatorCol", "validation sets"),
                            ("initScoreCol", "initScoreCol warm starts"),
                            ("fobj", "custom objectives (fobj)")):

@@ -1,13 +1,19 @@
-"""LightGBM-style parameters the port's classifier reads.
+"""LightGBM-style parameters of the port's GBDT stages.
 
-The subset of ``mmlspark_tpu/lightgbm/params.py`` (reference
-``lightgbm/params/LightGBMParams.scala``) this slice reads, with the same
-names and defaults, plus ``device``. Some select configurations outside the
-slice (boosting types, bagging, categorical slots, continuation, more than
-one shard): the estimator raises ``NotImplementedError`` when one is set to
-such a value. The JAX package's other params (DART and GOSS knobs,
-validation metrics, sparse widths, socket settings) come with the slices
-that read them.
+Every Param of ``mmlspark_tpu/lightgbm/params.py`` (reference
+``lightgbm/params/LightGBMParams.scala``) with the same names and defaults,
+plus ``device``, so a pipeline written for the JAX package constructs
+unchanged. Some select configurations outside the ported slice (boosting
+types, bagging, categorical slots, continuation, more than one shard,
+xgboost-style DART): the estimator raises ``NotImplementedError`` when one
+is set to such a value. The rest are inert here: the socket settings
+(``useBarrierExecutionMode``, ``defaultListenPort``, ``timeout``), the host
+knobs (``numThreads``, ``verbosity``, ``scanChunk``), the mesh's
+``shardAxisName`` and ``parallelism``/``topK`` (one shard: data and voting
+parallelism are the same computation), and the knobs of configurations
+that raise on their own selector (the DART and GOSS rates, the sparse and
+categorical widths, ``metric``, ``evalFreq``, ``improvementTolerance``,
+``baggingSeed``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,23 @@ class LightGBMExecutionParams:
     numBatches = Param("numBatches",
                        "split training into sequential batches with model "
                        "continuation", TC.toInt, default=0)
+    parallelism = Param("parallelism",
+                        "data_parallel | voting_parallel (one shard: the "
+                        "same computation)", TC.toString,
+                        default="data_parallel")
+    topK = Param("topK", "top-K features per shard in voting parallel",
+                 TC.toInt, default=20)
+    shardAxisName = Param("shardAxisName", "mesh axis to shard rows over "
+                          "(inert: one shard)", TC.toString, default="dp")
+    useBarrierExecutionMode = Param("useBarrierExecutionMode",
+                                    "inert (no socket mesh)",
+                                    TC.toBoolean, default=False)
+    defaultListenPort = Param("defaultListenPort", "inert (no socket mesh)",
+                              TC.toInt, default=12400)
+    timeout = Param("timeout", "inert (no socket mesh)", TC.toFloat,
+                    default=1200.0)
+    numThreads = Param("numThreads", "host threads (inert: 0 = PyTorch's "
+                       "default)", TC.toInt, default=0)
 
 
 class LightGBMLearnerParams:
@@ -42,6 +65,13 @@ class LightGBMLearnerParams:
     maxDepth = Param("maxDepth", "max tree depth (<=0 unlimited)", TC.toInt,
                      default=-1)
     maxBin = Param("maxBin", "max feature bins", TC.toInt, default=255)
+    maxBinSparse = Param("maxBinSparse",
+                         "bin cap for padded-COO sparse features",
+                         TC.toInt, default=16)
+    sparseFeatureCount = Param("sparseFeatureCount",
+                               "logical feature-space width for sparse "
+                               "input (0 = max index + 1)", TC.toInt,
+                               default=0)
     binSampleCount = Param("binSampleCount",
                            "rows sampled for bin boundaries", TC.toInt,
                            default=200000)
@@ -60,15 +90,33 @@ class LightGBMLearnerParams:
                             TC.toFloat, default=1.0)
     baggingFreq = Param("baggingFreq", "re-bag every k iterations", TC.toInt,
                         default=0)
+    baggingSeed = Param("baggingSeed", "bagging seed", TC.toInt, default=3)
     boostingType = Param("boostingType", "gbdt | rf | dart | goss",
                          TC.toString, default="gbdt")
+    topRate = Param("topRate", "GOSS top-gradient keep rate", TC.toFloat,
+                    default=0.2)
+    otherRate = Param("otherRate", "GOSS random keep rate", TC.toFloat,
+                      default=0.1)
+    dropRate = Param("dropRate", "DART tree dropout rate", TC.toFloat,
+                     default=0.1)
+    maxDrop = Param("maxDrop", "DART max dropped trees", TC.toInt, default=50)
+    skipDrop = Param("skipDrop", "DART prob of skipping dropout", TC.toFloat,
+                     default=0.5)
+    uniformDrop = Param("uniformDrop", "DART uniform dropout", TC.toBoolean,
+                        default=False)
     earlyStoppingRound = Param("earlyStoppingRound",
                                "stop after k rounds without val improvement",
                                TC.toInt, default=0)
+    metric = Param("metric", "eval metric ('' = objective default)",
+                   TC.toString, default="")
     boostFromAverage = Param("boostFromAverage",
                              "init score from label average", TC.toBoolean,
                              default=True)
     seed = Param("seed", "random seed", TC.toInt, default=0)
+    verbosity = Param("verbosity", "log level (inert)", TC.toInt, default=-1)
+    improvementTolerance = Param(
+        "improvementTolerance", "early stopping requires the metric to "
+        "improve by more than this", TC.toFloat, default=0.0)
     maxDeltaStep = Param("maxDeltaStep", "cap on leaf output magnitude "
                          "(0 = unconstrained)", TC.toFloat, default=0.0)
     maxBinByFeature = Param("maxBinByFeature",
@@ -80,6 +128,15 @@ class LightGBMLearnerParams:
     negBaggingFraction = Param("negBaggingFraction",
                                "bagging keep-rate for negative rows",
                                TC.toFloat, default=1.0)
+    xgboostDartMode = Param("xgboostDartMode",
+                            "xgboost-style dart normalization (not ported; "
+                            "raises if set)", TC.toBoolean, default=False)
+    catSmooth = Param("catSmooth", "hessian smoothing in the categorical "
+                      "gradient/hessian ratio sort", TC.toFloat,
+                      default=10.0)
+    maxCatThreshold = Param("maxCatThreshold",
+                            "max categories in one split's left set",
+                            TC.toInt, default=32)
     categoricalSlotIndexes = Param("categoricalSlotIndexes",
                                    "feature slots treated as categorical",
                                    TC.toListInt, default=[])
@@ -97,6 +154,11 @@ class LightGBMLearnerParams:
     isProvideTrainingMetric = Param("isProvideTrainingMetric",
                                     "record metrics on training data",
                                     TC.toBoolean, default=False)
+    evalFreq = Param("evalFreq", "evaluate metrics every k iterations",
+                     TC.toInt, default=1)
+    scanChunk = Param("scanChunk", "boosting iterations the JAX package "
+                      "fuses into one dispatch (inert: PyTorch runs "
+                      "eagerly)", TC.toInt, default=8)
 
 
 class LightGBMSharedParams(LightGBMExecutionParams, LightGBMLearnerParams,

@@ -50,7 +50,8 @@ from ..device import resolve_device
 from ..dl.paged_attention import paged_window_attention
 from ..dl.paged_kv import (LATER_DENSE, OutOfBlocks, PagedKVManager,
                            blocks_for_hbm_budget, init_pools,
-                           paged_attention_enabled, scatter_positions)
+                           paged_attention_enabled, pool_block_bytes,
+                           scatter_positions)
 from ..obs import registry as _default_registry
 from ..sched.continuous import SlotScheduler
 
@@ -443,8 +444,9 @@ class LLMEngine:
     for; without a GPU the default raises). Greedy only (``dl.generate``'s
     temperature-0 semantics: the output contract is token identity).
 
-    ``num_blocks=None`` sizes the pools to ``hbm_fraction`` of the free
-    device memory (``torch.cuda.mem_get_info``), or on the CPU to
+    ``num_blocks=None`` sizes the pools (the draft's included, at the
+    paged kernel's head dim) to ``hbm_fraction`` of the free device memory
+    (``torch.cuda.mem_get_info``), or on the CPU to
     ``1 + 2 * slots * max_blocks``; the block budget is read the same way.
 
     ``submit`` then ``step`` at boundaries (or ``run_until_drained``): each
@@ -474,9 +476,10 @@ class LLMEngine:
         self.block_len = int(block_len)
         self.max_blocks = -(-self.max_seq_len // self.block_len)
         enc = module.encoder
-        hd = enc.width // enc.heads
-        block_bytes = (2 * enc.depth * self.block_len * enc.heads * hd
-                       * torch.empty(0, dtype=enc.dtype).element_size())
+        # what one block takes in the pools as init_pools allocates them
+        # (head dim padded to K3's), the draft's pools included
+        block_bytes = sum(pool_block_bytes(m.encoder, self.block_len)
+                          for m in (module, draft_module) if m is not None)
         if num_blocks is None:
             num_blocks = blocks_for_hbm_budget(
                 block_bytes, fraction=hbm_fraction,

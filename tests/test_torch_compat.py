@@ -1,0 +1,270 @@
+"""The port and the JAX package speak one stage format and one Param
+surface.
+
+- Every ported stage has the reference class's Param names and defaults;
+  the port's extra ``device`` (on the stages that run on a device) is the
+  only difference.
+- The GBDT estimator takes the reference's inert Params
+  (``verbosity=-1``, ``numThreads``, ``timeout``, ...) and fits as with
+  none; a value that selects an unported configuration raises.
+- ``TokenIdEncoder``, ``ComputeModelStatistics``,
+  ``LightGBMClassificationModel`` and ``TextEncoderFeaturizer`` (without
+  ``model``) saved by either package load in the other and give the same
+  outputs (GBDT probabilities within 1e-6: the text model's leaf values
+  round-trip through decimal text). The port's side runs in a subprocess
+  that asserts no JAX module was imported.
+- A JAX-saved ``TextEncoderFeaturizer`` whose ``model`` is set raises
+  ``NotImplementedError`` in the port: its payload is a pickled JAX object.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mmlspark_tpu.dl.text_encoder as jte
+import mmlspark_tpu.featurize.text as jtext
+import mmlspark_tpu.lightgbm as jlgbm
+import mmlspark_tpu.train.statistics as jstats
+from mmlspark_tpu.core import DataFrame as JDataFrame
+from mmlspark_tpu.core import load_stage as jload_stage
+from mmlspark_torch.core import DataFrame
+from mmlspark_torch.core import serialize
+from mmlspark_torch.core.serialize import resolve_stage_class
+from mmlspark_torch.dl import TextEncoderFeaturizer
+from mmlspark_torch.featurize import TokenIdEncoder
+from mmlspark_torch.lightgbm import (LightGBMClassificationModel,
+                                     LightGBMClassifier)
+from mmlspark_torch.train import ComputeModelStatistics
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROB_ATOL = 1e-6
+DOCS = ["long context models embed entire documents in one pass",
+        "short note", "", "the same words again and again"]
+
+PAIRS = {
+    "TokenIdEncoder": (TokenIdEncoder, jtext.TokenIdEncoder),
+    "TextEncoderFeaturizer": (TextEncoderFeaturizer,
+                              jte.TextEncoderFeaturizer),
+    "ComputeModelStatistics": (ComputeModelStatistics,
+                               jstats.ComputeModelStatistics),
+    "LightGBMClassifier": (LightGBMClassifier, jlgbm.LightGBMClassifier),
+    "LightGBMClassificationModel": (LightGBMClassificationModel,
+                                    jlgbm.LightGBMClassificationModel),
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Single-threaded torch (tier-1 runs several workers at once)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _surface(cls) -> dict:
+    return {p.name: (p.default if p.has_default else None)
+            for p in cls.params()}
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_param_names_and_defaults_match_the_reference(name):
+    port, ref = PAIRS[name]
+    mine, theirs = _surface(port), _surface(ref)
+    assert set(mine) - set(theirs) <= {"device"}, name
+    assert set(theirs) - set(mine) == set(), name
+    assert {k: (mine[k], theirs[k]) for k in theirs
+            if mine[k] != theirs[k]} == {}, name
+
+
+def _gbdt_frame(n=300, seed=11):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 5)).astype(np.float32)
+    y = (x[:, 0] - 0.5 * x[:, 1] + 0.3 * rng.normal(size=n) > 0
+         ).astype(np.float32)
+    return x, y
+
+
+def test_inert_reference_params_fit_as_without_them():
+    x, y = _gbdt_frame()
+    df = DataFrame({"features": x, "label": y})
+    base = dict(device="cpu", numIterations=3, numLeaves=7)
+    plain = LightGBMClassifier(**base).fit(df)
+    inert = LightGBMClassifier(
+        **base, verbosity=-1, numThreads=4, timeout=1200.0,
+        useBarrierExecutionMode=True, defaultListenPort=12500,
+        parallelism="voting_parallel", topK=5, shardAxisName="rows",
+        scanChunk=1, evalFreq=2, metric="auc", baggingSeed=9,
+        topRate=0.3, dropRate=0.2, catSmooth=5.0, maxBinSparse=8).fit(df)
+    assert inert.booster.save_native() == plain.booster.save_native()
+    assert inert.getVerbosity() == -1 and inert.getNumThreads() == 4
+
+
+@pytest.mark.parametrize("kwargs, exc", [
+    (dict(xgboostDartMode=True), NotImplementedError),
+    (dict(numShards=2), NotImplementedError),
+    (dict(parallelism="feature_parallel"), ValueError),
+])
+def test_unported_reference_configurations_raise(kwargs, exc):
+    x, y = _gbdt_frame(60)
+    df = DataFrame({"features": x, "label": y})
+    with pytest.raises(exc):
+        LightGBMClassifier(device="cpu", numIterations=1, **kwargs).fit(df)
+
+
+def test_reference_names_resolve_without_importing_jax_modules():
+    assert resolve_stage_class(
+        "mmlspark_tpu.featurize.text.TokenIdEncoder") is TokenIdEncoder
+    assert resolve_stage_class(
+        "mmlspark_torch.featurize.text.TokenIdEncoder") is TokenIdEncoder
+    with pytest.raises(KeyError):
+        resolve_stage_class("mmlspark_tpu.featurize.text.NoSuchStage")
+    with pytest.raises(KeyError):
+        resolve_stage_class("mmlspark_tpu.no_such_module.Stage")
+
+
+def test_broken_mirror_module_raises_its_own_error(monkeypatch):
+    """A port module that exists but fails on one of its own imports shows
+    that error, not 'unknown stage class'."""
+    def broken(name):
+        raise ModuleNotFoundError("No module named 'absent_dependency'",
+                                  name="absent_dependency")
+
+    monkeypatch.setattr(serialize.importlib, "import_module", broken)
+    with pytest.raises(ModuleNotFoundError, match="absent_dependency"):
+        resolve_stage_class("mmlspark_tpu.featurize.text.NotYetLoaded")
+
+
+# The port's side: load what the JAX package saved, save the port's own
+# stages, and prove that no JAX module came in on the way.
+PORT_SIDE = r"""
+import json, sys
+import numpy as np
+from mmlspark_torch.core import DataFrame, load_stage
+from mmlspark_torch.dl import TextEncoderFeaturizer
+from mmlspark_torch.featurize import TokenIdEncoder
+from mmlspark_torch.lightgbm import LightGBMClassifier
+from mmlspark_torch.train import ComputeModelStatistics
+
+root = sys.argv[1]
+data = np.load(root + "/data.npz")
+docs = DataFrame({"text": np.asarray(json.load(open(root + "/docs.json")),
+                                     object)})
+out = {}
+
+enc = load_stage(root + "/jax/tok")
+assert type(enc) is TokenIdEncoder, type(enc)
+out["tok_from_jax"] = enc.transform(docs)["tokens"]
+model = load_stage(root + "/jax/gbdt")
+model.setDevice("cpu")
+scored = model.transform(DataFrame({"features": data["x"],
+                                    "label": data["y"]}))
+out["prob_from_jax"] = scored["probability"]
+stats = load_stage(root + "/jax/stats")
+assert type(stats) is ComputeModelStatistics, type(stats)
+out["auc_from_jax"] = np.asarray(stats.transform(scored)["AUC"], float)
+feat = load_stage(root + "/jax/feat")
+assert type(feat) is TextEncoderFeaturizer, type(feat)
+out["feat_params"] = np.asarray([feat.getWidth(), feat.getHeads(),
+                                 feat.getDepth(), feat.getVocabSize(),
+                                 feat.getSeqChunk()])
+try:
+    load_stage(root + "/jax/feat_model")
+    raise AssertionError("a pickled JAX model loaded")
+except NotImplementedError as e:
+    assert "item 7" in str(e), e
+
+df = DataFrame({"features": data["x"], "label": data["y"]})
+port_model = LightGBMClassifier(device="cpu", numIterations=4, numLeaves=7,
+                                verbosity=-1).fit(df)
+port_model.save(root + "/torch/gbdt")
+out["prob_port"] = port_model.transform(df)["probability"]
+TokenIdEncoder(maxLength=16, vocabSize=300).save(root + "/torch/tok")
+ComputeModelStatistics(labelCol="label",
+                       evaluationMetric="classification").save(
+    root + "/torch/stats")
+TextEncoderFeaturizer(width=48, heads=3, depth=1, vocabSize=300,
+                      seqChunk=16, attentionImpl="pallas").save(
+    root + "/torch/feat")
+np.savez(root + "/port_out.npz", **out)
+
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "mmlspark_tpu"))
+assert not bad, bad
+print("PORT_SIDE_OK")
+"""
+
+
+def test_stages_load_across_packages_both_ways(tmp_path):
+    root = str(tmp_path)
+    x, y = _gbdt_frame()
+    np.savez(os.path.join(root, "data.npz"), x=x, y=y)
+    with open(os.path.join(root, "docs.json"), "w") as f:
+        json.dump(DOCS, f)
+    jdf = JDataFrame({"features": x, "label": y})
+    jdocs = JDataFrame({"text": np.asarray(DOCS, object)})
+
+    jtok = jtext.TokenIdEncoder(maxLength=24, vocabSize=500)
+    jtok.save(os.path.join(root, "jax", "tok"))
+    jmodel = jlgbm.LightGBMClassifier(numIterations=4, numLeaves=7).fit(jdf)
+    jmodel.save(os.path.join(root, "jax", "gbdt"))
+    jscored = jmodel.transform(jdf)
+    jstats.ComputeModelStatistics(labelCol="label").save(
+        os.path.join(root, "jax", "stats"))
+    jte.TextEncoderFeaturizer(width=32, heads=2, depth=2, vocabSize=400,
+                              seqChunk=32).save(
+        os.path.join(root, "jax", "feat"))
+    feat_model = jte.TextEncoderFeaturizer(width=32, heads=2, depth=1,
+                                           vocabSize=400)
+    # any pickled payload stands for the JAX package's LoadedModel here:
+    # the port must refuse before unpickling it
+    feat_model.set("model", {"weights": np.zeros(3, np.float32)})
+    feat_model.save(os.path.join(root, "jax", "feat_model"))
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    run = subprocess.run([sys.executable, "-c", PORT_SIDE, root], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0 and "PORT_SIDE_OK" in run.stdout, \
+        run.stdout + run.stderr
+    got = np.load(os.path.join(root, "port_out.npz"))
+
+    # JAX-saved, port-loaded
+    np.testing.assert_array_equal(
+        got["tok_from_jax"], np.asarray(jtok.transform(jdocs)["tokens"]))
+    np.testing.assert_allclose(got["prob_from_jax"],
+                               np.asarray(jscored["probability"]),
+                               atol=PROB_ATOL, rtol=0)
+    jauc = jstats.ComputeModelStatistics(labelCol="label").transform(
+        jscored)["AUC"]
+    np.testing.assert_allclose(got["auc_from_jax"], np.asarray(jauc, float),
+                               atol=1e-12, rtol=0)
+    np.testing.assert_array_equal(got["feat_params"], [32, 2, 2, 400, 32])
+
+    # port-saved, JAX-loaded
+    with open(os.path.join(root, "torch", "gbdt", "metadata.json")) as f:
+        meta = json.load(f)
+    assert meta["class"] == \
+        "mmlspark_tpu.lightgbm.estimators.LightGBMClassificationModel"
+    assert meta["library"] == "mmlspark_torch"
+    jm = jload_stage(os.path.join(root, "torch", "gbdt"))
+    assert type(jm) is jlgbm.LightGBMClassificationModel
+    np.testing.assert_allclose(np.asarray(jm.transform(jdf)["probability"]),
+                               got["prob_port"], atol=PROB_ATOL, rtol=0)
+    assert jm.getVerbosity() == -1
+    jt = jload_stage(os.path.join(root, "torch", "tok"))
+    assert type(jt) is jtext.TokenIdEncoder
+    assert (jt.getMaxLength(), jt.getVocabSize()) == (16, 300)
+    js = jload_stage(os.path.join(root, "torch", "stats"))
+    assert type(js) is jstats.ComputeModelStatistics
+    assert js.getEvaluationMetric() == "classification"
+    jf = jload_stage(os.path.join(root, "torch", "feat"))
+    assert type(jf) is jte.TextEncoderFeaturizer
+    assert (jf.getWidth(), jf.getHeads(), jf.getDepth(),
+            jf.getAttentionImpl()) == (48, 3, 1, "pallas")

@@ -210,8 +210,11 @@ class TestPagedKVManager:
         pools = paged_kv.init_pools(Enc, 5, 4, "cpu")
         assert len(pools) == 3
         for k, v in pools:
-            assert k.shape == (5, 4, 2, 8) and k.dtype == torch.bfloat16
+            # head dim 8 padded to K3's 32 on every device
+            assert k.shape == (5, 4, 2, 32) and k.dtype == torch.bfloat16
             assert not k.any() and not v.any()
+        assert sum(t.numel() * t.element_size() for kv in pools
+                   for t in kv) == 5 * paged_kv.pool_block_bytes(Enc, 4)
 
 
 class TestSlotScheduler:
