@@ -7,12 +7,13 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from the checkout's sources (one
-nvcc per source, all started together), then:
+nvcc per source, all started together; phases 2-4 need only K1 and run
+while the attention kernels build), then:
 
 1. prints the build times, each kernel's ptxas lines (registers, shared
-   memory, spills; a spill in the bf16 forward fails), its design line
-   (CTA shape, tiles, ring stages, shared memory) and the card
-   (``nvidia-smi`` name, power limit);
+   memory, spills; a spill above ``SPILL_LIMITS`` fails, so any in the
+   bf16 forward), its design line (CTA shape, tiles, ring stages, shared
+   memory) and the card (``nvidia-smi`` name, power limit);
 2. holds K1 (``hist_cuda``) against ``hist_torch`` at the main path's
    shapes: the root histogram, a masked one (~30 % of rows) and a
    ``count < n`` one whose rows past ``count`` are padding, and times both
@@ -27,8 +28,9 @@ nvcc per source, all started together), then:
    attention shape (B=32, H=8, T=2048, D=64, bf16, q/k/v as views of one
    fused projection, the key mask of the seeded documents plus one fully
    masked row, which must come out exactly 0), at a ragged T=2000 in f32,
-   and at a ragged T=300 at head dims 16, 32, 64, 96 and 128 in both dtypes
-   (16 and 96 zero-padded to the kernel's 32 and 128);
+   and at a ragged T=300 at head dims 16, 32, 64, 96, 128, 192 and 256 in
+   bf16 and up to 128 in f32 (16, 96 and 192 zero-padded to the kernel's
+   32, 128 and 256; f32 above 128 must be refused);
    times the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick only) beside
    the bound;
@@ -47,8 +49,9 @@ nvcc per source, all started together), then:
    fused projection, the key mask of the first 8 documents plus one fully
    masked row, whose outputs and gradients must be exactly 0), with a
    nonzero lse cotangent, at a ragged T=2000 in f32, and at a ragged T=300
-   at head dims 32, 64, 96 (padded) and 128 in both dtypes; times each
-   kernel, its plain
+   at head dims 32, 64, 96 (padded), 128, 192 (padded) and 256 in bf16 and
+   up to 128 in f32; checks that two K2d/K2e launches on the same inputs
+   are bit-equal; times each kernel, its plain
    version and ``scaled_dot_product_attention``'s forward and backward (the
    library yardstick only) beside the bound;
 8. runs masked-LM pretraining at full width: the documents →
@@ -70,13 +73,15 @@ nvcc per source, all started together), then:
    ``[1, 8, 8192, 64]``), the ``generate`` prefill ``[32, 8, 128, 64]``,
    phase 7's document mask with one fully masked row, offsets ``(2048, 0)``
    (every key reachable) and ``(0, 2048)`` (exactly 0), a ragged T=2000 in
-   f32 and head dims 32/64/128 at T=300 in both dtypes; holds K3
+   f32 and head dims 32/64/128/192/256 at T=300 (bf16; f32 up to 128);
+   holds K3
    (``paged_cuda``) against ``paged_torch`` at ``w`` = 1, 5 and 128 over 32
    slots of seeded context lengths (``BL`` 16, shuffled chains padded with
    the trash block, one all-trash slot that must be exactly 0) and at
    ``w = 4096`` over one 4096-token chain of ``BL`` 128, in both dtypes and
    at head dims 32, 128 and 16 (pools padded to 32, as the engine allocates
-   them); times each beside its bound, its plain version
+   them), and in bf16 at 256 and 192 (pools padded to 256); times each
+   beside its bound, its plain version
    and a PyTorch yardstick (``scaled_dot_product_attention``; for K3 over a
    dense cache gathered beforehand);
 10. runs ``generate`` at full width: the causal LM of ``bench.py:896-930``
@@ -106,7 +111,8 @@ nvcc per source, all started together), then:
     masked row, a nonzero lse cotangent) at offsets ``(0, 0)``,
     ``(2048, 0)``, ``(100, 37)`` and ``(0, 2048)`` (o, dq, dk, dv exactly 0
     and lse -1e30 wherever no pair is allowed), at a ragged T=2000 in f32
-    and at head dims 32/64/128 at T=300 in both dtypes; times each beside
+    and at head dims 32/64/128/192/256 at T=300 (bf16; f32 up to 128),
+    checks the causal K2d/K2e bit-equal over two launches; times each beside
     its plain version, its bound over the causally allowed valid pairs and
     ``scaled_dot_product_attention`` (with the causal key mask, and
     ``is_causal`` without it: yardsticks only);
@@ -366,23 +372,47 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-def build_all(builders: dict) -> dict:
-    """Run every kernel's build at once (each is one nvcc process);
-    returns ``{name: (seconds, nvcc output)}``. A failed build fails."""
+# ptxas spill bytes (stores, loads) each instance may show: what the bf16
+# backward redesign and K3 at head dim 32 left (PERF.md §6); any other
+# instance, the bf16 forward's included, none. More fails phase 1.
+SPILL_LIMITS = {"bwd_dkv_bf16<32,0>": (4, 4), "bwd_dkv_bf16<32,1>": (8, 20),
+                "bwd_dkv_bf16<64,0>": (4, 4), "bwd_dkv_bf16<128,1>": (64, 104),
+                "bwd_dkv_bf16<256,0>": (4, 4), "bwd_dkv_bf16<256,1>": (4, 4),
+                "paged_bf16<32>": (4, 16)}
+
+
+def start_builds(builders: dict) -> dict:
+    """Start every kernel's build at once (each is one nvcc process);
+    returns ``{name: future of (seconds, nvcc output)}``."""
     def timed(fn):
         t0 = time.perf_counter()
         log = fn()
         return time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(len(builders)) as ex:
-        futures = {name: ex.submit(timed, fn) for name, fn in builders.items()}
-        out = {}
-        for name, fut in futures.items():
-            try:
-                out[name] = fut.result()
-            except RuntimeError as e:
-                fail(f"building {name}: {e}")
-        return out
+    ex = ThreadPoolExecutor(len(builders))
+    futures = {name: ex.submit(timed, fn) for name, fn in builders.items()}
+    ex.shutdown(wait=False)
+    return futures
+
+
+def finish_builds(futures: dict) -> None:
+    """Wait for the builds in ``futures`` and print each one's seconds and
+    ptxas lines. A failed build fails, and so does a spill above
+    ``SPILL_LIMITS``."""
+    for name, fut in futures.items():
+        try:
+            secs, log = fut.result()
+        except RuntimeError as e:
+            fail(f"building {name}: {e}")
+        print(f"  {name}: {secs:.2f} s")
+        for line in ptxas_summary(log):
+            print(f"    {line}")
+            spill = re.search(r"spills (\d+) B stores / (\d+) B loads", line)
+            limit = SPILL_LIMITS.get(line.split(":")[0], (0, 0))
+            if spill and any(int(b) > lim
+                             for b, lim in zip(spill.groups(), limit)):
+                fail(f"ptxas spilled more than {limit[0]} B stores / "
+                     f"{limit[1]} B loads: {line}")
 
 
 def make_documents(n: int, seed: int = 5):
@@ -503,14 +533,19 @@ def text_phases(torch, k1, k2, dev, bw, flush, texts, lengths):
     check_flash(torch, k2, f"f32 ragged B={Bf} H={H} T={Tf} D={D}",
                 qf, kf, vf, mask_f, 0.0, FLASH_F32_ATOL)
     del qf, kf, vf
-    # 16 and 96 run zero-padded to the kernel's 32 and 128
-    for d in (16, 32, 64, 96, 128):
+    # 16, 96 and 192 run zero-padded to the kernel's 32, 128 and 256;
+    # f32 stops at 128
+    for d in (16, 32, 64, 96, 128, 192, 256):
         for dtype in (torch.bfloat16, torch.float32):
             x = [torch.randn(2, 4, 300, d, generator=gen, device=dev,
                              dtype=dtype) for _ in range(3)]
             bf16 = dtype == torch.bfloat16
-            check_flash(torch, k2, f"{str(dtype)[6:]} B=2 H=4 T=300 D={d}",
-                        *x, mask_f[:2, :300],
+            name = f"{str(dtype)[6:]} B=2 H=4 T=300 D={d}"
+            if not bf16 and d > 128:
+                refuses_f32(f"K2a {name}", lambda: k2.flash_cuda(
+                    *x, mask_f[:2, :300]))
+                continue
+            check_flash(torch, k2, name, *x, mask_f[:2, :300],
                         FLASH_BF16_RTOL if bf16 else 0.0,
                         FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL)
 
@@ -624,6 +659,19 @@ def hold_grad(torch, name, got, want, rtol, of_max):
     """``hold`` with the absolute term a fraction of the largest |want|."""
     return hold(torch, name, got, want, rtol,
                 of_max * float(want.float().abs().max()))
+
+
+def refuses_f32(name, fn):
+    """``fn`` (a kernel wrapper on f32 inputs above head dim 128) must
+    raise ValueError naming the f32 limit: the f32 instances stop at 128."""
+    try:
+        fn()
+    except ValueError as e:
+        if "up to 128" not in str(e):
+            fail(f"{name}: f32 refused without naming the limit: {e}")
+        print(f"{name}: f32 refused ({e})")
+        return
+    fail(f"{name}: f32 above head dim 128 ran; its kernels stop at 128")
 
 
 def compare_grads(phase, name, got, dense, verbose):
@@ -783,6 +831,21 @@ def training_kernel_records(torch, k2, phase, q, k, v, mask, dout, causal,
     return records
 
 
+def deterministic(torch, k2, phase, q, k, v, dout, mask, causal):
+    """K2d and K2e own their output rows (no atomics): two launches on the
+    same inputs must give the same bits."""
+    pos = dict(causal=causal)
+    o, lse = k2.flash_lse_cuda(q, k, v, mask, **pos)
+    args = (q, k, v, mask, dout, lse, k2.flash_dsum(o, dout))
+    runs = [(k2.flash_dq_cuda(*args, **pos), *k2.flash_dkv_cuda(*args, **pos))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail(f"{phase}: two launches of K2d/K2e on the same inputs differ")
+    print(f"{phase}: {KERNEL_IDS[causal][1]}/{KERNEL_IDS[causal][2]} "
+          "deterministic: two launches bit-equal in dq, dk and dv")
+
+
 def train_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
     """Phase 7: K2b, K2d and K2e against their plain versions at the
     training path's attention shape and beside, then their times. Returns
@@ -815,14 +878,20 @@ def train_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
     check_training_kernels(torch, k2, f"f32 ragged B={B} H={H} T={Tf} "
                            f"D={D}", *xf, mask_f, dlse[:, :, :Tf])
     del xf
-    for d in (32, 64, 96, 128):                   # 96: padded to 128
+    for d in (32, 64, 96, 128, 192, 256):   # 96, 192: padded to 128, 256
         for dtype in (torch.bfloat16, torch.float32):
             x = [torch.randn(2, 4, 300, d, generator=gen, device=dev,
                              dtype=dtype) for _ in range(4)]
+            name = f"{str(dtype)[6:]} B=2 H=4 T=300 D={d}"
+            if dtype == torch.float32 and d > 128:
+                refuses_f32(f"K2b/K2d/K2e {name}", lambda: k2.flash_lse_cuda(
+                    *x[:3], mask_f[:2, :300]))
+                continue
             check_training_kernels(
-                torch, k2, f"{str(dtype)[6:]} B=2 H=4 T=300 D={d}", *x,
+                torch, k2, name, *x,
                 mask_f[:2, :300], torch.randn(2, 4, 300, generator=gen,
                                               device=dev))
+    deterministic(torch, k2, "phase 7", q, k, v, dout, mask, False)
 
     # the library yardstick: SDPA with the bool mask (its backward computes
     # dq, dk and dv together, so it stands beside K2d + K2e)
@@ -1292,13 +1361,18 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
     check_causal(torch, k2, f"f32 ragged [{B}, 8, {Tf}, 64] document mask",
                  *xf, mask_f)
     del xf
-    for d in (32, 64, 128):
+    for d in (32, 64, 128, 192, 256):
         for dtype in (bf16, torch.float32):
             x = fused_qkv(torch, gen, dev, 2, 300, 4, d, dtype)
-            check_causal(torch, k2, f"{str(dtype)[6:]} [2, 4, 300, {d}] "
-                         "document mask", *x, mask_f[:2, :300])
-            check_causal(torch, k2, f"{str(dtype)[6:]} [2, 4, 300, {d}] "
-                         "offsets (100, 37)", *x, mask_f[:2, :300], 100, 37)
+            name = f"{str(dtype)[6:]} [2, 4, 300, {d}]"
+            if dtype == torch.float32 and d > 128:
+                refuses_f32(f"K2c {name}", lambda: k2.flash_causal_cuda(
+                    *x, mask_f[:2, :300]))
+                continue
+            check_causal(torch, k2, f"{name} document mask", *x,
+                         mask_f[:2, :300])
+            check_causal(torch, k2, f"{name} offsets (100, 37)", *x,
+                         mask_f[:2, :300], 100, 37)
 
     def time_causal(label, q, k, v, runs=25):
         B, _, T, _ = q.shape
@@ -1343,11 +1417,18 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
              ("w=5 S=32 BL=16 hd=32", 65, 32, 5, 16, 256, 32, False),
              ("w=5 S=32 BL=16 hd=128", 66, 32, 5, 16, 256, 128, False),
              ("w=5 S=32 BL=16 hd=16 (pools padded to 32)", 67, 32, 5, 16,
-              256, 16, False)]
+              256, 16, False),
+             ("w=5 S=32 BL=16 hd=256", 68, 32, 5, 16, 256, 256, False),
+             ("w=5 S=32 BL=16 hd=192 (pools padded to 256)", 69, 32, 5, 16,
+              256, 192, False)]
     k3_err, record = 0.0, None
     for name, seed, S, w, BL, MB, hd, full in cases:
         for dtype in (torch.float32, bf16):       # the bf16 case is timed
             c = paged_case(torch, dev, seed, S, w, BL, MB, H, hd, dtype, full)
+            if dtype == torch.float32 and hd > 128:
+                refuses_f32(f"K3 f32 {name}", lambda: k3.paged_cuda(
+                    c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"]))
+                continue
             k3_err = max(k3_err, check_paged(
                 torch, k3, f"{str(dtype)[6:]} {name}", c))
         if hd != D:
@@ -1860,15 +1941,21 @@ def causal_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
         *xf, torch.randn(B, H, Tf, D, generator=gen, device=dev), mask_f,
         dlse[:, :, :Tf], 100, 37)
     del xf
-    for d in (32, 64, 128):
+    for d in (32, 64, 128, 192, 256):
         for dtype in (torch.bfloat16, torch.float32):
             x = fused_qkv(torch, gen, dev, 2, 300, 4, d, dtype)
+            name = f"{str(dtype)[6:]} [2, 4, 300, {d}] offsets (5, 23)"
+            if dtype == torch.float32 and d > 128:
+                refuses_f32(f"K2c-lse {name}", lambda: k2.flash_lse_cuda(
+                    *x, mask_f[:2, :300], causal=True, q_offset=5,
+                    k_offset=23))
+                continue
             check_training_kernels(
-                torch, k2, f"{str(dtype)[6:]} [2, 4, 300, {d}] offsets "
-                "(5, 23)", *x, torch.randn(2, 4, 300, d, generator=gen,
-                                           device=dev, dtype=dtype),
+                torch, k2, name, *x, torch.randn(2, 4, 300, d, generator=gen,
+                                                 device=dev, dtype=dtype),
                 mask_f[:2, :300],
                 torch.randn(2, 4, 300, generator=gen, device=dev), 5, 23)
+    deterministic(torch, k2, "phase 12", q, k, v, dout, mask, True)
 
     # the library yardsticks: SDPA with the causal and key mask as one bool
     # mask (the same function), and SDPA is_causal=True without the key
@@ -2156,23 +2243,18 @@ def main() -> None:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
-    # ---- phase 1: build every kernel of the paths, one nvcc each, at once
-    with Phase("phase 1"):
-        t0 = time.perf_counter()
-        builds = build_all({
-            "K1 (lightgbm/csrc/hist.cu)": k1.build_kernel,
-            "K2a, K2b, K2c (dl/csrc/flash_attn.cu)": k2.build_kernel,
-            "K2d, K2e (dl/csrc/flash_bwd.cu)": k2.build_bwd_kernel,
-            "K3 (dl/csrc/paged_attn.cu)": k3.build_kernel})
-        print(f"phase 1: built every kernel (sm_90a) in "
-              f"{time.perf_counter() - t0:.2f} s, in parallel")
-        for name, (secs, log) in builds.items():
-            print(f"  {name}: {secs:.2f} s")
-            for line in ptxas_summary(log):
-                print(f"    {line}")
-                if line.startswith("flash_fwd_bf16") and ", spills" in line:
-                    fail(f"ptxas spilled registers: {line}")
-        print(f"  K2a/K2b/K2c design: {k2.kernel_design()}")
+    # ---- phase 1: build every kernel of the paths, one nvcc each, at once;
+    # the GBDT phases need only K1, so they run while the attention kernels
+    # build
+    t0 = time.perf_counter()
+    k1_name = "K1 (lightgbm/csrc/hist.cu)"
+    builds = start_builds({
+        k1_name: k1.build_kernel,
+        "K2a, K2b, K2c (dl/csrc/flash_attn.cu)": k2.build_kernel,
+        "K2d, K2e (dl/csrc/flash_bwd.cu)": k2.build_bwd_kernel,
+        "K3 (dl/csrc/paged_attn.cu)": k3.build_kernel})
+    print("phase 1: building every kernel (sm_90a), one nvcc each, at once")
+    finish_builds({k1_name: builds.pop(k1_name)})
     print(card)
     bw, bw_src = memory_bandwidth(torch)
     print(f"memory bandwidth {bw / 1e12:.3f} TB/s ({bw_src})")
@@ -2180,8 +2262,14 @@ def main() -> None:
 
     records = []
     if "gbdt" in groups:
-        with Phase("phases 2-4"):
+        with Phase("phases 2-4 (beside the attention kernels' builds)"):
             records.append(gbdt_phases(torch, k1, dev, bw, flush, args))
+    with Phase("phase 1 (after phases 2-4)"):
+        finish_builds(builds)
+        print(f"phase 1: built every kernel in "
+              f"{time.perf_counter() - t0:.2f} s from its start")
+        print(f"  K2a/K2b/K2c design: {k2.kernel_design()}")
+        print(f"  K2d/K2e design: {k2.kernel_bwd_design()}")
     texts, lengths = make_documents(args.docs)
     if "text" in groups:
         with Phase("phases 5-6"):

@@ -12,8 +12,11 @@ port's modules mirror its paths), so the JAX package's loader finds its own
 class, and ``"library"`` says which package wrote it. The port resolves such
 a name to its own registered class by the bare class name, importing at
 most its own mirror module, never the JAX package. A complex param that the
-JAX package pickled holds objects of that package, which cannot be read
-without importing JAX: loading one raises ``NotImplementedError``.
+JAX package pickled holds objects of that package: the port reads one of
+them, ``TextEncoderFeaturizer.model`` (a ``LoadedModel`` of a text
+encoder), through ``foreign_pickle``, which maps the few globals such a
+payload names to stand-ins of its own and imports none of them; any other
+raises ``NotImplementedError`` naming the class it holds.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import pickle
 from typing import Any
 
+from . import foreign_pickle
 from .param import ComplexParam, Params
 
 _STAGE_REGISTRY: dict[str, type] = {}
@@ -34,11 +39,8 @@ def register_stage(cls: type) -> None:
 
 
 _REFERENCE, _PORT = "mmlspark_tpu", "mmlspark_torch"
-LATER_FOREIGN_PICKLE = (
-    "a complex param pickled by the JAX package holds that package's "
-    "objects, which the port cannot read without importing JAX; a neutral "
-    "payload for it (numpy weights and the architecture) comes with the "
-    "rest of the text-encoder slice (ROADMAP.md module queue item 7)")
+# the one complex param whose JAX-pickled payload the port reads
+_FOREIGN_MODEL = ("TextEncoderFeaturizer", "model")
 
 
 def saved_class_name(cls: type) -> str:
@@ -126,6 +128,26 @@ class SaveLoadMixin:
     read = load
 
 
+def _load_foreign(cls: type, name: str, where: str) -> Any:
+    """A complex param the JAX package pickled: ``TextEncoderFeaturizer.model``
+    through ``foreign_pickle`` (a global outside its list raises
+    ``UnpicklingError``), any other ``NotImplementedError`` naming the class
+    the payload holds (or the first global the port does not read)."""
+    with open(os.path.join(where, "value.pkl"), "rb") as f:
+        data = f.read()
+    if (cls.__name__, name) == _FOREIGN_MODEL:
+        return foreign_pickle.loaded_model_from_record(
+            foreign_pickle.loads(data))
+    try:
+        held = foreign_pickle.type_name(foreign_pickle.loads(data))
+    except pickle.UnpicklingError as e:
+        held = f"an object the port does not read ({e})"
+    raise NotImplementedError(
+        f"{cls.__name__}.{name} at {where}: the JAX package pickled "
+        f"{held}; the port reads a JAX-pickled complex param only for "
+        f"{'.'.join(_FOREIGN_MODEL)}")
+
+
 def load_stage(path: str) -> Any:
     with open(os.path.join(path, "metadata.json")) as f:
         meta = json.load(f)
@@ -145,10 +167,10 @@ def load_stage(path: str) -> Any:
     foreign = meta.get("library", _REFERENCE) != _PORT
     for name in meta["complexParams"]:
         p = stage.get_param(name)
+        where = os.path.join(path, "params", name)
         if foreign and type(p).load_value is ComplexParam.load_value:
-            raise NotImplementedError(
-                f"{cls.__name__}.{name} at {path}: {LATER_FOREIGN_PICKLE}")
-        stage._paramMap[name] = p.load_value(
-            os.path.join(path, "params", name))
+            stage._paramMap[name] = _load_foreign(cls, name, where)
+        else:
+            stage._paramMap[name] = p.load_value(where)
     stage._load_extra(path)
     return stage

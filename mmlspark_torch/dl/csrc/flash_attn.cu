@@ -62,14 +62,17 @@
 //  - A persistent grid, one CTA per SM, walks the work items (b*h, 128-row
 //    q tile). A CTA is two consumer warpgroups, which own 64 query rows of
 //    an item each, and one producer warp, 288 threads at one CTA per SM,
-//    so a thread may hold up to 224 registers; ptxas uses 155-168 with
-//    no spill. setmaxnreg is not used: one attempt with a producer
-//    warpgroup (384 threads, setmaxnreg 24/240) spilled at D = 128 with
-//    128-key tiles, and with 40/232 ptxas still reported 168 registers.
-//    That report is the launch share, so whether setmaxnreg took effect
-//    in that code is unverified, and retrying it is open (`PERF.md` §7).
+//    and ptxas uses 155-168 registers a thread with no spill at D <= 128.
+//    An attempt with a producer warpgroup (384 threads, setmaxnreg 24/240)
+//    spilled at D = 128 with 128-key tiles.
 //    D = 128 takes 64-key tiles (BK/2 + D/2 accumulator registers a
-//    thread), and the consumers run a plain loop: a ping-pong of the two
+//    thread) and D = 256 32-key tiles (O alone is 128 registers a thread;
+//    S = Q K^T reduces over D in four 64-column boxes and O += P V is two
+//    m64n128 products, one per half of D). At 288 threads ptxas holds a
+//    thread to 168 registers, the share of a 384-thread CTA, and D = 256
+//    spilled there, so D = 256 alone runs a whole producer warpgroup with
+//    setmaxnreg (24 for it, 240 for the consumers: no spill). The
+//    consumers run a plain loop: a ping-pong of the two
 //    warpgroups (turns on named barriers) and an overlap inside each (a
 //    tile's S = Q K^T issued beside the last P V, the softmax while it
 //    runs) were both slower than this loop when timed against it on an
@@ -77,15 +80,20 @@
 //  - Copies by TMA: the producer loads each item's Q tile into one of two
 //    Q buffers (so the next item's Q arrives while this one is consumed)
 //    and keeps a ring of 4 stages of K and V tiles (128 keys; 64 at
-//    D = 128) in flight across items, each buffer and stage with a full
-//    and an empty mbarrier; one item's epilogue overlaps the next one's
-//    copies. Tensor maps over the
-//    caller's strided [B, H, T, D] views (dims D, T, H, B) are encoded on
-//    the host (the last 32 are cached: encoding costs more host time than
-//    the launch) and passed as __grid_constant__ parameters; rows past T
-//    come zero-filled from TMA's out-of-bounds
+//    D = 128; 3 stages of 32 keys at D = 256, where the two Q buffers
+//    take 128 KB of the 227 KB) in flight across items, each buffer and
+//    stage with a full and an empty mbarrier; one item's epilogue
+//    overlaps the next one's copies. Tensor maps over the caller's
+//    strided [B, H, T, D] views (dims D, T, H, B) are encoded on the host
+//    (the last 32 are cached: encoding costs more host time than the
+//    launch) and passed as __grid_constant__ parameters; rows past T come
+//    zero-filled from TMA's out-of-bounds
 //    handling, so the loop has no bounds checks. Tiles land with TMA's
-//    128-byte swizzle (64-byte at D = 32); D = 128 is two 64-column boxes.
+//    128-byte swizzle (64-byte at D = 32); D = 128 is two 64-column boxes,
+//    D = 256 four. The helpers shared with the backward (mbarriers, TMA,
+//    wgmma, the tensor-map cache) are in flash_common.cuh.
+//  - f32 runs up to D = 128 (its 32-row K and V tiles live in static
+//    shared memory, 64 KB at D = 256); the wrapper refuses f32 above.
 //  - Both products on wgmma: S = Q K^T as m64n<BK>k16 with Q and K read from
 //    shared memory through descriptors (K-major); P is rounded to bf16 in
 //    registers (the accumulator's layout is the A-fragment layout) and fed
@@ -120,20 +128,11 @@
 //  - A wait that does not complete within ~2^24 polls traps, so a fault in
 //    a copy ends the launch with an error instead of hanging the card.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <stdio.h>
-#include <string.h>
-
-#include <mutex>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;  // the TPU kernel's _NEG
 constexpr int kThreads = 128;   // the f32 path's CTA
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -177,32 +176,22 @@ __device__ __forceinline__ bool key_valid(const Params& p, int b, int key) {
 // ---------------------------------------------------------------- bf16 path
 
 constexpr int kBQ = 128;  // query rows per CTA: 64 per consumer warpgroup
-constexpr int kStages = 4;  // K/V tiles in flight
-constexpr int kWgThreads = 128;
-// two consumer warpgroups and one producer warp: at one CTA per SM
-// (__launch_bounds__(288, 1)) ptxas may give every thread 224 registers,
-// which the consumers need; setmaxnreg, which needs a whole producer
-// warpgroup, is not used (see the note above)
+// two consumer warpgroups, and one producer warp (a producer warpgroup
+// with setmaxnreg at D = 256, see Tile): one CTA per SM
 constexpr int kConsumerThreads = 2 * kWgThreads;
-constexpr int kHopperThreads = kConsumerThreads + 32;
-constexpr uint32_t kSpinLimit = 1u << 24;
 
-// shared-memory layout of one head dim: the Q tile, then STAGES of (K, V),
-// then each stage's four validity words, then the barriers
+// shared-memory layout of one head dim: two Q buffers, then STAGES of
+// (K, V), then each stage's four validity words, then the barriers
 template <int D>
-struct Tile {
+struct Tile : Swz<D> {
   // keys per tile: 64 at D = 128 keeps the score and output accumulators
   // (BK/2 + D/2 registers a thread) small; 128-key tiles spilled at
-  // D = 128 in the one 3-warpgroup attempt (see the note above)
-  static constexpr int BK = D == 128 ? 64 : 128;
+  // D = 128 in the one 3-warpgroup attempt (see the note above); 32 at
+  // D = 256, where the output accumulator alone is 128 registers
+  static constexpr int BK = D == 256 ? 32 : D == 128 ? 64 : 128;
   static constexpr int NW = BK / 32;          // validity words per tile
-  static constexpr int CW = D < 64 ? D : 64;  // columns per TMA box
-  static constexpr int NCH = D / CW;          // boxes per row
-  static constexpr int ROWB = CW * 2;         // bytes per swizzled row
-  static constexpr int KPC = CW / 16;         // k16 steps per box
-  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
-  static constexpr uint64_t SWZ = ROWB == 128 ? 1 : 2;
-  static constexpr int STAGES = kStages;
+  // 4 stages in flight; 3 at D = 256, where two Q buffers take 128 KB
+  static constexpr int STAGES = D == 256 ? 3 : 4;
   static constexpr int Q_BYTES = kBQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one of K or V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
@@ -212,244 +201,12 @@ struct Tile {
   // double-buffered, so the next work item's Q loads during this one
   static constexpr int SMEM =
       1024 + 2 * Q_BYTES + STAGES * STAGE_BYTES + META + BARS;
-  static_assert(D % 16 == 0 && D <= 128, "head dim 32, 64 or 128");
+  // D = 256: a producer warpgroup and setmaxnreg (the 168 registers of a
+  // 288-thread CTA spilled there); the other head dims fit without
+  static constexpr bool WIDE = D == 256;
+  static constexpr int THREADS = kConsumerThreads + (WIDE ? kWgThreads : 32);
   static_assert(SMEM <= 232448, "more shared memory than a CTA may have");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait for the phase of parity `parity` to complete; trap after
-// kSpinLimit polls rather than hang the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == kSpinLimit) __trap();
-  }
-}
-
-// one box of a rank-4 tensor map (coordinates innermost first) into shared
-// memory, completing `bytes` on the mbarrier
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// a wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (all >> 4) and the swizzle layout type
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// a consumer warp is done with a stage: lane 0 arrives on its empty barrier
-__device__ __forceinline__ void release(uint32_t bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
-
-// registers an asynchronous wgmma reads or writes: keep the compiler from
-// moving their uses across the fence/wait
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two f32 -> one register of two bf16 (round to nearest even), lo in the
-// low half as the A fragments expect
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t r;
-  memcpy(&r, &v, sizeof(r));
-  return r;
-}
-
-// S (64 x 128, f32) = A (64 x 16) B^T (128 x 16), both K-major in shared
-// memory; O (64 x N) += A (registers) B (16 x N, MN-major: transposed)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                              uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                               uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int BK>
-__device__ __forceinline__ void wgmma_s(float (&s)[BK / 2], uint64_t a,
-                                        uint64_t b, int acc) {
-  if constexpr (BK == 64) wgmma_ss_n64(s, a, b, acc);
-  else wgmma_ss_n128(s, a, b, acc);
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 32) wgmma_rs_n32(acc, a, b);
-  else if constexpr (D == 64) wgmma_rs_n64(acc, a, b);
-  else wgmma_rs_n128(acc, a, b);
-}
 
 // O += P V over one key tile in steps of 16 keys, V read MN-major from the
 // stage at `vs`; issued and committed as one group
@@ -461,14 +218,12 @@ __device__ __forceinline__ void pv_products(float (&acc)[D / 2],
   using C = Tile<D>;
 #pragma unroll
   for (int kk = 0; kk < C::BK / 16; ++kk)
-    wgmma_pv<D>(acc, pa[kk],
-                smem_desc(vs + kk * 16 * C::ROWB, C::BK * C::ROWB,
-                          8 * C::ROWB, C::SWZ));
+    wgmma_rs<D, D>(acc, pa[kk], vs, C::BK, kk, 0);
   wg_commit();
 }
 
 template <int D, bool kLse, bool kCausal>
-__global__ void __launch_bounds__(kHopperThreads, 1)
+__global__ void __launch_bounds__(Tile<D>::THREADS, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -525,6 +280,10 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 
   if (tid >= kConsumerThreads) {
     // ---------------------------------------------------------- producer
+    if constexpr (C::WIDE) {
+      producer_regs();
+      if (tid >= kConsumerThreads + 32) return;  // one warp issues copies
+    }
     const int lane = tid - kConsumerThreads;
     int stage = 0;
     uint32_t phase = 0;
@@ -539,10 +298,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         const int qb = it & 1;
         mbar_wait(qempty(qb), ((it >> 1) & 1) ^ 1);
         mbar_expect_tx(qfull(qb), C::Q_BYTES);
-#pragma unroll
-        for (int c = 0; c < C::NCH; ++c)
-          tma_load(q_s + qb * C::Q_BYTES + c * kBQ * C::ROWB, &tq, qfull(qb),
-                   c * C::CW, qt * kBQ, h, b);
+        tma_rows<D>(q_s + qb * C::Q_BYTES, &tq, qfull(qb), kBQ, qt * kBQ, h,
+                    b);
       }
       const int n_tiles = tiles_of(qt);
       for (int kt = 0; kt < n_tiles; ++kt) {
@@ -562,13 +319,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
           if (any) {
             mbar_expect_tx(full(stage), C::STAGE_BYTES);
             const uint32_t ks = kv_s + stage * C::STAGE_BYTES;
-#pragma unroll
-            for (int c = 0; c < C::NCH; ++c) {
-              tma_load(ks + c * BK * C::ROWB, &tk, full(stage), c * C::CW,
-                       k0, h, b);
-              tma_load(ks + C::KV_BYTES + c * BK * C::ROWB, &tv, full(stage),
-                       c * C::CW, k0, h, b);
-            }
+            tma_rows<D>(ks, &tk, full(stage), BK, k0, h, b);
+            tma_rows<D>(ks + C::KV_BYTES, &tv, full(stage), BK, k0, h, b);
           } else {
             mbar_arrive(full(stage));  // no valid key: no copy, same list
           }
@@ -580,6 +332,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 
   // ------------------------------------------------------------ consumers
+  if constexpr (C::WIDE) consumer_regs();
   const int cw = tid / kWgThreads;  // this warpgroup: rows 64 * cw + ...
   const int t = tid % kWgThreads;
   const int warp = t >> 5, lane = t & 31;
@@ -636,15 +389,9 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         keep(acc);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off =
-              (kk / C::KPC) * BK * C::ROWB + (kk % C::KPC) * 32;
-          wgmma_s<BK>(
-              s,
-              smem_desc(qa + (kk / C::KPC) * kBQ * C::ROWB + (kk % C::KPC) * 32,
-                        16, 8 * C::ROWB, C::SWZ),
-              smem_desc(ks + off, 16, 8 * C::ROWB, C::SWZ), kk > 0);
-        }
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BK>(s, kmajor<D>(qa, kBQ, kk), kmajor<D>(ks, BK, kk),
+                       kk > 0);
         wg_commit();
         wg_wait0();
         keep(s);
@@ -708,13 +455,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
           acc[4 * j + 3] *= corr_hi;
         }
         uint32_t pa[BK / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-          pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-          pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-          pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-        }
+        to_a_frags<BK>(pa, s);
         keep(acc);
         keep(pa);
         wg_fence();
@@ -859,105 +600,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ launch
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// so the library links no libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// errors of the tensor-map encoding, returned below cudaError_t's range
-constexpr int kErrNoEncoder = -1;
-constexpr int kErrEncodeBase = -1000;  // kErrEncodeBase - CUresult
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// a rank-4 bf16 tensor map over a strided [B, H, T, D] view (dims D, T, H,
-// B innermost first; strides in elements), boxes of `rows` rows by
-// Tile<D>::CW columns, swizzled as the wgmma descriptors read them; rows
-// past T read as zeros
-// The last tensor maps encoded, keyed by everything that goes into them:
-// encoding costs the host more than the launch, and a caller's tensors
-// come back at the same addresses call after call.
-struct MapKey {
-  const void* ptr;
-  long long b, h, t, sb, sh, st, rows, d;
-  bool operator==(const MapKey& o) const {
-    return memcmp(this, &o, sizeof(MapKey)) == 0;
-  }
-};
-struct MapSlot {
-  MapKey key;
-  CUtensorMap map;
-  bool used;
-};
-constexpr int kMapSlots = 32;
-MapSlot g_maps[kMapSlots];
-int g_next_slot = 0;
-std::mutex g_maps_mutex;
-
-template <int D>
-int encode_view(CUtensorMap* map, const void* ptr, int B, int H, int T,
-                long long sb, long long sh, long long st, int rows) {
-  using C = Tile<D>;
-  MapKey key;
-  memset(&key, 0, sizeof(key));
-  key.ptr = ptr, key.b = B, key.h = H, key.t = T;
-  key.sb = sb, key.sh = sh, key.st = st, key.rows = rows, key.d = D;
-  std::lock_guard<std::mutex> lock(g_maps_mutex);
-  for (const MapSlot& slot : g_maps)
-    if (slot.used && slot.key == key) {
-      *map = slot.map;
-      return 0;
-    }
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const long long given[3] = {st * 2, sh * 2, sb * 2};
-  cuuint64_t strides[3];
-  cuuint64_t span = D * 2;  // bytes one step of the previous dim covers
-  for (int i = 0; i < 3; ++i) {
-    // a dim of extent 1 is never stepped: any stride TMA accepts will do
-    strides[i] = dims[i + 1] == 1 ? span
-                                  : static_cast<cuuint64_t>(given[i]);
-    span = strides[i] * dims[i + 1];
-  }
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C::CW),
-                             static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      C::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (res != CUDA_SUCCESS) return kErrEncodeBase - static_cast<int>(res);
-  MapSlot& slot = g_maps[g_next_slot];
-  g_next_slot = (g_next_slot + 1) % kMapSlots;
-  slot.key = key, slot.map = *map, slot.used = true;
-  return 0;
-}
-
 template <int D, bool kLse, bool kCausal>
 int launch_bf16(const Params& p, int B, cudaStream_t s) {
   using C = Tile<D>;
@@ -972,38 +614,33 @@ int launch_bf16(const Params& p, int B, cudaStream_t s) {
                          C::BK);
   if (err != 0) return err;
   auto kernel = flash_fwd_bf16<D, kLse, kCausal>;
-  // the shared-memory opt-in, once per instance and device
+  // the shared-memory opt-in, once per instance and device; a persistent
+  // grid: one CTA per SM walks the work items
   static unsigned long long opted = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (!(opted & bit)) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted |= bit;
-  }
-  // a persistent grid: one CTA per SM walks the work items
-  static int sms[64] = {0};
-  int& n_sm = sms[dev & 63];
-  if (n_sm == 0) {
-    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  int n_sm = 0;
+  err = persistent_setup(reinterpret_cast<const void*>(kernel), C::SMEM,
+                         opted, n_sm);
+  if (err != 0) return err;
   const long long work = static_cast<long long>((p.T + kBQ - 1) / kBQ) * p.BH;
   if (work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = static_cast<int>(work < n_sm ? work : n_sm);
-  kernel<<<grid, kHopperThreads, C::SMEM, s>>>(tq, tk, tv, p);
+  kernel<<<grid, C::THREADS, C::SMEM, s>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool kLse, bool kCausal>
 int launch_dtype(const Params& p, int dtype, int B, cudaStream_t s) {
   if (dtype == 0) return launch_bf16<D, kLse, kCausal>(p, B, s);
-  const dim3 grid(B * p.H, (p.T + kBQ32 - 1) / kBQ32);
-  flash_fwd_f32<D, kLse, kCausal><<<grid, kThreads, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  // f32 (the tight check) is built for D <= 128: its CTA keeps a K and a V
+  // tile of 32 rows in static shared memory (64 KB at D = 256, over the
+  // 48 KB a static allocation may take)
+  if constexpr (D > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const dim3 grid(B * p.H, (p.T + kBQ32 - 1) / kBQ32);
+    flash_fwd_f32<D, kLse, kCausal><<<grid, kThreads, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <bool kLse, bool kCausal>
@@ -1012,6 +649,7 @@ int launch_dim(const Params& p, int dtype, int D, int B, cudaStream_t s) {
     case 32: return launch_dtype<32, kLse, kCausal>(p, dtype, B, s);
     case 64: return launch_dtype<64, kLse, kCausal>(p, dtype, B, s);
     case 128: return launch_dtype<128, kLse, kCausal>(p, dtype, B, s);
+    case 256: return launch_dtype<256, kLse, kCausal>(p, dtype, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1024,9 +662,9 @@ extern "C" {
 // buffer) or K2c (causal 1; q_offset/k_offset the global positions of row
 // 0 and key 0), with or without the lse, on `stream` (a cudaStream_t from
 // PyTorch) on device `device`. dtype: 0 = bf16, 1 = f32 (q, k, v and o all
-// of it). Strides are in elements; D must be 32, 64 or 128 with unit
-// stride, and for bf16 the q/k/v base addresses and strides multiples of
-// 16 bytes (the tensor maps' rule). Returns 0, a cudaError_t of the launch,
+// of it). Strides are in elements; D must be 32, 64, 128 or (bf16 only)
+// 256 with unit stride, and for bf16 the q/k/v base addresses and strides
+// multiples of 16 bytes (the tensor maps' rule). Returns 0, a cudaError_t of the launch,
 // or a negative code of the tensor-map encoding (see the error string).
 int mmlspark_flash_launch(const void* q, const void* k, const void* v,
                           const void* mask, void* o, float* lse, int dtype,
@@ -1069,29 +707,26 @@ int mmlspark_flash_launch(const void* q, const void* k, const void* v,
 }
 
 const char* mmlspark_flash_error_string(int err) {
-  static thread_local char buf[96];
-  if (err == kErrNoEncoder)
-    return "the driver entry point cuTensorMapEncodeTiled was not found";
-  if (err <= kErrEncodeBase) {
-    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed (CUresult %d)",
-             kErrEncodeBase - err);
-    return buf;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return launch_error_string(err);
 }
 
 // The bf16 forward's design, one line: grid and CTA shape, tiles, ring
 // stages and dynamic shared memory per head dim.
 const char* mmlspark_flash_design() {
-  static char buf[384];
+  static char buf[448];
   snprintf(buf, sizeof(buf),
            "bf16 forward: persistent, one CTA per SM; %d threads = 2 "
-           "consumer warpgroups + 1 TMA producer warp; q tile %d rows, "
-           "2 Q buffers; key tiles %d/%d/%d, TMA ring of "
-           "%d stages, dynamic smem %d/%d/%d B at D = 32/64/128; wgmma "
-           "m64n<key tile>k16 (S, SS) and m64nDk16 (PV, RS, V MN-major)",
-           kHopperThreads, kBQ, Tile<32>::BK, Tile<64>::BK, Tile<128>::BK,
-           kStages, Tile<32>::SMEM, Tile<64>::SMEM, Tile<128>::SMEM);
+           "consumer warpgroups + 1 TMA producer warp (D = 256: %d, a "
+           "producer warpgroup, setmaxnreg 24/240); q tile %d rows, "
+           "2 Q buffers; key tiles %d/%d/%d/%d, TMA ring of "
+           "%d/%d/%d/%d stages, dynamic smem %d/%d/%d/%d B at D = "
+           "32/64/128/256; wgmma m64n<key tile>k16 (S, SS) and m64nDk16 "
+           "(PV, RS, V MN-major; two n128 at D = 256)",
+           Tile<32>::THREADS, Tile<256>::THREADS, kBQ, Tile<32>::BK,
+           Tile<64>::BK, Tile<128>::BK,
+           Tile<256>::BK, Tile<32>::STAGES, Tile<64>::STAGES,
+           Tile<128>::STAGES, Tile<256>::STAGES, Tile<32>::SMEM,
+           Tile<64>::SMEM, Tile<128>::SMEM, Tile<256>::SMEM);
   return buf;
 }
 

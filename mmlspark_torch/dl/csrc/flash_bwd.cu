@@ -5,10 +5,10 @@
 // mmlspark_tpu/dl/pallas_attention.py:350, launched at :462) and
 // `_bwd_dkv_kernel` (K2e, :388, launched at :483), with their causal
 // branches, which `_flash_backward` (:435) runs for the custom VJP of
-// `flash_attention` and `flash_attention_lse`. For q, k, v, dO [B, H, T, D] (any batch, head and
-// row strides; unit stride on D), a key mask [B, T] (nonzero = valid; null
-// = all valid), and per-row f32 lse and dsum [B, H, T] (contiguous), with
-// scale = D^-0.5:
+// `flash_attention` and `flash_attention_lse`. For q, k, v, dO [B, H, T, D]
+// (any batch, head and row strides; unit stride on D), a key mask [B, T]
+// (nonzero = valid; null = all valid), and per-row f32 lse and dsum
+// [B, H, T] (contiguous), with scale = D^-0.5 of the caller's true head dim:
 //   s  = (q . k^T) * scale in f32;  p = exp(s - lse), set to 0 at invalid
 //        keys by a select (at an invalid key exp can overflow to inf, and
 //        every key of a fully masked row has lse = -1e30: inf * 0 would be
@@ -32,56 +32,73 @@
 // SXM data sheet), against 8 MB per tensor (2.5 us each at 3.35 TB/s);
 // causal at q_offset = k_offset, P is T(T+1)/2 per (b, h), about half.
 //
-// Design (right and simple first; wgmma, TMA, ldmatrix and pipelining are
-// later work):
-//  - bf16: one CTA of 4 warps, each warp owning 16 rows of the CTA's tile,
-//    all products as mma.sync.m16n8k16 bf16 -> f32. The score accumulator's
-//    register layout is the A operand of the next product, so p and ds
-//    never leave registers (K2a's trick for its PV product).
-//    K2d: a CTA per (b*h, 64-row q tile) loops over 64-key tiles, as K2a.
-//    K2e: a CTA per (b*h, 64-key tile) loops over 64-row q tiles and
-//    computes the transposed products s^T = k . q^T and dp^T = v . dO^T, so
-//    its rows are keys and p^T, ds^T are again A operands in registers. No
-//    atomics: each CTA owns its dk/dv rows, the result is deterministic,
-//    and the TPU's two-kernel split is kept.
-//    The CTA's own tile (q and dO in K2d, k and v in K2e) is staged in
-//    shared memory once and its A fragments are read from there at each
-//    use: with them in registers beside the accumulators, K2e at D=128
-//    would need ~256 registers a thread. Streamed tiles are staged
-//    row-major with 8 elements of padding a row (conflict-free 32-bit
-//    fragment loads); the operands that the last product needs transposed
-//    (k in K2d; dO and q in K2e) are read as two 16-bit loads per register,
-//    which the padding also keeps conflict-free. At D=128 the four tiles
-//    take 69.6 KB: dynamic shared memory.
-//  - f32 (the tight check of the same algorithm): 4 threads per row, 32-row
-//    tiles, plain FMA in f32, one key (K2d) or query (K2e) at a time.
-//  - Key tiles with no valid key are skipped in K2d (their p is 0, so the
-//    skip is exact); a K2e CTA whose 64 keys are all invalid writes zeros.
-//  - Causal: a K2d CTA loops only over the key tiles its last row reaches,
-//    n_reach = clamp(floor((q0 + BQ - 1 + shift) / BK) + 1, 0, nk) with
-//    shift = q_offset - k_offset (the forward's bound, flash_attn.cu); a K2e
-//    CTA starts its q-tile loop at the first tile whose last row reaches
-//    its first key, clamp(floor((k0 - shift) / BQ), 0, nq), the mirror of
+// Design, bf16 (the f32 path below is the tight check of the same
+// algorithm and keeps a simple design: 4 threads a row, 32-row tiles,
+// plain FMA), the forward's (flash_attn.cu) shape with its helpers
+// (flash_common.cuh):
+//  - Two kernels, deterministic, no atomics: K2d owns dq rows, K2e owns
+//    dk/dv rows, so every output element is one CTA's sum in a fixed order
+//    and two launches on the same inputs give the same bits.
+//  - A persistent grid, one CTA per SM, walks the work items. A CTA is two
+//    consumer warpgroups and one producer warpgroup, 384 threads. At 288
+//    threads (one producer warp) ptxas holds a thread to 168 registers,
+//    and the instances spilled; the producer warpgroup gives its registers
+//    to the consumers with setmaxnreg (24 / 240), and one of its warps
+//    issues the copies. Each item's own tiles (Q and
+//    dO in K2d, K and V in K2e) load once into one of two item buffers (one
+//    at D = 256 in K2d), so the next item's load overlaps this one; the
+//    streamed tiles (K and V in K2d; Q, dO and their lse and dsum in K2e)
+//    come through a ring of 3-4 stages, each buffer and stage guarded by a
+//    full and an empty mbarrier. Tensor maps over the caller's strided
+//    views; rows past T are zero-filled by TMA.
+//  - K2d: an item is (b*h, 128 q rows), 64 per warpgroup; key tiles of 64
+//    (32 at D = 256). S = Q K^T and dP = dO V^T are SS wgmma products (all
+//    four operands K-major from shared memory); p and dS are formed in
+//    registers and dS, rounded to bf16, is the register A operand of
+//    dQ += dS K with K read MN-major through the descriptor. The producer
+//    posts every key tile with its validity words, as in the forward: a
+//    tile with no valid key arrives without a copy and is skipped.
+//  - K2e: an item is (b*h, 128 keys), 64 per warpgroup; q tiles of 64 rows
+//    (32 at D = 256). S^T = K Q^T and dP^T = V dO^T (SS), P^T and dS^T in
+//    registers as the A operands of dV += P^T dO and dK += dS^T Q, dO and
+//    Q read MN-major through the descriptor, so no operand is transposed
+//    by hand. The producer warp
+//    writes each q tile's lse (times log2 e; +inf for rows past T, which
+//    makes their p exactly 0) and dsum into the stage before its arrive.
+//    An item with no valid key loads nothing and writes zeros.
+//  - Registers: dK and dV are D/2 f32 each per thread of a 64-key
+//    warpgroup tile. At D = 128 that is 128 beside S^T and dP^T (64 at
+//    64-row q tiles), within the 240; at D = 256 they would be 256, so
+//    the two warpgroups share one 64-key tile and split its D columns:
+//    each recomputes the full S^T and dP^T (the reduction runs over all of
+//    D) and accumulates its own 128 columns of dK and dV. That costs 1.5x
+//    the flops of the shared products; sharing P^T and dS^T through shared
+//    memory instead would need both warpgroups to meet on named barriers
+//    every tile, and the recompute keeps them independent.
+//  - Numerics: p = 2^(s * c - lse * log2 e) with c = scale * log2(e), one
+//    FFMA and the exp2 per score, zeroed by a select at every disallowed
+//    pair (never a multiply), so the -1e30 sentinel rows stay exactly 0.
+//    A K2d tile whose keys are all valid and off the causal diagonal takes
+//    no select.
+//  - Causal: K2d loops to n_reach = clamp(floor((q0 + 127 + shift) / BK) +
+//    1, 0, nk) with shift = q_offset - k_offset (the forward's bound); K2e
+//    starts at clamp(floor((k0 - shift) / BQ), 0, nq), the mirror of
 //    `_block_reachable`. Both floors are signed and on 64-bit values, so
-//    offsets need not be multiples of the tile and may exceed T. Inside a
-//    tile each pair is tested on its global positions, as a compare of the
-//    fragment's column with a per-thread constant (the forward's trick).
-//  - The ragged tail is bounds-checked and staged as zeros (0 * garbage
-//    cannot make NaN); rows past T of lse and dsum are never read.
+//    offsets need not be multiples of the tile and may exceed T. A
+//    warpgroup skips the tiles none of its pairs reach and runs the
+//    per-pair compare only on tiles that cross its diagonal. Items go
+//    longest first (K2d: every head's last q tile first; K2e: the first key
+//    tiles), which balances the persistent CTAs.
 //  - dq, dk and dv are written through their own strides, so the wrapper
 //    hands back [B, H, T, D] views of [B, T, H, D] buffers.
+//  - A wait that does not complete within ~2^24 polls traps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile16 = 16 * kWarps;  // rows per bf16 tile (q or keys)
-constexpr int kTile32 = kThreads / 4; // rows per f32 tile (4 threads a row)
+constexpr int kThreads = 128;          // the f32 path's CTA
+constexpr int kTile32 = kThreads / 4;  // rows per f32 tile (4 threads a row)
 
 using bf16 = __nv_bfloat16;
 
@@ -96,7 +113,7 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  int H, T;
+  int BH, H, T;
   // batch, head, row strides (elements) of q, k, v, dO, dq, dk, dv
   long long st[7][3];
   long long mask_sb;
@@ -155,295 +172,535 @@ __device__ __forceinline__ T* head_ptr(const void* base, const Params& p,
 
 // ---------------------------------------------------------------- bf16 path
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kConsumers = 2 * kWgThreads;  // two consumer warpgroups
 
-__device__ __forceinline__ uint32_t ld32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-// two bf16 from two rows of a tile -> one fragment register (lo in the low
-// half), for an operand read transposed
-__device__ __forceinline__ uint32_t ld_pair(const bf16* lo, const bf16* hi) {
-  const uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
-  const uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
-  return a | (b << 16);
-}
-
-// two f32 -> one register of two bf16 (round to nearest even)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t r;
-  memcpy(&r, &v, sizeof(r));
-  return r;
-}
-
-// rows [r0, r0 + kTile16) of a [T, D] head (row stride st) into a padded
-// [kTile16][D + 8] tile; rows past T become zeros
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           long long st, int r0, int T,
-                                           int tid) {
-  constexpr int KP = D + 8, VEC = D / 8;  // 16-byte vectors per row
-  for (int i = tid; i < kTile16 * VEC; i += kThreads) {
-    const int r = i / VEC, c = (i % VEC) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T)
-      x = *reinterpret_cast<const uint4*>(src + (r0 + r) * st + c);
-    *reinterpret_cast<uint4*>(&dst[r * KP + c]) = x;
-  }
-}
-
-// A fragment (16 rows of this warp x 16 columns at kk*16) of a padded tile
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int warp, int g, int t4, int kk) {
-  constexpr int KP = D + 8;
-  const bf16* x = &tile[(warp * 16 + g) * KP + kk * 16 + t4 * 2];
-  a[0] = ld32(x);
-  a[1] = ld32(x + 8 * KP);
-  a[2] = ld32(x + 8);
-  a[3] = ld32(x + 8 * KP + 8);
-}
-
-// c[8][4] (16 rows x 64 columns) += A(tile rows of this warp) . B^T, with B
-// the 64 rows of `other`: the score-shaped products s, dp (K2d) and s^T,
-// dp^T (K2e)
-template <int D>
-__device__ __forceinline__ void scores(float (&c)[8][4], const bf16* mine,
-                                       const bf16* other, int warp, int g,
-                                       int t4) {
-  constexpr int KP = D + 8;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<D>(a, mine, warp, g, t4, kk);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const bf16* r = &other[(n * 8 + g) * KP + kk * 16 + t4 * 2];
-      mma_bf16(c[n], a, ld32(r), ld32(r + 8));
-    }
-  }
-}
-
-// acc[D/8][4] (16 rows x D) += X . Y, X the 16 x 64 score-shaped registers
-// rounded to bf16, Y the padded [64][D + 8] tile (rows = X's columns)
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const float (&x)[8][4],
-                                           const bf16* y, int g, int t4) {
-  constexpr int KP = D + 8;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t a[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
-                           pack_bf16(x[2 * j][2], x[2 * j][3]),
-                           pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
-                           pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bf16* c = &y[(j * 16 + t4 * 2) * KP + n * 8 + g];
-      mma_bf16(acc[n], a, ld_pair(c, c + KP), ld_pair(c + 8 * KP, c + 9 * KP));
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, long long st,
-                                           const float (&acc)[D / 8][4],
-                                           int r_lo, int T, int t4) {
+// rows r_lo and r_lo + 8 of an m64nN accumulator (this thread's columns
+// 8j + 2 t4, + 1), rounded to bf16, through the row stride of `base`
+template <int N>
+__device__ __forceinline__ void store_acc(bf16* base, long long st,
+                                          const float (&acc)[N / 2],
+                                          int r_lo, int T, int c0, int t4) {
   const int r_hi = r_lo + 8;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + t4 * 2;
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = c0 + j * 8 + t4 * 2;
     if (r_lo < T)
       *reinterpret_cast<uint32_t*>(base + r_lo * st + c) =
-          pack_bf16(acc[n][0], acc[n][1]);
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
     if (r_hi < T)
       *reinterpret_cast<uint32_t*>(base + r_hi * st + c) =
-          pack_bf16(acc[n][2], acc[n][3]);
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
-template <int D>
-constexpr int smem_bf16() {
-  return 4 * kTile16 * (D + 8) * 2 + 2 * kTile16 * 4 + kTile16;
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
 }
 
-// K2d: dq for one (b*h, 64-row q tile)
+// K2d's shared-memory layout of one head dim: NQB item buffers of (Q, dO),
+// STAGES of (K, V), each stage's validity words, then the barriers
+template <int D>
+struct DqTile : Swz<D> {
+  static constexpr int BQ = 128;  // q rows per item: 64 per warpgroup
+  static constexpr int BK = D == 256 ? 32 : 64;  // keys per streamed tile
+  static constexpr int NW = BK / 32;             // validity words per tile
+  static constexpr int NQB = D == 256 ? 1 : 2;
+  static constexpr int STAGES = D >= 128 ? 3 : 4;
+  static constexpr int ROWS_BYTES = BQ * D * 2;  // one of Q or dO
+  static constexpr int ITEM_BYTES = 2 * ROWS_BYTES;
+  static constexpr int KV_BYTES = BK * D * 2;    // one of K or V
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int META = STAGES * 16;
+  static constexpr int BARS = (2 * STAGES + 2 * NQB) * 8;
+  static constexpr int SMEM =
+      1024 + NQB * ITEM_BYTES + STAGES * STAGE_BYTES + META + BARS;
+  static constexpr int THREADS = kConsumers + kWgThreads;
+  static_assert(SMEM <= 232448, "more shared memory than a CTA may have");
+};
+
+// K2e's: two item buffers of (K, V), STAGES of (Q, dO), each stage's lse
+// and dsum (BQ floats each), then the barriers
+template <int D>
+struct DkvTile : Swz<D> {
+  // warpgroups on one 64-key tile, splitting its dK/dV columns (D = 256)
+  static constexpr int SPLIT = D == 256 ? 2 : 1;
+  static constexpr int BKEY = 128 / SPLIT;  // keys per item
+  static constexpr int DC = D / SPLIT;      // dK/dV columns a warpgroup owns
+  static constexpr int BQ = D == 256 ? 32 : 64;
+  static constexpr int STAGES = D >= 128 ? 3 : 4;
+  static constexpr int KEYS_BYTES = BKEY * D * 2;  // one of K or V
+  static constexpr int ITEM_BYTES = 2 * KEYS_BYTES;
+  static constexpr int ROWS_BYTES = BQ * D * 2;    // one of Q or dO
+  static constexpr int STAGE_BYTES = 2 * ROWS_BYTES;
+  static constexpr int META = STAGES * BQ * 8;
+  static constexpr int BARS = (2 * STAGES + 4) * 8;
+  static constexpr int SMEM =
+      1024 + 2 * ITEM_BYTES + STAGES * STAGE_BYTES + META + BARS;
+  static constexpr int THREADS = kConsumers + kWgThreads;
+  static_assert(SMEM <= 232448, "more shared memory than a CTA may have");
+};
+
+// K2d: dq, one work item per (b*h, 128-row q tile)
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads) bwd_dq_bf16(const Params p) {
-  constexpr int KP = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kTile16 * KP;
-  bf16* ks = dos + kTile16 * KP;
-  bf16* vs = ks + kTile16 * KP;
-  uint8_t* allowed = reinterpret_cast<uint8_t*>(vs + kTile16 * KP);
+__global__ void __launch_bounds__(DqTile<D>::THREADS, 1)
+    bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = DqTile<D>;
+  constexpr int BQ = C::BQ, BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t item_s = base;  // buffer i: Q, then dO
+  const uint32_t kv_s = base + C::NQB * C::ITEM_BYTES;  // stage s: K, V
+  const uint32_t meta_off =
+      C::NQB * C::ITEM_BYTES + C::STAGES * C::STAGE_BYTES;
+  uint32_t* const meta =
+      reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + meta_off);
+  const uint32_t bars = base + meta_off + C::META;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (C::STAGES + s); };
+  auto ifull = [&](int i) { return bars + 8u * (2 * C::STAGES + i); };
+  auto iempty = [&](int i) {
+    return bars + 8u * (2 * C::STAGES + C::NQB + i);
+  };
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H;
   const int T = p.T;
-  const int q0 = blockIdx.y * kTile16;
-  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int n_kt = (T + BK - 1) / BK;
+  const int n_work = n_qt * p.BH;
+  // causal: every head's last q tile first (the longest rows), else head
+  // by head so that a head's q tiles share its K and V in L2
+  auto work_at = [&](int w, int& bh, int& qt) {
+    if (kCausal) {
+      qt = n_qt - 1 - w / p.BH;
+      bh = w % p.BH;
+    } else {
+      bh = w / n_qt;
+      qt = w % n_qt;
+    }
+  };
+  auto tiles_of = [&](int qt) {
+    return kCausal ? reach_tiles(p, qt * BQ + BQ - 1, BK, n_kt) : n_kt;
+  };
 
-  const bf16* kb = head_ptr<const bf16>(p.k, p, kK, b, h);
-  const bf16* vb = head_ptr<const bf16>(p.v, p, kV, b, h);
-  const float* lse = p.lse + static_cast<long long>(bh) * T;
-  const float* dsum = p.dsum + static_cast<long long>(bh) * T;
-  const float lse_lo = r_lo < T ? lse[r_lo] : 0.f;
-  const float lse_hi = r_hi < T ? lse[r_hi] : 0.f;
-  const float dsum_lo = r_lo < T ? dsum[r_lo] : 0.f;
-  const float dsum_hi = r_hi < T ? dsum[r_hi] : 0.f;
-  stage_rows<D>(qs, head_ptr<const bf16>(p.q, p, kQ, b, h), p.st[kQ][2], q0,
-                T, tid);
-  stage_rows<D>(dos, head_ptr<const bf16>(p.dout, p, kDO, b, h),
-                p.st[kDO][2], q0, T, tid);
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);   // the producer's one arrival (+ the bytes)
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    for (int i = 0; i < C::NQB; ++i) {
+      mbar_init(ifull(i), 1);
+      mbar_init(iempty(i), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float acc[D / 8][4];
+  if (tid >= kConsumers) {
+    // ---------------------------------------------------------- producer
+    producer_regs();
+    if (tid >= kConsumers + 32) return;  // one warp issues the copies
+    const int lane = tid - kConsumers;
+    int stage = 0;
+    uint32_t phase = 0;
+    int it = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
+      int bh, qt;
+      work_at(w, bh, qt);
+      const int b = bh / p.H, h = bh % p.H;
+      if (lane == 0) {
+        const int ib = it % C::NQB;
+        mbar_wait(iempty(ib), ((it / C::NQB) & 1) ^ 1);
+        mbar_expect_tx(ifull(ib), C::ITEM_BYTES);
+        const uint32_t dst = item_s + ib * C::ITEM_BYTES;
+        tma_rows<D>(dst, &tq, ifull(ib), BQ, qt * BQ, h, b);
+        tma_rows<D>(dst + C::ROWS_BYTES, &tdo, ifull(ib), BQ, qt * BQ, h, b);
+      }
+      const int n_tiles = tiles_of(qt);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int k0 = kt * BK;
+        uint32_t wv[C::NW], any = 0;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  // causal: the last local key each of this thread's rows may attend
-  const int lim_lo = row_limit(p, r_lo), lim_hi = row_limit(p, r_hi);
-  int n_tiles = (T + kTile16 - 1) / kTile16;
-  if (kCausal) n_tiles = reach_tiles(p, q0 + kTile16 - 1, kTile16, n_tiles);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile16;
-    __syncthreads();  // the previous tile is consumed
-    const bool ok = tid < kTile16 && key_valid(p, b, k0 + tid);
-    if (tid < kTile16) allowed[tid] = ok;
-    if (!__syncthreads_or(ok)) continue;  // all keys invalid: p = 0
-    stage_rows<D>(ks, kb, p.st[kK][2], k0, T, tid);
-    stage_rows<D>(vs, vb, p.st[kV][2], k0, T, tid);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    scores<D>(s, qs, ks, warp, g, t4);
-    scores<D>(dp, dos, vs, warp, g, t4);
-    // causal: key n * 8 + e of this thread's columns is allowed for a row
-    // iff n * 8 + e <= that row's limit less k0 + t4 * 2
-    const int d_lo = lim_lo - k0 - t4 * 2, d_hi = lim_hi - k0 - t4 * 2;
+        for (int i = 0; i < C::NW; ++i) {
+          wv[i] = __ballot_sync(0xffffffffu,
+                                key_valid(p, b, k0 + 32 * i + lane));
+          any |= wv[i];
+        }
+        if (lane == 0) {
+          mbar_wait(empty(stage), phase ^ 1);
+          uint32_t* m = meta + 4 * stage;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool valid = allowed[n * 8 + t4 * 2 + e];
-        const bool ok_lo = valid && (!kCausal || n * 8 + e <= d_lo);
-        const bool ok_hi = valid && (!kCausal || n * 8 + e <= d_hi);
-        const float pl = ok_lo ? expf(s[n][e] * p.scale - lse_lo) : 0.f;
-        const float ph = ok_hi ? expf(s[n][2 + e] * p.scale - lse_hi) : 0.f;
-        s[n][e] = pl * (dp[n][e] - dsum_lo) * p.scale;  // ds
-        s[n][2 + e] = ph * (dp[n][2 + e] - dsum_hi) * p.scale;
+          for (int i = 0; i < C::NW; ++i) m[i] = wv[i];
+          if (any) {
+            mbar_expect_tx(full(stage), C::STAGE_BYTES);
+            const uint32_t ks = kv_s + stage * C::STAGE_BYTES;
+            tma_rows<D>(ks, &tk, full(stage), BK, k0, h, b);
+            tma_rows<D>(ks + C::KV_BYTES, &tv, full(stage), BK, k0, h, b);
+          } else {
+            mbar_arrive(full(stage));  // no valid key: no copy, same list
+          }
+        }
+        if (++stage == C::STAGES) stage = 0, phase ^= 1;
       }
     }
-    accumulate<D>(acc, s, ks, g, t4);  // dq += ds . k
+    return;
   }
-  store_rows<D>(head_ptr<bf16>(p.dq, p, kDQ, b, h), p.st[kDQ][2], acc, r_lo,
-                T, t4);
-}
 
-// K2e: dk and dv for one (b*h, 64-key tile)
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_bf16(const Params p) {
-  constexpr int KP = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* kso = reinterpret_cast<bf16*>(smem);
-  bf16* vso = kso + kTile16 * KP;
-  bf16* qs = vso + kTile16 * KP;
-  bf16* dos = qs + kTile16 * KP;
-  float* lse_s = reinterpret_cast<float*>(dos + kTile16 * KP);
-  float* dsum_s = lse_s + kTile16;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H;
-  const int T = p.T;
-  const int k0 = blockIdx.y * kTile16;
-  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
-  const bool kval_lo = key_valid(p, b, key_lo);
-  const bool kval_hi = key_valid(p, b, key_hi);
-  const bool any = __syncthreads_or(tid < kTile16 &&
-                                    key_valid(p, b, k0 + tid));
-  // causal: the first local q row that may see each of this thread's keys
-  const int f_lo = key_first_row(p, key_lo), f_hi = key_first_row(p, key_hi);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
-  if (any) {  // else every p of this tile is 0: write zeros
-    const bf16* qb = head_ptr<const bf16>(p.q, p, kQ, b, h);
-    const bf16* dob = head_ptr<const bf16>(p.dout, p, kDO, b, h);
+  // ------------------------------------------------------------ consumers
+  consumer_regs();
+  const int cw = tid / kWgThreads;  // this warpgroup: rows 64 * cw + ...
+  const int t = tid % kWgThreads;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row / column pair
+  const float scale2 = p.scale * kLog2e;
+  int stage = 0;
+  uint32_t phase = 0;
+  int it = 0;
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
+    int bh, qt;
+    work_at(w, bh, qt);
+    const int b = bh / p.H, h = bh % p.H;
+    const int n_tiles = tiles_of(qt);
+    const int wg_row0 = qt * BQ + 64 * cw;
+    const int r_lo = wg_row0 + warp * 16 + g, r_hi = r_lo + 8;
+    // causal: the last key the first and the last row of the warpgroup reach
+    const long long reach_first = wg_row0 + p.qk_shift;
+    const long long reach_last = wg_row0 + 63 + p.qk_shift;
+    // causal: key column 8j + e of this thread's pairs is allowed iff
+    // 8j + e <= row limit - k0 - 2 * t4
+    const int lim_lo = row_limit(p, r_lo) - 2 * t4;
+    const int lim_hi = row_limit(p, r_hi) - 2 * t4;
     const float* lse = p.lse + static_cast<long long>(bh) * T;
     const float* dsum = p.dsum + static_cast<long long>(bh) * T;
-    stage_rows<D>(kso, head_ptr<const bf16>(p.k, p, kK, b, h), p.st[kK][2],
-                  k0, T, tid);
-    stage_rows<D>(vso, head_ptr<const bf16>(p.v, p, kV, b, h), p.st[kV][2],
-                  k0, T, tid);
-    const int n_tiles = (T + kTile16 - 1) / kTile16;
-    const int qt0 = kCausal ? first_q_tile(p, k0, kTile16, n_tiles) : 0;
-    for (int qt = qt0; qt < n_tiles; ++qt) {
-      const int q0 = qt * kTile16;
-      __syncthreads();  // the previous tile is consumed
-      stage_rows<D>(qs, qb, p.st[kQ][2], q0, T, tid);
-      stage_rows<D>(dos, dob, p.st[kDO][2], q0, T, tid);
-      if (tid < kTile16) {
-        const bool in = q0 + tid < T;
-        lse_s[tid] = in ? lse[q0 + tid] : 0.f;
-        dsum_s[tid] = in ? dsum[q0 + tid] : 0.f;
-      }
-      __syncthreads();
+    const float l2_lo = r_lo < T ? lse[r_lo] * kLog2e : 0.f;
+    const float l2_hi = r_hi < T ? lse[r_hi] * kLog2e : 0.f;
+    const float ds_lo = r_lo < T ? dsum[r_lo] : 0.f;
+    const float ds_hi = r_hi < T ? dsum[r_hi] : 0.f;
+    const int ib = it % C::NQB;
+    const uint32_t qa = item_s + ib * C::ITEM_BYTES + 64 * cw * C::ROWB;
+    const uint32_t da = qa + C::ROWS_BYTES;
 
-      float s[8][4], dp[8][4];  // rows: this warp's 16 keys; columns: q
-      scores<D>(s, kso, qs, warp, g, t4);
-      scores<D>(dp, vso, dos, warp, g, t4);
-      // causal: query n * 8 + e of this thread's columns may see a key iff
-      // n * 8 + e >= that key's first row less q0 + t4 * 2
-      const int d_lo = f_lo - q0 - t4 * 2, d_hi = f_hi - q0 - t4 * 2;
+    float acc[D / 2];
+    zero(acc);
+    mbar_wait(ifull(ib), (it / C::NQB) & 1);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * BK;
+      mbar_wait(full(stage), phase);
+      const uint32_t* mw = meta + 4 * stage;
+      uint32_t w[C::NW], any = 0, all = 0xffffffffu;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = n * 8 + t4 * 2 + e;
-          const bool qv = q0 + c < T;
-          const bool ok_lo =
-              kval_lo && qv && (!kCausal || n * 8 + e >= d_lo);
-          const bool ok_hi =
-              kval_hi && qv && (!kCausal || n * 8 + e >= d_hi);
-          const float l = lse_s[c], d = dsum_s[c];
-          const float pl = ok_lo ? expf(s[n][e] * p.scale - l) : 0.f;
-          const float ph = ok_hi ? expf(s[n][2 + e] * p.scale - l) : 0.f;
-          s[n][e] = pl;  // p^T, for dv
-          s[n][2 + e] = ph;
-          dp[n][e] = pl * (dp[n][e] - d) * p.scale;  // ds^T, for dk
-          dp[n][2 + e] = ph * (dp[n][2 + e] - d) * p.scale;
-        }
+      for (int i = 0; i < C::NW; ++i) {
+        w[i] = mw[i];
+        any |= w[i];
+        all &= w[i];
       }
-      accumulate<D>(dv, s, dos, g, t4);  // dv += p^T . dO
-      accumulate<D>(dk, dp, qs, g, t4);  // dk += ds^T . q
+      // a warpgroup with no row before T, or (causal) none that reaches the
+      // tile, only releases it
+      const bool reach = wg_row0 < T && (!kCausal || k0 <= reach_last);
+      if (any != 0 && reach) {
+        const uint32_t ks = kv_s + stage * C::STAGE_BYTES;
+        const uint32_t vs = ks + C::KV_BYTES;
+        float s[BK / 2], dp[BK / 2];
+        zero(s);
+        zero(dp);
+        keep(s);
+        keep(dp);
+        keep(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BK>(s, kmajor<D>(qa, BQ, kk), kmajor<D>(ks, BK, kk),
+                       kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BK>(dp, kmajor<D>(da, BQ, kk), kmajor<D>(vs, BK, kk),
+                       kk > 0);
+        wg_commit();
+        wg_wait0();
+        keep(s);
+        keep(dp);
+        const bool diag = kCausal && k0 + BK - 1 > reach_first;
+        const bool full_tile = !diag && all == 0xffffffffu;
+        const int d_lo = lim_lo - k0, d_hi = lim_hi - k0;
+#pragma unroll
+        for (int i = 0; i < C::NW; ++i) w[i] >>= 2 * t4;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool valid = (w[j / 4] >> (8 * (j % 4) + e)) & 1u;
+            const bool ok_lo =
+                full_tile || (valid && (!diag || 8 * j + e <= d_lo));
+            const bool ok_hi =
+                full_tile || (valid && (!diag || 8 * j + e <= d_hi));
+            const float p_lo =
+                ok_lo ? ex2(fmaf(s[4 * j + e], scale2, -l2_lo)) : 0.f;
+            const float p_hi =
+                ok_hi ? ex2(fmaf(s[4 * j + 2 + e], scale2, -l2_hi)) : 0.f;
+            s[4 * j + e] = p_lo * (dp[4 * j + e] - ds_lo) * p.scale;  // ds
+            s[4 * j + 2 + e] = p_hi * (dp[4 * j + 2 + e] - ds_hi) * p.scale;
+          }
+        }
+        uint32_t dsa[BK / 16][4];
+        to_a_frags<BK>(dsa, s);
+        keep(acc);
+        keep(dsa);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)  // dq += ds . k, k MN-major
+          wgmma_rs<D, D>(acc, dsa[kk], ks, BK, kk, 0);
+        wg_commit();
+        wg_wait0();
+        keep(acc);
+        keep(dsa);
+      }
+      release(empty(stage), lane);
+      if (++stage == C::STAGES) stage = 0, phase ^= 1;
     }
+    release(iempty(ib), lane);  // the products that read this Q, dO are done
+    store_acc<D>(head_ptr<bf16>(p.dq, p, kDQ, b, h), p.st[kDQ][2], acc, r_lo,
+                 T, 0, t4);
   }
-  store_rows<D>(head_ptr<bf16>(p.dk, p, kDK, b, h), p.st[kDK][2], dk, key_lo,
-                T, t4);
-  store_rows<D>(head_ptr<bf16>(p.dv, p, kDV, b, h), p.st[kDV][2], dv, key_lo,
-                T, t4);
+}
+
+// any valid key among the `n` (a multiple of 32) keys at k0: one warp's
+// ballots, the same answer on every lane
+__device__ __forceinline__ bool keys_any(const Params& p, int b, int k0,
+                                         int n, int lane) {
+  bool any = false;
+  for (int i = 0; i < n; i += 32) any |= key_valid(p, b, k0 + i + lane);
+  return __any_sync(0xffffffffu, any);
+}
+
+// K2e: dk and dv, one work item per (b*h, BKEY-key tile)
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(DkvTile<D>::THREADS, 1)
+    bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = DkvTile<D>;
+  constexpr int BQ = C::BQ, BKEY = C::BKEY, DC = C::DC;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t item_s = base;  // buffer i: K, then V
+  const uint32_t q_s = base + 2 * C::ITEM_BYTES;  // stage s: Q, then dO
+  const uint32_t meta_off = 2 * C::ITEM_BYTES + C::STAGES * C::STAGE_BYTES;
+  float* const meta =
+      reinterpret_cast<float*>(smem_raw + (base - raw) + meta_off);
+  const uint32_t bars = base + meta_off + C::META;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (C::STAGES + s); };
+  auto ifull = [&](int i) { return bars + 8u * (2 * C::STAGES + i); };
+  auto iempty = [&](int i) { return bars + 8u * (2 * C::STAGES + 2 + i); };
+
+  const int tid = threadIdx.x;
+  const int T = p.T;
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int n_kt = (T + BKEY - 1) / BKEY;
+  const int n_work = n_kt * p.BH;
+  // causal: every head's first key tile first (the keys most rows see),
+  // else head by head so that a head's key tiles share its Q and dO in L2
+  auto work_at = [&](int w, int& bh, int& kt) {
+    if (kCausal) {
+      kt = w / p.BH;
+      bh = w % p.BH;
+    } else {
+      bh = w / n_kt;
+      kt = w % n_kt;
+    }
+  };
+  auto first_tile = [&](int k0) {
+    return kCausal ? first_q_tile(p, k0, BQ, n_qt) : 0;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);   // the producer's arrival (+ the bytes)
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(ifull(i), 1);
+      mbar_init(iempty(i), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---------------------------------------------------------- producer
+    producer_regs();
+    if (tid >= kConsumers + 32) return;  // one warp issues the copies
+    const int lane = tid - kConsumers;
+    int stage = 0;
+    uint32_t phase = 0;
+    int it = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      int bh, kt;
+      work_at(w, bh, kt);
+      const int b = bh / p.H, h = bh % p.H;
+      const int k0 = kt * BKEY;
+      if (!keys_any(p, b, k0, BKEY, lane)) continue;  // no copy, zeros out
+      if (lane == 0) {
+        const int ib = it & 1;
+        mbar_wait(iempty(ib), ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(ifull(ib), C::ITEM_BYTES);
+        const uint32_t dst = item_s + ib * C::ITEM_BYTES;
+        tma_rows<D>(dst, &tk, ifull(ib), BKEY, k0, h, b);
+        tma_rows<D>(dst + C::KEYS_BYTES, &tv, ifull(ib), BKEY, k0, h, b);
+      }
+      ++it;
+      const float* lse = p.lse + static_cast<long long>(bh) * T;
+      const float* dsum = p.dsum + static_cast<long long>(bh) * T;
+      for (int qt = first_tile(k0); qt < n_qt; ++qt) {
+        const int q0 = qt * BQ;
+        mbar_wait(empty(stage), phase ^ 1);
+        // the tile's lse (log2 units; +inf past T, so p = 0 there) and
+        // dsum, written before the arrive that publishes the stage
+        float* m = meta + stage * 2 * BQ;
+#pragma unroll
+        for (int i = 0; i < BQ; i += 32) {
+          const int r = q0 + i + lane;
+          m[i + lane] = r < T ? lse[r] * kLog2e : __int_as_float(0x7f800000);
+          m[BQ + i + lane] = r < T ? dsum[r] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_expect_tx(full(stage), C::STAGE_BYTES);
+          const uint32_t dst = q_s + stage * C::STAGE_BYTES;
+          tma_rows<D>(dst, &tq, full(stage), BQ, q0, h, b);
+          tma_rows<D>(dst + C::ROWS_BYTES, &tdo, full(stage), BQ, q0, h, b);
+        }
+        if (++stage == C::STAGES) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  consumer_regs();
+  const int cw = tid / kWgThreads;
+  const int t = tid % kWgThreads;
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // this warpgroup's keys in the item and its dK/dV column boxes
+  const int koff = C::SPLIT == 1 ? 64 * cw : 0;
+  const int box0 = C::SPLIT == 1 ? 0 : cw * (DC / C::CW);
+  const float scale2 = p.scale * kLog2e;
+  int stage = 0;
+  uint32_t phase = 0;
+  int it = 0;
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+    int bh, kt;
+    work_at(w, bh, kt);
+    const int b = bh / p.H, h = bh % p.H;
+    const int k0 = kt * BKEY;
+    const int kw0 = k0 + koff;
+    const int key_lo = kw0 + warp * 16 + g, key_hi = key_lo + 8;
+    float dk[DC / 2], dv[DC / 2];
+    zero(dk);
+    zero(dv);
+    if (keys_any(p, b, k0, BKEY, lane)) {
+      const int ib = it & 1;
+      mbar_wait(ifull(ib), (it >> 1) & 1);
+      ++it;
+      const uint32_t ka = item_s + ib * C::ITEM_BYTES + koff * C::ROWB;
+      const uint32_t va = ka + C::KEYS_BYTES;
+      const bool wg_any = keys_any(p, b, kw0, 64, lane);
+      const bool kval_lo = key_valid(p, b, key_lo);
+      const bool kval_hi = key_valid(p, b, key_hi);
+      // causal: query column 8j + e of this thread's pairs may see its key
+      // iff 8j + e >= the key's first row - q0 - 2 * t4
+      const int f_lo = key_first_row(p, key_lo) - 2 * t4;
+      const int f_hi = key_first_row(p, key_hi) - 2 * t4;
+      const int f_first = key_first_row(p, kw0);
+      const int f_last = key_first_row(p, kw0 + 63);
+      for (int qt = first_tile(k0); qt < n_qt; ++qt) {
+        const int q0 = qt * BQ;
+        mbar_wait(full(stage), phase);
+        const bool reach = !kCausal || q0 + BQ - 1 >= f_first;
+        if (wg_any && reach) {
+          const uint32_t qs = q_s + stage * C::STAGE_BYTES;
+          const uint32_t dos = qs + C::ROWS_BYTES;
+          float st[BQ / 2], dpt[BQ / 2];  // rows: keys; columns: q rows
+          zero(st);
+          zero(dpt);
+          keep(st);
+          keep(dpt);
+          keep(dk);
+          keep(dv);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<BQ>(st, kmajor<D>(ka, BKEY, kk), kmajor<D>(qs, BQ, kk),
+                         kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<BQ>(dpt, kmajor<D>(va, BKEY, kk),
+                         kmajor<D>(dos, BQ, kk), kk > 0);
+          wg_commit();
+          wg_wait0();
+          keep(st);
+          keep(dpt);
+          const float* m = meta + stage * 2 * BQ;
+          const bool diag = kCausal && q0 < f_last;
+          const int d_lo = f_lo - q0, d_hi = f_hi - q0;
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + 2 * t4 + e;
+              const float l2 = m[c], dd = m[BQ + c];
+              const bool ok_lo = kval_lo && (!diag || 8 * j + e >= d_lo);
+              const bool ok_hi = kval_hi && (!diag || 8 * j + e >= d_hi);
+              const float p_lo =
+                  ok_lo ? ex2(fmaf(st[4 * j + e], scale2, -l2)) : 0.f;
+              const float p_hi =
+                  ok_hi ? ex2(fmaf(st[4 * j + 2 + e], scale2, -l2)) : 0.f;
+              st[4 * j + e] = p_lo;  // p^T, for dv
+              st[4 * j + 2 + e] = p_hi;
+              dpt[4 * j + e] = p_lo * (dpt[4 * j + e] - dd) * p.scale;
+              dpt[4 * j + 2 + e] = p_hi * (dpt[4 * j + 2 + e] - dd) * p.scale;
+            }
+          }
+          uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+          to_a_frags<BQ>(pa, st);
+          to_a_frags<BQ>(sa, dpt);
+          keep(dk);
+          keep(dv);
+          keep(pa);
+          keep(sa);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)  // dv += p^T . dO, MN-major
+            wgmma_rs<DC, D>(dv, pa[kk], dos, BQ, kk, box0);
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)  // dk += ds^T . q, MN-major
+            wgmma_rs<DC, D>(dk, sa[kk], qs, BQ, kk, box0);
+          wg_commit();
+          wg_wait0();
+          keep(dk);
+          keep(dv);
+          keep(pa);
+          keep(sa);
+        }
+        release(empty(stage), lane);
+        if (++stage == C::STAGES) stage = 0, phase ^= 1;
+      }
+      release(iempty(ib), lane);  // the products that read this K, V are done
+    }
+    const int c0 = box0 * C::CW;
+    store_acc<DC>(head_ptr<bf16>(p.dk, p, kDK, b, h), p.st[kDK][2], dk,
+                  key_lo, T, c0, t4);
+    store_acc<DC>(head_ptr<bf16>(p.dv, p, kDV, b, h), p.st[kDV][2], dv,
+                  key_lo, T, c0, t4);
+  }
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -613,43 +870,100 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(const Params p) {
   }
 }
 
+
+// ------------------------------------------------------------------ launch
+
 template <int D, bool kCausal>
-cudaError_t launch(const Params& p, int dkv, int dtype, int bh,
-                   cudaStream_t s) {
-  if (dtype == 1) {
-    const dim3 grid(bh, (p.T + kTile32 - 1) / kTile32);
+int launch_dq(const Params& p, int B, cudaStream_t s) {
+  using C = DqTile<D>;
+  const long long(&st)[7][3] = p.st;
+  CUtensorMap tq, tdo, tk, tv;
+  int err = encode_view<D>(&tq, p.q, B, p.H, p.T, st[kQ][0], st[kQ][1],
+                           st[kQ][2], C::BQ);
+  if (err == 0)
+    err = encode_view<D>(&tdo, p.dout, B, p.H, p.T, st[kDO][0], st[kDO][1],
+                         st[kDO][2], C::BQ);
+  if (err == 0)
+    err = encode_view<D>(&tk, p.k, B, p.H, p.T, st[kK][0], st[kK][1],
+                         st[kK][2], C::BK);
+  if (err == 0)
+    err = encode_view<D>(&tv, p.v, B, p.H, p.T, st[kV][0], st[kV][1],
+                         st[kV][2], C::BK);
+  if (err != 0) return err;
+  auto kernel = bwd_dq_bf16<D, kCausal>;
+  static unsigned long long opted = 0;
+  int n_sm = 0;
+  err = persistent_setup(reinterpret_cast<const void*>(kernel), C::SMEM,
+                         opted, n_sm);
+  if (err != 0) return err;
+  const long long work = static_cast<long long>((p.T + C::BQ - 1) / C::BQ) *
+                         p.BH;
+  if (work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(work < n_sm ? work : n_sm);
+  kernel<<<grid, C::THREADS, C::SMEM, s>>>(tq, tdo, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kCausal>
+int launch_dkv(const Params& p, int B, cudaStream_t s) {
+  using C = DkvTile<D>;
+  const long long(&st)[7][3] = p.st;
+  CUtensorMap tq, tdo, tk, tv;
+  int err = encode_view<D>(&tq, p.q, B, p.H, p.T, st[kQ][0], st[kQ][1],
+                           st[kQ][2], C::BQ);
+  if (err == 0)
+    err = encode_view<D>(&tdo, p.dout, B, p.H, p.T, st[kDO][0], st[kDO][1],
+                         st[kDO][2], C::BQ);
+  if (err == 0)
+    err = encode_view<D>(&tk, p.k, B, p.H, p.T, st[kK][0], st[kK][1],
+                         st[kK][2], C::BKEY);
+  if (err == 0)
+    err = encode_view<D>(&tv, p.v, B, p.H, p.T, st[kV][0], st[kV][1],
+                         st[kV][2], C::BKEY);
+  if (err != 0) return err;
+  auto kernel = bwd_dkv_bf16<D, kCausal>;
+  static unsigned long long opted = 0;
+  int n_sm = 0;
+  err = persistent_setup(reinterpret_cast<const void*>(kernel), C::SMEM,
+                         opted, n_sm);
+  if (err != 0) return err;
+  const long long work =
+      static_cast<long long>((p.T + C::BKEY - 1) / C::BKEY) * p.BH;
+  if (work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(work < n_sm ? work : n_sm);
+  kernel<<<grid, C::THREADS, C::SMEM, s>>>(tq, tdo, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kCausal>
+int launch(const Params& p, int dkv, int dtype, int B, cudaStream_t s) {
+  if (dtype == 0)
+    return dkv ? launch_dkv<D, kCausal>(p, B, s)
+               : launch_dq<D, kCausal>(p, B, s);
+  // f32 (the tight check) is built for D <= 128: its CTA keeps two tiles
+  // of 32 rows in static shared memory (64 KB at D = 256, over the 48 KB a
+  // static allocation may take)
+  if constexpr (D > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const dim3 grid(B * p.H, (p.T + kTile32 - 1) / kTile32);
     if (dkv)
       bwd_dkv_f32<D, kCausal><<<grid, kThreads, 0, s>>>(p);
     else
       bwd_dq_f32<D, kCausal><<<grid, kThreads, 0, s>>>(p);
-    return cudaGetLastError();
+    return static_cast<int>(cudaGetLastError());
   }
-  // above 48 KB (D=128) only after raising the kernel's dynamic limit
-  const dim3 grid(bh, (p.T + kTile16 - 1) / kTile16);
-  constexpr int bytes = smem_bf16<D>();
-  constexpr cudaFuncAttribute kMax =
-      cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t err;
-  if (dkv) {
-    err = cudaFuncSetAttribute(bwd_dkv_bf16<D, kCausal>, kMax, bytes);
-    if (err == cudaSuccess)
-      bwd_dkv_bf16<D, kCausal><<<grid, kThreads, bytes, s>>>(p);
-  } else {
-    err = cudaFuncSetAttribute(bwd_dq_bf16<D, kCausal>, kMax, bytes);
-    if (err == cudaSuccess)
-      bwd_dq_bf16<D, kCausal><<<grid, kThreads, bytes, s>>>(p);
-  }
-  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <bool kCausal>
-cudaError_t launch_dim(const Params& p, int dkv, int dtype, int D, int bh,
-                       cudaStream_t s) {
+int launch_dim(const Params& p, int dkv, int dtype, int D, int B,
+               cudaStream_t s) {
   switch (D) {
-    case 32: return launch<32, kCausal>(p, dkv, dtype, bh, s);
-    case 64: return launch<64, kCausal>(p, dkv, dtype, bh, s);
-    case 128: return launch<128, kCausal>(p, dkv, dtype, bh, s);
-    default: return cudaErrorInvalidValue;
+    case 32: return launch<32, kCausal>(p, dkv, dtype, B, s);
+    case 64: return launch<64, kCausal>(p, dkv, dtype, B, s);
+    case 128: return launch<128, kCausal>(p, dkv, dtype, B, s);
+    case 256: return launch<256, kCausal>(p, dkv, dtype, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -662,9 +976,12 @@ extern "C" {
 // bf16, 1 = f32 (q, k, v, dO and the gradients all of it). `strides` holds
 // 21 element strides: batch, head and row of q, k, v, dO, dq, dk, dv (the
 // pointers of the outputs a launch does not write may be null). lse and
-// dsum are contiguous [B, H, T] f32. D must be 32, 64 or 128 with unit
-// stride. causal 1 masks on the global positions q_offset + r and
-// k_offset + c (the forward's). Returns the cudaError_t of the launch.
+// dsum are contiguous [B, H, T] f32. D must be 32, 64, 128 or (bf16 only)
+// 256 with unit stride, and for bf16 the q/k/v/dO base addresses and
+// strides multiples of 16 bytes (the tensor maps' rule). causal 1 masks on
+// the global positions q_offset + r and k_offset + c (the forward's).
+// Returns 0, a cudaError_t
+// of the launch, or a negative code of the tensor-map encoding.
 int mmlspark_flash_bwd_launch(int dkv, const void* q, const void* k,
                               const void* v, const void* dout,
                               const void* mask, const float* lse,
@@ -690,6 +1007,7 @@ int mmlspark_flash_bwd_launch(int dkv, const void* q, const void* k,
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
+  p.BH = B * H;
   p.H = H;
   p.T = T;
   for (int i = 0; i < 7; ++i)
@@ -698,13 +1016,37 @@ int mmlspark_flash_bwd_launch(int dkv, const void* q, const void* k,
   p.qk_shift = q_offset - k_offset;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      causal ? launch_dim<true>(p, dkv, dtype, D, B * H, s)
-             : launch_dim<false>(p, dkv, dtype, D, B * H, s));
+  return causal ? launch_dim<true>(p, dkv, dtype, D, B, s)
+                : launch_dim<false>(p, dkv, dtype, D, B, s);
 }
 
 const char* mmlspark_flash_bwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return launch_error_string(err);
+}
+
+// The bf16 backward's design, one line: CTA shape, item and streamed
+// tiles, stages and dynamic shared memory per head dim.
+const char* mmlspark_flash_bwd_design() {
+  static char buf[512];
+  snprintf(buf, sizeof(buf),
+           "bf16 backward: persistent, one CTA per SM, %d threads = 2 "
+           "consumer warpgroups (setmaxnreg 240) + 1 producer warpgroup "
+           "(24; one warp issues TMA); K2d items of %d q "
+           "rows, key tiles %d/%d/%d/%d, %d/%d/%d/%d stages, smem "
+           "%d/%d/%d/%d B; K2e items of %d/%d/%d/%d keys, q tiles "
+           "%d/%d/%d/%d, %d/%d/%d/%d stages, smem %d/%d/%d/%d B (D = "
+           "32/64/128/256)",
+           DqTile<32>::THREADS, DqTile<32>::BQ, DqTile<32>::BK, DqTile<64>::BK,
+           DqTile<128>::BK, DqTile<256>::BK, DqTile<32>::STAGES,
+           DqTile<64>::STAGES, DqTile<128>::STAGES, DqTile<256>::STAGES,
+           DqTile<32>::SMEM, DqTile<64>::SMEM, DqTile<128>::SMEM,
+           DqTile<256>::SMEM, DkvTile<32>::BKEY, DkvTile<64>::BKEY,
+           DkvTile<128>::BKEY, DkvTile<256>::BKEY, DkvTile<32>::BQ,
+           DkvTile<64>::BQ, DkvTile<128>::BQ, DkvTile<256>::BQ,
+           DkvTile<32>::STAGES, DkvTile<64>::STAGES, DkvTile<128>::STAGES,
+           DkvTile<256>::STAGES, DkvTile<32>::SMEM, DkvTile<64>::SMEM,
+           DkvTile<128>::SMEM, DkvTile<256>::SMEM);
+  return buf;
 }
 
 }  // extern "C"

@@ -24,6 +24,9 @@
 //
 // Design (right and simple first; split-KV flash-decoding, TMA and wgmma
 // are later work):
+//  - Head dims 32, 64, 128 and 256 (bf16; f32 up to 128). D = 256 takes
+//    32-key tiles and reads q's fragments at each use instead of holding
+//    them in registers.
 //  - One CTA of 4 warps per (slot * head, 64-row window tile). A window is
 //    tiled, so the one kernel serves decode, the verify window and prefill
 //    windows up to w = 4096; the TPU kernel keeps all H*w rows in VMEM at
@@ -95,7 +98,6 @@ __device__ __forceinline__ int chain_end(const Params& p, int pos,
 
 constexpr int kWarps = kThreads / 32;
 constexpr int kBQ16 = 16 * kWarps;  // window rows per CTA
-constexpr int kBK16 = 64;           // chain positions per tile
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
@@ -123,6 +125,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int D>
 __global__ void __launch_bounds__(kThreads) paged_bf16(const Params p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  // chain positions per tile: 64, or 32 at D = 256, where the K and V^T
+  // tiles of 64 would take 70 KB of static shared memory (48 KB at most)
+  constexpr int kBK16 = D == 256 ? 32 : 64;
+  // q's A fragments stay in registers up to D = 128; at D = 256 (64
+  // registers beside the 128 of the output accumulator) they are read from
+  // q through the cache at each use
+  constexpr bool kQRegs = D <= 128;
   constexpr int KP = D + 8;      // K tile row pitch (elements)
   constexpr int VP = kBK16 + 8;  // V^T tile row pitch (elements)
   __shared__ __align__(16) __nv_bfloat16 ks[kBK16 * KP];
@@ -151,16 +160,20 @@ __global__ void __launch_bounds__(kThreads) paged_bf16(const Params p) {
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + s * p.o_ss +
                       h * p.o_sh;
 
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  // the A fragment of q's 16 columns at kk * 16
+  auto q_frag = [&](uint32_t(&f)[4], int kk) {
     const int c = kk * 16 + t4 * 2;
     const __nv_bfloat16* lo = qb + r_lo * p.q_sw + c;
     const __nv_bfloat16* hi = qb + r_hi * p.q_sw + c;
-    qf[kk][0] = r_lo < w ? ld32(lo) : 0u;
-    qf[kk][1] = r_hi < w ? ld32(hi) : 0u;
-    qf[kk][2] = r_lo < w ? ld32(lo + 8) : 0u;
-    qf[kk][3] = r_hi < w ? ld32(hi + 8) : 0u;
+    f[0] = r_lo < w ? ld32(lo) : 0u;
+    f[1] = r_hi < w ? ld32(hi) : 0u;
+    f[2] = r_lo < w ? ld32(lo + 8) : 0u;
+    f[3] = r_hi < w ? ld32(hi + 8) : 0u;
+  };
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) q_frag(qf[kk], kk);
   }
 
   float acc[D / 8][4];
@@ -202,14 +215,30 @@ __global__ void __launch_bounds__(kThreads) paged_bf16(const Params p) {
     __syncthreads();
 
     float sc[kBK16 / 8][4];
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int n = 0; n < kBK16 / 8; ++n) {
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+      for (int n = 0; n < kBK16 / 8; ++n) {
+        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const __nv_bfloat16* kr = &ks[(n * 8 + g) * KP + kk * 16 + t4 * 2];
+          mma_bf16(sc[n], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
+                   ld32(kr), ld32(kr + 8));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < kBK16 / 8; ++n)
+        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll 4
       for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = &ks[(n * 8 + g) * KP + kk * 16 + t4 * 2];
-        mma_bf16(sc[n], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], ld32(kr),
-                 ld32(kr + 8));
+        uint32_t f[4];
+        q_frag(f, kk);
+#pragma unroll
+        for (int n = 0; n < kBK16 / 8; ++n) {
+          const __nv_bfloat16* kr = &ks[(n * 8 + g) * KP + kk * 16 + t4 * 2];
+          mma_bf16(sc[n], f[0], f[1], f[2], f[3], ld32(kr), ld32(kr + 8));
+        }
       }
     }
 
@@ -403,11 +432,17 @@ cudaError_t launch_dtype(const Params& p, int dtype, int sh, cudaStream_t s) {
   if (dtype == 0) {
     const dim3 grid(sh, (p.w + kBQ16 - 1) / kBQ16);
     paged_bf16<D><<<grid, kThreads, 0, s>>>(p);
+    return cudaGetLastError();
+  }
+  // f32 is built for D <= 128: its K and V tiles of 32 rows would take
+  // 64 KB of static shared memory at D = 256 (48 KB at most)
+  if constexpr (D > 128) {
+    return cudaErrorInvalidValue;
   } else {
     const dim3 grid(sh, (p.w + kBQ32 - 1) / kBQ32);
     paged_f32<D><<<grid, kThreads, 0, s>>>(p);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -418,8 +453,8 @@ extern "C" {
 // dtype: 0 = bf16, 1 = f32 (q, the pools and o all of it). q and o are
 // [S, H, w, D] with the given strides (elements; unit stride on D); the
 // pools [NB, BL, H, D] contiguous; rows [S, MB] and pos [S] int32
-// contiguous. D must be 32, 64 or 128. Returns the cudaError_t of the
-// launch.
+// contiguous. D must be 32, 64, 128 or (bf16 only) 256. Returns the
+// cudaError_t of the launch.
 int mmlspark_paged_launch(const void* q, const void* k_pool,
                           const void* v_pool, const int* rows, const int* pos,
                           void* o, int dtype, int S, int H, int w, int D,
@@ -453,6 +488,7 @@ int mmlspark_paged_launch(const void* q, const void* k_pool,
     case 32: return static_cast<int>(launch_dtype<32>(p, dtype, S * H, st));
     case 64: return static_cast<int>(launch_dtype<64>(p, dtype, S * H, st));
     case 128: return static_cast<int>(launch_dtype<128>(p, dtype, S * H, st));
+    case 256: return static_cast<int>(launch_dtype<256>(p, dtype, S * H, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

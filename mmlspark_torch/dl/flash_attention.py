@@ -54,15 +54,17 @@ Causal: query row ``r`` sits at global position ``q_offset + r`` and key
 forward and the backward alike. As in the JAX package the offsets only
 matter with ``causal=True``.
 
-Head dims: the kernels are built for D = 32, 64 and 128. The wrappers run
-any other D up to 128 at the next of those (:func:`kernel_head_dim`),
-zero-padding q, k, v (and dO) on D (:func:`pad_head_dim`) and scaling by
-the true ``D^-0.5``; zero columns leave every ``q·k`` unchanged and give
-zero output columns, which are sliced off the outputs and the gradients.
-D above 128 raises, as a fault the ROADMAP keeps. The reference pads every
-head dim to 128 lanes the same way (``pallas_attention.py:19-21``). The
-plain versions take ``scale`` too, so the tests can hold the padding
-against the unpadded computation on the CPU.
+Head dims: the kernels are built for D = 32, 64, 128 and 256 (256 in bf16
+only: the f32 kernels, the tight check, stop at 128 and the wrappers
+refuse f32 above it). The wrappers run any other D up to 256 at the next
+of those (:func:`kernel_head_dim`), zero-padding q, k, v (and dO) on D
+(:func:`pad_head_dim`) and scaling by the true ``D^-0.5``; zero columns
+leave every ``q·k`` unchanged and give zero output columns, which are
+sliced off the outputs and the gradients. D above 256 raises, as a fault
+the ROADMAP keeps. The reference pads every head dim to 128 lanes the same
+way (``pallas_attention.py:19-21``). The plain versions take ``scale`` too,
+so the tests can hold the padding against the unpadded computation on the
+CPU.
 
 Not ported here: the TPU's block-size resolution and autotune lookup,
 which size blocks for VMEM.
@@ -79,14 +81,17 @@ import torch.nn.functional as F
 from ..native.loader import CudaLoader
 from ..parallel.ring_attention import blockwise_attention
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+F32_HEAD_DIM_MAX = 128    # the f32 kernels (the tight check) stop here
 NEG = -1e30               # the TPU kernel's additive mask value
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _ALIGN = 16               # the kernels stage rows as 16-byte vectors
 BWD_IMPLS = ("auto", "pallas", "blockwise")
 
-_LOADER = CudaLoader("mmlspark_flash", ["dl/csrc/flash_attn.cu"])
-_LOADER_BWD = CudaLoader("mmlspark_flash_bwd", ["dl/csrc/flash_bwd.cu"])
+_LOADER = CudaLoader("mmlspark_flash", ["dl/csrc/flash_attn.cu"],
+                     headers=("dl/csrc/flash_common.cuh",))
+_LOADER_BWD = CudaLoader("mmlspark_flash_bwd", ["dl/csrc/flash_bwd.cu"],
+                         headers=("dl/csrc/flash_common.cuh",))
 
 def _check_inputs(q, k, v, key_mask) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -126,7 +131,7 @@ def _check_rows(q, dout, lse, dsum) -> None:
 
 def kernel_head_dim(D: int) -> int:
     """The head dim the kernels run ``D`` at: the smallest of
-    :data:`HEAD_DIMS` that holds it. Raises ``ValueError`` above 128."""
+    :data:`HEAD_DIMS` that holds it. Raises ``ValueError`` above 256."""
     for dim in HEAD_DIMS:
         if D <= dim:
             return dim
@@ -314,6 +319,8 @@ def _library_bwd() -> ctypes.CDLL:
     lib.mmlspark_flash_bwd_launch.restype = c_int
     lib.mmlspark_flash_bwd_error_string.argtypes = [c_int]
     lib.mmlspark_flash_bwd_error_string.restype = ctypes.c_char_p
+    lib.mmlspark_flash_bwd_design.argtypes = []
+    lib.mmlspark_flash_bwd_design.restype = ctypes.c_char_p
     return lib
 
 
@@ -336,6 +343,11 @@ def build_bwd_kernel() -> str:
     :func:`build_kernel` does."""
     _library_bwd()
     return _LOADER_BWD.build_log()
+
+
+def kernel_bwd_design() -> str:
+    """One line on the bf16 backward's design, as :func:`kernel_design`."""
+    return _library_bwd().mmlspark_flash_bwd_design().decode()
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
@@ -362,7 +374,11 @@ def _check_kernel_inputs(fn: str, q, k, v) -> None:
                          "CPU tensors")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{fn} takes bf16 or f32, got {q.dtype}")
-    kernel_head_dim(q.shape[-1])
+    if kernel_head_dim(q.shape[-1]) > F32_HEAD_DIM_MAX \
+            and q.dtype == torch.float32:
+        raise ValueError(f"{fn}: the f32 kernels take head dims up to "
+                         f"{F32_HEAD_DIM_MAX}, got {q.shape[-1]}; head dims "
+                         f"up to {HEAD_DIMS[-1]} run in bf16")
     if q.shape[-1] in HEAD_DIMS:  # padded tensors are laid out afresh
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_layout(name, t)
@@ -424,9 +440,9 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K2a (``csrc/flash_attn.cu``) on PyTorch's current stream: the
     forward alone, with no autograd graph (:func:`flash_attention` takes the
     autograd Function under grad). Raises for tensors that are not on a
-    CUDA device, for a dtype other than bf16/f32 or a head dim above 128,
-    and when the kernel does not build or launch. Other head dims run
-    zero-padded to the next of 32/64/128.
+    CUDA device, for a dtype other than bf16/f32, a head dim above 256 (128
+    in f32), and when the kernel does not build or launch. Other head dims
+    run zero-padded to the next of 32/64/128/256.
 
     Returns a ``[B, H, T, D]`` view of a ``[B, T, H, D]`` buffer, so the
     caller's head merge is a free reshape."""
@@ -516,8 +532,8 @@ def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
                            for t in (dq, dk, dv)),
         _DTYPE_CODES[q.dtype], B, H, T, Dk,
         (ctypes.c_longlong * 21)(*strides), mask_sb, D ** -0.5,
-        int(causal), int(q_offset), int(k_offset), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(causal), int(q_offset), int(k_offset),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"{'causal ' if causal else ''}{'K2e' if dkv else 'K2d'} "

@@ -30,13 +30,13 @@ exactly 0); the plain version, as ``_paged_reference``, masks by position
 only, so the two agree wherever the chain covers ``[0, pos + w)``, which is
 every live slot of the engine.
 
-Head dims: K3 is built for hd = 32, 64 and 128. The engine allocates its
-pools at the kernel's head dim on every device (``paged_kv.pool_head_dim``:
-hd padded up to the next of those, once), the window's k/v are zero-padded
-as they are scattered, and both versions take pools wider than q: q is
-zero-padded to the pools' width, scores are scaled by q's true
-``hd^-0.5`` and the output is sliced back to hd. hd above 128 raises on
-CUDA.
+Head dims: K3 is built for hd = 32, 64, 128 and 256 (256 in bf16 only;
+the f32 kernel stops at 128). The engine allocates its pools at the
+kernel's head dim on every device (``paged_kv.pool_head_dim``: hd padded up
+to the next of those, once), the window's k/v are zero-padded as they are
+scattered, and both versions take pools wider than q: q is zero-padded to
+the pools' width, scores are scaled by q's true ``hd^-0.5`` and the output
+is sliced back to hd. hd above 256 (above 128 in f32) raises on CUDA.
 """
 
 from __future__ import annotations
@@ -47,7 +47,8 @@ import functools
 import torch
 
 from ..native.loader import CudaLoader
-from .flash_attention import HEAD_DIMS, _unpad, pad_head_dim
+from .flash_attention import (F32_HEAD_DIM_MAX, HEAD_DIMS, _unpad,
+                              pad_head_dim)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _ALIGN = 16               # the kernel stages rows as 16-byte vectors
 
@@ -130,11 +131,12 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Launch K3 (``csrc/paged_attn.cu``) on PyTorch's current stream.
     Raises for tensors that are not on a CUDA device, a dtype other than
-    bf16/f32, pools whose head dim is not 32/64/128 (``init_pools`` makes
-    them so up to 128), a q without unit stride on hd or with unaligned
-    rows, pools that are not contiguous, and when the kernel does not
-    build or launch. A q narrower than the pools is zero-padded and scaled by its own
-    ``hd^-0.5``; the output is sliced back to its width.
+    bf16/f32, pools whose head dim is not 32/64/128/256 (``init_pools``
+    makes them so up to 256; f32 up to 128), a q without unit stride on
+    hd or with unaligned rows, pools that are not contiguous, and when the
+    kernel does not build or launch. A q narrower than the pools is
+    zero-padded and scaled by its own ``hd^-0.5``; the output is sliced
+    back to its width.
 
     Returns a ``[S, H, w, hd]`` view of a ``[S, w, H, hd]`` buffer, so the
     caller's head merge is a free reshape."""
@@ -151,6 +153,10 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if hd not in HEAD_DIMS:
         raise ValueError(f"paged_cuda takes pools of head dims {HEAD_DIMS}, "
                          f"got {hd}")
+    if hd > F32_HEAD_DIM_MAX and q.dtype == torch.float32:
+        raise ValueError(f"paged_cuda: the f32 kernel takes head dims up to "
+                         f"{F32_HEAD_DIM_MAX}, got pools of {hd}; head dims "
+                         f"up to {HEAD_DIMS[-1]} run in bf16")
     size = q.element_size()
     if q.stride(3) != 1 or q.data_ptr() % _ALIGN or any(
             st * size % _ALIGN for st in q.stride()[:3]):

@@ -465,9 +465,9 @@ def blocks_for_hbm_budget(block_bytes: int, *, fraction: float = 0.5,
 
 def pool_head_dim(encoder) -> int:
     """The head dim of ``encoder``'s KV pools on every device: K3's
-    (``kernel_head_dim``: the next of 32/64/128), so the kernel reads the
-    pools in place and the extra columns stay zero. A head dim above 128
-    stays as it is (K3 raises for it on CUDA)."""
+    (``kernel_head_dim``: the next of 32/64/128/256), so the kernel reads
+    the pools in place and the extra columns stay zero. A head dim above
+    256 stays as it is (K3 raises for it on CUDA)."""
     hd = encoder.width // encoder.heads
     return kernel_head_dim(hd) if hd <= HEAD_DIMS[-1] else hd
 

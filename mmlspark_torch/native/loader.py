@@ -54,14 +54,17 @@ class CudaLoader:
     _loaded: dict[str, ctypes.CDLL] = {}
 
     def __init__(self, name: str, sources: list[str],
-                 flags: tuple[str, ...] = NVCC_FLAGS):
+                 flags: tuple[str, ...] = NVCC_FLAGS,
+                 headers: tuple[str, ...] = ()):
         self.name = name
         self.sources = [os.path.join(PACKAGE_DIR, s) for s in sources]
+        # included by the sources: hashed with them, not compiled alone
+        self.headers = [os.path.join(PACKAGE_DIR, s) for s in headers]
         self.flags = tuple(flags)
 
     def so_path(self) -> str:
         h = hashlib.sha256()
-        for s in self.sources:
+        for s in self.sources + self.headers:
             with open(s, "rb") as f:
                 h.update(f.read())
         h.update(" ".join(self.flags).encode())

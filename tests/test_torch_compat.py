@@ -13,12 +13,24 @@ surface.
   outputs (GBDT probabilities within 1e-6: the text model's leaf values
   round-trip through decimal text). The port's side runs in a subprocess
   that asserts no JAX module was imported.
-- A JAX-saved ``TextEncoderFeaturizer`` whose ``model`` is set raises
-  ``NotImplementedError`` in the port: its payload is a pickled JAX object.
+- A JAX-saved ``TextEncoderFeaturizer`` whose ``model`` is a real JAX
+  ``LoadedModel`` (a seeded ``TextEncoder``, f32 and the default bf16)
+  loads in the port through ``core.foreign_pickle`` in that subprocess,
+  with no ``jax``, ``flax`` or ``mmlspark_tpu`` module imported, and its
+  features equal the JAX featurizer's within 1e-4 in f32 and 1e-2 in bf16
+  (the text encoder tests' tolerances); a
+  ``model`` payload of anything else raises ``NotImplementedError`` naming
+  what it holds.
+- A pickle naming any global outside the codec's list (``os.system``, a
+  module never imported) raises ``UnpicklingError`` without importing or
+  calling it; so does a real JAX ``LoadedModel`` of a zoo model the port
+  does not read (a seeded ``BertEncoder``), naming its first foreign
+  class.
 """
 
 import json
 import os
+import pickle
 import subprocess
 import sys
 
@@ -30,9 +42,21 @@ import mmlspark_tpu.dl.text_encoder as jte
 import mmlspark_tpu.featurize.text as jtext
 import mmlspark_tpu.lightgbm as jlgbm
 import mmlspark_tpu.train.statistics as jstats
+import jax
+import jax.numpy as jnp
 from mmlspark_tpu.core import DataFrame as JDataFrame
 from mmlspark_tpu.core import load_stage as jload_stage
-from mmlspark_torch.core import DataFrame
+# Importing dl.bert at module level registers BertEncoder's partition
+# rules as a side effect. tests/test_partition.py::TestModelRuleSets::
+# test_registry_covers_the_zoo asserts that registration but never imports
+# dl.bert itself, and the JAX package's tests may not change; every xdist
+# worker collects this module before it runs tests, so that test passes in
+# whichever worker it lands. Keep this import at module level.
+from mmlspark_tpu.dl.bert import BertEncoder as JBertEncoder
+from mmlspark_tpu.models.zoo import LoadedModel as JLoadedModel
+from mmlspark_tpu.models.zoo import register_bert_encoder as jregister_bert
+from mmlspark_tpu.models.zoo import register_text_encoder as jregister
+from mmlspark_torch.core import DataFrame, foreign_pickle, load_stage
 from mmlspark_torch.core import serialize
 from mmlspark_torch.core.serialize import resolve_stage_class
 from mmlspark_torch.dl import TextEncoderFeaturizer
@@ -43,6 +67,10 @@ from mmlspark_torch.train import ComputeModelStatistics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROB_ATOL = 1e-6
+FEAT_ATOL = 1e-4
+# bf16 pooled features: test_torch_text_encoder.py's BF16_POOLED_ATOL (both
+# packages round to bf16, at places that differ by XLA's fusion)
+BF16_POOLED_ATOL = 1e-2
 DOCS = ["long context models embed entire documents in one pass",
         "short note", "", "the same words again and again"]
 
@@ -173,11 +201,21 @@ assert type(feat) is TextEncoderFeaturizer, type(feat)
 out["feat_params"] = np.asarray([feat.getWidth(), feat.getHeads(),
                                  feat.getDepth(), feat.getVocabSize(),
                                  feat.getSeqChunk()])
+for dtype in ("float32", "bfloat16"):
+    feat_model = load_stage(root + "/jax/feat_model_" + dtype)
+    assert type(feat_model) is TextEncoderFeaturizer, type(feat_model)
+    feat_model.setDevice("cpu")
+    enc = feat_model.get("model").module
+    assert str(enc.dtype) == "torch." + dtype, enc.dtype
+    out["model_arch_" + dtype] = np.asarray(
+        [enc.vocab, enc.width, enc.depth, enc.heads, enc.mlp_dim])
+    out["feat_from_jax_model_" + dtype] = feat_model.transform(
+        DataFrame({"tokens": data["tokens"]}))["features"]
 try:
-    load_stage(root + "/jax/feat_model")
-    raise AssertionError("a pickled JAX model loaded")
+    load_stage(root + "/jax/feat_other")
+    raise AssertionError("a pickled dict loaded as a model")
 except NotImplementedError as e:
-    assert "item 7" in str(e), e
+    assert "builtins.dict" in str(e), e
 
 df = DataFrame({"features": data["x"], "label": data["y"]})
 port_model = LightGBMClassifier(device="cpu", numIterations=4, numLeaves=7,
@@ -204,7 +242,6 @@ print("PORT_SIDE_OK")
 def test_stages_load_across_packages_both_ways(tmp_path):
     root = str(tmp_path)
     x, y = _gbdt_frame()
-    np.savez(os.path.join(root, "data.npz"), x=x, y=y)
     with open(os.path.join(root, "docs.json"), "w") as f:
         json.dump(DOCS, f)
     jdf = JDataFrame({"features": x, "label": y})
@@ -220,12 +257,32 @@ def test_stages_load_across_packages_both_ways(tmp_path):
     jte.TextEncoderFeaturizer(width=32, heads=2, depth=2, vocabSize=400,
                               seqChunk=32).save(
         os.path.join(root, "jax", "feat"))
-    feat_model = jte.TextEncoderFeaturizer(width=32, heads=2, depth=1,
-                                           vocabSize=400)
-    # any pickled payload stands for the JAX package's LoadedModel here:
-    # the port must refuse before unpickling it
-    feat_model.set("model", {"weights": np.zeros(3, np.float32)})
-    feat_model.save(os.path.join(root, "jax", "feat_model"))
+    # real JAX LoadedModels: a seeded TextEncoder and its variables, in
+    # f32 and in the default bf16 (what a user saves without a dtype)
+    tokens = np.random.default_rng(4).integers(1, 400, size=(3, 16))
+    tokens = tokens.astype(np.int32)
+    tokens[1, 9:] = 0
+    np.savez(os.path.join(root, "data.npz"), x=x, y=y, tokens=tokens)
+    schema = jregister("CompatTextEncoder", vocab=400, width=32, depth=1,
+                       heads=2, mlp_dim=64)
+    jfeatures = {}
+    for dtype, kw in (("float32", {"dtype": jnp.float32}), ("bfloat16", {})):
+        module = jte.TextEncoder(vocab=400, width=32, depth=1, heads=2,
+                                 mlp_dim=64, **kw)
+        assert module.dtype == getattr(jnp, dtype)
+        variables = module.init(jax.random.PRNGKey(3),
+                                jnp.zeros((1, 8), jnp.int32), False)
+        feat_model = jte.TextEncoderFeaturizer(
+            width=32, heads=2, depth=1, vocabSize=400, seqChunk=16,
+            model=JLoadedModel(schema, module, variables))
+        feat_model.save(os.path.join(root, "jax", "feat_model_" + dtype))
+        jfeatures[dtype] = np.asarray(feat_model.transform(
+            JDataFrame({"tokens": tokens}))["features"], np.float32)
+    # a model payload of anything else
+    other = jte.TextEncoderFeaturizer(width=32, heads=2, depth=1,
+                                      vocabSize=400)
+    other.set("model", {"weights": np.zeros(3, np.float32)})
+    other.save(os.path.join(root, "jax", "feat_other"))
 
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
@@ -246,6 +303,14 @@ def test_stages_load_across_packages_both_ways(tmp_path):
     np.testing.assert_allclose(got["auc_from_jax"], np.asarray(jauc, float),
                                atol=1e-12, rtol=0)
     np.testing.assert_array_equal(got["feat_params"], [32, 2, 2, 400, 32])
+    for dtype, atol in (("float32", FEAT_ATOL),
+                        ("bfloat16", BF16_POOLED_ATOL)):
+        np.testing.assert_array_equal(got["model_arch_" + dtype],
+                                      [400, 32, 1, 2, 64])
+        feats = got["feat_from_jax_model_" + dtype]
+        assert feats.shape == (3, 32) and np.isfinite(feats).all()
+        np.testing.assert_allclose(feats, jfeatures[dtype], atol=atol,
+                                   rtol=0)
 
     # port-saved, JAX-loaded
     with open(os.path.join(root, "torch", "gbdt", "metadata.json")) as f:
@@ -268,3 +333,75 @@ def test_stages_load_across_packages_both_ways(tmp_path):
     assert type(jf) is jte.TextEncoderFeaturizer
     assert (jf.getWidth(), jf.getHeads(), jf.getDepth(),
             jf.getAttentionImpl()) == (48, 3, 1, "pallas")
+
+
+@pytest.mark.parametrize("module, name", [
+    ("os", "system"), ("mmlspark_compat_never_imported", "run")])
+def test_foreign_pickle_refuses_other_globals(tmp_path, module, name):
+    """A payload naming a global outside the codec's list raises
+    UnpicklingError, naming it, before anything is imported or called:
+    directly and as a JAX-saved ``TextEncoderFeaturizer.model``."""
+    payload = f"c{module}\n{name}\n(S'echo hi'\ntR.".encode()
+    before = set(sys.modules)
+    with pytest.raises(pickle.UnpicklingError, match=f"{module}.{name}"):
+        foreign_pickle.loads(payload)
+    stage = jte.TextEncoderFeaturizer(width=32, heads=2, depth=1,
+                                      vocabSize=400)
+    stage.save(str(tmp_path))
+    with open(tmp_path / "metadata.json") as f:
+        meta = json.load(f)
+    meta["complexParams"] = ["model"]
+    with open(tmp_path / "metadata.json", "w") as f:
+        json.dump(meta, f)
+    os.makedirs(tmp_path / "params" / "model")
+    (tmp_path / "params" / "model" / "value.pkl").write_bytes(payload)
+    with pytest.raises(pickle.UnpicklingError, match=f"{module}.{name}"):
+        load_stage(str(tmp_path))
+    assert set(sys.modules) - before <= {"mmlspark_torch.core.foreign_pickle"}
+    assert module == "os" or module not in sys.modules
+
+
+def test_foreign_pickle_refuses_a_zoo_model_it_does_not_read(tmp_path):
+    """A JAX ``LoadedModel`` of a seeded ``BertEncoder``, pickled alone and
+    as a saved ``TextEncoderFeaturizer.model``, raises UnpicklingError
+    naming its first foreign class; nothing of the JAX package is
+    imported on the port's side."""
+    arch = dict(vocab=64, width=16, depth=1, heads=2, mlp_dim=32,
+                max_len=16)
+    module = JBertEncoder(**arch, dtype=jnp.float32)
+    variables = module.init(jax.random.PRNGKey(5),
+                            jnp.zeros((1, 8), jnp.int32), False)
+    schema = jregister_bert("CompatBertEncoder", **arch, seq_len=8)
+    model = JLoadedModel(schema, module, variables)
+    foreign = (r"mmlspark_tpu\.(dl\.bert\.BertEncoder"
+               r"|models\.zoo\._BertEncoderBuilder)")
+    with pytest.raises(pickle.UnpicklingError, match=foreign):
+        foreign_pickle.loads(pickle.dumps(model))
+    jte.TextEncoderFeaturizer(width=16, heads=2, depth=1, vocabSize=64,
+                              seqChunk=8, model=model).save(str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    run = subprocess.run([sys.executable, "-c", REFUSE_SIDE, str(tmp_path),
+                          foreign], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0 and "REFUSED" in run.stdout, \
+        run.stdout + run.stderr
+
+
+# The port's side of the refusal: load the saved stage, expect the error,
+# and prove that no JAX module came in on the way.
+REFUSE_SIDE = r"""
+import pickle, re, sys
+from mmlspark_torch.core import load_stage
+
+try:
+    load_stage(sys.argv[1])
+    raise AssertionError("a BertEncoder model loaded in the port")
+except pickle.UnpicklingError as e:
+    assert re.search(sys.argv[2], str(e)), e
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "mmlspark_tpu"))
+assert not bad, bad
+print("REFUSED")
+"""

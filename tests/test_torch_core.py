@@ -87,3 +87,22 @@ def test_compute_model_statistics_matches_reference(kind):
     for c in want.columns:
         assert float(got[c][0]) == pytest.approx(float(want[c][0]),
                                                  rel=1e-12, abs=1e-12), c
+
+
+def test_cuda_loader_keys_builds_by_the_headers_too(tmp_path):
+    """A header the kernel sources include (``flash_common.cuh``) changes
+    the library's build key as the sources do, so an edit to it rebuilds
+    every library that includes it."""
+    from mmlspark_torch.dl import flash_attention
+    from mmlspark_torch.native.loader import CudaLoader
+    src, hdr = tmp_path / "k.cu", tmp_path / "common.cuh"
+    src.write_text('#include "common.cuh"\n')
+    hdr.write_text("// one\n")
+    loader = CudaLoader("keyed", [str(src)], headers=(str(hdr),))
+    first = loader.so_path()
+    assert CudaLoader("keyed", [str(src)]).so_path() != first
+    hdr.write_text("// two\n")
+    assert loader.so_path() != first
+    for lib in (flash_attention._LOADER, flash_attention._LOADER_BWD):
+        assert [h.rsplit("/", 1)[-1] for h in lib.headers] == \
+            ["flash_common.cuh"]

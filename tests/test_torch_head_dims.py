@@ -1,9 +1,11 @@
-"""Head dims the CUDA attention kernels are not built for (16, 96) run
-zero-padded to the next built one (32, 128), scaled by the true
-``hd^-0.5``, and sliced back.
+"""Head dims the CUDA attention kernels are not built for (16, 96, 192) run
+zero-padded to the next built one (32, 128, 256), scaled by the true
+``hd^-0.5``, and sliced back; 256 runs as it is.
 
 Held on the CPU, in f32:
-- ``kernel_head_dim``: 1-32 → 32, 33-64 → 64, 65-128 → 128, above raises;
+- ``kernel_head_dim``: 1-32 → 32, 33-64 → 64, 65-128 → 128, 129-256 →
+  256, above raises; the kernels refuse f32 above 128 (their f32
+  instances stop there) with a message that names the limit;
 - ``pad_head_dim`` followed by the plain versions (forward, lse, the fused
   backward, K3) equals the plain versions unpadded, at hd 16 and 96, with
   the key mask and causal at offsets: atol 1e-6 (zero columns add exact
@@ -42,6 +44,7 @@ import torch
 import mmlspark_torch.dl.flash_attention as k2
 from mmlspark_tpu.core import DataFrame as JDataFrame
 from mmlspark_tpu.dl.pretrain import MaskedLMModel as JMaskedLMModel
+from mmlspark_tpu.dl.pretrain import pretrain_causal_lm as jpretrain_causal
 from mmlspark_tpu.dl.pretrain import pretrain_masked_lm as jpretrain
 from mmlspark_tpu.dl.text_encoder import TextEncoder as JTextEncoder
 from mmlspark_tpu.dl.text_encoder import \
@@ -54,7 +57,7 @@ from mmlspark_tpu.serving.llm import LLMEngine as JLLMEngine
 from mmlspark_torch.core import DataFrame
 from mmlspark_torch.dl import (MaskedLMModel, TextEncoder,
                                TextEncoderFeaturizer, make_attention_fn,
-                               pretrain_masked_lm)
+                               pretrain_causal_lm, pretrain_masked_lm)
 from mmlspark_torch.dl import paged_kv
 from mmlspark_torch.dl.paged_attention import paged_torch
 from mmlspark_torch.models import (LoadedModel, masked_lm_from_flax,
@@ -63,7 +66,7 @@ from mmlspark_torch.models import (LoadedModel, masked_lm_from_flax,
 from mmlspark_torch.obs import MetricsRegistry
 from mmlspark_torch.serving import LLMEngine
 
-HDS = (16, 96)
+HDS = (16, 96, 192, 256)
 PAD_ATOL = 1e-6
 ROUTE_ATOL = 1e-5
 F32_ATOL = 1e-4
@@ -93,10 +96,29 @@ CASES = [dict(causal=False), dict(causal=True, q_offset=5, k_offset=23)]
 
 
 def test_kernel_head_dim():
-    assert [k2.kernel_head_dim(d) for d in (1, 16, 32, 33, 64, 65, 96, 128)] \
-        == [32, 32, 32, 64, 64, 128, 128, 128]
-    with pytest.raises(ValueError):
-        k2.kernel_head_dim(129)
+    assert [k2.kernel_head_dim(d)
+            for d in (1, 16, 32, 33, 64, 65, 96, 128, 129, 192, 256)] \
+        == [32, 32, 32, 64, 64, 128, 128, 128, 256, 256, 256]
+    with pytest.raises(ValueError, match="up to 256"):
+        k2.kernel_head_dim(257)
+
+
+def _on_card(*ts):
+    """Stand-ins that pass the kernels' device check (layout only)."""
+    return [types.SimpleNamespace(
+        device=torch.device("cuda"), dtype=t.dtype, shape=t.shape,
+        stride=t.stride, element_size=t.element_size, data_ptr=lambda: 0)
+        for t in ts]
+
+
+@pytest.mark.parametrize("hd", [160, 192, 256])
+def test_f32_kernels_refuse_head_dims_above_128(hd):
+    x = torch.zeros(1, 1, 4, hd)
+    with pytest.raises(ValueError, match="f32 kernels take head dims up to "
+                       "128"):
+        k2._check_kernel_inputs("flash_cuda", *_on_card(x, x, x))
+    y = x.to(torch.bfloat16)
+    k2._check_kernel_inputs("flash_cuda", *_on_card(y, y, y))
 
 
 @pytest.mark.parametrize("pos", CASES)
@@ -215,12 +237,11 @@ def kernel_route(monkeypatch):
     real_check = k2._check_kernel_inputs
 
     def check(fn, q, k, v):
-        real_check(fn, *(types.SimpleNamespace(
-            device=torch.device("cuda"), dtype=t.dtype, shape=t.shape,
-            stride=t.stride, element_size=t.element_size,
-            data_ptr=lambda: 0) for t in (q, k, v)))
+        real_check(fn, *_on_card(q, k, v))
 
     monkeypatch.setattr(k2, "_check_kernel_inputs", check)
+    # the stand-in computes f32 at every head dim
+    monkeypatch.setattr(k2, "F32_HEAD_DIM_MAX", k2.HEAD_DIMS[-1])
     monkeypatch.setattr(k2, "_route", lambda q, impl: True)
     monkeypatch.setattr(k2, "_library", lambda: fake)
     monkeypatch.setattr(k2, "_library_bwd", lambda: fake)
@@ -259,7 +280,7 @@ def test_wrappers_pad_and_scale_by_the_true_head_dim(kernel_route, hd, pos):
 
 # ---------------------------------------- the slices at hd 16 and 96 vs JAX
 
-WIDTHS = {16: 32, 96: 192}                  # 2 heads
+WIDTHS = {16: 32, 96: 192, 192: 384, 256: 512}  # 2 heads
 T = 32
 
 
@@ -332,6 +353,37 @@ def test_masked_lm_step_matches_jax(kernel_route, hd):
              for path, x in jax.tree_util.tree_flatten_with_path(init)[0]},
             name)).max()))
     assert moved > 1e-4
+    assert kernel_route.dims == {k2.kernel_head_dim(hd)}
+
+
+@pytest.mark.parametrize("hd", HDS)
+def test_causal_lm_step_matches_jax(kernel_route, hd):
+    width, lr = WIDTHS[hd], 0.5
+    rng = np.random.default_rng(5)
+    rows = rng.integers(1, 63, size=(6, T + 1)).astype(np.int32)
+    rows[2, 20:] = 0
+    rows[4, 11:] = 0
+    enc = jencoder(width, jmake_attention("dense", causal=True))
+    variables = jax.jit(JMaskedLMModel(enc).init, static_argnums=2)(
+        jax.random.PRNGKey(0), jnp.asarray(rows[:1, :T]), True)
+    init = jax.tree_util.tree_map(np.asarray, variables["params"])
+    jstate, jlosses = jpretrain_causal(enc, rows, steps=1, batch_size=3,
+                                       seed=0, tx=optax.sgd(lr))
+    model = masked_lm_from_flax(
+        init, heads=2, dtype=torch.float32,
+        attention_fn=make_attention_fn("pallas", causal=True))
+    state, losses = pretrain_causal_lm(
+        model, rows, steps=1, batch_size=3, seed=0, device="cpu",
+        optimizer=lambda p: torch.optim.SGD(p, lr=lr))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+    flat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(x)
+            for path, x in
+            jax.tree_util.tree_flatten_with_path(jstate.params)[0]}
+    for name, p in state.model.named_parameters():
+        ref = _flax_leaf(flat, name)
+        np.testing.assert_allclose(p.detach().numpy(), ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max(),
+                                   err_msg=name)
     assert kernel_route.dims == {k2.kernel_head_dim(hd)}
 
 
