@@ -7,8 +7,10 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from the checkout's sources (one
-nvcc per source, all started together; phases 2-4 need only K1 and run
-while the attention kernels build), then:
+nvcc per source, all started together: K1, the forward, the backward, K3's
+window kernel, K3's split-KV decode kernel with its combine, and the wide-
+head-dim instances; phases 2-4 need only K1 and run while the attention
+kernels build), then:
 
 1. prints the build times, each kernel's ptxas lines (registers, shared
    memory, spills; a spill above ``SPILL_LIMITS`` fails, so any in the
@@ -28,10 +30,11 @@ while the attention kernels build), then:
    attention shape (B=32, H=8, T=2048, D=64, bf16, q/k/v as views of one
    fused projection, the key mask of the seeded documents plus one fully
    masked row, which must come out exactly 0), at a ragged T=2000 in f32,
-   and at a ragged T=300 at head dims 16, 32, 64, 96, 128, 192 and 256 in
-   bf16 and up to 128 in f32 (16, 96 and 192 zero-padded to the kernel's
-   32, 128 and 256; f32 above 128 must be refused);
-   times the kernel, the plain version and
+   and at a ragged T=300 at head dims 16, 32, 64, 96, 128, 192, 256, 320
+   and 512 in bf16 and f32 (16, 96, 192 and 320 zero-padded to the
+   kernel's 32, 128, 256 and 384; above 256 in bf16 and 128 in f32 on the
+   wide instances, split over D); times the wide instances beside their
+   plain versions (no limit); times the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick only) beside
    the bound;
 6. runs the text path at full width: 32 seeded documents of 1,024-2,048
@@ -49,9 +52,10 @@ while the attention kernels build), then:
    fused projection, the key mask of the first 8 documents plus one fully
    masked row, whose outputs and gradients must be exactly 0), with a
    nonzero lse cotangent, at a ragged T=2000 in f32, and at a ragged T=300
-   at head dims 32, 64, 96 (padded), 128, 192 (padded) and 256 in bf16 and
-   up to 128 in f32; checks that two K2d/K2e launches on the same inputs
-   are bit-equal; times each kernel, its plain
+   at head dims 32, 64, 96 (padded), 128, 192 (padded), 256, 320 (padded)
+   and 512 in bf16 and f32; checks that two K2d/K2e launches on the same
+   inputs are bit-equal, at the wide head dims too; times the wide
+   instances (no limit), and each kernel, its plain
    version and ``scaled_dot_product_attention``'s forward and backward (the
    library yardstick only) beside the bound;
 8. runs masked-LM pretraining at full width: the documents →
@@ -73,17 +77,25 @@ while the attention kernels build), then:
    ``[1, 8, 8192, 64]``), the ``generate`` prefill ``[32, 8, 128, 64]``,
    phase 7's document mask with one fully masked row, offsets ``(2048, 0)``
    (every key reachable) and ``(0, 2048)`` (exactly 0), a ragged T=2000 in
-   f32 and head dims 32/64/128/192/256 at T=300 (bf16; f32 up to 128);
-   holds K3
-   (``paged_cuda``) against ``paged_torch`` at ``w`` = 1, 5 and 128 over 32
-   slots of seeded context lengths (``BL`` 16, shuffled chains padded with
-   the trash block, one all-trash slot that must be exactly 0) and at
-   ``w = 4096`` over one 4096-token chain of ``BL`` 128, in both dtypes and
-   at head dims 32, 128 and 16 (pools padded to 32, as the engine allocates
-   them), and in bf16 at 256 and 192 (pools padded to 256); times each
-   beside its bound, its plain version
-   and a PyTorch yardstick (``scaled_dot_product_attention``; for K3 over a
-   dense cache gathered beforehand);
+   f32 and head dims 32/64/128/192/256/320/512 at T=300 (bf16 and f32);
+   holds K3 through ``paged_window_attention``'s choice (the split-KV
+   decode kernel ``paged_decode_cuda`` up to 16 window rows, the window
+   kernel ``paged_cuda`` above) against ``paged_torch`` at ``w`` = 1, 5 and
+   128 over 32 slots of seeded context lengths (``BL`` 16, shuffled chains
+   padded with the trash block, one all-trash slot that must be exactly 0),
+   at ``w`` = 5 with ``BL`` 8 and 128, at a one-chunk table, and at ``w =
+   4096`` over one 4096-token chain of ``BL`` 128, in both dtypes and at
+   head dims 32, 128, 16 (pools padded to 32, as the engine allocates them),
+   256, 192 (pools padded to 256), 320 (padded to 384) and 512, and holds
+   the window kernel, called directly, on every one of those cases too (so
+   each of its instances meets a case); asserts the
+   decode shape's plan has more than one chunk and the short table's one,
+   that two decode launches are bit-equal; times each beside its bound,
+   its plain version and a PyTorch yardstick
+   (``scaled_dot_product_attention``; for K3 over a dense cache gathered
+   beforehand), the decode kernel beside the window kernel (the earlier K3)
+   at the decode and verify windows, and the per-kernel device times from
+   ``torch.profiler``;
 10. runs ``generate`` at full width: the causal LM of ``bench.py:896-930``
     (the encoder shape above with an f32 LM head, seeded weights, causal
     ``pallas`` attention) on 32 seeded prompts of 129 tokens with 128 new
@@ -98,8 +110,11 @@ while the attention kernels build), then:
     the 32 prompts of phase 10 at once (16 slots, ``block_len`` 16), self-
     draft speculation with ``spec_k=4``, and one 4064-token prompt with
     ``block_len`` 128, counting K3 launches per prefill batch and decode
-    step and re-scoring every output; K3 with ``pos`` ignored (a planted
-    fault) must fail the re-score limit; then an engine at head dim 16
+    step (the window kernel per prefill batch, the decode kernel per decode
+    step and verify) and re-scoring every output; K3 with ``pos`` ignored
+    in both kernels (a planted fault) must fail the re-score limit; prints
+    K3's per-step time at 4096 positions for both kernels; then an engine
+    at head dim 16
     sized by ``num_blocks=None``, whose pools (at K3's head dim 32, a
     self-draft's included) must hold exactly ``num_blocks`` x the block
     bytes, within half the free memory, and whose tokens are re-scored;
@@ -111,8 +126,9 @@ while the attention kernels build), then:
     masked row, a nonzero lse cotangent) at offsets ``(0, 0)``,
     ``(2048, 0)``, ``(100, 37)`` and ``(0, 2048)`` (o, dq, dk, dv exactly 0
     and lse -1e30 wherever no pair is allowed), at a ragged T=2000 in f32
-    and at head dims 32/64/128/192/256 at T=300 (bf16; f32 up to 128),
-    checks the causal K2d/K2e bit-equal over two launches; times each beside
+    and at head dims 32/64/128/192/256/320/512 at T=300 (bf16 and f32),
+    checks the causal K2d/K2e bit-equal over two launches, at the wide head
+    dims too; times the wide instances (no limit), and each beside
     its plain version, its bound over the causally allowed valid pairs and
     ``scaled_dot_product_attention`` (with the causal key mask, and
     ``is_causal`` without it: yardsticks only);
@@ -341,22 +357,34 @@ def check_hist(torch, k1, name, bins, vals, B, count=None):
 
 _KERNEL = re.compile(r"(hist_kernel|flash_fwd_bf16|flash_fwd_f32|bwd_dq_bf16|"
                      r"bwd_dkv_bf16|bwd_dq_f32|bwd_dkv_f32|paged_bf16|"
-                     r"paged_f32)I(\w*?)E+v")
+                     r"paged_f32|paged_decode|paged_combine|wide_fwd|wide_dq|"
+                     r"wide_dkv)I(\w*?)E+v")
+
+
+def _template_args(mangled: str) -> list[str]:
+    """The template arguments of a mangled kernel name: the element type
+    (bf16/f32, or K1's bin type), the key source of the wide forward
+    (dense/paged), then the integers (head dim, flags, window rows)."""
+    dtype = ("bf16" if "__nv_bfloat16" in mangled else
+             "f32" if mangled.startswith("f") else None)
+    src = [k.lower() for k in ("Dense", "Paged") if f"NS_5{k}E" in mangled]
+    args = ([dtype] if dtype else []) + src + re.findall(r"L[ib](\d+)",
+                                                         mangled)
+    return args or [{"h": "u8", "i": "i32"}.get(mangled, mangled)]
 
 
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel from nvcc's ``-Xptxas -v`` output: its name with
-    the template arguments (head dim, then the kLse and kCausal flags, or
-    the bin type), registers, shared memory and any spills."""
+    the template arguments (head dim, then the kLse and kCausal flags; the
+    element type, key source and window rows of the wide and decode
+    instances; or the bin type), registers, shared memory and any
+    spills."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = _KERNEL.search(line)
             name = line.split("'")[1] if m is None else \
-                f"{m.group(1)}<" + ",".join(
-                    re.findall(r"L[ib](\d+)", m.group(2))
-                    or [{"h": "u8", "i": "i32"}.get(m.group(2), m.group(2))]
-                ) + ">"
+                f"{m.group(1)}<" + ",".join(_template_args(m.group(2))) + ">"
         elif "spill" in line and name is not None:
             spill = re.findall(r"(\d+) bytes spill", line)
             spills = "" if set(spill) <= {"0"} else \
@@ -373,12 +401,20 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 # ptxas spill bytes (stores, loads) each instance may show: what the bf16
-# backward redesign and K3 at head dim 32 left (PERF.md §6); any other
-# instance, the bf16 forward's included, none. More fails phase 1.
+# backward redesign and K3's window kernel at head dim 32 left (PERF.md
+# §6); any other instance, the bf16 forward's included, none, and the
+# decode kernel's, its combine's and the wide instances' are listed at
+# none. More fails phase 1.
 SPILL_LIMITS = {"bwd_dkv_bf16<32,0>": (4, 4), "bwd_dkv_bf16<32,1>": (8, 20),
                 "bwd_dkv_bf16<64,0>": (4, 4), "bwd_dkv_bf16<128,1>": (64, 104),
                 "bwd_dkv_bf16<256,0>": (4, 4), "bwd_dkv_bf16<256,1>": (4, 4),
-                "paged_bf16<32>": (4, 16)}
+                "paged_bf16<32>": (4, 16),
+                **{f"paged_decode<{t},{w}>": (0, 0) for t in ("bf16", "f32")
+                   for w in (1, 8, 16)},
+                **{f"{k}<{t}{src}>": (0, 0) for t in ("bf16", "f32")
+                   for k, src in (("paged_combine", ""), ("wide_dq", ""),
+                                  ("wide_dkv", ""), ("wide_fwd", ",dense"),
+                                  ("wide_fwd", ",paged"))}}
 
 
 def start_builds(builders: dict) -> dict:
@@ -533,21 +569,21 @@ def text_phases(torch, k1, k2, dev, bw, flush, texts, lengths):
     check_flash(torch, k2, f"f32 ragged B={Bf} H={H} T={Tf} D={D}",
                 qf, kf, vf, mask_f, 0.0, FLASH_F32_ATOL)
     del qf, kf, vf
-    # 16, 96 and 192 run zero-padded to the kernel's 32, 128 and 256;
-    # f32 stops at 128
-    for d in (16, 32, 64, 96, 128, 192, 256):
+    # 16, 96, 192 and 320 run zero-padded to the kernel's 32, 128, 256 and
+    # 384; above 256 in bf16 and 128 in f32 on the wide instances
+    for d in HEAD_DIMS_HELD:
         for dtype in (torch.bfloat16, torch.float32):
             x = [torch.randn(2, 4, 300, d, generator=gen, device=dev,
                              dtype=dtype) for _ in range(3)]
             bf16 = dtype == torch.bfloat16
-            name = f"{str(dtype)[6:]} B=2 H=4 T=300 D={d}"
-            if not bf16 and d > 128:
-                refuses_f32(f"K2a {name}", lambda: k2.flash_cuda(
-                    *x, mask_f[:2, :300]))
-                continue
-            check_flash(torch, k2, name, *x, mask_f[:2, :300],
+            check_flash(torch, k2, f"{str(dtype)[6:]} B=2 H=4 T=300 D={d}",
+                        *x, mask_f[:2, :300],
                         FLASH_BF16_RTOL if bf16 else 0.0,
                         FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL)
+    for x, mask_w in wide_inputs(torch, gen, dev, 3):
+        time_wide(torch, "phase 5", "K2a", x, lambda: k2.flash_cuda(
+            *x, mask_w), lambda: k2.flash_torch(*x, mask_w),
+            4 * wide_pairs(mask_w, x[0].shape[1]), 4, bw, flush)
 
     ms = time_ms(lambda: k2.flash_cuda(q, k, v, mask), torch, flush=flush)
     plain_ms = time_ms(lambda: k2.flash_torch(q, k, v, mask), torch,
@@ -661,17 +697,53 @@ def hold_grad(torch, name, got, want, rtol, of_max):
                 of_max * float(want.float().abs().max()))
 
 
-def refuses_f32(name, fn):
-    """``fn`` (a kernel wrapper on f32 inputs above head dim 128) must
-    raise ValueError naming the f32 limit: the f32 instances stop at 128."""
-    try:
-        fn()
-    except ValueError as e:
-        if "up to 128" not in str(e):
-            fail(f"{name}: f32 refused without naming the limit: {e}")
-        print(f"{name}: f32 refused ({e})")
-        return
-    fail(f"{name}: f32 above head dim 128 ran; its kernels stop at 128")
+# head dims every attention route is held at: 16, 96, 192 and 320 padded
+# (to 32, 128, 256, 384); above 256 in bf16 and 128 in f32 on the wide
+# instances, split over D
+HEAD_DIMS_HELD = (16, 32, 64, 96, 128, 192, 256, 320, 512)
+# the wide instances' timed shape: [B, H, T] at D = 512 in bf16 and 256 in
+# f32 (their widths on the card); times are recorded, with no limit
+WIDE_TIMED = (2, 8, 1024)
+
+
+def wide_inputs(torch, gen, dev, n):
+    """``n`` tensors [B, H, T, D] of WIDE_TIMED at D = 512 in bf16 and 256
+    in f32, each with a key mask (the first row's last 100 keys invalid)."""
+    B, H, T = WIDE_TIMED
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    mask[0, -100:] = False
+    for d, dtype in ((512, torch.bfloat16), (256, torch.float32)):
+        yield [torch.randn(B, H, T, d, generator=gen, device=dev,
+                           dtype=dtype) for _ in range(n)], mask
+
+
+def wide_pairs(mask, H, causal=False):
+    """Allowed (query, key) pairs over all heads: every row against the
+    valid keys (causal: the valid keys at or before it)."""
+    if causal:
+        return H * int(mask.long().cumsum(1).sum())
+    return H * mask.shape[1] * int(mask.sum())
+
+
+def time_wide(torch, phase, kid, x, run, plain, ops_per_d, n_tensors, bw,
+              flush):
+    """Time a wide-head-dim instance on ``x`` beside its plain version and
+    its bound (``ops_per_d`` x D operations at the card's peak for the
+    dtype: 989 TFLOP/s bf16, 67 TFLOP/s f32; ``n_tensors`` [B, H, T, D]
+    tensors moved). Prints the line; no limit is set."""
+    B, H, T, D = x[0].shape
+    ms = time_ms(run, torch, runs=10, flush=flush)
+    plain_ms = time_ms(plain, torch, runs=3, warmup=1, flush=flush)
+    f32 = x[0].dtype == torch.float32
+    ops = ops_per_d * D
+    nbytes = n_tensors * B * H * T * D * x[0].element_size()
+    bound_ms, by = bound(ops, nbytes, bw,
+                         F32_PEAK_FLOPS if f32 else BF16_PEAK_FLOPS)
+    print(f"{phase}: wide {kid} {str(x[0].dtype)[6:]} [{B}, {H}, {T}, {D}] "
+          f"({D // 128} chunks of 128): {ms:.4f} ms; plain {plain_ms:.4f} "
+          f"ms; bound {bound_ms:.4f} ms by {by} ({ops / 1e9:.1f} GFLOP at "
+          f"{67 if f32 else 989} TFLOP/s); median of CUDA-event runs, L2 "
+          "flushed")
 
 
 def compare_grads(phase, name, got, dense, verbose):
@@ -831,6 +903,29 @@ def training_kernel_records(torch, k2, phase, q, k, v, mask, dout, causal,
     return records
 
 
+def wide_training_times(torch, k2, phase, dev, gen, bw, flush, causal):
+    """Time the wide instances of the forward with the lse and of K2d and
+    K2e (causal branches with ``causal``) at WIDE_TIMED."""
+    pos = dict(causal=causal)
+    for x, mask in wide_inputs(torch, gen, dev, 4):
+        pairs = wide_pairs(mask, x[0].shape[1], causal)
+        o, lse = k2.flash_lse_cuda(*x[:3], mask, **pos)
+        args = (*x[:3], mask, x[3], lse, k2.flash_dsum(o, x[3]))
+        fwd, kd, ke = KERNEL_IDS[causal]
+        time_wide(torch, phase, fwd, x,
+                  lambda: k2.flash_lse_cuda(*x[:3], mask, **pos),
+                  lambda: k2.flash_lse_torch(*x[:3], mask, **pos),
+                  4 * pairs, 4, bw, flush)
+        time_wide(torch, phase, kd, x,
+                  lambda: k2.flash_dq_cuda(*args, **pos),
+                  lambda: k2.flash_dq_torch(*args, **pos),
+                  6 * pairs, 5, bw, flush)
+        time_wide(torch, phase, ke, x,
+                  lambda: k2.flash_dkv_cuda(*args, **pos),
+                  lambda: k2.flash_dkv_torch(*args, **pos),
+                  8 * pairs, 6, bw, flush)
+
+
 def deterministic(torch, k2, phase, q, k, v, dout, mask, causal):
     """K2d and K2e own their output rows (no atomics): two launches on the
     same inputs must give the same bits."""
@@ -878,20 +973,20 @@ def train_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
     check_training_kernels(torch, k2, f"f32 ragged B={B} H={H} T={Tf} "
                            f"D={D}", *xf, mask_f, dlse[:, :, :Tf])
     del xf
-    for d in (32, 64, 96, 128, 192, 256):   # 96, 192: padded to 128, 256
+    for d in HEAD_DIMS_HELD[1:]:   # 96, 192, 320: padded to 128, 256, 384
         for dtype in (torch.bfloat16, torch.float32):
             x = [torch.randn(2, 4, 300, d, generator=gen, device=dev,
                              dtype=dtype) for _ in range(4)]
             name = f"{str(dtype)[6:]} B=2 H=4 T=300 D={d}"
-            if dtype == torch.float32 and d > 128:
-                refuses_f32(f"K2b/K2d/K2e {name}", lambda: k2.flash_lse_cuda(
-                    *x[:3], mask_f[:2, :300]))
-                continue
             check_training_kernels(
                 torch, k2, name, *x,
                 mask_f[:2, :300], torch.randn(2, 4, 300, generator=gen,
                                               device=dev))
+            if d in (256, 512) and (d == 512) == (dtype == torch.bfloat16):
+                deterministic(torch, k2, f"phase 7 ({name}, wide)", *x[:3],
+                              x[3], mask_f[:2, :300], False)
     deterministic(torch, k2, "phase 7", q, k, v, dout, mask, False)
+    wide_training_times(torch, k2, "phase 7", dev, gen, bw, flush, False)
 
     # the library yardstick: SDPA with the bool mask (its backward computes
     # dq, dk and dv together, so it stands beside K2d + K2e)
@@ -1297,21 +1392,34 @@ def paged_case(torch, dev, seed, S, w, BL, MB, H, hd, dtype, full=False):
 
 
 def check_paged(torch, k3, name, c):
-    """Hold K3 against its plain version on the active slots; an inactive
-    (all-trash) slot must be exactly 0. Returns the largest |difference|."""
+    """Hold K3 against its plain version on the active slots, twice: the
+    kernel ``paged_window_attention`` picks (the decode kernel up to 16
+    window rows, the window kernel above), and the window kernel called
+    directly, so that every instance of both meets every case; an inactive
+    (all-trash) slot must be exactly 0. Returns the largest |difference|
+    of each kernel, ``{"decode": err or 0.0, "window": err}``."""
     bf16 = c["q"].dtype == torch.bfloat16
     args = (c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"])
     want = k3.paged_torch(*args)
-    got = k3.paged_cuda(*args)
-    act = torch.from_numpy(c["active"]).to(got.device)
-    err = hold(torch, f"K3 {name}", got[act], want[act],
-               PAGED_BF16_RTOL if bf16 else 0.0,
-               PAGED_BF16_ATOL if bf16 else PAGED_F32_ATOL)
-    if not (got[~act] == 0).all():
-        fail(f"K3 {name}: an all-trash slot is not exactly 0")
-    print(f"K3 {name}: max |diff| {err:.3g}; {int((~act).sum())} all-trash "
-          "slot(s) exactly 0")
-    return err
+    act = torch.from_numpy(c["active"]).to(want.device)
+    picked = ("decode" if c["q"].shape[2] <= k3.DECODE_MAX_ROWS
+              else "window")
+    errs = {"decode": 0.0}
+    for kind, run in ((picked, k3.paged_window_attention),
+                      ("window", k3.paged_cuda)):
+        label = f"K3 {name}" + (" (window kernel, direct)"
+                                if run is k3.paged_cuda else "")
+        got = run(*args)
+        errs[kind] = hold(torch, label, got[act], want[act],
+                          PAGED_BF16_RTOL if bf16 else 0.0,
+                          PAGED_BF16_ATOL if bf16 else PAGED_F32_ATOL)
+        if not (got[~act] == 0).all():
+            fail(f"{label}: an all-trash slot is not exactly 0")
+        print(f"{label}: max |diff| {errs[kind]:.3g}; "
+              f"{int((~act).sum())} all-trash slot(s) exactly 0")
+        if picked == "window":
+            break                       # the switch already took paged_cuda
+    return errs
 
 
 def bound(ops, nbytes, bw, peak=BF16_PEAK_FLOPS):
@@ -1361,14 +1469,10 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
     check_causal(torch, k2, f"f32 ragged [{B}, 8, {Tf}, 64] document mask",
                  *xf, mask_f)
     del xf
-    for d in (32, 64, 128, 192, 256):
+    for d in (32, 64, 128, 192, 256, 320, 512):
         for dtype in (bf16, torch.float32):
             x = fused_qkv(torch, gen, dev, 2, 300, 4, d, dtype)
             name = f"{str(dtype)[6:]} [2, 4, 300, {d}]"
-            if dtype == torch.float32 and d > 128:
-                refuses_f32(f"K2c {name}", lambda: k2.flash_causal_cuda(
-                    *x, mask_f[:2, :300]))
-                continue
             check_causal(torch, k2, f"{name} document mask", *x,
                          mask_f[:2, :300])
             check_causal(torch, k2, f"{name} offsets (100, 37)", *x,
@@ -1400,6 +1504,11 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
     c_ms, c_plain, c_bound, c_by, c_lib = time_causal(
         f"bf16 [{GEN_BATCH}, 8, {GEN_T - 1}, 64] (generate prefill)",
         *prefill)
+    for x, mask_w in wide_inputs(torch, gen, dev, 3):
+        time_wide(torch, "phase 9", "K2c", x,
+                  lambda: k2.flash_causal_cuda(*x, mask_w),
+                  lambda: k2.flash_torch(*x, mask_w, causal=True),
+                  4 * wide_pairs(mask_w, x[0].shape[1], True), 4, bw, flush)
     k2c = {"name": "flash_causal", "route": "cuda",
            "source": "mmlspark_torch/dl/csrc/flash_attn.cu",
            "replaces": "mmlspark_tpu/dl/pallas_attention.py:142",
@@ -1407,77 +1516,202 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
            "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
            "library_ms": c_lib}
 
-    # ---- K3: decode, the verify window, a prefill window, the long prompt
-    cases = [("w=1 S=32 BL=16 (decode)", 61, 32, 1, 16, 256, D, False),
-             ("w=5 S=32 BL=16 (verify)", 62, 32, 5, 16, 256, D, False),
+    # ---- K3 through the switch's choice: the decode kernel up to 16
+    # window rows (decode, verify), the window kernel above (prefill, the
+    # long prompt); (name, seed, S, w, BL, MB, hd, full chains, timed)
+    cases = [("w=1 S=32 BL=16 (decode)", 61, 32, 1, 16, 256, D, False, True),
+             ("w=5 S=32 BL=16 (verify)", 62, 32, 5, 16, 256, D, False, True),
              ("w=128 S=32 BL=16 (prefill window)", 63, 32, 128, 16, 256, D,
-              False),
+              False, True),
              ("w=4096 S=1 BL=128 (long prompt)", 64, 1, 4096, 128, 32, D,
-              True),
-             ("w=5 S=32 BL=16 hd=32", 65, 32, 5, 16, 256, 32, False),
-             ("w=5 S=32 BL=16 hd=128", 66, 32, 5, 16, 256, 128, False),
+              True, True),
+             ("w=1 S=1 BL=128 (decode at 4096 positions)", 73, 1, 1, 128, 32,
+              D, True, True),
+             ("w=5 S=32 BL=8 (verify)", 70, 32, 5, 8, 512, D, False, False),
+             ("w=5 S=8 BL=128 (verify)", 71, 8, 5, 128, 32, D, False, False),
+             ("w=1 S=32 BL=16 MB=1 (one chunk)", 72, 32, 1, 16, 1, D, False,
+              False),
+             ("w=5 S=32 BL=16 hd=32", 65, 32, 5, 16, 256, 32, False, False),
+             ("w=5 S=32 BL=16 hd=128", 66, 32, 5, 16, 256, 128, False, False),
              ("w=5 S=32 BL=16 hd=16 (pools padded to 32)", 67, 32, 5, 16,
-              256, 16, False),
-             ("w=5 S=32 BL=16 hd=256", 68, 32, 5, 16, 256, 256, False),
+              256, 16, False, False),
+             ("w=5 S=32 BL=16 hd=256", 68, 32, 5, 16, 256, 256, False, False),
              ("w=5 S=32 BL=16 hd=192 (pools padded to 256)", 69, 32, 5, 16,
-              256, 192, False)]
-    k3_err, record = 0.0, None
-    for name, seed, S, w, BL, MB, hd, full in cases:
+              256, 192, False, False),
+             ("w=1 S=32 BL=16 hd=320 (pools padded to 384)", 74, 32, 1, 16,
+              64, 320, False, False),
+             ("w=5 S=32 BL=16 hd=512", 75, 32, 5, 16, 64, 512, False, False),
+             ("w=128 S=8 BL=16 hd=320 (window, pools padded to 384)", 76, 8,
+              128, 16, 32, 320, False, False),
+             ("w=64 S=8 BL=16 hd=512 (window)", 77, 8, 64, 16, 32, 512, False,
+              False)]
+    k3_err = {"decode": 0.0, "window": 0.0}
+    records = {}
+    for name, seed, S, w, BL, MB, hd, full, timed in cases:
         for dtype in (torch.float32, bf16):       # the bf16 case is timed
             c = paged_case(torch, dev, seed, S, w, BL, MB, H, hd, dtype, full)
-            if dtype == torch.float32 and hd > 128:
-                refuses_f32(f"K3 f32 {name}", lambda: k3.paged_cuda(
-                    c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"]))
-                continue
-            k3_err = max(k3_err, check_paged(
-                torch, k3, f"{str(dtype)[6:]} {name}", c))
-        if hd != D:
-            continue
+            kind = "decode" if w <= k3.DECODE_MAX_ROWS else "window"
+            for k, e in check_paged(torch, k3, f"{str(dtype)[6:]} {name}",
+                                    c).items():
+                k3_err[k] = max(k3_err[k], e)
         args = (c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"])
-        ms = time_ms(lambda: k3.paged_cuda(*args), torch, flush=flush)
-        plain_ms = time_ms(lambda: k3.paged_torch(*args), torch, runs=5,
-                           warmup=1, flush=flush)
-        # the library yardstick: SDPA over a dense cache gathered before
-        # the clock starts, with a bool mask
-        NB = c["k_pool"].shape[0]
-        L = MB * BL
-        idx = (c["rows"].long()[:, :, None] * BL
-               + torch.arange(BL, device=dev)).reshape(S, L)
-
-        def gather():
-            return [p.view(NB * BL, H, hd)[idx].transpose(1, 2).contiguous()
-                    for p in (c["k_pool"], c["v_pool"])]
-
-        gather_ms = time_ms(gather, torch, runs=10, flush=flush)
-        kd, vd = gather()
-        lim = c["pos"].long()[:, None] + torch.arange(w, device=dev)
-        allowed = (torch.arange(L, device=dev) <= lim[:, :, None])[:, None]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            c["q"], kd, vd, attn_mask=allowed), torch, runs=10, flush=flush)
-        del kd, vd, allowed
-        pos = c["pos"].cpu().numpy().astype(np.int64) * c["active"]
-        pairs = int(H * (w * (pos + 1) + w * (w - 1) // 2)[c["active"]].sum())
-        nbytes = (2 * int(c["nblk"].sum()) * BL * H * hd * 2
-                  + 2 * S * H * w * hd * 2)
-        bound_ms, by = bound(4 * pairs * hd, nbytes, bw)
-        print(f"phase 9: K3 bf16 {name}: {ms:.4f} ms; plain {plain_ms:.4f} "
-              f"ms; scaled_dot_product_attention on the gathered cache "
-              f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {by} "
-              f"({nbytes / 1e6:.2f} MB of reached K/V blocks, q and o; "
-              f"{4 * pairs * hd / 1e9:.3f} GFLOP over {pairs} allowed pairs); "
-              "median of CUDA-event runs, L2 flushed")
-        print(f"phase 9: K3 {name}: the dense gather alone {gather_ms:.4f} ms")
-        if record is None:                        # the decode shape
-            record = {"name": "paged_attention", "route": "cuda",
-                      "source": "mmlspark_torch/dl/csrc/paged_attn.cu",
-                      "replaces":
-                          "mmlspark_tpu/dl/pallas_paged_attention.py:89",
-                      "launches": 0, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": by,
-                      "library_ms": lib_ms}
+        if kind == "decode":
+            plan = k3.plan_of(k3.pad_head_dim(c["q"], c["k_pool"].shape[-1]),
+                              c["k_pool"], c["rows"])
+            print(f"phase 9: K3 decode plan {name}: {plan.n_chunks} chunks "
+                  f"of {plan.L} positions, {plan.hg} heads and {plan.dpc} "
+                  f"column chunks a CTA, {plan.P} positions a stage, "
+                  f"{plan.ctas} CTAs")
+            if "(decode)" in name and plan.n_chunks < 2:
+                fail(f"K3 {name}: the decode shape's plan has one chunk; "
+                     "the combine is not exercised")
+            if "(one chunk)" in name and plan.n_chunks != 1:
+                fail(f"K3 {name}: a one-chunk table planned "
+                     f"{plan.n_chunks} chunks")
+            if "(decode)" in name:
+                runs = [k3.paged_decode_cuda(*args) for _ in range(2)]
+                torch.cuda.synchronize()
+                if not torch.equal(*runs):
+                    fail(f"K3 {name}: two decode launches differ")
+                print(f"phase 9: K3 {name}: two decode launches bit-equal")
+        if not timed:
+            del c
+            continue
+        rec = k3_timings(torch, k3, name, c, S, w, BL, MB, H, hd, kind, bw,
+                         flush)
+        if "(decode)" in name or "(prefill window)" in name:
+            records.update(rec)
         del c
-    record["max_abs_err"] = k3_err
-    return [k2c, record]
+    for kind, ids in (("decode", ("paged_decode", "paged_combine")),
+                      ("window", ("paged_window",))):
+        for rid in ids:
+            records[rid]["max_abs_err"] = k3_err[kind]
+    return [k2c, records["paged_decode"], records["paged_combine"],
+            records["paged_window"]]
+
+
+def device_ms(torch, fn, names, runs=10, flush=None):
+    """Per-kernel device time of one call of ``fn`` from ``torch.profiler``
+    (the mean over ``runs`` calls, L2 flushed before each): ``{name: ms}``
+    summed over the kernels whose name contains each of ``names``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key:
+                out[n] += e.device_time_total / runs / 1e3
+    return out
+
+
+K3_SOURCE = {"paged_decode": "paged_decode.cu",
+             "paged_combine": "paged_decode.cu",
+             "paged_window": "paged_attn.cu"}
+
+
+def k3_timings(torch, k3, name, c, S, w, BL, MB, H, hd, kind, bw, flush):
+    """Time K3 on one bf16 case: the switch's kernel (CUDA events around
+    the call, as every kernel here; the decode call includes its combine)
+    beside its bound, its plain version and SDPA on the gathered cache,
+    and for a decode window the window kernel (the earlier K3) on the same
+    inputs and the per-kernel device times. Returns the records of the
+    kernels it timed."""
+    import torch.nn.functional as F
+    dev = c["q"].device
+    args = (c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"])
+    run = k3.paged_decode_cuda if kind == "decode" else k3.paged_cuda
+    ms = time_ms(lambda: run(*args), torch, flush=flush)
+    plain_ms = time_ms(lambda: k3.paged_torch(*args), torch, runs=5,
+                       warmup=1, flush=flush)
+    # the library yardstick: SDPA over a dense cache gathered before the
+    # clock starts, with a bool mask
+    NB = c["k_pool"].shape[0]
+    L = MB * BL
+    idx = (c["rows"].long()[:, :, None] * BL
+           + torch.arange(BL, device=dev)).reshape(S, L)
+
+    def gather():
+        return [p.view(NB * BL, H, hd)[idx].transpose(1, 2).contiguous()
+                for p in (c["k_pool"], c["v_pool"])]
+
+    gather_ms = time_ms(gather, torch, runs=10, flush=flush)
+    kd, vd = gather()
+    lim = c["pos"].long()[:, None] + torch.arange(w, device=dev)
+    allowed = (torch.arange(L, device=dev) <= lim[:, :, None])[:, None]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        c["q"], kd, vd, attn_mask=allowed), torch, runs=10, flush=flush)
+    del kd, vd, allowed
+    pos = c["pos"].cpu().numpy().astype(np.int64) * c["active"]
+    pairs = int(H * (w * (pos + 1) + w * (w - 1) // 2)[c["active"]].sum())
+    nbytes = (2 * int(c["nblk"].sum()) * BL * H * hd * 2
+              + 2 * S * H * w * hd * 2)
+    bound_ms, by = bound(4 * pairs * hd, nbytes, bw)
+    print(f"phase 9: K3 {kind} kernel bf16 {name}: {ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; scaled_dot_product_attention on the gathered "
+          f"cache {lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {by} "
+          f"({nbytes / 1e6:.2f} MB of reached K/V blocks, q and o; "
+          f"{4 * pairs * hd / 1e9:.3f} GFLOP over {pairs} allowed pairs); "
+          "median of CUDA-event runs, L2 flushed")
+    print(f"phase 9: K3 {name}: the dense gather alone {gather_ms:.4f} ms")
+    source = "mmlspark_torch/dl/csrc/"
+    replaces = "mmlspark_tpu/dl/pallas_paged_attention.py:89"
+    rid = "paged_decode" if kind == "decode" else "paged_window"
+    # "paged_attention" stays K3 at the decode shape (w = 1), the series it
+    # named before the decode kernel took that shape over; the window
+    # kernel's prefill window has a name of its own
+    records = {rid: {"name": {"paged_decode": "paged_attention",
+                              "paged_window": "paged_attention_window"}[rid],
+                     "route": "cuda", "source": source + K3_SOURCE[rid],
+                     "replaces": replaces, "launches": 0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": by, "library_ms": lib_ms}}
+    if kind != "decode":
+        return records
+    window_ms = time_ms(lambda: k3.paged_cuda(*args), torch, flush=flush)
+    dev_ms = device_ms(torch, lambda: k3.paged_decode_cuda(*args),
+                       ("paged_decode", "paged_combine"), flush=flush)
+    win_dev = device_ms(torch, lambda: k3.paged_cuda(*args), ("paged_bf16",),
+                        flush=flush)["paged_bf16"]
+    print(f"phase 9: K3 {name}: decode kernel {ms:.4f} ms against the window "
+          f"kernel (the earlier K3) {window_ms:.4f} ms, CUDA events around "
+          f"the call; device time (torch.profiler) decode "
+          f"{dev_ms['paged_decode']:.4f} ms + combine "
+          f"{dev_ms['paged_combine']:.4f} ms against the window kernel "
+          f"{win_dev:.4f} ms; the decode kernel's device time is "
+          f"{bound_ms / max(dev_ms['paged_decode'], 1e-9):.2f} of its bound")
+    # the combine: its own device time, its plain version on the same
+    # partials, and its bound (the partials of the live chunks read, o
+    # written)
+    q = k3.pad_head_dim(c["q"], c["k_pool"].shape[-1])
+    plan = k3.plan_of(q, c["k_pool"], c["rows"])
+    m, l, acc = k3.paged_partials_torch(q, *args[1:], plan.L, plan.n_chunks,
+                                        c["q"].shape[-1] ** -0.5)
+    D = q.shape[-1]
+    n_live = -(-(c["pos"].long() + w).clamp(0, MB * BL) // plan.L)
+    combine_plain = time_ms(lambda: k3.paged_combine_torch(
+        m, l, acc, n_live, torch.bfloat16), torch, runs=5, warmup=1,
+        flush=flush)
+    cbytes = int(n_live.sum()) * H * w * (D + 2) * 4 + S * H * w * D * 2
+    c_bound, c_by = bound(3 * int(n_live.sum()) * H * w * D, cbytes, bw,
+                          F32_PEAK_FLOPS)
+    print(f"phase 9: K3 combine {name}: {dev_ms['paged_combine']:.4f} ms "
+          f"(device time); plain {combine_plain:.4f} ms; bound "
+          f"{c_bound:.4f} ms by {c_by} ({cbytes / 1e6:.2f} MB of live chunk "
+          "partials and o)")
+    records["paged_combine"] = {
+        "name": "paged_attention_combine", "route": "cuda",
+        "source": source + K3_SOURCE["paged_combine"], "replaces": replaces,
+        "launches": 0, "ms": dev_ms["paged_combine"],
+        "plain_ms": combine_plain, "bound_ms": c_bound, "bound_by": c_by,
+        "library_ms": None}
+    return records
 
 
 def lm_model(torch, impl):
@@ -1567,7 +1801,7 @@ def generate_phase(torch, k2, k3, dev, args):
     depth, vocab = TEXT_SHAPE["depth"], TEXT_SHAPE["vocab"]
     new = args.new_tokens
     fns = {"K2c": k2.flash_causal_cuda, "K2a": k2.flash_cuda,
-           "K3": k3.paged_cuda}
+           "K3 window": k3.paged_cuda, "K3 decode": k3.paged_decode_cuda}
     model = lm_model(torch, "pallas").to(dev).eval()
     dense = copy.deepcopy(model)
     dense.encoder = dense.encoder.with_attention(
@@ -1580,7 +1814,7 @@ def generate_phase(torch, k2, k3, dev, args):
     out = generate(model, prompts, max_new_tokens=new)
     first_s = time.perf_counter() - t0
     got = counts(fns)
-    want = {"K2c": 3 * depth, "K2a": 0, "K3": 0}
+    want = {"K2c": 3 * depth, "K2a": 0, "K3 window": 0, "K3 decode": 0}
     if got != want:
         fail(f"launches in the first generate call {got}: expected {want} "
              "(16 for the causality probe's two forwards, 8 for the "
@@ -1603,7 +1837,7 @@ def generate_phase(torch, k2, k3, dev, args):
         t_one, t_full = timed(m, 1), timed(m, new + 1)
         calls = counts(fns)
         want = {"K2c": 8 * depth if impl == "pallas" else 0, "K2a": 0,
-                "K3": 0}
+                "K3 window": 0, "K3 decode": 0}
         if calls != want:
             fail(f"launches over 8 {impl} generate calls {calls}: expected "
                  f"{want} (one K2c launch per block per call with pallas)")
@@ -1641,20 +1875,27 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
     depth, vocab = TEXT_SHAPE["depth"], TEXT_SHAPE["vocab"]
     new, svc = args.new_tokens, "llm"
     fns = {"K2c": k2.flash_causal_cuda, "K2a": k2.flash_cuda,
-           "K3": k3.paged_cuda}
+           "K3 window": k3.paged_cuda, "K3 decode": k3.paged_decode_cuda}
 
     def attn(reg, phase):
         h = reg.metrics("gen_decode_attn_seconds")[0]
         return h.count(service=svc, phase=phase), h.sum(service=svc,
                                                         phase=phase)
 
-    def hold_k3(reg, label, before, per_prefill=depth, per_step=depth):
-        """K3 launches = per_prefill x prefill batches + per_step x decode
-        steps since ``before``; K2c and K2a 0."""
+    def steps(reg, before):
+        """(prefill batches, decode steps) since ``before``."""
         (pb, _), (st, _) = attn(reg, "prefill"), attn(reg, "decode")
-        pb, st = pb - before[0], st - before[1]
+        return pb - before[0], st - before[1]
+
+    def hold_k3(reg, label, before, per_prefill=depth, per_step=depth):
+        """K3 launches since ``before``: the window kernel per_prefill x
+        prefill batches (their windows are wider than 16 rows), the decode
+        kernel per_step x decode steps (decode and verify windows); K2c and
+        K2a 0."""
+        pb, st = steps(reg, before)
         got = counts(fns)
-        want = {"K2c": 0, "K2a": 0, "K3": per_prefill * pb + per_step * st}
+        want = {"K2c": 0, "K2a": 0, "K3 window": per_prefill * pb,
+                "K3 decode": per_step * st}
         if got != want:
             fail(f"{label}: launches {got}, expected {want} ({per_prefill} "
                  f"per prefill batch x {pb}, {per_step} per decode step x "
@@ -1682,7 +1923,16 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
         for i, p in enumerate(shared_prompts):
             eng.submit(f"r{rnd}-{i}", p, 8)
             eng.run_until_drained()
-    pb, st = hold_k3(reg, "rounds 1-2", (0, 0))
+    # a warm prompt's uncached suffix may be a prefill window of up to 16
+    # rows, which takes the decode kernel: here only the two K3 kernels'
+    # sum is exact, depth per prefill batch and per decode step
+    pb, st = steps(reg, (0, 0))
+    got = counts(fns)
+    k3_sum = got.pop("K3 window") + got.pop("K3 decode")
+    if got != {"K2c": 0, "K2a": 0} or k3_sum != depth * (pb + st):
+        fail(f"rounds 1-2: launches {got}, K3 window + decode {k3_sum}, "
+             f"expected K2c and K2a 0 and K3 {depth} x ({pb} prefill batches "
+             f"+ {st} decode steps)")
     snap = reg.snapshot()
     hits = snap.get(f'kv_prefix_hits_total{{service="{svc}"}}', 0.0)
     misses = snap.get(f'kv_prefix_misses_total{{service="{svc}"}}', 0.0)
@@ -1701,6 +1951,7 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
     before = (attn(reg, "prefill")[0], attn(reg, "decode")[0])
     dec0 = attn(reg, "decode")
     reset(fns)
+    k3.paged_decode_cuda.combine_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, p in enumerate(prompts):
@@ -1708,7 +1959,14 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
     out = eng.run_until_drained()
     wall = time.perf_counter() - t0
     pb, st = hold_k3(reg, "round 3", before)
-    k3_launches = fns["K3"].launches
+    k3_launches = {"paged_window": fns["K3 window"].launches,
+                   "paged_decode": fns["K3 decode"].launches,
+                   "paged_combine": k3.paged_decode_cuda.combine_launches}
+    if k3_launches["paged_combine"] != k3_launches["paged_decode"]:
+        fail(f"round 3: {k3_launches['paged_combine']} combine launches for "
+             f"{k3_launches['paged_decode']} decode launches: the 16-slot "
+             "table's plan has more than one chunk, so each decode call "
+             "combines")
     dec1 = attn(reg, "decode")
     seqs = np.stack([out[i] for i in range(len(prompts))])
     same = int(sum(np.array_equal(seqs[i], gen_out[i, :GEN_T + new])
@@ -1718,8 +1976,9 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
           f"tokens/s; {st} decode steps, "
           f"{(dec1[1] - dec0[1]) / max(st, 1) * 1e3:.3f} ms per step (host "
           f"clock, upload to fetch); {pb} prefill batches; K3 launches "
-          f"{k3_launches} ({depth} per prefill batch and per decode step), "
-          f"K2c 0; {same} of {len(prompts)} sequences identical to phase 10's")
+          f"{k3_launches} (window kernel {depth} per prefill batch, decode "
+          f"kernel and its combine {depth} per decode step), K2c 0; {same} "
+          f"of {len(prompts)} sequences identical to phase 10's")
     hold_rescore(torch, "phase 11: round 3", dense, seqs, GEN_T, dev)
     del eng
 
@@ -1779,39 +2038,55 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
     q = torch.randn(1, H, 1, TEXT_SHAPE["width"] // H, device=dev,
                     dtype=torch.bfloat16)
     rows = torch.arange(1, ctx // 128 + 1, device=dev, dtype=torch.int32)
-    k3_ms = time_ms(lambda: k3.paged_cuda(q, *pools, rows[None],
-                                          torch.tensor([ctx - 1], device=dev,
-                                                       dtype=torch.int32)),
-                    torch)
+    last = torch.tensor([ctx - 1], device=dev, dtype=torch.int32)
+    k3_ms = {fn.__name__: time_ms(lambda: fn(q, *pools, rows[None], last),
+                                  torch)
+             for fn in (k3.paged_decode_cuda, k3.paged_cuda)}
+    dec_dev = device_ms(torch, lambda: k3.paged_decode_cuda(
+        q, *pools, rows[None], last), ("paged_decode", "paged_combine"))
     print(f"phase 11: long context ({ctx - long_new} prompt tokens, "
           f"{long_new} new, block_len 128): prefill + first step "
           f"{prefill_s:.3f} s; decode {tokens - 1:.0f} steps in {decode_s:.3f} "
-          f"s, {(tokens - 1) / decode_s:,.1f} tokens/s; K3 "
-          f"{k3_ms * depth:.4f} ms per step ({depth} x {k3_ms:.4f} ms at "
-          f"{ctx} positions, CUDA events)")
+          f"s, {(tokens - 1) / decode_s:,.1f} tokens/s; K3 per step at {ctx} "
+          f"positions ({depth} launches, CUDA events): decode kernel "
+          f"{k3_ms['paged_decode_cuda'] * depth:.4f} ms ({depth} x "
+          f"{k3_ms['paged_decode_cuda']:.4f}; device time decode "
+          f"{dec_dev['paged_decode']:.4f} + combine "
+          f"{dec_dev['paged_combine']:.4f} ms a launch), window kernel (the "
+          f"earlier K3) {k3_ms['paged_cuda'] * depth:.4f} ms ({depth} x "
+          f"{k3_ms['paged_cuda']:.4f})")
     hold_rescore(torch, "phase 11: long context", dense,
                  out["ctx"][None], ctx - long_new, dev)
     del eng
 
-    # a planted fault: K3 with pos ignored (every row attends its whole
-    # chain, unwritten and later positions included)
-    real = k3.paged_cuda
+    # a planted fault: K3 with pos ignored in both kernels (every row
+    # attends its whole chain, unwritten and later positions included); the
+    # decode steps run it through the decode kernel
+    reals = {n: getattr(k3, n) for n in ("paged_cuda", "paged_decode_cuda")}
 
-    def no_pos(q, k_pool, v_pool, rows, pos):
-        return real(q, k_pool, v_pool, rows,
-                    torch.full_like(pos, rows.shape[1] * k_pool.shape[1]))
+    def no_pos(real):
+        def run(q, k_pool, v_pool, rows, pos):
+            return real(q, k_pool, v_pool, rows,
+                        torch.full_like(pos, rows.shape[1] * k_pool.shape[1]))
+        run.launches = run.combine_launches = 0   # the real one counts here
+        return run
 
-    no_pos.launches = 0
     eng = LLMEngine(model, slots=8, block_len=16, max_seq_len=max_seq,
                     num_blocks=1 + 2 * 8 * 18, prefill_batch=4,
                     registry=MetricsRegistry(), device=dev)
-    k3.paged_cuda = no_pos
+    faults = {n: no_pos(real) for n, real in reals.items()}
+    for n, fault in faults.items():
+        setattr(k3, n, fault)
     try:
         for i, p in enumerate(prompts[:8]):
             eng.submit(i, p, 16)
         out = eng.run_until_drained()
     finally:
-        k3.paged_cuda = real
+        for n, real in reals.items():
+            setattr(k3, n, real)
+    if faults["paged_decode_cuda"].launches == 0:
+        fail("the planted fault's decode steps did not reach the decode "
+             "kernel")
     hold_rescore(torch, "phase 11: planted fault (K3 with pos ignored)",
                  dense, np.stack([out[i] for i in range(8)]), GEN_T, dev,
                  fault=True)
@@ -1861,12 +2136,12 @@ def padded_engine(torch, k3, dev):
              f"limit half of {free} B free")
     prompts = np.random.default_rng(17).integers(
         2, 4096, size=(4, 40)).astype(np.int32)
-    before = k3.paged_cuda.launches
+    before = (k3.paged_cuda.launches, k3.paged_decode_cuda.launches)
     for i, p in enumerate(prompts):
         eng.submit(i, p, 16)
     out = eng.run_until_drained()
-    if k3.paged_cuda.launches == before:
-        fail("hd-16 engine: K3 was not launched")
+    if (k3.paged_cuda.launches, k3.paged_decode_cuda.launches) <= before:
+        fail("hd-16 engine: K3's window or decode kernel was not launched")
     hold_rescore(torch, "phase 11: hd-16 engine", dense,
                  np.stack([out[i] for i in range(4)]), 40, dev)
     del eng, pools
@@ -1874,16 +2149,21 @@ def padded_engine(torch, k3, dev):
 
 
 def llm_phases(torch, k1, k2, k3, dev, bw, flush, lengths, args):
-    """Phases 9-11. Returns the K2c and K3 records for the kernels line."""
+    """Phases 9-11. Returns the K2c record and K3's (the decode kernel, its
+    combine and the window kernel) for the kernels line."""
     with Phase("phase 9"):
-        k2c, k3rec = llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths)
+        k2c, *k3recs = llm_kernel_phase(torch, k2, k3, dev, bw, flush,
+                                        lengths)
     with Phase("phase 10"):
         model, dense, prompts, out, k2c["launches"] = generate_phase(
             torch, k2, k3, dev, args)
     with Phase("phase 11"):
-        k3rec["launches"] = engine_phase(torch, k2, k3, dev, args, model,
-                                         dense, prompts, out)
-    return [k2c, k3rec]
+        launches = engine_phase(torch, k2, k3, dev, args, model, dense,
+                                prompts, out)
+    for rec, rid in zip(k3recs, ("paged_decode", "paged_combine",
+                                 "paged_window")):
+        rec["launches"] = launches[rid]
+    return [k2c, *k3recs]
 
 
 # ------------------------------------------------------ causal training
@@ -1941,21 +2221,20 @@ def causal_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
         *xf, torch.randn(B, H, Tf, D, generator=gen, device=dev), mask_f,
         dlse[:, :, :Tf], 100, 37)
     del xf
-    for d in (32, 64, 128, 192, 256):
+    for d in (32, 64, 128, 192, 256, 320, 512):
         for dtype in (torch.bfloat16, torch.float32):
             x = fused_qkv(torch, gen, dev, 2, 300, 4, d, dtype)
             name = f"{str(dtype)[6:]} [2, 4, 300, {d}] offsets (5, 23)"
-            if dtype == torch.float32 and d > 128:
-                refuses_f32(f"K2c-lse {name}", lambda: k2.flash_lse_cuda(
-                    *x, mask_f[:2, :300], causal=True, q_offset=5,
-                    k_offset=23))
-                continue
+            dout_x = torch.randn(2, 4, 300, d, generator=gen, device=dev,
+                                 dtype=dtype)
             check_training_kernels(
-                torch, k2, name, *x, torch.randn(2, 4, 300, d, generator=gen,
-                                                 device=dev, dtype=dtype),
-                mask_f[:2, :300],
+                torch, k2, name, *x, dout_x, mask_f[:2, :300],
                 torch.randn(2, 4, 300, generator=gen, device=dev), 5, 23)
+            if d in (256, 512) and (d == 512) == (dtype == torch.bfloat16):
+                deterministic(torch, k2, f"phase 12 ({name}, wide)", *x,
+                              dout_x, mask_f[:2, :300], True)
     deterministic(torch, k2, "phase 12", q, k, v, dout, mask, True)
+    wide_training_times(torch, k2, "phase 12", dev, gen, bw, flush, True)
 
     # the library yardsticks: SDPA with the causal and key mask as one bool
     # mask (the same function), and SDPA is_causal=True without the key
@@ -2252,7 +2531,11 @@ def main() -> None:
         k1_name: k1.build_kernel,
         "K2a, K2b, K2c (dl/csrc/flash_attn.cu)": k2.build_kernel,
         "K2d, K2e (dl/csrc/flash_bwd.cu)": k2.build_bwd_kernel,
-        "K3 (dl/csrc/paged_attn.cu)": k3.build_kernel})
+        "K3 window (dl/csrc/paged_attn.cu)": k3.build_kernel,
+        "K3 decode and combine (dl/csrc/paged_decode.cu)":
+            k3.build_decode_kernel,
+        "K2a-K2e and K3 window, wide head dims (dl/csrc/attn_wide.cu)":
+            k2.build_wide_kernel})
     print("phase 1: building every kernel (sm_90a), one nvcc each, at once")
     finish_builds({k1_name: builds.pop(k1_name)})
     print(card)

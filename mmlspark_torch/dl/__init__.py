@@ -7,7 +7,8 @@ from .flash_attention import (flash_attention_lse, flash_bwd_cuda,
                               flash_bwd_torch, flash_causal_cuda, flash_cuda,
                               flash_lse_cuda, flash_lse_torch, flash_torch)
 from .generate import generate
-from .paged_attention import paged_cuda, paged_torch, paged_window_attention
+from .paged_attention import (paged_cuda, paged_decode_cuda, paged_torch,
+                              paged_window_attention)
 from .paged_kv import (TRASH_BLOCK, OutOfBlocks, PagedKVManager,
                        SequenceHandle, init_pools, scatter_positions)
 from .pretrain import (MaskedLMModel, assert_causal, encoder_variables,
@@ -24,7 +25,7 @@ __all__ = ["EncoderBlock", "MaskedLMModel", "OutOfBlocks", "PagedKVManager",
            "flash_bwd_torch", "flash_causal_cuda", "flash_cuda",
            "flash_lse_cuda", "flash_lse_torch", "flash_torch", "generate",
            "init_pools", "make_attention_fn", "make_train_step",
-           "mask_batch", "masked_xent", "paged_cuda",
+           "mask_batch", "masked_xent", "paged_cuda", "paged_decode_cuda",
            "paged_torch", "paged_window_attention", "pretrain_causal_lm",
            "pretrain_masked_lm", "scatter_positions", "softmax_xent",
            "train_epoch"]

@@ -54,16 +54,20 @@ Causal: query row ``r`` sits at global position ``q_offset + r`` and key
 forward and the backward alike. As in the JAX package the offsets only
 matter with ``causal=True``.
 
-Head dims: the kernels are built for D = 32, 64, 128 and 256 (256 in bf16
-only: the f32 kernels, the tight check, stop at 128 and the wrappers
-refuse f32 above it). The wrappers run any other D up to 256 at the next
-of those (:func:`kernel_head_dim`), zero-padding q, k, v (and dO) on D
+Head dims: the kernels of ``flash_attn.cu`` and ``flash_bwd.cu`` are built
+for D = 32, 64, 128 and 256 in bf16 and up to 128 in f32 (the f32 kernels,
+the tight check, keep their tiles in static shared memory). The wrappers
+run any D: up to 256 at the next of those, above 256 at the next multiple
+of 128 (:func:`kernel_head_dim`), zero-padding q, k, v (and dO) on D
 (:func:`pad_head_dim`) and scaling by the true ``D^-0.5``; zero columns
 leave every ``q·k`` unchanged and give zero output columns, which are
-sliced off the outputs and the gradients. D above 256 raises, as a fault
-the ROADMAP keeps. The reference pads every head dim to 128 lanes the same
-way (``pallas_attention.py:19-21``). The plain versions take ``scale`` too,
-so the tests can hold the padding against the unpadded computation on the
+sliced off the outputs and the gradients. A head dim wider than the widest
+instance built for its dtype (256 in bf16, :data:`F32_HEAD_DIM_MAX` in
+f32) runs on the wide instances of ``csrc/attn_wide.cu``: the same kernels
+split over D in chunks of :data:`WIDE_CHUNK` columns (see the source). The
+reference pads every head dim to 128 lanes the same way
+(``pallas_attention.py:19-21``). The plain versions take ``scale`` too, so
+the tests can hold the padding against the unpadded computation on the
 CPU.
 
 Not ported here: the TPU's block-size resolution and autotune lookup,
@@ -81,8 +85,9 @@ import torch.nn.functional as F
 from ..native.loader import CudaLoader
 from ..parallel.ring_attention import blockwise_attention
 
-HEAD_DIMS = (32, 64, 128, 256)
-F32_HEAD_DIM_MAX = 128    # the f32 kernels (the tight check) stop here
+HEAD_DIMS = (32, 64, 128, 256)   # the bf16 instances of the main kernels
+F32_HEAD_DIM_MAX = 128    # the widest f32 instance (the tight check)
+WIDE_CHUNK = 128          # the D chunk of the wide instances
 NEG = -1e30               # the TPU kernel's additive mask value
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _ALIGN = 16               # the kernels stage rows as 16-byte vectors
@@ -92,6 +97,7 @@ _LOADER = CudaLoader("mmlspark_flash", ["dl/csrc/flash_attn.cu"],
                      headers=("dl/csrc/flash_common.cuh",))
 _LOADER_BWD = CudaLoader("mmlspark_flash_bwd", ["dl/csrc/flash_bwd.cu"],
                          headers=("dl/csrc/flash_common.cuh",))
+_LOADER_WIDE = CudaLoader("mmlspark_attn_wide", ["dl/csrc/attn_wide.cu"])
 
 def _check_inputs(q, k, v, key_mask) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -131,12 +137,22 @@ def _check_rows(q, dout, lse, dsum) -> None:
 
 def kernel_head_dim(D: int) -> int:
     """The head dim the kernels run ``D`` at: the smallest of
-    :data:`HEAD_DIMS` that holds it. Raises ``ValueError`` above 256."""
+    :data:`HEAD_DIMS` that holds it, and above 256 the next multiple of
+    :data:`WIDE_CHUNK` (the reference pads to 128 lanes). There is no
+    upper limit in code: the real one is memory (the padded q, k, v and
+    their outputs, and K3's pools, at this width)."""
     for dim in HEAD_DIMS:
         if D <= dim:
             return dim
-    raise ValueError(f"the CUDA attention kernels take head dims up to "
-                     f"{HEAD_DIMS[-1]}, got {D}")
+    return -(-D // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def wide_head_dim(D: int, dtype: torch.dtype) -> bool:
+    """True when the kernel head dim ``D`` is wider than the widest
+    instance built for ``dtype`` (256 in bf16, :data:`F32_HEAD_DIM_MAX` in
+    f32): it then runs on the wide instances, split over D."""
+    return D > (F32_HEAD_DIM_MAX if dtype == torch.float32
+                else HEAD_DIMS[-1])
 
 
 def pad_head_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -285,20 +301,31 @@ def flash_bwd_torch(q, k, v, key_mask, o, lse, dout, dlse=None, *,
 
 # ------------------------------------------------------------- the kernels
 
+# the launchers' ctypes argtypes, which the wide instances share
+_c_void_p, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD_ARGS = [
+    _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # q k v mask o
+    _c_void_p,                                              # lse (K2b)
+    _c_int, _c_int, _c_int, _c_int, _c_int,                 # dtype B H T D
+    *[_c_ll] * 12,                                          # q/k/v/o strides
+    _c_ll, ctypes.c_float,                              # mask stride, scale
+    _c_int, _c_ll, _c_ll,                       # causal, q_offset, k_offset
+    _c_int, _c_void_p]                                      # device, stream
+_BWD_ARGS = [
+    _c_int,                                                 # 0 = dq, 1 = dk/dv
+    *[_c_void_p] * 10,                  # q k v dO mask lse dsum dq dk dv
+    _c_int, _c_int, _c_int, _c_int, _c_int,                 # dtype B H T D
+    ctypes.POINTER(_c_ll), _c_ll, ctypes.c_float,   # strides, mask, scale
+    _c_int, _c_ll, _c_ll,                       # causal, q_offset, k_offset
+    _c_int, _c_void_p]                                      # device, stream
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _LOADER.load()
-    c_void_p, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mmlspark_flash_launch.argtypes = [
-        c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,  # q k v mask o
-        c_void_p,                                          # lse (K2b)
-        c_int, c_int, c_int, c_int, c_int,                 # dtype B H T D
-        *[c_ll] * 12,                                      # q/k/v/o strides
-        c_ll, ctypes.c_float,                              # mask stride, scale
-        c_int, c_ll, c_ll,                     # causal, q_offset, k_offset
-        c_int, c_void_p]                                   # device, stream
-    lib.mmlspark_flash_launch.restype = c_int
-    lib.mmlspark_flash_error_string.argtypes = [c_int]
+    lib.mmlspark_flash_launch.argtypes = _FWD_ARGS
+    lib.mmlspark_flash_launch.restype = _c_int
+    lib.mmlspark_flash_error_string.argtypes = [_c_int]
     lib.mmlspark_flash_error_string.restype = ctypes.c_char_p
     lib.mmlspark_flash_design.argtypes = []
     lib.mmlspark_flash_design.restype = ctypes.c_char_p
@@ -308,16 +335,9 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _library_bwd() -> ctypes.CDLL:
     lib = _LOADER_BWD.load()
-    c_void_p, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mmlspark_flash_bwd_launch.argtypes = [
-        c_int,                                             # 0 = dq, 1 = dk/dv
-        *[c_void_p] * 10,                  # q k v dO mask lse dsum dq dk dv
-        c_int, c_int, c_int, c_int, c_int,                 # dtype B H T D
-        ctypes.POINTER(c_ll), c_ll, ctypes.c_float,   # strides, mask, scale
-        c_int, c_ll, c_ll,                     # causal, q_offset, k_offset
-        c_int, c_void_p]                                   # device, stream
-    lib.mmlspark_flash_bwd_launch.restype = c_int
-    lib.mmlspark_flash_bwd_error_string.argtypes = [c_int]
+    lib.mmlspark_flash_bwd_launch.argtypes = _BWD_ARGS
+    lib.mmlspark_flash_bwd_launch.restype = _c_int
+    lib.mmlspark_flash_bwd_error_string.argtypes = [_c_int]
     lib.mmlspark_flash_bwd_error_string.restype = ctypes.c_char_p
     lib.mmlspark_flash_bwd_design.argtypes = []
     lib.mmlspark_flash_bwd_design.restype = ctypes.c_char_p
@@ -336,6 +356,30 @@ def kernel_design() -> str:
     """One line on the bf16 forward's design (CTA shape, tiles, ring
     stages, shared memory, register split), from the built library."""
     return _library().mmlspark_flash_design().decode()
+
+
+@functools.lru_cache(maxsize=None)
+def _library_wide() -> ctypes.CDLL:
+    lib = _LOADER_WIDE.load()
+    lib.mmlspark_wide_flash_launch.argtypes = _FWD_ARGS
+    lib.mmlspark_wide_bwd_launch.argtypes = _BWD_ARGS
+    lib.mmlspark_wide_paged_launch.argtypes = [
+        *[_c_void_p] * 6, *[_c_int] * 8, *[_c_ll] * 6, ctypes.c_float, _c_int,
+        _c_void_p]                           # as mmlspark_paged_launch's
+    for fn in (lib.mmlspark_wide_flash_launch, lib.mmlspark_wide_bwd_launch,
+               lib.mmlspark_wide_paged_launch):
+        fn.restype = _c_int
+    lib.mmlspark_wide_error_string.argtypes = [_c_int]
+    lib.mmlspark_wide_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_wide_kernel() -> str:
+    """Build (if needed) and load the wide-head-dim instances
+    (``csrc/attn_wide.cu``); returns nvcc's output as
+    :func:`build_kernel` does."""
+    _library_wide()
+    return _LOADER_WIDE.build_log()
 
 
 def build_bwd_kernel() -> str:
@@ -374,12 +418,8 @@ def _check_kernel_inputs(fn: str, q, k, v) -> None:
                          "CPU tensors")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{fn} takes bf16 or f32, got {q.dtype}")
-    if kernel_head_dim(q.shape[-1]) > F32_HEAD_DIM_MAX \
-            and q.dtype == torch.float32:
-        raise ValueError(f"{fn}: the f32 kernels take head dims up to "
-                         f"{F32_HEAD_DIM_MAX}, got {q.shape[-1]}; head dims "
-                         f"up to {HEAD_DIMS[-1]} run in bf16")
-    if q.shape[-1] in HEAD_DIMS:  # padded tensors are laid out afresh
+    D = q.shape[-1]
+    if D == kernel_head_dim(D):  # padded tensors are laid out afresh
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_layout(name, t)
 
@@ -400,6 +440,13 @@ def _mask_arg(key_mask, T):
     return mask, mask.stride(0)
 
 
+def _error_string(lib, wide: bool, err: int, bwd: bool = False) -> str:
+    fn = (lib.mmlspark_wide_error_string if wide
+          else lib.mmlspark_flash_bwd_error_string if bwd
+          else lib.mmlspark_flash_error_string)
+    return fn(err).decode()
+
+
 def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
                     causal: bool = False, q_offset: int = 0,
                     k_offset: int = 0):
@@ -415,8 +462,11 @@ def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
     if T == 0 or B * H == 0:
         return _unpad(out, D), lse
     mask, mask_sb = _mask_arg(key_mask, T)
-    lib = _library()
-    err = lib.mmlspark_flash_launch(
+    wide = wide_head_dim(Dk, q.dtype)
+    lib = _library_wide() if wide else _library()
+    launch = (lib.mmlspark_wide_flash_launch if wide
+              else lib.mmlspark_flash_launch)
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -429,9 +479,9 @@ def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
         kid = ("K2c-lse" if with_lse else "K2c") if causal else \
             "K2b" if with_lse else "K2a"
         raise RuntimeError(
-            f"{kid} flash-attention kernel launch failed: "
-            f"{lib.mmlspark_flash_error_string(err).decode()} "
-            f"(cudaError {err})")
+            f"{kid} flash-attention kernel launch failed"
+            f"{' (wide head dim)' if wide else ''}: "
+            f"{_error_string(lib, wide, err)} (cudaError {err})")
     return _unpad(out, D), lse
 
 
@@ -440,9 +490,10 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K2a (``csrc/flash_attn.cu``) on PyTorch's current stream: the
     forward alone, with no autograd graph (:func:`flash_attention` takes the
     autograd Function under grad). Raises for tensors that are not on a
-    CUDA device, for a dtype other than bf16/f32, a head dim above 256 (128
-    in f32), and when the kernel does not build or launch. Other head dims
-    run zero-padded to the next of 32/64/128/256.
+    CUDA device, for a dtype other than bf16/f32, and when the kernel does
+    not build or launch. Other head dims run zero-padded to
+    :func:`kernel_head_dim`, and those wider than the built instances on
+    the wide ones (split over D).
 
     Returns a ``[B, H, T, D]`` view of a ``[B, T, H, D]`` buffer, so the
     caller's head merge is a free reshape."""
@@ -524,8 +575,11 @@ def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
     mask, mask_sb = _mask_arg(key_mask, T)
     strides = [s for t in (q, k, v, dout, dq, dk, dv)
                for s in (t.stride()[:3] if t is not None else (0, 0, 0))]
-    lib = _library_bwd()
-    err = lib.mmlspark_flash_bwd_launch(
+    wide = wide_head_dim(Dk, q.dtype)
+    lib = _library_wide() if wide else _library_bwd()
+    launch = (lib.mmlspark_wide_bwd_launch if wide
+              else lib.mmlspark_flash_bwd_launch)
+    err = launch(
         int(dkv), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         None if mask is None else mask.data_ptr(), lse.data_ptr(),
         dsum.data_ptr(), *(None if t is None else t.data_ptr()
@@ -537,10 +591,9 @@ def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
     if err != 0:
         raise RuntimeError(
             f"{'causal ' if causal else ''}{'K2e' if dkv else 'K2d'} "
-            "flash-attention backward kernel "
-            "launch failed: "
-            f"{lib.mmlspark_flash_bwd_error_string(err).decode()} "
-            f"(cudaError {err})")
+            "flash-attention backward kernel launch failed"
+            f"{' (wide head dim)' if wide else ''}: "
+            f"{_error_string(lib, wide, err, bwd=True)} (cudaError {err})")
     return tuple(_unpad(t, D) for t in outs)
 
 

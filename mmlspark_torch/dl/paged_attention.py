@@ -1,23 +1,35 @@
-"""K3: paged window attention over the block table — CUDA kernel, plain
-version and switch.
+"""K3: paged window attention over the block table — CUDA kernels, plain
+versions and switch.
 
 The LLM serving engine's hot op. The JAX package runs it as the Pallas TPU
 kernel ``_paged_kernel`` (``mmlspark_tpu/dl/pallas_paged_attention.py:89``,
 launched by ``_paged_pallas`` at ``:199``) behind ``paged_window_attention``,
 with the pure-lax ``_paged_reference`` off the TPU. Here:
 
-- :func:`paged_cuda` launches the hand-written Hopper kernel in
-  ``csrc/paged_attn.cu`` (its own library, built with nvcc for ``sm_90a`` on
-  first use and bound with ctypes; see the source for its design and what
-  bounds it) and counts its launches;
+- :func:`paged_decode_cuda` launches the split-KV decode kernel of
+  ``csrc/paged_decode.cu`` for windows of up to :data:`DECODE_MAX_ROWS`
+  rows (the engine's decode step, w = 1, and its verify window, w =
+  spec_k + 1): the chain is cut into chunks across CTAs by
+  :func:`decode_plan`, and a second small kernel, ``paged_combine``,
+  merges the chunks' partial softmax states (not launched for a plan of
+  one chunk). It counts its launches (``.launches``) and the combine's
+  (``.combine_launches``);
+- :func:`paged_cuda` launches the tiled window kernel of
+  ``csrc/paged_attn.cu`` for wider windows (prefill), and counts its
+  launches. Each source is its own library, built with nvcc for ``sm_90a``
+  on first use and bound with ctypes; see the sources for their designs
+  and what bounds them;
 - :func:`paged_torch` is the plain version: it gathers each slot's chain
   through the table inside the call, then applies exactly the formulation
   of ``EncoderBlock.decode_window`` and ``_paged_reference`` (f32 scores ×
   ``hd^-0.5``, ``-inf`` outside ``t <= pos + i``, softmax, NaN → 0, ``p``
   cast to v's dtype), which keeps the engine token-identical to
-  ``dl.generate`` on the CPU;
-- :func:`paged_window_attention` is the switch: the kernel for CUDA
-  tensors, the plain version for CPU tensors. A build or launch failure
+  ``dl.generate`` on the CPU; :func:`paged_partials_torch` and
+  :func:`paged_combine_torch` are the plain versions of the decode kernel's
+  two passes (per-chunk ``(m, l, acc)``, then the merge);
+- :func:`paged_window_attention` is the switch: for CUDA tensors the
+  decode kernel up to :data:`DECODE_MAX_ROWS` rows and the window kernel
+  above, the plain version for CPU tensors. A build or launch failure
   raises; nothing falls back.
 
 Contract: q ``[S, H, w, hd]`` holds w query rows per slot at global
@@ -30,29 +42,38 @@ exactly 0); the plain version, as ``_paged_reference``, masks by position
 only, so the two agree wherever the chain covers ``[0, pos + w)``, which is
 every live slot of the engine.
 
-Head dims: K3 is built for hd = 32, 64, 128 and 256 (256 in bf16 only;
-the f32 kernel stops at 128). The engine allocates its pools at the
-kernel's head dim on every device (``paged_kv.pool_head_dim``: hd padded up
-to the next of those, once), the window's k/v are zero-padded as they are
-scattered, and both versions take pools wider than q: q is zero-padded to
-the pools' width, scores are scaled by q's true ``hd^-0.5`` and the output
-is sliced back to hd. hd above 256 (above 128 in f32) raises on CUDA.
+Head dims: the engine allocates its pools at the kernels' head dim on
+every device (``paged_kv.pool_head_dim``: ``kernel_head_dim``, hd padded
+up to the next of 32/64/128/256, above 256 to a multiple of 128), the
+window's k/v are zero-padded as they are scattered, and every version
+takes pools wider than q: q is zero-padded to the pools' width, scores are
+scaled by q's true ``hd^-0.5`` and the output is sliced back to hd. The
+decode kernel loops over the pools' head dim and takes any of them; the
+window kernel's instances stop at 256 in bf16 and 128 in f32, and wider
+pools run on its wide instance in ``csrc/attn_wide.cu``, split over hd.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..native.loader import CudaLoader
-from .flash_attention import (F32_HEAD_DIM_MAX, HEAD_DIMS, _unpad,
-                              pad_head_dim)
+from .flash_attention import (_library_wide, _unpad, kernel_head_dim,
+                              pad_head_dim, wide_head_dim)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-_ALIGN = 16               # the kernel stages rows as 16-byte vectors
+_ALIGN = 16               # the kernels stage rows as 16-byte vectors
+NEG = -1e30               # the kernels' masked score
+DECODE_MAX_ROWS = 16      # windows up to this wide take the decode kernel
+_TRASH = 0                # paged_kv.TRASH_BLOCK
 
 _LOADER = CudaLoader("mmlspark_paged", ["dl/csrc/paged_attn.cu"])
+_LOADER_DECODE = CudaLoader("mmlspark_paged_decode",
+                            ["dl/csrc/paged_decode.cu"],
+                            headers=("dl/csrc/flash_common.cuh",))
 
 
 def _check_inputs(q, k_pool, v_pool, rows, pos) -> None:
@@ -103,6 +124,114 @@ def paged_torch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)[..., :d]
 
 
+# ------------------------------------------------------- the decode plan
+
+_STAGE_BYTES = 16384      # K (and V) bytes of one stage of the decode kernel
+_STAGE_POSITIONS = 16     # chain positions of a stage, at most
+_MAX_WARPS = 8            # consumer warps of a decode CTA
+_CTAS_PER_SM = 2          # the grid the plan aims at
+
+
+class DecodePlan(NamedTuple):
+    """How the decode kernel cuts one call: ``hg`` heads (of ``n_hg``
+    groups) and ``dpc`` column chunks (of ``n_dg`` groups; ``dch`` a head)
+    per CTA, one consumer warp each; ``P`` chain positions a stage; chunks
+    of ``L`` positions, ``n_chunks`` of them covering the table's
+    ``MB * BL``; ``ctas`` in the grid."""
+    hg: int
+    n_hg: int
+    dpc: int
+    n_dg: int
+    dch: int
+    P: int
+    L: int
+    n_chunks: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(S: int, H: int, w: int, D: int, BL: int, MB: int,
+                elem_size: int, n_sm: int) -> DecodePlan:
+    """The decode kernel's plan from the shape alone (no data: the same
+    shapes give the same plan, so a call's result does not depend on its
+    timing or its positions). A CTA holds whole heads of its slot (all H
+    where one position of them fits a stage) and up to 128 output columns
+    a warp (64 above 8 rows); the chain of ``MB * BL`` positions is cut
+    into chunks of a multiple of 16 positions so that the grid has
+    about ``2 * n_sm`` CTAs, one chunk where the slots alone fill it."""
+    dv = 128 if w <= 8 else 64
+    dch = -(-D // dv)
+    dpc = min(dch, _MAX_WARPS)
+    hg = min(H, _MAX_WARPS // dpc) if dpc == dch else 1
+    while hg > 1 and hg * D * elem_size > _STAGE_BYTES:
+        hg -= 1
+    P = _STAGE_POSITIONS
+    while P > 1 and P * hg * D * elem_size > _STAGE_BYTES:
+        P //= 2
+    n_hg, n_dg = -(-H // hg), -(-dch // dpc)
+    cap = MB * BL
+    per_slot = max(1, -(-_CTAS_PER_SM * n_sm // (S * n_hg * n_dg)))
+    L = max(_STAGE_POSITIONS, -(-cap // per_slot))
+    L = -(-L // _STAGE_POSITIONS) * _STAGE_POSITIONS
+    n_chunks = -(-cap // L)
+    return DecodePlan(hg, n_hg, dpc, n_dg, dch, P, L, n_chunks,
+                      S * n_hg * n_dg * n_chunks)
+
+
+def paged_partials_torch(q, k_pool, v_pool, rows, pos, L: int,
+                         n_chunks: int, scale: float | None = None):
+    """Plain PyTorch version of the decode kernel's first pass: for each
+    chunk of ``L`` chain positions, the f32 ``(m, l, acc)`` of its allowed
+    keys (trash and out-of-range entries skipped, ``t <= pos + i``), with
+    m the row max of the scaled scores (``-1e30`` where none is allowed),
+    ``p = exp(s - m)`` and ``acc = p.astype(v) @ v``. Returns ``m, l``
+    ``[S, n_chunks, H, w]`` and ``acc`` ``[S, n_chunks, H, w, hd]``; q at
+    the pools' width, ``scale`` its true ``hd^-0.5``."""
+    _check_inputs(q, k_pool, v_pool, rows, pos)
+    S, H, w, hd = q.shape
+    NB, BL = k_pool.shape[:2]
+    cap = rows.shape[1] * BL
+    dev = q.device
+    scale = hd ** -0.5 if scale is None else scale
+    blk = rows.long()
+    live = (blk != _TRASH) & (blk >= 0) & (blk < NB)               # [S, MB]
+    idx = (blk.clamp(0, NB - 1)[:, :, None] * BL
+           + torch.arange(BL, device=dev)).reshape(S, cap)
+    k = k_pool.reshape(NB * BL, H, hd)[idx].transpose(1, 2)
+    v = v_pool.reshape(NB * BL, H, hd)[idx].transpose(1, 2)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    t = torch.arange(cap, device=dev)
+    limit = pos.long()[:, None] + torch.arange(w, device=dev)      # [S, w]
+    allowed = (t <= limit[:, :, None]) \
+        & live.repeat_interleave(BL, 1)[:, None, :]                # [S, w, L]
+    ms, ls, accs = [], [], []
+    for c in range(n_chunks):
+        ok = (allowed & (t >= c * L) & (t < (c + 1) * L))[:, None]
+        sc = torch.where(ok, s, NEG)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.where(ok, torch.exp(sc - m), 0.0)
+        ms.append(m[..., 0])
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                                 v.float()))
+    return (torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(accs, 1))
+
+
+def paged_combine_torch(m, l, acc, n_live, dtype) -> torch.Tensor:
+    """Plain PyTorch version of the combine: merge each slot's first
+    ``n_live[s]`` chunks (``m, l`` ``[S, C, H, w]``, ``acc`` ``[S, C, H, w,
+    hd]``) into ``o = Σ f·acc / max(Σ f·l, 1e-35)``, ``f = exp(m - max
+    m)``, in ``dtype`` ``[S, H, w, hd]``."""
+    C = m.shape[1]
+    use = (torch.arange(C, device=m.device)[None, :]
+           < n_live[:, None])[:, :, None, None]                    # [S, C]
+    m = torch.where(use, m, NEG)
+    f = torch.where(use, torch.exp(m - m.amax(1, keepdim=True)), 0.0)
+    den = (f * l).sum(1).clamp_min(1e-35)
+    num = (f[..., None] * acc).sum(1)
+    return (num / den[..., None]).to(dtype)
+
+
 # ------------------------------------------------------------- the kernel
 
 @functools.lru_cache(maxsize=None)
@@ -127,36 +256,21 @@ def build_kernel() -> str:
     return _LOADER.build_log()
 
 
-def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-               rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Launch K3 (``csrc/paged_attn.cu``) on PyTorch's current stream.
-    Raises for tensors that are not on a CUDA device, a dtype other than
-    bf16/f32, pools whose head dim is not 32/64/128/256 (``init_pools``
-    makes them so up to 256; f32 up to 128), a q without unit stride on
-    hd or with unaligned rows, pools that are not contiguous, and when the
-    kernel does not build or launch. A q narrower than the pools is
-    zero-padded and scaled by its own ``hd^-0.5``; the output is sliced
-    back to its width.
-
-    Returns a ``[S, H, w, hd]`` view of a ``[S, w, H, hd]`` buffer, so the
-    caller's head merge is a free reshape."""
-    d = q.shape[-1]
-    q = pad_head_dim(q, k_pool.shape[-1])
-    _check_inputs(q, k_pool, v_pool, rows, pos)
+def _check_card(fn: str, q, k_pool, v_pool) -> None:
+    """What both kernels take: CUDA tensors of bf16 or f32, pools at a
+    kernel head dim (``paged_kv.pool_head_dim``), q with unit stride on hd
+    and 16-byte rows, contiguous 16-byte-aligned pools."""
     if q.device.type != "cuda":
-        raise ValueError(f"paged_cuda needs CUDA tensors, got {q.device}; "
+        raise ValueError(f"{fn} needs CUDA tensors, got {q.device}; "
                          "use paged_torch (or the paged_window_attention "
                          "switch) for CPU tensors")
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"paged_cuda takes bf16 or f32, got {q.dtype}")
-    S, H, w, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"paged_cuda takes pools of head dims {HEAD_DIMS}, "
-                         f"got {hd}")
-    if hd > F32_HEAD_DIM_MAX and q.dtype == torch.float32:
-        raise ValueError(f"paged_cuda: the f32 kernel takes head dims up to "
-                         f"{F32_HEAD_DIM_MAX}, got pools of {hd}; head dims "
-                         f"up to {HEAD_DIMS[-1]} run in bf16")
+        raise TypeError(f"{fn} takes bf16 or f32, got {q.dtype}")
+    hd = q.shape[-1]
+    if hd != kernel_head_dim(hd):
+        raise ValueError(f"{fn} takes pools at a kernel head dim "
+                         f"(paged_kv.pool_head_dim), got {hd}; "
+                         f"{kernel_head_dim(hd)} would hold it")
     size = q.element_size()
     if q.stride(3) != 1 or q.data_ptr() % _ALIGN or any(
             st * size % _ALIGN for st in q.stride()[:3]):
@@ -166,6 +280,28 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % _ALIGN:
             raise ValueError(f"{name} must be contiguous and {_ALIGN}-byte "
                              "aligned")
+
+
+def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+               rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Launch K3's window kernel (``csrc/paged_attn.cu``; pools wider than
+    its instances, 256 in bf16 and 128 in f32, on the wide instance of
+    ``csrc/attn_wide.cu``) on PyTorch's current stream: any window, the
+    engine's prefill ones in practice. Raises for tensors that are not on
+    a CUDA device, a dtype other than bf16/f32, pools not at a kernel head
+    dim (``init_pools`` makes them so), a q without unit stride on hd or
+    with unaligned rows, pools that are not contiguous, and when the
+    kernel does not build or launch. A q narrower than the pools is
+    zero-padded and scaled by its own ``hd^-0.5``; the output is sliced
+    back to its width.
+
+    Returns a ``[S, H, w, hd]`` view of a ``[S, w, H, hd]`` buffer, so the
+    caller's head merge is a free reshape."""
+    d = q.shape[-1]
+    q = pad_head_dim(q, k_pool.shape[-1])
+    _check_inputs(q, k_pool, v_pool, rows, pos)
+    _check_card("paged_cuda", q, k_pool, v_pool)
+    S, H, w, hd = q.shape
     rows = rows.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty(S, w, H, hd, dtype=v_pool.dtype,
@@ -173,23 +309,124 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if S * H * w == 0:
         return _unpad(out, d)
     NB, BL = k_pool.shape[:2]
-    lib = _library()
-    err = lib.mmlspark_paged_launch(
+    wide = wide_head_dim(hd, q.dtype)
+    lib = _library_wide() if wide else _library()
+    launch = (lib.mmlspark_wide_paged_launch if wide
+              else lib.mmlspark_paged_launch)
+    err = launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), rows.data_ptr(),
         pos.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], S, H, w, hd,
         NB, BL, rows.shape[1], *q.stride()[:3], *out.stride()[:3],
         d ** -0.5, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
+        msg = (lib.mmlspark_wide_error_string if wide
+               else lib.mmlspark_paged_error_string)(err).decode()
         raise RuntimeError(
-            "K3 paged-attention kernel launch failed: "
-            f"{lib.mmlspark_paged_error_string(err).decode()} "
-            f"(cudaError {err})")
+            f"K3 paged-attention window kernel launch failed"
+            f"{' (wide head dim)' if wide else ''}: {msg} (cudaError {err})")
     paged_cuda.launches += 1
     return _unpad(out, d)
 
 
 paged_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_library() -> ctypes.CDLL:
+    lib = _LOADER_DECODE.load()
+    c_void_p, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mmlspark_paged_decode_launch.argtypes = [
+        *[c_void_p] * 8,                  # q k v rows pos o part_acc part_ml
+        *[c_int] * 8,                     # dtype S H w D NB BL MB
+        *[c_ll] * 6,                      # q and o strides
+        ctypes.c_float,                   # scale
+        *[c_int] * 5,                     # hg dpc P L n_chunks
+        c_int, c_void_p]                  # device, stream
+    lib.mmlspark_paged_decode_launch.restype = c_int
+    lib.mmlspark_paged_decode_error_string.argtypes = [c_int]
+    lib.mmlspark_paged_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_decode_kernel() -> str:
+    """Build (if needed) and load the decode kernel and its combine;
+    returns nvcc's output as :func:`build_kernel` does."""
+    _decode_library()
+    return _LOADER_DECODE.build_log()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_of(q: torch.Tensor, k_pool: torch.Tensor,
+            rows: torch.Tensor) -> DecodePlan:
+    """:func:`decode_plan` for a call on these tensors (q at the pools'
+    width) on q's card."""
+    S, H, w, _ = q.shape
+    NB, BL, _, hd = k_pool.shape
+    return decode_plan(S, H, w, hd, BL, rows.shape[1], q.element_size(),
+                       _sm_count(q.device.index))
+
+
+def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, rows: torch.Tensor,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """Launch K3's split-KV decode kernel (``csrc/paged_decode.cu``) on
+    PyTorch's current stream, for windows of up to
+    :data:`DECODE_MAX_ROWS` rows, and, when :func:`decode_plan` cuts the
+    chain into more than one chunk, the combine after it. Raises as
+    :func:`paged_cuda` does, and for a wider window. Counts its launches in
+    ``.launches`` and the combine's in ``.combine_launches``.
+
+    Returns a ``[S, H, w, hd]`` view of a ``[S, w, H, hd]`` buffer."""
+    d = q.shape[-1]
+    q = pad_head_dim(q, k_pool.shape[-1])
+    _check_inputs(q, k_pool, v_pool, rows, pos)
+    _check_card("paged_decode_cuda", q, k_pool, v_pool)
+    S, H, w, hd = q.shape
+    if w > DECODE_MAX_ROWS:
+        raise ValueError(f"paged_decode_cuda takes windows of up to "
+                         f"{DECODE_MAX_ROWS} rows, got {w}; paged_cuda "
+                         "takes wider ones")
+    rows = rows.to(torch.int32).contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    out = torch.empty(S, w, H, hd, dtype=v_pool.dtype,
+                      device=q.device).permute(0, 2, 1, 3)
+    if S * H * w == 0:
+        return _unpad(out, d)
+    NB, BL = k_pool.shape[:2]
+    plan = plan_of(q, k_pool, rows)
+    part_acc = part_ml = None
+    if plan.n_chunks > 1:
+        # one scratch buffer: acc [S, n_chunks, H, w, hd], then (m, l)
+        rows_ = S * plan.n_chunks * H * w
+        scratch = torch.empty(rows_ * (hd + 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = scratch.data_ptr()
+        part_ml = part_acc + rows_ * hd * 4
+    lib = _decode_library()
+    err = lib.mmlspark_paged_decode_launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), rows.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), part_acc, part_ml,
+        _DTYPE_CODES[q.dtype], S, H, w, hd, NB, BL, rows.shape[1],
+        *q.stride()[:3], *out.stride()[:3], d ** -0.5, plan.hg, plan.dpc,
+        plan.P, plan.L, plan.n_chunks, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            "K3 split-KV decode kernel launch failed: "
+            f"{lib.mmlspark_paged_decode_error_string(err).decode()} "
+            f"(cudaError {err})")
+    paged_decode_cuda.launches += 1
+    if plan.n_chunks > 1:
+        paged_decode_cuda.combine_launches += 1
+    return _unpad(out, d)
+
+
+paged_decode_cuda.launches = paged_decode_cuda.combine_launches = 0
 
 
 # ------------------------------------------------------------- the switch
@@ -202,8 +439,17 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
     at global positions ``pos[s] + i`` over one layer's pools through the
     block table ``rows``; returns ``[S, H, w, hd]``.
 
-    Takes the kernel for CUDA tensors and the plain version for CPU
-    tensors. The TPU kernel's tiling knobs (``block_kv``, ``slots_tile``)
-    are not carried over: the CUDA kernel sizes its own tiles."""
-    return (paged_cuda if q.device.type == "cuda" else paged_torch)(
-        q, k_pool, v_pool, rows, pos)
+    For CUDA tensors, windows of up to :data:`DECODE_MAX_ROWS` rows (decode
+    and the verify window) take the split-KV decode kernel and wider ones
+    (prefill) the tiled window kernel; CPU tensors take the plain version.
+    The TPU kernel's tiling knobs (``block_kv``, ``slots_tile``) are not
+    carried over: the CUDA kernels size their own tiles."""
+    if not _route(q):
+        return paged_torch(q, k_pool, v_pool, rows, pos)
+    fn = paged_decode_cuda if q.shape[2] <= DECODE_MAX_ROWS else paged_cuda
+    return fn(q, k_pool, v_pool, rows, pos)
+
+
+def _route(q: torch.Tensor) -> bool:
+    """True for the kernels (CUDA tensors), False for the plain version."""
+    return q.device.type == "cuda"

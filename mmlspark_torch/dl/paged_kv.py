@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..obs import registry as _default_registry
-from .flash_attention import HEAD_DIMS, kernel_head_dim, pad_head_dim
+from .flash_attention import kernel_head_dim, pad_head_dim
 
 __all__ = ["PagedKVManager", "SequenceHandle", "OutOfBlocks", "TRASH_BLOCK",
            "blocks_for_hbm_budget", "init_pools", "paged_attention_enabled",
@@ -465,11 +465,10 @@ def blocks_for_hbm_budget(block_bytes: int, *, fraction: float = 0.5,
 
 def pool_head_dim(encoder) -> int:
     """The head dim of ``encoder``'s KV pools on every device: K3's
-    (``kernel_head_dim``: the next of 32/64/128/256), so the kernel reads
-    the pools in place and the extra columns stay zero. A head dim above
-    256 stays as it is (K3 raises for it on CUDA)."""
-    hd = encoder.width // encoder.heads
-    return kernel_head_dim(hd) if hd <= HEAD_DIMS[-1] else hd
+    (``kernel_head_dim``: the next of 32/64/128/256, above 256 the next
+    multiple of 128), so the kernels read the pools in place at any width
+    and the extra columns stay zero."""
+    return kernel_head_dim(encoder.width // encoder.heads)
 
 
 def pool_block_bytes(encoder, block_len: int) -> int:

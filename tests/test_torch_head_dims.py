@@ -1,31 +1,38 @@
-"""Head dims the CUDA attention kernels are not built for (16, 96, 192) run
-zero-padded to the next built one (32, 128, 256), scaled by the true
-``hd^-0.5``, and sliced back; 256 runs as it is.
+"""Head dims the CUDA attention kernels are not built for (16, 96, 192, 320)
+run zero-padded to the next kernel head dim (32, 128, 256, 384), scaled by
+the true ``hd^-0.5``, and sliced back; 256 and 512 run as they are. A head
+dim wider than the widest instance built for its dtype (256 in bf16, 128 in
+f32) runs on the wide instances (``csrc/attn_wide.cu``), split over D in
+chunks of 128 columns.
 
 Held on the CPU, in f32:
 - ``kernel_head_dim``: 1-32 → 32, 33-64 → 64, 65-128 → 128, 129-256 →
-  256, above raises; the kernels refuse f32 above 128 (their f32
-  instances stop there) with a message that names the limit;
+  256, above the next multiple of 128 (257-384 → 384, 385-512 → 512), with
+  no upper limit; f32 above 128 is not refused: it passes the checks and
+  reaches the wide instances;
 - ``pad_head_dim`` followed by the plain versions (forward, lse, the fused
   backward, K3) equals the plain versions unpadded, at hd 16 and 96, with
   the key mask and causal at offsets: atol 1e-6 (zero columns add exact
   zeros; the sums may group differently);
 - the kernel wrappers' own padding: ``flash_attention`` and
   ``flash_attention_lse`` under grad run ``_launch_forward`` and
-  ``_launch_backward`` against a stand-in for the compiled library that
+  ``_launch_backward`` against a stand-in for the compiled libraries that
   computes each launch with the plain version from the pointers, strides,
-  head dim and scale it is handed; o, lse and dq/dk/dv equal the unpadded
-  plain versions (atol 1e-5), and the stand-in saw only the built head
-  dims and the true scale;
+  head dim and scale it is handed, and each wide launch chunk by chunk as
+  the kernels split D (S, and dP, over every chunk; each output chunk
+  apart; the lse from chunk 0 only); o, lse and dq/dk/dv equal the
+  unpadded plain versions (atol 1e-5), and the stand-in saw only kernel
+  head dims, the true scale, and the wide library exactly where the head
+  dim is wider than the f32 instances;
 - through that route, ``TextEncoderFeaturizer(attentionImpl="pallas")`` at
-  width 32 and 192 with 2 heads (hd 16, 96), depth 2, equals the JAX
-  package's stage on the same weights (atol 1e-4, the text encoder tests'
-  f32 tolerance), and one SGD step of ``pretrain_masked_lm`` equals the JAX
-  package's (loss rtol 1e-4; parameters within 1e-5 of each tensor's
-  largest element);
+  every head dim above with 2 heads, depth 2, equals the JAX package's
+  stage on the same weights (atol 1e-4, the text encoder tests' f32
+  tolerance), and one SGD step of ``pretrain_masked_lm`` and of
+  ``pretrain_causal_lm`` equals the JAX package's (loss rtol 1e-4;
+  parameters within 1e-5 of each tensor's largest element);
 - the paged engine, whose pools are padded to the kernel's head dim on
-  every device, gives the JAX engine's greedy tokens exactly at hd 16 and
-  96;
+  every device, gives the JAX engine's greedy tokens exactly at every head
+  dim above;
 - the engine's block bytes count the pools as allocated (padded, the
   draft's included), so ``num_blocks=None`` keeps the pools within
   ``hbm_fraction`` of the free memory (on the card: a cuda-marked test).
@@ -66,7 +73,7 @@ from mmlspark_torch.models import (LoadedModel, masked_lm_from_flax,
 from mmlspark_torch.obs import MetricsRegistry
 from mmlspark_torch.serving import LLMEngine
 
-HDS = (16, 96, 192, 256)
+HDS = (16, 96, 192, 256, 320, 512)
 PAD_ATOL = 1e-6
 ROUTE_ATOL = 1e-5
 F32_ATOL = 1e-4
@@ -99,8 +106,13 @@ def test_kernel_head_dim():
     assert [k2.kernel_head_dim(d)
             for d in (1, 16, 32, 33, 64, 65, 96, 128, 129, 192, 256)] \
         == [32, 32, 32, 64, 64, 128, 128, 128, 256, 256, 256]
-    with pytest.raises(ValueError, match="up to 256"):
-        k2.kernel_head_dim(257)
+    assert [k2.kernel_head_dim(d) for d in (257, 320, 384, 385, 512)] \
+        == [384, 384, 384, 512, 512]
+    assert k2.kernel_head_dim(4000) == 4096     # no upper limit in code
+    assert [k2.wide_head_dim(d, torch.float32) for d in (128, 256, 384)] \
+        == [False, True, True]
+    assert [k2.wide_head_dim(d, torch.bfloat16) for d in (128, 256, 384)] \
+        == [False, False, True]
 
 
 def _on_card(*ts):
@@ -112,13 +124,21 @@ def _on_card(*ts):
 
 
 @pytest.mark.parametrize("hd", [160, 192, 256])
-def test_f32_kernels_refuse_head_dims_above_128(hd):
-    x = torch.zeros(1, 1, 4, hd)
-    with pytest.raises(ValueError, match="f32 kernels take head dims up to "
-                       "128"):
-        k2._check_kernel_inputs("flash_cuda", *_on_card(x, x, x))
-    y = x.to(torch.bfloat16)
-    k2._check_kernel_inputs("flash_cuda", *_on_card(y, y, y))
+def test_f32_kernels_refuse_head_dims_above_128(kernel_route, hd):
+    """The name is that of the refusal this test once pinned; it now checks
+    the repair, and does not expect a refusal: f32 above head dim 128
+    passes the kernels' checks and reaches the wide instances (two
+    128-column chunks at kernel head dim 256), equal to the plain
+    version."""
+    q, k, v, _, mask = qkv(hd, T=12, seed=hd)
+    k2._check_kernel_inputs("flash_cuda", *_on_card(q, k, v))
+    k2._check_kernel_inputs("flash_cuda", *_on_card(
+        *(t.to(torch.bfloat16) for t in (q, k, v))))
+    with torch.no_grad():
+        o = k2.flash_attention(q, k, v, mask)
+    np.testing.assert_allclose(o, k2.flash_torch(q, k, v, mask), rtol=0,
+                               atol=ROUTE_ATOL)
+    assert kernel_route.wide == {256} and kernel_route.dims == {256}
 
 
 @pytest.mark.parametrize("pos", CASES)
@@ -178,7 +198,7 @@ class _FakeLibrary:
     and computes with the plain versions at the scale it is handed."""
 
     def __init__(self):
-        self.dims, self.scales = set(), set()
+        self.dims, self.scales, self.wide = set(), set(), set()
 
     def _mask(self, ptr, B, T, sb):
         if ptr is None:
@@ -228,6 +248,66 @@ class _FakeLibrary:
             _view(dq, shape, (*st[4], 1))[...] = gq.numpy()
         return 0
 
+    # the wide instances: the same launches split over D in chunks of
+    # WIDE_CHUNK columns, each chunk's CTAs reducing S (and dP) over every
+    # chunk and writing only their own
+    def mmlspark_wide_flash_launch(self, q, k, v, mask, o, lse, dtype, B, H,
+                                   T, D, *rest):
+        strides = [rest[i:i + 3] for i in range(0, 12, 3)]
+        mask_sb, scale, causal, q_off, k_off = rest[12:17]
+        assert dtype == 1 and D % k2.WIDE_CHUNK == 0
+        self.wide.add(D)
+        self.dims.add(D)
+        self.scales.add(scale)
+        shape = (B, H, T, D)
+        q_, k_, v_ = (torch.from_numpy(np.array(_view(p, shape, (*st, 1))))
+                      for p, st in zip((q, k, v), strides))
+        m = self._mask(mask, B, T, mask_sb)
+        out = _view(o, shape, (*strides[3], 1))
+        for c in range(0, D, k2.WIDE_CHUNK):
+            cols = slice(c, c + k2.WIDE_CHUNK)
+            # the chunk's output: full-D scores, its own V columns
+            oc, l = k2.flash_lse_torch(q_, k_, v_[..., cols].contiguous()
+                                       .repeat(1, 1, 1, D // k2.WIDE_CHUNK),
+                                       m, causal=bool(causal),
+                                       q_offset=q_off, k_offset=k_off,
+                                       scale=scale)
+            out[..., cols] = oc[..., :k2.WIDE_CHUNK].numpy()
+            if lse is not None and c == 0:
+                _view(lse, (B * H * T,), (1,))[...] = l.reshape(-1).numpy()
+        return 0
+
+    def mmlspark_wide_bwd_launch(self, dkv, q, k, v, dout, mask, lse, dsum,
+                                 dq, dk, dv, dtype, B, H, T, D, strides,
+                                 mask_sb, scale, causal, q_off, k_off, *_):
+        assert dtype == 1 and D % k2.WIDE_CHUNK == 0
+        self.wide.add(D)
+        self.dims.add(D)
+        self.scales.add(scale)
+        shape = (B, H, T, D)
+        st = [tuple(strides[i:i + 3]) for i in range(0, 21, 3)]
+        ins = [torch.from_numpy(np.array(_view(p, shape, (*s, 1))))
+               for p, s in zip((q, k, v, dout), st)]
+        rows = [torch.from_numpy(np.array(_view(p, (B, H, T), (H * T, T, 1))))
+                for p in (lse, dsum)]
+        pos = dict(causal=bool(causal), q_offset=q_off, k_offset=k_off,
+                   scale=scale)
+        m = self._mask(mask, B, T, mask_sb)
+        # p and ds from every chunk (they need the whole D), then each
+        # output chunk from its own columns
+        p, ds = k2._plain_grads_of_scores(*ins[:3], m, ins[3], *rows, **pos)
+        for c in range(0, D, k2.WIDE_CHUNK):
+            cols = slice(c, c + k2.WIDE_CHUNK)
+            if dkv:
+                gk = torch.einsum("bhqk,bhqd->bhkd", ds, ins[0][..., cols])
+                gv = torch.einsum("bhqk,bhqd->bhkd", p, ins[3][..., cols])
+                _view(dk, shape, (*st[5], 1))[..., cols] = gk.numpy()
+                _view(dv, shape, (*st[6], 1))[..., cols] = gv.numpy()
+            else:
+                gq = torch.einsum("bhqk,bhkd->bhqd", ds, ins[1][..., cols])
+                _view(dq, shape, (*st[4], 1))[..., cols] = gq.numpy()
+        return 0
+
 
 @pytest.fixture
 def kernel_route(monkeypatch):
@@ -240,11 +320,10 @@ def kernel_route(monkeypatch):
         real_check(fn, *_on_card(q, k, v))
 
     monkeypatch.setattr(k2, "_check_kernel_inputs", check)
-    # the stand-in computes f32 at every head dim
-    monkeypatch.setattr(k2, "F32_HEAD_DIM_MAX", k2.HEAD_DIMS[-1])
     monkeypatch.setattr(k2, "_route", lambda q, impl: True)
     monkeypatch.setattr(k2, "_library", lambda: fake)
     monkeypatch.setattr(k2, "_library_bwd", lambda: fake)
+    monkeypatch.setattr(k2, "_library_wide", lambda: fake)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))
@@ -276,11 +355,13 @@ def test_wrappers_pad_and_scale_by_the_true_head_dim(kernel_route, hd, pos):
         np.testing.assert_allclose(g, w, rtol=0, atol=ROUTE_ATOL)
     assert kernel_route.dims == {k2.kernel_head_dim(hd)}
     assert kernel_route.scales == {hd ** -0.5}
+    assert kernel_route.wide == ({k2.kernel_head_dim(hd)} if hd > 128
+                                 else set())
 
 
-# ---------------------------------------- the slices at hd 16 and 96 vs JAX
+# ------------------------------------------- the slices at every hd vs JAX
 
-WIDTHS = {16: 32, 96: 192, 192: 384, 256: 512}  # 2 heads
+WIDTHS = {16: 32, 96: 192, 192: 384, 256: 512, 320: 640, 512: 1024}  # 2 heads
 T = 32
 
 

@@ -17,11 +17,26 @@ package.
   step, and the ``kv_*`` series, exactly;
 - ``SlotScheduler`` the same way, deadline shedding included;
 - ``MetricsRegistry``: snapshot and exposition of the same observations,
-  and histogram quantiles, exactly.
+  and histogram quantiles, exactly;
+- K3's split-KV decode kernel: ``decode_plan`` from the shape alone, its
+  chunks covering every live chain position of every slot exactly once
+  (block_len 8, 16 and 128, all-trash slots included), more than one chunk
+  at the smoke's decode shape, one for a short table and at least 132 CTAs
+  for one 4096-position chain; ``paged_window_attention`` routing windows
+  of up to 16 rows to the decode kernel and wider ones to the window kernel,
+  checked through a stand-in for the compiled libraries that computes each
+  launch from the pointers and strides it is handed (the decode kernel's
+  per-chunk partials written to the wrapper's scratch and merged from there,
+  the window kernel with ``paged_torch``), equal to ``paged_torch`` and the
+  JAX ``_paged_reference`` (f32, atol 1e-5).
 
-On the card, one ``cuda``-marked class holds ``paged_cuda`` and
-``flash_causal_cuda`` against their plain versions; it skips without a GPU.
+On the card, one ``cuda``-marked class holds ``paged_cuda``,
+``paged_decode_cuda`` and ``flash_causal_cuda`` against their plain
+versions; it skips without a GPU.
 """
+
+import ctypes
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,9 +48,11 @@ from mmlspark_tpu.dl.pallas_paged_attention import (_paged_pallas,
                                                     _paged_reference)
 from mmlspark_tpu.obs.metrics import MetricsRegistry as JRegistry
 from mmlspark_tpu.sched.continuous import SlotScheduler as JSlotScheduler
+import mmlspark_torch.dl.paged_attention as k3
 from mmlspark_torch.dl import paged_kv
 from mmlspark_torch.dl.flash_attention import flash_causal_cuda, flash_torch
-from mmlspark_torch.dl.paged_attention import (paged_cuda, paged_torch,
+from mmlspark_torch.dl.paged_attention import (decode_plan, paged_cuda,
+                                               paged_decode_cuda, paged_torch,
                                                paged_window_attention)
 from mmlspark_torch.obs import MetricsRegistry
 from mmlspark_torch.sched import SlotScheduler
@@ -268,6 +285,210 @@ class TestMetricsRegistry:
             pr.gauge("gen_tokens_total")
 
 
+# ------------------------------------------------- the split-KV decode plan
+
+H100_SMS = 132
+
+
+def chunk_positions(plan, pos: int, w: int, BL: int,
+                    rows) -> list[list[int]]:
+    """The chain positions each chunk of ``plan`` reads for one slot whose
+    window starts at ``pos`` with block-table row ``rows`` (block ids), as
+    the decode kernel walks them: live ones (not the trash block 0, below
+    the reachable end ``pos + w``), in chunk order."""
+    end = max(0, min(pos + w, len(rows) * BL))
+    return [[t for t in range(c * plan.L, min((c + 1) * plan.L, end))
+             if rows[t // BL] != 0]
+            for c in range(plan.n_chunks)]
+
+
+class TestDecodePlan:
+    @pytest.mark.parametrize("w", [1, 5])
+    @pytest.mark.parametrize("BL,MB", [(8, 12), (16, 6), (128, 2)])
+    def test_chunks_cover_every_live_position_once(self, BL, MB, w):
+        rng = np.random.default_rng(BL + w)
+        S = 6
+        rows = rng.integers(1, 50, size=(S, MB))
+        rows[-1] = 0                                   # an all-trash slot
+        rows[1, MB // 2:] = 0                          # trash padding
+        rows[2, 0] = 0                                 # a trash entry first
+        pos = rng.integers(0, MB * BL, size=S)
+        pos[0] = MB * BL - w                           # a full chain
+        for n_sm in (1, 8, H100_SMS):
+            plan = decode_plan(S, 8, w, 64, BL, MB, 2, n_sm)
+            assert plan.L % 16 == 0
+            assert (plan.n_chunks - 1) * plan.L < MB * BL \
+                <= plan.n_chunks * plan.L
+            for s in range(S):
+                chunks = chunk_positions(plan, int(pos[s]), w, BL,
+                                            list(rows[s]))
+                got = [t for c in chunks for t in c]
+                want = [t for t in range(min(pos[s] + w, MB * BL))
+                        if rows[s, t // BL] != 0]
+                assert got == want                     # each once, in order
+                for c, ts in enumerate(chunks):
+                    assert all(c * plan.L <= t < (c + 1) * plan.L for t in ts)
+            assert chunk_positions(plan, int(pos[-1]), w, BL,
+                                      list(rows[-1])) == \
+                [[] for _ in range(plan.n_chunks)]
+
+    def test_shapes_of_the_smoke(self):
+        # the decode shape: 32 slots of 256 blocks of 16, 8 heads of 64
+        dec = decode_plan(32, 8, 1, 64, 16, 256, 2, H100_SMS)
+        assert dec.n_chunks > 1 and dec.hg == 8 and dec.P == 16
+        assert H100_SMS <= dec.ctas <= 3 * H100_SMS
+        # one 4096-position chain: at least one CTA per SM
+        long = decode_plan(1, 8, 1, 64, 128, 32, 2, H100_SMS)
+        assert long.ctas >= H100_SMS
+        # a short table: one chunk, no combine
+        assert decode_plan(32, 8, 1, 64, 16, 1, 2, H100_SMS).n_chunks == 1
+        # wide heads: a CTA takes fewer heads or column groups, never more
+        # than 8 consumer warps
+        for D, w in ((512, 1), (512, 16), (4096, 1), (384, 5)):
+            plan = decode_plan(4, 8, w, D, 16, 16, 4, H100_SMS)
+            assert plan.hg * plan.dpc <= 8
+            assert plan.n_hg * plan.hg >= 8 and plan.n_dg * plan.dpc >= \
+                plan.dch
+            assert plan.dch * (128 if w <= 8 else 64) >= D
+
+
+# ------------------------------------ the switch's route, through a stand-in
+
+def _view(ptr, shape, strides, ctype=ctypes.c_float, dtype=np.float32):
+    """A numpy view of memory at ``ptr`` with element strides."""
+    n = 1 + sum((s - 1) * st for s, st in zip(shape, strides))
+    buf = np.ctypeslib.as_array((ctype * n).from_address(ptr))
+    item = np.dtype(dtype).itemsize
+    return np.lib.stride_tricks.as_strided(
+        buf.view(dtype), shape, [st * item for st in strides])
+
+
+def _contig(shape):
+    out, acc = [], 1
+    for s in reversed(shape):
+        out.append(acc)
+        acc *= s
+    return tuple(reversed(out))
+
+
+class _FakeLibraries:
+    """Stands in for K3's two compiled libraries on CPU f32 tensors: each
+    launch rebuilds its tensors from the pointers and strides it is
+    handed. The decode launch computes the per-chunk partials with the
+    plain first pass, writes them to the wrapper's scratch and merges them
+    from there (one chunk: o directly); the window launch runs
+    ``paged_torch``."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _inputs(self, q, kp, vp, rows, pos, S, H, w, D, NB, BL, MB, qs):
+        t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+        return (t(_view(q, (S, H, w, D), (*qs, 1))),
+                t(_view(kp, (NB, BL, H, D), _contig((NB, BL, H, D)))),
+                t(_view(vp, (NB, BL, H, D), _contig((NB, BL, H, D)))),
+                t(_view(rows, (S, MB), (MB, 1), ctypes.c_int32, np.int32)),
+                t(_view(pos, (S,), (1,), ctypes.c_int32, np.int32)))
+
+    def mmlspark_paged_decode_launch(self, q, kp, vp, rows, pos, o, pacc,
+                                     pml, dtype, S, H, w, D, NB, BL, MB,
+                                     q_ss, q_sh, q_sw, o_ss, o_sh, o_sw,
+                                     scale, hg, dpc, P, L, n_chunks, *_):
+        assert dtype == 1 and w <= k3.DECODE_MAX_ROWS
+        self.calls.append(("decode", w, n_chunks))
+        q_, kp_, vp_, rows_, pos_ = self._inputs(
+            q, kp, vp, rows, pos, S, H, w, D, NB, BL, MB, (q_ss, q_sh, q_sw))
+        m, l, acc = k3.paged_partials_torch(q_, kp_, vp_, rows_, pos_, L,
+                                            n_chunks, scale)
+        n_live = -(-(pos_.long() + w).clamp(0, MB * BL) // L)
+        if n_chunks > 1:                     # through the scratch
+            C = n_chunks
+            pa = _view(pacc, (S, C, H, w, D), _contig((S, C, H, w, D)))
+            ml = _view(pml, (S, C, H, w, 2), _contig((S, C, H, w, 2)))
+            pa[...] = acc.numpy()
+            ml[..., 0], ml[..., 1] = m.numpy(), l.numpy()
+            m, l, acc = (torch.from_numpy(np.array(ml[..., 0])),
+                         torch.from_numpy(np.array(ml[..., 1])),
+                         torch.from_numpy(np.array(pa)))
+        else:
+            n_live = torch.ones_like(n_live)
+        out = k3.paged_combine_torch(m, l, acc, n_live, torch.float32)
+        _view(o, (S, H, w, D), (o_ss, o_sh, o_sw, 1))[...] = out.numpy()
+        return 0
+
+    def mmlspark_paged_launch(self, q, kp, vp, rows, pos, o, dtype, S, H, w,
+                              D, NB, BL, MB, q_ss, q_sh, q_sw, o_ss, o_sh,
+                              o_sw, scale, *_):
+        assert dtype == 1 and scale == D ** -0.5
+        self.calls.append(("window", w, None))
+        out = paged_torch(*self._inputs(q, kp, vp, rows, pos, S, H, w, D, NB,
+                                        BL, MB, (q_ss, q_sh, q_sw)))
+        _view(o, (S, H, w, D), (o_ss, o_sh, o_sw, 1))[...] = out.numpy()
+        return 0
+
+
+@pytest.fixture
+def decode_route(monkeypatch):
+    """The switch's CUDA route on CPU f32 tensors: the stand-in libraries,
+    the device check on stand-ins that pass it, an H100's SM count."""
+    fake = _FakeLibraries()
+    real_check = k3._check_card
+
+    def on_card(t):
+        return types.SimpleNamespace(
+            device=torch.device("cuda"), dtype=t.dtype, shape=t.shape,
+            stride=t.stride, element_size=t.element_size,
+            is_contiguous=t.is_contiguous, data_ptr=lambda: 0)
+
+    monkeypatch.setattr(k3, "_check_card", lambda fn, *ts: real_check(
+        fn, *map(on_card, ts)))
+    monkeypatch.setattr(k3, "_route", lambda q: True)
+    monkeypatch.setattr(k3, "_decode_library", lambda: fake)
+    monkeypatch.setattr(k3, "_library", lambda: fake)
+    monkeypatch.setattr(k3, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    return fake
+
+
+class TestDecodeRoute:
+    @pytest.mark.parametrize("w,BL", [(1, 4), (5, 8), (16, 4), (17, 8),
+                                      (32, 4)])
+    def test_routes_by_window_and_matches_plain_and_jax(self, decode_route,
+                                                        w, BL):
+        q, kp, vp, rows, pos = paged_inputs(S=4, hd=32, w=w, BL=BL,
+                                            MB=-(-40 // BL), seed=w + BL)
+        before = (paged_decode_cuda.launches,
+                  paged_decode_cuda.combine_launches, paged_cuda.launches)
+        args = [torch.from_numpy(a) for a in (q, kp, vp, rows, pos)]
+        got = paged_window_attention(*args).numpy()
+        want = paged_torch(*args).numpy()
+        ref = np.asarray(_paged_reference(*[jnp.asarray(a) for a in
+                                            (q, kp, vp, rows, pos)]))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+        (kind, rows_w, chunks), = decode_route.calls
+        assert kind == ("decode" if w <= 16 else "window") and rows_w == w
+        after = (paged_decode_cuda.launches,
+                 paged_decode_cuda.combine_launches, paged_cuda.launches)
+        assert [a - b for a, b in zip(after, before)] == (
+            [1, int(chunks > 1), 0] if w <= 16 else [0, 0, 1])
+        if w <= 16:
+            assert chunks > 1                # the merge is exercised
+
+    def test_one_chunk_writes_o_directly(self, decode_route):
+        q, kp, vp, rows, pos = (torch.from_numpy(a) for a in paged_inputs(
+            S=4, hd=32, w=3, BL=4, MB=2, seed=9))
+        before = paged_decode_cuda.combine_launches
+        got = paged_window_attention(q, kp, vp, rows, pos)
+        np.testing.assert_allclose(got, paged_torch(q, kp, vp, rows, pos),
+                                   rtol=0, atol=1e-5)
+        assert decode_route.calls == [("decode", 3, 1)]
+        assert k3.plan_of(q, kp, rows).n_chunks == 1
+        assert paged_decode_cuda.combine_launches == before
+
+
 @pytest.mark.cuda
 class TestCudaKernels:
     def test_kernels_match_plain_on_card(self):
@@ -297,4 +518,26 @@ class TestCudaKernels:
                                    k_offset=offs[1])
                 torch.testing.assert_close(got.float(), want.float(),
                                            rtol=0, atol=atol)
+        torch.cuda.synchronize()
+
+    def test_decode_kernel_matches_plain_on_card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (the split-KV decode kernel is "
+                        "CUDA-only; its plan and route are held on the CPU)")
+        dev = torch.device("cuda")
+        for w, BL, MB in ((1, 8, 64), (5, 16, 32), (16, 128, 4), (3, 4, 2)):
+            for dtype, atol in ((torch.float32, ATOL),
+                                (torch.bfloat16, 2e-2)):
+                q, kp, vp, rows, pos = (torch.from_numpy(a).to(dev)
+                                        for a in paged_inputs(
+                                            S=6, hd=64, w=w, BL=BL, MB=MB,
+                                            seed=w))
+                q, kp, vp = (x.to(dtype) for x in (q, kp, vp))
+                got = paged_decode_cuda(q, kp, vp, rows, pos)
+                torch.testing.assert_close(
+                    got.float(), paged_torch(q, kp, vp, rows, pos).float(),
+                    rtol=0, atol=atol)
+                assert (got[-1] == 0).all()
+                assert torch.equal(got, paged_decode_cuda(q, kp, vp, rows,
+                                                          pos))
         torch.cuda.synchronize()

@@ -42,7 +42,8 @@ from chip_smoke import GEN_BATCH, GEN_T, TEXT_SHAPE, lm_model  # noqa: E402
 K2C, K3 = "K2c flash causal", "K3 paged attention"
 # device kernels by name, first match wins (flash_fwd_* is K2c when its
 # kCausal template flag is true)
-GROUPS = ((K3, ("paged_bf16", "paged_f32")),
+GROUPS = ((K3, ("paged_bf16", "paged_f32", "paged_decode",
+               "paged_combine")),
           ("f32 GEMMs (the LM head)", ("sgemm", "gemm_f32")),
           ("bf16 GEMMs (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass",
                                    "gemv")),
@@ -54,6 +55,19 @@ GROUPS = ((K3, ("paged_bf16", "paged_f32")),
           ("reductions", ("reduce",)),
           ("copies and fills", ("memcpy", "memset", "copy", "fill")),
           ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def zero_k3(k2, k3) -> None:
+    """Zero the launch counts of K2c and K3's kernels."""
+    k2.flash_causal_cuda.launches = k3.paged_cuda.launches = 0
+    k3.paged_decode_cuda.launches = k3.paged_decode_cuda.combine_launches = 0
+
+
+def k3_launches(k3) -> int:
+    """K3's kernel launches: the window kernel's, the decode kernel's and
+    its combine's (a decode call of more than one chunk launches both)."""
+    return (k3.paged_cuda.launches + k3.paged_decode_cuda.launches
+            + k3.paged_decode_cuda.combine_launches)
 
 
 def group_of(name: str) -> str:
@@ -133,14 +147,14 @@ def main() -> None:
     t0 = time.perf_counter()
     generate(model, prompts, max_new_tokens=1)
     wall = time.perf_counter() - t0
-    k2.flash_causal_cuda.launches = k3.paged_cuda.launches = 0
+    zero_k3(k2, k3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         generate(model, prompts, max_new_tokens=1)
         torch.cuda.synchronize()
     report(f"generate prefill ({GEN_BATCH} x {GEN_T - 1} prefix tokens and "
            "one decode step)", device_events(prof, torch), wall,
-           {K2C: k2.flash_causal_cuda.launches, K3: k3.paged_cuda.launches})
+           {K2C: k2.flash_causal_cuda.launches, K3: k3_launches(k3)})
 
     # ---- 2. steady decode steps of phase 11's round 3
     eng = LLMEngine(model, slots=16, block_len=16, max_seq_len=18 * 16,
@@ -175,7 +189,7 @@ def main() -> None:
         wall = time.perf_counter() - t0
     finally:
         torch.Tensor.cpu = real_cpu
-    k2.flash_causal_cuda.launches = k3.paged_cuda.launches = 0
+    zero_k3(k2, k3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
@@ -183,9 +197,12 @@ def main() -> None:
         torch.cuda.synchronize()
     report(f"decode step (16 slots, steady, {args.steps} steps)",
            device_events(prof, torch), wall,
-           {K2C: k2.flash_causal_cuda.launches, K3: k3.paged_cuda.launches},
+           {K2C: k2.flash_causal_cuda.launches, K3: k3_launches(k3)},
            per=args.steps)
-    print(f"  K3 launches per step {k3.paged_cuda.launches / args.steps:.1f}")
+    print(f"  K3 launches per step {k3_launches(k3) / args.steps:.1f} "
+          f"(decode kernel {k3.paged_decode_cuda.launches}, its combine "
+          f"{k3.paged_decode_cuda.combine_launches}, window kernel "
+          f"{k3.paged_cuda.launches})")
     step_ms = wall / args.steps * 1e3
     for name, secs in host.items():
         ms = secs / args.steps * 1e3
