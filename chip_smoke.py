@@ -18,12 +18,14 @@ kernels build), then:
    memory) and the card (``nvidia-smi`` name, power limit);
 2. holds K1 (``hist_cuda``) against ``hist_torch`` at the main path's
    shapes: the root histogram, a masked one (~30 % of rows) and a
-   ``count < n`` one whose rows past ``count`` are padding, and times both
-   beside ``index_add_`` alone and the bandwidth bound;
+   ``count < n`` one whose rows past ``count`` are padding, and times the
+   root and the masked scan beside ``index_add_`` alone and the bandwidth
+   bound;
 3. fits ``LightGBMClassifier`` (500,000 x 28, Higgs-shaped as in
    ``bench.py``'s GBDT workload; 31 leaves, 255 bins, 20 iterations) on the
    card through K1, transforms, and scores AUC with
-   ``ComputeModelStatistics``, counting K1 launches in the fit;
+   ``ComputeModelStatistics``, counting K1 launches in the fit and reading
+   K1's device time over one fit from ``torch.profiler``;
 4. fits again with the plain histogram on the card and holds the two fits
    together;
 5. holds K2a (``flash_cuda``) against ``flash_torch`` at the text path's
@@ -34,9 +36,9 @@ kernels build), then:
    and 512 in bf16 and f32 (16, 96, 192 and 320 zero-padded to the
    kernel's 32, 128, 256 and 384; above 256 in bf16 and 128 in f32 on the
    wide instances, split over D); times the wide instances beside their
-   plain versions (no limit); times the kernel, the plain version and
-   ``scaled_dot_product_attention`` (the library yardstick only) beside
-   the bound;
+   plain versions, their bounds and SDPA (no limit); times the kernel,
+   the plain version and ``scaled_dot_product_attention`` (the library
+   yardstick only) beside the bound;
 6. runs the text path at full width: 32 seeded documents of 1,024-2,048
    words → ``TokenIdEncoder(maxLength=2048, vocabSize=32768)`` →
    ``TextEncoderFeaturizer(attentionImpl="pallas")`` over a seeded
@@ -55,7 +57,8 @@ kernels build), then:
    at head dims 32, 64, 96 (padded), 128, 192 (padded), 256, 320 (padded)
    and 512 in bf16 and f32; checks that two K2d/K2e launches on the same
    inputs are bit-equal, at the wide head dims too; times the wide
-   instances (no limit), and each kernel, its plain
+   instances beside their plain versions, bounds and SDPA's forward and
+   backward (no limit), and each kernel, its plain
    version and ``scaled_dot_product_attention``'s forward and backward (the
    library yardstick only) beside the bound;
 8. runs masked-LM pretraining at full width: the documents →
@@ -88,14 +91,22 @@ kernels build), then:
    head dims 32, 128, 16 (pools padded to 32, as the engine allocates them),
    256, 192 (pools padded to 256), 320 (padded to 384) and 512, and holds
    the window kernel, called directly, on every one of those cases too (so
-   each of its instances meets a case); asserts the
+   each of its instances meets a case); holds the window kernel on windows
+   wider than 16 rows at the engine's prefill shapes (``w`` = 192 with one
+   and four slots, ``w`` = 32, tables of 18 blocks of 16), a warm suffix
+   over a 4096-position table (the plan splits the chain: partials and the
+   combine), ``w`` = 17, block lengths 4 and 12 (4-row boxes) and 5 at
+   head dim 32 (register copies), head dims 16, 32, 128, 192 and 256, both
+   dtypes; asserts the
    decode shape's plan has more than one chunk and the short table's one,
-   that two decode launches are bit-equal; times each beside its bound,
+   that two decode launches, and two window launches at the prefill
+   window and the split ones, are bit-equal; times each beside its bound,
    its plain version and a PyTorch yardstick
    (``scaled_dot_product_attention``; for K3 over a dense cache gathered
-   beforehand), the decode kernel beside the window kernel (the earlier K3)
-   at the decode and verify windows, and the per-kernel device times from
-   ``torch.profiler``;
+   beforehand), the window kernel with its plan and CTAs at the engine's
+   prefill shapes, the split one and the long prompt, the decode kernel
+   beside the window kernel at the decode and verify windows, and the
+   per-kernel device times from ``torch.profiler``;
 10. runs ``generate`` at full width: the causal LM of ``bench.py:896-930``
     (the encoder shape above with an f32 LM head, seeded weights, causal
     ``pallas`` attention) on 32 seeded prompts of 129 tokens with 128 new
@@ -110,8 +121,9 @@ kernels build), then:
     the 32 prompts of phase 10 at once (16 slots, ``block_len`` 16), self-
     draft speculation with ``spec_k=4``, and one 4064-token prompt with
     ``block_len`` 128, counting K3 launches per prefill batch and decode
-    step (the window kernel per prefill batch, the decode kernel per decode
-    step and verify) and re-scoring every output; K3 with ``pos`` ignored
+    step (the window kernel per prefill batch, its combine never: no table
+    here splits, the decode kernel per decode step and verify) and
+    re-scoring every output; K3 with ``pos`` ignored
     in both kernels (a planted fault) must fail the re-score limit; prints
     K3's per-step time at 4096 positions for both kernels; then an engine
     at head dim 16
@@ -128,7 +140,8 @@ kernels build), then:
     and lse -1e30 wherever no pair is allowed), at a ragged T=2000 in f32
     and at head dims 32/64/128/192/256/320/512 at T=300 (bf16 and f32),
     checks the causal K2d/K2e bit-equal over two launches, at the wide head
-    dims too; times the wide instances (no limit), and each beside
+    dims too; times the wide instances beside their plain versions, bounds
+    and SDPA (no limit), and each beside
     its plain version, its bound over the causally allowed valid pairs and
     ``scaled_dot_product_attention`` (with the causal key mask, and
     ``is_causal`` without it: yardsticks only);
@@ -355,10 +368,10 @@ def check_hist(torch, k1, name, bins, vals, B, count=None):
     return err
 
 
-_KERNEL = re.compile(r"(hist_kernel|flash_fwd_bf16|flash_fwd_f32|bwd_dq_bf16|"
-                     r"bwd_dkv_bf16|bwd_dq_f32|bwd_dkv_f32|paged_bf16|"
-                     r"paged_f32|paged_decode|paged_combine|wide_fwd|wide_dq|"
-                     r"wide_dkv)I(\w*?)E+v")
+_KERNEL = re.compile(r"(hist_partial|flash_fwd_bf16|flash_fwd_f32|"
+                     r"bwd_dq_bf16|bwd_dkv_bf16|bwd_dq_f32|bwd_dkv_f32|"
+                     r"paged_fwd_bf16|paged_f32|paged_decode|paged_combine|"
+                     r"wide_fwd|wide_dq|wide_dkv)I(\w*?)E+v|(hist_reduce)")
 
 
 def _template_args(mangled: str) -> list[str]:
@@ -383,8 +396,9 @@ def ptxas_summary(log: str) -> list[str]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = _KERNEL.search(line)
-            name = line.split("'")[1] if m is None else \
-                f"{m.group(1)}<" + ",".join(_template_args(m.group(2))) + ">"
+            name = (line.split("'")[1] if m is None else m.group(3) or
+                    f"{m.group(1)}<" + ",".join(_template_args(m.group(2)))
+                    + ">")
         elif "spill" in line and name is not None:
             spill = re.findall(r"(\d+) bytes spill", line)
             spills = "" if set(spill) <= {"0"} else \
@@ -401,14 +415,13 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 # ptxas spill bytes (stores, loads) each instance may show: what the bf16
-# backward redesign and K3's window kernel at head dim 32 left (PERF.md
-# §6); any other instance, the bf16 forward's included, none, and the
-# decode kernel's, its combine's and the wide instances' are listed at
-# none. More fails phase 1.
+# backward redesign left (PERF.md §6); any other instance, the bf16
+# forward's and K3's window kernel's included, none, and the decode
+# kernel's, its combine's and the wide instances' are listed at none. More
+# fails phase 1.
 SPILL_LIMITS = {"bwd_dkv_bf16<32,0>": (4, 4), "bwd_dkv_bf16<32,1>": (8, 20),
                 "bwd_dkv_bf16<64,0>": (4, 4), "bwd_dkv_bf16<128,1>": (64, 104),
                 "bwd_dkv_bf16<256,0>": (4, 4), "bwd_dkv_bf16<256,1>": (4, 4),
-                "paged_bf16<32>": (4, 16),
                 **{f"paged_decode<{t},{w}>": (0, 0) for t in ("bf16", "f32")
                    for w in (1, 8, 16)},
                 **{f"{k}<{t}{src}>": (0, 0) for t in ("bf16", "f32")
@@ -583,7 +596,8 @@ def text_phases(torch, k1, k2, dev, bw, flush, texts, lengths):
     for x, mask_w in wide_inputs(torch, gen, dev, 3):
         time_wide(torch, "phase 5", "K2a", x, lambda: k2.flash_cuda(
             *x, mask_w), lambda: k2.flash_torch(*x, mask_w),
-            4 * wide_pairs(mask_w, x[0].shape[1]), 4, bw, flush)
+            4 * wide_pairs(mask_w, x[0].shape[1]), 4, bw, flush,
+            wide_sdpa(torch, x, mask_w, flush=flush))
 
     ms = time_ms(lambda: k2.flash_cuda(q, k, v, mask), torch, flush=flush)
     plain_ms = time_ms(lambda: k2.flash_torch(q, k, v, mask), torch,
@@ -725,12 +739,30 @@ def wide_pairs(mask, H, causal=False):
     return H * mask.shape[1] * int(mask.sum())
 
 
+def wide_sdpa(torch, x, mask, causal=False, dout=None, flush=None):
+    """``scaled_dot_product_attention`` on the wide inputs ``x`` with the
+    kernels' mask (the key mask, and the causal one with ``causal``): its
+    forward alone, and with ``dout`` also its backward (forward + backward
+    less the forward), in ms: the library yardstick of the wide rows."""
+    allowed = mask[:, None, None, :]
+    if causal:
+        T = mask.shape[1]
+        allowed = allowed & torch.ones(T, T, dtype=torch.bool,
+                                       device=mask.device).tril()
+    if dout is None:
+        import torch.nn.functional as F
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            *x[:3], attn_mask=allowed), torch, runs=10, flush=flush)
+    return sdpa_times(torch, *x[:3], dout, flush, attn_mask=allowed)
+
+
 def time_wide(torch, phase, kid, x, run, plain, ops_per_d, n_tensors, bw,
-              flush):
-    """Time a wide-head-dim instance on ``x`` beside its plain version and
-    its bound (``ops_per_d`` x D operations at the card's peak for the
-    dtype: 989 TFLOP/s bf16, 67 TFLOP/s f32; ``n_tensors`` [B, H, T, D]
-    tensors moved). Prints the line; no limit is set."""
+              flush, library_ms):
+    """Time a wide-head-dim instance on ``x`` beside its plain version, its
+    bound (``ops_per_d`` x D operations at the card's peak for the dtype:
+    989 TFLOP/s bf16, 67 TFLOP/s f32; ``n_tensors`` [B, H, T, D] tensors
+    moved) and ``library_ms`` (SDPA's time on the same inputs, from
+    :func:`wide_sdpa`). Prints the line; no limit is set."""
     B, H, T, D = x[0].shape
     ms = time_ms(run, torch, runs=10, flush=flush)
     plain_ms = time_ms(plain, torch, runs=3, warmup=1, flush=flush)
@@ -742,8 +774,8 @@ def time_wide(torch, phase, kid, x, run, plain, ops_per_d, n_tensors, bw,
     print(f"{phase}: wide {kid} {str(x[0].dtype)[6:]} [{B}, {H}, {T}, {D}] "
           f"({D // 128} chunks of 128): {ms:.4f} ms; plain {plain_ms:.4f} "
           f"ms; bound {bound_ms:.4f} ms by {by} ({ops / 1e9:.1f} GFLOP at "
-          f"{67 if f32 else 989} TFLOP/s); median of CUDA-event runs, L2 "
-          "flushed")
+          f"{67 if f32 else 989} TFLOP/s); scaled_dot_product_attention "
+          f"{library_ms:.4f} ms; median of CUDA-event runs, L2 flushed")
 
 
 def compare_grads(phase, name, got, dense, verbose):
@@ -912,18 +944,19 @@ def wide_training_times(torch, k2, phase, dev, gen, bw, flush, causal):
         o, lse = k2.flash_lse_cuda(*x[:3], mask, **pos)
         args = (*x[:3], mask, x[3], lse, k2.flash_dsum(o, x[3]))
         fwd, kd, ke = KERNEL_IDS[causal]
+        lib_f, lib_b = wide_sdpa(torch, x, mask, causal, x[3], flush)
         time_wide(torch, phase, fwd, x,
                   lambda: k2.flash_lse_cuda(*x[:3], mask, **pos),
                   lambda: k2.flash_lse_torch(*x[:3], mask, **pos),
-                  4 * pairs, 4, bw, flush)
+                  4 * pairs, 4, bw, flush, lib_f)
         time_wide(torch, phase, kd, x,
                   lambda: k2.flash_dq_cuda(*args, **pos),
                   lambda: k2.flash_dq_torch(*args, **pos),
-                  6 * pairs, 5, bw, flush)
+                  6 * pairs, 5, bw, flush, lib_b)
         time_wide(torch, phase, ke, x,
                   lambda: k2.flash_dkv_cuda(*args, **pos),
                   lambda: k2.flash_dkv_torch(*args, **pos),
-                  8 * pairs, 6, bw, flush)
+                  8 * pairs, 6, bw, flush, lib_b)
 
 
 def deterministic(torch, k2, phase, q, k, v, dout, mask, causal):
@@ -1247,6 +1280,15 @@ def gbdt_phases(torch, k1, dev, bw, flush, args):
     if launches == 0 or len(set(fit_launches)) != 1:
         fail(f"K1 launches per fit {fit_launches}: expected the same "
              "nonzero count in every fit")
+    # K1's device time over one fit (both of its kernels), from the trace
+    fit_k1 = device_ms(torch, lambda: LightGBMClassifier(**kw).fit(df),
+                       ("hist_partial", "hist_reduce"), runs=1)
+    fit_k1_ms = fit_k1["hist_partial"] + fit_k1["hist_reduce"]
+    print(f"phase 3: K1 device time over one fit (torch.profiler) "
+          f"{fit_k1_ms:.3f} ms ({fit_k1['hist_partial']:.3f} partial "
+          f"histograms + {fit_k1['hist_reduce']:.3f} reductions) in "
+          f"{launches} calls, {fit_k1_ms / launches:.4f} ms a call; the root "
+          f"scan's time x {launches} would be {ms * launches:.3f} ms")
     model.transform(df)                           # warm-up transform
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1305,7 +1347,8 @@ def gbdt_phases(torch, k1, dev, bw, flush, args):
             "replaces": "mmlspark_tpu/lightgbm/pallas_hist.py:45",
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "masked_ms": ms_masked, "fit_device_ms": fit_k1_ms}
 
 
 # ---------------------------------------------------------------- LLM slice
@@ -1508,7 +1551,8 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
         time_wide(torch, "phase 9", "K2c", x,
                   lambda: k2.flash_causal_cuda(*x, mask_w),
                   lambda: k2.flash_torch(*x, mask_w, causal=True),
-                  4 * wide_pairs(mask_w, x[0].shape[1], True), 4, bw, flush)
+                  4 * wide_pairs(mask_w, x[0].shape[1], True), 4, bw, flush,
+                  wide_sdpa(torch, x, mask_w, True, flush=flush))
     k2c = {"name": "flash_causal", "route": "cuda",
            "source": "mmlspark_torch/dl/csrc/flash_attn.cu",
            "replaces": "mmlspark_tpu/dl/pallas_attention.py:142",
@@ -1544,7 +1588,39 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
              ("w=128 S=8 BL=16 hd=320 (window, pools padded to 384)", 76, 8,
               128, 16, 32, 320, False, False),
              ("w=64 S=8 BL=16 hd=512 (window)", 77, 8, 64, 16, 32, 512, False,
-              False)]
+              False),
+             # the window kernel at the engine's own prefill shapes (phase
+             # 11's tables: 18 blocks of 16), a warm suffix over a long
+             # cached prefix (the plan splits the chain), short block
+             # lengths (boxes under 8 rows; at hd 32 an odd one copies
+             # through registers), every head dim
+             ("w=192 S=1 BL=16 MB=18 (engine cold prefill)", 81, 1, 192, 16,
+              18, D, False, True),
+             ("w=192 S=4 BL=16 MB=18 (engine prefill batch)", 82, 4, 192, 16,
+              18, D, False, True),
+             ("w=32 S=1 BL=16 MB=18 (engine warm suffix)", 83, 1, 32, 16, 18,
+              D, False, True),
+             ("w=32 S=1 BL=16 MB=256 (warm suffix over a long prefix)", 84,
+              1, 32, 16, 256, D, False, True),
+             ("w=17 S=4 BL=8", 80, 4, 17, 8, 40, D, False, False),
+             ("w=40 S=4 BL=4 (4-row boxes)", 85, 4, 40, 4, 40, D, False,
+              False),
+             ("w=40 S=4 BL=12 (4-row boxes)", 86, 4, 40, 12, 20, D, False,
+              False),
+             ("w=40 S=4 BL=5 hd=32 (register copies)", 87, 4, 40, 5, 32, 32,
+              False, False),
+             ("w=64 S=8 BL=16 hd=32 (window)", 88, 8, 64, 16, 32, 32, False,
+              False),
+             ("w=64 S=8 BL=16 hd=128 (window)", 89, 8, 64, 16, 32, 128, False,
+              False),
+             ("w=64 S=8 BL=16 hd=16 (window, pools padded to 32)", 91, 8, 64,
+              16, 32, 16, False, False),
+             ("w=64 S=8 BL=16 hd=256 (window)", 90, 8, 64, 16, 32, 256, False,
+              False),
+             ("w=64 S=8 BL=16 hd=192 (window, pools padded to 256)", 92, 8, 64,
+              16, 32, 192, False, False),
+             ("w=32 S=1 BL=16 MB=256 hd=256 (split)", 93, 1, 32, 16, 256, 256,
+              False, False)]
     k3_err = {"decode": 0.0, "window": 0.0}
     records = {}
     for name, seed, S, w, BL, MB, hd, full, timed in cases:
@@ -1574,6 +1650,25 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
                 if not torch.equal(*runs):
                     fail(f"K3 {name}: two decode launches differ")
                 print(f"phase 9: K3 {name}: two decode launches bit-equal")
+        else:
+            plan = k3.window_plan_of(
+                k3.pad_head_dim(c["q"], c["k_pool"].shape[-1]), c["k_pool"],
+                c["rows"])
+            print(f"phase 9: K3 window plan {name}: {plan.n_qt} q tiles of "
+                  f"128 rows, {plan.n_chunks} chunks of {plan.L} positions, "
+                  f"{plan.ctas} CTAs")
+            if ("long prefix" in name or "(split)" in name) \
+                    and plan.n_chunks < 2:
+                fail(f"K3 {name}: the plan does not split the chain; the "
+                     "window kernel's partials and combine are not held")
+            if any(k in name for k in ("(prefill window)", "(split)",
+                                       "long prefix")):
+                runs = [k3.paged_cuda(*args) for _ in range(2)]
+                torch.cuda.synchronize()
+                if not torch.equal(*runs):
+                    fail(f"K3 {name}: two window kernel launches differ")
+                print(f"phase 9: K3 {name}: two window kernel launches "
+                      "bit-equal")
         if not timed:
             del c
             continue
@@ -1653,12 +1748,22 @@ def k3_timings(torch, k3, name, c, S, w, BL, MB, H, hd, kind, bw, flush):
     nbytes = (2 * int(c["nblk"].sum()) * BL * H * hd * 2
               + 2 * S * H * w * hd * 2)
     bound_ms, by = bound(4 * pairs * hd, nbytes, bw)
+    plan = ""
+    if kind == "window":
+        wp = k3.window_plan_of(k3.pad_head_dim(c["q"], c["k_pool"].shape[-1]),
+                               c["k_pool"], c["rows"])
+        dev_w = device_ms(torch, lambda: k3.paged_cuda(*args),
+                          ("paged_fwd", "paged_combine"), flush=flush)
+        plan = (f"; {wp.ctas} CTAs, {wp.n_chunks} chunk(s) of {wp.L} "
+                f"positions; device time (torch.profiler) "
+                f"{dev_w['paged_fwd']:.4f} ms + combine "
+                f"{dev_w['paged_combine']:.4f} ms")
     print(f"phase 9: K3 {kind} kernel bf16 {name}: {ms:.4f} ms; plain "
           f"{plain_ms:.4f} ms; scaled_dot_product_attention on the gathered "
           f"cache {lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {by} "
           f"({nbytes / 1e6:.2f} MB of reached K/V blocks, q and o; "
           f"{4 * pairs * hd / 1e9:.3f} GFLOP over {pairs} allowed pairs); "
-          "median of CUDA-event runs, L2 flushed")
+          f"median of CUDA-event runs, L2 flushed{plan}")
     print(f"phase 9: K3 {name}: the dense gather alone {gather_ms:.4f} ms")
     source = "mmlspark_torch/dl/csrc/"
     replaces = "mmlspark_tpu/dl/pallas_paged_attention.py:89"
@@ -1677,8 +1782,8 @@ def k3_timings(torch, k3, name, c, S, w, BL, MB, H, hd, kind, bw, flush):
     window_ms = time_ms(lambda: k3.paged_cuda(*args), torch, flush=flush)
     dev_ms = device_ms(torch, lambda: k3.paged_decode_cuda(*args),
                        ("paged_decode", "paged_combine"), flush=flush)
-    win_dev = device_ms(torch, lambda: k3.paged_cuda(*args), ("paged_bf16",),
-                        flush=flush)["paged_bf16"]
+    win_dev = device_ms(torch, lambda: k3.paged_cuda(*args), ("paged_fwd",),
+                        flush=flush)["paged_fwd"]
     print(f"phase 9: K3 {name}: decode kernel {ms:.4f} ms against the window "
           f"kernel (the earlier K3) {window_ms:.4f} ms, CUDA events around "
           f"the call; device time (torch.profiler) decode "
@@ -1771,6 +1876,8 @@ def counts(fns):
 def reset(fns):
     for fn in fns.values():
         fn.launches = 0
+        if hasattr(fn, "combine_launches"):
+            fn.combine_launches = 0
 
 
 def with_k2c_one_tile_late(k2, fn):
@@ -1900,7 +2007,18 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
             fail(f"{label}: launches {got}, expected {want} ({per_prefill} "
                  f"per prefill batch x {pb}, {per_step} per decode step x "
                  f"{st})")
+        hold_window_combine(label)
         return pb, st
+
+    def hold_window_combine(label):
+        """No prefill batch of these engines splits its chain: the tables
+        hold 288, 176 or 64 positions, under two chunks of 512, and the
+        long context's 4096-row window is 256 items, more than the SMs.
+        So the window kernel's combine runs 0 times."""
+        if k3.paged_cuda.combine_launches != 0:
+            fail(f"{label}: {k3.paged_cuda.combine_launches} combine "
+                 "launches after the window kernel, expected 0 (no engine "
+                 "table here plans more than one chunk)")
 
     reg = MetricsRegistry()
     max_seq = 18 * 16
@@ -1933,6 +2051,7 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
         fail(f"rounds 1-2: launches {got}, K3 window + decode {k3_sum}, "
              f"expected K2c and K2a 0 and K3 {depth} x ({pb} prefill batches "
              f"+ {st} decode steps)")
+    hold_window_combine("rounds 1-2")
     snap = reg.snapshot()
     hits = snap.get(f'kv_prefix_hits_total{{service="{svc}"}}', 0.0)
     misses = snap.get(f'kv_prefix_misses_total{{service="{svc}"}}', 0.0)

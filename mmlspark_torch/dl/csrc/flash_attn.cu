@@ -58,7 +58,10 @@
 // at 700 W (`chip_smoke.py`), 3.0x SDPA's time for K2a.
 //
 // Design now, bf16 (the f32 path below is the tight check of the same
-// algorithm and keeps the simple design):
+// algorithm and keeps the simple design). The kernel body is in
+// flash_fwd.cuh, shared with K3's window kernel (paged_attn.cu), which
+// runs it with a paged key source; this file's `Dense` source supplies the
+// dense K and V tiles, the key mask's validity words and the epilogue:
 //  - A persistent grid, one CTA per SM, walks the work items (b*h, 128-row
 //    q tile). A CTA is two consumer warpgroups, which own 64 query rows of
 //    an item each, and one producer warp, 288 threads at one CTA per SM,
@@ -128,7 +131,7 @@
 //  - A wait that does not complete within ~2^24 polls traps, so a fault in
 //    a copy ends the launch with an error instead of hanging the card.
 
-#include "flash_common.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
@@ -175,325 +178,93 @@ __device__ __forceinline__ bool key_valid(const Params& p, int b, int key) {
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int kBQ = 128;  // query rows per CTA: 64 per consumer warpgroup
-// two consumer warpgroups, and one producer warp (a producer warpgroup
-// with setmaxnreg at D = 256, see Tile): one CTA per SM
-constexpr int kConsumerThreads = 2 * kWgThreads;
-
-// shared-memory layout of one head dim: two Q buffers, then STAGES of
-// (K, V), then each stage's four validity words, then the barriers
-template <int D>
-struct Tile : Swz<D> {
-  // keys per tile: 64 at D = 128 keeps the score and output accumulators
-  // (BK/2 + D/2 registers a thread) small; 128-key tiles spilled at
-  // D = 128 in the one 3-warpgroup attempt (see the note above); 32 at
-  // D = 256, where the output accumulator alone is 128 registers
-  static constexpr int BK = D == 256 ? 32 : D == 128 ? 64 : 128;
-  static constexpr int NW = BK / 32;          // validity words per tile
-  // 4 stages in flight; 3 at D = 256, where two Q buffers take 128 KB
-  static constexpr int STAGES = D == 256 ? 3 : 4;
-  static constexpr int Q_BYTES = kBQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;  // one of K or V
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int META = STAGES * 16;
-  static constexpr int BARS = (2 * STAGES + 4) * 8;  // + Q full/empty x 2
-  // + 1024: the dynamic base is rounded up to the swizzle atom; Q is
-  // double-buffered, so the next work item's Q loads during this one
-  static constexpr int SMEM =
-      1024 + 2 * Q_BYTES + STAGES * STAGE_BYTES + META + BARS;
-  // D = 256: a producer warpgroup and setmaxnreg (the 168 registers of a
-  // 288-thread CTA spilled there); the other head dims fit without
-  static constexpr bool WIDE = D == 256;
-  static constexpr int THREADS = kConsumerThreads + (WIDE ? kWgThreads : 32);
-  static_assert(SMEM <= 232448, "more shared memory than a CTA may have");
-};
-
-// O += P V over one key tile in steps of 16 keys, V read MN-major from the
-// stage at `vs`; issued and committed as one group
-template <int D>
-__device__ __forceinline__ void pv_products(float (&acc)[D / 2],
-                                            const uint32_t (&pa)[Tile<D>::BK /
-                                                                 16][4],
-                                            uint32_t vs) {
+// The dense key source of flash_fwd.cuh's kernel body: K and V [B, H, T, D]
+// views read by TMA in tiles of BK rows, keys valid by the key mask.
+template <int D, bool kLse_, bool kCausal_>
+struct Dense {
+  using Params = ::Params;
   using C = Tile<D>;
+  static constexpr bool kLse = kLse_, kCausal = kCausal_;
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr int kExtraSmem = 0;
+
+  __device__ static void prepare(const Params&, uint8_t*, uint8_t*) {}
+
+  // CTA i takes items i, i + grid, ...
+  __device__ static int walk(int k) { return blockIdx.x + k * gridDim.x; }
+
+  __device__ static int n_work(const Params& p) {
+    return (p.T + kBQ - 1) / kBQ * p.BH;
+  }
+
+  // work item w -> (b*h, q tile): causal takes every head's last q tile
+  // first (the longest rows: the longest-first order balances the
+  // persistent CTAs), the rest go head by head so that a head's q tiles
+  // run together and share its K and V in L2
+  __device__ static bool item(const Params& p, const uint8_t*, int w,
+                              Item& it) {
+    const int n_qt = (p.T + kBQ - 1) / kBQ;
+    int bh;
+    if (kCausal) {
+      it.qt = n_qt - 1 - w / p.BH;
+      bh = w % p.BH;
+    } else {
+      bh = w / n_qt;
+      it.qt = w % n_qt;
+    }
+    it.b = bh / p.H;
+    it.h = bh % p.H;
+    const int n = (p.T + C::BK - 1) / C::BK;
+    it.kt0 = 0;
+    it.kt1 = kCausal ? reach_tiles(p, it.qt * kBQ + kBQ - 1, C::BK, n) : n;
+    it.Tq = p.T;
+    it.lim_max = p.T;
+    it.shift = p.qk_shift;
+    it.part = 0;
+    return true;
+  }
+
+  __device__ static void tile_words(const Params& p, const Item& it, int k0,
+                                    int lane, uint32_t (&wv)[C::NW]) {
 #pragma unroll
-  for (int kk = 0; kk < C::BK / 16; ++kk)
-    wgmma_rs<D, D>(acc, pa[kk], vs, C::BK, kk, 0);
-  wg_commit();
-}
+    for (int i = 0; i < C::NW; ++i)
+      wv[i] = __ballot_sync(0xffffffffu,
+                            key_valid(p, it.b, k0 + 32 * i + lane));
+  }
+
+  __device__ static void copy_tile(const Params&, const Item& it, int k0,
+                                   int lane, uint32_t ks, uint32_t bar,
+                                   const CUtensorMap* tk,
+                                   const CUtensorMap* tv) {
+    if (lane != 0) return;
+    mbar_expect_tx(bar, C::STAGE_BYTES);
+    tma_rows<D>(ks, tk, bar, C::BK, k0, it.h, it.b);
+    tma_rows<D>(ks + C::KV_BYTES, tv, bar, C::BK, k0, it.h, it.b);
+  }
+
+  __device__ static void epilogue(const Params& p, const Item& it,
+                                  const float (&acc)[D / 2], float m_lo,
+                                  float m_hi, float l_lo, float l_hi,
+                                  int r_lo, int r_hi, int t4) {
+    const int T = p.T;
+    if (kLse && t4 == 0) {
+      // natural-log units; l = 0 only for a row with no allowed key
+      float* lse = p.lse + static_cast<long long>(it.b * p.H + it.h) * T;
+      if (r_lo < T) lse[r_lo] = l_lo > 0.f ? m_lo * p.scale + logf(l_lo) : kNeg;
+      if (r_hi < T) lse[r_hi] = l_hi > 0.f ? m_hi * p.scale + logf(l_hi) : kNeg;
+    }
+    store_o<D>(static_cast<__nv_bfloat16*>(p.o) + it.b * p.o_sb +
+                   it.h * p.o_sh,
+               p.o_st, acc, l_lo, l_hi, r_lo, r_hi, t4, T);
+  }
+};
 
 template <int D, bool kLse, bool kCausal>
 __global__ void __launch_bounds__(Tile<D>::THREADS, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
-  using C = Tile<D>;
-  constexpr int BK = C::BK;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t q_s = base;                   // Q buffer i at + i * Q_BYTES
-  const uint32_t kv_s = base + 2 * C::Q_BYTES;  // stage s: K, then V
-  const uint32_t meta_off = 2 * C::Q_BYTES + C::STAGES * C::STAGE_BYTES;
-  uint32_t* const meta =
-      reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + meta_off);
-  const uint32_t bars = base + meta_off + C::META;
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (C::STAGES + s); };
-  auto qfull = [&](int i) { return bars + 8u * (2 * C::STAGES + i); };
-  auto qempty = [&](int i) { return bars + 8u * (2 * C::STAGES + 2 + i); };
-
-  const int tid = threadIdx.x;
-  const int T = p.T;
-  const int n_qt = (T + kBQ - 1) / kBQ;
-  const int n_work = n_qt * p.BH;
-  // work item w -> (b*h, q tile): causal takes every head's last q tile
-  // first (the longest rows: the longest-first order balances the
-  // persistent CTAs), the rest go head by head so that a head's q tiles
-  // run together and share its K and V in L2
-  auto work_at = [&](int w, int& bh, int& qt) {
-    if (kCausal) {
-      qt = n_qt - 1 - w / p.BH;
-      bh = w % p.BH;
-    } else {
-      bh = w / n_qt;
-      qt = w % n_qt;
-    }
-  };
-  auto tiles_of = [&](int qt) {
-    const int n = (T + BK - 1) / BK;
-    return kCausal ? reach_tiles(p, qt * kBQ + kBQ - 1, BK, n) : n;
-  };
-
-  if (tid == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(full(s), 1);   // the producer's one arrival (+ the bytes)
-      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
-    }
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(qfull(i), 1);
-      mbar_init(qempty(i), 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (tid >= kConsumerThreads) {
-    // ---------------------------------------------------------- producer
-    if constexpr (C::WIDE) {
-      producer_regs();
-      if (tid >= kConsumerThreads + 32) return;  // one warp issues copies
-    }
-    const int lane = tid - kConsumerThreads;
-    int stage = 0;
-    uint32_t phase = 0;
-    int it = 0;
-    for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
-      int bh, qt;
-      work_at(w, bh, qt);
-      const int b = bh / p.H, h = bh % p.H;
-      // Q into buffer it % 2 once the consumers are done with the Q two
-      // items back: the next item's Q loads while this one is consumed
-      if (lane == 0) {
-        const int qb = it & 1;
-        mbar_wait(qempty(qb), ((it >> 1) & 1) ^ 1);
-        mbar_expect_tx(qfull(qb), C::Q_BYTES);
-        tma_rows<D>(q_s + qb * C::Q_BYTES, &tq, qfull(qb), kBQ, qt * kBQ, h,
-                    b);
-      }
-      const int n_tiles = tiles_of(qt);
-      for (int kt = 0; kt < n_tiles; ++kt) {
-        const int k0 = kt * BK;
-        uint32_t wv[C::NW], any = 0;
-#pragma unroll
-        for (int i = 0; i < C::NW; ++i) {
-          wv[i] = __ballot_sync(0xffffffffu,
-                                key_valid(p, b, k0 + 32 * i + lane));
-          any |= wv[i];
-        }
-        if (lane == 0) {
-          mbar_wait(empty(stage), phase ^ 1);
-          uint32_t* m = meta + 4 * stage;
-#pragma unroll
-          for (int i = 0; i < C::NW; ++i) m[i] = wv[i];
-          if (any) {
-            mbar_expect_tx(full(stage), C::STAGE_BYTES);
-            const uint32_t ks = kv_s + stage * C::STAGE_BYTES;
-            tma_rows<D>(ks, &tk, full(stage), BK, k0, h, b);
-            tma_rows<D>(ks + C::KV_BYTES, &tv, full(stage), BK, k0, h, b);
-          } else {
-            mbar_arrive(full(stage));  // no valid key: no copy, same list
-          }
-        }
-        if (++stage == C::STAGES) stage = 0, phase ^= 1;
-      }
-    }
-    return;
-  }
-
-  // ------------------------------------------------------------ consumers
-  if constexpr (C::WIDE) consumer_regs();
-  const int cw = tid / kWgThreads;  // this warpgroup: rows 64 * cw + ...
-  const int t = tid % kWgThreads;
-  const int warp = t >> 5, lane = t & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row / column pair
-  const float scale2 = p.scale * kLog2e;
-  int stage = 0;
-  uint32_t phase = 0;
-  int it = 0;
-  for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
-    int bh, qt;
-    work_at(w, bh, qt);
-    const int b = bh / p.H, h = bh % p.H;
-    const int n_tiles = tiles_of(qt);
-    const int wg_row0 = qt * kBQ + 64 * cw;
-    const int r_lo = wg_row0 + warp * 16 + g, r_hi = r_lo + 8;
-    // causal: the last key the first and the last row of the warpgroup reach
-    const long long reach_first = wg_row0 + p.qk_shift;
-    const long long reach_last = wg_row0 + 63 + p.qk_shift;
-    // causal: key column 8j + e of this thread's pairs is allowed iff
-    // 8j + e <= row limit - k0 - 2 * t4
-    const int lim_lo = row_limit(p, r_lo) - 2 * t4;
-    const int lim_hi = row_limit(p, r_hi) - 2 * t4;
-    const int qb = it & 1;
-    const uint32_t qa = q_s + qb * C::Q_BYTES + 64 * cw * C::ROWB;
-
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    float m_lo = kNeg, m_hi = kNeg;  // running max of the raw scores
-    float l_lo = 0.f, l_hi = 0.f;    // this thread's share of the running sum
-
-    mbar_wait(qfull(qb), (it >> 1) & 1);
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int k0 = kt * BK;
-      mbar_wait(full(stage), phase);
-      const uint32_t* mw = meta + 4 * stage;
-      uint32_t w[C::NW], any = 0, all = 0xffffffffu;
-#pragma unroll
-      for (int i = 0; i < C::NW; ++i) {
-        w[i] = mw[i];
-        any |= w[i];
-        all &= w[i];
-      }
-      // a warpgroup with no row before T, or (causal) none that reaches the
-      // tile, only releases it
-      const bool reach = wg_row0 < T && (!kCausal || k0 <= reach_last);
-      if (any != 0 && reach) {
-        const uint32_t ks = kv_s + stage * C::STAGE_BYTES;
-        const uint32_t vs = ks + C::KV_BYTES;
-        float s[BK / 2];
-#pragma unroll
-        for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
-        keep(s);
-        keep(acc);
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<BK>(s, kmajor<D>(qa, kBQ, kk), kmajor<D>(ks, BK, kk),
-                       kk > 0);
-        wg_commit();
-        wg_wait0();
-        keep(s);
-        const bool diag = kCausal && k0 + BK - 1 > reach_first;
-        const bool full = !diag && all == 0xffffffffu;
-        if (!full) {
-          const int d_lo = lim_lo - k0, d_hi = lim_hi - k0;
-#pragma unroll
-          for (int i = 0; i < C::NW; ++i) w[i] >>= 2 * t4;
-#pragma unroll
-          for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const bool valid = (w[j / 4] >> (8 * (j % 4) + e)) & 1u;
-              const bool ok_lo = valid && (!diag || 8 * j + e <= d_lo);
-              const bool ok_hi = valid && (!diag || 8 * j + e <= d_hi);
-              s[4 * j + e] = ok_lo ? s[4 * j + e] : kNeg;
-              s[4 * j + 2 + e] = ok_hi ? s[4 * j + 2 + e] : kNeg;
-            }
-          }
-        }
-        float mx_lo = kNeg, mx_hi = kNeg;
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
-          mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-        }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-        }
-        const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-        const float ms_lo = mn_lo * scale2, ms_hi = mn_hi * scale2;
-        const float corr_lo = ex2((m_lo - mn_lo) * scale2);
-        const float corr_hi = ex2((m_hi - mn_hi) * scale2);
-        m_lo = mn_lo;
-        m_hi = mn_hi;
-        float ps_lo = 0.f, ps_hi = 0.f;
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& a = s[4 * j + e];
-            float& c = s[4 * j + 2 + e];
-            const float pa_ = ex2(fmaf(a, scale2, -ms_lo));
-            const float pc_ = ex2(fmaf(c, scale2, -ms_hi));
-            a = full || a > kNeg ? pa_ : 0.f;
-            c = full || c > kNeg ? pc_ : 0.f;
-            ps_lo += a;
-            ps_hi += c;
-          }
-        }
-        l_lo = l_lo * corr_lo + ps_lo;
-        l_hi = l_hi * corr_hi + ps_hi;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          acc[4 * j] *= corr_lo;
-          acc[4 * j + 1] *= corr_lo;
-          acc[4 * j + 2] *= corr_hi;
-          acc[4 * j + 3] *= corr_hi;
-        }
-        uint32_t pa[BK / 16][4];
-        to_a_frags<BK>(pa, s);
-        keep(acc);
-        keep(pa);
-        wg_fence();
-        pv_products<D>(acc, pa, vs);
-        wg_wait0();
-        keep(acc);
-        keep(pa);
-      }
-      release(empty(stage), lane);
-      if (++stage == C::STAGES) stage = 0, phase ^= 1;
-    }
-    release(qempty(qb), lane);  // the products that read this Q are done
-
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-    }
-    const float den_lo = fmaxf(l_lo, 1e-35f), den_hi = fmaxf(l_hi, 1e-35f);
-    if (kLse && t4 == 0) {
-      // natural-log units; l = 0 only for a row with no allowed key
-      float* lse = p.lse + static_cast<long long>(bh) * T;
-      if (r_lo < T) lse[r_lo] = l_lo > 0.f ? m_lo * p.scale + logf(l_lo) : kNeg;
-      if (r_hi < T) lse[r_hi] = l_hi > 0.f ? m_hi * p.scale + logf(l_hi) : kNeg;
-    }
-    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
-                        h * p.o_sh;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = j * 8 + t4 * 2;
-      if (r_lo < T)
-        *reinterpret_cast<uint32_t*>(ob + r_lo * p.o_st + c) =
-            pack_bf16(acc[4 * j] / den_lo, acc[4 * j + 1] / den_lo);
-      if (r_hi < T)
-        *reinterpret_cast<uint32_t*>(ob + r_hi * p.o_st + c) =
-            pack_bf16(acc[4 * j + 2] / den_hi, acc[4 * j + 3] / den_hi);
-    }
-  }  // work items
+  fwd_bf16_body<D, Dense<D, kLse, kCausal>>(tq, tk, tv, p);
 }
 
 // ----------------------------------------------------------------- f32 path

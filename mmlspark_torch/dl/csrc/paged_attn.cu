@@ -1,12 +1,12 @@
-// K3: paged window attention over the block table, hand-written for Hopper
-// (sm_90a).
+// K3's window kernel: paged window attention over the block table,
+// hand-written for Hopper (sm_90a), for windows wider than the decode
+// kernel's (paged_decode.cu, w <= 16): the engine's prefill batches.
 //
 // Replaces the Pallas TPU kernel `_paged_kernel`
 // (mmlspark_tpu/dl/pallas_paged_attention.py:89, launched by `_paged_pallas`
-// at :199). For each slot s, head h and window row i (w rows per slot: w = 1
-// for decode, k + 1 for the speculative verify window, the bucketed suffix
-// for a prefill window) it computes softmax attention of q [S, H, w, hd] over
-// the slot's chain of pool blocks:
+// at :199). For each slot s, head h and window row i (w rows per slot: the
+// bucketed suffix of a prefill window; any w >= 1 is taken) it computes
+// softmax attention of q [S, H, w, hd] over the slot's chain of pool blocks:
 //   chain position t lives in block rows[s, t / BL] at offset t % BL of the
 //   pools k, v [NB, BL, H, hd]; a chain entry equal to the trash block (0) is
 //   skipped whole, whatever pos says (so is an id outside [0, NB), which the
@@ -16,48 +16,77 @@
 //   f32, o = acc / max(l, 1e-35) in v's dtype, so a slot whose row is all
 //   trash (an inactive slot, a padded prefill row) writes exactly 0.
 //
-// What bounds it on an H100: bytes. Decode (w = 1) reads each reached K/V
-// row once for 4*hd flops per head and row: 2 flops per byte in bf16, far
-// below the ~295 at which the tensor cores would bind; a long prefill window
-// (w = 4096 over a 4096-token chain) is 4*P*hd flops over the allowed pairs P
-// against the same bytes, and there operations bind.
+// What bounds it on an H100: at the prefill shapes, bytes. A window of w
+// rows over a chain of c positions reads 4 * c * hd bytes of K and V per
+// head for 4 * hd * (w * c - w^2 / 2) flops, about w flops a byte: below
+// the ~295 at which the tensor cores bind in bf16 until w passes ~300
+// rows, so at the phase-9
+// window (w = 128 over chains of up to 4096 positions) the bytes bind, and
+// the long prompt (w = 4096 over a 4096-position chain, 4096^2 / 2 allowed
+// pairs a head) is bound by operations.
 //
-// Design (right and simple first; split-KV flash-decoding, TMA and wgmma
-// are later work):
-//  - Head dims 32, 64, 128 and 256 (bf16; f32 up to 128). D = 256 takes
-//    32-key tiles and reads q's fragments at each use instead of holding
-//    them in registers.
-//  - One CTA of 4 warps per (slot * head, 64-row window tile). A window is
-//    tiled, so the one kernel serves decode, the verify window and prefill
-//    windows up to w = 4096; the TPU kernel keeps all H*w rows in VMEM at
-//    once, which this card's shared memory cannot at w = 4096.
-//  - The TPU's scalar-prefetched table driving each BlockSpec becomes a
-//    lookup per key: for each 64-key tile of chain positions, 64 threads
-//    read the table entry of their key into shared memory (any BL >= 1;
-//    the engine runs 8, 16 and 128), then the tile's K rows are staged
-//    row-major and its V rows transposed from wherever the table puts them.
-//    No dense gather of the chain.
-//  - A tile whose keys are all trash or past the last reachable position is
-//    skipped: its update is the identity. The loop stops at the tile holding
-//    pos[s] + (the tile's last row).
-//  - bf16: both products are mma.sync.m16n8k16 bf16 -> f32 as in K2a, with
-//    the score accumulator as the PV product's A operand; decode uses 1 of
-//    the 64 rows of a CTA's tile (15 of 16 rows of each mma wasted): recorded,
-//    not fixed here. f32: 4 threads per window row, 32-row tiles, 32-key
-//    tiles, plain FMA.
-//  - q is read through its strides (a view of the fused qkv projection) and
-//    o is written through its own (the wrapper hands back a [S, H, w, hd]
-//    view of a [S, w, H, hd] buffer, so the head merge needs no copy).
+// The first design (right and simple first) ran one CTA of 4 warps
+// per (slot * head, 64-row tile) on mma.sync, staging each 64-key tile
+// through registers (K row by row, V transposed by hand) with nothing in
+// flight during the products; every q tile read the slot's K and V again.
+// It took 0.4971 ms at the phase-9 window, 2.6x SDPA on a dense cache
+// gathered beforehand. Design now, bf16 (f32, below, keeps the simple
+// design as the tight check of the same algorithm):
+//  - The window kernel is the flash forward of flash_attn.cu with a paged
+//    key source: one kernel body (flash_fwd.cuh) runs both. Persistent
+//    CTAs (one per SM) of two consumer warpgroups (64 rows each, wgmma for
+//    S = Q K^T and O += P V, the online softmax in registers with exp2)
+//    and a producer warp feeding a ring of 4 stages of (K, V) tiles (128
+//    keys; 64 at hd 128, 32 in 3 stages at hd 256) on mbarriers; a work
+//    item is (slot, head, 128-row q tile[, chain chunk]), so a window of
+//    up to 128 rows reads each K/V tile of its (slot, head) once. Causal on
+//    global positions: the item's shift is pos[s], a row's last key
+//    pos[s] + i, and the walk stops at the tile holding the q tile's last
+//    row's position, as K2c's does.
+//  - A balanced walk: the items' lengths are data (the slots' positions),
+//    so every CTA first ranks the (slot, q tile) rows by the key tiles
+//    they reach, longest first, and the CTAs take items in a snake (i, 2
+//    grid - 1 - i, ...); at the phase-9 window (32 slots of 128 to 4096
+//    positions) that cut the kernel's time by about 40 %
+//    (tools/probe_kernel_variants.py, PERF.md §6).
+//  - K and V by TMA through the table: each pool is a rank-4 tensor map over
+//    [NB, BL, H, hd] (dims hd, BL, H, NB), and a box of R rows x 1 head x
+//    64 columns (R = gcd(BL, tile keys), 1 to 128) is R positions of one
+//    pool block: one box per block and column box of a tile, sent by the
+//    producer's lanes in parallel, landing with the 128-byte swizzle the
+//    wgmma descriptors read (64-byte at hd 32; the swizzle follows the
+//    shared-memory address, so boxes of fewer rows than an atom land
+//    right). A trash entry, an id outside
+//    [1, NB) or a position past the table reads block NB, out of the map's
+//    bounds: TMA fills zeros without touching memory, so those keys cost no
+//    bytes, their V rows are zeros (a masked p of 0 never meets stale
+//    shared memory), and the producer's validity words mask them. At hd
+//    32 an odd block length (a one-row box of 64 bytes, where a copy must
+//    start on 128) is copied by the producer's lanes through registers
+//    into the same swizzled layout (a proxy fence, then the stage's
+//    arrival).
+//  - Too few items to fill the card (slots x heads x q tiles short of the
+//    SM count, as a warm suffix over a long cached prefix gives): the chain
+//    is cut into chunks of L positions (a multiple of 128, at least 512),
+//    planned from the shape alone (`paged_attention.window_plan`); each
+//    (item, chunk) writes its f32 (m, l, acc) partials to scratch the
+//    wrapper allocates, and the decode kernel's combine (paged_decode.cu,
+//    `paged_combine`) merges the live chunks in chunk order. A chunk past
+//    a slot's reachable end is skipped by both sides. No atomics: two
+//    launches give the same bits.
+//  - q is read through its strides by a tensor map (a view of the fused qkv
+//    projection; rows past w read as zeros) and o is written through its own
+//    (the wrapper hands back a [S, H, w, hd] view of a [S, w, H, hd] buffer,
+//    so the head merge needs no copy).
+//  - Head dims 32, 64, 128 and 256 (bf16; f32 up to 128; wider pools run on
+//    attn_wide.cu). Every mbarrier wait traps after 2^24 polls rather than
+//    hang the card.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "flash_fwd.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;  // the TPU kernel's _NEG
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;   // the f32 path's CTA
 constexpr int kTrash = 0;       // paged_kv.TRASH_BLOCK
 
 struct Params {
@@ -96,232 +125,258 @@ __device__ __forceinline__ int chain_end(const Params& p, int pos,
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ16 = 16 * kWarps;  // window rows per CTA
+struct WindowParams {
+  const void* k_pool;  // [NB, BL, H, D] contiguous (the register copies)
+  const void* v_pool;
+  const int* rows;     // [S, MB] int32 contiguous
+  const int* pos;      // [S] int32
+  void* o;             // [S, H, w, D], strides o_ss, o_sh, o_sw
+  float* part_acc;     // [S, n_chunks, H, w, D] f32 (n_chunks > 1)
+  float* part_ml;      // [S, n_chunks, H, w, 2] f32: (m, l)
+  int S, H, w, NB, BL, MB;
+  int R;               // rows of a K/V box (0: copies through registers)
+  int L, n_chunks;     // chain positions per chunk (a multiple of 128)
+  long long o_ss, o_sh, o_sw;
+  float scale;
+};
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+__device__ __forceinline__ bool live_block(const WindowParams& p, int blk) {
+  return blk != kTrash && blk > 0 && blk < p.NB;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
+// the 16-byte store of x at a shared-memory address
+__device__ __forceinline__ void st_shared16(uint32_t addr, const uint4& x) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+               : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t r;
-  memcpy(&r, &v, sizeof(r));
-  return r;
-}
+// The paged key source of flash_fwd.cuh's kernel body: the slot's chain of
+// pool blocks through the table, keys valid where their block is live.
+template <int D>
+struct Paged {
+  using Params = WindowParams;
+  using C = Tile<D>;
+  static constexpr bool kLse = false, kCausal = true;
+  // D = 256: the producer's table reads and copies spilled in the 24
+  // registers the dense source leaves it (and in 40)
+  static constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+  // the walk's order of (slot, q tile) rows, longest first: up to
+  // kMaxRows of them (more keep the plain order)
+  static constexpr int kMaxRows = 256;
+  static constexpr int kExtraSmem = kMaxRows * 2;
+
+  __device__ static int n_work(const Params& p) {
+    return (p.w + kBQ - 1) / kBQ * p.S * p.H * p.n_chunks;
+  }
+
+  // the key tiles row (slot s, q tile qt) reaches: up to its last row's
+  // position, within the table
+  __device__ static int reach_tiles(const Params& p, int s, int qt) {
+    const long long cap = static_cast<long long>(p.MB) * p.BL;
+    const long long reach =
+        min(static_cast<long long>(p.pos[s]) + min(qt * kBQ + kBQ, p.w), cap);
+    return reach <= 0 ? 0 : static_cast<int>((reach + C::BK - 1) / C::BK);
+  }
+
+  // The order of the rows in the walk: by the tiles they reach, most first
+  // (ties by index), so that with `walk`'s snake every CTA gets about the
+  // same number of tiles whatever the slots' lengths. Each CTA ranks the
+  // same keys the same way, so all agree on the order.
+  __device__ static void prepare(const Params& p, uint8_t* table,
+                                 uint8_t* scratch) {
+    const int n_qt = (p.w + kBQ - 1) / kBQ;
+    const int n_rows = p.S * n_qt;
+    if (n_rows > kMaxRows) return;
+    int* key = reinterpret_cast<int*>(scratch);
+    uint16_t* order = reinterpret_cast<uint16_t*>(table);
+    for (int r = threadIdx.x; r < n_rows; r += blockDim.x)
+      key[r] = reach_tiles(p, r / n_qt, r % n_qt);
+    __syncthreads();
+    for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
+      const int kr = key[r];
+      int rank = 0;
+      for (int j = 0; j < n_rows; ++j)
+        rank += key[j] > kr || (key[j] == kr && j < r);
+      order[rank] = static_cast<uint16_t>(r);
+    }
+    __syncthreads();  // the order is read, and the scratch reused, later
+  }
+
+  // a snake over the CTAs: CTA i takes items i, 2 grid - 1 - i, 2 grid +
+  // i, ..., so a CTA with a long item early gets a short one next
+  __device__ static int walk(int k) {
+    return k * gridDim.x +
+           ((k & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  }
+
+  // work item w -> (row, head, chunk), a row's heads and chunks as
+  // neighbours; the rows in `prepare`'s order (where there are more than
+  // kMaxRows: every slot's last q tile first). False for a chunk past the
+  // slot's reachable end: no partial of it is read.
+  __device__ static bool item(const Params& p, const uint8_t* table, int w,
+                              Item& it) {
+    const int n_qt = (p.w + kBQ - 1) / kBQ;
+    const int n_rows = p.S * n_qt;
+    it.part = w % p.n_chunks;
+    w /= p.n_chunks;
+    it.h = w % p.H;
+    const int j = w / p.H;
+    if (n_rows <= kMaxRows) {
+      const int r = reinterpret_cast<const uint16_t*>(table)[j];
+      it.b = r / n_qt;
+      it.qt = r % n_qt;
+    } else {
+      it.b = j % p.S;
+      it.qt = n_qt - 1 - j / p.S;
+    }
+    const int pos = p.pos[it.b];
+    const long long cap = static_cast<long long>(p.MB) * p.BL;
+    const long long end = min(static_cast<long long>(pos) + p.w, cap);
+    const int c0 = it.part * p.L;
+    if (p.n_chunks > 1 && c0 >= end) return false;
+    const int n_reach = reach_tiles(p, it.b, it.qt);
+    it.kt0 = c0 / C::BK;
+    it.kt1 = max(it.kt0, min(it.kt0 + p.L / C::BK, n_reach));
+    it.Tq = p.w;
+    it.lim_max = static_cast<int>(cap);
+    it.shift = pos;
+    return true;
+  }
+
+  __device__ static void tile_words(const Params& p, const Item& it, int k0,
+                                    int lane, uint32_t (&wv)[C::NW]) {
+    const int* row_s = p.rows + static_cast<long long>(it.b) * p.MB;
+    const int cap = p.MB * p.BL;
+#pragma unroll
+    for (int i = 0; i < C::NW; ++i) {
+      const int t = k0 + 32 * i + lane;
+      wv[i] = __ballot_sync(0xffffffffu,
+                            t < cap && live_block(p, row_s[t / p.BL]));
+    }
+  }
+
+  __device__ static void copy_tile(const Params& p, const Item& it, int k0,
+                                   int lane, uint32_t ks, uint32_t bar,
+                                   const CUtensorMap* tk,
+                                   const CUtensorMap* tv) {
+    const int* row_s = p.rows + static_cast<long long>(it.b) * p.MB;
+    if (p.R > 0) {
+      // one box of R positions per block of the tile (R divides BL and
+      // BK), K and V, each column box, the lanes taking boxes in turn; a
+      // dead block reads block NB, out of the map: zeros, no bytes from
+      // memory
+      if (lane == 0) mbar_expect_tx(bar, C::STAGE_BYTES);
+      __syncwarp();
+      for (int j = lane; j < C::BK / p.R; j += 32) {
+        const int t = k0 + j * p.R;
+        const int bi = t / p.BL;
+        const int blk = bi < p.MB ? row_s[bi] : kTrash;
+        const int nb = live_block(p, blk) ? blk : p.NB;
+        const uint32_t dst = ks + j * p.R * C::ROWB;
+#pragma unroll
+        for (int c = 0; c < C::NCH; ++c) {
+          const uint32_t d = dst + c * C::BK * C::ROWB;
+          tma_load(d, tk, bar, c * C::CW, t % p.BL, it.h, nb);
+          tma_load(d + C::KV_BYTES, tv, bar, c * C::CW, t % p.BL, it.h, nb);
+        }
+      }
+      return;
+    }
+    // an odd block length at 64-byte rows: 16-byte vectors through
+    // registers into the swizzled layout TMA would write (zeros for dead
+    // positions), a proxy fence so the wgmma reads see them, one arrival
+    constexpr int VEC = D / 8;
+    constexpr int N = C::BK * VEC / 32;  // vectors of K (and of V) a lane
+    // loads in flight a lane before its stores (fewer at D = 256, whose
+    // producer holds kProducerRegs registers)
+    constexpr int G = D == 256 ? 2 : 4;
+    static_assert(N % G == 0, "a lane's vectors in whole groups");
+    const int cap = p.MB * p.BL;
+    const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(p.k_pool);
+    const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v_pool);
+    for (int i0 = 0; i0 < N; i0 += G) {
+      uint4 kx[G], vx[G];
+      uint32_t a[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int i = lane + 32 * (i0 + j);
+        const int r = i / VEC, col = (i % VEC) * 8;
+        const int t = k0 + r;
+        const int blk = t < cap ? row_s[t / p.BL] : kTrash;
+        kx[j] = vx[j] = make_uint4(0u, 0u, 0u, 0u);
+        if (live_block(p, blk)) {
+          const long long off =
+              ((static_cast<long long>(blk) * p.BL + t % p.BL) * p.H + it.h) *
+                  D + col;
+          kx[j] = *reinterpret_cast<const uint4*>(kp + off);
+          vx[j] = *reinterpret_cast<const uint4*>(vp + off);
+        }
+        a[j] = ks + (col / C::CW) * C::BK * C::ROWB + r * C::ROWB +
+               (col % C::CW) * 2;
+        // the 128-byte swizzle XORs address bits 4-6 with bits 7-9, the
+        // 64-byte one bits 4-5 with bits 7-8 (the stage is 1024-aligned)
+        a[j] ^= ((a[j] >> 7) & (C::SWZ == 1 ? 7u : 3u)) << 4;
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        st_shared16(a[j], kx[j]);
+        st_shared16(a[j] + C::KV_BYTES, vx[j]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  }
+
+  __device__ static void epilogue(const Params& p, const Item& it,
+                                  const float (&acc)[D / 2], float m_lo,
+                                  float m_hi, float l_lo, float l_hi,
+                                  int r_lo, int r_hi, int t4) {
+    if (p.n_chunks == 1) {
+      store_o<D>(static_cast<__nv_bfloat16*>(p.o) + it.b * p.o_ss +
+                     it.h * p.o_sh,
+                 p.o_sw, acc, l_lo, l_hi, r_lo, r_hi, t4, p.w);
+      return;
+    }
+    // (s, chunk, h, row) is partial row ((s * n_chunks + chunk) * H + h)
+    // * w + row, as paged_decode.cu's combine reads them
+    const long long row0 =
+        (static_cast<long long>(it.b * p.n_chunks + it.part) * p.H + it.h) *
+        p.w;
+    const bool lo = r_lo < p.w, hi = r_hi < p.w;
+    float* a_lo = p.part_acc + (row0 + r_lo) * D;
+    float* a_hi = p.part_acc + (row0 + r_hi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + t4 * 2;
+      if (lo)
+        *reinterpret_cast<float2*>(a_lo + c) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (hi)
+        *reinterpret_cast<float2*>(a_hi + c) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    if (t4 == 0) {
+      if (lo) {
+        p.part_ml[2 * (row0 + r_lo)] = m_lo;
+        p.part_ml[2 * (row0 + r_lo) + 1] = l_lo;
+      }
+      if (hi) {
+        p.part_ml[2 * (row0 + r_hi)] = m_hi;
+        p.part_ml[2 * (row0 + r_hi) + 1] = l_hi;
+      }
+    }
+  }
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) paged_bf16(const Params p) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  // chain positions per tile: 64, or 32 at D = 256, where the K and V^T
-  // tiles of 64 would take 70 KB of static shared memory (48 KB at most)
-  constexpr int kBK16 = D == 256 ? 32 : 64;
-  // q's A fragments stay in registers up to D = 128; at D = 256 (64
-  // registers beside the 128 of the output accumulator) they are read from
-  // q through the cache at each use
-  constexpr bool kQRegs = D <= 128;
-  constexpr int KP = D + 8;      // K tile row pitch (elements)
-  constexpr int VP = kBK16 + 8;  // V^T tile row pitch (elements)
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK16 * KP];
-  __shared__ __align__(16) __nv_bfloat16 vt[D * VP];
-  __shared__ long long krow[kBK16];
-  __shared__ uint8_t live[kBK16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int s = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int w = p.w;
-  const int row0 = blockIdx.y * kBQ16;
-  const int r_lo = row0 + warp * 16 + g;
-  const int r_hi = r_lo + 8;
-  const int t_end = chain_end(p, p.pos[s], min(w - 1, row0 + kBQ16 - 1));
-  // the last chain position each of this thread's rows may attend, clamped
-  // below t_end (beyond it no key is live)
-  const int lim_lo = min(p.pos[s] + min(r_lo, w), t_end);
-  const int lim_hi = min(p.pos[s] + min(r_hi, w), t_end);
-
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) +
-                            s * p.q_ss + h * p.q_sh;
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(p.k_pool);
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v_pool);
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + s * p.o_ss +
-                      h * p.o_sh;
-
-  // the A fragment of q's 16 columns at kk * 16
-  auto q_frag = [&](uint32_t(&f)[4], int kk) {
-    const int c = kk * 16 + t4 * 2;
-    const __nv_bfloat16* lo = qb + r_lo * p.q_sw + c;
-    const __nv_bfloat16* hi = qb + r_hi * p.q_sw + c;
-    f[0] = r_lo < w ? ld32(lo) : 0u;
-    f[1] = r_hi < w ? ld32(hi) : 0u;
-    f[2] = r_lo < w ? ld32(lo + 8) : 0u;
-    f[3] = r_hi < w ? ld32(hi + 8) : 0u;
-  };
-  uint32_t qf[kQRegs ? D / 16 : 1][4];
-  if constexpr (kQRegs) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) q_frag(qf[kk], kk);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_lo = kNeg, m_hi = kNeg;
-  float l_lo = 0.f, l_hi = 0.f;
-
-  const int n_tiles = (t_end + kBK16 - 1) / kBK16;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int t0 = kt * kBK16;
-    __syncthreads();  // the previous tile is consumed
-    long long r = -1;
-    if (tid < kBK16) {
-      r = pool_row(p, s, h, t0 + tid, t_end);
-      krow[tid] = r;
-      live[tid] = r >= 0;
-    }
-    if (!__syncthreads_or(r >= 0)) continue;  // all trash or past the end
-
-    constexpr int VEC = D / 8;  // 16-byte vectors per row
-    for (int i = tid; i < kBK16 * VEC; i += kThreads) {
-      const int rr = i / VEC, c = (i % VEC) * 8;
-      const long long pr = krow[rr];
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (pr >= 0) x = *reinterpret_cast<const uint4*>(kp + pr * D + c);
-      *reinterpret_cast<uint4*>(&ks[rr * KP + c]) = x;
-    }
-    for (int i = tid; i < kBK16 * VEC; i += kThreads) {
-      const int rr = i % kBK16, c = (i / kBK16) * 8;
-      const long long pr = krow[rr];
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (pr >= 0) x = *reinterpret_cast<const uint4*>(vp + pr * D + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(c + j) * VP + rr] = e[j];
-    }
-    __syncthreads();
-
-    float sc[kBK16 / 8][4];
-    if constexpr (kQRegs) {
-#pragma unroll
-      for (int n = 0; n < kBK16 / 8; ++n) {
-        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const __nv_bfloat16* kr = &ks[(n * 8 + g) * KP + kk * 16 + t4 * 2];
-          mma_bf16(sc[n], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
-                   ld32(kr), ld32(kr + 8));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < kBK16 / 8; ++n)
-        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t f[4];
-        q_frag(f, kk);
-#pragma unroll
-        for (int n = 0; n < kBK16 / 8; ++n) {
-          const __nv_bfloat16* kr = &ks[(n * 8 + g) * KP + kk * 16 + t4 * 2];
-          mma_bf16(sc[n], f[0], f[1], f[2], f[3], ld32(kr), ld32(kr + 8));
-        }
-      }
-    }
-
-    // key n * 8 + e of this thread's columns is allowed for a row iff
-    // n * 8 + e <= that row's limit less t0 + t4 * 2
-    const int d_lo = lim_lo - t0 - t4 * 2, d_hi = lim_hi - t0 - t4 * 2;
-    float mx_lo = kNeg, mx_hi = kNeg;
-#pragma unroll
-    for (int n = 0; n < kBK16 / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = n * 8 + t4 * 2 + e;
-        const bool ok_lo = live[c] && n * 8 + e <= d_lo;
-        const bool ok_hi = live[c] && n * 8 + e <= d_hi;
-        sc[n][e] = ok_lo ? sc[n][e] * p.scale : kNeg;
-        sc[n][2 + e] = ok_hi ? sc[n][2 + e] * p.scale : kNeg;
-        mx_lo = fmaxf(mx_lo, sc[n][e]);
-        mx_hi = fmaxf(mx_hi, sc[n][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float corr_lo = expf(m_lo - mn_lo), corr_hi = expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float ps_lo = 0.f, ps_hi = 0.f;
-#pragma unroll
-    for (int n = 0; n < kBK16 / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = n * 8 + t4 * 2 + e;
-        const bool ok_lo = live[c] && n * 8 + e <= d_lo;
-        const bool ok_hi = live[c] && n * 8 + e <= d_hi;
-        sc[n][e] = ok_lo ? expf(sc[n][e] - mn_lo) : 0.f;
-        sc[n][2 + e] = ok_hi ? expf(sc[n][2 + e] - mn_hi) : 0.f;
-        ps_lo += sc[n][e];
-        ps_hi += sc[n][2 + e];
-      }
-    }
-    l_lo = l_lo * corr_lo + ps_lo;
-    l_hi = l_hi * corr_hi + ps_hi;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr_lo;
-      acc[n][1] *= corr_lo;
-      acc[n][2] *= corr_hi;
-      acc[n][3] *= corr_hi;
-    }
-
-#pragma unroll
-    for (int j = 0; j < kBK16 / 16; ++j) {
-      const uint32_t a0 = pack_bf16(sc[2 * j][0], sc[2 * j][1]);
-      const uint32_t a1 = pack_bf16(sc[2 * j][2], sc[2 * j][3]);
-      const uint32_t a2 = pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]);
-      const uint32_t a3 = pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vr = &vt[(n * 8 + g) * VP + j * 16 + t4 * 2];
-        mma_bf16(acc[n], a0, a1, a2, a3, ld32(vr), ld32(vr + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float den_lo = fmaxf(l_lo, 1e-35f), den_hi = fmaxf(l_hi, 1e-35f);
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + t4 * 2;
-    if (r_lo < w)
-      *reinterpret_cast<uint32_t*>(ob + r_lo * p.o_sw + c) =
-          pack_bf16(acc[n][0] / den_lo, acc[n][1] / den_lo);
-    if (r_hi < w)
-      *reinterpret_cast<uint32_t*>(ob + r_hi * p.o_sw + c) =
-          pack_bf16(acc[n][2] / den_hi, acc[n][3] / den_hi);
-  }
+__global__ void __launch_bounds__(Tile<D>::THREADS, 1)
+    paged_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const WindowParams p) {
+  fwd_bf16_body<D, Paged<D>>(tq, tk, tv, p);
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -427,21 +482,61 @@ __global__ void __launch_bounds__(kThreads) paged_f32(const Params p) {
   }
 }
 
+// ------------------------------------------------------------------ launch
+
 template <int D>
-cudaError_t launch_dtype(const Params& p, int dtype, int sh, cudaStream_t s) {
-  if (dtype == 0) {
-    const dim3 grid(sh, (p.w + kBQ16 - 1) / kBQ16);
-    paged_bf16<D><<<grid, kThreads, 0, s>>>(p);
-    return cudaGetLastError();
+int launch_bf16(WindowParams p, const void* q, long long q_ss,
+                long long q_sh, long long q_sw, cudaStream_t s) {
+  using C = Tile<D>;
+  // boxes of R = gcd(BL, BK) positions, down to one: TMA swizzles by the
+  // shared-memory address, so a box of fewer rows than a swizzle atom
+  // lands as the atom's rows would; but a copy must start on 128 bytes,
+  // so at 64-byte rows (hd 32) an odd block length copies through
+  // registers instead
+  int R = C::BK;
+  while (p.BL % R != 0) R >>= 1;
+  p.R = R * C::ROWB % 128 == 0 ? R : 0;
+  CUtensorMap tq, tk, tv;
+  int err = encode_view<D>(&tq, q, p.S, p.H, p.w, q_ss, q_sh, q_sw, kBQ);
+  if (err == 0 && p.R > 0) {
+    const long long st = static_cast<long long>(p.H) * D;
+    err = encode_view<D>(&tk, p.k_pool, p.NB, p.H, p.BL, p.BL * st, D, st,
+                         p.R);
+    if (err == 0)
+      err = encode_view<D>(&tv, p.v_pool, p.NB, p.H, p.BL, p.BL * st, D, st,
+                           p.R);
+  } else {
+    tk = tv = tq;  // not read: the register copies take the pools
   }
+  if (err != 0) return err;
+  auto kernel = paged_fwd_bf16<D>;
+  // the shared-memory opt-in, once per instance and device; a persistent
+  // grid: one CTA per SM walks the work items
+  static unsigned long long opted = 0;
+  int n_sm = 0;
+  constexpr int smem = C::SMEM + Paged<D>::kExtraSmem;
+  static_assert(smem <= 232448, "more shared memory than a CTA may have");
+  err = persistent_setup(reinterpret_cast<const void*>(kernel), smem, opted,
+                         n_sm);
+  if (err != 0) return err;
+  const long long work = static_cast<long long>((p.w + kBQ - 1) / kBQ) *
+                         p.S * p.H * p.n_chunks;
+  if (work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(work < n_sm ? work : n_sm);
+  kernel<<<grid, C::THREADS, smem, s>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32(const Params& p, int sh, cudaStream_t s) {
   // f32 is built for D <= 128: its K and V tiles of 32 rows would take
   // 64 KB of static shared memory at D = 256 (48 KB at most)
   if constexpr (D > 128) {
-    return cudaErrorInvalidValue;
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     const dim3 grid(sh, (p.w + kBQ32 - 1) / kBQ32);
     paged_f32<D><<<grid, kThreads, 0, s>>>(p);
-    return cudaGetLastError();
+    return static_cast<int>(cudaGetLastError());
   }
 }
 
@@ -449,25 +544,56 @@ cudaError_t launch_dtype(const Params& p, int dtype, int sh, cudaStream_t s) {
 
 extern "C" {
 
-// Launch K3 on `stream` (a cudaStream_t from PyTorch) on device `device`.
-// dtype: 0 = bf16, 1 = f32 (q, the pools and o all of it). q and o are
-// [S, H, w, D] with the given strides (elements; unit stride on D); the
-// pools [NB, BL, H, D] contiguous; rows [S, MB] and pos [S] int32
-// contiguous. D must be 32, 64, 128 or (bf16 only) 256. Returns the
-// cudaError_t of the launch.
+// Launch K3's window kernel on `stream` (a cudaStream_t from PyTorch) on
+// device `device`. dtype: 0 = bf16, 1 = f32 (q, the pools and o all of
+// it). q and o are [S, H, w, D] with the given strides (elements; unit
+// stride on D; bf16 q 16-byte aligned, as its tensor map needs); the pools
+// [NB, BL, H, D] contiguous and 16-byte aligned; rows [S, MB] and pos [S]
+// int32 contiguous. D must be 32, 64, 128 or (bf16 only) 256. The chain is
+// cut into n_chunks chunks of L positions (paged_attention.window_plan: L a
+// multiple of 128, L * n_chunks >= MB * BL; f32 takes one chunk); with more
+// than one, each chunk's partials go to part_acc [S, n_chunks, H, w, D] and
+// part_ml [S, n_chunks, H, w, 2] (f32) and o is left to the combine
+// (mmlspark_paged_combine_launch, paged_decode.cu). Returns 0, a
+// cudaError_t of the launch, or a negative code of the tensor-map encoding
+// (see the error string).
 int mmlspark_paged_launch(const void* q, const void* k_pool,
                           const void* v_pool, const int* rows, const int* pos,
-                          void* o, int dtype, int S, int H, int w, int D,
-                          int NB, int BL, int MB, long long q_ss,
-                          long long q_sh, long long q_sw, long long o_ss,
-                          long long o_sh, long long o_sw, float scale,
-                          int device, void* stream) {
+                          void* o, float* part_acc, float* part_ml, int dtype,
+                          int S, int H, int w, int D, int NB, int BL, int MB,
+                          long long q_ss, long long q_sh, long long q_sw,
+                          long long o_ss, long long o_sh, long long o_sw,
+                          float scale, int L, int n_chunks, int device,
+                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((dtype != 0 && dtype != 1) || S < 1 || H < 1 || w < 1 || NB < 1 ||
       BL < 1 || MB < 1 || static_cast<long long>(S) * H > 0x7fffffffLL ||
-      static_cast<long long>(MB) * BL + w > 0x3fffffffLL)
+      static_cast<long long>(MB) * BL + w > 0x3fffffffLL || L < 128 ||
+      L % 128 != 0 || n_chunks < 1 ||
+      static_cast<long long>(L) * n_chunks <
+          static_cast<long long>(MB) * BL ||
+      (n_chunks > 1 &&
+       (dtype != 0 || part_acc == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    WindowParams p;
+    p.k_pool = k_pool, p.v_pool = v_pool;
+    p.rows = rows, p.pos = pos, p.o = o;
+    p.part_acc = part_acc, p.part_ml = part_ml;
+    p.S = S, p.H = H, p.w = w, p.NB = NB, p.BL = BL, p.MB = MB;
+    p.R = 0, p.L = L, p.n_chunks = n_chunks;
+    p.o_ss = o_ss, p.o_sh = o_sh, p.o_sw = o_sw;
+    p.scale = scale;
+    switch (D) {
+      case 32: return launch_bf16<32>(p, q, q_ss, q_sh, q_sw, st);
+      case 64: return launch_bf16<64>(p, q, q_ss, q_sh, q_sw, st);
+      case 128: return launch_bf16<128>(p, q, q_ss, q_sh, q_sw, st);
+      case 256: return launch_bf16<256>(p, q, q_ss, q_sh, q_sw, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   Params p;
   p.q = q;
   p.k_pool = k_pool;
@@ -483,18 +609,16 @@ int mmlspark_paged_launch(const void* q, const void* k_pool,
   p.q_ss = q_ss, p.q_sh = q_sh, p.q_sw = q_sw;
   p.o_ss = o_ss, p.o_sh = o_sh, p.o_sw = o_sw;
   p.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return static_cast<int>(launch_dtype<32>(p, dtype, S * H, st));
-    case 64: return static_cast<int>(launch_dtype<64>(p, dtype, S * H, st));
-    case 128: return static_cast<int>(launch_dtype<128>(p, dtype, S * H, st));
-    case 256: return static_cast<int>(launch_dtype<256>(p, dtype, S * H, st));
+    case 32: return launch_f32<32>(p, S * H, st);
+    case 64: return launch_f32<64>(p, S * H, st);
+    case 128: return launch_f32<128>(p, S * H, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 const char* mmlspark_paged_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return launch_error_string(err);
 }
 
 }  // extern "C"

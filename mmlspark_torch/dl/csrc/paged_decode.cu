@@ -5,8 +5,9 @@
 // Replaces the Pallas TPU kernel `_paged_kernel`
 // (mmlspark_tpu/dl/pallas_paged_attention.py:89, launched by `_paged_pallas`
 // at :199) for the windows the engine's decode step (w = 1) and its
-// speculative verify (w = spec_k + 1) run; wider prefill windows keep the
-// tiled kernel of paged_attn.cu. It computes exactly what paged_attn.cu
+// speculative verify (w = spec_k + 1) run; wider prefill windows take the
+// window kernel of paged_attn.cu, which also launches this file's combine
+// when its plan splits a chain. It computes exactly what paged_attn.cu
 // states: for slot s, head h and window row i, softmax attention of q
 // [S, H, w, hd] over the slot's chain of pool blocks (chain position t at
 // offset t % BL of block rows[s, t / BL] of the pools [NB, BL, H, hd]); key
@@ -20,7 +21,7 @@
 // for 4 * hd flops per head: 2 flops per byte in bf16, against the ~295 at
 // which the tensor cores would bind, so the CUDA cores keep up with the
 // stream and the work is to keep enough copies in flight on all 132 SMs.
-// The tiled kernel ran one CTA per (slot, head), each walking its whole
+// The first K3 ran one CTA per (slot, head), each walking its whole
 // chain in series with its loads exposed: 8 CTAs for a one-slot long
 // context. Here:
 //  - The grid is (slot, chain chunk) [x head group, x column group]: the
@@ -573,6 +574,47 @@ int mmlspark_paged_decode_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch_rows<__nv_bfloat16>(p, st)
                     : launch_rows<float>(p, st);
+}
+
+// Launch only the combine on `stream` on device `device`: merge the
+// n_chunks chunk partials of K3's window kernel (paged_attn.cu), part_acc
+// [S, n_chunks, H, w, D] and part_ml [S, n_chunks, H, w, 2] f32, into o
+// [S, H, w, D] (strides in elements, unit on D) in `dtype` (0 = bf16, 1 =
+// f32), reading each slot's chunks below its reachable end (pos[s] + w,
+// capped at MB * BL), in chunk order. Returns 0 or a cudaError_t.
+int mmlspark_paged_combine_launch(const int* pos, void* o,
+                                  const float* part_acc,
+                                  const float* part_ml, int dtype, int S,
+                                  int H, int w, int D, int BL, int MB,
+                                  long long o_ss, long long o_sh,
+                                  long long o_sw, float scale, int L,
+                                  int n_chunks, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = (n_chunks + kCombineThreads) * static_cast<int>(
+                                                      sizeof(float));
+  if ((dtype != 0 && dtype != 1) || S < 1 || H < 1 || w < 1 || D < 1 ||
+      BL < 1 || MB < 1 || L < 1 || n_chunks < 2 || part_acc == nullptr ||
+      part_ml == nullptr || smem > 48 * 1024 ||
+      static_cast<long long>(L) * n_chunks <
+          static_cast<long long>(MB) * BL ||
+      static_cast<long long>(S) * H * w > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodeParams p;
+  memset(&p, 0, sizeof(p));
+  p.pos = pos, p.o = o;
+  p.part_acc = const_cast<float*>(part_acc);
+  p.part_ml = const_cast<float*>(part_ml);
+  p.S = S, p.H = H, p.w = w, p.D = D, p.BL = BL, p.MB = MB;
+  p.L = L, p.n_chunks = n_chunks;
+  p.o_ss = o_ss, p.o_sh = o_sh, p.o_sw = o_sw;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    paged_combine<__nv_bfloat16><<<S * H * w, kCombineThreads, smem, st>>>(p);
+  else
+    paged_combine<float><<<S * H * w, kCombineThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* mmlspark_paged_decode_error_string(int err) {

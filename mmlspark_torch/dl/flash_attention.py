@@ -94,7 +94,8 @@ _ALIGN = 16               # the kernels stage rows as 16-byte vectors
 BWD_IMPLS = ("auto", "pallas", "blockwise")
 
 _LOADER = CudaLoader("mmlspark_flash", ["dl/csrc/flash_attn.cu"],
-                     headers=("dl/csrc/flash_common.cuh",))
+                     headers=("dl/csrc/flash_common.cuh",
+                              "dl/csrc/flash_fwd.cuh"))
 _LOADER_BWD = CudaLoader("mmlspark_flash_bwd", ["dl/csrc/flash_bwd.cu"],
                          headers=("dl/csrc/flash_common.cuh",))
 _LOADER_WIDE = CudaLoader("mmlspark_attn_wide", ["dl/csrc/attn_wide.cu"])

@@ -14,19 +14,24 @@ with the pure-lax ``_paged_reference`` off the TPU. Here:
   merges the chunks' partial softmax states (not launched for a plan of
   one chunk). It counts its launches (``.launches``) and the combine's
   (``.combine_launches``);
-- :func:`paged_cuda` launches the tiled window kernel of
-  ``csrc/paged_attn.cu`` for wider windows (prefill), and counts its
-  launches. Each source is its own library, built with nvcc for ``sm_90a``
-  on first use and bound with ctypes; see the sources for their designs
-  and what bounds them;
+- :func:`paged_cuda` launches the window kernel of ``csrc/paged_attn.cu``
+  for wider windows (prefill): the flash forward's body
+  (``csrc/flash_fwd.cuh``) with K and V copied through the table, its
+  work items (slot, head, 128-row q tile) walked by persistent CTAs; where
+  :func:`window_plan` cuts the chain into chunks, the decode kernel's
+  combine merges them. It counts its launches (``.launches``) and the
+  combine's (``.combine_launches``). Each source is its own library, built
+  with nvcc for ``sm_90a`` on first use and bound with ctypes; see the
+  sources for their designs and what bounds them;
 - :func:`paged_torch` is the plain version: it gathers each slot's chain
   through the table inside the call, then applies exactly the formulation
   of ``EncoderBlock.decode_window`` and ``_paged_reference`` (f32 scores ×
   ``hd^-0.5``, ``-inf`` outside ``t <= pos + i``, softmax, NaN → 0, ``p``
   cast to v's dtype), which keeps the engine token-identical to
   ``dl.generate`` on the CPU; :func:`paged_partials_torch` and
-  :func:`paged_combine_torch` are the plain versions of the decode kernel's
-  two passes (per-chunk ``(m, l, acc)``, then the merge);
+  :func:`paged_combine_torch` are the plain versions of the split kernels'
+  two passes (per-chunk ``(m, l, acc)``, then the merge), the decode
+  kernel's and the window kernel's alike;
 - :func:`paged_window_attention` is the switch: for CUDA tensors the
   decode kernel up to :data:`DECODE_MAX_ROWS` rows and the window kernel
   above, the plain version for CPU tensors. A build or launch failure
@@ -70,7 +75,9 @@ NEG = -1e30               # the kernels' masked score
 DECODE_MAX_ROWS = 16      # windows up to this wide take the decode kernel
 _TRASH = 0                # paged_kv.TRASH_BLOCK
 
-_LOADER = CudaLoader("mmlspark_paged", ["dl/csrc/paged_attn.cu"])
+_LOADER = CudaLoader("mmlspark_paged", ["dl/csrc/paged_attn.cu"],
+                     headers=("dl/csrc/flash_common.cuh",
+                              "dl/csrc/flash_fwd.cuh"))
 _LOADER_DECODE = CudaLoader("mmlspark_paged_decode",
                             ["dl/csrc/paged_decode.cu"],
                             headers=("dl/csrc/flash_common.cuh",))
@@ -178,9 +185,46 @@ def decode_plan(S: int, H: int, w: int, D: int, BL: int, MB: int,
                       S * n_hg * n_dg * n_chunks)
 
 
+_WINDOW_ROWS = 128         # query rows of a window kernel work item
+_WINDOW_MIN_CHUNK = 512   # chain positions of a window chunk, at least
+
+
+class WindowPlan(NamedTuple):
+    """How the window kernel cuts one call: ``n_qt`` q tiles of 128 rows a
+    (slot, head); chunks of ``L`` chain positions, ``n_chunks`` of them
+    covering the table's ``MB * BL``; ``ctas`` in the persistent grid."""
+    n_qt: int
+    L: int
+    n_chunks: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def window_plan(S: int, H: int, w: int, D: int, BL: int, MB: int,
+                elem_size: int, n_sm: int) -> WindowPlan:
+    """The window kernel's plan from the shape alone (no data, as
+    :func:`decode_plan`). A work item is a (slot, head, 128-row q tile);
+    where there are fewer items than SMs (a warm suffix over a long cached
+    prefix), the chain of ``MB * BL`` positions is cut into chunks of a
+    multiple of 128 positions, at least 512, so that items x chunks come
+    near the SM count; one chunk otherwise, and always in f32 (whose
+    kernel does not split). Returns the plan and the persistent grid."""
+    cap = MB * BL
+    n_qt = -(-w // _WINDOW_ROWS)
+    items = S * H * n_qt
+    L = -(-cap // 128) * 128
+    n_chunks = 1
+    if elem_size == 2 and items < n_sm:
+        per_item = -(-n_sm // items)
+        L_split = max(_WINDOW_MIN_CHUNK, -(-cap // (per_item * 128)) * 128)
+        if L_split < cap:
+            L, n_chunks = L_split, -(-cap // L_split)
+    return WindowPlan(n_qt, L, n_chunks, min(items * n_chunks, n_sm))
+
+
 def paged_partials_torch(q, k_pool, v_pool, rows, pos, L: int,
                          n_chunks: int, scale: float | None = None):
-    """Plain PyTorch version of the decode kernel's first pass: for each
+    """Plain PyTorch version of the split kernels' first pass: for each
     chunk of ``L`` chain positions, the f32 ``(m, l, acc)`` of its allowed
     keys (trash and out-of-range entries skipped, ``t <= pos + i``), with
     m the row max of the scaled scores (``-1e30`` where none is allowed),
@@ -239,14 +283,30 @@ def _library() -> ctypes.CDLL:
     lib = _LOADER.load()
     c_void_p, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mmlspark_paged_launch.argtypes = [
-        *[c_void_p] * 6,                             # q k v rows pos o
-        *[c_int] * 8,                                # dtype S H w D NB BL MB
-        *[c_ll] * 6,                                 # q and o strides
-        ctypes.c_float, c_int, c_void_p]             # scale, device, stream
+        *[c_void_p] * 8,                  # q k v rows pos o part_acc part_ml
+        *[c_int] * 8,                     # dtype S H w D NB BL MB
+        *[c_ll] * 6,                      # q and o strides
+        ctypes.c_float,                   # scale
+        c_int, c_int,                     # L n_chunks
+        c_int, c_void_p]                  # device, stream
     lib.mmlspark_paged_launch.restype = c_int
     lib.mmlspark_paged_error_string.argtypes = [c_int]
     lib.mmlspark_paged_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _partials(q: torch.Tensor, n_chunks: int):
+    """The split kernels' f32 scratch for ``n_chunks`` chunks of a call on
+    q ``[S, H, w, hd]``: one buffer holding acc ``[S, n_chunks, H, w, hd]``
+    then (m, l); returns it (keep it alive until the launches are queued)
+    and the two addresses, or ``(None, None, None)`` for one chunk."""
+    if n_chunks == 1:
+        return None, None, None
+    S, H, w, hd = q.shape
+    rows = S * n_chunks * H * w
+    scratch = torch.empty(rows * (hd + 2), dtype=torch.float32,
+                          device=q.device)
+    return scratch, scratch.data_ptr(), scratch.data_ptr() + rows * hd * 4
 
 
 def build_kernel() -> str:
@@ -287,13 +347,16 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     """Launch K3's window kernel (``csrc/paged_attn.cu``; pools wider than
     its instances, 256 in bf16 and 128 in f32, on the wide instance of
     ``csrc/attn_wide.cu``) on PyTorch's current stream: any window, the
-    engine's prefill ones in practice. Raises for tensors that are not on
-    a CUDA device, a dtype other than bf16/f32, pools not at a kernel head
-    dim (``init_pools`` makes them so), a q without unit stride on hd or
-    with unaligned rows, pools that are not contiguous, and when the
-    kernel does not build or launch. A q narrower than the pools is
-    zero-padded and scaled by its own ``hd^-0.5``; the output is sliced
-    back to its width.
+    engine's prefill ones in practice. Where :func:`window_plan` cuts the
+    chain into chunks, the decode kernel's combine (``paged_combine``)
+    merges them after it. Raises for tensors that are not on a CUDA device,
+    a dtype other than bf16/f32, pools not at a kernel head dim
+    (``init_pools`` makes them so), a q without unit stride on hd or with
+    unaligned rows, pools that are not contiguous, and when a kernel does
+    not build or launch. A q narrower than the pools is zero-padded and
+    scaled by its own ``hd^-0.5``; the output is sliced back to its width.
+    Counts its launches in ``.launches`` and the combine's in
+    ``.combine_launches``.
 
     Returns a ``[S, H, w, hd]`` view of a ``[S, w, H, hd]`` buffer, so the
     caller's head merge is a free reshape."""
@@ -309,27 +372,53 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if S * H * w == 0:
         return _unpad(out, d)
     NB, BL = k_pool.shape[:2]
-    wide = wide_head_dim(hd, q.dtype)
-    lib = _library_wide() if wide else _library()
-    launch = (lib.mmlspark_wide_paged_launch if wide
-              else lib.mmlspark_paged_launch)
-    err = launch(
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if wide_head_dim(hd, q.dtype):
+        lib = _library_wide()
+        err = lib.mmlspark_wide_paged_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            rows.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], S, H, w, hd, NB, BL, rows.shape[1],
+            *q.stride()[:3], *out.stride()[:3], d ** -0.5, q.device.index,
+            stream)
+        if err != 0:
+            raise RuntimeError(
+                "K3 paged-attention window kernel launch failed (wide head "
+                f"dim): {lib.mmlspark_wide_error_string(err).decode()} "
+                f"(cudaError {err})")
+        paged_cuda.launches += 1
+        return _unpad(out, d)
+    plan = window_plan_of(q, k_pool, rows)
+    scratch, part_acc, part_ml = _partials(q, plan.n_chunks)
+    lib = _library()
+    err = lib.mmlspark_paged_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), rows.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], S, H, w, hd,
-        NB, BL, rows.shape[1], *q.stride()[:3], *out.stride()[:3],
-        d ** -0.5, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        pos.data_ptr(), out.data_ptr(), part_acc, part_ml,
+        _DTYPE_CODES[q.dtype], S, H, w, hd, NB, BL, rows.shape[1],
+        *q.stride()[:3], *out.stride()[:3], d ** -0.5, plan.L,
+        plan.n_chunks, q.device.index, stream)
     if err != 0:
-        msg = (lib.mmlspark_wide_error_string if wide
-               else lib.mmlspark_paged_error_string)(err).decode()
         raise RuntimeError(
-            f"K3 paged-attention window kernel launch failed"
-            f"{' (wide head dim)' if wide else ''}: {msg} (cudaError {err})")
+            "K3 paged-attention window kernel launch failed: "
+            f"{lib.mmlspark_paged_error_string(err).decode()} (code {err})")
     paged_cuda.launches += 1
+    if plan.n_chunks > 1:
+        dec = _decode_library()
+        err = dec.mmlspark_paged_combine_launch(
+            pos.data_ptr(), out.data_ptr(), part_acc, part_ml,
+            _DTYPE_CODES[q.dtype], S, H, w, hd, BL, rows.shape[1],
+            *out.stride()[:3], d ** -0.5, plan.L, plan.n_chunks,
+            q.device.index, stream)
+        if err != 0:
+            raise RuntimeError(
+                "K3 combine launch failed after the window kernel: "
+                f"{dec.mmlspark_paged_decode_error_string(err).decode()} "
+                f"(cudaError {err})")
+        paged_cuda.combine_launches += 1
     return _unpad(out, d)
 
 
-paged_cuda.launches = 0
+paged_cuda.launches = paged_cuda.combine_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -344,6 +433,14 @@ def _decode_library() -> ctypes.CDLL:
         *[c_int] * 5,                     # hg dpc P L n_chunks
         c_int, c_void_p]                  # device, stream
     lib.mmlspark_paged_decode_launch.restype = c_int
+    lib.mmlspark_paged_combine_launch.argtypes = [
+        *[c_void_p] * 4,                  # pos o part_acc part_ml
+        *[c_int] * 7,                     # dtype S H w D BL MB
+        *[c_ll] * 3,                      # o strides
+        ctypes.c_float,                   # scale
+        c_int, c_int,                     # L n_chunks
+        c_int, c_void_p]                  # device, stream
+    lib.mmlspark_paged_combine_launch.restype = c_int
     lib.mmlspark_paged_decode_error_string.argtypes = [c_int]
     lib.mmlspark_paged_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -368,6 +465,16 @@ def plan_of(q: torch.Tensor, k_pool: torch.Tensor,
     S, H, w, _ = q.shape
     NB, BL, _, hd = k_pool.shape
     return decode_plan(S, H, w, hd, BL, rows.shape[1], q.element_size(),
+                       _sm_count(q.device.index))
+
+
+def window_plan_of(q: torch.Tensor, k_pool: torch.Tensor,
+                   rows: torch.Tensor) -> WindowPlan:
+    """:func:`window_plan` for a call on these tensors (q at the pools'
+    width) on q's card."""
+    S, H, w, _ = q.shape
+    NB, BL, _, hd = k_pool.shape
+    return window_plan(S, H, w, hd, BL, rows.shape[1], q.element_size(),
                        _sm_count(q.device.index))
 
 
@@ -399,14 +506,7 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         return _unpad(out, d)
     NB, BL = k_pool.shape[:2]
     plan = plan_of(q, k_pool, rows)
-    part_acc = part_ml = None
-    if plan.n_chunks > 1:
-        # one scratch buffer: acc [S, n_chunks, H, w, hd], then (m, l)
-        rows_ = S * plan.n_chunks * H * w
-        scratch = torch.empty(rows_ * (hd + 2), dtype=torch.float32,
-                              device=q.device)
-        part_acc = scratch.data_ptr()
-        part_ml = part_acc + rows_ * hd * 4
+    scratch, part_acc, part_ml = _partials(q, plan.n_chunks)
     lib = _decode_library()
     err = lib.mmlspark_paged_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), rows.data_ptr(),
@@ -441,7 +541,7 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     For CUDA tensors, windows of up to :data:`DECODE_MAX_ROWS` rows (decode
     and the verify window) take the split-KV decode kernel and wider ones
-    (prefill) the tiled window kernel; CPU tensors take the plain version.
+    (prefill) the window kernel; CPU tensors take the plain version.
     The TPU kernel's tiling knobs (``block_kv``, ``slots_tile``) are not
     carried over: the CUDA kernels size their own tiles."""
     if not _route(q):

@@ -10,6 +10,9 @@ one scatter-add elsewhere (``engine.py:300-303``). Here:
   ctypes); see the source for its design and what bounds it;
 - :func:`hist_torch` is the plain PyTorch version: one ``index_add_`` over
   ``f*B + bin`` keys, the JAX scatter path's formulation;
+  :func:`hist_partials_torch` is the plain version of the kernel's first
+  pass (a histogram per row range of :func:`hist_plan`), whose sum over the
+  ranges is the second;
 - :func:`hist` picks one: the kernel for CUDA tensors, the plain version
   for CPU tensors. A build or launch failure raises; nothing falls back.
 
@@ -23,15 +26,50 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..native.loader import CudaLoader
 
-FEAT_BLOCK = 8            # features per CTA: 8 x 256 bins x 3 x 4 B = 24 KB
-THREADS = 256
-CTAS_PER_SM = 2           # grid target: row chunks x feature blocks ~ 2/SM
-SMEM_LIMIT = 48 * 1024    # static shared-memory limit without an opt-in
+STAGE_BYTES = 16 * 1024   # bins and vals of one stage
+STAGES = 4                # stages a CTA streams through (csrc/hist.cu)
+SMEM_LIMIT = 227 * 1024   # dynamic shared memory a CTA may opt into
+_ALIGN = 16               # the bulk copies read 16-byte-aligned spans
+
+
+class HistPlan(NamedTuple):
+    """How K1 cuts one call: ``grid_x`` row ranges of ``rows_per_cta`` rows
+    (a multiple of 16) by ``n_fb`` blocks of ``fb`` features, streamed in
+    stages of ``stage_rows`` rows."""
+    fb: int
+    n_fb: int
+    grid_x: int
+    rows_per_cta: int
+    stage_rows: int
+
+
+@functools.lru_cache(maxsize=256)
+def hist_plan(n: int, F: int, B: int, bin_bytes: int,
+              n_sm: int) -> HistPlan:
+    """K1's plan from the shape alone: stages of about
+    :data:`STAGE_BYTES`; every feature in one CTA where its histogram
+    (``F * B * 16`` bytes) fits beside the stages, else blocks of
+    features; about one CTA per SM in all, over contiguous row ranges."""
+    row_bytes = F * bin_bytes + 12
+    stage_rows = max(16, STAGE_BYTES // row_bytes // 16 * 16)
+    room = SMEM_LIMIT - STAGES * (stage_rows * row_bytes + 8) - 16
+    fb = min(F, room // (B * 16))
+    if fb < 1:
+        raise ValueError(f"num_bins={B} needs {B * 16} B of shared memory "
+                         f"per feature beside {STAGES} stages of {F} "
+                         "features; "
+                         f"{max(room, 0)} B are left of {SMEM_LIMIT}")
+    n_fb = -(-F // fb)
+    grid_x = max(1, min(-(-n // 16), n_sm // n_fb))
+    rows_per_cta = -(-(-(-n // grid_x)) // 16) * 16
+    return HistPlan(fb, n_fb, -(-n // rows_per_cta), rows_per_cta,
+                    min(stage_rows, rows_per_cta))
 
 _LOADER = CudaLoader("mmlspark_hist", ["lightgbm/csrc/hist.cu"])
 
@@ -75,15 +113,37 @@ def hist_torch(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
     return out[:F * B].reshape(F, B, 3)
 
 
+def hist_partials_torch(bins: torch.Tensor, vals: torch.Tensor, *,
+                        num_bins: int, rows_per_cta: int,
+                        count: int | torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's first pass: the histogram of
+    each range of ``rows_per_cta`` rows (rows at or past ``count`` add
+    nothing), ``[G, F, num_bins, 3]``; the second pass sums them over G in
+    order (``.sum(0)``)."""
+    _check_inputs(bins, vals, num_bins)
+    n = bins.shape[0]
+    if count is not None:
+        keep = torch.arange(n, device=bins.device) < torch.as_tensor(
+            count, device=bins.device).reshape(())
+        vals = vals * keep[:, None]
+    return torch.stack([
+        hist_torch(bins[r:r + rows_per_cta], vals[r:r + rows_per_cta],
+                   num_bins=num_bins)
+        for r in range(0, n, rows_per_cta)])
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _LOADER.load()
     c_void_p, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mmlspark_hist_launch.argtypes = [
-        c_void_p, c_int, c_void_p, c_void_p,   # bins, bin bytes, vals, out
-        c_ll, c_int, c_int, c_int, c_ll,       # n, F, B, feat block, chunks
+        c_void_p, c_int, c_void_p,             # bins, bin bytes, vals
+        c_void_p, c_void_p,                    # partials, out
+        c_ll, c_int, c_int,                    # n, F, B
+        c_int, c_int, c_ll, c_int,             # fb, grid_x, rows a CTA, stage
         c_ll, c_void_p,                        # count (host, device ptr)
-        c_int, c_int, c_void_p]                # threads, device, stream
+        c_int, c_void_p]                       # device, stream
     lib.mmlspark_hist_launch.restype = c_int
     lib.mmlspark_cuda_error_string.argtypes = [c_int]
     lib.mmlspark_cuda_error_string.restype = ctypes.c_char_p
@@ -99,9 +159,10 @@ def build_kernel() -> str:
 
 def hist_cuda(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
               count: int | torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the K1 kernel (``csrc/hist.cu``) on PyTorch's current stream.
-    Raises for tensors that are not on a CUDA device, and when the kernel
-    does not build or does not launch."""
+    """Launch K1 (``csrc/hist.cu``: the per-CTA partial histograms, then
+    their sum in CTA order) on PyTorch's current stream; one call counts
+    one launch. Raises for tensors that are not on a CUDA device, and when
+    the kernels do not build or do not launch."""
     _check_inputs(bins, vals, num_bins)
     if bins.device.type != "cuda":
         raise ValueError(
@@ -109,15 +170,11 @@ def hist_cuda(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
             "hist_torch (or hist) for CPU tensors")
     n, F = bins.shape
     B = int(num_bins)
-    bins = bins.contiguous()
-    vals = vals.contiguous()
-    out = torch.zeros(F, B, 3, dtype=torch.float32, device=bins.device)
     if n == 0 or F == 0:
-        return out
-    feat_block = min(FEAT_BLOCK, F, SMEM_LIMIT // (B * 12))
-    if feat_block < 1:
-        raise ValueError(f"num_bins={B} needs {B * 12} B of shared memory "
-                         f"per feature, over the {SMEM_LIMIT} B limit")
+        return torch.zeros(F, B, 3, dtype=torch.float32, device=bins.device)
+    bins, vals = (t.contiguous() if t.data_ptr() % _ALIGN == 0
+                  else t.clone(memory_format=torch.contiguous_format)
+                  for t in (bins, vals))
     count_host, count_dev = n, None
     if isinstance(count, torch.Tensor):
         if count.device != bins.device:
@@ -127,16 +184,18 @@ def hist_cuda(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
     elif count is not None:
         count_host = max(0, min(int(count), n))
     props = torch.cuda.get_device_properties(bins.device)
-    feat_blocks = -(-F // feat_block)
-    row_chunks = max(1, min(-(-n // THREADS),
-                            -(-CTAS_PER_SM * props.multi_processor_count
-                              // feat_blocks)))
+    plan = hist_plan(n, F, B, bins.element_size(),
+                     props.multi_processor_count)
+    part = torch.empty(plan.grid_x, F * B * 3, dtype=torch.float32,
+                       device=bins.device)
+    out = torch.empty(F, B, 3, dtype=torch.float32, device=bins.device)
     lib = _library()
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     err = lib.mmlspark_hist_launch(
         bins.data_ptr(), bins.element_size(), vals.data_ptr(),
-        out.data_ptr(), n, F, B, feat_block, row_chunks, count_host,
-        None if count_dev is None else count_dev.data_ptr(), THREADS,
+        part.data_ptr(), out.data_ptr(), n, F, B, plan.fb, plan.grid_x,
+        plan.rows_per_cta, plan.stage_rows, count_host,
+        None if count_dev is None else count_dev.data_ptr(),
         bins.device.index, stream)
     if err != 0:
         raise RuntimeError(

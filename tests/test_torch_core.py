@@ -90,10 +90,11 @@ def test_compute_model_statistics_matches_reference(kind):
 
 
 def test_cuda_loader_keys_builds_by_the_headers_too(tmp_path):
-    """A header the kernel sources include (``flash_common.cuh``) changes
-    the library's build key as the sources do, so an edit to it rebuilds
-    every library that includes it."""
-    from mmlspark_torch.dl import flash_attention
+    """A header the kernel sources include (``flash_common.cuh``, and the
+    forward's body ``flash_fwd.cuh``) changes the library's build key as
+    the sources do, so an edit to it rebuilds every library that includes
+    it."""
+    from mmlspark_torch.dl import flash_attention, paged_attention
     from mmlspark_torch.native.loader import CudaLoader
     src, hdr = tmp_path / "k.cu", tmp_path / "common.cuh"
     src.write_text('#include "common.cuh"\n')
@@ -103,6 +104,9 @@ def test_cuda_loader_keys_builds_by_the_headers_too(tmp_path):
     assert CudaLoader("keyed", [str(src)]).so_path() != first
     hdr.write_text("// two\n")
     assert loader.so_path() != first
-    for lib in (flash_attention._LOADER, flash_attention._LOADER_BWD):
-        assert [h.rsplit("/", 1)[-1] for h in lib.headers] == \
-            ["flash_common.cuh"]
+    both = ["flash_common.cuh", "flash_fwd.cuh"]
+    for lib, want in ((flash_attention._LOADER, both),
+                      (flash_attention._LOADER_BWD, ["flash_common.cuh"]),
+                      (paged_attention._LOADER, both),
+                      (paged_attention._LOADER_DECODE, ["flash_common.cuh"])):
+        assert [h.rsplit("/", 1)[-1] for h in lib.headers] == want

@@ -1,6 +1,8 @@
 """K1 in the port: the plain histogram against the JAX package's Pallas
-kernel (interpret mode on the CPU) and the scatter reference, and the CUDA
-kernel against the plain version on the card.
+kernel (interpret mode on the CPU) and the scatter reference, the plain
+version of the kernel's two passes (a histogram per row range of
+``hist_plan``, summed in order) against both, the plan's row ranges, and
+the CUDA kernel against the plain version on the card.
 
 Tolerance: rtol = atol = 1e-5 (f32 sums of the same terms in another
 order), as ``tests/test_pallas_hist.py`` holds the Pallas kernel.
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 from mmlspark_tpu.lightgbm.pallas_hist import hist_pallas
-from mmlspark_torch.lightgbm.hist import hist, hist_cuda, hist_torch
+from mmlspark_torch.lightgbm.hist import (hist, hist_cuda, hist_partials_torch,
+                                          hist_plan, hist_torch)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -133,6 +136,57 @@ class TestPlainHistogram:
             hist_torch(bins, vals, num_bins=4)
         with pytest.raises(ValueError):
             hist_torch(bins.to(torch.uint8), vals[:, :2], num_bins=4)
+
+
+class TestTwoPass:
+    """The kernel's two passes in plain PyTorch: a histogram per row range
+    of the plan, then their sum in range order."""
+
+    @pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+    @pytest.mark.parametrize("count_kind", [None, "int", "tensor"])
+    def test_partials_sum_to_pallas_and_scatter(self, dtype, count_kind):
+        rng = np.random.default_rng(7)
+        n, F, B, c = 200, 3, 16, 123
+        bins = rng.integers(0, B + 4, size=(n, F)).astype(dtype)
+        vals = rng.normal(size=(n, 3)).astype(np.float32)
+        vals[:, 2] = rng.random(n) < 0.5            # 0/1 count weights
+        count = {None: None, "int": c, "tensor": torch.tensor(c)}[
+            count_kind]
+        rows = n if count is None else c
+        plan = hist_plan(n, F, B, np.dtype(dtype).itemsize, 8)
+        assert plan.grid_x > 1 and plan.rows_per_cta % 16 == 0
+        parts = hist_partials_torch(torch.from_numpy(bins),
+                                    torch.from_numpy(vals), num_bins=B,
+                                    rows_per_cta=plan.rows_per_cta,
+                                    count=count)
+        assert parts.shape == (plan.grid_x, F, B, 3)
+        got = parts.sum(0).numpy()
+        want = scatter_reference(bins[:rows], vals[:rows], B)
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_array_equal(got[..., 2], want[..., 2])
+        kw = {} if count is None else {"count": jnp.int32(c)}
+        bins_p = bins.copy()
+        bins_p[rows:] = B                 # padding past count, as in use
+        np.testing.assert_allclose(got, pallas(bins_p, vals, B, **kw), **TOL)
+
+    @pytest.mark.parametrize("n,F,B,bin_bytes", [
+        (500_000, 28, 256, 1), (500_000, 28, 256, 4), (1000, 200, 256, 1),
+        (17, 2, 8, 4), (50_000, 28, 64, 1)])
+    def test_plan_covers_every_row_once(self, n, F, B, bin_bytes):
+        plan = hist_plan(n, F, B, bin_bytes, 132)
+        assert plan.rows_per_cta % 16 == 0 and plan.stage_rows % 16 == 0
+        assert (plan.grid_x - 1) * plan.rows_per_cta < n \
+            <= plan.grid_x * plan.rows_per_cta
+        assert plan.grid_x * plan.n_fb <= max(132, plan.n_fb)
+        assert plan.fb * plan.n_fb >= F > plan.fb * (plan.n_fb - 1)
+        # the histogram and the stages fit a CTA's shared memory
+        smem = plan.fb * B * 16 + 4 * (
+            plan.stage_rows * (F * bin_bytes + 12) + 8)
+        assert smem <= 232448
+
+    def test_plan_refuses_a_histogram_that_cannot_fit(self):
+        with pytest.raises(ValueError, match="shared memory"):
+            hist_plan(1000, 4, 20_000, 1, 132)
 
 
 @pytest.mark.cuda

@@ -28,11 +28,20 @@ package.
   launch from the pointers and strides it is handed (the decode kernel's
   per-chunk partials written to the wrapper's scratch and merged from there,
   the window kernel with ``paged_torch``), equal to ``paged_torch`` and the
-  JAX ``_paged_reference`` (f32, atol 1e-5).
+  JAX ``_paged_reference`` (f32, atol 1e-5);
+- K3's window kernel: ``window_plan`` from the shape alone, its chunks
+  covering every live chain position once at w = 17, 32 and 192 with
+  block_len 8, 16 and 128 (one chunk wherever the items fill the card or
+  the table is short, as at the engine's and the smoke's shapes); the
+  plain version of its two passes (per-chunk partials, then the combine)
+  against the JAX ``_paged_reference`` and ``paged_window_attention`` in
+  Pallas interpret mode (f32, atol 2e-5), all-trash slots exactly 0; and
+  the wrapper's split route through the stand-in (the kernel's partials in
+  the scratch, the combine merging them: one launch of each).
 
-On the card, one ``cuda``-marked class holds ``paged_cuda``,
-``paged_decode_cuda`` and ``flash_causal_cuda`` against their plain
-versions; it skips without a GPU.
+On the card, one ``cuda``-marked class holds ``paged_cuda`` (a split chain
+and register copies too), ``paged_decode_cuda`` and ``flash_causal_cuda``
+against their plain versions; it skips without a GPU.
 """
 
 import ctypes
@@ -44,6 +53,7 @@ import pytest
 import torch
 
 from mmlspark_tpu.dl import paged_kv as jkv
+from mmlspark_tpu.dl import pallas_paged_attention as jpaged
 from mmlspark_tpu.dl.pallas_paged_attention import (_paged_pallas,
                                                     _paged_reference)
 from mmlspark_tpu.obs.metrics import MetricsRegistry as JRegistry
@@ -416,13 +426,42 @@ class _FakeLibraries:
         _view(o, (S, H, w, D), (o_ss, o_sh, o_sw, 1))[...] = out.numpy()
         return 0
 
-    def mmlspark_paged_launch(self, q, kp, vp, rows, pos, o, dtype, S, H, w,
-                              D, NB, BL, MB, q_ss, q_sh, q_sw, o_ss, o_sh,
-                              o_sw, scale, *_):
-        assert dtype == 1 and scale == D ** -0.5
-        self.calls.append(("window", w, None))
-        out = paged_torch(*self._inputs(q, kp, vp, rows, pos, S, H, w, D, NB,
-                                        BL, MB, (q_ss, q_sh, q_sw)))
+    def mmlspark_paged_launch(self, q, kp, vp, rows, pos, o, pacc, pml,
+                              dtype, S, H, w, D, NB, BL, MB, q_ss, q_sh, q_sw,
+                              o_ss, o_sh, o_sw, scale, L, n_chunks, *_):
+        assert dtype in (0, 1) and scale == D ** -0.5
+        assert L % 128 == 0 and L * n_chunks >= MB * BL
+        self.calls.append(("window", w, n_chunks))
+        args = self._inputs(q, kp, vp, rows, pos, S, H, w, D, NB, BL, MB,
+                            (q_ss, q_sh, q_sw))
+        if n_chunks == 1:
+            out = paged_torch(*args)
+            _view(o, (S, H, w, D), (o_ss, o_sh, o_sw, 1))[...] = out.numpy()
+            return 0
+        # the kernel's first pass: each chunk's partials into the scratch,
+        # o left to the combine
+        m, l, acc = k3.paged_partials_torch(*args, L, n_chunks, scale)
+        C = n_chunks
+        _view(pacc, (S, C, H, w, D), _contig((S, C, H, w, D)))[...] = \
+            acc.numpy()
+        ml = _view(pml, (S, C, H, w, 2), _contig((S, C, H, w, 2)))
+        ml[..., 0], ml[..., 1] = m.numpy(), l.numpy()
+        return 0
+
+    def mmlspark_paged_combine_launch(self, pos, o, pacc, pml, dtype, S, H,
+                                      w, D, BL, MB, o_ss, o_sh, o_sw, scale,
+                                      L, n_chunks, *_):
+        self.calls.append(("combine", w, n_chunks))
+        C = n_chunks
+        acc = torch.from_numpy(np.array(
+            _view(pacc, (S, C, H, w, D), _contig((S, C, H, w, D)))))
+        ml = np.array(_view(pml, (S, C, H, w, 2), _contig((S, C, H, w, 2))))
+        pos_ = torch.from_numpy(np.array(
+            _view(pos, (S,), (1,), ctypes.c_int32, np.int32))).long()
+        n_live = -(-(pos_ + w).clamp(0, MB * BL) // L)
+        out = k3.paged_combine_torch(torch.from_numpy(ml[..., 0]),
+                                     torch.from_numpy(ml[..., 1]), acc,
+                                     n_live, torch.float32)
         _view(o, (S, H, w, D), (o_ss, o_sh, o_sw, 1))[...] = out.numpy()
         return 0
 
@@ -474,6 +513,7 @@ class TestDecodeRoute:
                  paged_decode_cuda.combine_launches, paged_cuda.launches)
         assert [a - b for a, b in zip(after, before)] == (
             [1, int(chunks > 1), 0] if w <= 16 else [0, 0, 1])
+        assert w <= 16 or chunks == 1        # a short table: one chunk
         if w <= 16:
             assert chunks > 1                # the merge is exercised
 
@@ -487,6 +527,114 @@ class TestDecodeRoute:
         assert decode_route.calls == [("decode", 3, 1)]
         assert k3.plan_of(q, kp, rows).n_chunks == 1
         assert paged_decode_cuda.combine_launches == before
+
+
+class TestWindowPlan:
+    """K3's window kernel cuts the chain into chunks only where its work
+    items (slot, head, 128-row q tile) are fewer than the SMs and the table
+    holds at least two chunks of 512 positions."""
+
+    @pytest.mark.parametrize("w", [17, 32, 192])
+    @pytest.mark.parametrize("BL,MB", [(8, 160), (16, 80), (128, 10)])
+    def test_chunks_cover_every_live_position_once(self, BL, MB, w):
+        rng = np.random.default_rng(BL + w)
+        S = 3
+        rows = rng.integers(1, 400, size=(S, MB))
+        rows[-1] = 0                                   # an all-trash slot
+        rows[1, MB // 2:] = 0                          # trash padding
+        rows[0, 0] = 0                                 # a trash entry first
+        pos = rng.integers(0, MB * BL - w, size=S)
+        pos[1] = MB * BL - w                           # a full chain
+        for n_sm in (1, 8, H100_SMS):
+            plan = k3.window_plan(S, 8, w, 64, BL, MB, 2, n_sm)
+            assert plan.L % 128 == 0 and plan.n_qt == -(-w // 128)
+            assert (plan.n_chunks - 1) * plan.L < MB * BL \
+                <= plan.n_chunks * plan.L
+            assert plan.n_chunks == 1 or plan.L >= 512
+            assert plan.ctas == min(S * 8 * plan.n_qt * plan.n_chunks, n_sm)
+            for s in range(S):
+                chunks = chunk_positions(plan, int(pos[s]), w, BL,
+                                         list(rows[s]))
+                got = [t for c in chunks for t in c]
+                want = [t for t in range(min(pos[s] + w, MB * BL))
+                        if rows[s, t // BL] != 0]
+                assert got == want                     # each once, in order
+            assert chunk_positions(plan, int(pos[-1]), w, BL,
+                                   list(rows[-1])) == \
+                [[] for _ in range(plan.n_chunks)]
+
+    def test_shapes_of_the_smoke_and_the_engine(self):
+        def plan(S, w, BL, MB, elem=2, D=64):
+            return k3.window_plan(S, 8, w, D, BL, MB, elem, H100_SMS)
+        # phase 9's prefill window and the long prompt: enough items, one
+        # chunk
+        assert plan(32, 128, 16, 256).n_chunks == 1
+        long = plan(1, 4096, 128, 32)
+        assert long.n_chunks == 1 and long.n_qt == 32
+        assert long.ctas == H100_SMS
+        # the engine's tables of 18 blocks of 16: under two chunks of 512
+        for S, w in ((1, 192), (4, 192), (1, 32)):
+            assert plan(S, w, 16, 18).n_chunks == 1
+        # a warm suffix over a 4096-position table: split, about an SM each
+        warm = plan(1, 32, 16, 256)
+        assert warm.n_chunks == 8 and warm.L == 512 and warm.ctas == 64
+        # f32 keeps its one-chunk kernel
+        assert plan(1, 32, 16, 256, elem=4).n_chunks == 1
+
+
+class TestWindowPartials:
+    """The plain version of the window kernel's two passes at w > 16: each
+    chunk's (m, l, acc), then the combine, against the JAX package's
+    ``_paged_reference`` and its ``paged_window_attention`` in Pallas
+    interpret mode (f32, atol 2e-5: one softmax summed in chunks against
+    one in VMEM blocks); all-trash slots exactly 0."""
+
+    @pytest.mark.parametrize("w,BL,L", [(17, 8, 128), (32, 4, 128),
+                                        (24, 16, 256)])
+    def test_partials_and_combine_match_jax(self, w, BL, L):
+        q, kp, vp, rows, pos = paged_inputs(S=4, hd=16, w=w, BL=BL,
+                                            MB=-(-(2 * L + 40) // BL),
+                                            seed=w + BL)
+        cap = rows.shape[1] * BL
+        n_chunks = -(-cap // L)
+        args = [torch.from_numpy(a) for a in (q, kp, vp, rows, pos)]
+        m, l, acc = k3.paged_partials_torch(*args, L, n_chunks)
+        n_live = -(-(args[4].long() + w).clamp(0, cap) // L)
+        got = k3.paged_combine_torch(m, l, acc, n_live,
+                                     torch.float32).numpy()
+        jargs = [jnp.asarray(a) for a in (q, kp, vp, rows, pos)]
+        ref = np.asarray(_paged_reference(*jargs))
+        pallas = np.asarray(jpaged.paged_window_attention(
+            *jargs, block_kv=BL, slots_tile=2, impl="pallas",
+            interpret=True))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+        np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
+        assert (got[-1] == 0).all()
+
+    def test_split_route_matches_plain_and_jax(self, decode_route,
+                                               monkeypatch):
+        # the wrapper's split route on f32 stand-ins, with the plan a bf16
+        # call of this shape gets (f32 itself never splits): the stand-in
+        # kernel writes each chunk's partials to the wrapper's scratch, the
+        # stand-in combine merges them from there
+        q, kp, vp, rows, pos = paged_inputs(S=2, hd=32, w=24, BL=8, MB=160,
+                                            seed=3)
+        plan = k3.window_plan(2, 2, 24, 32, 8, 160, 2, H100_SMS)
+        assert plan.n_chunks > 1
+        monkeypatch.setattr(k3, "window_plan_of", lambda *a: plan)
+        args = [torch.from_numpy(a) for a in (q, kp, vp, rows, pos)]
+        before = (paged_cuda.launches, paged_cuda.combine_launches)
+        got = paged_window_attention(*args).numpy()
+        assert decode_route.calls == [("window", 24, plan.n_chunks),
+                                      ("combine", 24, plan.n_chunks)]
+        assert (paged_cuda.launches - before[0],
+                paged_cuda.combine_launches - before[1]) == (1, 1)
+        np.testing.assert_allclose(got, paged_torch(*args).numpy(), rtol=0,
+                                   atol=1e-5)
+        ref = np.asarray(_paged_reference(*[jnp.asarray(a) for a in
+                                            (q, kp, vp, rows, pos)]))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+        assert (got[-1] == 0).all()
 
 
 @pytest.mark.cuda
@@ -518,6 +666,30 @@ class TestCudaKernels:
                                    k_offset=offs[1])
                 torch.testing.assert_close(got.float(), want.float(),
                                            rtol=0, atol=atol)
+        torch.cuda.synchronize()
+
+    def test_window_kernel_matches_plain_on_card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (the window kernel is "
+                        "CUDA-only; its plan and its two passes are held "
+                        "on the CPU)")
+        dev = torch.device("cuda")
+        # a split chain (one slot, a 2560-position table), block lengths
+        # 16, 8 and 4 (TMA boxes) and 5 at hd 32 (register copies)
+        for S, w, BL, MB, hd in ((1, 24, 16, 160, 64), (4, 40, 8, 20, 64),
+                                 (4, 40, 4, 20, 64), (4, 40, 5, 16, 32)):
+            q, kp, vp, rows, pos = (torch.from_numpy(a).to(dev)
+                                    for a in paged_inputs(
+                                        S=S, hd=hd, w=w, BL=BL, MB=MB,
+                                        seed=w + BL))
+            q, kp, vp = (x.to(torch.bfloat16) for x in (q, kp, vp))
+            got = paged_cuda(q, kp, vp, rows, pos)
+            torch.testing.assert_close(
+                got.float(), paged_torch(q, kp, vp, rows, pos).float(),
+                rtol=0, atol=2e-2)
+            if S > 1:
+                assert (got[-1] == 0).all()
+            assert torch.equal(got, paged_cuda(q, kp, vp, rows, pos))
         torch.cuda.synchronize()
 
     def test_decode_kernel_matches_plain_on_card(self):

@@ -42,7 +42,7 @@ from chip_smoke import GEN_BATCH, GEN_T, TEXT_SHAPE, lm_model  # noqa: E402
 K2C, K3 = "K2c flash causal", "K3 paged attention"
 # device kernels by name, first match wins (flash_fwd_* is K2c when its
 # kCausal template flag is true)
-GROUPS = ((K3, ("paged_bf16", "paged_f32", "paged_decode",
+GROUPS = ((K3, ("paged_fwd", "paged_f32", "paged_decode",
                "paged_combine")),
           ("f32 GEMMs (the LM head)", ("sgemm", "gemm_f32")),
           ("bf16 GEMMs (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass",
@@ -60,13 +60,16 @@ GROUPS = ((K3, ("paged_bf16", "paged_f32", "paged_decode",
 def zero_k3(k2, k3) -> None:
     """Zero the launch counts of K2c and K3's kernels."""
     k2.flash_causal_cuda.launches = k3.paged_cuda.launches = 0
+    k3.paged_cuda.combine_launches = 0
     k3.paged_decode_cuda.launches = k3.paged_decode_cuda.combine_launches = 0
 
 
 def k3_launches(k3) -> int:
     """K3's kernel launches: the window kernel's, the decode kernel's and
-    its combine's (a decode call of more than one chunk launches both)."""
-    return (k3.paged_cuda.launches + k3.paged_decode_cuda.launches
+    the combine's (a call whose plan has more than one chunk launches
+    both)."""
+    return (k3.paged_cuda.launches + k3.paged_cuda.combine_launches
+            + k3.paged_decode_cuda.launches
             + k3.paged_decode_cuda.combine_launches)
 
 
