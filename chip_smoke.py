@@ -158,7 +158,30 @@ kernels build), then:
     weights, 8 prompts of 129 document tokens with 32 new, re-scored
     against the dense causal forward, and the trained model's forward
     through K2c held against the dense one logit by logit at the
-    generated positions (K2c one tile late must fail that).
+    generated positions (K2c one tile late must fail that);
+14. runs SURVEY §7.3's chain from raw columns: phase 3's 500,000 rows as
+    28 float32 columns (2 % NaN, seeded, in seven), a 12-level and a
+    2,000-level string column, a bool and a datetime64[s] column, the
+    label depending on the strings too → ``CleanMissingData`` (Median, on
+    three of the NaN columns) → ``Featurize(numFeatures=32)`` (the
+    2,000-level column hashed) → ``LightGBMClassifier`` (phase 3's
+    settings) through ``Pipeline.fit``, then ``transform`` and
+    ``ComputeModelStatistics``; prints both stages' fit and transform
+    seconds and rows/s (warm, median of 3, each ending in a synchronize)
+    and the host string encodings' share; holds the card's features bit
+    for bit against a numpy assembly from the fitted plan (the one-hot one
+    slot late, a planted fault, must differ), the fills within 1e-6
+    relative of the same stages fitted with ``device="cpu"``, the same
+    nonzero K1 launches in every chain fit and no plain-histogram call,
+    and the chain's AUC within 1e-3 of a direct fit on the numpy-assembled
+    vectors with the same root split;
+15. fits ``Word2Vec`` (``vectorSize`` 100, window 5, 5 negatives, 3
+    epochs) on the card over a seeded corpus of 25,000 sentences of 12
+    words, each drawn from one of 200 groups of 10 words (300,000 tokens),
+    prints seconds per epoch and pairs/s, and holds the epoch losses
+    finite and falling, the nearest neighbour (``findSynonyms(w, 1)``) in
+    the word's group for at least 90 % of words, and the card's
+    ``transform`` within 1e-5 of the same model on the CPU.
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -166,7 +189,7 @@ its seconds. The last two lines are the kernels' JSON record and
 ``--batch``/``--train-steps``/``--new-tokens`` shrink the run for a quick
 first check, and ``--phases`` runs some of the phase groups after the build
 (``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
-12-13).
+12-13, ``featurize``: 14-15).
 """
 
 from __future__ import annotations
@@ -2587,7 +2610,324 @@ def causal_phases(torch, k2, dev, bw, flush, texts, lengths, args):
     return records
 
 
-PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal")
+# ---------------------------------------------------------- featurize slice
+
+FEAT_NAN_COLS = (1, 4, 8, 12, 17, 21, 26)   # 2 % NaN planted in each
+FEAT_CLEAN_COLS = ("f1", "f4", "f8")        # CleanMissingData's, Median
+FEAT_RUNS = 3                 # warm stage fits/transforms timed (median)
+CHAIN_FITS = 2                # chain fits, K1 launches held equal
+FILL_RTOL = 1e-6              # card fills against device="cpu" fills
+CHAIN_AUC_ATOL = 1e-3         # chain AUC against the numpy-assembled fit
+W2V_GROUPS, W2V_GROUP_WORDS = 200, 10
+W2V_SENTENCES, W2V_LEN = 25_000, 12         # 300,000 tokens
+W2V_KW = dict(vectorSize=100, windowSize=5, numNegatives=5, maxIter=3)
+W2V_QUALITY_MIN = 0.9         # nearest neighbour in the word's own group
+W2V_TRANSFORM_ATOL = 1e-5     # card transform against device="cpu"
+
+
+def raw_frame(rows: int) -> dict:
+    """``higgs_like``'s rows as 28 separate float32 columns, 2 % NaN in
+    seven of them, a 12-level and a 2,000-level string column, a bool and a
+    datetime64[s] column; the label also depends on the strings and the
+    bool (seed 23)."""
+    feats, _ = higgs_like(rows)
+    rng = np.random.default_rng(23)
+    city = rng.integers(0, 12, rows)
+    item = rng.integers(0, 2000, rows)
+    flag = rng.random(rows) < 0.4
+    margin = (feats[:, :4].sum(1) + feats[:, 4] * feats[:, 5]
+              + rng.normal(0, 1, 12)[city] + rng.normal(0, 1, 2000)[item]
+              + 0.5 * flag)
+    cols = {f"f{i}": np.ascontiguousarray(feats[:, i]) for i in range(28)}
+    for i in FEAT_NAN_COLS:
+        cols[f"f{i}"][rng.random(rows) < 0.02] = np.nan
+    cols["city"] = np.asarray([f"city{i:02d}" for i in range(12)],
+                              object)[city]
+    cols["item"] = np.asarray([f"item{i:04d}" for i in range(2000)],
+                              object)[item]
+    cols["flag"] = flag
+    cols["when"] = np.datetime64("2024-01-01T00:00:00") + rng.integers(
+        0, 30_000_000, rows).astype("timedelta64[s]")
+    cols["label"] = (margin + rng.normal(size=rows) > 0).astype(np.float32)
+    return cols
+
+
+def numpy_assembly(cols: dict, clean_fills: dict, plan: list,
+                   onehot_shift: int = 0) -> np.ndarray:
+    """The features that fitted ``CleanMissingData`` fills and a fitted
+    ``Featurize`` plan give the raw frame, built in numpy on the host
+    (levels by lookup, crc32 over the distinct strings). ``onehot_shift``
+    moves every one-hot slot by that many places (a planted fault)."""
+    import zlib
+    n = len(cols["label"])
+    blocks = []
+    for spec in plan:
+        x, kind, w = cols[spec["col"]], spec["kind"], spec["width"]
+        if kind == "numeric":
+            v = x.astype(np.float32)
+            if spec["col"] in clean_fills:
+                v = np.where(np.isnan(v),
+                             np.float32(clean_fills[spec["col"]]), v)
+            blocks.append(np.where(np.isnan(v), np.float32(spec["fill"]),
+                                   v)[:, None])
+        elif kind in ("onehot", "hash"):
+            uniq, inv = np.unique(x.astype(str), return_inverse=True)
+            if kind == "onehot":
+                lookup = {lvl: i for i, lvl in enumerate(spec["levels"])}
+                slot = np.asarray([lookup[u] for u in uniq])
+                slot = (slot + onehot_shift) % w
+            else:
+                slot = np.asarray([zlib.crc32(u.encode("utf-8"))
+                                   & 0x7FFFFFFF for u in uniq]) % w
+            m = np.zeros((n, w), np.float32)
+            m[np.arange(n), slot[inv]] = 1.0
+            blocks.append(m)
+        elif kind == "datetime":
+            blocks.append(x.astype("datetime64[s]").astype(np.float64)
+                          .astype(np.float32)[:, None])
+        else:
+            fail(f"phase 14: no numpy assembly for plan kind {kind!r}")
+    return np.concatenate(blocks, axis=1)
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+def featurize_chain_phase(torch, k1, args) -> int:
+    """Phase 14: raw columns → CleanMissingData → Featurize →
+    LightGBMClassifier → AUC on the card. Returns K1's launches per chain
+    fit."""
+    from mmlspark_torch.core import DataFrame, Pipeline
+    from mmlspark_torch.featurize import CleanMissingData, Featurize
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+    from mmlspark_torch.train import ComputeModelStatistics
+
+    n = args.rows
+    t0 = time.perf_counter()
+    cols = raw_frame(n)
+    inputs = [c for c in cols if c != "label"]
+    df = DataFrame(cols)
+    print(f"phase 14: raw frame {n:,} rows x {len(inputs)} columns "
+          f"(28 float32, 2 % NaN in {len(FEAT_NAN_COLS)}; strings of 12 "
+          f"and 2,000 levels; bool; datetime64[s]) made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    clean = CleanMissingData(inputCols=list(FEAT_CLEAN_COLS),
+                             cleaningMode="Median")
+    feat = Featurize(inputCols=inputs, numFeatures=32)
+
+    def timed(fn):
+        """Warm call, then the median of FEAT_RUNS, each ending in a
+        synchronize."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(FEAT_RUNS):
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return out, float(np.median(times))
+
+    clean_model, clean_fit_s = timed(lambda: clean.fit(df))
+    cleaned, clean_tr_s = timed(lambda: clean_model.transform(df))
+    feat_model, feat_fit_s = timed(lambda: feat.fit(cleaned))
+    host_times = []
+
+    def feat_transform():
+        out = feat_model.transform(cleaned)
+        host_times.append(feat_model.host_encode_seconds)
+        return out
+
+    featurized, feat_tr_s = timed(feat_transform)
+    host_s = float(np.median(host_times[1:]))
+    plan = feat_model.getEncodingPlan()
+    kinds = [spec["kind"] for spec in plan]
+    for name, fit_s, tr_s in (("CleanMissingData", clean_fit_s, clean_tr_s),
+                              ("Featurize", feat_fit_s, feat_tr_s)):
+        print(f"phase 14: {name} fit {fit_s:.4f} s ({n / fit_s:,.0f} "
+              f"rows/s), transform {tr_s:.4f} s ({n / tr_s:,.0f} rows/s); "
+              f"warm, median of {FEAT_RUNS}, each ending in a synchronize")
+    print(f"phase 14: Featurize plan {len(plan)} columns -> "
+          f"{feat_model.feature_dim} slots ({kinds.count('numeric')} "
+          f"numeric, {kinds.count('onehot')} one-hot, {kinds.count('hash')} "
+          f"hash, {kinds.count('datetime')} datetime); the transform's "
+          f"host string encodings {host_s:.4f} s (median of the timed "
+          f"runs, {host_s / feat_tr_s:.1%}); the rest, "
+          f"{feat_tr_s - host_s:.4f} s, is the numeric columns' casts and "
+          "copies, imputation and concatenation on the card and the copy "
+          "back")
+
+    # (a) the card's features, bit for bit, against a numpy assembly; (e)
+    # the assembly with the 12-level one-hot one slot late must not pass
+    got = featurized["features"]
+    want = numpy_assembly(cols, clean_model.getFillValues(), plan)
+    if not same_bits(got, want):
+        bad = np.argwhere(got != want)
+        fail(f"phase 14: Featurize on the card differs from the numpy "
+             f"assembly at {len(bad)} cells, first {bad[:3].tolist()}")
+    if same_bits(got, numpy_assembly(cols, clean_model.getFillValues(),
+                                     plan, onehot_shift=1)):
+        fail("phase 14: the planted fault (one-hot one slot late) passed "
+             "the bit-for-bit comparison")
+    print(f"phase 14: features {got.shape} float32 equal the numpy "
+          "assembly bit for bit; the one-hot shifted by one slot (planted "
+          "fault) differs, as it must")
+
+    # (b) the fills against the same stages fitted on the CPU
+    cpu_clean = CleanMissingData(inputCols=list(FEAT_CLEAN_COLS),
+                                 cleaningMode="Median", device="cpu").fit(df)
+    cpu_plan = Featurize(inputCols=inputs, numFeatures=32,
+                         device="cpu").fit(cleaned).getEncodingPlan()
+    pairs = [(f"clean {c}", clean_model.getFillValues()[c],
+              cpu_clean.getFillValues()[c]) for c in FEAT_CLEAN_COLS]
+    for spec, cpu_spec in zip(plan, cpu_plan):
+        if {k: v for k, v in spec.items() if k != "fill"} != \
+                {k: v for k, v in cpu_spec.items() if k != "fill"}:
+            fail(f"phase 14: plan entry {spec['col']!r} differs on the CPU")
+        if "fill" in spec:
+            pairs.append((spec["col"], spec["fill"], cpu_spec["fill"]))
+    worst = max(abs(a - b) / max(abs(b), 1e-30) for _, a, b in pairs)
+    if worst > FILL_RTOL:
+        fail(f"phase 14: a fill differs from the CPU's by {worst:.2e} "
+             f"relative (limit {FILL_RTOL})")
+    print(f"phase 14: {len(pairs)} fills within {worst:.2e} relative of "
+          f"the CPU's (limit {FILL_RTOL})")
+
+    # (c) the chain through Pipeline.fit, K1 counted; the plain histogram
+    # counted through the switch it is reached by
+    gbdt = dict(numIterations=args.iterations, numLeaves=31, maxBin=255,
+                learningRate=0.1)
+    pipe = Pipeline(stages=[clean, feat, LightGBMClassifier(**gbdt)])
+    plain_calls = [0]
+    hist_torch = k1.hist_torch
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return hist_torch(*a, **kw)
+
+    k1.hist_torch = counted_plain
+    try:
+        fit_times, launches = [], []
+        for _ in range(CHAIN_FITS):
+            k1.hist_cuda.launches = 0
+            t = time.perf_counter()
+            chain = pipe.fit(df)
+            torch.cuda.synchronize()
+            fit_times.append(time.perf_counter() - t)
+            launches.append(k1.hist_cuda.launches)
+    finally:
+        k1.hist_torch = hist_torch
+    if launches[0] == 0 or len(set(launches)) != 1 or plain_calls[0]:
+        fail(f"phase 14: K1 launches per chain fit {launches}, plain "
+             f"histogram calls {plain_calls[0]}: expected the same nonzero "
+             "count and no plain call")
+    t = time.perf_counter()
+    scored = chain.transform(df)
+    torch.cuda.synchronize()
+    chain_tr_s = time.perf_counter() - t
+    auc = float(ComputeModelStatistics(labelCol="label")
+                .transform(scored)["AUC"][0])
+    print(f"phase 14: chain fit {', '.join(f'{s:.3f}' for s in fit_times)} "
+          f"s (CleanMissingData, Featurize, LightGBMClassifier "
+          f"{args.iterations} iterations, 31 leaves, 255 bins, through "
+          f"Pipeline.fit), K1 launches per fit {launches[0]}, plain "
+          f"histogram calls 0; transform {chain_tr_s:.3f} s; AUC {auc:.6f}")
+
+    # (d) a direct fit on the numpy-assembled vector column
+    t = time.perf_counter()
+    direct = LightGBMClassifier(**gbdt).fit(DataFrame(
+        {"features": want, "label": cols["label"]}))
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t
+    stages_s = clean_fit_s + clean_tr_s + feat_fit_s + feat_tr_s
+    print(f"phase 14: where the chain fit's {fit_times[-1]:.3f} s go: the "
+          f"stages' fits and transforms {stages_s:.3f} s (host string "
+          f"encodings {host_s:.3f} s, Featurize's host level sets in its "
+          f"{feat_fit_s:.3f} s fit), the GBDT fit alone on the assembled "
+          f"vectors {direct_s:.3f} s, the rest "
+          f"{fit_times[-1] - stages_s - direct_s:.3f} s")
+    direct_auc = float(ComputeModelStatistics(labelCol="label").transform(
+        direct.transform(DataFrame({"features": want,
+                                    "label": cols["label"]})))["AUC"][0])
+    a = chain.getStages()[-1].booster.arrays
+    b = direct.booster.arrays
+    root = (int(a["feature"][0, 0]), float(a["threshold"][0, 0]))
+    direct_root = (int(b["feature"][0, 0]), float(b["threshold"][0, 0]))
+    print(f"phase 14: direct fit on the numpy assembly AUC "
+          f"{direct_auc:.6f} (|diff| {abs(direct_auc - auc):.2e}); tree 0 "
+          f"root {root} vs {direct_root}")
+    if abs(direct_auc - auc) > CHAIN_AUC_ATOL or root != direct_root:
+        fail(f"phase 14: chain AUC {auc} / root {root} against the direct "
+             f"fit's {direct_auc} / {direct_root}")
+    if not 0.75 < auc <= 1.0:
+        fail(f"phase 14: AUC {auc} outside (0.75, 1]")
+    return launches[0]
+
+
+def word2vec_phase(torch, dev) -> None:
+    """Phase 15: Word2Vec on the card over a planted-group corpus."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.featurize import Word2Vec
+
+    rng = np.random.default_rng(15)
+    words = np.asarray([f"g{g}w{w}" for g in range(W2V_GROUPS)
+                        for w in range(W2V_GROUP_WORDS)], object)
+    group = rng.integers(0, W2V_GROUPS, W2V_SENTENCES)
+    ids = group[:, None] * W2V_GROUP_WORDS + rng.integers(
+        0, W2V_GROUP_WORDS, (W2V_SENTENCES, W2V_LEN))
+    docs = np.empty(W2V_SENTENCES, object)
+    docs[:] = [list(row) for row in words[ids]]
+    df = DataFrame({"tokens": docs})
+    t = time.perf_counter()
+    model = Word2Vec(**W2V_KW).fit(df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    losses, secs = model.epoch_losses, model.epoch_seconds
+    pairs_s = model.pairs_per_epoch * len(secs) / sum(secs)
+    print(f"phase 15: Word2Vec {len(model.get('vocabulary')):,} words, "
+          f"{ids.size:,} tokens, {model.pairs_per_epoch:,} pairs an epoch; "
+          f"fit {fit_s:.3f} s, epochs "
+          f"{', '.join(f'{s:.3f}' for s in secs)} s ({pairs_s:,.0f} "
+          f"pairs/s), losses {', '.join(f'{x:.2f}' for x in losses)}")
+    if not (np.isfinite(losses).all()
+            and all(b < a for a, b in zip(losses, losses[1:]))):
+        fail(f"phase 15: epoch losses {losses} are not finite and falling")
+    vocab = model.get("vocabulary")
+    t = time.perf_counter()
+    hits = sum(model.findSynonyms(w, 1)[0][0].split("w")[0]
+               == w.split("w")[0] for w in vocab)
+    syn_s = time.perf_counter() - t
+    share = hits / len(vocab)
+    print(f"phase 15: nearest neighbour in the word's own group for "
+          f"{share:.1%} of words (limit {W2V_QUALITY_MIN:.0%}; "
+          f"findSynonyms on the card {syn_s / len(vocab) * 1e3:.3f} ms a "
+          "word)")
+    if share < W2V_QUALITY_MIN:
+        fail(f"phase 15: only {share:.1%} of nearest neighbours lie in "
+             "the word's group")
+    card = model.transform(df)["features"]
+    model.setDevice("cpu")
+    cpu = model.transform(df)["features"]
+    err = float(np.abs(card - cpu).max())
+    print(f"phase 15: transform on the card against device='cpu' max "
+          f"|diff| {err:.2e} (limit {W2V_TRANSFORM_ATOL})")
+    if card.shape != (W2V_SENTENCES, W2V_KW["vectorSize"]) or \
+            not np.isfinite(card).all() or err > W2V_TRANSFORM_ATOL:
+        fail(f"phase 15: transform {card.shape}, max |diff| {err}")
+
+
+def featurize_phases(torch, k1, dev, args) -> int:
+    """Phases 14-15. Returns K1's launches per chain fit."""
+    with Phase("phase 14"):
+        launches = featurize_chain_phase(torch, k1, args)
+    with Phase("phase 15"):
+        word2vec_phase(torch, dev)
+    return launches
+
+
+PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize")
 
 
 class Phase:
@@ -2616,7 +2956,8 @@ def main() -> None:
                     help="tokens generated per prompt in phases 10-11")
     ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
                     help="phase groups to run after the build: gbdt (2-4), "
-                    "text (5-6), train (7-8), llm (9-11), causal (12-13)")
+                    "text (5-6), train (7-8), llm (9-11), causal (12-13), "
+                    "featurize (14-15)")
     args = ap.parse_args()
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
@@ -2687,6 +3028,11 @@ def main() -> None:
     if "causal" in groups:
         records += causal_phases(torch, k2, dev, bw, flush, texts, lengths,
                                  args)
+    if "featurize" in groups:
+        chain_launches = featurize_phases(torch, k1, dev, args)
+        for rec in records:
+            if rec["name"] == "hist":
+                rec["chain_launches"] = chain_launches
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -88,7 +88,9 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_hist.py", "test_torch_isolation.py",
               "test_torch_lightgbm.py", "test_torch_llm_serving.py",
               "test_torch_paged.py", "test_torch_pretrain.py",
-              "test_torch_text_encoder.py"],
+              "test_torch_text_encoder.py", "test_torch_featurize.py",
+              "test_torch_stages.py", "test_torch_text_featurize.py",
+              "test_torch_word2vec.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

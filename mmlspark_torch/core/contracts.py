@@ -79,3 +79,17 @@ class HasProbabilityCol:
 
 class HasSeed:
     seed = Param("seed", "random seed", TC.toInt, default=0, has_default=True)
+
+
+class HasDevice:
+    """The torch device a stage computes on: ``"cuda"`` (the default, and
+    what a stage saved by the JAX package gets on load) or ``"cpu"`` when
+    asked. Asking for CUDA without a GPU raises; nothing moves to the CPU
+    on its own."""
+
+    device = Param("device", "torch device: 'cuda' (default) or 'cpu'",
+                   TC.toString, default="cuda")
+
+    def _device(self):
+        from ..device import resolve_device
+        return resolve_device(self.get("device"))

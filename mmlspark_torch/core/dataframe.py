@@ -73,6 +73,108 @@ def _normalize_column(values: Any, n_rows: int | None = None) -> np.ndarray:
     return arr
 
 
+# ---------------------------------------------------------- host boundary
+# The one place stage code materializes device values and builds object
+# (string, ragged) columns; the port's copy of the JAX package's helpers
+# (``mmlspark_tpu/core/dataframe.py:85-172``). Stages compute on their
+# device and hand results back here as host arrays.
+
+def jittable_dtype(dtype) -> bool:
+    """Numeric or bool dtype: a column that can go to the device as one
+    tensor. Object (string/ragged) and datetime columns stay on the host."""
+    return getattr(dtype, "kind", "") in "biuf"
+
+
+def to_host(values: Any) -> np.ndarray:
+    """Materialize ``values`` on the host as numpy: a torch tensor on any
+    device is copied back (the device→host sync); numpy is free."""
+    if hasattr(values, "detach") and hasattr(values, "cpu"):
+        return values.detach().cpu().numpy()
+    return np.asarray(values)
+
+
+def to_host_list(values: Any) -> list:
+    """Materialize as a plain Python list (param storage, level lists)."""
+    return to_host(values).tolist()
+
+
+def object_column(cells: Iterable) -> np.ndarray:
+    """Build a 1-D object column from arbitrary per-row cells without
+    numpy guessing at a rectangular layout (lists of arrays must stay
+    one-cell-per-row)."""
+    cells = list(cells)
+    arr = np.empty(len(cells), dtype=object)
+    arr[:] = cells
+    return arr
+
+
+def repeat_rows(values: np.ndarray, lengths: Iterable[int]) -> np.ndarray:
+    """Repeat each row of ``values`` by the matching length (the
+    FlattenBatch/Explode scalar-broadcast path)."""
+    return np.repeat(values, np.asarray(list(lengths)), axis=0)
+
+
+def unique_host(values, return_counts: bool = False,
+                drop_nan: bool = False):
+    """EXACT distinct values of a host column — the fit-time helper.
+    Fitted params (category levels, class-weight keys) must hold the exact
+    values ``transform`` will later look up; a float32 device round trip
+    would turn float64 0.1 into 0.10000000149… and the fitted model would
+    miss the very values it was fit on."""
+    arr = to_host(values)
+    if return_counts:
+        vals, cnts = np.unique(arr, return_counts=True)
+        if drop_nan and vals.dtype.kind == "f":
+            keep = ~np.isnan(vals)
+            vals, cnts = vals[keep], cnts[keep]
+        return vals, cnts
+    vals = np.unique(arr)
+    if drop_nan and vals.dtype.kind == "f":
+        vals = vals[~np.isnan(vals)]
+    return vals
+
+
+def argsort_host(values) -> np.ndarray:
+    """EXACT stable argsort on host (epoch-millisecond int64 timestamps
+    sort exactly)."""
+    return np.argsort(to_host(values), kind="stable")
+
+
+def concat_host(parts) -> np.ndarray:
+    """EXACT concatenation of host arrays along axis 0, in their own
+    dtype (int64 epoch millis and float64 stay as they are)."""
+    return np.concatenate([to_host(p) for p in parts], axis=0)
+
+
+def f32_exact(value) -> bool:
+    """True if ``value`` survives a float32 round trip exactly (ints
+    >= 2**24 and float64 dust do not)."""
+    v = float(value)
+    return float(np.float32(v)) == v
+
+
+def quantile_host(values, q) -> float:
+    """EXACT quantile of a host column in its own dtype (summary
+    statistics are reporting output: float64 stays float64)."""
+    return float(np.quantile(to_host(values), q))
+
+
+def device_lattice(arr: np.ndarray) -> np.ndarray:
+    """The dtype the JAX package's ``jnp.asarray`` gives a host column
+    with 64-bit types off: int64 → int32 and uint64 → uint32 (wrapping,
+    as numpy's ``astype`` does), float64 → float32 (round to nearest).
+    Stages that mirror an implicit ``jnp.asarray(column)`` go through this
+    before the column becomes a tensor, so the port sees the same values."""
+    kind, size = arr.dtype.kind, arr.dtype.itemsize
+    if kind == "i" and size == 8:
+        return arr.astype(np.int32)
+    if kind == "u" and size == 8:
+        return arr.astype(np.uint32)
+    if kind == "f" and size == 8:
+        return arr.astype(np.float32)
+    return arr
+
+
 class Row(dict):
     """A materialized row: dict with attribute access (Spark Row analogue)."""
 
@@ -386,6 +488,27 @@ class DataFrame:
                     pass
             data[str(c)] = col
         return DataFrame(data, num_partitions=num_partitions)
+
+    def to_arrow(self):
+        """DataFrame → Arrow Table (see :mod:`.arrow`; imports pyarrow)."""
+        from .arrow import columns_to_table
+        return columns_to_table(self)
+
+    toArrow = to_arrow
+
+    @staticmethod
+    def from_arrow(table, num_partitions: int = 1) -> "DataFrame":
+        """Arrow Table / RecordBatch → DataFrame (dictionary arrays →
+        categorical metadata)."""
+        from .arrow import from_arrow
+        return from_arrow(table, num_partitions=num_partitions)
+
+    @staticmethod
+    def from_arrow_batches(batches, num_partitions: int = 1) -> "DataFrame":
+        """An iterable of Arrow RecordBatches (or a RecordBatchReader) →
+        one DataFrame."""
+        from .arrow import from_arrow_batches
+        return from_arrow_batches(batches, num_partitions=num_partitions)
 
     @staticmethod
     def from_rows(rows: Sequence[Mapping[str, Any]],

@@ -6,8 +6,8 @@ extensions (reference ``core/serialize/ComplexParam.scala``,
 parameters whose values are not JSON-encodable (stage lists, functions)
 serialize alongside pipeline metadata so whole pipelines round-trip through
 save/load. The port carries the param types its stages use; the JAX
-package's stage, DataFrame, array and service params come with the slices
-whose stages need them.
+package's DataFrame, array and service params come with the slices whose
+stages need them.
 
 Design: params are class-level ``Param`` descriptors on a ``Params`` subclass.
 Setter/getter methods (``setFoo``/``getFoo``) are synthesized automatically,
@@ -149,6 +149,20 @@ class ComplexParam(Param):
     def load_value(self, path: str):
         with open(os.path.join(path, "value.pkl"), "rb") as f:
             return pickle.load(f)
+
+
+class StageParam(ComplexParam):
+    """Holds a pipeline stage (Estimator/Transformer/Model) as a value.
+
+    Reference: ``EstimatorParam`` / ``TransformerParam`` / ``ModelParam``.
+    """
+
+    def save_value(self, value, path: str) -> None:
+        value.save(path)
+
+    def load_value(self, path: str):
+        from .serialize import load_stage
+        return load_stage(path)
 
 
 class StageListParam(ComplexParam):

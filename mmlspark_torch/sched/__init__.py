@@ -1,10 +1,13 @@
 """Request scheduling for the port: ``SlotScheduler``, the step-boundary
-slot pool of continuous batching (``sched/continuous.py``).
+slot pool of continuous batching (``sched/continuous.py``), and
+``BatchPolicy``, the batch-close decision (``sched/policy.py``).
 
-The admission controller, batch policy, request scheduler and tenancy of
-the JAX package's ``sched`` come with ROADMAP.md §1 item 9.
+The service-time estimator, admission controller, request scheduler and
+tenancy of the JAX package's ``sched`` come with ROADMAP.md §1 item 9.
 """
 
 from .continuous import SlotAssignment, SlotScheduler
+from .policy import CLOSE, GROW, WAIT, BatchPolicy, bucket_of
 
-__all__ = ["SlotAssignment", "SlotScheduler"]
+__all__ = ["BatchPolicy", "CLOSE", "GROW", "SlotAssignment",
+           "SlotScheduler", "WAIT", "bucket_of"]

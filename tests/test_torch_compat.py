@@ -21,6 +21,14 @@ surface.
   (the text encoder tests' tolerances); a
   ``model`` payload of anything else raises ``NotImplementedError`` naming
   what it holds.
+- The featurize slice: every class of ``featurize`` and ``stages`` has the
+  reference's Param surface (plus ``device`` where it computes on one); a
+  ``FeaturizeModel``, ``CleanMissingDataModel``, ``ValueIndexerModel``,
+  ``TextFeaturizerModel`` and ``Word2VecModel`` fitted and saved by the
+  JAX package load in the port (in the subprocess that asserts no JAX
+  import) with no ``device``, so on CUDA by default, and on the CPU give
+  its outputs exactly (Word2Vec's within 1e-6); a port-fitted
+  ``FeaturizeModel`` loads in the JAX package and gives the same features.
 - A pickle naming any global outside the codec's list (``os.system``, a
   module never imported) raises ``UnpicklingError`` without importing or
   calling it; so does a real JAX ``LoadedModel`` of a zoo model the port
@@ -39,7 +47,9 @@ import pytest
 import torch
 
 import mmlspark_tpu.dl.text_encoder as jte
+import mmlspark_tpu.featurize as jfeat
 import mmlspark_tpu.featurize.text as jtext
+import mmlspark_tpu.stages as jstages
 import mmlspark_tpu.lightgbm as jlgbm
 import mmlspark_tpu.train.statistics as jstats
 import jax
@@ -59,6 +69,8 @@ from mmlspark_tpu.models.zoo import register_text_encoder as jregister
 from mmlspark_torch.core import DataFrame, foreign_pickle, load_stage
 from mmlspark_torch.core import serialize
 from mmlspark_torch.core.serialize import resolve_stage_class
+import mmlspark_torch.featurize as tfeat
+import mmlspark_torch.stages as tstages
 from mmlspark_torch.dl import TextEncoderFeaturizer
 from mmlspark_torch.featurize import TokenIdEncoder
 from mmlspark_torch.lightgbm import (LightGBMClassificationModel,
@@ -84,6 +96,12 @@ PAIRS = {
     "LightGBMClassificationModel": (LightGBMClassificationModel,
                                     jlgbm.LightGBMClassificationModel),
 }
+# the featurize slice: every class of featurize/ and stages/
+PAIRS.update({name: (getattr(tfeat, name), getattr(jfeat, name))
+              for name in jfeat.__all__ if name != "TokenIdEncoder"})
+PAIRS.update({name: (getattr(tstages, name), getattr(jstages, name))
+              for name in jstages.__all__
+              if name != "DynamicBufferedBatcher"})   # not a stage
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -405,3 +423,136 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 print("REFUSED")
 """
+
+
+# The featurize slice across packages: stages the JAX package fitted and
+# saved, loaded and run by the port with no JAX module imported; and a
+# port-fitted FeaturizeModel loaded by the JAX package.
+FEATURIZE_SIDE = r"""
+import pickle, sys
+import numpy as np
+from mmlspark_torch.core import DataFrame, load_stage
+
+root = sys.argv[1]
+with open(root + "/frames.pkl", "rb") as f:
+    frames = pickle.load(f)
+out = {}
+for name in ("featurize", "clean", "indexer", "text", "w2v"):
+    stage = load_stage(root + "/jax/" + name)
+    assert type(stage).__module__.startswith("mmlspark_torch."), type(stage)
+    inner = stage.getStages() if stage.has_param("stages") else [stage]
+    for s in inner:
+        if s.has_param("device"):
+            assert s.getDevice() == "cuda"      # saved without a device
+            s.setDevice("cpu")
+    out[name] = stage.transform(DataFrame(frames[name]))
+    if name == "w2v":
+        out["w2v_syn"] = stage.findSynonyms("g1w1", 3)
+from mmlspark_torch.core import ColumnMetadata
+out["slot_names"] = ColumnMetadata.get(out["featurize"], "features")
+from mmlspark_torch.featurize import Featurize
+model = Featurize(inputCols=list(frames["featurize"]), numFeatures=40,
+                  device="cpu").fit(DataFrame(frames["featurize"]))
+model.save(root + "/torch/featurize")
+out["port_features"] = model.transform(
+    DataFrame(frames["featurize"]))["features"]
+result = {k: ({c: v[c] for c in v.columns} if hasattr(v, "columns") else v)
+          for k, v in out.items()}
+with open(root + "/port_out.pkl", "wb") as f:
+    pickle.dump(result, f)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "mmlspark_tpu"))
+assert not bad, bad
+print("FEATURIZE_SIDE_OK")
+"""
+
+
+def _compat_frames():
+    rng = np.random.default_rng(21)
+    n = 64
+    num = rng.normal(1.0, 2.0, n).astype(np.float32)
+    num[rng.random(n) < 0.2] = np.nan
+    wide = rng.normal(size=n)
+    wide[:3] = np.nan
+    cat = np.asarray([f"c{v}" for v in rng.integers(0, 5, n)], object)
+    high = np.asarray([f"h{v}" for v in rng.integers(0, 90, n)], object)
+    featurize = {"num": num, "wide": wide, "cat": cat, "high": high,
+                 "flag": rng.random(n) > 0.3,
+                 "vec": rng.normal(size=(n, 2)).astype(np.float32),
+                 "when": np.datetime64("2020-02-02")
+                 + rng.integers(0, 10 ** 6, n).astype("timedelta64[s]")}
+    text = np.asarray(["the cat sat on the mat", "dogs and cats",
+                       "a mat for a cat", "", None, "THE END"], object)
+    tokens = np.empty(40, object)
+    tokens[:] = [[f"g{g}w{w}" for w in rng.integers(0, 4, 8)]
+                 for g in rng.integers(0, 3, 40)]
+    return {"featurize": featurize, "clean": {"num": num, "wide": wide},
+            "indexer": {"cat": cat}, "text": {"text": text},
+            "w2v": {"tokens": tokens}}
+
+
+def test_featurize_stages_load_across_packages(tmp_path):
+    root = str(tmp_path)
+    frames = _compat_frames()
+    with open(os.path.join(root, "frames.pkl"), "wb") as f:
+        pickle.dump(frames, f)
+    fr = {k: JDataFrame(v) for k, v in frames.items()}
+    cols = list(frames["featurize"])
+    fitted = {
+        "featurize": jfeat.Featurize(inputCols=cols, numFeatures=40)
+        .fit(fr["featurize"]),
+        "clean": jfeat.CleanMissingData(inputCols=["num", "wide"],
+                                        cleaningMode="Median")
+        .fit(fr["clean"]),
+        "indexer": jfeat.ValueIndexer(inputCol="cat", outputCol="idx")
+        .fit(fr["indexer"]),
+        "text": jfeat.TextFeaturizer(inputCol="text", outputCol="vec",
+                                     numFeatures=32, useNGram=True)
+        .fit(fr["text"]),
+        "w2v": jfeat.Word2Vec(vectorSize=8, minCount=1, maxIter=1,
+                              batchSize=64).fit(fr["w2v"]),
+    }
+    want = {}
+    for name, model in fitted.items():
+        model.save(os.path.join(root, "jax", name))
+        want[name] = model.transform(fr[name])
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    run = subprocess.run([sys.executable, "-c", FEATURIZE_SIDE, root],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0 and "FEATURIZE_SIDE_OK" in run.stdout, \
+        run.stdout + run.stderr
+    with open(os.path.join(root, "port_out.pkl"), "rb") as f:
+        got = pickle.load(f)
+
+    # JAX-saved, port-loaded: the same outputs
+    exact = {"featurize": ["features"], "clean": ["num", "wide"],
+             "indexer": ["idx"], "text": ["vec"]}
+    for name, out_cols in exact.items():
+        for c in out_cols:
+            w = np.asarray(want[name][c])
+            assert got[name][c].dtype == w.dtype, (name, c)
+            np.testing.assert_array_equal(got[name][c], w)
+    np.testing.assert_allclose(got["w2v"]["features"],
+                               np.asarray(want["w2v"]["features"]),
+                               rtol=0, atol=1e-6)
+    jsyn = fitted["w2v"].findSynonyms("g1w1", 3)
+    assert [w for w, _ in got["w2v_syn"]] == [w for w, _ in jsyn]
+    np.testing.assert_allclose([s for _, s in got["w2v_syn"]],
+                               [s for _, s in jsyn], rtol=0, atol=1e-6)
+    assert got["slot_names"] == {"slot_names":
+                                 fitted["featurize"].slot_names()}
+
+    # port-saved, JAX-loaded
+    with open(os.path.join(root, "torch", "featurize",
+                           "metadata.json")) as f:
+        meta = json.load(f)
+    assert meta["class"] == \
+        "mmlspark_tpu.featurize.featurize.FeaturizeModel"
+    jm = jload_stage(os.path.join(root, "torch", "featurize"))
+    assert type(jm) is jfeat.FeaturizeModel
+    np.testing.assert_array_equal(
+        np.asarray(jm.transform(fr["featurize"])["features"]),
+        got["port_features"])

@@ -110,3 +110,181 @@ def test_cuda_loader_keys_builds_by_the_headers_too(tmp_path):
                       (paged_attention._LOADER, both),
                       (paged_attention._LOADER_DECODE, ["flash_common.cuh"])):
         assert [h.rsplit("/", 1)[-1] for h in lib.headers] == want
+
+
+# ------------------------------------------------ the featurize slice's core
+
+def test_host_boundary_helpers_match_jax():
+    import warnings
+
+    import jax.numpy as jnp
+    from mmlspark_tpu.core import dataframe as jdf
+    from mmlspark_torch.core import dataframe as tdf
+
+    t = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    np.testing.assert_array_equal(tdf.to_host(t), t.numpy())
+    assert tdf.to_host_list(t) == t.tolist()
+    x = np.asarray([0.1, np.nan, 0.1, 2 ** 40, 3.0])
+    for drop in (False, True):
+        np.testing.assert_array_equal(tdf.unique_host(x, drop_nan=drop),
+                                      jdf.unique_host(x, drop_nan=drop))
+        for a, b in zip(tdf.unique_host(x, True, drop),
+                        jdf.unique_host(x, True, drop)):
+            np.testing.assert_array_equal(a, b)
+    ts = np.asarray([2 ** 33, 5, 2 ** 33, -1], np.int64)
+    np.testing.assert_array_equal(tdf.argsort_host(ts), jdf.argsort_host(ts))
+    np.testing.assert_array_equal(tdf.concat_host([ts, ts[:2]]),
+                                  jdf.concat_host([ts, ts[:2]]))
+    np.testing.assert_array_equal(tdf.repeat_rows(ts, [1, 0, 2, 1]),
+                                  jdf.repeat_rows(ts, [1, 0, 2, 1]))
+    assert [tdf.f32_exact(v) for v in (0.1, 2 ** 24 + 1, 0.5)] == \
+        [jdf.f32_exact(v) for v in (0.1, 2 ** 24 + 1, 0.5)]
+    assert tdf.quantile_host(x[~np.isnan(x)], 0.3) == \
+        jdf.quantile_host(x[~np.isnan(x)], 0.3)
+    cells = tdf.object_column([np.zeros(2), np.ones(2)])
+    assert cells.dtype == object and cells.shape == (2,)
+    assert [tdf.jittable_dtype(np.dtype(c)) for c in "bifUOM"] == \
+        [jdf.jittable_dtype(np.dtype(c)) for c in "bifUOM"]
+    # device_lattice: the dtype and values jnp.asarray gives a column
+    for col in (np.asarray([2 ** 31 + 5, -2 ** 33 - 7, 3], np.int64),
+                np.asarray([2 ** 63 + 5, 7], np.uint64),
+                np.asarray([0.1, 1e300, np.nan]), np.arange(3, dtype=np.int16),
+                np.asarray([True, False])):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = np.asarray(jnp.asarray(col))
+        got = tdf.device_lattice(col)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_core_utils_match_jax():
+    from mmlspark_tpu.core import utils as jutils
+    from mmlspark_torch.core import utils as tutils
+
+    calls = []
+
+    def flaky():
+        calls.append(1)
+        if len(calls) < 3:
+            raise OSError("transient")
+        return "ok"
+
+    def always_fails():
+        raise OSError("always")
+
+    assert tutils.retry_with_timeout(flaky, backoffs_ms=(0, 1, 1)) == "ok"
+    with pytest.raises(OSError, match="always"):
+        tutils.retry_with_timeout(always_fails, timeout_s=5,
+                                  backoffs_ms=(0, 1))
+    with pytest.raises(ValueError):
+        tutils.retry_with_timeout(flaky, backoffs_ms=())
+    watch = tutils.StopWatch()
+    assert watch.measure(lambda: 7) == 7 and watch.elapsed_ns > 0
+    df = DataFrame({"a": [1], "a_1": [2]})
+    assert tutils.find_unused_column_name("a", df) == \
+        jutils.find_unused_column_name("a", JDataFrame({"a": [1],
+                                                        "a_1": [2]})) \
+        == "a_2"
+
+    class Res:
+        closed = False
+
+        def close(self):
+            self.closed = True
+
+    r = Res()
+    assert tutils.using([r], lambda x: 5) == 5 and r.closed
+    cu = tutils.ClusterUtil
+    assert cu.get_num_local_devices() == torch.cuda.device_count()
+    assert cu.get_num_hosts() == 1 and cu.get_host_index() == 0
+    assert cu.get_num_devices() == torch.cuda.device_count()
+    assert cu.get_jvm_cpus() == jutils.ClusterUtil.get_jvm_cpus()
+    with pytest.raises(RuntimeError, match="process group"):
+        cu.default_mesh()
+
+
+def test_cluster_util_reads_an_initialized_group(tmp_path):
+    import torch.distributed as dist
+    from mmlspark_torch.core import ClusterUtil
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        assert ClusterUtil.get_num_hosts() == 1
+        assert ClusterUtil.get_host_index() == 0
+        assert ClusterUtil.get_num_devices() == 1     # a rank per device
+        mesh = ClusterUtil.default_mesh("rows")
+        assert mesh.device_type == "cpu"           # gloo serves the CPU
+        assert mesh.mesh_dim_names == ("rows",)
+        assert mesh.size() == 1
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dataclass_bindings_match_jax():
+    import dataclasses
+    from typing import Optional
+
+    from mmlspark_tpu.core.bindings import bindings as jbindings
+    from mmlspark_torch.core.bindings import bindings
+
+    @dataclasses.dataclass
+    class Inner:
+        x: int
+        tags: list[str]
+
+    @dataclasses.dataclass
+    class Outer:
+        name: str
+        inner: Inner
+        score: Optional[float] = None
+        extra: list = dataclasses.field(default_factory=list)
+
+    items = [Outer("a", Inner(1, ["p", "q"]), 0.5),
+             Outer("b", Inner(2, []), None, [3])]
+    df, jdf = bindings(Outer).to_df(items), jbindings(Outer).to_df(items)
+    assert df.columns == jdf.columns
+    for c in df.columns:
+        assert list(df[c]) == list(jdf[c])
+    assert bindings(Outer).from_df(df) == items
+    assert bindings(Outer).from_df(df.drop("extra", "score")) == [
+        Outer("a", Inner(1, ["p", "q"])), Outer("b", Inner(2, []))]
+    with pytest.raises(KeyError, match="absent"):
+        bindings(Outer).from_df(df.drop("name"))
+    with pytest.raises(TypeError):
+        bindings(int)
+
+
+def test_arrow_round_trip_matches_jax():
+    import pyarrow as pa
+
+    from mmlspark_torch.core import ColumnMetadata
+
+    x = np.asarray([1.5, 2.5, 3.5], np.float32)
+    v = np.arange(6, dtype=np.float64).reshape(3, 2)
+    s = np.asarray(["a", None, "c"], object)
+    cat = np.asarray([0.0, 1.0, 0.0], np.float32)
+    df = ColumnMetadata.set_categorical(
+        DataFrame({"x": x, "v": v, "s": s, "cat": cat}), "cat", ["lo", "hi"])
+    table = df.to_arrow()
+    from mmlspark_tpu.core import ColumnMetadata as JColumnMetadata
+    jdf = JColumnMetadata.set_categorical(
+        JDataFrame({"x": x, "v": v, "s": s, "cat": cat}), "cat",
+        ["lo", "hi"])
+    assert table.equals(jdf.to_arrow())
+    back = DataFrame.from_arrow(table)
+    for c in df.columns:
+        np.testing.assert_array_equal(back[c], df[c])
+    assert ColumnMetadata.categorical_levels(back, "cat") == ["lo", "hi"]
+    jback = JDataFrame.from_arrow(table)
+    assert JColumnMetadata.categorical_levels(jback, "cat") == ["lo", "hi"]
+    dict_arr = pa.DictionaryArray.from_arrays(pa.array([1, 0, None]),
+                                              pa.array(["x", "y"]))
+    nulls = pa.array([1, None, 3], pa.int64())
+    batches = [pa.record_batch([dict_arr, nulls], names=["d", "n"])] * 2
+    got = DataFrame.from_arrow_batches(batches)
+    want = JDataFrame.from_arrow_batches(batches)
+    for c in ("d", "n"):
+        np.testing.assert_array_equal(got[c], want[c])
+    assert ColumnMetadata.categorical_levels(got, "d") == ["x", "y"]

@@ -80,6 +80,37 @@ state, losses = pretrain_causal_lm(lm, rows, steps=1, batch_size=2,
                                    device="cpu")
 assert len(losses) == 1 and np.isfinite(losses).all(), losses
 assert state.model is lm
+
+from mmlspark_torch.core import Pipeline
+from mmlspark_torch.featurize import (CleanMissingData, Featurize,
+                                      TextFeaturizer, Word2Vec)
+from mmlspark_torch.stages import StratifiedRepartition, Timer
+
+rng = np.random.default_rng(3)
+raw = {f"c{i}": x[:, i].astype(np.float64) for i in range(6)}
+raw["c0"][rng.random(600) < 0.05] = np.nan
+raw["kind"] = np.asarray([f"k{v}" for v in (x[:, 0] > 0) * 1 +
+                          (x[:, 1] > 0) * 2], object)
+raw["label"] = y
+chain = Pipeline(stages=[
+    CleanMissingData(inputCols=["c0"], cleaningMode="Median", device="cpu"),
+    Featurize(inputCols=[c for c in raw if c != "label"], device="cpu"),
+    LightGBMClassifier(device="cpu", numIterations=3, numLeaves=7)])
+frame = StratifiedRepartition(labelCol="label", device="cpu").transform(
+    DataFrame(raw, num_partitions=2))
+timer = Timer(stage=chain)
+scored = timer.transform(frame)
+chain_auc = float(ComputeModelStatistics(labelCol="label")
+                  .transform(scored)["AUC"][0])
+assert chain_auc > 0.8 and timer.lastDuration > 0, chain_auc
+vec = TextFeaturizer(inputCol="text", outputCol="v", numFeatures=16,
+                     device="cpu").fit(docs).transform(docs)["v"]
+assert vec.shape == (3, 16), vec.shape
+sentences = np.empty(20, object)
+sentences[:] = [["a", "b", "c", "d"]] * 20
+w2v = Word2Vec(vectorSize=4, minCount=1, device="cpu").fit(
+    DataFrame({"tokens": sentences}))
+assert np.isfinite(w2v.epoch_losses).all(), w2v.epoch_losses
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -107,6 +138,17 @@ def test_slice_runs_without_importing_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ISOLATED" in proc.stdout
+
+
+# modules the featurize slice added; the scan below must reach each
+FEATURIZE_SLICE = [
+    "core/arrow.py", "core/bindings.py", "core/dataframe.py",
+    "core/utils.py", "featurize/_hostenc.py", "featurize/featurize.py",
+    "featurize/clean_missing_data.py", "featurize/value_indexer.py",
+    "featurize/data_conversion.py", "featurize/count_selector.py",
+    "featurize/vector.py", "featurize/text.py", "featurize/embedding.py",
+    "sched/policy.py", "stages/__init__.py", "stages/basic.py",
+    "stages/batching.py", "stages/misc.py"]
 
 
 def _port_sources():
@@ -146,6 +188,9 @@ def _imported_modules(path):
 def test_static_scan_finds_no_jax_import():
     sources = list(_port_sources())
     assert any(p.endswith("chip_smoke.py") for p in sources)
+    scanned = {os.path.relpath(p, os.path.join(REPO, "mmlspark_torch"))
+               for p in sources}
+    assert set(FEATURIZE_SLICE) <= scanned, set(FEATURIZE_SLICE) - scanned
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -173,3 +218,53 @@ def test_default_device_raises_without_cuda(monkeypatch):
         model.transform(df)
     assert isinstance(model.booster, Booster)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _device_stages():
+    """Every stage with a ``device`` Param, at its default, and a frame it
+    would compute on."""
+    from mmlspark_torch import featurize as f, stages as s
+    x = np.asarray([1.0, np.nan, 3.0])
+    toks = np.empty(2, object)
+    toks[:] = [["a", "b"], ["b", "a"]]
+    num = DataFrame({"x": x, "i": np.asarray([0, 2, 1]),
+                     "v": np.ones((3, 2), np.float32)})
+    return {
+        "Featurize": (f.Featurize(inputCols=["x"]).fit, num),
+        "FeaturizeModel": (f.FeaturizeModel(encodingPlan=[
+            {"col": "x", "kind": "numeric", "width": 1, "fill": 0.0}],
+            inputCols=["x"]).transform, num),
+        "CleanMissingData": (f.CleanMissingData(inputCols=["x"]).fit, num),
+        "CleanMissingDataModel": (f.CleanMissingDataModel(
+            inputCols=["x"], fillValues={"x": 0.0}).transform, num),
+        "CountSelector": (f.CountSelector(inputCol="v").fit, num),
+        "VectorAssembler": (f.VectorAssembler(inputCols=["v"]).transform,
+                            num),
+        "OneHotEncoder": (f.OneHotEncoder(inputCol="i").fit, num),
+        "OneHotEncoderModel": (f.OneHotEncoderModel(
+            inputCol="i", outputCol="oh", categorySize=3).transform, num),
+        "IDFModel": (f.IDFModel(inputCol="v", outputCol="w",
+                                idf=[1.0, 2.0]).transform, num),
+        "Word2Vec": (f.Word2Vec(minCount=1).fit, DataFrame({"tokens": toks})),
+        "Word2VecModel": (f.Word2VecModel(
+            inputCol="tokens", outputCol="e", vocabulary=["a"],
+            wordVectors=[[1.0]])
+            .transform, DataFrame({"tokens": toks})),
+        "EnsembleByKey": (s.EnsembleByKey(keys=["i"], cols=["x"]).transform,
+                          num),
+        "StratifiedRepartition": (s.StratifiedRepartition(
+            labelCol="i").transform, num),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_device_stages()))
+def test_default_device_stages_raise_without_cuda(monkeypatch, name):
+    """A stage with a ``device`` Param runs on CUDA unless asked: without a
+    GPU its default raises, never moving to the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run, frame = _device_stages()[name]
+    assert run.__self__.getDevice() == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        run(frame)
+    run.__self__.setDevice("cpu")
+    run(frame)
