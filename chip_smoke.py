@@ -181,7 +181,35 @@ kernels build), then:
     prints seconds per epoch and pairs/s, and holds the epoch losses
     finite and falling, the nearest neighbour (``findSynonyms(w, 1)``) in
     the word's group for at least 90 % of words, and the card's
-    ``transform`` within 1e-5 of the same model on the CPU.
+    ``transform`` within 1e-5 of the same model on the CPU;
+16. fits ``LightGBMClassifier(objective="multiclass")`` through K1 on
+    phase 3's features with 7 classes cut from the margin plus its noise
+    draw at its 1/7 ... 6/7 quantiles (Covertype's class count), 20
+    iterations (140 trees), with the training metric: a 2-iteration fit
+    with the plain histogram first, whose 7 iteration-0 root splits and
+    training ``multi_logloss`` (1e-3 relative) must equal the kernel fit's,
+    then two timed fits with the same nonzero K1 launches and no
+    plain-histogram call, K1's device time over a 1-iteration fit (7
+    trees; the profiler takes minutes over 140), the transform's
+    rows/s, the training ``multi_logloss`` falling every iteration,
+    probabilities summing to 1 (1e-5), the card's raw scores within 1e-5
+    of the CPU's and accuracy at least twice chance;
+17. fits ``LightGBMRegressor`` on that continuous target (``regression``
+    timed, ``huber`` and ``regression_l1``, each RMSE below the target's
+    std), then an early-stopped fit (``earlyStoppingRound=3``, 50
+    iterations) whose validation rows, the last 10 %, have their targets
+    shuffled: it must stop at ``best_iteration + 3``, score
+    ``best_iteration + 1`` iterations, and report a last validation RMSE
+    equal to a recomputation from the booster (1e-5 relative); and a
+    3-iteration fit against the plain histogram (the same tree-0 root,
+    RMSE within 1e-3 relative);
+18. fits the binary cell (phase 3's data and settings) with bagging and
+    ``featureFraction``, GOSS, DART with ``featureFraction``, rf and
+    ``posBaggingFraction``, one timed fit each after phase 3's fit as the
+    warm-up, each AUC in (0.75, 1], GOSS's first row mask exactly
+    ``top_n`` rows at 1 and ``other_n`` at 8, and each mode's 3-iteration
+    fit against the plain histogram (the same tree-0 root, AUC within
+    1e-3).
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -189,7 +217,7 @@ its seconds. The last two lines are the kernels' JSON record and
 ``--batch``/``--train-steps``/``--new-tokens`` shrink the run for a quick
 first check, and ``--phases`` runs some of the phase groups after the build
 (``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
-12-13, ``featurize``: 14-15).
+12-13, ``featurize``: 14-15, ``breadth``: 16-18).
 """
 
 from __future__ import annotations
@@ -1708,13 +1736,15 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
             records["paged_window"]]
 
 
-def device_ms(torch, fn, names, runs=10, flush=None):
+def device_ms(torch, fn, names, runs=10, flush=None, warm=True):
     """Per-kernel device time of one call of ``fn`` from ``torch.profiler``
-    (the mean over ``runs`` calls, L2 flushed before each): ``{name: ms}``
-    summed over the kernels whose name contains each of ``names``."""
+    (the mean over ``runs`` calls, L2 flushed before each, after a warm
+    call unless ``warm`` is false): ``{name: ms}`` summed over the kernels
+    whose name contains each of ``names``."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             if flush is not None:
@@ -2800,14 +2830,7 @@ def featurize_chain_phase(torch, k1, args) -> int:
     gbdt = dict(numIterations=args.iterations, numLeaves=31, maxBin=255,
                 learningRate=0.1)
     pipe = Pipeline(stages=[clean, feat, LightGBMClassifier(**gbdt)])
-    plain_calls = [0]
-    hist_torch = k1.hist_torch
-
-    def counted_plain(*a, **kw):
-        plain_calls[0] += 1
-        return hist_torch(*a, **kw)
-
-    k1.hist_torch = counted_plain
+    plain_calls, restore = counting_plain(k1)
     try:
         fit_times, launches = [], []
         for _ in range(CHAIN_FITS):
@@ -2818,7 +2841,7 @@ def featurize_chain_phase(torch, k1, args) -> int:
             fit_times.append(time.perf_counter() - t)
             launches.append(k1.hist_cuda.launches)
     finally:
-        k1.hist_torch = hist_torch
+        restore()
     if launches[0] == 0 or len(set(launches)) != 1 or plain_calls[0]:
         fail(f"phase 14: K1 launches per chain fit {launches}, plain "
              f"histogram calls {plain_calls[0]}: expected the same nonzero "
@@ -2927,7 +2950,350 @@ def featurize_phases(torch, k1, dev, args) -> int:
     return launches
 
 
-PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize")
+# ------------------------------------------------------ GBDT breadth slice
+MC_CLASSES = 7                # Covertype's class count
+MC_RUNS = 2                   # timed multiclass fits in phase 16
+SPLIT_RTOL = 1e-3             # kernel fit against the plain-histogram fit
+BREADTH_MODES = {             # phase 18: the binary cell's other modes
+    "bagging+ff": dict(baggingFraction=0.8, baggingFreq=1,
+                       featureFraction=0.8),
+    "goss": dict(boostingType="goss"),
+    "dart+ff": dict(boostingType="dart", featureFraction=0.8),
+    "rf": dict(boostingType="rf", baggingFraction=0.8, baggingFreq=1),
+    "pos_bagging": dict(posBaggingFraction=0.5, baggingFreq=1),
+}
+
+
+def higgs_like_target(rows: int):
+    """``higgs_like``'s features and its margin plus its noise draw (the
+    same seed-7 stream) as a continuous target; ``t > 0`` is its label."""
+    rng = np.random.default_rng(7)
+    feats = rng.normal(size=(rows, 28)).astype(np.float32)
+    margin = feats[:, :4].sum(1) + feats[:, 4] * feats[:, 5]
+    return feats, (margin + rng.normal(size=rows)).astype(np.float32)
+
+
+def fit_with_result(torch, est, df):
+    """``est.fit(df)`` ending in a synchronize; returns (model, the
+    trainer's ``TrainResult``, seconds). The result is read through the
+    estimators module's ``train``, since models keep no ``evals``."""
+    import mmlspark_torch.lightgbm.estimators as est_mod
+    seen = {}
+    train = est_mod.train
+
+    def spy(*a, **kw):
+        seen["r"] = train(*a, **kw)
+        return seen["r"]
+
+    est_mod.train = spy
+    try:
+        t0 = time.perf_counter()
+        model = est.fit(df)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        est_mod.train = train
+    return model, seen["r"], secs
+
+
+def counting_plain(k1):
+    """Count the plain histogram's calls through the switch that reaches
+    it; returns (calls [n], restore)."""
+    calls = [0]
+    hist_torch = k1.hist_torch
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return hist_torch(*a, **kw)
+
+    k1.hist_torch = counted
+    return calls, lambda: setattr(k1, "hist_torch", hist_torch)
+
+
+def root_splits(booster, trees):
+    a = booster.arrays
+    return [(int(a["feature"][t, 0]), float(a["threshold"][t, 0]))
+            for t in trees]
+
+
+def kernel_against_plain(torch, k1, phase, make, df, iters, metric):
+    """A short fit through K1 and the same fit with the plain histogram:
+    the same iteration-0 root splits and ``metric(model, result)`` within
+    SPLIT_RTOL relative. Returns the kernel fit's metric."""
+    kern = make(iters)
+    plain = make(iters)
+    plain._hist_impl = "torch"
+    k1.hist_cuda.launches = 0
+    m_k, r_k, _ = fit_with_result(torch, kern, df)
+    if k1.hist_cuda.launches == 0:
+        fail(f"{phase}: the kernel fit launched K1 0 times")
+    k1.hist_cuda.launches = 0
+    m_p, r_p, _ = fit_with_result(torch, plain, df)
+    if k1.hist_cuda.launches != 0:
+        fail(f"{phase}: the plain-histogram fit launched K1")
+    K = m_k.booster.num_class
+    roots_k = root_splits(m_k.booster, range(K))
+    roots_p = root_splits(m_p.booster, range(K))
+    v_k, v_p = metric(m_k, r_k), metric(m_p, r_p)
+    rel = abs(v_k - v_p) / max(abs(v_p), 1e-30)
+    print(f"{phase}: {iters}-iteration kernel fit against the plain "
+          f"histogram: iteration-0 root splits {roots_k} vs {roots_p}; "
+          f"metric {v_k:.6f} vs {v_p:.6f} ({rel:.2e} relative, limit "
+          f"{SPLIT_RTOL})")
+    if roots_k != roots_p or rel > SPLIT_RTOL:
+        fail(f"{phase}: the kernel fit and the plain-histogram fit part "
+             "ways")
+    return v_k
+
+
+def train_metric(result, name):
+    return [e[name] for e in result.evals if e.get("dataset") == "train"]
+
+
+def multiclass_phase(torch, k1, feats, t, args) -> int:
+    """Phase 16: a 7-class fit through K1 (K trees an iteration). Returns
+    K1's launches per fit."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+
+    n, iters = len(t), args.iterations
+    cuts = np.quantile(t, np.arange(1, MC_CLASSES) / MC_CLASSES)
+    classes = np.digitize(t, cuts).astype(np.float32)
+    counts = np.bincount(classes.astype(int), minlength=MC_CLASSES)
+    df = DataFrame({"features": feats, "label": classes})
+    print(f"phase 16: {n:,} rows x 28, {MC_CLASSES} classes from the "
+          f"target's quantiles ({counts.min():,}-{counts.max():,} rows a "
+          f"class); multiclass, {iters} iterations, 31 leaves, 255 bins, "
+          "lr 0.1")
+
+    def make(it):
+        return LightGBMClassifier(objective="multiclass", numIterations=it,
+                                  numLeaves=31, maxBin=255,
+                                  learningRate=0.1,
+                                  isProvideTrainingMetric=True)
+
+    # (b) the kernel against the plain histogram (the first is the warm-up)
+    kernel_against_plain(
+        torch, k1, "phase 16", make, df, 2,
+        lambda m, r: train_metric(r, "multi_logloss")[-1])
+
+    # (a) timed fits: the same nonzero K1 launches, no plain call
+    calls, restore = counting_plain(k1)
+    times, launches = [], []
+    try:
+        for _ in range(MC_RUNS):
+            k1.hist_cuda.launches = 0
+            model, result, secs = fit_with_result(torch, make(iters), df)
+            times.append(secs)
+            launches.append(k1.hist_cuda.launches)
+    finally:
+        restore()
+    trees = model.booster.num_trees
+    if launches[0] == 0 or len(set(launches)) != 1 or calls[0]:
+        fail(f"phase 16: K1 launches per fit {launches}, plain calls "
+             f"{calls[0]}: expected the same nonzero count and none")
+    fit_s = min(times)
+    # K1's device time over one iteration's K trees: the profiler takes
+    # minutes to trace a whole 140-tree fit (~700,000 kernels)
+    k1.hist_cuda.launches = 0
+    k1_dev = device_ms(torch, lambda: make(1).fit(df),
+                       ("hist_partial", "hist_reduce"), runs=1, warm=False)
+    k1_ms = k1_dev["hist_partial"] + k1_dev["hist_reduce"]
+    per_launch = k1_ms / max(k1.hist_cuda.launches, 1)
+    print(f"phase 16: fit {', '.join(f'{x:.3f}' for x in times)} s "
+          f"({n * iters / fit_s:,.0f} rows*iterations/s), {trees} trees; "
+          f"K1 launches per fit {launches[0]} ({launches[0] / trees:.2f} a "
+          f"tree), plain histogram calls 0; K1 device time over a "
+          f"1-iteration fit ({MC_CLASSES} trees, {k1.hist_cuda.launches} "
+          f"launches, torch.profiler) {k1_ms:.3f} ms "
+          f"({k1_dev['hist_partial']:.3f} partial + "
+          f"{k1_dev['hist_reduce']:.3f} reduce), {per_launch:.4f} ms a "
+          f"launch, so ~{per_launch * launches[0]:.1f} ms over a fit's "
+          f"{launches[0]} launches")
+
+    model.transform(df)                           # warm-up transform
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scored = model.transform(df)
+    tr_s = time.perf_counter() - t0
+    prob = np.asarray(scored["probability"])
+    ll = train_metric(result, "multi_logloss")
+    acc = float((np.asarray(scored["prediction"]) == classes).mean())
+    print(f"phase 16: transform {tr_s:.3f} s ({n / tr_s:,.0f} rows/s); "
+          f"training multi_logloss at iterations 1, 10, {iters}: "
+          f"{ll[0]:.6f}, {ll[min(9, iters - 1)]:.6f}, {ll[-1]:.6f}; "
+          f"accuracy {acc:.6f} (chance {1 / MC_CLASSES:.4f})")
+    # (c) probabilities sum to 1; (d) the card's raw scores against the
+    # CPU's; (e) the loss falls every iteration; (f) twice chance
+    if prob.shape != (n, MC_CLASSES) or not np.isfinite(prob).all() or \
+            np.abs(prob.sum(1) - 1.0).max() > 1e-5:
+        fail(f"phase 16: probabilities of shape {prob.shape}, sums off "
+             f"by {np.abs(prob.sum(1) - 1.0).max():.3g}")
+    small = feats[:2000]
+    diff = np.abs(model.booster.raw_scores(small, device="cuda")
+                  - model.booster.raw_scores(small, device="cpu")).max()
+    if diff > 1e-5:
+        fail(f"phase 16: raw scores on the card and the CPU differ by "
+             f"{diff:.3g}")
+    if len(ll) != iters or not all(b < a for a, b in zip(ll, ll[1:])):
+        fail(f"phase 16: training multi_logloss does not fall every "
+             f"iteration: {ll}")
+    if acc < 2.0 / MC_CLASSES:
+        fail(f"phase 16: accuracy {acc} under twice chance")
+    return launches[0]
+
+
+def rmse(model, x, y) -> float:
+    from mmlspark_torch.core import DataFrame
+    pred = np.asarray(model.transform(DataFrame({"features": x}))[
+        "prediction"], np.float64)
+    return float(np.sqrt(np.mean((pred - y) ** 2)))
+
+
+def regressor_phase(torch, k1, feats, t, args) -> None:
+    """Phase 17: the regressor, two more objectives, validation rows and
+    early stopping."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import LightGBMRegressor
+
+    n, iters = len(t), args.iterations
+    std = float(t.std())
+    df = DataFrame({"features": feats, "label": t})
+
+    def make(it, **kw):
+        return LightGBMRegressor(numIterations=it, numLeaves=31,
+                                 maxBin=255, learningRate=0.1, **kw)
+
+    make(iters).fit(df)                           # warm-up fit
+    torch.cuda.synchronize()
+    model, _, fit_s = fit_with_result(torch, make(iters), df)
+    model.transform(df)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.transform(df)
+    tr_s = time.perf_counter() - t0
+    err = rmse(model, feats, t)
+    print(f"phase 17: regression fit {fit_s:.3f} s "
+          f"({n * iters / fit_s:,.0f} rows*iterations/s), RMSE {err:.6f} "
+          f"(target std {std:.6f}), transform {tr_s:.3f} s "
+          f"({n / tr_s:,.0f} rows/s)")
+    for objective in ("huber", "regression_l1"):
+        m, _, secs = fit_with_result(torch, make(iters, objective=objective),
+                                     df)
+        e = rmse(m, feats, t)
+        print(f"phase 17: {objective} fit {secs:.3f} s, RMSE {e:.6f}")
+        if not np.isfinite(e) or e >= std:
+            fail(f"phase 17: {objective} RMSE {e} not below the target's "
+                 f"std {std}")
+    if not np.isfinite(err) or err >= std:
+        fail(f"phase 17: RMSE {err} not below the target's std {std}")
+
+    # early stopping: the last 10 % of rows are validation rows whose
+    # targets are shuffled, so their RMSE cannot improve after the init
+    flag = np.arange(n) >= n - n // 10
+    shuffled = t.copy()
+    shuffled[flag] = np.random.default_rng(17).permutation(t[flag])
+    vdf = DataFrame({"features": feats, "label": shuffled, "val": flag})
+    es, res, secs = fit_with_result(
+        torch, make(50, earlyStoppingRound=3, validationIndicatorCol="val"),
+        vdf)
+    best = es.booster.best_iteration
+    last = res.evals[-1]
+    host = float(np.sqrt(np.mean((es.booster.raw_scores(
+        feats[flag], num_iteration=last["iteration"] + 1,
+        device="cuda").astype(np.float64) - shuffled[flag]) ** 2)))
+    print(f"phase 17: early stopping fit {secs:.3f} s: stopped after "
+          f"iteration {last['iteration']}, best_iteration {best}, "
+          f"{es.booster.num_iterations} iterations trained; last "
+          f"validation RMSE {last['rmse']:.6f}, host recomputation "
+          f"{host:.6f}")
+    if last["iteration"] != best + 3 or last["iteration"] >= 49:
+        fail(f"phase 17: early stopping ended at {last['iteration']} with "
+             f"best_iteration {best}")
+    used = es.booster._effective_trees()
+    if used != best + 1:
+        fail(f"phase 17: the booster scores {used} iterations, expected "
+             f"best_iteration + 1 = {best + 1}")
+    if abs(last["rmse"] - host) > 1e-5 * host:
+        fail(f"phase 17: validation RMSE {last['rmse']} against the host's "
+             f"{host}")
+
+    # the kernel against the plain histogram
+    kernel_against_plain(torch, k1, "phase 17", lambda it: make(it), df, 3,
+                         lambda m, r: rmse(m, feats, t))
+
+
+def modes_phase(torch, k1, feats, labels, args) -> dict:
+    """Phase 18: sampling and boosting modes on the binary GBDT cell.
+    Returns K1's launches per fit by mode."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+    import mmlspark_torch.lightgbm.trainer as trainer
+    from mmlspark_torch.train import ComputeModelStatistics
+
+    n, iters = len(labels), args.iterations
+    df = DataFrame({"features": feats, "label": labels})
+
+    def make(it, **kw):
+        return LightGBMClassifier(numIterations=it, numLeaves=31,
+                                  maxBin=255, learningRate=0.1, **kw)
+
+    def auc(model):
+        return float(ComputeModelStatistics(labelCol="label").transform(
+            model.transform(df))["AUC"][0])
+
+    make(iters).fit(df)                           # warm-up: phase 3's fit
+    torch.cuda.synchronize()
+    launches = {}
+    for mode, kw in BREADTH_MODES.items():
+        trainer._debug_capture = {} if mode == "goss" else None
+        try:
+            k1.hist_cuda.launches = 0
+            model, _, secs = fit_with_result(torch, make(iters, **kw), df)
+            launches[mode] = k1.hist_cuda.launches
+            mask = None if trainer._debug_capture is None else \
+                trainer._debug_capture["goss_mask0"]
+        finally:
+            trainer._debug_capture = None
+        a = auc(model)
+        print(f"phase 18: {mode} ({kw}) fit {secs:.3f} s, K1 launches "
+              f"{launches[mode]}, AUC {a:.6f}")
+        if not 0.75 < a <= 1.0 or launches[mode] == 0:
+            fail(f"phase 18: {mode} AUC {a} outside (0.75, 1] or no K1 "
+                 "launch")
+        if mask is not None:
+            top_n, other_n = int(0.2 * n), int(0.1 * n)
+            amp = torch.tensor((1.0 - 0.2) / 0.1, dtype=torch.float32)
+            ones = int((mask == 1.0).sum())
+            amplified = int((mask == amp.to(mask.device)).sum())
+            zeros = int((mask == 0).sum())
+            print(f"phase 18: goss iteration-0 mask: {ones:,} rows at 1, "
+                  f"{amplified:,} at {float(amp):g}, {zeros:,} at 0 "
+                  f"(top_n {top_n:,}, other_n {other_n:,})")
+            if (ones, amplified, zeros) != (top_n, other_n,
+                                            n - top_n - other_n):
+                fail("phase 18: the GOSS mask breaks its invariants")
+        kernel_against_plain(torch, k1, f"phase 18 {mode}",
+                             lambda it, kw=kw: make(it, **kw), df, 3,
+                             lambda m, r: auc(m))
+    return launches
+
+
+def breadth_phases(torch, k1, args) -> dict:
+    """Phases 16-18. Returns K1's launch counts for the kernels line."""
+    feats, t = higgs_like_target(args.rows)
+    with Phase("phase 16"):
+        mc = multiclass_phase(torch, k1, feats, t, args)
+    with Phase("phase 17"):
+        regressor_phase(torch, k1, feats, t, args)
+    with Phase("phase 18"):
+        modes = modes_phase(torch, k1, feats, (t > 0).astype(np.float32),
+                            args)
+    return {"multiclass_launches": mc, "mode_launches": modes}
+
+
+PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
+                "breadth")
 
 
 class Phase:
@@ -2957,7 +3323,7 @@ def main() -> None:
     ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
                     help="phase groups to run after the build: gbdt (2-4), "
                     "text (5-6), train (7-8), llm (9-11), causal (12-13), "
-                    "featurize (14-15)")
+                    "featurize (14-15), breadth (16-18)")
     args = ap.parse_args()
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
@@ -3033,6 +3399,11 @@ def main() -> None:
         for rec in records:
             if rec["name"] == "hist":
                 rec["chain_launches"] = chain_launches
+    if "breadth" in groups:
+        counts = breadth_phases(torch, k1, args)
+        for rec in records:
+            if rec["name"] == "hist":
+                rec.update(counts)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -90,7 +90,8 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_paged.py", "test_torch_pretrain.py",
               "test_torch_text_encoder.py", "test_torch_featurize.py",
               "test_torch_stages.py", "test_torch_text_featurize.py",
-              "test_torch_word2vec.py"],
+              "test_torch_word2vec.py", "test_torch_objectives.py",
+              "test_torch_gbdt_breadth.py", "test_torch_gbdt_bands.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

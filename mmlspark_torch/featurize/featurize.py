@@ -33,7 +33,9 @@ def _numeric_means(cols: list[np.ndarray], dev) -> list[float]:
     """NaN-skipping means of float32 host columns, on ``dev``: one [n, k]
     transfer, sums in float64, rounded to float32 once. The JAX package's
     fill is a float32 sum in XLA's order; the two differ by its rounding
-    only, and the card's and the CPU's agree."""
+    only, and the card's and the CPU's agree. A sum beyond float32's
+    finite range gives the float32 sum's ``inf`` (or ``-inf``), as the
+    JAX package's ``valid.mean()`` does."""
     if not cols:
         return []
     x = torch.as_tensor(np.stack(cols, axis=1)).to(dev)
@@ -41,6 +43,8 @@ def _numeric_means(cols: list[np.ndarray], dev) -> list[float]:
     sums = torch.where(valid, x, 0).sum(0, dtype=torch.float64)
     counts = valid.sum(0)
     means = torch.where(counts > 0, sums / counts.clamp(min=1), 0)
+    f32_sums = sums.to(torch.float32).to(torch.float64)
+    means = torch.where(torch.isinf(f32_sums), f32_sums, means)
     return [float(np.float32(m)) for m in to_host(means)]
 
 

@@ -66,6 +66,7 @@ class Booster:
         self.tree_weights = (np.ones(T, np.float32) if tree_weights is None
                              else np.asarray(tree_weights, np.float32))
         self.average_output = average_output
+        self.best_iteration = -1
         self._dev_cache = None
 
     # ------------------------------------------------------------ prediction
@@ -78,9 +79,14 @@ class Booster:
         return self.num_trees // self.num_class
 
     def _effective_trees(self, num_iteration: int | None = None) -> int:
-        if num_iteration is None:
+        """Trees scored for ``num_iteration`` iterations (default: up to
+        the best iteration, where a validation set chose one)."""
+        it = num_iteration
+        if it is None and self.best_iteration >= 0:
+            it = self.best_iteration + 1
+        if it is None:
             return self.num_trees
-        return min(self.num_trees, num_iteration * self.num_class)
+        return min(self.num_trees, it * self.num_class)
 
     def raw_scores(self, x, num_iteration: int | None = None,
                    start_iteration: int = 0,
@@ -145,13 +151,22 @@ class Booster:
         return out
 
     def transform_scores(self, raw: np.ndarray) -> np.ndarray:
-        """Raw scores → the objective's output (a probability for
-        ``binary``); the other objectives' transforms come with them."""
-        if self.objective == "binary":
+        """Raw scores → the objective's output: a probability, a softmax
+        over classes, an expectation, or the raw score."""
+        if self.objective in ("binary", "multiclassova"):
+            # multiclassova: per-class sigmoid, unnormalized (LightGBM)
             return stable_sigmoid(self.sigmoid * raw)
-        raise NotImplementedError(
-            f"scoring objective {self.objective!r} is not ported yet; it "
-            f"comes with {LATER_SLICE}")
+        if self.objective in ("multiclass", "softmax"):
+            e = np.exp(raw - raw.max(axis=-1, keepdims=True))
+            return e / e.sum(axis=-1, keepdims=True)
+        if self.objective == "cross_entropy":
+            return stable_sigmoid(raw)
+        if self.objective == "cross_entropy_lambda":
+            # the intensity log1p(exp(score)), not a probability
+            return np.logaddexp(0.0, raw)
+        if self.objective in ("poisson", "gamma", "tweedie"):
+            return np.exp(raw)
+        return raw
 
     def _device_arrays(self, t_end: int, dev: torch.device):
         # cached per (arrays identity, t_end, device): re-uploading every

@@ -24,18 +24,26 @@ def booster_from_arrays(arrays: Mapping[str, np.ndarray], *, num_class: int,
                         objective: str, sigmoid: float, init_score,
                         feature_names: list[str] | None,
                         max_depth_bound: int,
-                        tree_weights: np.ndarray | None = None) -> Booster:
+                        tree_weights: np.ndarray | None = None,
+                        average_output: bool = False,
+                        best_iteration: int = -1) -> Booster:
     """The port's ``Booster`` from a JAX ``Booster``'s arrays and scalars
     (``b.arrays``, ``b.num_class``, ``b.objective``, ``b.sigmoid``,
     ``b.init_score``, ``b.feature_names``, ``b.max_depth_bound``,
-    ``b.tree_weights``)."""
-    return Booster({k: np.array(v) for k, v in arrays.items()},
-                   num_class=num_class, objective=objective, sigmoid=sigmoid,
-                   init_score=np.asarray(init_score, np.float32),
-                   feature_names=None if feature_names is None
-                   else list(feature_names),
-                   max_depth_bound=max_depth_bound,
-                   tree_weights=tree_weights)
+    ``b.tree_weights``, ``b.average_output``, ``b.best_iteration``):
+    multiclass, DART and rf models and an early-stopped one's best
+    iteration carry over."""
+    booster = Booster({k: np.array(v) for k, v in arrays.items()},
+                      num_class=num_class, objective=objective,
+                      sigmoid=sigmoid,
+                      init_score=np.asarray(init_score, np.float32),
+                      feature_names=None if feature_names is None
+                      else list(feature_names),
+                      max_depth_bound=max_depth_bound,
+                      tree_weights=tree_weights,
+                      average_output=average_output)
+    booster.best_iteration = int(best_iteration)
+    return booster
 
 
 def tree_from_arrays(arrays: Mapping[str, np.ndarray], *,

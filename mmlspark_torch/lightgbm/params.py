@@ -3,17 +3,18 @@
 Every Param of ``mmlspark_tpu/lightgbm/params.py`` (reference
 ``lightgbm/params/LightGBMParams.scala``) with the same names and defaults,
 plus ``device``, so a pipeline written for the JAX package constructs
-unchanged. Some select configurations outside the ported slice (boosting
-types, bagging, categorical slots, continuation, more than one shard,
-xgboost-style DART): the estimator raises ``NotImplementedError`` when one
-is set to such a value. The rest are inert here: the socket settings
-(``useBarrierExecutionMode``, ``defaultListenPort``, ``timeout``), the host
-knobs (``numThreads``, ``verbosity``, ``scanChunk``), the mesh's
-``shardAxisName`` and ``parallelism``/``topK`` (one shard: data and voting
-parallelism are the same computation), and the knobs of configurations
-that raise on their own selector (the DART and GOSS rates, the sparse and
-categorical widths, ``metric``, ``evalFreq``, ``improvementTolerance``,
-``baggingSeed``).
+unchanged. The boosting types, bagging, ``featureFraction``, the DART and
+GOSS rates, ``baggingSeed``, ``metric``, ``evalFreq``,
+``isProvideTrainingMetric``, ``earlyStoppingRound`` and
+``improvementTolerance`` all act as in the JAX package. Some select
+configurations still to come (categorical slots, ``maxBinByFeature``,
+continuation, more than one shard, xgboost-style DART): the estimator
+raises ``NotImplementedError`` when one is set to such a value. The rest
+are inert here: the socket settings (``useBarrierExecutionMode``,
+``defaultListenPort``, ``timeout``), the host knobs (``numThreads``,
+``verbosity``, ``scanChunk``), the mesh's ``shardAxisName`` and
+``parallelism``/``topK`` (one shard: data and voting parallelism are the
+same computation), and the sparse and categorical widths.
 """
 
 from __future__ import annotations
@@ -129,8 +130,9 @@ class LightGBMLearnerParams:
                                "bagging keep-rate for negative rows",
                                TC.toFloat, default=1.0)
     xgboostDartMode = Param("xgboostDartMode",
-                            "xgboost-style dart normalization (not ported; "
-                            "raises if set)", TC.toBoolean, default=False)
+                            "xgboost-style dart normalization (raises with "
+                            "dart, as in the JAX package)", TC.toBoolean,
+                            default=False)
     catSmooth = Param("catSmooth", "hessian smoothing in the categorical "
                       "gradient/hessian ratio sort", TC.toFloat,
                       default=10.0)
@@ -165,7 +167,7 @@ class LightGBMSharedParams(LightGBMExecutionParams, LightGBMLearnerParams,
                            HasFeaturesCol, HasLabelCol, HasWeightCol,
                            HasInitScoreCol, HasValidationIndicatorCol,
                            HasPredictionCol):
-    """The classifier's params and their ``TrainConfig`` fields."""
+    """The estimators' params and their ``TrainConfig`` fields."""
 
     def _train_config_kwargs(self) -> dict:
         return dict(
@@ -191,4 +193,17 @@ class LightGBMSharedParams(LightGBMExecutionParams, LightGBMLearnerParams,
             max_bin_by_feature=tuple(self.getMaxBinByFeature() or ()),
             pos_bagging_fraction=self.getPosBaggingFraction(),
             neg_bagging_fraction=self.getNegBaggingFraction(),
+            top_rate=self.getTopRate(),
+            other_rate=self.getOtherRate(),
+            drop_rate=self.getDropRate(),
+            max_drop=self.getMaxDrop(),
+            skip_drop=self.getSkipDrop(),
+            uniform_drop=self.getUniformDrop(),
+            bagging_seed=self.getBaggingSeed(),
+            metric=self.getMetric(),
+            is_provide_training_metric=self.getIsProvideTrainingMetric(),
+            eval_freq=self.getEvalFreq(),
+            improvement_tolerance=self.getImprovementTolerance(),
+            xgboost_dart_mode=self.getXgboostDartMode(),
+            fobj=self.get("fobj"),
         )

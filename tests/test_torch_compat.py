@@ -7,6 +7,9 @@ surface.
 - The GBDT estimator takes the reference's inert Params
   (``verbosity=-1``, ``numThreads``, ``timeout``, ...) and fits as with
   none; a value that selects an unported configuration raises.
+- A multiclass, a DART, an rf and a regression model saved by either
+  package (as a stage and as a LightGBM text model) load in the other
+  with the same raw scores within 1e-5.
 - ``TokenIdEncoder``, ``ComputeModelStatistics``,
   ``LightGBMClassificationModel`` and ``TextEncoderFeaturizer`` (without
   ``model``) saved by either package load in the other and give the same
@@ -73,8 +76,10 @@ import mmlspark_torch.featurize as tfeat
 import mmlspark_torch.stages as tstages
 from mmlspark_torch.dl import TextEncoderFeaturizer
 from mmlspark_torch.featurize import TokenIdEncoder
-from mmlspark_torch.lightgbm import (LightGBMClassificationModel,
-                                     LightGBMClassifier)
+from mmlspark_torch.lightgbm import (Booster, LightGBMClassificationModel,
+                                     LightGBMClassifier,
+                                     LightGBMRegressionModel,
+                                     LightGBMRegressor)
 from mmlspark_torch.train import ComputeModelStatistics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,6 +100,9 @@ PAIRS = {
     "LightGBMClassifier": (LightGBMClassifier, jlgbm.LightGBMClassifier),
     "LightGBMClassificationModel": (LightGBMClassificationModel,
                                     jlgbm.LightGBMClassificationModel),
+    "LightGBMRegressor": (LightGBMRegressor, jlgbm.LightGBMRegressor),
+    "LightGBMRegressionModel": (LightGBMRegressionModel,
+                                jlgbm.LightGBMRegressionModel),
 }
 # the featurize slice: every class of featurize/ and stages/
 PAIRS.update({name: (getattr(tfeat, name), getattr(jfeat, name))
@@ -152,7 +160,7 @@ def test_inert_reference_params_fit_as_without_them():
 
 
 @pytest.mark.parametrize("kwargs, exc", [
-    (dict(xgboostDartMode=True), NotImplementedError),
+    (dict(xgboostDartMode=True, boostingType="dart"), NotImplementedError),
     (dict(numShards=2), NotImplementedError),
     (dict(parallelism="feature_parallel"), ValueError),
 ])
@@ -351,6 +359,61 @@ def test_stages_load_across_packages_both_ways(tmp_path):
     assert type(jf) is jte.TextEncoderFeaturizer
     assert (jf.getWidth(), jf.getHeads(), jf.getDepth(),
             jf.getAttentionImpl()) == (48, 3, 1, "pallas")
+
+
+# the GBDT breadth slice's model kinds: (estimator name, Params, labels)
+BREADTH_MODELS = {
+    "multiclass": ("LightGBMClassifier", dict(objective="multiclass"),
+                   "classes"),
+    "dart": ("LightGBMClassifier", dict(boostingType="dart", skipDrop=0.0),
+             "binary"),
+    "rf": ("LightGBMClassifier", dict(boostingType="rf", baggingFraction=0.8,
+                                      baggingFreq=1), "binary"),
+    "regression": ("LightGBMRegressor", dict(objective="huber"), "real"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(BREADTH_MODELS))
+def test_breadth_models_cross_packages_both_ways(kind, tmp_path):
+    """Stages saved by either package load in the other; their text models
+    give the same raw scores within 1e-5 both ways."""
+    est, kw, labels = BREADTH_MODELS[kind]
+    x, y = _gbdt_frame()
+    if labels == "classes":
+        y = (np.digitize(x[:, 0] + x[:, 1], [-0.8, 0.0, 0.8])
+             ).astype(np.float32)
+    elif labels == "real":
+        y = (x[:, 0] - 0.5 * x[:, 1]).astype(np.float32)
+    kw = dict(kw, numIterations=5, numLeaves=7)
+    jm = getattr(jlgbm, est)(numShards=1, **kw).fit(
+        JDataFrame({"features": x, "label": y}))
+    tm = globals()[est](device="cpu", **kw).fit(
+        DataFrame({"features": x, "label": y}))
+    jraw, traw = jm.booster.raw_scores(x), tm.booster.raw_scores(
+        x, device="cpu")
+    assert traw.shape == jraw.shape
+    if kind == "multiclass":
+        assert traw.shape == (len(y), 4)
+    # text models, both ways
+    np.testing.assert_allclose(
+        Booster.load_native(jm.booster.save_native()).raw_scores(
+            x, device="cpu"), jraw, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        jlgbm.Booster.load_native(tm.booster.save_native()).raw_scores(x),
+        traw, rtol=0, atol=1e-5)
+    # stages, both ways
+    jm.save(str(tmp_path / "jax"))
+    tm.save(str(tmp_path / "torch"))
+    from_jax = load_stage(str(tmp_path / "jax"))
+    assert type(from_jax).__name__ == type(jm).__name__
+    assert type(from_jax).__module__.startswith("mmlspark_torch")
+    np.testing.assert_allclose(from_jax.booster.raw_scores(x, device="cpu"),
+                               jraw, rtol=0, atol=1e-5)
+    from_port = jload_stage(str(tmp_path / "torch"))
+    assert type(from_port) is type(jm)
+    np.testing.assert_allclose(from_port.booster.raw_scores(x), traw,
+                               rtol=0, atol=1e-5)
+    assert from_port.booster.average_output == (kind == "rf")
 
 
 @pytest.mark.parametrize("module, name", [

@@ -187,6 +187,29 @@ def test_clean_missing_data_matches_jax(mode, n):
         assert not np.isnan(got).any()
 
 
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_mean_fill_of_a_float32_overflow_matches_jax(sign):
+    """9,999 values of ±1e35 and one NaN: the float32 sum overflows, so
+    the JAX package's mean (and with it the fill) is ±inf in both
+    stages."""
+    x = np.full(10_000, sign * 1e35, np.float32)
+    x[17] = np.nan
+    data = {"x": x}
+    jdf, tdf = _both(data)
+    kw = dict(inputCols=["x"], cleaningMode="Mean")
+    jfill = jf.CleanMissingData(**kw).fit(jdf).getFillValues()["x"]
+    tmodel = tf.CleanMissingData(**kw, device="cpu").fit(tdf)
+    assert jfill == sign * np.inf
+    assert tmodel.getFillValues()["x"] == jfill
+    out = tmodel.transform(tdf)["x"]
+    assert out[17] == sign * np.inf and (out[:17] == x[:17]).all()
+    jplan = jf.Featurize(inputCols=["x"]).fit(jdf).getEncodingPlan()
+    tmodel = tf.Featurize(inputCols=["x"], device="cpu").fit(tdf)
+    assert tmodel.getEncodingPlan()[0]["fill"] == jplan[0]["fill"] \
+        == sign * np.inf
+    assert tmodel.transform(tdf)["features"][17, 0] == sign * np.inf
+
+
 def test_clean_missing_data_output_cols_and_even_median():
     x = np.asarray([4.0, np.nan, 1.0, 3.0, 2.0], np.float32)
     kw = dict(inputCols=["x"], outputCols=["x_clean"], cleaningMode="Median")

@@ -12,7 +12,8 @@ import torch
 
 from mmlspark_torch.core import DataFrame
 from mmlspark_torch.device import resolve_device
-from mmlspark_torch.lightgbm import Booster, LightGBMClassifier
+from mmlspark_torch.lightgbm import (Booster, LightGBMClassifier,
+                                     LightGBMRegressor)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
@@ -111,6 +112,27 @@ sentences[:] = [["a", "b", "c", "d"]] * 20
 w2v = Word2Vec(vectorSize=4, minCount=1, device="cpu").fit(
     DataFrame({"tokens": sentences}))
 assert np.isfinite(w2v.epoch_losses).all(), w2v.epoch_losses
+from mmlspark_torch.lightgbm import LightGBMRegressor
+
+classes = (np.digitize(x[:, 0] + x[:, 1], [-0.7, 0.7])).astype(np.float32)
+mc = LightGBMClassifier(device="cpu", objective="multiclass",
+                        numIterations=3, numLeaves=7).fit(
+    DataFrame({"features": x, "label": classes}))
+prob = mc.transform(DataFrame({"features": x}))["probability"]
+assert prob.shape == (600, 3) and np.allclose(prob.sum(1), 1.0), prob.shape
+assert mc.booster.num_trees == 9
+target = (x[:, 0] - x[:, 1]).astype(np.float32)
+target[np.arange(600) %% 5 == 0] = rng.permutation(
+    target[np.arange(600) %% 5 == 0])
+reg = LightGBMRegressor(device="cpu", numIterations=40, numLeaves=7,
+                        learningRate=0.3, earlyStoppingRound=2,
+                        validationIndicatorCol="val").fit(
+    DataFrame({"features": x, "label": target,
+               "val": np.arange(600) %% 5 == 0}))
+best = reg.booster.best_iteration
+assert 0 <= best and reg.booster.num_iterations == best + 3, best
+pred = reg.transform(DataFrame({"features": x}))["prediction"]
+assert pred.shape == (600,) and np.isfinite(pred).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -254,6 +276,10 @@ def _device_stages():
                           num),
         "StratifiedRepartition": (s.StratifiedRepartition(
             labelCol="i").transform, num),
+        "LightGBMRegressor": (LightGBMRegressor(
+            numIterations=1, minDataInLeaf=1).fit, DataFrame(
+            {"features": np.ones((3, 1), np.float32),
+             "label": np.asarray([0.0, 1.0, 2.0], np.float32)})),
     }
 
 

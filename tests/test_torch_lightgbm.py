@@ -275,18 +275,12 @@ def test_leaf_prediction_column_matches(breast_cancer):
 
 
 OUTSIDE_SLICE = {
-    "rf": dict(boostingType="rf", baggingFraction=0.9, baggingFreq=1),
-    "dart": dict(boostingType="dart"),
-    "goss": dict(boostingType="goss"),
-    "bagging": dict(baggingFraction=0.8, baggingFreq=1),
-    "feature_fraction": dict(featureFraction=0.5),
     "categorical": dict(categoricalSlotIndexes=[0]),
-    "validation": dict(validationIndicatorCol="is_val"),
-    "early_stopping": dict(earlyStoppingRound=5),
     "num_batches": dict(numBatches=2),
     "shards": dict(numShards=2),
-    "multiclass_objective": dict(objective="multiclass"),
     "continuation": dict(modelString="tree\n"),
+    "init_score": dict(initScoreCol="s"),
+    "max_bin_by_feature": dict(maxBinByFeature=[16] * 30),
 }
 
 
@@ -294,22 +288,42 @@ OUTSIDE_SLICE = {
 def test_configs_outside_the_slice_raise(name, breast_cancer):
     x, y = breast_cancer
     df = DataFrame({"features": x[:200], "label": y[:200],
-                    "is_val": np.zeros(200, bool)})
+                    "is_val": np.zeros(200, bool),
+                    "s": np.zeros(200, np.float32)})
     with pytest.raises(NotImplementedError, match="GBDT breadth"):
         LightGBMClassifier(device="cpu", numIterations=2,
                            **OUTSIDE_SLICE[name]).fit(df)
 
 
-def test_multiclass_labels_and_sparse_input_raise(breast_cancer):
-    x, y = breast_cancer
-    with pytest.raises(NotImplementedError, match="GBDT breadth"):
-        LightGBMClassifier(device="cpu", numIterations=2).fit(
-            DataFrame({"features": x[:90], "label": np.arange(90) % 3}))
+def test_sparse_input_raises():
     sparse = DataFrame({"features_indices": np.zeros((4, 2), np.int32),
                         "features_values": np.ones((4, 2), np.float32),
                         "label": np.array([0, 1, 0, 1], np.float32)})
     with pytest.raises(NotImplementedError, match="GBDT breadth"):
         LightGBMClassifier(device="cpu").fit(sparse)
+
+
+def test_shap_column_raises(fits):
+    model = fits("parity_band")["tmodel"].copy()
+    model.setFeaturesShapCol("shap")
+    with pytest.raises(NotImplementedError, match="GBDT breadth"):
+        model.transform(DataFrame({"features": np.zeros((3, 30),
+                                                        np.float32)}))
+
+
+def test_xgboost_dart_mode_raises_the_jax_message(breast_cancer):
+    x, y = breast_cancer
+    df = {"features": x[:100], "label": y[:100]}
+    kw = dict(boostingType="dart", xgboostDartMode=True, numIterations=2)
+    with pytest.raises(NotImplementedError) as jerr:
+        JClassifier(numShards=1, **kw).fit(JDataFrame(dict(df)))
+    with pytest.raises(NotImplementedError) as terr:
+        LightGBMClassifier(device="cpu", **kw).fit(DataFrame(dict(df)))
+    assert str(terr.value) == str(jerr.value)
+    assert "item" not in str(terr.value)
+    # inert without dart, as in the JAX package
+    LightGBMClassifier(device="cpu", xgboostDartMode=True,
+                       numIterations=1).fit(DataFrame(dict(df)))
 
 
 def test_weighted_fit_matches(breast_cancer):

@@ -4,9 +4,11 @@
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 
     python3 tools/profile_torch_gbdt.py [--rows 500000] [--iterations 20]
+        [--classes 7]
 
 On chip_smoke.py's Higgs-shaped workload (500,000 x 28, 31 leaves, 255
-bins) it prints:
+bins; with ``--classes K`` the multiclass fit of its phase 16, K classes
+cut from the target's quantiles, K trees an iteration) it prints:
 
 1. warm fit seconds with K1 and with the plain histogram, in turns
    (kernel, plain, plain, kernel), each fit ending in a synchronize;
@@ -27,16 +29,20 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import higgs_like  # noqa: E402
+from chip_smoke import higgs_like, higgs_like_target  # noqa: E402
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=500_000)
     ap.add_argument("--iterations", type=int, default=20)
+    ap.add_argument("--classes", type=int, default=2,
+                    help="above 2: a multiclass fit (chip_smoke phase 16)")
     args = ap.parse_args()
 
     import torch
@@ -53,10 +59,17 @@ def main() -> None:
         check=True, timeout=60).stdout.strip()
     print(card)
     n, iters = args.rows, args.iterations
-    feats, labels = higgs_like(n)
+    K = args.classes
+    objective = "multiclass" if K > 2 else "binary"
+    if K > 2:
+        feats, t = higgs_like_target(n)
+        labels = np.digitize(t, np.quantile(t, np.arange(1, K) / K)
+                             ).astype(np.float32)
+    else:
+        feats, labels = higgs_like(n)
     df = DataFrame({"features": feats, "label": labels})
     kw = dict(numIterations=iters, numLeaves=31, maxBin=255,
-              learningRate=0.1)
+              learningRate=0.1, objective=objective)
 
     def fit(impl):
         clf = LightGBMClassifier(**kw)
@@ -74,8 +87,9 @@ def main() -> None:
         print(f"fit hist={impl or 'cuda'}: {s:.3f} s "
               f"({n * iters / s:,.0f} rows*iterations/s)")
 
-    cfg = TrainConfig(objective="binary", num_iterations=iters,
-                      num_leaves=31, max_bin=255, learning_rate=0.1)
+    cfg = TrainConfig(objective=objective, num_iterations=iters,
+                      num_class=K if K > 2 else 1, num_leaves=31,
+                      max_bin=255, learning_rate=0.1)
     res = train(feats, labels, None, cfg, device="cuda")
     print(f"trainer split: binning {res.seconds['binning']:.3f} s, "
           f"boosting {res.seconds['boosting']:.3f} s")
