@@ -209,7 +209,35 @@ kernels build), then:
     warm-up, each AUC in (0.75, 1], GOSS's first row mask exactly
     ``top_n`` rows at 1 and ``other_n`` at 8, and each mode's 3-iteration
     fit against the plain histogram (the same tree-0 root, AUC within
-    1e-3).
+    1e-3);
+19. fits phase 3's rows plus two seeded categorical slots (12 and 200
+    levels; the label's margin gains 1.0 on a seeded non-monotone half of
+    the 200 levels) with ``categoricalSlotIndexes=[28, 29]`` through K1
+    (the same nonzero launches in each timed fit, no plain call), holds a
+    3-iteration fit against the plain histogram (the same tree-0 root,
+    its left set included; AUC within 1e-3), the set split's AUC above an
+    ordinal fit's, ``saveNativeModel`` → ``loadNativeModelFromString``
+    (raw scores within 1e-6 on the card, 1e-5 of the CPU's), unseen,
+    negative and non-integer category ids routed as missing ones (right),
+    the loaded bitset read one bin late as a planted fault that must
+    fail, and a ``maxBinByFeature`` fit whose capped slot splits at or
+    below its 15th cut;
+20. fits the padded-COO path on ``bench.py``'s hashed-text shape (200,000
+    rows of 32 unique indices over 10,000 features, 10 iterations, 31
+    leaves; no K1 launch), reads the histogram's device time from
+    ``torch.profiler``, and holds a 20,000-row, 3-iteration card fit
+    against ``device="cpu"`` (the same tree-0 root, AUC within 1e-3), COO
+    scoring
+    of 1,000 rows against the densified rows (1e-6) and a text-format
+    round trip;
+21. fits ``LightGBMRanker`` on ``bench.py``'s MSLR-WEB30K shape (1,000
+    queries of 100 documents, 32 features, graded 0-4 relevance, 10
+    iterations, 31 leaves) through K1, prints ndcg@1/3/5/10, and holds a
+    3-iteration fit against the plain histogram (the same root, ndcg@10
+    within 1e-3), the iteration-0 lambdarank gradients on the card
+    against the CPU's (1e-5), ndcg@10 above a seeded random scoring's,
+    and SHAP values of 256 rows of phase 19's model summing to their raw
+    scores (1e-4).
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -217,7 +245,7 @@ its seconds. The last two lines are the kernels' JSON record and
 ``--batch``/``--train-steps``/``--new-tokens`` shrink the run for a quick
 first check, and ``--phases`` runs some of the phase groups after the build
 (``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
-12-13, ``featurize``: 14-15, ``breadth``: 16-18).
+12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21).
 """
 
 from __future__ import annotations
@@ -3011,9 +3039,18 @@ def counting_plain(k1):
 
 
 def root_splits(booster, trees):
+    """Each tree's root as (feature, threshold), or (feature, left set of
+    category ids) where the root splits on a category set."""
     a = booster.arrays
-    return [(int(a["feature"][t, 0]), float(a["threshold"][t, 0]))
-            for t in trees]
+    out = []
+    for t in trees:
+        if "cat_flag" in a and a["cat_flag"][t, 0]:
+            out.append((int(a["feature"][t, 0]), tuple(
+                np.flatnonzero(a["cat_left"][t, 0, 1:]).tolist())))
+        else:
+            out.append((int(a["feature"][t, 0]),
+                        float(a["threshold"][t, 0])))
+    return out
 
 
 def kernel_against_plain(torch, k1, phase, make, df, iters, metric):
@@ -3292,8 +3329,365 @@ def breadth_phases(torch, k1, args) -> dict:
     return {"multiclass_launches": mc, "mode_launches": modes}
 
 
+# ------------------------------------------------ GBDT breadth, entries 4-6
+CAT_LEVELS = (12, 200)        # phase 19's categorical slots
+CAT_RUNS = 2                  # timed categorical fits
+CAPPED_SLOT, CAPPED_BINS = 0, 16   # phase 19's maxBinByFeature fit
+CARD_CPU_RAW_ATOL = 1e-5      # the card's raw scores against the CPU's
+ROUND_TRIP_ATOL = 1e-6        # a text-format round trip on one device
+SPARSE_ROWS, SPARSE_WIDTH, SPARSE_F = 200_000, 32, 10_000
+SPARSE_ITERS = 10
+SPARSE_CHECK_ROWS = 20_000    # the card fit held against device="cpu"
+SPARSE_CHECK_ITERS = 3        # ... over this many iterations
+RANK_QUERIES, RANK_DOCS, RANK_F, RANK_ITERS = 1000, 100, 32, 10
+LAMBDA_ATOL = 1e-5            # iteration-0 lambdarank gradients, card/CPU
+SHAP_ROWS, SHAP_ATOL = 256, 1e-4
+
+
+def categorical_frame(rows: int):
+    """Phase 3's features and label draws (seed 7) plus two categorical
+    slots (seed 19) of ``CAT_LEVELS`` levels; the label's margin gains 1.0
+    on a seeded half of the 200 levels (no threshold separates it)."""
+    rng = np.random.default_rng(7)
+    feats = rng.normal(size=(rows, 28)).astype(np.float32)
+    margin = feats[:, :4].sum(1) + feats[:, 4] * feats[:, 5]
+    noise = rng.normal(size=rows)
+    crng = np.random.default_rng(19)
+    cats = np.stack([crng.integers(0, k, size=rows) for k in CAT_LEVELS],
+                    1).astype(np.float32)
+    good = crng.permutation(CAT_LEVELS[1])[:CAT_LEVELS[1] // 2]
+    margin = margin + np.isin(cats[:, 1], good)
+    labels = (margin + noise > 0).astype(np.float32)
+    return np.concatenate([feats, cats], 1), labels, good
+
+
+def auc_of(model, df) -> float:
+    from mmlspark_torch.train import ComputeModelStatistics
+    return float(ComputeModelStatistics(labelCol="label").transform(
+        model.transform(df))["AUC"][0])
+
+
+def categorical_phase(torch, k1, args):
+    """Phase 19: categorical slots and ``maxBinByFeature`` through K1.
+    Returns (K1 launches per fit, the fitted model, its rows)."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import (LightGBMClassificationModel,
+                                         LightGBMClassifier)
+    from mmlspark_torch.lightgbm.trainer import (TrainConfig,
+                                                 _dense_boundaries)
+
+    n, iters = args.rows, args.iterations
+    x, labels, good = categorical_frame(n)
+    F = x.shape[1]
+    cat_slots = [F - 2, F - 1]
+    df = DataFrame({"features": x, "label": labels})
+    print(f"phase 19: {n:,} rows x {F} (28 numeric, categorical slots "
+          f"{cat_slots} of {CAT_LEVELS} levels; +1.0 margin on "
+          f"{len(good)} seeded levels of slot {cat_slots[1]}); binary, "
+          f"{iters} iterations, 31 leaves, 255 bins, lr 0.1")
+
+    def make(it, **kw):
+        kw.setdefault("categoricalSlotIndexes", cat_slots)
+        return LightGBMClassifier(numIterations=it, numLeaves=31,
+                                  maxBin=255, learningRate=0.1, **kw)
+
+    # the kernel against the plain histogram (the first fit warms up)
+    kernel_against_plain(torch, k1, "phase 19", make, df, 3,
+                         lambda m, r: auc_of(m, df))
+
+    calls, restore = counting_plain(k1)
+    times, launches = [], []
+    try:
+        for _ in range(CAT_RUNS):
+            k1.hist_cuda.launches = 0
+            model, _, secs = fit_with_result(torch, make(iters), df)
+            times.append(secs)
+            launches.append(k1.hist_cuda.launches)
+    finally:
+        restore()
+    if launches[0] == 0 or len(set(launches)) != 1 or calls[0]:
+        fail(f"phase 19: K1 launches per fit {launches}, plain calls "
+             f"{calls[0]}: expected the same nonzero count and none")
+    a = model.booster.arrays
+    n_cat = int(a["cat_flag"].sum()) if "cat_flag" in a else 0
+    sizes = a["cat_left"][a["cat_flag"]].sum(-1) if n_cat else np.zeros(1)
+    auc = auc_of(model, df)
+    ordinal = auc_of(LightGBMClassifier(
+        numIterations=iters, numLeaves=31, maxBin=255,
+        learningRate=0.1).fit(df), df)
+    fit_s = min(times)
+    print(f"phase 19: fit {', '.join(f'{t:.3f}' for t in times)} s "
+          f"({n * iters / fit_s:,.0f} rows*iterations/s); K1 launches per "
+          f"fit {launches[0]}, plain histogram calls 0; {n_cat} set splits "
+          f"of {int((~a['is_leaf'] & (a['left'] >= 0)).sum())} (left sets "
+          f"of {int(sizes.min())}-{int(sizes.max())} categories); AUC "
+          f"{auc:.6f}, ordinal fit {ordinal:.6f}")
+    if n_cat == 0:
+        fail("phase 19: no tree split on a category set")
+    if not auc > ordinal:
+        fail(f"phase 19: set-split AUC {auc} not above the ordinal fit's "
+             f"{ordinal}")
+
+    # the text format: saved, loaded, scored on the card and the CPU
+    text = model.get_native_model_string()
+    loaded = LightGBMClassificationModel.loadNativeModelFromString(text)
+    small = x[:20_000]
+    raw = model.booster.raw_scores(small, device="cuda")
+    raw_loaded = loaded.booster.raw_scores(small, device="cuda")
+    raw_cpu = model.booster.raw_scores(small, device="cpu")
+    rt = float(np.abs(raw_loaded - raw).max())
+    cc = float(np.abs(raw_cpu - raw).max())
+    late = loaded.booster.arrays["cat_left"]
+    loaded.booster.arrays["cat_left"] = np.roll(late, 1, axis=-1)
+    loaded.booster._dev_cache = None
+    fault = float(np.abs(loaded.booster.raw_scores(
+        small, device="cuda") - raw).max())
+    print(f"phase 19: text round trip max |Δraw| {rt:.3g} on the card "
+          f"(limit {ROUND_TRIP_ATOL}), card against CPU {cc:.3g} (limit "
+          f"{CARD_CPU_RAW_ATOL}); planted fault (the loaded bitset read "
+          f"one bin late) {fault:.3g}")
+    if rt > ROUND_TRIP_ATOL or cc > CARD_CPU_RAW_ATOL:
+        fail("phase 19: the categorical model does not survive the text "
+             "format or disagrees between the card and the CPU")
+    if fault <= ROUND_TRIP_ATOL:
+        fail("phase 19: the planted bitset fault passed the round-trip "
+             "hold")
+
+    # unseen (250), negative and non-integer ids route as missing: right
+    probe = x[:4096].copy()
+    ref = probe.copy()
+    ref[:, cat_slots] = np.nan
+    want = model.booster.predict_leaf(ref, device="cuda")
+    for bad in (250.0, -1.0, 3.5):
+        probe[:, cat_slots] = bad
+        got = model.booster.predict_leaf(probe, device="cuda")
+        if not np.array_equal(got, want):
+            fail(f"phase 19: category id {bad} does not route as a "
+                 "missing one (right)")
+    print("phase 19: ids 250 (unseen), -1 and 3.5 route as missing ones "
+          "at every node")
+
+    # maxBinByFeature: the capped slot splits at or below its 15th cut
+    budgets = [0] * F
+    budgets[CAPPED_SLOT] = CAPPED_BINS
+    capped_est = make(iters, maxBinByFeature=budgets)
+    capped, _, secs = fit_with_result(torch, capped_est, df)
+    # the boundaries this fit binned with (its seed's sample of rows)
+    bounds = _dense_boundaries(x, TrainConfig(
+        max_bin=255, seed=capped_est.getSeed(),
+        bin_sample_count=capped_est.getBinSampleCount(),
+        categorical_features=tuple(cat_slots),
+        max_bin_by_feature=tuple(budgets)), F)
+    if np.isfinite(bounds[CAPPED_SLOT, CAPPED_BINS - 1:]).any():
+        fail(f"phase 19: slot {CAPPED_SLOT} keeps cuts past its budget")
+    cut = float(bounds[CAPPED_SLOT, CAPPED_BINS - 2])
+    ca = capped.booster.arrays
+    on_slot = ~ca["is_leaf"] & (ca["left"] >= 0) & \
+        (ca["feature"] == CAPPED_SLOT)
+    thr = ca["threshold"][on_slot]
+    print(f"phase 19: maxBinByFeature[{CAPPED_SLOT}]={CAPPED_BINS} fit "
+          f"{secs:.3f} s: {int(on_slot.sum())} splits on slot "
+          f"{CAPPED_SLOT}, thresholds at most {thr.max() if thr.size else 0:.6f} "
+          f"(its {CAPPED_BINS - 1}th cut {cut:.6f})")
+    if thr.size == 0 or thr.max() > cut:
+        fail(f"phase 19: slot {CAPPED_SLOT} splits past its "
+             f"{CAPPED_BINS - 1}th cut (or never)")
+    return launches[0], model, x
+
+
+def hashed_text(rows: int):
+    """``bench.py``'s padded-COO workload: 32 unique indices a row over
+    10,000 features (seed 13), labels the signed margin's sign."""
+    rng = np.random.default_rng(13)
+    idx = np.stack([rng.choice(SPARSE_F, size=SPARSE_WIDTH, replace=False)
+                    for _ in range(512)])
+    idx = np.tile(idx, (rows // 512 + 1, 1))[:rows].astype(np.int32)
+    val = rng.normal(size=(rows, SPARSE_WIDTH)).astype(np.float32)
+    w_sig = rng.normal(size=SPARSE_F).astype(np.float32)
+    y = ((val * w_sig[idx]).sum(1) > 0).astype(np.float32)
+    return idx, val, y
+
+
+def top_kernels(torch, fn, k=6):
+    """The ``k`` kernels with the most device time over one call of
+    ``fn`` (``torch.profiler``), as (name, ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])[:k]
+
+
+def sparse_phase(torch, k1, args) -> None:
+    """Phase 20: the padded-COO path (no kernel of the port: its histogram
+    is ``index_add_``, as the JAX package's is an XLA segment-sum)."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import Booster, LightGBMClassifier
+    from mmlspark_torch.lightgbm.sparse import SparseData
+
+    rows = min(args.rows, SPARSE_ROWS)
+    idx, val, y = hashed_text(rows)
+    df = DataFrame({"features_indices": idx, "features_values": val,
+                    "label": y})
+    print(f"phase 20: {rows:,} rows of {SPARSE_WIDTH} entries over "
+          f"{SPARSE_F:,} features (padded-COO); binary, {SPARSE_ITERS} "
+          "iterations, 31 leaves")
+
+    def make(it, **kw):
+        return LightGBMClassifier(numIterations=it, numLeaves=31,
+                                  learningRate=0.1, **kw)
+
+    # a traced 1-iteration fit, which also warms the sparse path's
+    # kernels up (phase 19's fits warmed the rest)
+    top = top_kernels(torch, lambda: make(1).fit(df))
+    hist_ms = sum(ms for name, ms, _ in top if "indexFunc" in name)
+    k1.hist_cuda.launches = 0
+    model, result, secs = fit_with_result(torch, make(SPARSE_ITERS), df)
+    if k1.hist_cuda.launches:
+        fail(f"phase 20: the sparse fit launched K1 "
+             f"{k1.hist_cuda.launches} times")
+    auc = auc_of(model, df)
+    split = result.seconds
+    print(f"phase 20: fit {secs:.3f} s ({rows * SPARSE_ITERS / secs:,.0f} "
+          f"rows*iterations/s; host binning {split['binning']:.3f} s, "
+          f"boosting {split['boosting']:.3f} s), AUC {auc:.6f}, K1 "
+          "launches 0; a 1-iteration fit's top device kernels "
+          "(torch.profiler): "
+          + "; ".join(f"{name[:60]} {ms:.3f} ms x{cnt}"
+                      for name, ms, cnt in top)
+          + f"; the histogram's index_add_ (indexFunc) {hist_ms:.3f} ms")
+
+    # the card against the CPU at 20,000 rows
+    m = min(rows, SPARSE_CHECK_ROWS)
+    small = DataFrame({"features_indices": idx[:m],
+                       "features_values": val[:m], "label": y[:m]})
+    card = make(SPARSE_CHECK_ITERS).fit(small)
+    cpu = make(SPARSE_CHECK_ITERS, device="cpu").fit(small)
+    r_card, r_cpu = root_splits(card.booster, [0]), root_splits(
+        cpu.booster, [0])
+    a_card = auc_of(card, small)
+    a_cpu = auc_of(cpu, small)
+    print(f"phase 20: {m:,}-row {SPARSE_CHECK_ITERS}-iteration fit on the "
+          "card against device='cpu': "
+          f"tree-0 root {r_card} vs {r_cpu}, AUC {a_card:.6f} vs "
+          f"{a_cpu:.6f}")
+    if r_card != r_cpu or abs(a_card - a_cpu) > SPLIT_RTOL:
+        fail("phase 20: the card's sparse fit and the CPU's part ways")
+
+    # COO scoring against the densified rows; the text format
+    sd = SparseData(idx[:1000], val[:1000], SPARSE_F)
+    dense = np.zeros((1000, SPARSE_F), np.float32)
+    np.put_along_axis(dense, idx[:1000].astype(np.int64), val[:1000], 1)
+    coo = model.booster.raw_scores(sd, device="cuda")
+    den = model.booster.raw_scores(dense, device="cuda")
+    back = Booster.load_native(model.get_native_model_string())
+    rt = back.raw_scores(sd, device="cuda")
+    d1, d2 = float(np.abs(coo - den).max()), float(np.abs(rt - coo).max())
+    print(f"phase 20: 1,000 rows scored from COO against densified "
+          f"{d1:.3g}, after a text round trip {d2:.3g} (limit "
+          f"{ROUND_TRIP_ATOL})")
+    if d1 > ROUND_TRIP_ATOL or d2 > ROUND_TRIP_ATOL:
+        fail("phase 20: COO scoring or the text round trip disagrees")
+
+
+def mslr_like():
+    """``bench.py``'s ranker workload: 1,000 queries of 100 documents, 32
+    features, graded 0-4 relevance from a latent utility (seed 5)."""
+    n = RANK_QUERIES * RANK_DOCS
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n, RANK_F)).astype(np.float32)
+    w_true = rng.normal(size=RANK_F).astype(np.float32)
+    util = x @ w_true + rng.normal(scale=2.0, size=n).astype(np.float32)
+    rel = np.digitize(util, np.quantile(util, [0.5, 0.75, 0.9, 0.97])) \
+        .astype(np.float32)
+    return x, rel, np.repeat(np.arange(RANK_QUERIES), RANK_DOCS)
+
+
+def ranker_phase(torch, k1, cat_model, cat_x) -> int:
+    """Phase 21: ``LightGBMRanker`` through K1, then SHAP values of phase
+    19's model. Returns K1's launches per ranker fit."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import LightGBMRanker
+    from mmlspark_torch.lightgbm.ranker_objective import (
+        build_group_index, make_lambdarank_grad_hess, ndcg_at_k)
+    from mmlspark_torch.lightgbm.shap import booster_shap_values
+
+    x, rel, qid = mslr_like()
+    n = len(rel)
+    df = DataFrame({"features": x, "label": rel, "query": qid})
+    print(f"phase 21: {RANK_QUERIES:,} queries x {RANK_DOCS} documents x "
+          f"{RANK_F} features, relevance 0-4; lambdarank, {RANK_ITERS} "
+          "iterations, 31 leaves")
+
+    def make(it):
+        return LightGBMRanker(groupCol="query", numIterations=it,
+                              numLeaves=31, seed=0)
+
+    kernel_against_plain(torch, k1, "phase 21", make, df, 3,
+                         lambda m, r: m.evaluate_ndcg(df, k=10))
+    calls, restore = counting_plain(k1)
+    try:
+        k1.hist_cuda.launches = 0
+        model, _, secs = fit_with_result(torch, make(RANK_ITERS), df)
+        launches = k1.hist_cuda.launches
+    finally:
+        restore()
+    if launches == 0 or calls[0]:
+        fail(f"phase 21: K1 launches {launches}, plain calls {calls[0]}")
+    ndcg = {k: model.evaluate_ndcg(df, k=k) for k in (1, 3, 5, 10)}
+    rand = ndcg_at_k(np.random.default_rng(21).random(n), rel, qid, k=10)
+    print(f"phase 21: fit {secs:.3f} s ({n * RANK_ITERS / secs:,.0f} "
+          f"rows*iterations/s), K1 launches {launches}, plain histogram "
+          "calls 0; " + ", ".join(f"ndcg@{k} {v:.6f}"
+                                  for k, v in ndcg.items())
+          + f"; a seeded random scoring's ndcg@10 {rand:.6f}")
+    if not ndcg[10] > rand:
+        fail("phase 21: ndcg@10 not above a random scoring's")
+
+    # iteration-0 lambdarank gradients (every score ties) card against CPU
+    gh = make_lambdarank_grad_hess(rel, build_group_index(qid))
+    g_card, h_card = gh(torch.zeros(n, device="cuda"))
+    g_cpu, h_cpu = gh(torch.zeros(n))
+    dg = float((g_card.cpu() - g_cpu).abs().max())
+    dh = float((h_card.cpu() - h_cpu).abs().max())
+    print(f"phase 21: iteration-0 lambdarank gradients card against CPU: "
+          f"max |Δg| {dg:.3g}, |Δh| {dh:.3g} (limit {LAMBDA_ATOL})")
+    if dg > LAMBDA_ATOL or dh > LAMBDA_ATOL:
+        fail("phase 21: lambdarank gradients differ between the card and "
+             "the CPU")
+
+    # SHAP of phase 19's categorical model: contributions + bias = raw
+    rows = cat_x[:SHAP_ROWS]
+    t0 = time.perf_counter()
+    shap = booster_shap_values(cat_model.booster, rows, rows.shape[1])
+    shap_s = time.perf_counter() - t0
+    raw = cat_model.booster.raw_scores(rows, device="cuda")
+    err = float(np.abs(shap.sum(-1) - raw).max())
+    print(f"phase 21: SHAP of {SHAP_ROWS} rows of phase 19's model "
+          f"({cat_model.booster.num_trees} trees) {shap_s:.3f} s on the "
+          f"host; max |Σ contributions + bias - raw| {err:.3g} (limit "
+          f"{SHAP_ATOL})")
+    if err > SHAP_ATOL or not np.isfinite(shap).all():
+        fail("phase 21: SHAP values do not sum to the raw scores")
+    return launches
+
+
+def breadth2_phases(torch, k1, args) -> dict:
+    """Phases 19-21. Returns K1's launch counts for the kernels line."""
+    with Phase("phase 19"):
+        cat_launches, cat_model, cat_x = categorical_phase(torch, k1, args)
+    with Phase("phase 20"):
+        sparse_phase(torch, k1, args)
+    with Phase("phase 21"):
+        rank_launches = ranker_phase(torch, k1, cat_model, cat_x)
+    return {"categorical_launches": cat_launches,
+            "ranker_launches": rank_launches}
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
-                "breadth")
+                "breadth", "breadth2")
 
 
 class Phase:
@@ -3323,7 +3717,8 @@ def main() -> None:
     ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
                     help="phase groups to run after the build: gbdt (2-4), "
                     "text (5-6), train (7-8), llm (9-11), causal (12-13), "
-                    "featurize (14-15), breadth (16-18)")
+                    "featurize (14-15), breadth (16-18), breadth2 "
+                    "(19-21)")
     args = ap.parse_args()
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
@@ -3401,6 +3796,11 @@ def main() -> None:
                 rec["chain_launches"] = chain_launches
     if "breadth" in groups:
         counts = breadth_phases(torch, k1, args)
+        for rec in records:
+            if rec["name"] == "hist":
+                rec.update(counts)
+    if "breadth2" in groups:
+        counts = breadth2_phases(torch, k1, args)
         for rec in records:
             if rec["name"] == "hist":
                 rec.update(counts)

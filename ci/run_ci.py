@@ -91,7 +91,9 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_text_encoder.py", "test_torch_featurize.py",
               "test_torch_stages.py", "test_torch_text_featurize.py",
               "test_torch_word2vec.py", "test_torch_objectives.py",
-              "test_torch_gbdt_breadth.py", "test_torch_gbdt_bands.py"],
+              "test_torch_gbdt_breadth.py", "test_torch_gbdt_bands.py",
+              "test_torch_gbdt_categorical.py", "test_torch_gbdt_sparse.py",
+              "test_torch_ranker.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

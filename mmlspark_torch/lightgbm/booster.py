@@ -7,9 +7,11 @@ interchange with native LightGBM and with the JAX package
 (``saveNativeModel`` / ``loadNativeModelFromFile`` parity).
 
 Trees live as stacked fixed-capacity numpy arrays [T, NN] on the host (the
-same ``arrays`` dict as ``mmlspark_tpu/lightgbm/booster.py``); prediction
-copies them to the device once and advances every (row, tree) pair one level
-per step with tensor gathers. Scoring uses no kernel, as in the JAX package.
+same ``arrays`` dict as ``mmlspark_tpu/lightgbm/booster.py``, categorical
+``cat_flag``/``cat_left`` included); prediction copies them to the device
+once and advances every (row, tree) pair one level per step with tensor
+gathers, on dense [n, F] rows or padded-COO ``SparseData``. Scoring uses no
+kernel, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 
 from ..core.utils import stable_sigmoid
 from ..device import resolve_device
-from .objectives import LATER_SLICE
+from .engine import categorical_go_left_at
+from .sparse import SparseData, predict_leaf_nodes_sparse
 
 
 class Booster:
@@ -36,6 +39,9 @@ class Booster:
       split_gain, node_weight, node_count, node_value f32 [T, NN]
       num_nodes    i32 [T]
       default_left bool[T, NN]
+      cat_flag     bool[T, NN]     — categorical split (only when a tree
+      cat_left     bool[T, NN, B]    has one): bin c+1 in the left set
+                                     means raw category c goes left
     """
 
     def __init__(self, arrays: dict, *, num_class: int = 1,
@@ -46,12 +52,6 @@ class Booster:
                  tree_weights: np.ndarray | None = None,
                  average_output: bool = False):
         self.arrays = {k: np.asarray(v) for k, v in arrays.items()}
-        if "cat_flag" in self.arrays and self.arrays["cat_flag"].any():
-            raise NotImplementedError(
-                "boosters with categorical splits are not ported yet; they "
-                f"come with {LATER_SLICE}")
-        self.arrays.pop("cat_flag", None)
-        self.arrays.pop("cat_left", None)
         if "default_left" not in self.arrays and "feature" in self.arrays:
             # our trained trees always send missing (bin 0) left
             self.arrays["default_left"] = np.ones_like(
@@ -92,16 +92,16 @@ class Booster:
                    start_iteration: int = 0,
                    device: str | torch.device | None = None) -> np.ndarray:
         """Raw margin scores [n] or [n, K] for a dense [n, F] matrix (numpy
-        or tensor), computed on ``device`` (default CUDA).
+        or tensor) or a padded-COO ``SparseData`` (the reference's CSR
+        predict path), computed on ``device`` (default CUDA).
         ``start_iteration`` skips the first k iterations' trees (reference
         ``setStartIteration``)."""
-        if not isinstance(x, (np.ndarray, torch.Tensor)):
-            raise NotImplementedError(
-                f"scoring {type(x).__name__} input is not ported yet (sparse "
-                f"input comes with {LATER_SLICE})")
         dev = resolve_device(device)
-        n_rows, width = x.shape
-        if self.num_trees and "feature" in self.arrays:
+        is_sparse = isinstance(x, SparseData)
+        n_rows = x.n_rows if is_sparse else x.shape[0]
+        width = x.num_features if is_sparse else x.shape[1]
+        # sparse input has no fixed width: absent features read 0
+        if self.num_trees and "feature" in self.arrays and not is_sparse:
             need = int(self.arrays["feature"].max()) + 1
             if width < need:
                 raise ValueError(
@@ -113,10 +113,8 @@ class Booster:
                 self.init_score,
                 (n_rows, self.num_class)).astype(np.float32)
             return base[:, 0] if self.num_class == 1 else base
-        xt = torch.as_tensor(x, dtype=torch.float32).to(dev)
         arrays = self._device_arrays(t_end, dev)
-        leaves = _predict_leaf_nodes(arrays, xt,
-                                     max_depth=self.max_depth_bound)
+        leaves = self._leaf_nodes(x, t_end, dev)
         w = np.array(self.tree_weights[:t_end])
         t_start = max(int(start_iteration), 0) * self.num_class
         if t_start:
@@ -138,10 +136,7 @@ class Booster:
         dev = resolve_device(device)
         t_end = self._effective_trees(num_iteration)
         t_start = max(int(start_iteration), 0) * self.num_class
-        xt = torch.as_tensor(x, dtype=torch.float32).to(dev)
-        leaves = _predict_leaf_nodes(self._device_arrays(t_end, dev), xt,
-                                     max_depth=self.max_depth_bound)
-        leaves = leaves.cpu().numpy()
+        leaves = self._leaf_nodes(x, t_end, dev).cpu().numpy()
         is_leaf = self.arrays["is_leaf"][:t_end]
         out = np.zeros((leaves.shape[0], max(t_end - t_start, 0)),
                        leaves.dtype)
@@ -149,6 +144,19 @@ class Booster:
             ordinal = np.cumsum(is_leaf[t]) - 1   # node id -> leaf ordinal
             out[:, t - t_start] = ordinal[leaves[:, t]]
         return out
+
+    def _leaf_nodes(self, x, t_end: int, dev: torch.device) -> torch.Tensor:
+        """Per-(row, tree) leaf node ids [n, T] on ``dev``, dense or
+        padded-COO input."""
+        arrays = self._device_arrays(t_end, dev)
+        if isinstance(x, SparseData):
+            return predict_leaf_nodes_sparse(
+                arrays, torch.as_tensor(x.indices).to(dev, torch.int64),
+                torch.as_tensor(x.values).to(dev, torch.float32),
+                max_depth=self.max_depth_bound)
+        xt = torch.as_tensor(x, dtype=torch.float32).to(dev)
+        return _predict_leaf_nodes(arrays, xt,
+                                   max_depth=self.max_depth_bound)
 
     def transform_scores(self, raw: np.ndarray) -> np.ndarray:
         """Raw scores → the objective's output: a probability, a softmax
@@ -181,6 +189,13 @@ class Booster:
                      "leaf_value", "is_leaf", "default_left"))
         out = tuple(t.to(torch.int64) if t.dtype == torch.int32 else t
                     for t in out)
+        # categorical masks only where a scored tree splits on a set: the
+        # predictors skip the bitset rule when they are None
+        if "cat_flag" in a and a["cat_flag"][:t_end].any():
+            out += (torch.as_tensor(a["cat_flag"][:t_end], device=dev),
+                    torch.as_tensor(a["cat_left"][:t_end], device=dev))
+        else:
+            out += (None, None)
         self._dev_cache = (self.arrays, t_end, dev, out)
         return out
 
@@ -263,15 +278,40 @@ class Booster:
             return leaf_ord[c] * -1 - 1 if is_leaf[c] else int_ord[c]
 
         dl = a["default_left"][t]
+        cat_flag = a.get("cat_flag")
+        cat_left = a.get("cat_left")
+        # categorical internal nodes: decision_type bit 0 set; threshold
+        # indexes into cat_boundaries/cat_threshold (LightGBM's 32-bit
+        # bitset words over raw category ids: bit c means category c goes
+        # left; identity binning keeps category c at bin c+1)
+        cat_idx_of: dict[int, int] = {}
+        cat_boundaries = [0]
+        cat_words: list[int] = []
+        if cat_flag is not None:
+            for i in internal_ids:
+                if not cat_flag[t, i]:
+                    continue
+                bits = np.flatnonzero(cat_left[t, i][1:])  # category ids
+                n_words = max((int(bits.max()) // 32 + 1) if bits.size
+                              else 1, 1)
+                words = [0] * n_words
+                for c in bits:
+                    words[c // 32] |= 1 << (c % 32)
+                cat_idx_of[i] = len(cat_boundaries) - 1
+                cat_words.extend(words)
+                cat_boundaries.append(len(cat_words))
         rows = {
             "split_feature": [int(a["feature"][t, i]) for i in internal_ids],
             "split_gain": [float(a["split_gain"][t, i])
                            for i in internal_ids],
-            "threshold": [float(a["threshold"][t, i])
+            "threshold": [float(cat_idx_of[i]) if i in cat_idx_of
+                          else float(a["threshold"][t, i])
                           for i in internal_ids],
-            # 2: missing goes left (what trained trees do, and what the JAX
-            # package writes); 8: NaN-missing, default right (loaded models)
-            "decision_type": [2 if dl[i] else 8 for i in internal_ids],
+            # 1: a category set (as the JAX package writes); 2: missing
+            # goes left (trained trees); 8: NaN-missing, default right
+            # (loaded models)
+            "decision_type": [1 if i in cat_idx_of else 2 if dl[i] else 8
+                              for i in internal_ids],
             "left_child": [child_code(int(a["left"][t, i]))
                            for i in internal_ids],
             "right_child": [child_code(int(a["right"][t, i]))
@@ -287,16 +327,22 @@ class Booster:
             "internal_count": [int(a["node_count"][t, i])
                                for i in internal_ids],
         }
-        out = [f"Tree={t}", f"num_leaves={len(leaf_ids)}", "num_cat=0"]
+        out = [f"Tree={t}", f"num_leaves={len(leaf_ids)}",
+               f"num_cat={len(cat_idx_of)}"]
         for key, vals in rows.items():
             out.append(f"{key}=" + " ".join(_fmt(v) for v in vals))
+        if cat_idx_of:
+            out.append("cat_boundaries=" + " ".join(
+                str(v) for v in cat_boundaries))
+            out.append("cat_threshold=" + " ".join(
+                str(v) for v in cat_words))
         out.append("shrinkage=1")
         return out
 
     @staticmethod
     def load_native(model_str: str) -> "Booster":
         """Parse a LightGBM text model (either package's or native
-        LightGBM's). Categorical splits raise ``NotImplementedError``."""
+        LightGBM's), categorical splits included."""
         header, trees = {}, []
         average_output = False
         cur: dict | None = None
@@ -344,9 +390,11 @@ class Booster:
                 return [dtype(v) for v in raw.split()] if raw else []
             dt = parse("decision_type", int)
             if int(td.get("num_cat", "0")) > 0 or any(d & 1 for d in dt):
-                raise NotImplementedError(
-                    "text models with categorical splits are not ported "
-                    f"yet; they come with {LATER_SLICE}")
+                cat_bnd = parse("cat_boundaries", int)
+                cat_thr = parse("cat_threshold", int)
+                if "cat_flag" not in arr:
+                    arr["cat_flag"] = np.zeros((T, NN), bool)
+                    arr["cat_left"] = np.zeros((T, NN, 256), bool)
             sf = parse("split_feature", int)
             thr = parse("threshold", float)
             lc = parse("left_child", int)
@@ -371,6 +419,22 @@ class Booster:
                 # decision_type bit 1 = default-left for missing values
                 arr["default_left"][t, i] = bool(dt[i] & 2) \
                     if i < len(dt) else True
+                if i < len(dt) and dt[i] & 1:
+                    # a category set: threshold indexes the bitset words;
+                    # bit c set = raw category c goes left = bin c+1
+                    ci = int(thr[i])
+                    words = cat_thr[cat_bnd[ci]:cat_bnd[ci + 1]]
+                    arr["cat_flag"][t, i] = True
+                    for w_i, word in enumerate(words):
+                        word = int(word) & 0xFFFFFFFF
+                        for bit in range(32):
+                            if word >> bit & 1:
+                                c = w_i * 32 + bit
+                                if c + 1 >= 256:
+                                    raise NotImplementedError(
+                                        "categorical model uses category "
+                                        f"id {c} >= 255; unsupported")
+                                arr["cat_left"][t, i, c + 1] = True
                 arr["split_gain"][t, i] = sg[i] if i < len(sg) else 0
                 arr["node_value"][t, i] = iv[i] if i < len(iv) else 0
                 arr["node_weight"][t, i] = iw[i] if i < len(iw) else 0
@@ -412,8 +476,10 @@ def _score_math(leaf_value, leaves, w, init_score, *, num_class: int,
 
 def _predict_leaf_nodes(tree_arrays, x, *, max_depth: int):
     """Route every (row, tree) pair ``max_depth`` levels → leaf node ids
-    [n, T] (i64)."""
-    (feature, threshold, left, right, _, is_leaf, default_left) = tree_arrays
+    [n, T] (i64). Category sets (``cat_left`` not None) route by
+    ``categorical_go_left``'s rule."""
+    (feature, threshold, left, right, _, is_leaf, default_left, cat_flag,
+     cat_left) = tree_arrays
     T = feature.shape[0]
     n = x.shape[0]
     node = torch.zeros((n, T), dtype=torch.int64, device=x.device)
@@ -424,6 +490,11 @@ def _predict_leaf_nodes(tree_arrays, x, *, max_depth: int):
         xv = torch.gather(x, 1, f)
         missing = torch.isnan(xv)
         go_left = torch.where(missing, default_left[t_idx, node], xv <= thr)
+        if cat_left is not None:
+            go_left = torch.where(
+                cat_flag[t_idx, node],
+                categorical_go_left_at(xv, missing, cat_left, t_idx, node),
+                go_left)
         nxt = torch.where(go_left, left[t_idx, node], right[t_idx, node])
         node = torch.where(is_leaf[t_idx, node], node, nxt)
     return node

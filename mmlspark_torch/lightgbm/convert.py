@@ -17,7 +17,6 @@ import torch
 
 from .booster import Booster
 from .engine import Tree
-from .objectives import LATER_SLICE
 
 
 def booster_from_arrays(arrays: Mapping[str, np.ndarray], *, num_class: int,
@@ -31,8 +30,8 @@ def booster_from_arrays(arrays: Mapping[str, np.ndarray], *, num_class: int,
     (``b.arrays``, ``b.num_class``, ``b.objective``, ``b.sigmoid``,
     ``b.init_score``, ``b.feature_names``, ``b.max_depth_bound``,
     ``b.tree_weights``, ``b.average_output``, ``b.best_iteration``):
-    multiclass, DART and rf models and an early-stopped one's best
-    iteration carry over."""
+    multiclass, DART, rf and categorical models (``cat_flag``/``cat_left``)
+    and an early-stopped one's best iteration carry over."""
     booster = Booster({k: np.array(v) for k, v in arrays.items()},
                       num_class=num_class, objective=objective,
                       sigmoid=sigmoid,
@@ -50,17 +49,15 @@ def tree_from_arrays(arrays: Mapping[str, np.ndarray], *,
                      device: str | torch.device = "cpu") -> Tree:
     """The port's engine ``Tree`` from one JAX engine ``Tree``'s fields as
     numpy arrays (e.g. ``{k: np.asarray(v) for k, v in
-    tree._asdict().items()}``), on ``device``."""
-    if "cat_flag" in arrays and np.asarray(arrays["cat_flag"]).any():
-        raise NotImplementedError(
-            f"trees with categorical splits are not ported yet; they come "
-            f"with {LATER_SLICE}")
-
+    tree._asdict().items()}``), on ``device``, its category sets
+    (``cat_flag``, ``cat_left``) included."""
     def t(key, dtype):
         return torch.as_tensor(np.asarray(arrays[key]), dtype=dtype,
                                device=device)
     return Tree(feature=t("feature", torch.int32),
                 split_bin=t("split_bin", torch.int32),
+                cat_flag=t("cat_flag", torch.bool),
+                cat_left=t("cat_left", torch.bool),
                 left=t("left", torch.int32), right=t("right", torch.int32),
                 leaf_value=t("leaf_value", torch.float32),
                 is_leaf=t("is_leaf", torch.bool),

@@ -1,7 +1,7 @@
 """Histogram-GBDT training engine: leaf-wise tree growth on device tensors.
 
-The port of ``mmlspark_tpu/lightgbm/engine.py`` for one device, the
-data-parallel histogram mode and numerical features:
+The port of ``mmlspark_tpu/lightgbm/engine.py`` for one device and the
+data-parallel histogram mode, with numerical and categorical features:
 
 - binned features are uint8 (``binning.py``), so each histogram is one pass
   of (grad, hess, count) into a fixed ``[F, bins, 3]`` tensor — kernel K1
@@ -17,10 +17,17 @@ data-parallel histogram mode and numerical features:
 - rows carry a leaf *slot* id in ``[0, num_leaves)``; each split builds the
   histogram of the smaller child with a masked full-row scan
   (``engine.py:297``) and derives the larger child by subtraction
-  (``engine.py:449-457``).
+  (``engine.py:449-457``);
+- categorical columns (``TreeParams.cat_features``, identity-binned so
+  category c lives in bin c+1) are re-scanned in gradient/hessian-ratio
+  order (LightGBM's many-vs-many heuristic, ``_split_stats_with_cat``): a
+  split at sorted position b sends the b+1 best-ratio categories left, and
+  the tree keeps that set as a bin mask (``Tree.cat_left``). Every sort is
+  stable, as ``jnp.argsort`` is, so ties (empty bins, the missing bin, all
+  at +inf) order alike in both packages.
 
-Categorical splits, voting-parallel and multi-device growth come with the
-GBDT breadth slice (the trainer refuses their configurations until then).
+Voting-parallel and multi-device growth come with a later entry of the
+GBDT breadth slice (the estimators refuse more than one shard).
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ from .hist import hist
 
 class TreeParams(NamedTuple):
     """Growth hyperparameters (the JAX ``TreeParams`` fields this engine
-    reads, with the same defaults; its voting and categorical fields come
-    with the GBDT breadth slice)."""
+    reads, with the same defaults; its voting fields come with a later
+    entry of the GBDT breadth slice)."""
     num_leaves: int = 31
     max_depth: int = -1          # <= 0 means unlimited (bounded by leaves)
     max_bin: int = 255
@@ -46,15 +53,21 @@ class TreeParams(NamedTuple):
     min_data_in_leaf: int = 20
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
+    cat_features: tuple = ()     # feature indices with set-based splits
+    cat_smooth: float = 10.0     # hessian smoothing in the g/h cat sort
+    max_cat_threshold: int = 32  # max categories in a split's left set
     max_delta_step: float = 0.0  # cap on leaf outputs (0 = off)
 
 
 class Tree(NamedTuple):
-    """Fixed-capacity tree tensors; node ids are append-ordered. The
-    JAX ``Tree`` also carries ``cat_flag``/``cat_left`` for categorical
-    splits, which this slice does not grow."""
+    """Fixed-capacity tree tensors; node ids are append-ordered. Trees
+    grown without a categorical slot carry all-False ``cat_flag`` and
+    ``cat_left``, so every tree has the same fields."""
     feature: torch.Tensor      # i32 [NN] split feature (internal nodes)
     split_bin: torch.Tensor    # i32 [NN] go left iff bin <= split_bin
+                               #   (categorical: rank(bin) <= split_bin)
+    cat_flag: torch.Tensor     # bool [NN] node splits on a category set
+    cat_left: torch.Tensor     # bool [NN, B] bin ids routed left
     left: torch.Tensor         # i32 [NN]
     right: torch.Tensor        # i32 [NN]
     leaf_value: torch.Tensor   # f32 [NN] (shrunk by learning_rate)
@@ -67,19 +80,26 @@ class Tree(NamedTuple):
 
     def to_numpy(self) -> "Tree":
         """The same tree as host numpy arrays, in two device→host copies
-        (one for the integer fields, one for the float fields)."""
-        ints = torch.stack([self.feature, self.split_bin, self.left,
-                            self.right, self.is_leaf.to(torch.int32),
-                            self.num_nodes.to(torch.int32).expand_as(
-                                self.feature)]).cpu().numpy()
+        (one for the integer and bool fields, one for the float fields)."""
+        NN = self.feature.shape[0]
+        ints = torch.cat([
+            torch.stack([self.feature, self.split_bin, self.left,
+                         self.right, self.is_leaf.to(torch.int32),
+                         self.cat_flag.to(torch.int32),
+                         self.num_nodes.to(torch.int32).expand_as(
+                             self.feature)]).reshape(-1),
+            self.cat_left.to(torch.int32).reshape(-1)]).cpu().numpy()
+        rows = ints[:7 * NN].reshape(7, NN)
         floats = torch.stack([self.leaf_value, self.split_gain,
                               self.node_value, self.node_weight,
                               self.node_count]).cpu().numpy()
-        return Tree(feature=ints[0], split_bin=ints[1], left=ints[2],
-                    right=ints[3], leaf_value=floats[0],
-                    is_leaf=ints[4].astype(bool), split_gain=floats[1],
+        return Tree(feature=rows[0], split_bin=rows[1],
+                    cat_flag=rows[5].astype(bool),
+                    cat_left=ints[7 * NN:].reshape(NN, -1).astype(bool),
+                    left=rows[2], right=rows[3], leaf_value=floats[0],
+                    is_leaf=rows[4].astype(bool), split_gain=floats[1],
                     node_value=floats[2], node_weight=floats[3],
-                    node_count=floats[4], num_nodes=np.int32(ints[5][0]))
+                    node_count=floats[4], num_nodes=np.int32(rows[6][0]))
 
 
 def _thresh_l1(g, l1: float):
@@ -120,6 +140,88 @@ def _split_stats(hist_t: torch.Tensor, p: TreeParams):
     return gl, hl, cl, gr, hr, cr, gain
 
 
+def _split_stats_with_cat(hist_t: torch.Tensor, p: TreeParams, *,
+                          cat_idx: torch.Tensor | None = None,
+                          cat_mask: torch.Tensor | None = None):
+    """``_split_stats`` with categorical columns re-scanned in
+    gradient/hessian-ratio-sorted order (the JAX
+    ``_split_stats_with_cat``): position b then means "the b+1 best-ratio
+    categories go left", and positions past ``max_cat_threshold`` get
+    gain -inf.
+
+    At most one of ``cat_idx`` (feature columns to gather, i64, for
+    full-width ``[..., F, B, 3]`` layouts) or ``cat_mask`` (bool per
+    column, for per-leaf candidate layouts whose columns vary, as the
+    voting nomination's) may be given; neither gives the plain stats.
+    Returns ``(stats7, order)``, ``order`` the stable ratio argsort
+    (``[..., Fc | C, B]``, i64) or ``None``.
+    """
+    stats = _split_stats(hist_t, p)
+    if cat_idx is None and cat_mask is None:
+        return stats, None
+    cat_hist = hist_t if cat_idx is None else hist_t.index_select(-3,
+                                                                  cat_idx)
+    inf = torch.tensor(float("inf"), dtype=hist_t.dtype,
+                       device=hist_t.device)
+    ratio = torch.where(cat_hist[..., 2] > 0,
+                        cat_hist[..., 0] / (cat_hist[..., 1] + p.cat_smooth),
+                        inf)                      # empty bins sort last
+    # the missing bin (0) never enters a left set: predict and SHAP send
+    # missing right unconditionally, so training must match
+    ratio[..., 0] = inf
+    order = torch.argsort(ratio, dim=-1, stable=True)
+    sorted_hist = torch.gather(
+        cat_hist, -2, order[..., None].expand(*order.shape, 3))
+    cs = _split_stats(sorted_hist, p)
+    B = cat_hist.shape[-2]
+    cap = torch.arange(B, device=hist_t.device) < p.max_cat_threshold
+    cs = cs[:6] + (torch.where(cap, cs[6], -inf),)
+    if cat_mask is not None:
+        m = cat_mask[..., None]
+        stats = tuple(torch.where(m, c, s) for s, c in zip(stats, cs))
+    else:
+        stats = tuple(s.index_copy(-2, cat_idx, c) for s, c in zip(stats,
+                                                                   cs))
+    return stats, order
+
+
+def category_bin(xv: torch.Tensor, missing: torch.Tensor, B: int):
+    """The bin of raw category value ``xv`` under identity binning (value c
+    in bin c+1) and whether it can be in a bitset at all: missing,
+    negative, non-integer or out-of-range values are in none."""
+    iv = torch.nan_to_num(xv).to(torch.int32)
+    in_range = (~missing) & (xv >= 0) & (iv < B - 1) \
+        & (xv == iv.to(xv.dtype))
+    return torch.clamp(iv + 1, 0, B - 1).to(torch.int64), in_range
+
+
+def categorical_go_left(xv: torch.Tensor, missing: torch.Tensor,
+                        cat_left_rows: torch.Tensor) -> torch.Tensor:
+    """Raw-value category routing (the JAX ``categorical_go_left``, one
+    copy of the bitset rule): value c goes left iff bin c+1 is in the
+    row's left set; missing, negative, non-integer and out-of-range values
+    go right, LightGBM's NaN/unseen rule.
+
+    cat_left_rows: bool [..., B], the cat_left row of each element of
+    ``xv``."""
+    cat_bin, in_range = category_bin(xv, missing, cat_left_rows.shape[-1])
+    picked = torch.gather(cat_left_rows, -1, cat_bin[..., None])[..., 0]
+    return picked & in_range
+
+
+def categorical_go_left_at(xv: torch.Tensor, missing: torch.Tensor,
+                           cat_left: torch.Tensor, t_idx: torch.Tensor,
+                           node: torch.Tensor) -> torch.Tensor:
+    """``categorical_go_left`` for every (row, tree) pair of the
+    predictors: ``xv``, ``missing`` and ``node`` are [n, T], and the left
+    set of node ``node`` of tree ``t_idx`` is read straight from the flat
+    [T, NN, B] mask ``cat_left``, never gathered as [n, T, B] rows."""
+    T, NN, B = cat_left.shape
+    cat_bin, in_range = category_bin(xv, missing, B)
+    flat = (t_idx * NN + node) * B + cat_bin
+    return cat_left.reshape(-1)[flat] & in_range
+
+
 def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               feature_mask: torch.Tensor, row_mask: torch.Tensor, *,
               params: TreeParams, num_features: int,
@@ -143,6 +245,15 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     B = p.max_bin + 1  # bin 0 = missing
     max_depth = p.max_depth if p.max_depth and p.max_depth > 0 else 10 ** 9
     i32, f32 = torch.int32, torch.float32
+    has_cat = len(p.cat_features) > 0
+    if has_cat:
+        # sorted: a chosen feature maps back to its compact categorical
+        # column by searchsorted
+        cat_idx = torch.tensor(sorted(set(p.cat_features)), dtype=torch.int64,
+                               device=dev)
+        cat_feat_mask = torch.zeros(F, dtype=torch.bool, device=dev)
+        cat_feat_mask[cat_idx] = True
+        bin_ids = torch.arange(B, dtype=i32, device=dev)
 
     g = grad * row_mask
     h = hess * row_mask
@@ -156,6 +267,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     zeros_nn = torch.zeros(NN, dtype=f32, device=dev)
     feature = torch.zeros(NN, dtype=i32, device=dev)
     split_bin = torch.full((NN,), B, dtype=i32, device=dev)
+    cat_flag = torch.zeros(NN, dtype=torch.bool, device=dev)
+    cat_left = torch.zeros(NN, B, dtype=torch.bool, device=dev)
     left = torch.full((NN,), -1, dtype=i32, device=dev)
     right = torch.full((NN,), -1, dtype=i32, device=dev)
     leaf_value = torch.where(at_root, p.learning_rate * root_out, zeros_nn)
@@ -197,8 +310,10 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         active = slot_ids < n_slots
         deep_ok = slot_depth < max_depth
 
-        # ---- best (slot, feature, bin) over every current leaf
-        gl, hl, cl, gr, hr, cr, gain = _split_stats(hists, p)
+        # ---- best (slot, feature, bin) over every current leaf; the
+        # categorical columns by their ratio-sorted scan
+        (gl, hl, cl, gr, hr, cr, gain), cat_order = _split_stats_with_cat(
+            hists, p, cat_idx=cat_idx if has_cat else None)
         valid = (active[:, None, None] & deep_ok[:, None, None] & feat_ok
                  & (cl >= p.min_data_in_leaf) & (cr >= p.min_data_in_leaf)
                  & (hl >= p.min_sum_hessian_in_leaf)
@@ -227,7 +342,24 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         new_slot = n_slots
         row_bin = bins.index_select(1, f_star.reshape(1)).reshape(-1)
         in_parent = (slot == s_star) & found
-        goes_right = in_parent & (row_bin.to(torch.int64) > b_star)
+        if has_cat:
+            # rank of each bin in the chosen (slot, feature)'s ratio sort;
+            # left = the b_star+1 best-ratio categories. f_star maps into
+            # its compact categorical column (0 when not categorical:
+            # unused then, guarded by is_cat)
+            is_cat = take(cat_feat_mask, f_star)
+            f_star_c = torch.clamp(
+                torch.searchsorted(cat_idx, f_star.reshape(1)), 0,
+                cat_idx.shape[0] - 1).reshape(())
+            order_star = take(take(cat_order, s_star), f_star_c)   # [B]
+            rank = torch.empty_like(bin_ids).scatter_(0, order_star,
+                                                      bin_ids)
+            left_set = is_cat & (rank <= b_star)                    # [B]
+            rb = row_bin.to(torch.int64)
+            right_rule = torch.where(is_cat, rank[rb] > b_star, rb > b_star)
+        else:
+            right_rule = row_bin.to(torch.int64) > b_star
+        goes_right = in_parent & right_rule
         use_left = lc <= rc  # scan the smaller child, derive the sibling
         sel = torch.where(use_left, in_parent & ~goes_right, goes_right)
         h_small = local_hist(sel.to(f32))
@@ -247,6 +379,10 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         out_r = _leaf_output(rg, rh, p)
         feature = torch.where(is_p, f_star.to(i32), feature)
         split_bin = torch.where(is_p, b_star.to(i32), split_bin)
+        if has_cat:
+            cat_flag = torch.where(is_p, is_cat, cat_flag)
+            cat_left = torch.where(is_p[:, None], left_set[None, :],
+                                   cat_left)
         left = torch.where(is_p, nl.to(i32), left)
         right = torch.where(is_p, nr.to(i32), right)
         leaf_value = torch.where(is_l, p.learning_rate * out_l,
@@ -278,7 +414,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         n_slots = n_slots + found.to(torch.int64)
         done = ~found
 
-    tree = Tree(feature=feature, split_bin=split_bin, left=left, right=right,
+    tree = Tree(feature=feature, split_bin=split_bin, cat_flag=cat_flag,
+                cat_left=cat_left, left=left, right=right,
                 leaf_value=leaf_value, is_leaf=is_leaf,
                 split_gain=split_gain, node_value=node_value,
                 node_weight=node_weight, node_count=node_count,
@@ -295,11 +432,16 @@ def tree_route_bins(tree: Tree, bins: torch.Tensor, *,
     left = tree.left.to(dev, torch.int64)
     right = tree.right.to(dev, torch.int64)
     is_leaf = tree.is_leaf.to(dev)
+    cat_flag = tree.cat_flag.to(dev)
+    B = tree.cat_left.shape[-1]
+    cat_left = tree.cat_left.to(dev).reshape(-1)
     node = torch.zeros(bins.shape[0], dtype=torch.int64, device=dev)
     for _ in range(max_depth):
         f = feature[node]
         row_bin = bins.gather(1, f[:, None]).reshape(-1).to(torch.int64)
-        nxt = torch.where(row_bin <= split_bin[node], left[node],
-                          right[node])
+        cat_bin = torch.clamp(row_bin, max=B - 1)
+        go_left = torch.where(cat_flag[node], cat_left[node * B + cat_bin],
+                              row_bin <= split_bin[node])
+        nxt = torch.where(go_left, left[node], right[node])
         node = torch.where(is_leaf[node], node, nxt)
     return node

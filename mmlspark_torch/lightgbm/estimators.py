@@ -1,18 +1,21 @@
-"""LightGBMClassifier / LightGBMRegressor and their models — the GBDT
-pipeline stages.
+"""LightGBMClassifier / LightGBMRegressor / LightGBMRanker and their
+models — the GBDT pipeline stages.
 
 API parity with reference ``lightgbm/LightGBMClassifier.scala:26-208``,
-``LightGBMRegressor.scala`` and ``mmlspark_tpu/lightgbm/estimators.py``:
-the same Params, the same output columns (rawPrediction, probability,
-prediction), validation rows through ``validationIndicatorCol`` with early
-stopping, custom objectives (``fobj``, a torch callable), native-model
-export. Training and scoring run on the ``device`` Param's device (CUDA by
-default; ``device="cpu"`` runs on the CPU, and nothing else does).
+``LightGBMRegressor.scala``, ``LightGBMRanker.scala:80-110`` and
+``mmlspark_tpu/lightgbm/estimators.py``: the same Params, the same output
+columns (rawPrediction, probability, prediction, SHAP values, leaf
+indices), validation rows through ``validationIndicatorCol`` with early
+stopping, categorical slots (``categoricalSlotIndexes``/``Names``),
+padded-COO sparse features (``<col>_indices``/``<col>_values``), custom
+objectives (``fobj``, a torch callable), the lambdarank ranker,
+native-model export. Training and scoring run on the ``device`` Param's
+device (CUDA by default; ``device="cpu"`` runs on the CPU, and nothing else
+does).
 
-Still to come, each raising ``NotImplementedError`` naming its item:
-categorical slots, sparse input, the ranker and SHAP values
-(``featuresShapCol``), model continuation (``modelString``,
-``initScoreCol``, ``numBatches > 1``) and more than one shard.
+Still to come, each raising ``NotImplementedError`` naming its item: model
+continuation (``modelString``, ``initScoreCol``, ``numBatches > 1``,
+``fit_stream``) and more than one shard.
 """
 
 from __future__ import annotations
@@ -22,11 +25,16 @@ import os
 import numpy as np
 
 from ..core import Estimator, Model, Param, TypeConverters as TC
-from ..core.contracts import HasProbabilityCol, HasRawPredictionCol
+from ..core.contracts import (HasGroupCol, HasProbabilityCol,
+                              HasRawPredictionCol)
 from ..core.utils import as_2d_features
 from .booster import Booster
 from .objectives import LATER_SLICE
 from .params import LightGBMSharedParams
+from .ranker_objective import (build_group_index, make_lambdarank_grad_hess,
+                               ndcg_at_k)
+from .shap import booster_shap_values
+from .sparse import SparseData, coalesce_coo
 from .trainer import TrainConfig, train
 
 
@@ -35,11 +43,22 @@ def _later(what: str) -> NotImplementedError:
         f"{what} is not ported yet; it comes with {LATER_SLICE}")
 
 
-def extract_features(df, col: str) -> np.ndarray:
-    """Dense [n, F] float32 features from a DataFrame. The padded-COO
-    ``<col>_indices``/``<col>_values`` pair (sparse input) raises."""
-    if f"{col}_indices" in df.columns and f"{col}_values" in df.columns:
-        raise _later("sparse (padded-COO) input")
+def extract_features(df, col: str, sparse_feature_count: int = 0):
+    """Features from a DataFrame: the padded-COO pair
+    (``<col>_indices``/``<col>_values``, e.g. the VW featurizer's output)
+    becomes a ``SparseData`` for the sparse engine (reference
+    ``TrainUtils.scala:33-92``); otherwise a dense [n, F] matrix."""
+    icol, vcol = f"{col}_indices", f"{col}_values"
+    if icol in df.columns and vcol in df.columns:
+        idx = np.asarray(df[icol], np.int32)
+        val = np.asarray(df[vcol], np.float32)
+        # unique indices per row (featurizer output with
+        # sumCollisions=False may carry duplicates: merge them)
+        idx, val = coalesce_coo(idx, val)
+        # keep F >= 1 for empty input or all-padding rows
+        max_idx = int(idx.max()) if idx.size else -1
+        F = max(sparse_feature_count, max_idx + 1, 1)
+        return SparseData(idx, val, F)
     return as_2d_features(df, col)
 
 
@@ -58,6 +77,46 @@ class _LightGBMBase(Estimator, LightGBMSharedParams):
     def _make_model(self, booster: Booster) -> Model:
         raise NotImplementedError
 
+    def _grad_override(self, df, y):
+        return None
+
+    def _valid_eval_fn(self, valid_df):
+        return None
+
+    def _preprocess(self, df):
+        return df
+
+    def _categorical_slots(self, df) -> tuple:
+        """Resolve categoricalSlotIndexes/Names to slot indexes (names
+        through slotNames or the features column's ``slot_names``
+        metadata, as the JAX package resolves them)."""
+        idx = list(self.getCategoricalSlotIndexes() or [])
+        names = self.getCategoricalSlotNames() or []
+        if names:
+            slots = self.getSlotNames() or []
+            if not slots:
+                from ..core import ColumnMetadata
+                meta = ColumnMetadata.get(df, self.getFeaturesCol()) or {}
+                slots = meta.get("slot_names", [])
+            if not slots:
+                raise ValueError(
+                    "categoricalSlotNames given but no slot names are "
+                    "available: set slotNames (or attach 'slot_names' "
+                    "column metadata), or use categoricalSlotIndexes")
+            missing = [nm for nm in names if nm not in slots]
+            if missing:
+                raise ValueError(
+                    f"categoricalSlotNames not found in slotNames: "
+                    f"{missing}")
+            idx.extend(slots.index(nm) for nm in names)
+        return tuple(sorted(set(int(i) for i in idx)))
+
+    def fit_stream(self, batches):
+        """Out-of-core training over a stream of frames with booster
+        continuation; it comes with continuation."""
+        raise _later("fit_stream (streamed batches with model "
+                     "continuation)")
+
     def _check_slice(self) -> None:
         """Raise for every setting whose configuration is still to come
         (``TrainConfig`` refuses the rest)."""
@@ -72,30 +131,38 @@ class _LightGBMBase(Estimator, LightGBMSharedParams):
             raise _later("initScoreCol warm starts")
         if self.getModelString():
             raise _later("model continuation (modelString)")
-        if self.getCategoricalSlotIndexes() or \
-                self.getCategoricalSlotNames():
-            raise _later("categorical slots")
 
     def _fit(self, df):
         self._check_slice()
-        train_df, valid = df, None
+        df = self._preprocess(df)
+        cat_slots = self._categorical_slots(df)
+        fcol = self.getFeaturesCol()
+        train_df, valid_df = df, None
         if self.isSet("validationIndicatorCol"):
             flag = np.asarray(df[self.getValidationIndicatorCol()],
                               dtype=bool)
             train_df, valid_df = df.filter(~flag), df.filter(flag)
-            valid = (extract_features(valid_df, self.getFeaturesCol()),
+        x = extract_features(train_df, fcol, self.getSparseFeatureCount())
+        sparse = isinstance(x, SparseData)
+        valid = valid_eval_fn = None
+        if valid_df is not None:
+            valid = (extract_features(valid_df, fcol,
+                                      x.num_features if sparse else 0),
                      np.asarray(valid_df[self.getLabelCol()], np.float32),
                      np.asarray(valid_df[self.getWeightCol()], np.float32)
                      if self.isSet("weightCol") else None)
-        x = extract_features(train_df, self.getFeaturesCol())
+            valid_eval_fn = self._valid_eval_fn(valid_df)
         y = np.asarray(train_df[self.getLabelCol()], np.float32)
         w = (np.asarray(train_df[self.getWeightCol()], np.float32)
              if self.isSet("weightCol") else None)
         cfg = TrainConfig(**self._train_config_kwargs(),
+                          categorical_features=cat_slots,
                           **self._objective_config(y))
-        names = self.getSlotNames() or [f"Column_{i}"
-                                        for i in range(x.shape[1])]
+        names = self.getSlotNames() or (
+            None if sparse else [f"Column_{i}" for i in range(x.shape[1])])
         result = train(x, y, w, cfg, valid, feature_names=names,
+                       grad_hess_override=self._grad_override(train_df, y),
+                       valid_eval_fn=valid_eval_fn,
                        device=self.getDevice(), hist_impl=self._hist_impl)
         model = self._make_model(result.booster)
         self._copy_params_to(model)
@@ -132,20 +199,32 @@ class _BoosterModelMixin:
         return k if k and k > 0 else None
 
     def _raw(self, df):
-        if self.isSet("featuresShapCol"):
-            raise _later("featuresShapCol (SHAP values)")
-        x = extract_features(df, self.getFeaturesCol())
+        x = extract_features(df, self.getFeaturesCol(),
+                             self.getSparseFeatureCount())
         return x, self.booster.raw_scores(
             x, self._num_iter(), start_iteration=self.getStartIteration(),
             device=self.getDevice())
 
-    def _leaf_column(self, out, x):
+    def _extra_columns(self, out, x):
+        """The leaf-index and SHAP columns, where their Params are set."""
+        start = self.getStartIteration()
         if self.isSet("leafPredictionCol"):
             leaves = self.booster.predict_leaf(
-                x, self._num_iter(), start_iteration=self.getStartIteration(),
+                x, self._num_iter(), start_iteration=start,
                 device=self.getDevice())
             out = out.with_column(self.getLeafPredictionCol(),
                                   leaves.astype(np.float64))
+        if self.isSet("featuresShapCol"):
+            if isinstance(x, SparseData):
+                raise NotImplementedError(
+                    "featuresShapCol on padded-COO sparse input is not "
+                    "supported (a dense [n, F] SHAP matrix at 2^18 "
+                    "features would defeat the sparse path) — densify a "
+                    "feature subset first")
+            shap = booster_shap_values(self.booster, np.asarray(x),
+                                       x.shape[1], start_iteration=start,
+                                       num_iteration=self._num_iter())
+            out = out.with_column(self.getFeaturesShapCol(), shap)
         return out
 
     # ---------------------------------------------------- native model I/O
@@ -248,7 +327,7 @@ class LightGBMClassificationModel(_BoosterModelMixin, Model,
         out = (df.with_column(self.getRawPredictionCol(), raw2)
                  .with_column(self.getProbabilityCol(), prob2)
                  .with_column(self.getPredictionCol(), pred))
-        return self._leaf_column(out, x)
+        return self._extra_columns(out, x)
 
 
 # ------------------------------------------------------------------- regressor
@@ -280,4 +359,70 @@ class LightGBMRegressionModel(_BoosterModelMixin, Model,
         x, raw = self._raw(df)
         pred = np.asarray(self.booster.transform_scores(raw))
         out = df.with_column(self.getPredictionCol(), pred)
-        return self._leaf_column(out, x)
+        return self._extra_columns(out, x)
+
+
+# --------------------------------------------------------------------- ranker
+class LightGBMRanker(_LightGBMBase, HasGroupCol):
+    objective = Param("objective", "lambdarank", TC.toString,
+                      default="lambdarank")
+    maxPosition = Param("maxPosition", "NDCG truncation for eval", TC.toInt,
+                        default=20)
+    truncationLevel = Param("truncationLevel",
+                            "lambdarank pair truncation level", TC.toInt,
+                            default=30)
+    evalAt = Param("evalAt", "NDCG@k eval positions", TC.toListInt,
+                   default=[1, 3, 5, 10])
+    repartitionByGroupingColumn = Param(
+        "repartitionByGroupingColumn",
+        "keep query groups contiguous (reference :92-101)", TC.toBoolean,
+        default=True)
+
+    def _preprocess(self, df):
+        # reference LightGBMRanker.preprocessData: each query's documents
+        # contiguous
+        if self.getRepartitionByGroupingColumn():
+            return df.sort(self.getGroupCol())
+        return df
+
+    def _objective_config(self, y):
+        return dict(objective="lambdarank")
+
+    def _grad_override(self, df, y):
+        gidx = build_group_index(_group_ids(df[self.getGroupCol()]))
+        return make_lambdarank_grad_hess(
+            np.asarray(y, np.float32), gidx,
+            truncation_level=self.getTruncationLevel())
+
+    def _valid_eval_fn(self, valid_df):
+        vgroups = _group_ids(valid_df[self.getGroupCol()])
+        k = self.getMaxPosition()
+
+        def eval_ndcg(raw_scores, yv, wv):
+            return ndcg_at_k(raw_scores, yv.astype(np.float64), vgroups, k=k)
+        return eval_ndcg
+
+    def _make_model(self, booster):
+        return LightGBMRankerModel(booster=booster)
+
+
+class LightGBMRankerModel(_BoosterModelMixin, Model, LightGBMSharedParams,
+                          HasGroupCol):
+    def _transform(self, df):
+        x, raw = self._raw(df)
+        out = df.with_column(self.getPredictionCol(), np.asarray(raw))
+        return self._extra_columns(out, x)
+
+    def evaluate_ndcg(self, df, k: int = 10) -> float:
+        scored = self.transform(df)
+        return ndcg_at_k(np.asarray(scored[self.getPredictionCol()]),
+                         np.asarray(scored[self.getLabelCol()], np.float64),
+                         _group_ids(scored[self.getGroupCol()]), k=k)
+
+
+def _group_ids(col) -> np.ndarray:
+    """Group column (int or string, as the reference takes) → dense int
+    ids."""
+    _, ids = np.unique(np.asarray([str(v) for v in np.asarray(col).tolist()]),
+                       return_inverse=True)
+    return ids

@@ -3,8 +3,9 @@
 Reference surface: ``lightgbm/params/TrainParams.scala:10-180`` objective
 strings and the custom-``fobj`` hook (``lightgbm/params/FObjParam.scala``).
 The port of ``mmlspark_tpu/lightgbm/objectives.py``: every objective of the
-JAX package but ``lambdarank``, whose group-aware gradients come with the
-ranker (``LATER_SLICE`` names the item). Each is a plain function
+JAX package (``lambdarank``'s group-aware gradients come from the ranker,
+``ranker_objective.py``; ``LATER_SLICE`` names the item that brings the
+configurations still to come). Each is a plain function
 ``(scores, labels, weights) -> (grad, hess)`` on tensors, with scores [n]
 or [n, K] (``multiclass``, ``multiclassova``), an init score computed on
 the host in float64, and an output transform on tensors. A user ``fobj``
@@ -205,9 +206,10 @@ def get_objective(name: str, *, num_class: int = 1, alpha: float = 0.9,
         return Objective(name, _binary(sigmoid, pos_weight), binary_init,
                          lambda s: torch.sigmoid(sigmoid * s))
     if name == "lambdarank":
-        raise NotImplementedError(
-            f"objective 'lambdarank' (LightGBMRanker) is not ported yet; it "
-            f"comes with {LATER_SLICE}")
+        # the ranker injects the group-aware gradients
+        # (``ranker_objective``); the objective supplies the init score
+        # and the transform
+        return Objective(name, _l2, lambda y, w: 0.0, ident)
     if name == "multiclass":
         def mc_init(y, w):
             # ignores boost_from_average, as the JAX package's does

@@ -5,16 +5,19 @@ Every Param of ``mmlspark_tpu/lightgbm/params.py`` (reference
 plus ``device``, so a pipeline written for the JAX package constructs
 unchanged. The boosting types, bagging, ``featureFraction``, the DART and
 GOSS rates, ``baggingSeed``, ``metric``, ``evalFreq``,
-``isProvideTrainingMetric``, ``earlyStoppingRound`` and
-``improvementTolerance`` all act as in the JAX package. Some select
-configurations still to come (categorical slots, ``maxBinByFeature``,
-continuation, more than one shard, xgboost-style DART): the estimator
-raises ``NotImplementedError`` when one is set to such a value. The rest
-are inert here: the socket settings (``useBarrierExecutionMode``,
-``defaultListenPort``, ``timeout``), the host knobs (``numThreads``,
-``verbosity``, ``scanChunk``), the mesh's ``shardAxisName`` and
-``parallelism``/``topK`` (one shard: data and voting parallelism are the
-same computation), and the sparse and categorical widths.
+``isProvideTrainingMetric``, ``earlyStoppingRound``,
+``improvementTolerance``, the categorical slots
+(``categoricalSlotIndexes``/``Names``, ``catSmooth``,
+``maxCatThreshold``), ``maxBinByFeature`` and the sparse widths
+(``maxBinSparse``, ``sparseFeatureCount``) all act as in the JAX package.
+Some select configurations still to come (continuation, more than one
+shard): the estimator raises ``NotImplementedError`` when one is set to
+such a value, as it raises the JAX package's own refusals (xgboost-style
+DART). The rest are inert here: the socket settings
+(``useBarrierExecutionMode``, ``defaultListenPort``, ``timeout``), the
+host knobs (``numThreads``, ``verbosity``, ``scanChunk``), and the mesh's
+``shardAxisName`` and ``parallelism``/``topK`` (one shard: data and
+voting parallelism are the same computation).
 """
 
 from __future__ import annotations
@@ -205,5 +208,8 @@ class LightGBMSharedParams(LightGBMExecutionParams, LightGBMLearnerParams,
             eval_freq=self.getEvalFreq(),
             improvement_tolerance=self.getImprovementTolerance(),
             xgboost_dart_mode=self.getXgboostDartMode(),
+            sparse_max_bin=self.getMaxBinSparse(),
+            cat_smooth=self.getCatSmooth(),
+            max_cat_threshold=self.getMaxCatThreshold(),
             fobj=self.get("fobj"),
         )

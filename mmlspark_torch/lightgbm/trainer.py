@@ -3,9 +3,11 @@ modes, sampling, validation metrics and early stopping, on one device.
 
 Role of the reference's ``trainCore`` iteration loop
 (``lightgbm/TrainUtils.scala:360-427``). The port of
-``mmlspark_tpu/lightgbm/trainer.py`` on dense numerical features and one
-shard. Each iteration is one eager Python step that computes what the JAX
-package computes on its default paths:
+``mmlspark_tpu/lightgbm/trainer.py`` on one shard, for dense features
+(numerical, categorical slots with identity binning, per-feature bin
+budgets) and padded-COO ``SparseData`` (``sparse.py``'s grower). Each
+iteration is one eager Python step that computes what the JAX package
+computes on its default paths:
 
 - gbdt, goss and rf: ``_fused_step_math`` (``trainer.py:308-345``):
   gradients (at the constant init score under rf), the GOSS row mask on
@@ -25,11 +27,12 @@ from ``jax.random``). Multiclass fits grow K trees per iteration, one
 ``grow_tree`` per class, stored class-interleaved.
 
 Metrics are computed on the device; only the scalar crosses to the host,
-at the ``eval_freq`` cadence. Trees stay on the device during the loop
-and come to the host once each, after it. The JAX package's scan chunks,
-cross-fit trace cache and closure builders are XLA dispatch devices with
-no counterpart here. Categorical slots and ``maxBinByFeature`` raise
-``NotImplementedError`` naming the item that brings them.
+at the ``eval_freq`` cadence (a ranker's NDCG is a host function of the
+validation scores, ``valid_eval_fn``). Trees stay on the device during
+the loop and come to the host once each, after it. The JAX package's scan
+chunks, cross-fit trace cache and closure builders are XLA dispatch
+devices with no counterpart here. ``grad_hess_override`` replaces the
+objective's gradients (the ranker's lambdarank).
 """
 
 from __future__ import annotations
@@ -46,8 +49,10 @@ from ..device import resolve_device, synchronize
 from .binning import bin_features, bin_upper_value, compute_bin_boundaries
 from .booster import Booster
 from .engine import Tree, TreeParams, grow_tree, tree_route_bins
-from .objectives import (LATER_SLICE, canonical_objective, custom_objective,
+from .objectives import (canonical_objective, custom_objective,
                          get_objective, one_hot)
+from .sparse import (SparseData, bin_sparse, compute_sparse_bin_boundaries,
+                     grow_tree_sparse, sparse_route_bins)
 
 
 @dataclasses.dataclass
@@ -77,6 +82,7 @@ class TrainConfig:
     max_drop: int = 50             # dart
     skip_drop: float = 0.5         # dart
     uniform_drop: bool = False     # dart (parity; sampling is uniform)
+    sparse_max_bin: int = 16       # bin cap for the padded-COO path
     num_class: int = 1
     sigmoid: float = 1.0
     alpha: float = 0.9             # quantile / huber
@@ -92,24 +98,23 @@ class TrainConfig:
     metric: str = ""
     is_provide_training_metric: bool = False
     eval_freq: int = 1             # evaluate every k iterations
-    categorical_features: tuple = ()
+    categorical_features: tuple = ()  # slot indexes with set-based splits
+    cat_smooth: float = 10.0       # hessian smoothing in the cat sort
+    max_cat_threshold: int = 32    # max categories in a split's left set
     max_delta_step: float = 0.0
     improvement_tolerance: float = 0.0  # early stopping must beat this
-    max_bin_by_feature: tuple = ()
+    max_bin_by_feature: tuple = ()  # per-feature bin budgets (dense only)
     xgboost_dart_mode: bool = False
     fobj: Callable | None = None   # (scores, y, w) tensors -> (grad, hess)
 
     def __post_init__(self):
         self.objective = canonical_objective(self.objective)
-        later = []
-        if self.categorical_features:
-            later.append("categorical slots")
-        if self.max_bin_by_feature:
-            later.append("maxBinByFeature")
-        if later:
-            raise NotImplementedError(
-                f"{', '.join(later)} not ported yet; this comes with "
-                f"{LATER_SLICE}")
+        if self.categorical_features and self.max_cat_threshold <= 0:
+            # all-False cap would silently disable every categorical
+            # split (native LightGBM: CHECK_GT(max_cat_threshold, 0))
+            raise ValueError(
+                f"maxCatThreshold={self.max_cat_threshold} must be "
+                "positive when categorical slots are declared")
         if self.xgboost_dart_mode and self.boosting_type == "dart":
             raise NotImplementedError(
                 "xgboostDartMode is not implemented; use the default "
@@ -131,6 +136,9 @@ class TrainConfig:
             min_data_in_leaf=self.min_data_in_leaf,
             min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
             min_gain_to_split=self.min_gain_to_split,
+            cat_features=tuple(self.categorical_features),
+            cat_smooth=self.cat_smooth,
+            max_cat_threshold=self.max_cat_threshold,
             max_delta_step=self.max_delta_step)
 
 
@@ -196,24 +204,33 @@ def _score_update(c: torch.Tensor, d: torch.Tensor, coeff, cls: int):
 _debug_capture: dict | None = None
 
 
-def train(x: np.ndarray, y: np.ndarray, w: np.ndarray | None,
+def train(x, y: np.ndarray, w: np.ndarray | None,
           config: TrainConfig,
-          valid: tuple[np.ndarray, np.ndarray, np.ndarray | None]
-          | None = None, *,
-          feature_names: list[str] | None = None, delegate=None,
+          valid: tuple | None = None, *,
+          feature_names: list[str] | None = None,
+          grad_hess_override: Callable | None = None,
+          valid_eval_fn: Callable | None = None, delegate=None,
           device: str | torch.device | None = None,
           hist_impl: str | None = None) -> TrainResult:
-    """Training loop. x [n, F] float32 (NaN = missing), y [n], on
-    ``device`` (default CUDA). ``valid`` is (x, y, w) of the validation
-    rows. ``delegate`` is the reference's delegate hooks
-    (``get_learning_rate``, ``before_train_iteration``,
+    """Training loop on ``device`` (default CUDA). ``x`` is a dense [n, F]
+    float32 matrix (NaN = missing) or a padded-COO ``SparseData``; y [n].
+    ``valid`` is (x, y, w) of the validation rows, in the same form.
+    ``grad_hess_override`` maps the running scores (a tensor) to (grad,
+    hess) in place of the objective's (the ranker's lambdarank);
+    ``valid_eval_fn(scores, y, w)`` computes the validation metric on the
+    host (the ranker's NDCG). ``delegate`` is the reference's delegate
+    hooks (``get_learning_rate``, ``before_train_iteration``,
     ``after_train_iteration``). ``hist_impl`` is engine plumbing: ``None``
     takes K1 on CUDA and the plain histogram on the CPU, ``"torch"`` the
     plain histogram on any device."""
     cfg = config
     dev = resolve_device(device)
-    x = np.ascontiguousarray(x, dtype=np.float32)
-    n, F = x.shape
+    sparse = isinstance(x, SparseData)
+    if sparse:
+        n, F = x.n_rows, x.num_features
+    else:
+        x = np.ascontiguousarray(x, dtype=np.float32)
+        n, F = x.shape
     rng = np.random.default_rng(cfg.seed)
     bag_rng = np.random.default_rng(cfg.bagging_seed)
     w_np = np.ones(n, np.float32) if w is None else np.asarray(w, np.float32)
@@ -239,19 +256,27 @@ def train(x: np.ndarray, y: np.ndarray, w: np.ndarray | None,
 
     # ---- binning (host boundaries, device mapping)
     t0 = time.perf_counter()
-    boundaries = compute_bin_boundaries(x, cfg.max_bin,
-                                        sample_cnt=cfg.bin_sample_count,
-                                        seed=cfg.seed)
-    bounds_t = torch.from_numpy(boundaries)
-    bins = bin_features(torch.from_numpy(x).to(dev), bounds_t)
+    if sparse:
+        boundaries, B_s = _sparse_boundaries(x, cfg)
+        binned = bin_sparse(x, boundaries, device=dev)
+    else:
+        boundaries = _dense_boundaries(x, cfg, F)
+        bounds_t = torch.from_numpy(boundaries)
+        bins = bin_features(torch.from_numpy(x).to(dev), bounds_t)
     y_dev = torch.as_tensor(np.asarray(y, np.float32), device=dev)
     w_dev = torch.as_tensor(w_np, device=dev)
     if valid is not None:
         xv, yv, wv = valid
-        vbins = bin_features(
-            torch.from_numpy(np.ascontiguousarray(xv, np.float32)).to(dev),
-            bounds_t)
-        nv = vbins.shape[0]
+        if sparse:
+            if not isinstance(xv, SparseData):
+                raise TypeError("validation features must be SparseData "
+                                "when training data is sparse")
+            vbinned = bin_sparse(xv, boundaries, device=dev)
+            nv = xv.n_rows
+        else:
+            vbins = bin_features(torch.from_numpy(
+                np.ascontiguousarray(xv, np.float32)).to(dev), bounds_t)
+            nv = vbins.shape[0]
         yv_dev = torch.as_tensor(np.asarray(yv, np.float32), device=dev)
         wv_dev = torch.ones(nv, dtype=torch.float32, device=dev) \
             if wv is None else torch.as_tensor(np.asarray(wv, np.float32),
@@ -305,16 +330,25 @@ def train(x: np.ndarray, y: np.ndarray, w: np.ndarray | None,
     lr = lr_tensor(tp.learning_rate)
     grow_tp = tp._replace(learning_rate=1.0)
 
+    gh_fn = grad_hess_override or (lambda s: obj.grad_hess(s, y_dev, w_dev))
+
     def grow_one(g, h, feat_mask_dev, row_mask_dev):
         """This iteration's K trees (leaf values shrunk) and their [n]
-        train deltas, one ``grow_tree`` per class."""
+        train deltas, one ``grow_tree`` (or ``grow_tree_sparse``) per
+        class."""
         trees_k, deltas = [], []
         for k in range(K):
             gk = g if K == 1 else g[:, k].contiguous()
             hk = h if K == 1 else h[:, k].contiguous()
-            tree, row_leaf = grow_tree(bins, gk, hk, feat_mask_dev,
-                                       row_mask_dev, params=grow_tp,
-                                       num_features=F, hist_impl=hist_impl)
+            if sparse:
+                tree, row_leaf = grow_tree_sparse(
+                    binned.indices, binned.ebins, binned.zero_bin, gk, hk,
+                    feat_mask_dev, row_mask_dev, params=grow_tp,
+                    num_features=F, num_bins=B_s)
+            else:
+                tree, row_leaf = grow_tree(
+                    bins, gk, hk, feat_mask_dev, row_mask_dev,
+                    params=grow_tp, num_features=F, hist_impl=hist_impl)
             # growth ran at lr=1; the shrinkage is one isolated f32 multiply
             tree = tree._replace(leaf_value=tree.leaf_value * lr)
             trees_k.append(tree)
@@ -322,6 +356,10 @@ def train(x: np.ndarray, y: np.ndarray, w: np.ndarray | None,
         return trees_k, deltas
 
     def valid_deltas(trees_k):
+        if sparse:
+            return [t.leaf_value[sparse_route_bins(
+                t, vbinned.indices, vbinned.ebins, vbinned.zero_bin,
+                max_depth=cfg.num_leaves)] for t in trees_k]
         return [t.leaf_value[tree_route_bins(t, vbins,
                                              max_depth=cfg.num_leaves)]
                 for t in trees_k]
@@ -378,7 +416,7 @@ def train(x: np.ndarray, y: np.ndarray, w: np.ndarray | None,
             for d in dropped:
                 eff = _score_update(eff, tree_deltas[d],
                                     np.float32(-tree_weights[d]), d % K)
-            g, h = obj.grad_hess(eff, y_dev, w_dev)
+            g, h = gh_fn(eff)
             trees_k, deltas = grow_one(g, h, feat_mask_dev, row_mask_dev)
             vdeltas = valid_deltas(trees_k) if valid is not None else None
             # 2) the new trees enter at 1/(k+1), class-ascending
@@ -404,7 +442,7 @@ def train(x: np.ndarray, y: np.ndarray, w: np.ndarray | None,
         else:
             # gbdt / goss / rf: the JAX package's _fused_step_math
             sfg = const_scores(n) if is_rf else scores
-            g, h = obj.grad_hess(sfg, y_dev, w_dev)
+            g, h = gh_fn(sfg)
             if is_goss:
                 gmag = torch.abs(g) if K == 1 else torch.linalg.vector_norm(
                     g, dim=1)
@@ -433,7 +471,13 @@ def train(x: np.ndarray, y: np.ndarray, w: np.ndarray | None,
             evals.append({"iteration": it, "dataset": "train",
                           train_metric: tm})
         if valid is not None and do_eval:
-            m_val = _eval_metric(metric_name, vscores, yv_dev, wv_dev, cfg)
+            if valid_eval_fn is not None:
+                m_val = valid_eval_fn(vscores.cpu().numpy(), np.asarray(yv),
+                                      None if wv is None
+                                      else np.asarray(wv))
+            else:
+                m_val = _eval_metric(metric_name, vscores, yv_dev, wv_dev,
+                                     cfg)
             evals.append({"iteration": it, metric_name: m_val})
             tol = cfg.improvement_tolerance
             better = (best_metric is None
@@ -465,6 +509,96 @@ def train(x: np.ndarray, y: np.ndarray, w: np.ndarray | None,
                        evals=evals, best_iteration=best_iter)
 
 
+def _dense_boundaries(x: np.ndarray, cfg: TrainConfig, F: int) -> np.ndarray:
+    """Quantile boundaries [F, max_bin-1], with ``maxBinByFeature``'s
+    per-feature budgets and identity binning for categorical slots (the
+    JAX package's dense binning and its checks, word for word)."""
+    boundaries = compute_bin_boundaries(x, cfg.max_bin,
+                                        sample_cnt=cfg.bin_sample_count,
+                                        seed=cfg.seed)
+    if cfg.max_bin_by_feature:
+        # LightGBM max_bin_by_feature: a budget of k bins keeps the first
+        # k-1 cuts (the rest become +inf, i.e. empty bins)
+        budgets = tuple(cfg.max_bin_by_feature)
+        if len(budgets) != F:
+            raise ValueError(
+                f"maxBinByFeature has {len(budgets)} entries for "
+                f"{F} features")
+        for f, budget in enumerate(budgets):
+            if not budget:
+                continue
+            if budget == 1:
+                # all cuts at +inf would silently disable the feature
+                raise ValueError(
+                    f"maxBinByFeature[{f}]=1 would leave feature "
+                    f"{f} unsplittable; use >= 2 (or 0 for the "
+                    "default budget)")
+            if f in cfg.categorical_features:
+                # identity binning would overwrite the budget below
+                raise ValueError(
+                    f"maxBinByFeature cannot cap categorical slot "
+                    f"{f}: categories bin by id (cap cardinality "
+                    "by re-indexing instead)")
+            if budget < cfg.max_bin:
+                boundaries[f, budget - 1:] = np.inf
+    for f in cfg.categorical_features:
+        # identity binning: category c (an integer value) lands in bin c+1
+        # exactly, so the per-bin histogram is the per-category one;
+        # cardinality is bounded by the bin budget (uint8 bins)
+        col = x[:, f]
+        vals = col[~np.isnan(col)]
+        if vals.size and (np.any(vals < 0)
+                          or np.any(vals != np.floor(vals))):
+            raise ValueError(
+                f"categorical slot {f} must hold non-negative "
+                "integer category ids (reference LightGBM "
+                "requirement); index labels first (ValueIndexer)")
+        if vals.size and vals.max() > cfg.max_bin - 2:
+            raise ValueError(
+                f"categorical slot {f} has category id "
+                f"{int(vals.max())} > max_bin-2 = {cfg.max_bin - 2}; "
+                "raise maxBin or re-index the categories")
+        k = boundaries.shape[1]
+        boundaries[f] = np.arange(k) + 0.5
+    return boundaries
+
+
+def _sparse_boundaries(x: SparseData, cfg: TrainConfig):
+    """The padded-COO path's boundaries [F, B_s - 2] and its bin count B_s
+    (values in bins 1..#cuts+1, bin 0 missing), with identity binning for
+    categorical slots (the JAX package's sparse binning and its checks)."""
+    if cfg.max_bin_by_feature:
+        raise NotImplementedError(
+            "maxBinByFeature is dense-only: the sparse binning's "
+            "reserved zero-separator cuts cannot be truncated")
+    sparse_b = min(cfg.sparse_max_bin, cfg.max_bin)
+    # bin_sample_count is a ROW budget; the COO sampler works in entries,
+    # so scale by the per-row entry capacity W
+    entry_budget = cfg.bin_sample_count * max(x.indices.shape[1], 1)
+    boundaries = compute_sparse_bin_boundaries(
+        x, sparse_b, sample_cnt=entry_budget, seed=cfg.seed)
+    for f in cfg.categorical_features:
+        # identity binning (the sparse twin of the dense rule): category c
+        # → bin c+1, and implicit zeros land in bin 1 = category 0
+        ent = x.values[x.indices == f]
+        vals = ent[~np.isnan(ent)]
+        if vals.size and (np.any(vals < 0)
+                          or np.any(vals != np.floor(vals))):
+            raise ValueError(
+                f"categorical slot {f} must hold non-negative "
+                "integer category ids (reference LightGBM "
+                "requirement); index labels first (ValueIndexer)")
+        cap = boundaries.shape[1]
+        if vals.size and vals.max() > cap:
+            raise ValueError(
+                f"categorical slot {f} has category id "
+                f"{int(vals.max())} > {cap} (the effective sparse "
+                "bin budget, min(sparseMaxBin, maxBin)); raise "
+                "whichever is binding, or re-index the categories")
+        boundaries[f] = np.arange(cap) + 0.5
+    return boundaries, boundaries.shape[1] + 2
+
+
 def build_booster(trees: list[Tree], boundaries: np.ndarray,
                   cfg: TrainConfig, base_score, feature_names,
                   tree_weights: np.ndarray | None = None,
@@ -478,6 +612,12 @@ def build_booster(trees: list[Tree], boundaries: np.ndarray,
         ("split_gain", np.float32), ("node_weight", np.float32),
         ("node_count", np.float32), ("node_value", np.float32)]}
     arr["num_nodes"] = np.zeros(T, np.int32)
+    if cfg.categorical_features:
+        # the engine's bin width, not cfg.max_bin: the sparse path bins
+        # into sparse_max_bin-sized histograms
+        B = int(trees[0].cat_left.shape[-1]) if trees else cfg.max_bin + 1
+        arr["cat_flag"] = np.zeros((T, NN), bool)
+        arr["cat_left"] = np.zeros((T, NN, B), bool)
     for t, tree in enumerate(trees):
         arr["feature"][t] = tree.feature
         arr["left"][t] = tree.left
@@ -489,8 +629,13 @@ def build_booster(trees: list[Tree], boundaries: np.ndarray,
         arr["node_count"][t] = tree.node_count
         arr["node_value"][t] = tree.node_value
         arr["num_nodes"][t] = tree.num_nodes
+        if cfg.categorical_features:
+            arr["cat_flag"][t] = tree.cat_flag
+            arr["cat_left"][t] = tree.cat_left
         for i in range(int(tree.num_nodes)):
-            if not tree.is_leaf[i] and tree.left[i] >= 0:
+            if not tree.is_leaf[i] and tree.left[i] >= 0 \
+                    and not (cfg.categorical_features
+                             and tree.cat_flag[i]):
                 arr["threshold"][t, i] = bin_upper_value(
                     boundaries, int(tree.feature[i]),
                     int(tree.split_bin[i]))

@@ -1,9 +1,9 @@
 """The port and the JAX package speak one stage format and one Param
 surface.
 
-- Every ported stage has the reference class's Param names and defaults;
-  the port's extra ``device`` (on the stages that run on a device) is the
-  only difference.
+- Every ported stage has the reference class's Param names and defaults
+  (the ranker and its model included); the port's extra ``device`` (on
+  the stages that run on a device) is the only difference.
 - The GBDT estimator takes the reference's inert Params
   (``verbosity=-1``, ``numThreads``, ``timeout``, ...) and fits as with
   none; a value that selects an unported configuration raises.
@@ -77,7 +77,8 @@ import mmlspark_torch.stages as tstages
 from mmlspark_torch.dl import TextEncoderFeaturizer
 from mmlspark_torch.featurize import TokenIdEncoder
 from mmlspark_torch.lightgbm import (Booster, LightGBMClassificationModel,
-                                     LightGBMClassifier,
+                                     LightGBMClassifier, LightGBMRanker,
+                                     LightGBMRankerModel,
                                      LightGBMRegressionModel,
                                      LightGBMRegressor)
 from mmlspark_torch.train import ComputeModelStatistics
@@ -103,6 +104,8 @@ PAIRS = {
     "LightGBMRegressor": (LightGBMRegressor, jlgbm.LightGBMRegressor),
     "LightGBMRegressionModel": (LightGBMRegressionModel,
                                 jlgbm.LightGBMRegressionModel),
+    "LightGBMRanker": (LightGBMRanker, jlgbm.LightGBMRanker),
+    "LightGBMRankerModel": (LightGBMRankerModel, jlgbm.LightGBMRankerModel),
 }
 # the featurize slice: every class of featurize/ and stages/
 PAIRS.update({name: (getattr(tfeat, name), getattr(jfeat, name))

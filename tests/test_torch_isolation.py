@@ -133,6 +133,33 @@ best = reg.booster.best_iteration
 assert 0 <= best and reg.booster.num_iterations == best + 3, best
 pred = reg.transform(DataFrame({"features": x}))["prediction"]
 assert pred.shape == (600,) and np.isfinite(pred).all()
+from mmlspark_torch.lightgbm import LightGBMRanker
+
+cats = np.floor(np.abs(x[:, 3]) * 4).astype(np.float32)
+xc = np.concatenate([x, cats[:, None]], 1)
+yc = ((cats %% 3 == 1) ^ (x[:, 0] > 0.5)).astype(np.float32)
+cat = LightGBMClassifier(device="cpu", numIterations=3, numLeaves=7,
+                         categoricalSlotIndexes=[6]).fit(
+    DataFrame({"features": xc, "label": yc}))
+assert cat.booster.arrays["cat_flag"].any()
+cat.setFeaturesShapCol("shap")
+shap = cat.transform(DataFrame({"features": xc[:20]}))["shap"]
+raw = cat.booster.raw_scores(xc[:20], device="cpu")
+assert np.allclose(shap.sum(1), raw, atol=1e-5), (shap.sum(1), raw)
+idx = np.argsort(-np.abs(x), 1)[:, :3].astype(np.int32)
+val = np.take_along_axis(x, idx, 1)
+coo = DataFrame({"features_indices": idx, "features_values": val,
+                 "label": y})
+sp = LightGBMClassifier(device="cpu", numIterations=3, numLeaves=7).fit(coo)
+assert np.isfinite(sp.transform(coo)["probability"]).all()
+qid = np.repeat(np.arange(60), 10)
+rank = LightGBMRanker(device="cpu", groupCol="query", numIterations=3,
+                      numLeaves=7).fit(
+    DataFrame({"features": x, "label": np.digitize(x[:, 0], [0.0, 1.0]),
+               "query": qid}))
+ndcg = rank.evaluate_ndcg(DataFrame({"features": x, "label": np.digitize(
+    x[:, 0], [0.0, 1.0]), "query": qid}), k=5)
+assert 0.5 < ndcg <= 1.0, ndcg
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -162,6 +189,9 @@ def test_slice_runs_without_importing_jax():
     assert "ISOLATED" in proc.stdout
 
 
+# modules the GBDT breadth slice added; the scan below must reach each
+GBDT_BREADTH = ["lightgbm/sparse.py", "lightgbm/ranker_objective.py",
+                "lightgbm/shap.py"]
 # modules the featurize slice added; the scan below must reach each
 FEATURIZE_SLICE = [
     "core/arrow.py", "core/bindings.py", "core/dataframe.py",
@@ -213,6 +243,7 @@ def test_static_scan_finds_no_jax_import():
     scanned = {os.path.relpath(p, os.path.join(REPO, "mmlspark_torch"))
                for p in sources}
     assert set(FEATURIZE_SLICE) <= scanned, set(FEATURIZE_SLICE) - scanned
+    assert set(GBDT_BREADTH) <= scanned, set(GBDT_BREADTH) - scanned
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

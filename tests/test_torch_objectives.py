@@ -187,7 +187,13 @@ def test_custom_objective_and_lambdarank():
         return (s - y) * w, w
     o = tobj.custom_objective(fobj)
     assert o.name == "custom" and o.init_score(None, None) == 0.0
-    with pytest.raises(NotImplementedError, match="GBDT breadth"):
-        tobj.get_objective("lambdarank")
+    # lambdarank: the ranker injects the gradients; the objective gives
+    # the JAX package's init score (0) and transform (identity)
+    lr_t, lr_j = tobj.get_objective("lambdarank"), jobj.get_objective(
+        "lambdarank")
+    assert lr_t.init_score(None, None) == lr_j.init_score(None, None) == 0.0
+    s = np.array([-1.5, 0.0, 2.25], np.float32)
+    np.testing.assert_array_equal(lr_t.transform(torch.from_numpy(s)),
+                                  np.asarray(lr_j.transform(jnp.asarray(s))))
     with pytest.raises(ValueError, match="unknown objective"):
         tobj.get_objective("nope")

@@ -4,14 +4,19 @@
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 
     python3 tools/profile_torch_gbdt.py [--rows 500000] [--iterations 20]
-        [--classes 7]
+        [--classes 7 | --categorical]
 
 On chip_smoke.py's Higgs-shaped workload (500,000 x 28, 31 leaves, 255
 bins; with ``--classes K`` the multiclass fit of its phase 16, K classes
-cut from the target's quantiles, K trees an iteration) it prints:
+cut from the target's quantiles, K trees an iteration; with
+``--categorical`` phase 19's frame, two more slots of 12 and 200 category
+ids fitted as categorical slots) it prints:
 
 1. warm fit seconds with K1 and with the plain histogram, in turns
-   (kernel, plain, plain, kernel), each fit ending in a synchronize;
+   (kernel, plain, plain, kernel), each fit ending in a synchronize; with
+   ``--categorical``, the categorical fit and the same frame fitted
+   ordinally, both through K1, in turns (categorical, ordinal, ordinal,
+   categorical);
 2. the trainer's own split of one fit into binning and boosting seconds;
 3. a torch.profiler trace of one warm K1 fit: device time by kernel name,
    kernel launches and total device time. The profiler slows the host
@@ -34,7 +39,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import higgs_like, higgs_like_target  # noqa: E402
+from chip_smoke import (categorical_frame, higgs_like,  # noqa: E402
+                        higgs_like_target)
 
 
 def main() -> None:
@@ -43,6 +49,9 @@ def main() -> None:
     ap.add_argument("--iterations", type=int, default=20)
     ap.add_argument("--classes", type=int, default=2,
                     help="above 2: a multiclass fit (chip_smoke phase 16)")
+    ap.add_argument("--categorical", action="store_true",
+                    help="chip_smoke phase 19's frame and categorical "
+                    "slots")
     args = ap.parse_args()
 
     import torch
@@ -61,18 +70,23 @@ def main() -> None:
     n, iters = args.rows, args.iterations
     K = args.classes
     objective = "multiclass" if K > 2 else "binary"
+    cats: list[int] = []
     if K > 2:
         feats, t = higgs_like_target(n)
         labels = np.digitize(t, np.quantile(t, np.arange(1, K) / K)
                              ).astype(np.float32)
+    elif args.categorical:
+        feats, labels, _ = categorical_frame(n)
+        cats = [feats.shape[1] - 2, feats.shape[1] - 1]
     else:
         feats, labels = higgs_like(n)
     df = DataFrame({"features": feats, "label": labels})
     kw = dict(numIterations=iters, numLeaves=31, maxBin=255,
-              learningRate=0.1, objective=objective)
+              learningRate=0.1, objective=objective,
+              categoricalSlotIndexes=cats)
 
-    def fit(impl):
-        clf = LightGBMClassifier(**kw)
+    def fit(impl, slots=cats):
+        clf = LightGBMClassifier(**{**kw, "categoricalSlotIndexes": slots})
         clf._hist_impl = impl
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -80,16 +94,25 @@ def main() -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    fit(None)
-    fit("torch")                                  # warm both paths
-    for impl in (None, "torch", "torch", None):
-        s = fit(impl)
-        print(f"fit hist={impl or 'cuda'}: {s:.3f} s "
-              f"({n * iters / s:,.0f} rows*iterations/s)")
+    if cats:
+        fit(None)
+        fit(None, [])                             # warm both fits
+        for slots in (cats, [], [], cats):
+            s = fit(None, slots)
+            print(f"fit {'categorical' if slots else 'ordinal'}: "
+                  f"{s:.3f} s ({n * iters / s:,.0f} rows*iterations/s)")
+    else:
+        fit(None)
+        fit("torch")                              # warm both paths
+        for impl in (None, "torch", "torch", None):
+            s = fit(impl)
+            print(f"fit hist={impl or 'cuda'}: {s:.3f} s "
+                  f"({n * iters / s:,.0f} rows*iterations/s)")
 
     cfg = TrainConfig(objective=objective, num_iterations=iters,
                       num_class=K if K > 2 else 1, num_leaves=31,
-                      max_bin=255, learning_rate=0.1)
+                      max_bin=255, learning_rate=0.1,
+                      categorical_features=tuple(cats))
     res = train(feats, labels, None, cfg, device="cuda")
     print(f"trainer split: binning {res.seconds['binning']:.3f} s, "
           f"boosting {res.seconds['boosting']:.3f} s")
