@@ -237,7 +237,21 @@ kernels build), then:
     within 1e-3), the iteration-0 lambdarank gradients on the card
     against the CPU's (1e-5), ndcg@10 above a seeded random scoring's,
     and SHAP values of 256 rows of phase 19's model summing to their raw
-    scores (1e-4).
+    scores (1e-4);
+22. fits phase 3's rows in two batches of 250,000 (10 iterations a batch)
+    through ``numBatches=2``, ``fit_stream``, a ``modelString``
+    continuation of batch 1's saved text and an ``initScoreCol`` fit on
+    batch 2 from batch 1's raw scores: K1 launches 620 a two-batch fit and
+    310 a batch, no plain call; batch 1's model and its text score batch 2
+    bit for bit; the three paths' trees equal in structure, leaf values
+    within 1e-5 (K1's shared-memory atomics move the last bits between
+    fits), and the ``initScoreCol`` trees equal the continuation's;
+23. spawns 2 ranks on ``cuda:0`` over gloo (250,000 rows a rank, 20
+    iterations), data parallel and voting at ``topK=6``: K1 620 launches
+    on each rank, each fit's seconds, all_reduce calls, bytes and host
+    seconds inside them; data parallel's probabilities within 5e-3 and
+    AUC within 0.002 of one rank's, voting's AUC within 0.02 of data
+    parallel's.
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -245,7 +259,8 @@ its seconds. The last two lines are the kernels' JSON record and
 ``--batch``/``--train-steps``/``--new-tokens`` shrink the run for a quick
 first check, and ``--phases`` runs some of the phase groups after the build
 (``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
-12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21).
+12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21,
+``breadth3``: 22-23).
 """
 
 from __future__ import annotations
@@ -3686,8 +3701,317 @@ def breadth2_phases(torch, k1, args) -> dict:
             "ranker_launches": rank_launches}
 
 
+# ------------------------------------------------ GBDT breadth, entries 7-8
+CONT_LEAF_ATOL = 1e-5         # phase 22: leaf values of two fits' trees
+CONT_SCORE_ATOL = 1e-5        # phase 22: a model's raw scores and its text's
+SHARD_RANKS = 2               # phase 23: ranks on the one card (gloo)
+SHARD_PROB_ATOL = 5e-3        # tests/test_lightgbm_distributed.py:40-44
+SHARD_AUC_ATOL = 0.002        # data parallel against one rank
+VOTING_AUC_ATOL = 0.02        # voting against data parallel
+VOTING_TOP_K = 6              # tests/test_benchmarks.py:277-278; at the
+                              # default 20, 2*topK >= 28 columns: no vote
+SHARD_TIMEOUT = 150.0         # seconds the ranks may take in all
+
+
+def same_trees(a, b, first: int = 0):
+    """Whether booster ``a``'s trees equal booster ``b``'s from tree
+    ``first`` on in structure (features, thresholds, children, leaves),
+    and the largest leaf-value difference."""
+    T = a.num_trees
+    if b.num_trees - first != T:
+        return False, float("inf")
+    nn = min(a.arrays["feature"].shape[1], b.arrays["feature"].shape[1])
+    arr = {k: (a.arrays[k][:, :nn], b.arrays[k][first:, :nn])
+           for k in ("feature", "threshold", "left", "right", "is_leaf",
+                     "leaf_value")}
+    same = all(np.array_equal(x, y) for k, (x, y) in arr.items()
+               if k != "leaf_value") and np.array_equal(
+        a.arrays["num_nodes"], b.arrays["num_nodes"][first:])
+    x, y = arr["leaf_value"]
+    return same, float(np.abs(x - y).max())
+
+
+def continuation_phase(torch, k1, args) -> int:
+    """Phase 22: model continuation on phase 3's rows. Returns K1's
+    launches per two-batch fit."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import Booster, LightGBMClassifier
+
+    feats, labels = higgs_like(args.rows)
+    df = DataFrame({"features": feats, "label": labels})
+    parts = df.repartition(2).partitions()
+    it = max(args.iterations // 2, 1)
+    print(f"phase 22: {args.rows:,} x 28 in 2 batches of "
+          f"{len(parts[0]):,} rows, {it} iterations a batch, 31 leaves, "
+          "255 bins")
+
+    def make(**kw):
+        kw.setdefault("numIterations", it)
+        return LightGBMClassifier(numLeaves=31, maxBin=255,
+                                  learningRate=0.1, **kw)
+
+    make(numIterations=1).fit(parts[0])              # warm-up
+    torch.cuda.synchronize()
+    calls, restore = counting_plain(k1)
+    fits = {}
+    try:
+        def run(name, fn):
+            k1.hist_cuda.launches = 0
+            t0 = time.perf_counter()
+            model = fn()
+            torch.cuda.synchronize()
+            fits[name] = (model, k1.hist_cuda.launches,
+                          time.perf_counter() - t0)
+
+        run("numBatches=2", lambda: make(numBatches=2).fit(df))
+        run("fit_stream", lambda: make().fit_stream(iter(parts)))
+        run("batch 1", lambda: make().fit(parts[0]))
+        text1 = fits["batch 1"][0].booster.save_native()
+        run("modelString", lambda: make(modelString=text1).fit(parts[1]))
+        # batch 1's raw scores on batch 2: the scores the modelString fit
+        # starts from, up to the last bits (the text folds the init score
+        # into the first tree's leaves)
+        init = fits["batch 1"][0].booster.raw_scores(parts[1]["features"],
+                                                     device="cuda")
+        back = Booster.load_native(text1).raw_scores(parts[1]["features"],
+                                                     device="cuda")
+        print("phase 22: batch 1's model and its text on batch 2: max "
+              f"|Δ raw score| {np.abs(init - back).max():.3g} (limit "
+              f"{CONT_SCORE_ATOL})")
+        if np.abs(init - back).max() > CONT_SCORE_ATOL:
+            fail("phase 22: batch 1's model and its text score batch 2 "
+                 f"apart (max |diff| {np.abs(init - back).max():.3g}, "
+                 f"limit {CONT_SCORE_ATOL})")
+        run("initScoreCol", lambda: make(initScoreCol="s").fit(
+            parts[1].with_column("s", init)))
+    finally:
+        restore()
+    for name, (model, launches, secs) in fits.items():
+        print(f"phase 22: {name} fit {secs:.3f} s, {model.booster.num_trees}"
+              f" trees, K1 launches {launches}")
+    per_batch = 31 * it
+    want = {"numBatches=2": 2 * per_batch, "fit_stream": 2 * per_batch,
+            "batch 1": per_batch, "modelString": per_batch,
+            "initScoreCol": per_batch}
+    got = {name: f[1] for name, f in fits.items()}
+    if got != want or calls[0]:
+        fail(f"phase 22: K1 launches {got}, expected {want}; plain "
+             f"histogram calls {calls[0]}")
+    # K1 adds floats with shared-memory atomics, so two fits on the card
+    # differ in the last bits, and the modelString fit starts from its
+    # text's scores: the paths are held tree by tree, each model through
+    # its text, so that every booster's arrays share one node layout
+    text = {name: f[0].get_native_model_string() for name, f in fits.items()}
+    ref = Booster.load_native(text["numBatches=2"])
+    for name in ("fit_stream", "modelString"):
+        same, diff = same_trees(ref, Booster.load_native(text[name]))
+        print(f"phase 22: {name} against numBatches=2: trees equal in "
+              f"structure {same}, max |Δ leaf value| {diff:.3g} (limit "
+              f"{CONT_LEAF_ATOL}), text bit-equal "
+              f"{text[name] == text['numBatches=2']}")
+        if not same or diff > CONT_LEAF_ATOL:
+            fail(f"phase 22: the {name} fit parts ways with numBatches=2")
+    cont = Booster.load_native(text["modelString"])
+    warm = Booster.load_native(text["initScoreCol"])
+    same, diff = same_trees(warm, cont, first=it)
+    print(f"phase 22: the initScoreCol fit's {warm.num_trees} trees against "
+          f"the modelString continuation's last {it}: equal in structure "
+          f"{same}, max |Δ leaf value| {diff:.3g}")
+    if not same or diff > CONT_LEAF_ATOL:
+        fail("phase 22: the initScoreCol trees differ from the "
+             "continuation's")
+    auc = auc_of(fits["numBatches=2"][0], df)
+    print(f"phase 22: two-batch model AUC {auc:.6f} on all "
+          f"{args.rows:,} rows")
+    if not 0.75 < auc <= 1.0:
+        fail(f"phase 22: AUC {auc} outside (0.75, 1]")
+    return got["numBatches=2"]
+
+
+def shard_rank(rank, world, port, rows, iters, out_dir, device, backend):
+    """One rank of phase 23: joins the process group, fits phase 3's rows
+    (the whole frame; the rank trains on its block) data and voting
+    parallel, and writes its counts, seconds and (rank 0) probabilities.
+    On CUDA rank r takes card r modulo the cards there are (all of them
+    ``cuda:0`` on a one-card machine)."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    import mmlspark_torch.lightgbm.hist as k1
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+    from mmlspark_torch.parallel.collectives import allreduce
+
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        feats, labels = higgs_like(rows)
+        df = DataFrame({"features": feats, "label": labels})
+
+        def make(it, **kw):
+            return LightGBMClassifier(
+                numIterations=it, numLeaves=31, maxBin=255,
+                learningRate=0.1, numShards=world, device=device, **kw)
+
+        make(2).fit(df)                              # warm-up
+        out = {}
+        for mode, kw in (("data", {}),
+                         ("voting", dict(parallelism="voting_parallel",
+                                         topK=VOTING_TOP_K))):
+            k1.hist_cuda.launches = 0
+            calls0, bytes0, secs0 = (allreduce.calls, allreduce.bytes,
+                                     allreduce.seconds)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = make(iters, **kw).fit(df)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out[mode] = dict(secs=time.perf_counter() - t0,
+                             launches=k1.hist_cuda.launches,
+                             calls=allreduce.calls - calls0,
+                             bytes=allreduce.bytes - bytes0,
+                             wait=allreduce.seconds - secs0,
+                             text_len=len(model.get_native_model_string()))
+            if rank == 0:
+                out[mode]["prob"] = np.asarray(model.transform(DataFrame(
+                    {"features": feats}))["probability"])[:, 1]
+        with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(torch, world, rows, iters, device="cuda", backend="gloo",
+              timeout=SHARD_TIMEOUT) -> list:
+    """Phase 23's ranks, spawned; returns each rank's record."""
+    import pickle
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(shard_rank, args=(world, port, rows, iters,
+                                                   d, device, backend),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.perf_counter() + timeout
+        try:
+            while not ctx.join(timeout=max(deadline - time.perf_counter(),
+                                           0.1)):
+                if time.perf_counter() > deadline:
+                    fail(f"phase 23: ranks still running after "
+                         f"{timeout} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            fail(f"phase 23: a rank failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        out = []
+        for r in range(world):
+            with open(f"{d}/rank{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def shards_phase(torch, k1, args, world=SHARD_RANKS, backend="gloo",
+                 device="cuda", timeout=SHARD_TIMEOUT) -> dict:
+    """Phase 23: ``world`` ranks over ``backend`` (rank r on card r modulo
+    the cards there are: all on ``cuda:0`` on a one-card machine) against
+    one rank on the same rows. Returns the phase's numbers; ``launches``
+    is rank 0's count of K1 launches in its data-parallel fit (0 on the
+    CPU, where K1 is not launched)."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+    from mmlspark_torch.lightgbm.engine import comm_elements_per_split
+    from mmlspark_torch.lightgbm.trainer import roc_auc
+
+    cuda = device == "cuda"
+    rows, iters = args.rows, args.iterations
+    print(f"phase 23: {world} ranks on {device} over {backend}, {rows:,} x "
+          f"28 ({rows // world:,} rows a rank), {iters} iterations, 31 "
+          f"leaves, 255 bins; voting at topK={VOTING_TOP_K}")
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, world, rows, iters, device=device,
+                      backend=backend, timeout=timeout)
+    spawn_s = time.perf_counter() - t0
+    feats, labels = higgs_like(rows)
+    df = DataFrame({"features": feats, "label": labels})
+    single = LightGBMClassifier(numIterations=iters, numLeaves=31,
+                                maxBin=255, learningRate=0.1, device=device)
+    single.fit(df)                                   # warm (phase 3's fit)
+    if cuda:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model = single.fit(df)
+    if cuda:
+        torch.cuda.synchronize()
+    single_s = time.perf_counter() - t1
+    p1 = np.asarray(model.transform(DataFrame({"features": feats}))[
+        "probability"])[:, 1]
+    auc1 = roc_auc(labels, p1)
+    want = 31 * iters if cuda else 0
+    B = 256
+    out = {"ranks": world, "backend": backend, "rows": rows,
+           "iterations": iters, "one_rank_s": single_s,
+           "one_rank_auc": auc1, "spawn_to_end_s": spawn_s,
+           "launches": ranks[0]["data"]["launches"]}
+    for mode in ("data", "voting"):
+        for r, rec in enumerate(ranks):
+            m = rec[mode]
+            print(f"phase 23: {mode} parallel rank {r}: fit "
+                  f"{m['secs']:.3f} s, K1 launches {m['launches']}, "
+                  f"all_reduce {m['calls']} calls, {m['bytes']:,} B a fit "
+                  f"({m['bytes'] / iters:,.0f} B a tree), {m['wait']:.3f} s "
+                  "inside them")
+            if m["launches"] != want:
+                fail(f"phase 23: {mode} rank {r} launched K1 "
+                     f"{m['launches']} times, expected {want}")
+        per_split = 4 * comm_elements_per_split(
+            28, B, VOTING_TOP_K, "voting" if mode == "voting" else "data")
+        print(f"phase 23: {mode} parallel moves {per_split:,} B a split "
+              "(comm_elements_per_split x 4)")
+        p = ranks[0][mode]["prob"]
+        out[mode] = {"fit_s": [rec[mode]["secs"] for rec in ranks],
+                     "launches": [rec[mode]["launches"] for rec in ranks],
+                     "calls": ranks[0][mode]["calls"],
+                     "bytes": ranks[0][mode]["bytes"],
+                     "inside_s": [rec[mode]["wait"] for rec in ranks],
+                     "max_abs_dp": float(np.abs(p - p1).max()),
+                     "auc": roc_auc(labels, p)}
+    print(f"phase 23: one rank: fit {single_s:.3f} s, AUC {auc1:.6f}; "
+          f"spawn to the ranks' end {spawn_s:.1f} s")
+    dp, auc_d, auc_v = (out["data"]["max_abs_dp"], out["data"]["auc"],
+                        out["voting"]["auc"])
+    print(f"phase 23: data parallel against one rank: max |Δp| {dp:.3g} "
+          f"(limit {SHARD_PROB_ATOL}), AUC {auc_d:.6f} vs {auc1:.6f} "
+          f"(limit {SHARD_AUC_ATOL}); voting AUC {auc_v:.6f} (limit "
+          f"{VOTING_AUC_ATOL} of data parallel)")
+    if dp > SHARD_PROB_ATOL or abs(auc_d - auc1) > SHARD_AUC_ATOL:
+        fail("phase 23: data parallel parts ways with one rank")
+    if abs(auc_v - auc_d) > VOTING_AUC_ATOL:
+        fail("phase 23: voting parallel parts ways with data parallel")
+    return out
+
+
+def breadth3_phases(torch, k1, args) -> dict:
+    """Phases 22-23. Returns K1's launch counts for the kernels line."""
+    with Phase("phase 22"):
+        cont = continuation_phase(torch, k1, args)
+    with Phase("phase 23"):
+        shard = shards_phase(torch, k1, args)
+    return {"continuation_launches": cont,
+            "shard_launches_per_rank": shard["launches"]}
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
-                "breadth", "breadth2")
+                "breadth", "breadth2", "breadth3")
 
 
 class Phase:
@@ -3718,7 +4042,7 @@ def main() -> None:
                     help="phase groups to run after the build: gbdt (2-4), "
                     "text (5-6), train (7-8), llm (9-11), causal (12-13), "
                     "featurize (14-15), breadth (16-18), breadth2 "
-                    "(19-21)")
+                    "(19-21), breadth3 (22-23)")
     args = ap.parse_args()
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
@@ -3801,6 +4125,11 @@ def main() -> None:
                 rec.update(counts)
     if "breadth2" in groups:
         counts = breadth2_phases(torch, k1, args)
+        for rec in records:
+            if rec["name"] == "hist":
+                rec.update(counts)
+    if "breadth3" in groups:
+        counts = breadth3_phases(torch, k1, args)
         for rec in records:
             if rec["name"] == "hist":
                 rec.update(counts)

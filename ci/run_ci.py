@@ -93,7 +93,8 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_word2vec.py", "test_torch_objectives.py",
               "test_torch_gbdt_breadth.py", "test_torch_gbdt_bands.py",
               "test_torch_gbdt_categorical.py", "test_torch_gbdt_sparse.py",
-              "test_torch_ranker.py"],
+              "test_torch_ranker.py", "test_torch_gbdt_continuation.py",
+              "test_torch_gbdt_shards.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

@@ -462,6 +462,49 @@ def _fmt(v) -> str:
         else repr(float(v))
 
 
+def merge_boosters(first: Booster, second: Booster) -> Booster:
+    """The trees of ``first`` then ``second`` as one booster, on the host
+    (the JAX ``merge_boosters``; reference ``mergeBooster`` continuation,
+    ``booster/LightGBMBooster.scala:237-241``). Tree arrays are padded to
+    the wider node count; the categorical arrays are harmonised (either
+    side may lack them, and their bin widths may differ). The merged model
+    keeps the first booster's init score, objective and averaging: the
+    second must have been trained from the first's scores."""
+    a, b = dict(first.arrays), dict(second.arrays)
+    nn = max(a["feature"].shape[1], b["feature"].shape[1])
+    if "cat_flag" in a or "cat_flag" in b:
+        bw = max(a["cat_left"].shape[2] if "cat_flag" in a else 1,
+                 b["cat_left"].shape[2] if "cat_flag" in b else 1)
+        for d in (a, b):
+            if "cat_flag" not in d:
+                d["cat_flag"] = np.zeros(d["feature"].shape, bool)
+                d["cat_left"] = np.zeros(d["feature"].shape + (bw,), bool)
+            elif d["cat_left"].shape[2] < bw:
+                d["cat_left"] = np.pad(
+                    d["cat_left"],
+                    ((0, 0), (0, 0), (0, bw - d["cat_left"].shape[2])))
+
+    def pad(arrays):
+        out = {}
+        for k, v in arrays.items():
+            if k != "num_nodes" and v.shape[1] < nn:
+                v = np.pad(v, ((0, 0), (0, nn - v.shape[1]))
+                           + ((0, 0),) * (v.ndim - 2))
+            out[k] = v
+        return out
+
+    pa, pb = pad(a), pad(b)
+    merged = {k: np.concatenate([pa[k], pb[k]]) for k in pa}
+    return Booster(
+        merged, num_class=first.num_class, objective=first.objective,
+        sigmoid=first.sigmoid, init_score=first.init_score,
+        feature_names=first.feature_names,
+        max_depth_bound=max(first.max_depth_bound, second.max_depth_bound),
+        tree_weights=np.concatenate([first.tree_weights,
+                                     second.tree_weights]),
+        average_output=first.average_output)
+
+
 # ------------------------------------------------------------------ predict
 def _score_math(leaf_value, leaves, w, init_score, *, num_class: int,
                 avg_div: int):

@@ -26,8 +26,23 @@ data-parallel histogram mode, with numerical and categorical features:
   stable, as ``jnp.argsort`` is, so ties (empty bins, the missing bin, all
   at +inf) order alike in both packages.
 
-Voting-parallel and multi-device growth come with a later entry of the
-GBDT breadth slice (the estimators refuse more than one shard).
+More than one shard (``group``, ``parallel/collectives.py``): each rank
+holds a contiguous block of rows, and the histogram information is
+all-reduced over the group, the reference's socket allreduce
+(``TrainUtils.scala:609-625``). Two modes, as in the JAX package:
+
+- data parallel: every new leaf's full ``[F, B, 3]`` histogram is reduced,
+  so every rank holds the global histograms;
+- voting parallel (PV-Tree): each rank nominates its local top-K features
+  per new leaf, the votes are reduced, and only the global top-2K
+  candidate columns ``[2K, B, 3]`` are reduced; the histogram state stays
+  rank-local (``comm_elements_per_split`` counts what a split moves).
+
+SPMD safety (the JAX ``engine.py:38-40``): every collective runs on every
+rank in every step of the split loop, whatever the rank's rows hold; when
+no split applies its inputs are zero-masked, never skipped, so the ranks
+stay in lockstep. Every choice is made from reduced values, which are
+bit-identical on every rank, so the ranks grow the same tree.
 """
 
 from __future__ import annotations
@@ -37,13 +52,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import allreduce
 from .hist import hist
 
 
 class TreeParams(NamedTuple):
-    """Growth hyperparameters (the JAX ``TreeParams`` fields this engine
-    reads, with the same defaults; its voting fields come with a later
-    entry of the GBDT breadth slice)."""
+    """Growth hyperparameters (the JAX ``TreeParams``, with the same
+    fields and defaults)."""
     num_leaves: int = 31
     max_depth: int = -1          # <= 0 means unlimited (bounded by leaves)
     max_bin: int = 255
@@ -53,6 +68,8 @@ class TreeParams(NamedTuple):
     min_data_in_leaf: int = 20
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
+    parallelism: str = "data"    # data | voting (PV-Tree top-K)
+    top_k: int = 20              # voting: local nominations per shard
     cat_features: tuple = ()     # feature indices with set-based splits
     cat_smooth: float = 10.0     # hessian smoothing in the g/h cat sort
     max_cat_threshold: int = 32  # max categories in a split's left set
@@ -121,6 +138,25 @@ def _leaf_gain(g, h, p: TreeParams):
         o = _leaf_output(g, h, p)
         return -(2.0 * t * o + (h + p.lambda_l2) * o * o)
     return t * t / (h + p.lambda_l2 + 1e-35)
+
+
+def comm_elements_per_split(num_features: int, num_bins: int,
+                            top_k: int, parallelism: str) -> int:
+    """Histogram elements a rank all-reduces per split: the new leaf's
+    full histogram in data parallel; one vote row plus 2K candidate
+    columns for each of the two children in voting parallel (the JAX
+    ``comm_elements_per_split``)."""
+    if parallelism == "voting":
+        cand = min(2 * top_k, num_features)
+        return 2 * (num_features + cand * num_bins * 3)
+    return num_features * num_bins * 3
+
+
+def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries along the last dim, ties to
+    the lower index (``jax.lax.top_k``'s order): a stable descending
+    sort, so every rank picks the same columns from the same values."""
+    return torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
 
 
 def _split_stats(hist_t: torch.Tensor, p: TreeParams):
@@ -225,7 +261,7 @@ def categorical_go_left_at(xv: torch.Tensor, missing: torch.Tensor,
 def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               feature_mask: torch.Tensor, row_mask: torch.Tensor, *,
               params: TreeParams, num_features: int,
-              hist_impl: str | None = None):
+              hist_impl: str | None = None, group=None):
     """Grow one tree on ``bins``' device. Returns (Tree, per-row leaf node
     id [n] i64), both on that device.
 
@@ -233,7 +269,9 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     (feature_fraction sampling); row_mask: f32 [n] (0 = row excluded).
     ``hist_impl`` selects the histogram implementation (``None``: the K1
     kernel on CUDA, the plain version on the CPU; ``"torch"``: the plain
-    version anywhere, the comparison path on the card).
+    version anywhere, the comparison path on the card). ``group`` is the
+    shard group (``parallel/collectives.py``) whose ranks hold the other
+    blocks of rows; ``None`` is one shard.
     """
     p = params
     dev = bins.device
@@ -245,7 +283,10 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     B = p.max_bin + 1  # bin 0 = missing
     max_depth = p.max_depth if p.max_depth and p.max_depth > 0 else 10 ** 9
     i32, f32 = torch.int32, torch.float32
+    voting = p.parallelism == "voting" and group is not None
+    C = min(2 * p.top_k, F)  # global candidate features per leaf (voting)
     has_cat = len(p.cat_features) > 0
+    cat_idx = None
     if has_cat:
         # sorted: a chosen feature maps back to its compact categorical
         # column by searchsorted
@@ -254,13 +295,18 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         cat_feat_mask = torch.zeros(F, dtype=torch.bool, device=dev)
         cat_feat_mask[cat_idx] = True
         bin_ids = torch.arange(B, dtype=i32, device=dev)
+    feature_mask = feature_mask.to(dev)
+
+    def psum(x):
+        return allreduce(x, group)
 
     g = grad * row_mask
     h = hess * row_mask
     cnt_w = row_mask  # counts honour the bagging mask
 
     # ---- root
-    total_g, total_h, total_c = g.sum(), h.sum(), cnt_w.sum()
+    total_g, total_h, total_c = psum(torch.stack(
+        [g.sum(), h.sum(), cnt_w.sum()])).unbind(0)
     root_out = _leaf_output(total_g, total_h, p)
     node_ids = torch.arange(NN, device=dev)
     at_root = node_ids == 0
@@ -282,15 +328,48 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     gh1 = torch.stack([g, h, cnt_w], dim=1)  # [n, 3]
 
     def local_hist(row_sel: torch.Tensor | None) -> torch.Tensor:
-        """Histogram of one row subset → [F, B, 3]: a masked full-row scan
-        (the LightGBM single-leaf ConstructHistogram)."""
+        """Rank-local histogram of one row subset → [F, B, 3]: a masked
+        full-row scan (the LightGBM single-leaf ConstructHistogram).
+        Callers reduce it (or vote and gather) as the mode demands."""
         vals = gh1 if row_sel is None else gh1 * row_sel[:, None]
         return hist(bins, vals, num_bins=B, impl=hist_impl)
 
+    def local_top_features(hs: torch.Tensor) -> torch.Tensor:
+        """[M, F, B, 3] local histograms → f32 votes [M, F]: each rank
+        nominates its top-K features by local best-bin gain (PV-Tree),
+        honouring the feature mask; categorical columns by their
+        ratio-sorted scan."""
+        stats, _ = _split_stats_with_cat(hs, p, cat_idx=cat_idx)
+        fgain = stats[6].amax(dim=-1)                      # [M, F]
+        fgain = torch.where(feature_mask[None, :], fgain, float("-inf"))
+        top = top_k_indices(fgain, min(p.top_k, F))
+        return torch.zeros_like(fgain).scatter_(1, top, 1.0)
+
+    def vote_and_gather(hs: torch.Tensor):
+        """[M, F, B, 3] local histograms → (candidate features [M, C] i64,
+        their globally reduced columns [M, C, B, 3]): voting's two
+        collectives, run on every step."""
+        votes = psum(local_top_features(hs))               # [M, F]
+        cand = top_k_indices(votes, C)                     # [M, C]
+        cols = torch.gather(hs, 1, cand[:, :, None, None].expand(
+            -1, -1, B, 3))
+        return cand, psum(cols)
+
     # ---- root histogram: every (unmasked) row is in slot 0. Later splits
     # scan only the smaller child and derive the larger by subtraction.
+    # Data parallel keeps global histograms; voting keeps local ones
+    # beside the global candidate columns.
     hists = torch.zeros(L, F, B, 3, dtype=f32, device=dev)
-    hists[0] = local_hist(None)
+    h_root = local_hist(None)
+    if voting:
+        hists[0] = h_root
+        cand0, glob0 = vote_and_gather(h_root[None])
+        cand_feat = torch.zeros(L, C, dtype=torch.int64, device=dev)
+        cand_feat[0] = cand0[0]
+        cand_hist = torch.zeros(L, C, B, 3, dtype=f32, device=dev)
+        cand_hist[0] = glob0[0]
+    else:
+        hists[0] = psum(h_root)
 
     slot = torch.zeros(n, dtype=torch.int64, device=dev)
     slot_node = torch.zeros(L, dtype=torch.int64, device=dev)
@@ -298,7 +377,6 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     n_slots = torch.ones((), dtype=torch.int64, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     slot_ids = torch.arange(L, device=dev)
-    feat_ok = feature_mask.to(dev)[None, :, None]
     neg_inf = torch.tensor(float("-inf"), dtype=f32, device=dev)
 
     def take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -310,10 +388,22 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         active = slot_ids < n_slots
         deep_ok = slot_depth < max_depth
 
-        # ---- best (slot, feature, bin) over every current leaf; the
-        # categorical columns by their ratio-sorted scan
-        (gl, hl, cl, gr, hr, cr, gain), cat_order = _split_stats_with_cat(
-            hists, p, cat_idx=cat_idx if has_cat else None)
+        # ---- best (slot, feature, bin) over every current leaf, from
+        # global histogram information; the categorical columns by their
+        # ratio-sorted scan (under voting the candidate columns vary per
+        # leaf, so they are picked by mask)
+        if voting:
+            search, n_search = cand_hist, C
+            feat_ok = feature_mask[cand_feat][:, :, None]
+            (gl, hl, cl, gr, hr, cr, gain), cat_order = \
+                _split_stats_with_cat(
+                    search, p,
+                    cat_mask=cat_feat_mask[cand_feat] if has_cat else None)
+        else:
+            search, n_search = hists, F
+            feat_ok = feature_mask[None, :, None]
+            (gl, hl, cl, gr, hr, cr, gain), cat_order = \
+                _split_stats_with_cat(search, p, cat_idx=cat_idx)
         valid = (active[:, None, None] & deep_ok[:, None, None] & feat_ok
                  & (cl >= p.min_data_in_leaf) & (cr >= p.min_data_in_leaf)
                  & (hl >= p.min_sum_hessian_in_leaf)
@@ -322,9 +412,10 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         gain = torch.where(valid, gain, neg_inf).reshape(-1)
 
         flat_best = torch.argmax(gain)         # first max, as jnp.argmax
-        s_star = flat_best // (F * B)
-        f_star = (flat_best // B) % F
+        s_star = flat_best // (n_search * B)
+        j_star = (flat_best // B) % n_search
         b_star = flat_best % B
+        f_star = take(take(cand_feat, s_star), j_star) if voting else j_star
         best_gain = take(gain, flat_best)
         found = (best_gain > p.min_gain_to_split) & ~done
 
@@ -338,20 +429,25 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         rg, rh, rc = tg - lg, th - lh, tc - lc
 
         # ---- row routing + the histogram of the smaller child. When no
-        # split applies, sel is all-zero and every update below is masked.
+        # split applies, sel is all-zero and every update below is masked;
+        # the collectives run all the same (lockstep)
         new_slot = n_slots
         row_bin = bins.index_select(1, f_star.reshape(1)).reshape(-1)
         in_parent = (slot == s_star) & found
         if has_cat:
             # rank of each bin in the chosen (slot, feature)'s ratio sort;
-            # left = the b_star+1 best-ratio categories. f_star maps into
-            # its compact categorical column (0 when not categorical:
-            # unused then, guarded by is_cat)
+            # left = the b_star+1 best-ratio categories. Under voting the
+            # sort sits at the candidate column j_star; otherwise f_star
+            # maps into its compact categorical column (0 when not
+            # categorical: unused then, guarded by is_cat)
             is_cat = take(cat_feat_mask, f_star)
-            f_star_c = torch.clamp(
-                torch.searchsorted(cat_idx, f_star.reshape(1)), 0,
-                cat_idx.shape[0] - 1).reshape(())
-            order_star = take(take(cat_order, s_star), f_star_c)   # [B]
+            if voting:
+                order_star = take(take(cat_order, s_star), j_star)  # [B]
+            else:
+                f_star_c = torch.clamp(
+                    torch.searchsorted(cat_idx, f_star.reshape(1)), 0,
+                    cat_idx.shape[0] - 1).reshape(())
+                order_star = take(take(cat_order, s_star), f_star_c)
             rank = torch.empty_like(bin_ids).scatter_(0, order_star,
                                                       bin_ids)
             left_set = is_cat & (rank <= b_star)                    # [B]
@@ -363,10 +459,15 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         use_left = lc <= rc  # scan the smaller child, derive the sibling
         sel = torch.where(use_left, in_parent & ~goes_right, goes_right)
         h_small = local_hist(sel.to(f32))
+        if not voting:
+            h_small = psum(h_small)
         parent_h = take(hists, s_star)
         h_other = parent_h - h_small
         h_left = torch.where(use_left, h_small, h_other)
         h_right = torch.where(use_left, h_other, h_small)
+        if voting:
+            child_cand, child_glob = vote_and_gather(
+                torch.stack([h_left, h_right]))
 
         # ---- apply (masked by found)
         parent = take(slot_node, s_star)
@@ -401,11 +502,18 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         # new_slot == L only when no split can apply (valid demands
         # n_slots < L); clamp keeps the masked write in bounds
         new_slot_c = torch.clamp(new_slot, max=L - 1)
-        hists.index_copy_(0, s_star.reshape(1),
-                          torch.where(found, h_left, parent_h)[None])
-        hists.index_copy_(0, new_slot_c.reshape(1),
-                          torch.where(found, h_right,
-                                      take(hists, new_slot_c))[None])
+
+        def put(t, at_s, at_n):
+            """t with rows s_star and new_slot replaced where found."""
+            t.index_copy_(0, s_star.reshape(1),
+                          torch.where(found, at_s, take(t, s_star))[None])
+            t.index_copy_(0, new_slot_c.reshape(1),
+                          torch.where(found, at_n, take(t, new_slot_c))[None])
+
+        put(hists, h_left, h_right)
+        if voting:
+            put(cand_feat, child_cand[0], child_cand[1])
+            put(cand_hist, child_glob[0], child_glob[1])
         depth = take(slot_depth, s_star) + 1
         is_s = (slot_ids == s_star) & found
         is_n = (slot_ids == new_slot) & found

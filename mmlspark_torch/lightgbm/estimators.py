@@ -9,13 +9,19 @@ indices), validation rows through ``validationIndicatorCol`` with early
 stopping, categorical slots (``categoricalSlotIndexes``/``Names``),
 padded-COO sparse features (``<col>_indices``/``<col>_values``), custom
 objectives (``fobj``, a torch callable), the lambdarank ranker,
-native-model export. Training and scoring run on the ``device`` Param's
-device (CUDA by default; ``device="cpu"`` runs on the CPU, and nothing else
-does).
+native-model export, and the reference's batch training
+(``LightGBMBase.scala:24-293``): ``numBatches`` and ``fit_stream`` continue
+one booster batch by batch, from ``modelString`` where it is set, with
+``initScoreCol`` warm starts. Training and scoring run on the ``device``
+Param's device (CUDA by default; ``device="cpu"`` runs on the CPU, and
+nothing else does).
 
-Still to come, each raising ``NotImplementedError`` naming its item: model
-continuation (``modelString``, ``initScoreCol``, ``numBatches > 1``,
-``fit_stream``) and more than one shard.
+``numShards`` trains over the ranks of ``torch.distributed``'s default
+process group (one process per device, e.g. under ``torchrun``): every
+rank calls ``fit`` on the whole frame, and the shard group's ranks grow
+the same trees from their blocks of rows (``parallelism`` data or voting,
+``topK``; ``shardAxisName="slice,dp"`` reduces within each host, then
+across hosts).
 """
 
 from __future__ import annotations
@@ -23,24 +29,20 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from ..core import Estimator, Model, Param, TypeConverters as TC
 from ..core.contracts import (HasGroupCol, HasProbabilityCol,
                               HasRawPredictionCol)
 from ..core.utils import as_2d_features
+from ..parallel.collectives import shard_group, world_size
 from .booster import Booster
-from .objectives import LATER_SLICE
 from .params import LightGBMSharedParams
 from .ranker_objective import (build_group_index, make_lambdarank_grad_hess,
                                ndcg_at_k)
 from .shap import booster_shap_values
 from .sparse import SparseData, coalesce_coo
-from .trainer import TrainConfig, train
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with {LATER_SLICE}")
+from .trainer import TrainConfig, TrainResult, train
 
 
 def extract_features(df, col: str, sparse_feature_count: int = 0):
@@ -111,31 +113,56 @@ class _LightGBMBase(Estimator, LightGBMSharedParams):
             idx.extend(slots.index(nm) for nm in names)
         return tuple(sorted(set(int(i) for i in idx)))
 
-    def fit_stream(self, batches):
-        """Out-of-core training over a stream of frames with booster
-        continuation; it comes with continuation."""
-        raise _later("fit_stream (streamed batches with model "
-                     "continuation)")
-
-    def _check_slice(self) -> None:
-        """Raise for every setting whose configuration is still to come
-        (``TrainConfig`` refuses the rest)."""
-        if self.getNumBatches() and self.getNumBatches() > 1:
-            raise _later("numBatches > 1")
-        if self.getNumShards() > 1:
-            raise _later("training on more than one shard or device")
+    def _check_params(self) -> None:
+        """Raise for a ``parallelism`` neither mode takes (``TrainConfig``
+        refuses the rest)."""
         if self.getParallelism() not in ("data_parallel", "voting_parallel"):
             raise ValueError(f"parallelism={self.getParallelism()!r}; "
                              "expected data_parallel | voting_parallel")
-        if self.isSet("initScoreCol"):
-            raise _later("initScoreCol warm starts")
-        if self.getModelString():
-            raise _later("model continuation (modelString)")
 
     def _fit(self, df):
-        self._check_slice()
+        self._check_params()
         df = self._preprocess(df)
+        # slots resolve from the whole frame's metadata, before batching
         cat_slots = self._categorical_slots(df)
+        num_batches = self.getNumBatches()
+        parts = df.repartition(num_batches).partitions() \
+            if num_batches and num_batches > 1 else [df]
+        return self._fit_batches(parts, cat_slots)
+
+    def _fit_batches(self, batches, cat_slots=None):
+        """The one continuation loop behind ``numBatches`` and
+        ``fit_stream``: a warm start from ``modelString``, then each batch
+        continues the previous batch's booster."""
+        booster = Booster.load_native(self.getModelString()) \
+            if self.getModelString() else None
+        result = None
+        for batch in batches:
+            if cat_slots is None:
+                cat_slots = self._categorical_slots(batch)
+            result = self._fit_batch(batch, booster, cat_slots)
+            booster = result.booster
+        if result is None:
+            raise ValueError("received an empty batch stream")
+        model = self._make_model(booster)
+        self._copy_params_to(model)
+        return model
+
+    def fit_stream(self, batches):
+        """Out-of-core training: consume an iterable of DataFrames one at a
+        time with booster continuation, the ``numBatches`` loop bounded by
+        the largest batch instead of the dataset. Every batch carries the
+        same columns; categorical slots resolve from the first batch."""
+        self._check_params()
+        model = self._fit_batches(self._preprocess(b) for b in batches)
+        model._resolve_parent(self)
+        return model
+
+    def _fit_batch(self, df, init_booster: Booster | None,
+                   cat_slots: tuple) -> TrainResult:
+        """One batch: the validation split, ``initScoreCol`` for training
+        and validation rows, the objective config, then ``train`` warm
+        started from ``init_booster`` over this fit's shard group."""
         fcol = self.getFeaturesCol()
         train_df, valid_df = df, None
         if self.isSet("validationIndicatorCol"):
@@ -144,7 +171,8 @@ class _LightGBMBase(Estimator, LightGBMSharedParams):
             train_df, valid_df = df.filter(~flag), df.filter(flag)
         x = extract_features(train_df, fcol, self.getSparseFeatureCount())
         sparse = isinstance(x, SparseData)
-        valid = valid_eval_fn = None
+        scored = self.isSet("initScoreCol")
+        valid = valid_eval_fn = valid_init = None
         if valid_df is not None:
             valid = (extract_features(valid_df, fcol,
                                       x.num_features if sparse else 0),
@@ -152,21 +180,55 @@ class _LightGBMBase(Estimator, LightGBMSharedParams):
                      np.asarray(valid_df[self.getWeightCol()], np.float32)
                      if self.isSet("weightCol") else None)
             valid_eval_fn = self._valid_eval_fn(valid_df)
+            if scored:
+                valid_init = np.asarray(valid_df[self.getInitScoreCol()],
+                                        np.float32)
         y = np.asarray(train_df[self.getLabelCol()], np.float32)
         w = (np.asarray(train_df[self.getWeightCol()], np.float32)
              if self.isSet("weightCol") else None)
+        init = (np.asarray(train_df[self.getInitScoreCol()], np.float32)
+                if scored else None)
         cfg = TrainConfig(**self._train_config_kwargs(),
                           categorical_features=cat_slots,
                           **self._objective_config(y))
         names = self.getSlotNames() or (
             None if sparse else [f"Column_{i}" for i in range(x.shape[1])])
-        result = train(x, y, w, cfg, valid, feature_names=names,
-                       grad_hess_override=self._grad_override(train_df, y),
-                       valid_eval_fn=valid_eval_fn,
-                       device=self.getDevice(), hist_impl=self._hist_impl)
-        model = self._make_model(result.booster)
-        self._copy_params_to(model)
-        return model
+        n_rows = x.n_rows if sparse else x.shape[0]
+        return train(x, y, w, cfg, valid, init_booster=init_booster,
+                     init_scores=init, valid_init_scores=valid_init,
+                     feature_names=names,
+                     grad_hess_override=self._grad_override(train_df, y),
+                     valid_eval_fn=valid_eval_fn, device=self.getDevice(),
+                     hist_impl=self._hist_impl,
+                     group=self._training_group(n_rows))
+
+    def _shard_axes(self) -> tuple:
+        """``shardAxisName`` parsed: two comma-separated names ask for the
+        two-level shard mesh (``"slice,dp"``)."""
+        axes = tuple(a.strip() for a in self.getShardAxisName().split(",")
+                     if a.strip())
+        if not axes:
+            raise ValueError(
+                "shardAxisName must name at least one mesh axis "
+                f"(got {self.getShardAxisName()!r})")
+        return axes
+
+    def _training_group(self, n_rows: int):
+        """The shard group for a fit of ``n_rows`` rows, or ``None`` for
+        one shard (the JAX ``_training_mesh``, with the ranks of
+        ``torch.distributed``'s default process group for its devices).
+        numShards: 0 = auto (every rank once the data is big enough to be
+        worth the collectives), N = min(N, world size); with no process
+        group initialised the world is one rank."""
+        world = world_size()
+        ns = self.getNumShards()
+        if ns == 0:
+            ns = world if n_rows >= 4096 and world > 1 else 1
+        ns = min(ns, world)
+        if ns <= 1:
+            return None
+        return shard_group(ns, self._shard_axes(),
+                           device_type=torch.device(self.getDevice()).type)
 
 
 class _BoosterModelMixin:
@@ -404,6 +466,29 @@ class LightGBMRanker(_LightGBMBase, HasGroupCol):
 
     def _make_model(self, booster):
         return LightGBMRankerModel(booster=booster)
+
+    def fit_stream(self, batches):
+        """``fit_stream`` with the reference's group integrity
+        (``LightGBMRanker.scala:92-101`` repartitions by the grouping
+        column): each batch must hold whole query groups, so a group id
+        seen again in a later batch raises instead of training as two
+        queries with corrupted pairwise gradients."""
+        gcol = self.getGroupCol()
+        seen: set = set()
+
+        def guarded():
+            for batch in batches:
+                gids = set(np.asarray(batch[gcol]).tolist())
+                overlap = gids & seen
+                if overlap:
+                    raise ValueError(
+                        f"query group(s) {sorted(overlap)[:5]} span "
+                        "multiple stream batches; the ranker needs whole "
+                        "groups per batch — repartition the stream by "
+                        "the grouping column")
+                seen.update(gids)
+                yield batch
+        return super().fit_stream(guarded())
 
 
 class LightGBMRankerModel(_BoosterModelMixin, Model, LightGBMSharedParams,

@@ -4,8 +4,7 @@ Reference surface: ``lightgbm/params/TrainParams.scala:10-180`` objective
 strings and the custom-``fobj`` hook (``lightgbm/params/FObjParam.scala``).
 The port of ``mmlspark_tpu/lightgbm/objectives.py``: every objective of the
 JAX package (``lambdarank``'s group-aware gradients come from the ranker,
-``ranker_objective.py``; ``LATER_SLICE`` names the item that brings the
-configurations still to come). Each is a plain function
+``ranker_objective.py``). Each is a plain function
 ``(scores, labels, weights) -> (grad, hess)`` on tensors, with scores [n]
 or [n, K] (``multiclass``, ``multiclassova``), an init score computed on
 the host in float64, and an output transform on tensors. A user ``fobj``
@@ -18,9 +17,6 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-
-LATER_SLICE = "the GBDT breadth slice (ROADMAP.md module queue item 5)"
-
 
 class Objective(NamedTuple):
     name: str

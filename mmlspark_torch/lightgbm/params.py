@@ -9,15 +9,14 @@ GOSS rates, ``baggingSeed``, ``metric``, ``evalFreq``,
 ``improvementTolerance``, the categorical slots
 (``categoricalSlotIndexes``/``Names``, ``catSmooth``,
 ``maxCatThreshold``), ``maxBinByFeature`` and the sparse widths
-(``maxBinSparse``, ``sparseFeatureCount``) all act as in the JAX package.
-Some select configurations still to come (continuation, more than one
-shard): the estimator raises ``NotImplementedError`` when one is set to
-such a value, as it raises the JAX package's own refusals (xgboost-style
-DART). The rest are inert here: the socket settings
-(``useBarrierExecutionMode``, ``defaultListenPort``, ``timeout``), the
-host knobs (``numThreads``, ``verbosity``, ``scanChunk``), and the mesh's
-``shardAxisName`` and ``parallelism``/``topK`` (one shard: data and
-voting parallelism are the same computation).
+(``maxBinSparse``, ``sparseFeatureCount``), continuation
+(``modelString``, ``initScoreCol``, ``numBatches``) and the shards
+(``numShards`` over the ranks of ``torch.distributed``'s default process
+group, ``parallelism``/``topK``, ``shardAxisName``) all act as in the JAX
+package; the estimator raises the JAX package's own refusals
+(xgboost-style DART). The rest are inert here: the socket settings
+(``useBarrierExecutionMode``, ``defaultListenPort``, ``timeout``) and the
+host knobs (``numThreads``, ``verbosity``, ``scanChunk``).
 """
 
 from __future__ import annotations
@@ -34,20 +33,20 @@ class LightGBMExecutionParams:
     device = Param("device", "torch device: 'cuda' (default) or 'cpu'",
                    TC.toString, default="cuda")
     numShards = Param("numShards",
-                      "device shards for training (0 = auto: one device "
-                      "here; more than one is not ported yet)",
+                      "ranks to shard training rows over (0 = auto: every "
+                      "rank of the default process group from 4096 rows)",
                       TC.toInt, default=0)
     numBatches = Param("numBatches",
                        "split training into sequential batches with model "
                        "continuation", TC.toInt, default=0)
     parallelism = Param("parallelism",
-                        "data_parallel | voting_parallel (one shard: the "
-                        "same computation)", TC.toString,
+                        "data_parallel | voting_parallel", TC.toString,
                         default="data_parallel")
     topK = Param("topK", "top-K features per shard in voting parallel",
                  TC.toInt, default=20)
     shardAxisName = Param("shardAxisName", "mesh axis to shard rows over "
-                          "(inert: one shard)", TC.toString, default="dp")
+                          "('slice,dp': within each host, then across "
+                          "hosts)", TC.toString, default="dp")
     useBarrierExecutionMode = Param("useBarrierExecutionMode",
                                     "inert (no socket mesh)",
                                     TC.toBoolean, default=False)
@@ -207,6 +206,8 @@ class LightGBMSharedParams(LightGBMExecutionParams, LightGBMLearnerParams,
             is_provide_training_metric=self.getIsProvideTrainingMetric(),
             eval_freq=self.getEvalFreq(),
             improvement_tolerance=self.getImprovementTolerance(),
+            parallelism=self.getParallelism(),
+            top_k=self.getTopK(),
             xgboost_dart_mode=self.getXgboostDartMode(),
             sparse_max_bin=self.getMaxBinSparse(),
             cat_smooth=self.getCatSmooth(),

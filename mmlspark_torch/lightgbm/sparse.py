@@ -22,8 +22,13 @@ train without a dense [n, F] matrix.
   dropped.
 - Every split step runs on the device with ``found``/``done`` masking the
   updates, as the dense grower does, so growing a tree never waits on the
-  host. More than one shard (``psum_axis``: data or voting parallel)
-  raises, naming the later entry that brings it.
+  host.
+- More than one shard (``group``): each rank's child histogram is
+  all-reduced before its record is taken (data parallel), or its top-K
+  features are voted on and only the candidate columns reduced (voting
+  parallel), with the dense grower's lockstep rule. Each rank corrects its
+  own zero bins with its own totals before the reduction, so the reduced
+  zero bin is the reduced totals minus the reduced explicit sums.
 """
 
 from __future__ import annotations
@@ -33,9 +38,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import allreduce
 from .engine import (Tree, TreeParams, _leaf_output, _split_stats_with_cat,
-                     categorical_go_left_at)
-from .objectives import LATER_SLICE
+                     categorical_go_left_at, top_k_indices)
 
 
 class SparseData(NamedTuple):
@@ -215,17 +220,25 @@ def _leaf_hist_sparse(binned: SparseBinned, gh1: torch.Tensor,
 
 def _best_split_of_hist(hist: torch.Tensor, p: TreeParams,
                         feature_mask: torch.Tensor,
-                        cat_idx: torch.Tensor | None = None):
-    """[F, B, 3] histogram → best-split record (gain, feat, bin, lg, lh,
-    lc, is_cat, cat_left[B]), all device tensors. The dense engine's
+                        cat_idx: torch.Tensor | None = None,
+                        cand_feat: torch.Tensor | None = None):
+    """[F | C, B, 3] histogram → best-split record (gain, feat, bin, lg,
+    lh, lc, is_cat, cat_left[B]), all device tensors. The dense engine's
     validity rules; ``cat_idx`` ([Fc] i64, sorted) marks the categorical
-    columns, the only ones re-scanned in ratio order. The winning
-    category set is part of the record: this engine keeps no per-leaf
-    histogram to re-derive the sort from later."""
+    columns, the only ones re-scanned in ratio order. ``cand_feat`` ([C]
+    i64) names the columns of a voting candidate histogram, whose
+    categorical columns are picked by mask. The winning category set is
+    part of the record: this engine keeps no per-leaf histogram to
+    re-derive the sort from later."""
     B = hist.shape[-2]
+    is_cat_col = None
+    if cat_idx is not None and cand_feat is not None:
+        is_cat_col = torch.isin(cand_feat, cat_idx)          # [C]
     (gl, hl, cl, gr, hr, cr, gain), order = _split_stats_with_cat(
-        hist, p, cat_idx=cat_idx)
-    valid = (feature_mask[:, None]
+        hist, p, cat_idx=cat_idx if is_cat_col is None else None,
+        cat_mask=is_cat_col)
+    feat_ok = feature_mask if cand_feat is None else feature_mask[cand_feat]
+    valid = (feat_ok[:, None]
              & (cl >= p.min_data_in_leaf) & (cr >= p.min_data_in_leaf)
              & (hl >= p.min_sum_hessian_in_leaf)
              & (hr >= p.min_sum_hessian_in_leaf))
@@ -233,20 +246,26 @@ def _best_split_of_hist(hist: torch.Tensor, p: TreeParams,
     flat = torch.argmax(gain)               # first max, as jnp.argmax
     j = flat // B
     b = flat % B
+    f = j if cand_feat is None else _take(cand_feat, j)
     if cat_idx is not None:
-        # the winning feature's compact categorical column (the dense
-        # engine's searchsorted); guarded by is_cat
-        f_c = torch.clamp(torch.searchsorted(cat_idx, j.reshape(1)), 0,
-                          cat_idx.shape[0] - 1).reshape(())
-        is_cat = _take(cat_idx, f_c) == j
-        order_j = _take(order, f_c)                         # [B]
+        if is_cat_col is not None:
+            # voting: the sort sits at the winning candidate column
+            is_cat = _take(is_cat_col, j)
+            order_j = _take(order, j)
+        else:
+            # the winning feature's compact categorical column (the dense
+            # engine's searchsorted); guarded by is_cat
+            f_c = torch.clamp(torch.searchsorted(cat_idx, j.reshape(1)), 0,
+                              cat_idx.shape[0] - 1).reshape(())
+            is_cat = _take(cat_idx, f_c) == j
+            order_j = _take(order, f_c)                     # [B]
         ar = torch.arange(B, device=hist.device)
         rank = torch.empty_like(ar).scatter_(0, order_j, ar)
         left_set = is_cat & (rank <= b)
     else:
         is_cat = torch.zeros((), dtype=torch.bool, device=hist.device)
         left_set = torch.zeros(B, dtype=torch.bool, device=hist.device)
-    return (_take(gain, flat), j, b, _take(gl.reshape(-1), flat),
+    return (_take(gain, flat), f, b, _take(gl.reshape(-1), flat),
             _take(hl.reshape(-1), flat), _take(cl.reshape(-1), flat),
             is_cat, left_set)
 
@@ -260,17 +279,12 @@ def grow_tree_sparse(indices: torch.Tensor, ebins: torch.Tensor,
                      zero_bin: torch.Tensor, grad: torch.Tensor,
                      hess: torch.Tensor, feature_mask: torch.Tensor,
                      row_mask: torch.Tensor, *, params: TreeParams,
-                     num_features: int, num_bins: int,
-                     psum_axis: str | None = None):
-    """Grow one tree on binned COO data (the JAX ``grow_tree_sparse`` on
-    one shard). Returns (Tree, per-row leaf node id [n] i64) on the data's
-    device. ``num_bins`` is B, the zero/missing bin included. Memory:
-    O(nnz) data + O(F·B) scratch + O(L) split records. ``psum_axis``
-    (rows sharded over a mesh axis, data or voting parallel) raises."""
-    if psum_axis is not None:
-        raise NotImplementedError(
-            "sparse growth over more than one shard (data or voting "
-            f"parallel) is not ported yet; it comes with {LATER_SLICE}")
+                     num_features: int, num_bins: int, group=None):
+    """Grow one tree on binned COO data (the JAX ``grow_tree_sparse``).
+    Returns (Tree, per-row leaf node id [n] i64) on the data's device.
+    ``num_bins`` is B, the zero/missing bin included. Memory: O(nnz) data
+    + O(F·B) scratch + O(L) split records. ``group`` is the shard group
+    whose ranks hold the other blocks of rows (``None``: one shard)."""
     p = params
     dev = indices.device
     binned = SparseBinned(indices, ebins, zero_bin)
@@ -284,15 +298,36 @@ def grow_tree_sparse(indices: torch.Tensor, ebins: torch.Tensor,
                             device=dev) if p.cat_features else None)
     feature_mask = feature_mask.to(dev)
 
+    voting = p.parallelism == "voting" and group is not None
+    C = min(2 * p.top_k, F)
+
     g = grad * row_mask
     h = hess * row_mask
     gh1 = torch.stack([g, h, row_mask], dim=1)   # [n, 3]
 
-    def record(sel):
-        return _best_split_of_hist(_leaf_hist_sparse(binned, gh1, sel, F, B),
-                                   p, feature_mask, cat_idx=cat_idx)
+    def psum(x):
+        return allreduce(x, group)
 
-    total_g, total_h, total_c = g.sum(), h.sum(), row_mask.sum()
+    def record(sel):
+        """The globally agreed best-split record of the rows ``sel``
+        picks; every collective runs, whatever ``sel`` holds."""
+        local_h = _leaf_hist_sparse(binned, gh1, sel, F, B)
+        if voting:
+            # PV-Tree: local top-K votes, then the top-2K candidate
+            # columns reduced
+            stats, _ = _split_stats_with_cat(local_h, p, cat_idx=cat_idx)
+            fgain = torch.where(feature_mask, stats[6].amax(dim=-1),
+                                float("-inf"))
+            votes = torch.zeros_like(fgain).scatter_(
+                0, top_k_indices(fgain, min(p.top_k, F)), 1.0)
+            cand = top_k_indices(psum(votes), C)
+            return _best_split_of_hist(psum(local_h[cand]), p, feature_mask,
+                                       cat_idx=cat_idx, cand_feat=cand)
+        return _best_split_of_hist(psum(local_h), p, feature_mask,
+                                   cat_idx=cat_idx)
+
+    total_g, total_h, total_c = psum(torch.stack(
+        [g.sum(), h.sum(), row_mask.sum()])).unbind(0)
     root_out = _leaf_output(total_g, total_h, p)
     node_ids = torch.arange(NN, device=dev)
     at_root = node_ids == 0

@@ -1,9 +1,10 @@
 """The boosting loop: objectives → trees → scores, with all four boosting
-modes, sampling, validation metrics and early stopping, on one device.
+modes, sampling, validation metrics, early stopping and warm starts, on
+one device or over the ranks of a shard group.
 
 Role of the reference's ``trainCore`` iteration loop
 (``lightgbm/TrainUtils.scala:360-427``). The port of
-``mmlspark_tpu/lightgbm/trainer.py`` on one shard, for dense features
+``mmlspark_tpu/lightgbm/trainer.py``, for dense features
 (numerical, categorical slots with identity binning, per-feature bin
 budgets) and padded-COO ``SparseData`` (``sparse.py``'s grower). Each
 iteration is one eager Python step that computes what the JAX package
@@ -33,6 +34,11 @@ the loop and come to the host once each, after it. The JAX package's scan
 chunks, cross-fit trace cache and closure builders are XLA dispatch
 devices with no counterpart here. ``grad_hess_override`` replaces the
 objective's gradients (the ranker's lambdarank).
+
+Over a shard group each rank runs this loop on its block of rows, with
+the engine's collectives inside ``grow_tree``; what the host reads whole
+(the ranker's gradients, a custom objective's, GOSS's ranking, training
+metrics, the final scores) is assembled on every rank by an all_reduce.
 """
 
 from __future__ import annotations
@@ -46,13 +52,15 @@ import torch
 
 from ..core.utils import stable_sigmoid
 from ..device import resolve_device, synchronize
+from ..parallel.collectives import allreduce, group_rank, group_size
+from ..parallel.sharding import pad_rows
 from .binning import bin_features, bin_upper_value, compute_bin_boundaries
-from .booster import Booster
+from .booster import Booster, merge_boosters
 from .engine import Tree, TreeParams, grow_tree, tree_route_bins
 from .objectives import (canonical_objective, custom_objective,
                          get_objective, one_hot)
 from .sparse import (SparseData, bin_sparse, compute_sparse_bin_boundaries,
-                     grow_tree_sparse, sparse_route_bins)
+                     grow_tree_sparse, pad_sparse, sparse_route_bins)
 
 
 @dataclasses.dataclass
@@ -104,6 +112,8 @@ class TrainConfig:
     max_delta_step: float = 0.0
     improvement_tolerance: float = 0.0  # early stopping must beat this
     max_bin_by_feature: tuple = ()  # per-feature bin budgets (dense only)
+    parallelism: str = "data_parallel"  # | voting_parallel (PV-Tree)
+    top_k: int = 20                # voting: local nominations per shard
     xgboost_dart_mode: bool = False
     fobj: Callable | None = None   # (scores, y, w) tensors -> (grad, hess)
 
@@ -136,6 +146,9 @@ class TrainConfig:
             min_data_in_leaf=self.min_data_in_leaf,
             min_sum_hessian_in_leaf=self.min_sum_hessian_in_leaf,
             min_gain_to_split=self.min_gain_to_split,
+            parallelism=("voting" if self.parallelism == "voting_parallel"
+                         else "data"),
+            top_k=self.top_k,
             cat_features=tuple(self.categorical_features),
             cat_smooth=self.cat_smooth,
             max_cat_threshold=self.max_cat_threshold,
@@ -207,38 +220,71 @@ _debug_capture: dict | None = None
 def train(x, y: np.ndarray, w: np.ndarray | None,
           config: TrainConfig,
           valid: tuple | None = None, *,
+          init_booster: Booster | None = None,
+          init_scores: np.ndarray | None = None,
+          valid_init_scores: np.ndarray | None = None,
           feature_names: list[str] | None = None,
           grad_hess_override: Callable | None = None,
           valid_eval_fn: Callable | None = None, delegate=None,
           device: str | torch.device | None = None,
-          hist_impl: str | None = None) -> TrainResult:
+          hist_impl: str | None = None, group=None) -> TrainResult:
     """Training loop on ``device`` (default CUDA). ``x`` is a dense [n, F]
     float32 matrix (NaN = missing) or a padded-COO ``SparseData``; y [n].
     ``valid`` is (x, y, w) of the validation rows, in the same form.
-    ``grad_hess_override`` maps the running scores (a tensor) to (grad,
-    hess) in place of the objective's (the ranker's lambdarank);
-    ``valid_eval_fn(scores, y, w)`` computes the validation metric on the
-    host (the ranker's NDCG). ``delegate`` is the reference's delegate
-    hooks (``get_learning_rate``, ``before_train_iteration``,
-    ``after_train_iteration``). ``hist_impl`` is engine plumbing: ``None``
-    takes K1 on CUDA and the plain histogram on the CPU, ``"torch"`` the
-    plain histogram on any device."""
+
+    Continuation (the JAX ``train``'s ``init_booster``/``init_scores``):
+    rows given ``init_scores`` (the reference's ``initScoreCol``; [n], or
+    [n, K], a 1-D column broadcast over the K classes) start from them
+    with base score 0; otherwise rows of an ``init_booster`` with trees
+    start from its raw scores, with its init score, and the booster
+    returned is the two merged (``merge_boosters``), its
+    ``best_iteration`` offset by the prior iterations. Validation rows
+    follow the same rule, with ``valid_init_scores``.
+
+    ``group`` (``parallel/collectives.py``) trains over the ranks of a
+    shard group: every rank passes the whole frame, pads it to a multiple
+    of the shard count with zero-weight rows, and grows on its contiguous
+    block; host draws are made over the padded row count on every rank
+    and sliced, so the ranks stay in step. Validation rows stay whole on
+    every rank.
+
+    ``grad_hess_override`` maps the running scores (a tensor over the
+    real rows) to (grad, hess) in place of the objective's (the ranker's
+    lambdarank); ``valid_eval_fn(scores, y, w)`` computes the validation
+    metric on the host (the ranker's NDCG). ``delegate`` is the
+    reference's delegate hooks (``get_learning_rate``,
+    ``before_train_iteration``, ``after_train_iteration``). ``hist_impl``
+    is engine plumbing: ``None`` takes K1 on CUDA and the plain histogram
+    on the CPU, ``"torch"`` the plain histogram on any device."""
     cfg = config
     dev = resolve_device(device)
     sparse = isinstance(x, SparseData)
-    if sparse:
-        n, F = x.n_rows, x.num_features
-    else:
+    if not sparse:
         x = np.ascontiguousarray(x, dtype=np.float32)
-        n, F = x.shape
+    n_real = x.n_rows if sparse else x.shape[0]
+    shards, rank = group_size(group), group_rank(group)
+    pad_mask = None
+    if shards > 1:
+        x = pad_sparse(x, shards)[0] if sparse else pad_rows(x, shards)[0]
+        (y, w, init_scores), pad_mask = pad_rows(
+            [np.asarray(y, np.float32),
+             None if w is None else np.asarray(w, np.float32),
+             None if init_scores is None
+             else np.asarray(init_scores, np.float32)], shards)
+    n = x.n_rows if sparse else x.shape[0]
+    F = x.num_features if sparse else x.shape[1]
+    n_loc = n // shards
+    lo, hi = rank * n_loc, (rank + 1) * n_loc     # this rank's block
     rng = np.random.default_rng(cfg.seed)
     bag_rng = np.random.default_rng(cfg.bagging_seed)
     w_np = np.ones(n, np.float32) if w is None else np.asarray(w, np.float32)
+    if pad_mask is not None:
+        w_np = w_np * pad_mask
 
     pos_weight = cfg.scale_pos_weight
     if cfg.is_unbalance and cfg.objective == "binary":
-        npos = float((y > 0).sum())
-        pos_weight = (n - npos) / max(npos, 1.0)
+        npos = float((np.asarray(y)[:n_real] > 0).sum())
+        pos_weight = (n_real - npos) / max(npos, 1.0)
     if cfg.fobj is not None:
         obj = custom_objective(cfg.fobj)
     else:
@@ -254,17 +300,26 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
     is_dart = cfg.boosting_type == "dart"
     is_goss = cfg.boosting_type == "goss"
 
-    # ---- binning (host boundaries, device mapping)
+    def block(a):
+        """This rank's rows of a host array or ``SparseData``."""
+        if isinstance(a, SparseData):
+            return SparseData(a.indices[lo:hi], a.values[lo:hi],
+                              a.num_features)
+        return a[lo:hi]
+
+    # ---- binning (host boundaries, device mapping): dense boundaries from
+    # the real rows, sparse ones from the padded rows (pad rows hold no
+    # entry, so they reach neither the sample nor its budget)
     t0 = time.perf_counter()
     if sparse:
         boundaries, B_s = _sparse_boundaries(x, cfg)
-        binned = bin_sparse(x, boundaries, device=dev)
+        binned = bin_sparse(block(x), boundaries, device=dev)
     else:
-        boundaries = _dense_boundaries(x, cfg, F)
+        boundaries = _dense_boundaries(x[:n_real], cfg, F)
         bounds_t = torch.from_numpy(boundaries)
-        bins = bin_features(torch.from_numpy(x).to(dev), bounds_t)
-    y_dev = torch.as_tensor(np.asarray(y, np.float32), device=dev)
-    w_dev = torch.as_tensor(w_np, device=dev)
+        bins = bin_features(torch.from_numpy(block(x)).to(dev), bounds_t)
+    y_dev = torch.as_tensor(block(np.asarray(y, np.float32)), device=dev)
+    w_dev = torch.as_tensor(block(w_np), device=dev)
     if valid is not None:
         xv, yv, wv = valid
         if sparse:
@@ -285,8 +340,25 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
     t1 = time.perf_counter()
 
     # ---- init scores: float64 on the host, rounded to float32 once
-    base_score = np.asarray(obj.init_score(np.asarray(y), w_np), np.float32)
-    base = torch.as_tensor(base_score.reshape(-1), device=dev)
+    warm = init_booster is not None and init_booster.num_trees > 0
+
+    def as_rows(s, rows):
+        """Per-row warm-start scores as this fit's [rows] or [rows, K]."""
+        s = torch.as_tensor(np.asarray(s, np.float32), device=dev)
+        if K > 1:
+            s = s.reshape(rows, K) if s.numel() == rows * K \
+                else s.reshape(rows, 1).expand(rows, K).contiguous()
+        return s
+
+    if init_scores is not None:
+        base_score = np.zeros(K, np.float32) if K > 1 else np.float32(0.0)
+    elif warm:
+        base_score = init_booster.init_score
+    else:
+        base_score = np.asarray(obj.init_score(np.asarray(y), w_np),
+                                np.float32)
+    base = torch.as_tensor(np.asarray(base_score, np.float32).reshape(-1),
+                           device=dev)
     if K == 1:
         base = base[0]
 
@@ -294,8 +366,39 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
         s = torch.zeros((rows, K), dtype=torch.float32, device=dev) + base
         return s[:, 0] if K == 1 else s
 
-    scores = const_scores(n)
-    vscores = const_scores(nv) if valid is not None else None
+    if init_scores is not None:
+        scores = as_rows(block(np.asarray(init_scores, np.float32)), n_loc)
+    elif warm:
+        scores = as_rows(init_booster.raw_scores(block(x), device=dev), n_loc)
+    else:
+        scores = const_scores(n_loc)
+    vscores = None
+    if valid is not None:
+        if valid_init_scores is not None:
+            vscores = as_rows(valid_init_scores, nv)
+        elif warm:
+            vscores = as_rows(init_booster.raw_scores(xv, device=dev), nv)
+        else:
+            vscores = const_scores(nv)
+
+    # ---- shards: rows the host reads whole are assembled on every rank
+    # by an all_reduce of a zero-filled full-length buffer
+    def assemble(t: torch.Tensor) -> torch.Tensor:
+        if shards == 1:
+            return t
+        buf = torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=dev)
+        buf[lo:hi] = t
+        return allreduce(buf, group)
+
+    if shards > 1:
+        y_full = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+        w_full = torch.as_tensor(w_np, device=dev)
+        valid_full = torch.as_tensor(pad_mask, device=dev)
+    else:
+        y_full, w_full = y_dev, w_dev
+    row_ones = torch.ones(n_loc, dtype=torch.float32, device=dev) \
+        if pad_mask is None else torch.as_tensor(block(pad_mask), device=dev)
 
     bag_mask = np.ones(n, np.float32)
     stratified_bag = (cfg.pos_bagging_fraction != 1.0
@@ -307,18 +410,22 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
                               np.float32(cfg.neg_bagging_fraction))
 
     def draw_bag() -> np.ndarray:
-        """One bagging draw from ``bag_rng`` (plain or stratified)."""
+        """One bagging draw from ``bag_rng`` (plain or stratified) over
+        every (padded) row; each rank keeps its block."""
         u = bag_rng.random(n)
         if stratified_bag:
             return (u < bag_thresh).astype(np.float32)
         return (u < cfg.bagging_fraction).astype(np.float32)
 
-    ones_n = torch.ones(n, dtype=torch.float32, device=dev)
+    def bag_rows(mask: np.ndarray) -> torch.Tensor:
+        m = block(mask) if pad_mask is None else block(mask * pad_mask)
+        return torch.as_tensor(m, device=dev)
+
     if is_goss:
         goss_gen = torch.Generator(device=dev)
         goss_gen.manual_seed(cfg.bagging_seed)
-        goss_kw = dict(top_n=int(cfg.top_rate * n),
-                       other_n=int(cfg.other_rate * n),
+        goss_kw = dict(top_n=int(cfg.top_rate * n_real),
+                       other_n=int(cfg.other_rate * n_real),
                        amplify=(1.0 - cfg.top_rate)
                        / max(cfg.other_rate, 1e-12))
     metric_name = cfg.metric or _default_metric(cfg.objective)
@@ -330,7 +437,21 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
     lr = lr_tensor(tp.learning_rate)
     grow_tp = tp._replace(learning_rate=1.0)
 
-    gh_fn = grad_hess_override or (lambda s: obj.grad_hess(s, y_dev, w_dev))
+    def gh_fn(s):
+        """(grad, hess) of this rank's rows. The ranker's override and a
+        custom objective see every real row (the scores assembled), the
+        built-in objectives only this rank's."""
+        if shards > 1 and grad_hess_override is not None:
+            g0, h0 = grad_hess_override(assemble(s)[:n_real])
+            pad = (0, 0) * (g0.dim() - 1) + (0, n - n_real)
+            return (torch.nn.functional.pad(g0, pad)[lo:hi],
+                    torch.nn.functional.pad(h0, pad)[lo:hi])
+        if grad_hess_override is not None:
+            return grad_hess_override(s)
+        if shards > 1 and cfg.fobj is not None:
+            g0, h0 = obj.grad_hess(assemble(s), y_full, w_full)
+            return g0[lo:hi], h0[lo:hi]
+        return obj.grad_hess(s, y_dev, w_dev)
 
     def grow_one(g, h, feat_mask_dev, row_mask_dev):
         """This iteration's K trees (leaf values shrunk) and their [n]
@@ -344,11 +465,12 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
                 tree, row_leaf = grow_tree_sparse(
                     binned.indices, binned.ebins, binned.zero_bin, gk, hk,
                     feat_mask_dev, row_mask_dev, params=grow_tp,
-                    num_features=F, num_bins=B_s)
+                    num_features=F, num_bins=B_s, group=group)
             else:
                 tree, row_leaf = grow_tree(
                     bins, gk, hk, feat_mask_dev, row_mask_dev,
-                    params=grow_tp, num_features=F, hist_impl=hist_impl)
+                    params=grow_tp, num_features=F, hist_impl=hist_impl,
+                    group=group)
             # growth ran at lr=1; the shrinkage is one isolated f32 multiply
             tree = tree._replace(leaf_value=tree.leaf_value * lr)
             trees_k.append(tree)
@@ -383,8 +505,8 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
                 lr = lr_tensor(tp.learning_rate)
             delegate.before_train_iteration(it)
 
-        # ---- host draws from `rng`: the drop set (dart), then the
-        # feature mask
+        # ---- host draws from `rng`: the drop set (dart; over this fit's
+        # trees only, as the reference's), then the feature mask
         dropped: list[int] = []
         if is_dart:
             dropped = _dart_drop_set(rng, cfg, len(tree_weights))
@@ -397,14 +519,14 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
 
         # ---- row mask from `bag_rng` (GOSS draws on the device)
         if is_goss:
-            row_mask_dev = ones_n
+            row_mask_dev = row_ones
         elif (is_rf or cfg.bagging_freq > 0) and bagging_active:
             # rf re-bags every iteration, the others every bagging_freq
             if is_rf or it % max(cfg.bagging_freq, 1) == 0:
                 bag_mask = draw_bag()
-            row_mask_dev = torch.as_tensor(bag_mask, device=dev)
+            row_mask_dev = bag_rows(bag_mask)
         else:
-            row_mask_dev = ones_n
+            row_mask_dev = row_ones
 
         if is_dart:
             new_w = np.float32(1.0 / (len(dropped) + 1)) if dropped \
@@ -441,13 +563,19 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
             tree_weights.extend([new_w] * K)
         else:
             # gbdt / goss / rf: the JAX package's _fused_step_math
-            sfg = const_scores(n) if is_rf else scores
+            sfg = const_scores(n_loc) if is_rf else scores
             g, h = gh_fn(sfg)
             if is_goss:
+                # the top rows are ranked over every real row: each rank
+                # makes the whole mask from the assembled magnitudes
                 gmag = torch.abs(g) if K == 1 else torch.linalg.vector_norm(
                     g, dim=1)
-                row_mask_dev = goss_mask(gmag, row_mask_dev, goss_gen,
-                                         **goss_kw)
+                if shards > 1:
+                    row_mask_dev = goss_mask(assemble(gmag), valid_full,
+                                             goss_gen, **goss_kw)[lo:hi]
+                else:
+                    row_mask_dev = goss_mask(gmag, row_mask_dev, goss_gen,
+                                             **goss_kw)
                 if it == 0 and _debug_capture is not None:
                     _debug_capture["goss_mask0"] = row_mask_dev
             trees_k, deltas = grow_one(g, h, feat_mask_dev, row_mask_dev)
@@ -462,12 +590,14 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
             tree_weights.extend([1.0] * K)
         dev_trees.extend(trees_k)
 
-        # ---- metrics and early stopping, at the eval_freq cadence
+        # ---- metrics and early stopping, at the eval_freq cadence; every
+        # rank computes each from the same values, so all stop together
         do_eval = ((it + 1) % eval_freq == 0
                    or it == cfg.num_iterations - 1)
         if cfg.is_provide_training_metric and do_eval:
             train_metric = metric_name if metric_name != "ndcg" else "rmse"
-            tm = _eval_metric(train_metric, scores, y_dev, w_dev, cfg)
+            tm = _eval_metric(train_metric, assemble(scores)[:n_real],
+                              y_full[:n_real], w_full[:n_real], cfg)
             evals.append({"iteration": it, "dataset": "train",
                           train_metric: tm})
         if valid is not None and do_eval:
@@ -500,10 +630,14 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
                             feature_names,
                             np.asarray(tree_weights, np.float32),
                             average_output=is_rf)
+    prior_iters = 0
+    if warm:
+        booster = merge_boosters(init_booster, booster)
+        prior_iters = init_booster.num_trees // K
     if best_iter >= 0:
-        booster.best_iteration = best_iter
+        booster.best_iteration = best_iter + prior_iters
     if _debug_capture is not None:
-        _debug_capture["scores"] = scores.cpu().numpy()
+        _debug_capture["scores"] = assemble(scores)[:n_real].cpu().numpy()
     return TrainResult(booster=booster, trees=trees,
                        seconds={"binning": t1 - t0, "boosting": t2 - t1},
                        evals=evals, best_iteration=best_iter)

@@ -164,7 +164,6 @@ def test_inert_reference_params_fit_as_without_them():
 
 @pytest.mark.parametrize("kwargs, exc", [
     (dict(xgboostDartMode=True, boostingType="dart"), NotImplementedError),
-    (dict(numShards=2), NotImplementedError),
     (dict(parallelism="feature_parallel"), ValueError),
 ])
 def test_unported_reference_configurations_raise(kwargs, exc):
@@ -172,6 +171,21 @@ def test_unported_reference_configurations_raise(kwargs, exc):
     df = DataFrame({"features": x, "label": y})
     with pytest.raises(exc):
         LightGBMClassifier(device="cpu", numIterations=1, **kwargs).fit(df)
+
+
+def test_shard_params_without_a_process_group_fit_one_shard():
+    """numShards above the world size clamps to it (the JAX package's
+    clamp to its devices): with no process group the world is one rank,
+    so the shard settings fit what one shard fits."""
+    x, y = _gbdt_frame()
+    df = DataFrame({"features": x, "label": y})
+    base = dict(device="cpu", numIterations=3, numLeaves=7)
+    plain = LightGBMClassifier(**base).fit(df)
+    est = LightGBMClassifier(**base, numShards=4,
+                             parallelism="voting_parallel", topK=2,
+                             shardAxisName="slice,dp")
+    assert est._training_group(len(y)) is None
+    assert est.fit(df).booster.save_native() == plain.booster.save_native()
 
 
 def test_reference_names_resolve_without_importing_jax_modules():

@@ -248,14 +248,22 @@ def test_grow_tree_sparse_matches_jax_or_ties(case):
         jsp.sparse_route_bins(jtree, *jb, max_depth=15)))
 
 
-def test_more_than_one_shard_raises_naming_the_item():
+def test_voting_without_a_shard_group_is_the_data_grower():
+    """Voting needs a shard group to vote over; with none (one shard) the
+    voting parameters grow the data-parallel tree, bit for bit."""
     x, y, bounds, jb, tb = _binned()
-    n, F = x.shape
-    with pytest.raises(NotImplementedError, match="GBDT breadth"):
-        tsp.grow_tree_sparse(*tb, torch.zeros(n), torch.ones(n),
-                             torch.ones(F, dtype=torch.bool), torch.ones(n),
-                             params=teng.TreeParams(), num_features=F,
-                             num_bins=18, psum_axis="dp")
+    (n, F), B = x.shape, bounds.shape[1] + 2
+    g = torch.from_numpy(on_grid(y - 0.5))
+    h = torch.full((n,), 0.25)
+    trees = [tsp.grow_tree_sparse(
+        *tb, g, h, torch.ones(F, dtype=torch.bool), torch.ones(n),
+        params=teng.TreeParams(max_bin=B - 1, num_leaves=7,
+                               parallelism=mode, top_k=2),
+        num_features=F, num_bins=B)
+        for mode in ("data", "voting")]
+    for a, b in zip(trees[0][0], trees[1][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(trees[0][1], trees[1][1])
 
 
 # -------------------------------------------------------------- estimators

@@ -191,7 +191,8 @@ def test_slice_runs_without_importing_jax():
 
 # modules the GBDT breadth slice added; the scan below must reach each
 GBDT_BREADTH = ["lightgbm/sparse.py", "lightgbm/ranker_objective.py",
-                "lightgbm/shap.py"]
+                "lightgbm/shap.py", "parallel/collectives.py",
+                "parallel/sharding.py"]
 # modules the featurize slice added; the scan below must reach each
 FEATURIZE_SLICE = [
     "core/arrow.py", "core/bindings.py", "core/dataframe.py",
@@ -214,6 +215,7 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "profile_torch_text.py")
     yield os.path.join(REPO, "tools", "profile_torch_train.py")
     yield os.path.join(REPO, "tools", "profile_torch_llm.py")
+    yield os.path.join(REPO, "tools", "shard_gbdt.py")
 
 
 def _imported_modules(path):

@@ -274,20 +274,13 @@ def test_leaf_prediction_column_matches(breast_cancer):
         jm.transform(JDataFrame({"features": x}))["leaves"])
 
 
-# name → (Params, the error, its words). The configurations still to come
-# raise NotImplementedError naming the GBDT breadth item; categorical slots
-# and maxBinByFeature, ported since, raise the JAX package's own refusals
-# of a frame they cannot take (breast cancer's slot 0 holds no category
-# ids; 30 features need 30 budgets)
+# name → (Params, the error, its words): categorical slots and
+# maxBinByFeature raise the JAX package's own refusals of a frame they
+# cannot take (breast cancer's slot 0 holds no category ids; 30 features
+# need 30 budgets)
 OUTSIDE_SLICE = {
     "categorical": (dict(categoricalSlotIndexes=[0]), ValueError,
                     "non-negative integer category ids"),
-    "num_batches": (dict(numBatches=2), NotImplementedError, "GBDT breadth"),
-    "shards": (dict(numShards=2), NotImplementedError, "GBDT breadth"),
-    "continuation": (dict(modelString="tree\n"), NotImplementedError,
-                     "GBDT breadth"),
-    "init_score": (dict(initScoreCol="s"), NotImplementedError,
-                   "GBDT breadth"),
     "max_bin_by_feature": (dict(maxBinByFeature=[16] * 29), ValueError,
                            "maxBinByFeature has 29 entries for 30"),
 }
@@ -302,6 +295,55 @@ def test_configs_outside_the_slice_raise(name, breast_cancer):
     kw, exc, words = OUTSIDE_SLICE[name]
     with pytest.raises(exc, match=words):
         LightGBMClassifier(device="cpu", numIterations=2, **kw).fit(df)
+
+
+def _prior_model_string(x, y):
+    """A 2-iteration model of the JAX package, as LightGBM text."""
+    return JClassifier(numShards=1, numIterations=2, numLeaves=5).fit(
+        JDataFrame({"features": x, "label": y})).booster.save_native()
+
+
+# name → Params of the settings that once raised here, now fitted in both
+# packages on the same rows: the same trees and probabilities within
+# 1e-5. Rows are weighted: unweighted, batch 1's 285 rows meet a tie that
+# the two packages' summation orders break differently. numShards=2 with
+# no process group is one shard (the JAX package's clamp to its devices),
+# so it is held against a one-shard fit
+CONTINUATION = {
+    "num_batches": lambda x, y: dict(numBatches=2),
+    "shards": lambda x, y: dict(numShards=2),
+    "continuation": lambda x, y: dict(modelString=_prior_model_string(x,
+                                                                     y)),
+    "init_score": lambda x, y: dict(initScoreCol="s"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONTINUATION))
+def test_continuation_and_shard_settings_match_jax(name, breast_cancer):
+    x, y = breast_cancer
+    s = np.random.default_rng(3).normal(scale=0.5, size=len(y)) \
+        .astype(np.float32)
+    cols = {"features": x, "label": y, "s": s, "w": np.random.default_rng(
+        1).uniform(0.5, 2.0, len(y)).astype(np.float32)}
+    kw = dict(numIterations=3, numLeaves=5, weightCol="w",
+              **CONTINUATION[name](x, y))
+    tm = LightGBMClassifier(device="cpu", **kw).fit(DataFrame(dict(cols)))
+    if name == "shards":
+        jm = JClassifier(numIterations=3, numLeaves=5, weightCol="w",
+                         numShards=1).fit(JDataFrame(dict(cols)))
+    else:
+        jm = JClassifier(**kw).fit(JDataFrame(dict(cols)))
+    ja, ta = jm.booster.arrays, tm.booster.arrays
+    assert tm.booster.num_trees == jm.booster.num_trees
+    for k in ("feature", "threshold", "left", "right", "is_leaf",
+              "num_nodes"):
+        np.testing.assert_array_equal(ta[k], ja[k], err_msg=k)
+    np.testing.assert_allclose(ta["leaf_value"], ja["leaf_value"],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        tm.transform(DataFrame({"features": x}))["probability"],
+        jm.transform(JDataFrame({"features": x}))["probability"],
+        rtol=0, atol=PROB_ATOL)
 
 
 def test_sparse_input_raises():

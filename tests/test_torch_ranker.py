@@ -159,8 +159,16 @@ def test_ranker_surface_and_round_trips(tmp_path):
     small = tl.LightGBMRanker(device="cpu", groupCol="query",
                               numIterations=3, numLeaves=7).fit(sdf)
     assert 0.0 < small.evaluate_ndcg(sdf, k=10) <= 1.0
-    with pytest.raises(NotImplementedError, match="GBDT breadth"):
-        tl.LightGBMRanker(device="cpu", groupCol="query").fit_stream([df])
+    # fit_stream continues one booster over batches of whole query groups;
+    # a group seen again in a later batch raises
+    b1, b2 = df.filter(qid < 64), df.filter(qid >= 64)
+    streamed = tl.LightGBMRanker(device="cpu", groupCol="query",
+                                 numIterations=2, numLeaves=7) \
+        .fit_stream(iter([b1, b2]))
+    assert streamed.booster.num_trees == 4
+    with pytest.raises(ValueError, match="span multiple stream batches"):
+        tl.LightGBMRanker(device="cpu", groupCol="query",
+                          numIterations=1).fit_stream(iter([b1, df]))
 
 
 def test_ranker_validation_ndcg_and_early_stopping_match_jax(monkeypatch):
