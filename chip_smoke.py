@@ -251,7 +251,37 @@ kernels build), then:
     on each rank, each fit's seconds, all_reduce calls, bytes and host
     seconds inside them; data parallel's probabilities within 5e-3 and
     AUC within 0.002 of one rank's, voting's AUC within 0.02 of data
-    parallel's.
+    parallel's;
+24. runs BERT-base (``bert-base-uncased``'s published config: vocab
+    30,522, width 768, 12 layers of 12 heads, mlp 3,072, 512 learned
+    positions, the pooler) with seeded weights in the HuggingFace
+    state-dict layout through ``bert_encoder_from_torch`` (bf16): the first
+    fifth of each document through ``WordPieceTokenizerModel`` over a
+    30,522-entry vocabulary built in-process (``maxLength`` 512), K2a held
+    against its plain version at ``[32, 12, 512, 64]`` in bf16 and f32,
+    then ``TextEncoderFeaturizer(model=LoadedModel(...))`` with ``pallas``
+    (12 K2a launches a transform; seqs/s and non-pad tokens/s) held against
+    ``dense`` with phase 6's limits and its planted fault;
+25. trains phase 8's masked LM (batch 8) 3 steps, saves with
+    ``CheckpointManager``, trains 3 more; restores into a fresh model and
+    optimizer and runs the same 3 steps: losses and parameters must equal
+    the uninterrupted run's (bit-equal expected, else within 1e-6
+    relative), K2b, K2d and K2e 8 launches a step; prints save and restore
+    seconds and bytes;
+26. runs ``ContinuousGenerator`` over phase 10's LM (16 slots, ``max_len``
+    258, phase 10's 32 prompts, 128 new each): K2c 8 launches a step,
+    tokens/s and steps, every token re-scored (K2c one tile late must fail);
+27. runs ``generate_speculative`` at k = 4 with a self-draft one row at a
+    time (tokens per pass at least 0.9 (k + 1)) and over the 32 rows, and
+    with a seeded depth-2 draft, then ``TextGenerator`` over 32 ragged
+    prompt strings through a ``BpeTokenizer`` fitted on the documents,
+    with and without the draft: K2c launches (the prefills), tokens/s,
+    tokens per pass, every generated token re-scored;
+28. runs phase 11's round 3 under ``MMLSPARK_TPU_PAGED_ATTN=0`` (the dense
+    re-gather mode) and then paged in the same process: K3 and its combine
+    0 launches, ``kv_dense_gather_bytes_total`` one gather per prefill
+    batch and per decode step, tokens/s beside the paged mode's, every
+    token re-scored.
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -260,13 +290,14 @@ its seconds. The last two lines are the kernels' JSON record and
 first check, and ``--phases`` runs some of the phase groups after the build
 (``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
 12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21,
-``breadth3``: 22-23).
+``breadth3``: 22-23, ``textgen``: 24-28).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -601,18 +632,22 @@ def check_flash(torch, k2, name, q, k, v, mask, rtol, atol):
     return err
 
 
-def pooled_agreement(name, got, dense, limits) -> bool:
-    """Per-row cosine (raw and centred on the dense rows' mean) and max
-    |diff| of pooled embeddings ``got`` against ``dense``; True when all
-    three are within ``limits`` (raw floor, centred floor, max |diff|)."""
+def agreement(got, dense) -> tuple:
+    """The smallest per-row cosine of pooled embeddings ``got`` against
+    ``dense``, raw and centred on the dense rows' mean, and max |diff|."""
     def min_cos(a, b):
         return float(((a * b).sum(1) / (np.linalg.norm(a, axis=1)
                                         * np.linalg.norm(b, axis=1))).min())
-    cos_floor, centred_floor, max_abs = limits
     centre = dense.mean(0)
-    cos = min_cos(got, dense)
-    ccos = min_cos(got - centre, dense - centre)
-    delta = float(np.abs(got - dense).max())
+    return (min_cos(got, dense), min_cos(got - centre, dense - centre),
+            float(np.abs(got - dense).max()))
+
+
+def pooled_agreement(name, got, dense, limits) -> bool:
+    """:func:`agreement` of ``got`` against ``dense``; True when all three
+    are within ``limits`` (raw floor, centred floor, max |diff|)."""
+    cos_floor, centred_floor, max_abs = limits
+    cos, ccos, delta = agreement(got, dense)
     ok = cos >= cos_floor and ccos >= centred_floor and delta <= max_abs
     print(f"{name} vs dense pooled embeddings: per-row cosine min "
           f"{cos:.7f} (floor {cos_floor}), centred {ccos:.7f} (floor "
@@ -4010,8 +4045,640 @@ def breadth3_phases(torch, k1, args) -> dict:
             "shard_launches_per_rank": shard["launches"]}
 
 
+# ------------------------------------------------------ text generation
+
+# phase 24: bert-base-uncased's published config (vocab 30,522, width 768,
+# 12 layers of 12 heads, mlp 3,072, 512 learned positions, 2 token types,
+# the pooler); seeded weights in the HF state-dict layout
+BERT_BASE = dict(vocab=30522, width=768, depth=12, heads=12, mlp_dim=3072,
+                 max_len=512, type_vocab=2)
+BERT_RUNS = 3                 # warm transforms timed in phase 24 (median)
+# phase 24 holds the f32 transform with phase 6's POOLED_LIMITS. In bf16
+# the random-init BERT's pooled rows share most of their vector (centred
+# median 0.026 against 0.57 raw on the H100, PERF.md §6), so the tokens' bf16
+# roundings, which the mean pool keeps at ~1e-3, weigh ~20x more in the
+# centred cosine than in phase 6's encoder. Over 8 weight and 5 document
+# seeds (tools/bert_bf16_agreement.py) the readings were raw >= 0.9999992,
+# centred 0.9997840-0.9998357 and max |diff| 0.002897-0.003774, the key-mask
+# fault centred <= 0.103 and max |diff| >= 0.815: the bf16 limits keep
+# phase 6's raw floor and max |diff| and leave 2.3x on 1 - centred.
+BERT_BF16_POOLED_LIMITS = (0.99999, 0.9995, 5e-3)
+# phase 25: checkpointed resume at the masked-LM cell, 3 steps, save, 3 more
+RESUME_STEPS = 3
+RESUME_RTOL = 1e-6            # if the resumed run is not bit-equal
+# phases 26-27: ContinuousGenerator and speculation over phase 10's LM
+CG_SLOTS, CG_MAX_LEN = 16, 2 * GEN_T
+SPEC_K = 4
+DRAFT_DEPTH = 2
+TG_NEW = 32                   # TextGenerator's maxNewTokens
+TG_BPE_VOCAB = 4096
+
+
+def bert_state_dict(torch, seed: int = 0) -> dict:
+    """A BERT-base state dict in the HuggingFace layout (``bert.`` prefix,
+    the ``position_ids`` buffer, a pretraining head under ``cls.`` that the
+    converter drops) with BERT's initialiser: normal(0, 0.02) embeddings
+    and dense weights, zero biases, LayerNorm 1/0, from torch.Generator."""
+    gen = torch.Generator().manual_seed(seed)
+    W, M = BERT_BASE["width"], BERT_BASE["mlp_dim"]
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    sd = {"embeddings.word_embeddings.weight": normal(BERT_BASE["vocab"], W),
+          "embeddings.position_embeddings.weight":
+              normal(BERT_BASE["max_len"], W),
+          "embeddings.token_type_embeddings.weight":
+              normal(BERT_BASE["type_vocab"], W),
+          "embeddings.position_ids":
+              torch.arange(BERT_BASE["max_len"])[None]}
+    dense = {"attention.self.query": (W, W), "attention.self.key": (W, W),
+             "attention.self.value": (W, W),
+             "attention.output.dense": (W, W),
+             "intermediate.dense": (M, W), "output.dense": (W, M)}
+    norms = ["embeddings.LayerNorm"]
+    for i in range(BERT_BASE["depth"]):
+        for name, shape in dense.items():
+            sd[f"encoder.layer.{i}.{name}.weight"] = normal(*shape)
+            sd[f"encoder.layer.{i}.{name}.bias"] = torch.zeros(shape[0])
+        norms += [f"encoder.layer.{i}.attention.output.LayerNorm",
+                  f"encoder.layer.{i}.output.LayerNorm"]
+    for name in norms:
+        sd[f"{name}.weight"] = torch.ones(W)
+        sd[f"{name}.bias"] = torch.zeros(W)
+    sd["pooler.dense.weight"] = normal(W, W)
+    sd["pooler.dense.bias"] = torch.zeros(W)
+    sd = {f"bert.{k}": v for k, v in sd.items()}
+    sd["cls.predictions.bias"] = torch.zeros(BERT_BASE["vocab"])
+    return sd
+
+
+def wordpiece_vocab(texts) -> list:
+    """A 30,522-entry vocabulary built in-process: the specials, single
+    letters and their ``##`` continuations, then 19 of every 20 distinct
+    document words (the rest split into letter pieces), filled with
+    ``[unused*]`` entries."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    vocab = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + list(letters)
+             + [f"##{c}" for c in letters])
+    words = sorted({w for t in texts for w in t.split()} - set(letters))
+    vocab += [w for i, w in enumerate(words) if i % 20]
+    return vocab + [f"[unused{i}]"
+                    for i in range(BERT_BASE["vocab"] - len(vocab))]
+
+
+def bert_phase(torch, k1, k2, dev, bw, flush, texts, lengths):
+    """Phase 24: BERT-base through ``TextEncoderFeaturizer`` and K2a.
+    Returns K2a's record at this path's shape for the kernels line."""
+    import torch.nn.functional as F
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import TextEncoderFeaturizer
+    from mmlspark_torch.featurize import WordPieceTokenizerModel
+    from mmlspark_torch.models import (LoadedModel, bert_encoder_from_torch,
+                                       register_bert_encoder)
+    B, T = len(texts), BERT_BASE["max_len"]
+    H, W = BERT_BASE["heads"], BERT_BASE["width"]
+    D = W // H
+
+    # the documents' first fifth, so rows spread under the 512 positions
+    docs = np.asarray([" ".join(t.split()[:n // 5])
+                       for t, n in zip(texts, lengths)], object)
+    tok = WordPieceTokenizerModel.from_vocab(wordpiece_vocab(texts),
+                                             maxLength=T, inputCol="text")
+    t0 = time.perf_counter()
+    ids = tok.transform(DataFrame({"text": docs}))
+    tokenize_s = time.perf_counter() - t0
+    rows = np.asarray(ids["tokens"], np.int32)
+    n_tok = (rows != 0).sum(1)
+    print(f"phase 24: WordPiece over a {BERT_BASE['vocab']:,}-entry vocab: "
+          f"{B} documents in {tokenize_s:.3f} s, {int(n_tok.sum()):,} "
+          f"tokens, {int(n_tok.min())}-{int(n_tok.max())} a row of {T}")
+
+    # K2a against its plain version at this path's attention shape
+    mask = torch.from_numpy(rows != 0).to(dev)
+    mask_e = mask.clone()
+    mask_e[-1] = False                            # one fully masked row
+    gen = torch.Generator(device=dev).manual_seed(24)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev,
+                               dtype=dtype).transpose(1, 2)
+                   for _ in range(3))
+        bf16 = dtype == torch.bfloat16
+        errs[dtype] = check_flash(
+            torch, k2, f"{str(dtype)[6:]} B={B} H={H} T={T} D={D} (BERT-base)",
+            q, k, v, mask_e, FLASH_BF16_RTOL if bf16 else 0.0,
+            FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL)
+        if bf16:
+            ms = time_ms(lambda: k2.flash_cuda(q, k, v, mask), torch,
+                         flush=flush)
+            plain_ms = time_ms(lambda: k2.flash_torch(q, k, v, mask), torch,
+                               runs=10, flush=flush)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask[:, None, None, :]), torch,
+                flush=flush)
+            valid = int(mask.sum())
+            bound_ms, bound_by = bound(
+                4 * H * D * T * valid,
+                2 * (2 * B * H * T * D + 2 * H * D * valid) + B * T, bw)
+    print(f"phase 24: K2a {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention {library_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({valid} valid keys); bf16, "
+          f"median of CUDA-event runs, L2 flushed")
+    del q, k, v
+
+    # the converter on the HF layout, then the featurizer: bf16 (timed),
+    # then f32 (held with phase 6's limits)
+    t0 = time.perf_counter()
+    sd = bert_state_dict(torch)
+    init_s = time.perf_counter() - t0
+    schema = register_bert_encoder("BertBase", seq_len=T, **BERT_BASE)
+    depth = BERT_BASE["depth"]
+    for dtype, limits in ((torch.bfloat16, BERT_BF16_POOLED_LIMITS),
+                          (torch.float32, POOLED_LIMITS)):
+        name = str(dtype)[6:]
+        t0 = time.perf_counter()
+        module = bert_encoder_from_torch(
+            sd, config={"num_attention_heads": H}, dtype=dtype)
+        convert_s = time.perf_counter() - t0
+        kw = dict(model=LoadedModel(schema, module), inputCol="tokens",
+                  seqChunk=128)
+        stage = TextEncoderFeaturizer(attentionImpl="pallas", **kw)
+        stage.transform(ids)                      # warm-up
+        torch.cuda.synchronize()
+        times, launches = [], []
+        for _ in range(BERT_RUNS):
+            k1.hist_cuda.launches = k2.flash_cuda.launches = 0
+            t0 = time.perf_counter()
+            out = stage.transform(ids)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append((k2.flash_cuda.launches, k1.hist_cuda.launches))
+        if any(c != (depth, 0) for c in launches):
+            fail(f"phase 24: {name}: (K2a, K1) launches per transform "
+                 f"{launches}: expected ({depth}, 0), one K2a launch per "
+                 "block")
+        pooled = out["features"]
+        if pooled.shape != (B, W) or not np.isfinite(pooled).all():
+            fail(f"phase 24: {name}: pooled embeddings {pooled.shape}, "
+                 f"{(~np.isfinite(pooled)).sum()} non-finite")
+        transform_s = float(np.median(times))
+        print(f"phase 24: BERT-base ({BERT_BASE}, {name}; seeded HF state "
+              f"dict {init_s:.2f} s, converted in {convert_s:.2f} s) through "
+              f"TextEncoderFeaturizer(pallas): warm transform "
+              f"{transform_s:.4f} s, median of {BERT_RUNS} "
+              f"({', '.join(f'{t:.4f}' for t in times)} s): "
+              f"{B / transform_s:.2f} seqs/s, "
+              f"{int(n_tok.sum()) / transform_s:,.0f} non-pad tokens/s; K2a "
+              f"launches per transform {launches[-1][0]}")
+        if dtype == torch.bfloat16:
+            k2a_launches = launches[-1][0]
+        k2.flash_cuda.launches = 0
+        dense = TextEncoderFeaturizer(attentionImpl="dense", **kw) \
+            .transform(ids)["features"]
+        if k2.flash_cuda.launches != 0:
+            fail("phase 24: the dense transform launched K2a")
+        hold_pooled(torch, k2, dev, f"phase 24 ({name})", module, rows,
+                    pooled, dense, limits)
+        del module, stage, kw
+        torch.cuda.empty_cache()
+    del sd
+    return {"name": "flash_bert", "route": "cuda",
+            "source": "mmlspark_torch/dl/csrc/flash_attn.cu",
+            "replaces": "mmlspark_tpu/dl/pallas_attention.py:77",
+            "launches": k2a_launches,
+            "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def resume_phase(torch, k2, dev, texts, args) -> int:
+    """Phase 25: masked-LM training at phase 8's cell, checkpointed after 3
+    steps and resumed in a fresh model and optimizer; the resumed steps
+    must equal the uninterrupted ones. Returns K2b's launches a step."""
+    import tempfile
+
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import (MaskedLMModel, TextEncoder, TrainState,
+                                   make_attention_fn, make_train_step,
+                                   mask_batch, masked_xent)
+    from mmlspark_torch.dl.checkpoint import CheckpointManager
+    from mmlspark_torch.dl.pretrain import default_optimizer
+    from mmlspark_torch.featurize import TokenIdEncoder
+    B, vocab, depth = args.batch, TEXT_SHAPE["vocab"], TEXT_SHAPE["depth"]
+    ids = np.asarray(TokenIdEncoder(maxLength=TEXT_T, vocabSize=vocab - 1)
+                     .transform(DataFrame({"text": texts}))["tokens"])
+    rng = np.random.default_rng(25)
+    batches = []
+    for _ in range(2 * RESUME_STEPS):
+        rows = ids[rng.integers(0, len(ids), size=B)]
+        batches.append(tuple(torch.from_numpy(a).to(dev) for a in
+                             mask_batch(rows, rng, mask_id=vocab - 1)))
+
+    def new_state(seed):
+        gen = torch.Generator().manual_seed(seed)
+        model = MaskedLMModel(TextEncoder(
+            **TEXT_SHAPE, attention_fn=make_attention_fn("pallas"),
+            generator=gen), gen).to(dev)
+        opt = default_optimizer(1e-3)(list(model.parameters()))
+        return TrainState(model, opt), make_train_step(
+            model, opt, loss_fn=masked_xent, fetch="logits")
+
+    counters = {"K2b": k2.flash_lse_cuda, "K2d": k2.flash_dq_cuda,
+                "K2e": k2.flash_dkv_cuda, "K2a": k2.flash_cuda,
+                "K2c": k2.flash_causal_cuda}
+    state, step = new_state(0)
+    losses, per_step = [], []
+    with tempfile.TemporaryDirectory() as root:
+        mgr = CheckpointManager(root, max_to_keep=1)
+        for i, (x, y) in enumerate(batches):
+            reset(counters)
+            state, loss = step(state, x, y)
+            torch.cuda.synchronize()
+            per_step.append(counts(counters))
+            losses.append(loss)
+            if i + 1 == RESUME_STEPS:
+                t0 = time.perf_counter()
+                path = mgr.save(state)
+                save_s = time.perf_counter() - t0
+                nbytes = sum(os.path.getsize(os.path.join(path, f))
+                             for f in os.listdir(path))
+        fresh, fresh_step = new_state(1)          # other initial weights
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = mgr.restore(target=fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    if restored.step != RESUME_STEPS:
+        fail(f"phase 25: restored step {restored.step}, saved "
+             f"{RESUME_STEPS}")
+    resumed = []
+    for x, y in batches[RESUME_STEPS:]:
+        reset(counters)
+        restored, loss = fresh_step(restored, x, y)
+        torch.cuda.synchronize()
+        per_step.append(counts(counters))
+        resumed.append(loss)
+    want = {"K2b": depth, "K2d": depth, "K2e": depth, "K2a": 0, "K2c": 0}
+    if any(c != want for c in per_step):
+        fail(f"phase 25: launches per step {per_step}: expected {want}")
+    launches = per_step[-1]["K2b"]              # a resumed step's, measured
+    a = torch.stack(losses[RESUME_STEPS:]).float()
+    b = torch.stack(resumed).float()
+    loss_rel = float(((a - b).abs() / a.abs()).max())
+    same_bits = bool(torch.equal(a, b))
+    worst, worst_name = 0.0, ""
+    for (name, p), (_, r) in zip(state.model.state_dict().items(),
+                                 restored.model.state_dict().items()):
+        same_bits &= bool(torch.equal(p, r))
+        rel = float((p.float() - r.float()).abs().max()
+                    / p.float().abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"phase 25: masked LM {TEXT_SHAPE}, batch {B} x T={TEXT_T}, "
+          f"AdamW: steps 4-6 after a restore of step {RESUME_STEPS} into a "
+          f"fresh model and optimizer against the uninterrupted run: "
+          f"{'bit-equal' if same_bits else 'NOT bit-equal'} (losses "
+          f"{', '.join(f'{float(v):.6f}' for v in a)}; largest relative "
+          f"|diff| loss {loss_rel:.3g}, parameter {worst:.3g} "
+          f"{worst_name}); save {save_s:.3f} s, restore {restore_s:.3f} s, "
+          f"{nbytes / 1e6:,.1f} MB ({nbytes:,} B: weights, AdamW moments, "
+          f"step); K2b, K2d, K2e {launches} launches a step, K2a 0")
+    if not same_bits and (loss_rel > RESUME_RTOL or worst > RESUME_RTOL):
+        fail(f"phase 25: the resumed run departs from the uninterrupted one "
+             f"beyond {RESUME_RTOL} relative")
+    del state, restored, fresh
+    torch.cuda.empty_cache()
+    return launches
+
+
+def continuous_phase(torch, k2, k3, dev, model, dense, prompts, args) -> int:
+    """Phase 26: ``ContinuousGenerator`` over phase 10's LM, 32 prompts
+    through 16 slots. Returns K2c's launches a step."""
+    from mmlspark_torch.dl import ContinuousGenerator
+    from mmlspark_torch.obs import MetricsRegistry
+    depth, new = TEXT_SHAPE["depth"], args.new_tokens
+    fns = {"K2c": k2.flash_causal_cuda, "K2a": k2.flash_cuda,
+           "K3 window": k3.paged_cuda, "K3 decode": k3.paged_decode_cuda}
+
+    def run(n_prompts, n_new, slots, fault=False):
+        """Submit (the causality probe runs on the first prompt), then
+        drain; with ``fault`` the drain runs K2c one tile late."""
+        gen = ContinuousGenerator(model, slots=slots, max_len=CG_MAX_LEN,
+                                  registry=MetricsRegistry(), device=dev)
+        for i, p in enumerate(prompts[:n_prompts]):
+            gen.submit(i, p, n_new)
+        reset(fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = with_k2c_one_tile_late(k2, gen.run_until_drained) if fault \
+            else gen.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seqs = np.stack([out[i][:GEN_T + n_new] for i in range(n_prompts)])
+        return gen, seqs, wall
+
+    gen, seqs, wall = run(len(prompts), new, CG_SLOTS)
+    got = counts(fns)
+    want = {"K2c": depth * gen.steps, "K2a": 0, "K3 window": 0,
+            "K3 decode": 0}
+    if got != want:
+        fail(f"phase 26: launches {got} over {gen.steps} steps: expected "
+             f"{want}, one K2c launch per block per step")
+    launches = got["K2c"] // gen.steps             # measured, a step
+    print(f"phase 26: ContinuousGenerator, {CG_SLOTS} slots, max_len "
+          f"{CG_MAX_LEN}, {len(prompts)} prompts of {GEN_T} tokens, {new} "
+          f"new each: {wall:.3f} s, {gen.steps} steps "
+          f"({wall / gen.steps * 1e3:.3f} ms a step), "
+          f"{len(prompts) * new / wall:,.0f} tokens/s; K2c {launches} "
+          f"launches a step, K2a and K3 0")
+    hold_rescore(torch, "phase 26: ContinuousGenerator", dense, seqs, GEN_T,
+                 dev)
+    _, faulty, _ = run(8, 16, 8, fault=True)
+    hold_rescore(torch, "phase 26: planted fault (K2c bound one tile late)",
+                 dense, faulty, GEN_T, dev, fault=True)
+    return launches
+
+
+def rescore_rows(torch, dense, rows, starts, n_new, dev):
+    """Re-score generated rows whose continuations start at their own
+    prompt lengths ``starts``: one ``rescore`` per distinct start. Returns
+    (share of dense argmaxes, largest gap) over all rows."""
+    hits, total, worst = 0.0, 0, 0.0
+    for s in np.unique(starts):
+        sel = rows[starts == s, :s + n_new]
+        share, gap = rescore(torch, dense, sel, int(s), dev)
+        hits += share * sel.shape[0] * n_new
+        total += sel.shape[0] * n_new
+        worst = max(worst, gap)
+    return hits / total, worst
+
+
+def speculative_phase(torch, k2, k3, dev, model, dense, prompts, args,
+                      texts) -> None:
+    """Phase 27: ``generate_speculative`` (a self-draft and a seeded depth-2
+    draft) and ``TextGenerator`` with and without ``draftLm`` over phase
+    10's LM."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import (MaskedLMModel, TextEncoder, TextGenerator,
+                                   generate, generate_speculative,
+                                   make_attention_fn)
+    from mmlspark_torch.featurize import BpeTokenizer
+    depth, new, k = TEXT_SHAPE["depth"], args.new_tokens, SPEC_K
+    fns = {"K2c": k2.flash_causal_cuda, "K2a": k2.flash_cuda,
+           "K3 window": k3.paged_cuda, "K3 decode": k3.paged_decode_cuda}
+    gen = torch.Generator().manual_seed(1)
+    draft = MaskedLMModel(TextEncoder(
+        **dict(TEXT_SHAPE, depth=DRAFT_DEPTH),
+        attention_fn=make_attention_fn("pallas", causal=True),
+        generator=gen), gen).to(dev).eval()
+
+    def spec(drafter, p, label, d_depth):
+        generate_speculative(model, drafter, p, max_new_tokens=new, k=k,
+                             device=dev)     # probes, then warm
+        reset(fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, rate = generate_speculative(model, drafter, p,
+                                         max_new_tokens=new, k=k, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts(fns)
+        want = {"K2c": depth + d_depth, "K2a": 0, "K3 window": 0,
+                "K3 decode": 0}
+        if got != want:
+            fail(f"phase 27: {label}: launches {got}, expected {want} (the "
+                 "target's and the draft's prefill, one K2c launch a block)")
+        share, gap = rescore(torch, dense, out, GEN_T, dev)
+        print(f"phase 27: {label}, k={k}, {p.shape[0]} x {GEN_T} prompt "
+              f"tokens, {new} new: {wall:.3f} s, "
+              f"{p.shape[0] * new / wall:,.0f} tokens/s, tokens per pass "
+              f"{rate:.4f}; K2c {got['K2c']} (the prefills); re-scored: "
+              f"{share:.4f} dense argmax, largest gap {gap:.4f} (limit "
+              f"{RESCORE_DELTA})")
+        if gap > RESCORE_DELTA:
+            fail(f"phase 27: {label}: generated tokens fail the re-score "
+                 "limit")
+        return rate
+
+    single = [spec(model, prompts[i:i + 1], f"self-draft, prompt {i}", depth)
+              for i in range(4)]
+    rate = float(np.mean(single))
+    print(f"phase 27: self-draft tokens per pass, one row at a time: "
+          f"{', '.join(f'{r:.4f}' for r in single)}; mean {rate:.4f} (floor "
+          f"{0.9 * (k + 1):.1f})")
+    if rate < 0.9 * (k + 1):
+        fail(f"phase 27: self-draft tokens per pass {rate:.4f} below "
+             f"0.9 x (k + 1)")
+    batched = spec(model, prompts, "self-draft, 32 rows synced on the "
+                   "minimum acceptance", depth)
+    spec(draft, prompts, f"seeded depth-{DRAFT_DEPTH} draft, 32 rows",
+         DRAFT_DEPTH)
+    if batched < 1.0:
+        fail(f"phase 27: batched self-draft tokens per pass {batched}")
+
+    # TextGenerator over prompt strings through a fitted BpeTokenizer
+    t0 = time.perf_counter()
+    tok = BpeTokenizer(vocabSize=TG_BPE_VOCAB, maxLength=GEN_T,
+                       inputCol="text", outputCol="tokens").fit(
+        DataFrame({"text": texts}))
+    fit_s = time.perf_counter() - t0
+    # ragged prompts (the draft path runs one call per distinct length);
+    # the blank prompt's UNK row is held on the CPU: here every row has a
+    # prefix to prefill through K2c
+    df = DataFrame({"text": np.asarray([" ".join(t.split()[:8 + 2 * i])
+                                        for i, t in enumerate(texts)],
+                                       object)})
+    starts = np.maximum((np.asarray(tok.transform(df)["tokens"]) != 0)
+                        .sum(1), 1)
+    gen_mod = sys.modules["mmlspark_torch.dl.generate"]
+    spec_mod = sys.modules["mmlspark_torch.dl.speculative"]
+    for label, drafter in (("plain", None), (f"depth-{DRAFT_DEPTH} draft",
+                                              draft)):
+        stage = TextGenerator(tokenizer=tok, lm=model, draftLm=drafter,
+                              maxNewTokens=TG_NEW, speculativeK=k)
+        stage.transform(df)                        # warm
+        calls = []
+
+        def spy(real):
+            def run(*a, **kw):
+                out = real(*a, **kw)
+                calls.append(out[0] if isinstance(out, tuple) else out)
+                return out
+            return run
+
+        reals = gen_mod.generate, spec_mod.generate_speculative
+        gen_mod.generate = spy(reals[0])
+        spec_mod.generate_speculative = spy(reals[1])
+        reset(fns)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = stage.transform(df)["generated"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            gen_mod.generate, spec_mod.generate_speculative = reals
+        launched = counts(fns)
+        groups = len(calls)
+        want_k2c = depth if drafter is None else groups * (depth
+                                                           + DRAFT_DEPTH)
+        if launched != {"K2c": want_k2c, "K2a": 0, "K3 window": 0,
+                        "K3 decode": 0}:
+            fail(f"phase 27: TextGenerator ({label}): launches {launched}, "
+                 f"expected K2c {want_k2c} over {groups} call(s)")
+        if drafter is None:
+            rows = calls[0]
+        else:                  # the stage's calls, one per prompt length
+            rows = np.zeros((len(starts), GEN_T + TG_NEW), np.int32)
+            for out, plen in zip(calls, np.unique(starts)):
+                rows[np.flatnonzero(starts == plen), :plen + TG_NEW] = out
+        texts_back = [tok.decode(r[s:s + TG_NEW])
+                      for r, s in zip(rows, starts)]
+        if list(got) != texts_back:
+            fail(f"phase 27: TextGenerator ({label}) text differs from its "
+                 "decoded tokens")
+        share, gap = rescore_rows(torch, dense, rows, starts, TG_NEW, dev)
+        print(f"phase 27: TextGenerator ({label}), {len(df)} prompt strings "
+              f"({int(starts.min())}-{int(starts.max())} BPE tokens, "
+              f"{TG_BPE_VOCAB:,}-entry BpeTokenizer fitted on the documents "
+              f"in {fit_s:.2f} s), {TG_NEW} new: {wall:.3f} s, "
+              f"{len(df) * TG_NEW / wall:,.0f} tokens/s; {groups} decode "
+              f"call(s), K2c {launched['K2c']}; re-scored: {share:.4f} dense "
+              f"argmax, largest gap {gap:.4f} (limit {RESCORE_DELTA})")
+        if gap > RESCORE_DELTA:
+            fail(f"phase 27: TextGenerator ({label}): generated tokens fail "
+                 "the re-score limit")
+    del draft
+
+
+def dense_engine_phase(torch, k2, k3, dev, model, dense, prompts,
+                       args) -> None:
+    """Phase 28: ``LLMEngine`` under ``MMLSPARK_TPU_PAGED_ATTN=0`` on phase
+    11's round 3, beside the paged mode in the same process."""
+    import mmlspark_torch.serving.llm as llm
+    from mmlspark_torch.obs import MetricsRegistry
+    from mmlspark_torch.serving import LLMEngine
+    new, svc = args.new_tokens, "llm"
+    fns = {"K2c": k2.flash_causal_cuda, "K2a": k2.flash_cuda,
+           "K3 window": k3.paged_cuda, "K3 decode": k3.paged_decode_cuda}
+    max_seq, slots, batch = 18 * 16, 16, 4
+
+    def round3(mode):
+        reg = MetricsRegistry()
+        eng = LLMEngine(model, slots=slots, block_len=16,
+                        max_seq_len=max_seq, num_blocks=1 + 2 * 16 * 18,
+                        prefill_batch=batch, registry=reg, device=dev)
+        eng.warm(prefill_windows=(llm._bucket_window(GEN_T), 1))
+        gathers.clear()
+        if eng.decoder.paged != (mode == "paged") \
+                or eng.prefiller.paged != (mode == "paged"):
+            fail(f"phase 28: the engine did not build the {mode} mode")
+        reset(fns)
+        k3.paged_decode_cuda.combine_launches = 0
+        k3.paged_cuda.combine_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            eng.submit(i, p, new)
+        out = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seqs = np.stack([out[i] for i in range(len(prompts))])
+        return eng, reg, seqs, wall, counts(fns)
+
+    # what each gather_dense call materialized, read off the tensors it
+    # returned: (chains gathered, bytes)
+    gathers, gather_dense = [], llm.gather_dense
+
+    def measured_gather(pools, rows, head_dim):
+        out = gather_dense(pools, rows, head_dim)
+        gathers.append((rows.shape[0], sum(t.numel() * t.element_size()
+                                           for kv in out for t in kv)))
+        return out
+
+    old = os.environ.get("MMLSPARK_TPU_PAGED_ATTN")
+    os.environ["MMLSPARK_TPU_PAGED_ATTN"] = "0"
+    llm.gather_dense = measured_gather
+    try:
+        eng, reg, seqs, wall, got = round3("dense")
+    finally:
+        llm.gather_dense = gather_dense
+        if old is None:
+            del os.environ["MMLSPARK_TPU_PAGED_ATTN"]
+        else:
+            os.environ["MMLSPARK_TPU_PAGED_ATTN"] = old
+    combines = (k3.paged_decode_cuda.combine_launches,
+                k3.paged_cuda.combine_launches)
+    if got != {"K2c": 0, "K2a": 0, "K3 window": 0, "K3 decode": 0} \
+            or combines != (0, 0):
+        fail(f"phase 28: dense mode launched {got}, combines {combines}: "
+             "expected no K3 (and no combine), no K2a or K2c")
+    h = reg.metrics("gen_decode_attn_seconds")[0]
+    c = reg.metrics("kv_dense_gather_bytes_total")[0]
+    steps = {ph: h.count(service=svc, phase=ph)
+             for ph in ("prefill", "decode")}
+    gathered = {ph: c.value(service=svc, phase=ph) for ph in steps}
+    rows = {"prefill": batch, "decode": slots}
+    calls = {ph: sum(n == rows[ph] for n, _ in gathers) for ph in rows}
+    want = {ph: float(sum(b for n, b in gathers if n == rows[ph]))
+            for ph in rows}
+    if calls != steps or len(gathers) != sum(steps.values()) \
+            or gathered != want or min(gathered.values()) <= 0:
+        fail(f"phase 28: kv_dense_gather_bytes_total {gathered} over "
+             f"{steps} prefill batches and decode steps; the gathers "
+             f"returned {want} B in {calls} calls (expected one gather per "
+             "prefill batch and per decode step, every byte counted)")
+    del eng
+    _, _, paged_seqs, paged_wall, paged_got = round3("paged")
+    same = int(sum(np.array_equal(a, b) for a, b in zip(seqs, paged_seqs)))
+    n_tok = len(prompts) * new
+    print(f"phase 28: LLMEngine round 3 (phase 11's: {len(prompts)} prompts "
+          f"of {GEN_T}, {new} new, {slots} slots) under "
+          f"MMLSPARK_TPU_PAGED_ATTN=0: {wall:.3f} s, {n_tok / wall:,.0f} "
+          f"tokens/s; paged mode in this process {paged_wall:.3f} s, "
+          f"{n_tok / paged_wall:,.0f} tokens/s; {steps['prefill']} prefill "
+          f"batches, {steps['decode']} decode steps; "
+          f"kv_dense_gather_bytes_total prefill {gathered['prefill']:,.0f} "
+          f"B, decode {gathered['decode']:,.0f} B; K3 (and its combines) 0 "
+          f"launches (paged mode: window {paged_got['K3 window']}, decode "
+          f"{paged_got['K3 decode']}); {same} of {len(prompts)} sequences "
+          f"identical to the paged mode's")
+    hold_rescore(torch, "phase 28: dense re-gather mode", dense, seqs, GEN_T,
+                 dev)
+
+
+def textgen_phases(torch, k1, k2, k3, dev, bw, flush, texts, lengths,
+                   args) -> dict:
+    """Phases 24-28. Returns K2a's record at the BERT-base shape and the
+    launch counts the other kernels' records take."""
+    import copy
+
+    from mmlspark_torch.dl import make_attention_fn
+    with Phase("phase 24"):
+        record = bert_phase(torch, k1, k2, dev, bw, flush, texts, lengths)
+    with Phase("phase 25"):
+        resume = resume_phase(torch, k2, dev, texts, args)
+    model = lm_model(torch, "pallas").to(dev).eval()
+    dense = copy.deepcopy(model)
+    dense.encoder = dense.encoder.with_attention(
+        make_attention_fn("dense", causal=True))
+    prompts = np.random.default_rng(11).integers(
+        2, TEXT_SHAPE["vocab"], size=(GEN_BATCH, GEN_T)).astype(np.int32)
+    with Phase("phase 26"):
+        continuous = continuous_phase(torch, k2, k3, dev, model, dense,
+                                      prompts, args)
+    with Phase("phase 27"):
+        speculative_phase(torch, k2, k3, dev, model, dense, prompts, args,
+                          texts)
+    with Phase("phase 28"):
+        dense_engine_phase(torch, k2, k3, dev, model, dense, prompts, args)
+    return {"record": record, "resume_launches_per_step": resume,
+            "continuous_launches_per_step": continuous}
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
-                "breadth", "breadth2", "breadth3")
+                "breadth", "breadth2", "breadth3", "textgen")
 
 
 class Phase:
@@ -4042,7 +4709,7 @@ def main() -> None:
                     help="phase groups to run after the build: gbdt (2-4), "
                     "text (5-6), train (7-8), llm (9-11), causal (12-13), "
                     "featurize (14-15), breadth (16-18), breadth2 "
-                    "(19-21), breadth3 (22-23)")
+                    "(19-21), breadth3 (22-23), textgen (24-28)")
     args = ap.parse_args()
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
@@ -4133,6 +4800,17 @@ def main() -> None:
         for rec in records:
             if rec["name"] == "hist":
                 rec.update(counts)
+    if "textgen" in groups:
+        tg = textgen_phases(torch, k1, k2, k3, dev, bw, flush, texts,
+                            lengths, args)
+        records.append(tg["record"])
+        for rec in records:
+            if rec["name"] in ("flash_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+                rec["resume_launches_per_step"] = \
+                    tg["resume_launches_per_step"]
+            if rec["name"] == "flash_causal":
+                rec["continuous_launches_per_step"] = \
+                    tg["continuous_launches_per_step"]
 
     print(card)
     print(json.dumps({"kernels": records}))

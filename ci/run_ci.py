@@ -94,7 +94,8 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_gbdt_breadth.py", "test_torch_gbdt_bands.py",
               "test_torch_gbdt_categorical.py", "test_torch_gbdt_sparse.py",
               "test_torch_ranker.py", "test_torch_gbdt_continuation.py",
-              "test_torch_gbdt_shards.py"],
+              "test_torch_gbdt_shards.py", "test_torch_bert.py",
+              "test_torch_checkpoint.py", "test_torch_textgen.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

@@ -22,8 +22,11 @@ slots point their block-table entries at it, so fixed-shape steps can
 always write "somewhere" without corrupting a live sequence; the paged
 attention kernel skips it.
 
-Not ported yet (ROADMAP.md §1 item 8): the dense re-gather decode mode
-behind ``MMLSPARK_TPU_PAGED_ATTN=0`` (``gather_dense``, ``take_positions``).
+The dense re-gather mode behind ``MMLSPARK_TPU_PAGED_ATTN=0``
+(:func:`paged_attention_enabled`) uses :func:`gather_dense` and
+:func:`take_positions`: the engine gathers each slot's chain into dense
+caches, runs the dense cached formulation over them and scatters the
+written positions back.
 """
 
 from __future__ import annotations
@@ -40,23 +43,19 @@ from ..obs import registry as _default_registry
 from .flash_attention import kernel_head_dim, pad_head_dim
 
 __all__ = ["PagedKVManager", "SequenceHandle", "OutOfBlocks", "TRASH_BLOCK",
-           "blocks_for_hbm_budget", "init_pools", "paged_attention_enabled",
-           "pool_block_bytes", "pool_head_dim", "scatter_positions"]
+           "blocks_for_hbm_budget", "gather_dense", "init_pools",
+           "paged_attention_enabled", "pool_block_bytes", "pool_head_dim",
+           "scatter_positions", "take_positions"]
 
 #: the reserved trash block — device steps route padded/inactive writes
 #: here; the host half never hands it to a sequence
 TRASH_BLOCK = 0
 
-LATER_DENSE = ("the dense re-gather decode mode (MMLSPARK_TPU_PAGED_ATTN=0, "
-               "gather_dense, take_positions) is not ported yet "
-               "(ROADMAP.md §1 item 8); the port decodes through the paged "
-               "attention kernel (K3)")
-
-
 def paged_attention_enabled() -> bool:
-    """The JAX package's kill switch: ``MMLSPARK_TPU_PAGED_ATTN=0`` asks
-    for the dense re-gather mode, which the port does not have yet (the
-    engine raises then)."""
+    """The JAX package's switch: ``MMLSPARK_TPU_PAGED_ATTN=0`` asks for the
+    dense re-gather mode (the paged attention kernel, K3, then runs 0
+    times); anything else, or unset, the paged mode. Only the user's
+    setting picks the dense mode."""
     return os.environ.get("MMLSPARK_TPU_PAGED_ATTN", "1") != "0"
 
 
@@ -521,3 +520,38 @@ def scatter_positions(pools, rows, pos, new_kv, valid=None):
                                                 vw.reshape(-1, H, hd))
     return pools
 
+
+
+def gather_dense(pools, rows, head_dim: int):
+    """Gather each slot's chained blocks into dense per-layer caches
+    ``[S, heads, max_blocks * block_len, head_dim]``: the cache layout
+    ``MaskedLMModel.decode_step``/``decode_window`` run over. Positions at
+    or past a slot's length hold stale or trash data, which the decode mask
+    never attends. ``rows``: the block table ``[S, max_blocks]`` (int64);
+    ``head_dim``: the model's head dim (the pools' padding past it, to K3's
+    head dim, is left out). The dense re-gather mode counts what this
+    materializes in ``kv_dense_gather_bytes_total``."""
+    S, MB = rows.shape
+    out = []
+    for k_pool, v_pool in pools:
+        NB, BL, H, _ = k_pool.shape
+        idx = (rows[:, :, None] * BL + torch.arange(BL, device=rows.device)
+               ).reshape(S, MB * BL)
+        out.append(tuple(
+            pool.view(NB * BL, H, -1)[:, :, :head_dim][idx].transpose(1, 2)
+            .contiguous() for pool in (k_pool, v_pool)))
+    return out
+
+
+def take_positions(dense, pos):
+    """The k/v written at absolute positions ``pos`` ([S, w], int64) of
+    dense caches ``[S, H, L, hd]`` → per-layer ``[S, w, H, hd]``, what the
+    step scatters back into the pools (:func:`scatter_positions`).
+    Positions past the cache read its last entry (padding rows only)."""
+    out = []
+    for k, v in dense:
+        idx = pos.clamp_max(k.shape[2] - 1)[:, None, :, None].expand(
+            k.shape[0], k.shape[1], pos.shape[1], k.shape[3])
+        out.append((k.gather(2, idx).transpose(1, 2),
+                    v.gather(2, idx).transpose(1, 2)))
+    return out

@@ -80,9 +80,11 @@ class MaskedLMModel(nn.Module):
         (``TextEncoder.prefill_caches``); returns them."""
         return self.encoder.prefill_caches(ids_prefix, caches)
 
-    def decode_window(self, toks, caches, pos: int):
+    def decode_window(self, toks, caches, pos):
         """[B, w] token ids at positions ``[pos, pos + w)`` → [B, w, V]
-        logits, the caches written in place (speculative verification)."""
+        logits, the caches written in place (speculative verification).
+        ``pos``: an int, or a [B] tensor of per-row starts (the engine's
+        dense re-gather mode)."""
         x = self.encoder.embed_window(toks, pos)
         return self.lm_head(self.encoder.decode_window_blocks(x, caches, pos))
 

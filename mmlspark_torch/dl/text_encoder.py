@@ -82,6 +82,14 @@ def _dense_attention(q, k, v, key_mask=None, causal: bool = False):
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 
+def _window_positions(pos, B: int, w: int, device) -> torch.Tensor:
+    """[B, w] positions of a window starting at ``pos``: an int (every row)
+    or a [B] tensor of per-row starts."""
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((B,), pos, device=device)
+    return pos[:, None] + torch.arange(w, device=device)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=...)``: an f32 weight stored ``[out, in]`` (the
     flax kernel is ``[in, out]``) and bias; input, weight and bias are cast
@@ -181,23 +189,29 @@ class EncoderBlock(nn.Module):
         o = self.attention_fn(q, k, v, None)
         return self.ffn(x + self._merge_out(o)), k, v
 
-    def decode_window(self, x_win, k_cache, v_cache, pos: int):
+    def decode_window(self, x_win, k_cache, v_cache, pos):
         """``decode_step`` over a window ``x_win`` [B, w, W] at positions
         ``[pos, pos + w)``: the window's k/v are written into the caches in
         place and row i attends cache entries ``<= pos + i`` (f32 scores,
         ``-inf`` outside, softmax, NaN→0, ``p`` in v's dtype: the JAX
-        ``decode_window``'s formulation). Returns y [B, w, W]."""
-        w = x_win.shape[1]
+        ``decode_window``'s formulation). ``pos`` is an int, or a [B] int64
+        tensor of per-row starts (the JAX engine's ``vmap`` of this method
+        over rows: the dense re-gather mode); rows of a window that reach
+        past the cache are padding, and their k/v land in its last entry.
+        Returns y [B, w, W]."""
         q, k, v = self._project_qkv(x_win)            # [B, H, w, hd]
-        k_cache[:, :, pos:pos + w] = k
-        v_cache[:, :, pos:pos + w] = v
         L = k_cache.shape[2]
+        at = _window_positions(pos, *x_win.shape[:2], x_win.device)  # [B, w]
+        b = torch.arange(x_win.shape[0], device=x_win.device)[:, None]
+        put = at.clamp_max(L - 1)
+        k_cache[b, :, put] = k.transpose(1, 2)
+        v_cache[b, :, put] = v.transpose(1, 2)
+        keys = torch.arange(L, device=x_win.device)
+        hidden = (keys > at[..., None])[:, None]                  # [B,1,w,L]
         scale = (self.width // self.heads) ** -0.5
         s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
                          k_cache.float()) * scale
-        keys = torch.arange(L, device=x_win.device)
-        rows = pos + torch.arange(w, device=x_win.device)
-        s = s.masked_fill(keys[None, :] > rows[:, None], float("-inf"))
+        s = s.masked_fill(hidden, float("-inf"))
         p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
         o = torch.einsum("bhqk,bhkd->bhqd", p.to(v_cache.dtype), v_cache)
         return self.ffn(x_win + self._merge_out(o))
@@ -286,10 +300,11 @@ class TextEncoder(nn.Module):
         position ``pos`` → [B, 1, W], the constants of ``embed_ids``."""
         return self.embed_window(tok[:, None], pos)
 
-    def embed_window(self, toks, pos: int):
-        """[B, w] token ids at positions ``[pos, pos + w)`` → [B, w, W]."""
-        at = pos + torch.arange(toks.shape[1], device=toks.device)
-        return self.embed(toks).to(self.dtype) + self.positions(at)[None]
+    def embed_window(self, toks, pos):
+        """[B, w] token ids at positions ``[pos, pos + w)`` → [B, w, W];
+        ``pos`` an int or a [B] tensor of per-row starts."""
+        at = _window_positions(pos, *toks.shape, toks.device)
+        return self.embed(toks).to(self.dtype) + self.positions(at)
 
     def decode_blocks(self, x_tok, caches, pos: int):
         """One position through every block with its KV caches (``caches``:
@@ -297,7 +312,7 @@ class TextEncoder(nn.Module):
         Returns the final-LN'd [B, 1, W] activation in f32."""
         return self.decode_window_blocks(x_tok, caches, pos)
 
-    def decode_window_blocks(self, x_win, caches, pos: int):
+    def decode_window_blocks(self, x_win, caches, pos):
         """A window [B, w, W] at positions ``[pos, pos + w)`` through every
         block (``EncoderBlock.decode_window``), caches written in place.
         Returns the final-LN'd [B, w, W] in f32."""
@@ -386,7 +401,9 @@ class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
 
     Weights: ``model=`` a ``models.LoadedModel`` holding a port
     ``TextEncoder`` (``models.convert.text_encoder_from_flax`` brings the
-    JAX package's weights across), rebuilt with the requested attention;
+    JAX package's weights across) or an ingested ``BertEncoder``
+    (``models.convert.bert_encoder_from_torch``), rebuilt with the
+    requested attention;
     otherwise drawn from ``torch.Generator().manual_seed(seed)`` with
     flax's initialiser distributions — not the JAX package's bits, so pass
     ``model=`` for the same embeddings in both packages.
@@ -446,12 +463,14 @@ class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
             raise NotImplementedError(LATER_ZOO)
         attn = make_attention_fn(self.get("attentionImpl"))
         if loaded is not None:
-            if not isinstance(loaded.module, TextEncoder):
+            from .bert import BertEncoder       # bert imports this module
+            if not isinstance(loaded.module, (TextEncoder, BertEncoder)):
                 raise TypeError(
                     f"model {getattr(loaded.schema, 'name', '?')!r} is not "
                     "a text encoder (register text entries with "
                     "models.register_text_encoder)")
-            # the loaded architecture, same weights, requested attention
+            # the loaded architecture (a TextEncoder or an ingested
+            # BertEncoder), same weights, requested attention
             module = loaded.module.with_attention(attn)
         else:
             width, heads = self.get("width"), self.get("heads")

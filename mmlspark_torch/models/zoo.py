@@ -2,7 +2,8 @@
 
 The part of ``mmlspark_tpu/models/zoo.py`` that the text encoder's ``model``
 Param needs: ``ModelSchema``, the registry, ``register_text_encoder`` with
-its ``TextEncoderBase`` entry, and ``LoadedModel`` (``:161-169``). A port
+its ``TextEncoderBase`` entry, ``register_bert_encoder`` (``:115-150``) and
+``LoadedModel`` (``:161-169``). A port
 ``LoadedModel`` holds an ``nn.Module`` that carries its own weights, where
 the JAX one holds a flax module and a variables dict. ``ModelDownloader``
 and the image catalogue come with the DL model slice (ROADMAP.md §1
@@ -76,6 +77,38 @@ def register_text_encoder(name: str, *, vocab: int, width: int,
                                     mlp_dim or 4 * width),
         layer_names=tuple(f"block{i}" for i in range(depth))
         + ("tokens", "pooled")))
+
+
+class _BertEncoderBuilder:
+    """Picklable BERT-encoder factory (as ``_TextEncoderBuilder``)."""
+
+    def __init__(self, **arch):
+        self.arch = dict(arch)
+
+    def __call__(self, **kwargs):
+        from ..dl.bert import BertEncoder
+        return BertEncoder(**self.arch, **kwargs)
+
+
+def register_bert_encoder(name: str, *, vocab: int, width: int, depth: int,
+                          heads: int, mlp_dim: int, max_len: int = 512,
+                          type_vocab: int = 2, pooler: bool = True,
+                          seq_len: int = 128) -> ModelSchema:
+    """Register an ingested-BERT catalogue entry: ``schema.builder(
+    generator=...)`` makes the architecture, which
+    ``models.convert.bert_encoder_from_torch`` fills with a foreign
+    checkpoint's weights. ``input_size`` is ``seq_len`` clamped to the
+    learned position table (``max_len``)."""
+    return register_model(ModelSchema(
+        name=name, dataset="custom", model_type="text",
+        num_layers=depth, input_node="tokens",
+        input_size=min(seq_len, max_len), num_classes=0,
+        builder=_BertEncoderBuilder(vocab=vocab, width=width, depth=depth,
+                                    heads=heads, mlp_dim=mlp_dim,
+                                    max_len=max_len, type_vocab=type_vocab,
+                                    pooler=pooler),
+        layer_names=tuple(f"block{i}" for i in range(depth))
+        + ("tokens", "pooled", "cls")))
 
 
 # default text entry, as in the JAX package's catalogue

@@ -26,14 +26,22 @@ each prefill batch's first tokens once), and uploads each step's block
 table and slot state in one copy. The pools are updated in place (the JAX
 package donates them to its programs instead).
 
+``MMLSPARK_TPU_PAGED_ATTN=0`` (the user's choice; the engine never picks
+it itself) runs the JAX package's dense re-gather mode instead: each step
+gathers every slot's chain into dense caches (``dl.paged_kv.gather_dense``),
+runs the dense cached formulation over them at per-slot positions
+(``MaskedLMModel.decode_window``, the JAX engine's vmapped one) and scatters
+the written positions back (``take_positions``, ``scatter_positions``); K3
+runs 0 times, and ``kv_dense_gather_bytes_total`` counts every gathered
+byte.
+
 Obs: ``gen_ttft_seconds{reuse=cold|warm}``, ``gen_tokens_total``,
 ``gen_spec_accept_ratio``, ``gen_spec_rejected_total``,
-``gen_decode_steps_total`` and ``gen_decode_attn_seconds{phase}`` here,
-the ``kv_*`` families in ``dl.paged_kv``, in the port's registry (the dense
-fallback's ``kv_dense_gather_bytes_total`` comes with that mode).
+``gen_decode_steps_total``, ``gen_decode_attn_seconds{phase}`` and
+``kv_dense_gather_bytes_total{phase}`` here, the ``kv_*`` families in
+``dl.paged_kv``, in the port's registry.
 
-Not ported yet (ROADMAP.md §1 items 8 and 9): the dense re-gather mode
-behind ``MMLSPARK_TPU_PAGED_ATTN=0``; AOT fingerprints (``core/aot.py``),
+Not ported yet (ROADMAP.md §1 item 9): AOT fingerprints (``core/aot.py``),
 the compile tracker's steady state, cost attribution and the feature log.
 """
 
@@ -48,10 +56,10 @@ import torch
 
 from ..device import resolve_device
 from ..dl.paged_attention import paged_window_attention
-from ..dl.paged_kv import (LATER_DENSE, OutOfBlocks, PagedKVManager,
-                           blocks_for_hbm_budget, init_pools,
+from ..dl.paged_kv import (OutOfBlocks, PagedKVManager,
+                           blocks_for_hbm_budget, gather_dense, init_pools,
                            paged_attention_enabled, pool_block_bytes,
-                           scatter_positions)
+                           scatter_positions, take_positions)
 from ..obs import registry as _default_registry
 from ..sched.continuous import SlotScheduler
 
@@ -91,7 +99,7 @@ def _paged_window_walk(module, toks, pools, rows, pos, valid, last=None,
     enc = module.encoder
     S, w = toks.shape
     at = pos[:, None] + torch.arange(w, device=toks.device)      # [S, w]
-    x = enc.embed(toks).to(enc.dtype) + enc.positions(at)
+    x = enc.embed_window(toks, pos)
     for blk, (kp, vp) in zip(enc.blocks, pools):
         q, k, v = blk._project_qkv(x)                            # [S, H, w, hd]
         scatter_positions(((kp, vp),), rows, at,
@@ -103,6 +111,73 @@ def _paged_window_walk(module, toks, pools, rows, pos, valid, last=None,
     if last is not None:
         x = x[torch.arange(S, device=x.device), last][:, None]
     return module.lm_head(enc.ln(x.float()))
+
+
+def _dense_window_walk(module, toks, dense, pos, last=None,
+                       head: bool = True):
+    """The dense re-gather mode's walk: [S, w] token ids at per-slot
+    positions ``[pos[s], pos[s] + w)`` through every block over dense
+    caches (``gather_dense``'s, written in place), with
+    ``decode_window``'s per-row formulation. Returns what
+    :func:`_paged_window_walk` returns."""
+    enc = module.encoder
+    x = enc.decode_window_blocks(enc.embed_window(toks, pos), dense, pos)
+    if not head:
+        return None
+    if last is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+    return module.lm_head(x)
+
+
+def _step_walks(paged: bool, module, pools, draft_module, draft_pools,
+                rows):
+    """One step's forwards: ``(walk, draft_walk, finish)``, each walk
+    called as ``walk(toks, pos, valid, last=None, head=True)``. Paged:
+    :func:`_paged_window_walk` over the pools in place, and ``finish`` does
+    nothing. Dense: each model's chains are gathered once here, the walks
+    run over the dense caches, and ``finish(wrote, valid)`` scatters the
+    positions ``wrote`` [S, w] back into the pools (``valid`` False to the
+    trash block)."""
+    if paged:
+        def walker(mod, p):
+            return lambda toks, pos, valid, **kw: _paged_window_walk(
+                mod, toks, p, rows, pos, valid, **kw)
+
+        draft_walk = None if draft_module is None else walker(
+            draft_module, draft_pools)
+        return walker(module, pools), draft_walk, lambda wrote, valid: None
+    pairs = [(m, p, gather_dense(p, rows, m.encoder.width // m.encoder.heads))
+             for m, p in ((module, pools), (draft_module, draft_pools))
+             if m is not None]
+
+    def walker(mod, dense):
+        return lambda toks, pos, valid, **kw: _dense_window_walk(
+            mod, toks, dense, pos, **kw)
+
+    def finish(wrote, valid):
+        for _, p, dense in pairs:
+            scatter_positions(p, rows, wrote, take_positions(dense, wrote),
+                              valid)
+
+    walks = [walker(m, dense) for m, _, dense in pairs]
+    return walks[0], walks[1] if len(walks) > 1 else None, finish
+
+
+def _dense_gather_bytes(module, n_rows: int, max_blocks: int,
+                        block_len: int) -> int:
+    """Bytes ONE ``gather_dense`` over ``n_rows`` chains materializes for
+    ``module``'s pools: what the dense mode moves per call and the paged
+    mode does not."""
+    enc = module.encoder
+    return int(2 * enc.depth * n_rows * max_blocks * block_len * enc.width
+               * torch.empty(0, dtype=enc.dtype).element_size())
+
+
+def _gather_counter(reg):
+    return reg.counter(
+        "kv_dense_gather_bytes_total",
+        "bytes materialized by gather_dense in the dense-attention mode "
+        "(0 on the paged-kernel path), by service/phase")
 
 
 def _upload(device, *arrays):
@@ -185,8 +260,13 @@ class PrefillExecutor:
         self.pad_id = int(pad_id)
         self.service = service
         self.device = resolve_device(device)
+        self.paged = paged_attention_enabled()
         reg = registry if registry is not None else _default_registry
         self._h_attn = _attn_histogram(reg)
+        self._c_gather = _gather_counter(reg)
+        self._gather_bytes = sum(
+            _dense_gather_bytes(m, self.batch, self.max_blocks, kv.block_len)
+            for m in (module, draft_module) if m is not None)
 
     def _run(self, rows, toks, pos, lens) -> np.ndarray:
         """One batch: host arrays in, the first tokens [P] out."""
@@ -196,11 +276,13 @@ class PrefillExecutor:
             & (lens[:, None] > 0)
         last = (lens - 1).clamp(0, w - 1)
         with torch.inference_mode():
-            logits = _paged_window_walk(self.module, toks, self.pools,
-                                        rows, pos, valid, last)[:, 0]
-            if self.draft_module is not None:
-                _paged_window_walk(self.draft_module, toks, self.draft_pools,
-                                   rows, pos, valid, head=False)
+            walk, draft_walk, finish = _step_walks(
+                self.paged, self.module, self.pools, self.draft_module,
+                self.draft_pools, rows)
+            logits = walk(toks, pos, valid, last=last)[:, 0]
+            if draft_walk is not None:
+                draft_walk(toks, pos, valid, head=False)
+            finish(pos[:, None] + torch.arange(w, device=self.device), valid)
             return _masked_argmax(logits, self.pad_id).cpu().numpy()
 
     def prefill(self, jobs: list) -> dict:
@@ -234,6 +316,9 @@ class PrefillExecutor:
             first = self._run(rows, toks, pos, lens)
             self._h_attn.observe(time.perf_counter() - t0,
                                  service=self.service, phase="prefill")
+            if not self.paged:
+                self._c_gather.inc(self._gather_bytes, service=self.service,
+                                   phase="prefill")
             for i, (seq_id, _, _, n) in enumerate(metas):
                 h = self.kv.handle(seq_id)
                 self.kv.advance(seq_id, h.prompt_len - h.length)
@@ -280,8 +365,13 @@ class DecodeExecutor:
         self.pad_id = int(pad_id)
         self.service = service
         self.device = resolve_device(device)
+        self.paged = paged_attention_enabled()
         reg = registry if registry is not None else _default_registry
         self._h_attn = _attn_histogram(reg)
+        self._c_gather = _gather_counter(reg)
+        self._gather_bytes = sum(
+            _dense_gather_bytes(m, self.slots, self.max_blocks, kv.block_len)
+            for m in (module, draft_module) if m is not None)
         # host-side slot state (the engine owns seq metadata)
         self.seq_ids: list = [None] * self.slots
         self.ptr = np.ones(self.slots, np.int64)    # committed tokens
@@ -318,25 +408,22 @@ class DecodeExecutor:
         self.last[slot] = self.pad_id
 
     # -- the step -----------------------------------------------------------
-    def _verify(self, rows, last, ptr, end, active):
+    def _verify(self, walk, draft_walk, last, ptr, end, active):
         """The speculative step on the device: returns the committed
         tokens [S, k + 1], the counts committed and the counts accepted."""
         k, S, pad = self.spec_k, self.slots, self.pad_id
         pos, av = ptr - 1, active[:, None]
         tok, drafts = last[:, None], []
         for j in range(k):
-            ld = _paged_window_walk(self.draft_module, tok, self.draft_pools,
-                                    rows, pos + j, av)[:, 0]
+            ld = draft_walk(tok, pos + j, av)[:, 0]
             tok = _masked_argmax(ld, pad)[:, None]
             drafts.append(tok[:, 0])
         # the cache-fill walk: d_k's k/v, or after a full accept the next
         # round's draft would attend a hole
-        _paged_window_walk(self.draft_module, tok, self.draft_pools, rows,
-                           pos + k, av, head=False)
+        draft_walk(tok, pos + k, av, head=False)
         d = torch.stack(drafts, 1)                              # [S, k]
         window = torch.cat([last[:, None], d], 1)
-        lt = _paged_window_walk(self.module, window, self.pools, rows,
-                                pos, av.expand(S, k + 1))       # [S, k+1, V]
+        lt = walk(window, pos, av.expand(S, k + 1))             # [S, k+1, V]
         t = _masked_argmax(lt, pad)
         n_acc = torch.cumprod((d == t[:, :k]).long(), 1).sum(1)  # per slot
         bonus = t.gather(1, n_acc[:, None])[:, 0]
@@ -358,15 +445,19 @@ class DecodeExecutor:
                                                end, active)
         active = active.bool()
         with torch.inference_mode():
+            walk, draft_walk, finish = _step_walks(
+                self.paged, self.module, self.pools, self.draft_module,
+                self.draft_pools, rows)
             if self.spec_k == 0:
-                logits = _paged_window_walk(self.module, last[:, None],
-                                            self.pools, rows, ptr - 1,
-                                            active[:, None])[:, 0]
+                logits = walk(last[:, None], ptr - 1, active[:, None])[:, 0]
                 committed = _masked_argmax(logits, self.pad_id)[:, None]
                 n_new = n_acc = torch.ones_like(ptr)
             else:
-                committed, n_new, n_acc = self._verify(rows, last, ptr, end,
-                                                       active)
+                committed, n_new, n_acc = self._verify(
+                    walk, draft_walk, last, ptr, end, active)
+            w = committed.shape[1]
+            finish(ptr[:, None] - 1 + torch.arange(w, device=ptr.device),
+                   active[:, None].expand(-1, w))
             zero = torch.zeros_like(n_new)
             out = torch.cat([committed,
                              torch.where(active, n_new, zero)[:, None],
@@ -398,6 +489,9 @@ class DecodeExecutor:
         out = self._run(rows, self.last, self.ptr, self.end, runnable)
         self._h_attn.observe(time.perf_counter() - t0,
                              service=self.service, phase="decode")
+        if not self.paged:
+            self._c_gather.inc(self._gather_bytes, service=self.service,
+                               phase="decode")
         k1 = self.spec_k + 1
         result = {}
         for s in np.flatnonzero(runnable):
@@ -449,6 +543,10 @@ class LLMEngine:
     (``torch.cuda.mem_get_info``), or on the CPU to
     ``1 + 2 * slots * max_blocks``; the block budget is read the same way.
 
+    The attention mode is read from ``MMLSPARK_TPU_PAGED_ATTN`` when the
+    engine is built: paged (K3) unless it is ``0``, then the dense
+    re-gather mode (module docstring).
+
     ``submit`` then ``step`` at boundaries (or ``run_until_drained``): each
     boundary admits pending sequences through the scheduler (shedding
     expired deadlines), prefills their suffixes in bucketed batches, hands
@@ -461,8 +559,6 @@ class LLMEngine:
                  hbm_fraction: float = 0.5, service: str = "llm",
                  registry=None, clock=time.monotonic,
                  device: str | torch.device | None = None):
-        if not paged_attention_enabled():
-            raise NotImplementedError(LATER_DENSE)
         dev = resolve_device(device)
         reg = registry if registry is not None else _default_registry
         self.device = dev

@@ -160,6 +160,75 @@ rank = LightGBMRanker(device="cpu", groupCol="query", numIterations=3,
 ndcg = rank.evaluate_ndcg(DataFrame({"features": x, "label": np.digitize(
     x[:, 0], [0.0, 1.0]), "query": qid}), k=5)
 assert 0.5 < ndcg <= 1.0, ndcg
+import os
+import shutil
+import tempfile
+
+import torch
+
+from mmlspark_torch.dl import (ContinuousGenerator, TextGenerator,
+                               generate_speculative)
+from mmlspark_torch.dl.checkpoint import CheckpointManager
+from mmlspark_torch.featurize import BpeTokenizer
+from mmlspark_torch.models import (LoadedModel, bert_encoder_from_torch,
+                                   get_model)
+
+g = torch.Generator().manual_seed(0)
+
+
+def t(*shape):
+    return torch.randn(*shape, generator=g) * 0.05
+
+
+sd = {"bert.embeddings.word_embeddings.weight": t(64, 32),
+      "bert.embeddings.position_embeddings.weight": t(32, 32),
+      "bert.embeddings.token_type_embeddings.weight": t(2, 32)}
+for name, (o, i) in {"attention.self.query": (32, 32),
+                     "attention.self.key": (32, 32),
+                     "attention.self.value": (32, 32),
+                     "attention.output.dense": (32, 32),
+                     "intermediate.dense": (64, 32),
+                     "output.dense": (32, 64)}.items():
+    sd[f"bert.encoder.layer.0.{name}.weight"] = t(o, i)
+    sd[f"bert.encoder.layer.0.{name}.bias"] = t(o)
+for name in ("embeddings.LayerNorm", "encoder.layer.0.attention.output."
+             "LayerNorm", "encoder.layer.0.output.LayerNorm"):
+    sd[f"bert.{name}.weight"] = 1 + t(32)
+    sd[f"bert.{name}.bias"] = t(32)
+bert = bert_encoder_from_torch(sd, heads=2)
+bert_emb = TextEncoderFeaturizer(
+    model=LoadedModel(get_model("TextEncoderBase"), bert),
+    attentionImpl="pallas", device="cpu", seqChunk=32).transform(
+    DataFrame({"tokens": np.asarray(ids["tokens"]) %% 64}))["features"]
+assert bert_emb.shape == (3, 32) and np.isfinite(bert_emb).all()
+ckdir = tempfile.mkdtemp()
+try:
+    mgr = CheckpointManager(ckdir)
+    mgr.save(state)
+    assert mgr.restore(target=state).step == state.step == 1
+finally:
+    shutil.rmtree(ckdir)
+ref = generate(lm, prompts, max_new_tokens=3, device="cpu")  # trained lm
+cgen = ContinuousGenerator(lm, slots=1, max_len=8, device="cpu",
+                           registry=MetricsRegistry())
+cgen.submit("a", prompts[0], 3)
+cgen.submit("b", prompts[1, :3], 3)
+rows = cgen.run_until_drained()
+np.testing.assert_array_equal(rows["a"][:7], ref[0])
+spec, rate = generate_speculative(lm, lm, prompts[:1], max_new_tokens=3,
+                                  k=2, device="cpu")
+np.testing.assert_array_equal(spec[0], ref[0])
+bpe = BpeTokenizer(vocabSize=64, maxLength=8, inputCol="text",
+                   outputCol="tokens").fit(docs)
+texts = TextGenerator(tokenizer=bpe, lm=lm, maxNewTokens=2, draftLm=lm,
+                      device="cpu").transform(docs)["generated"]
+assert len(texts) == 3 and all(texts), texts
+os.environ["MMLSPARK_TPU_PAGED_ATTN"] = "0"
+dense = LLMEngine(lm, slots=2, block_len=4, max_seq_len=16,
+                  registry=MetricsRegistry(), device="cpu")
+del os.environ["MMLSPARK_TPU_PAGED_ATTN"]
+dense.submit("a", prompts[0], 3)
+np.testing.assert_array_equal(dense.run_until_drained()["a"], ref[0])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -193,6 +262,11 @@ def test_slice_runs_without_importing_jax():
 GBDT_BREADTH = ["lightgbm/sparse.py", "lightgbm/ranker_objective.py",
                 "lightgbm/shap.py", "parallel/collectives.py",
                 "parallel/sharding.py"]
+# modules the text-generation slice added or finished; the scan below must
+# reach each
+TEXTGEN_SLICE = ["dl/bert.py", "dl/checkpoint.py", "dl/speculative.py",
+                 "dl/generate.py", "models/convert.py", "models/zoo.py",
+                 "serving/llm.py"]
 # modules the featurize slice added; the scan below must reach each
 FEATURIZE_SLICE = [
     "core/arrow.py", "core/bindings.py", "core/dataframe.py",
@@ -246,6 +320,7 @@ def test_static_scan_finds_no_jax_import():
                for p in sources}
     assert set(FEATURIZE_SLICE) <= scanned, set(FEATURIZE_SLICE) - scanned
     assert set(GBDT_BREADTH) <= scanned, set(GBDT_BREADTH) - scanned
+    assert set(TEXTGEN_SLICE) <= scanned, set(TEXTGEN_SLICE) - scanned
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -273,6 +348,25 @@ def test_default_device_raises_without_cuda(monkeypatch):
         model.transform(df)
     assert isinstance(model.booster, Booster)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_generation_entry_points_raise_without_cuda(monkeypatch):
+    """The text-generation slice's entry points run on CUDA unless asked:
+    without a GPU their defaults raise."""
+    from mmlspark_torch.dl import (ContinuousGenerator, MaskedLMModel,
+                                   TextEncoder, TextGenerator,
+                                   generate_speculative, make_attention_fn)
+    from mmlspark_torch.obs import MetricsRegistry
+    lm = MaskedLMModel(TextEncoder(vocab=64, width=32, depth=1, heads=2,
+                                   mlp_dim=64, attention_fn=make_attention_fn(
+                                       "dense", causal=True)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ContinuousGenerator(lm, registry=MetricsRegistry())
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        generate_speculative(lm, lm, np.array([[3, 4]]), max_new_tokens=2)
+    stage = TextGenerator(lm=lm)
+    assert stage.get("device") == "cuda"
 
 
 def _device_stages():

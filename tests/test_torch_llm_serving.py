@@ -9,7 +9,11 @@ the port's ``generate`` gives per prompt, and those of the JAX
 ``masked_lm_from_flax``; the tiny causal LM of vocab 32, width 16, depth 1,
 heads 2, f32). Prefix reuse, the TTFT split, deadline shedding, the
 ``OutOfBlocks`` guard and the handoff are asserted on the port's registry
-and bookkeeping.
+and bookkeeping. The dense re-gather mode (``MMLSPARK_TPU_PAGED_ATTN=0``):
+``gather_dense`` and ``take_positions`` equal the JAX package's exactly, the
+engine's tokens equal the paged mode's (and the JAX dense engine's) without
+a paged-attention call, and ``kv_dense_gather_bytes_total`` counts one
+gather per prefill batch and per decode step.
 """
 
 import jax
@@ -21,9 +25,13 @@ import torch
 from mmlspark_tpu.dl import MaskedLMModel as JMaskedLMModel
 from mmlspark_tpu.dl import TextEncoder as JTextEncoder
 from mmlspark_tpu.dl import make_attention_fn as jmake_attention
+from mmlspark_tpu.dl.paged_kv import gather_dense as jgather_dense
+from mmlspark_tpu.dl.paged_kv import take_positions as jtake_positions
 from mmlspark_tpu.obs.metrics import MetricsRegistry as JRegistry
 from mmlspark_tpu.serving.llm import LLMEngine as JLLMEngine
-from mmlspark_torch.dl import OutOfBlocks, generate, make_attention_fn
+import mmlspark_torch.serving.llm as port_llm
+from mmlspark_torch.dl import (OutOfBlocks, gather_dense, generate,
+                               make_attention_fn, take_positions)
 from mmlspark_torch.models import masked_lm_from_flax
 from mmlspark_torch.obs import MetricsRegistry
 from mmlspark_torch.serving import (HandoffQueue, LLMEngine, pack_handoff,
@@ -213,12 +221,83 @@ class TestSurface:
         assert len(got) == 2
         with pytest.raises(ValueError, match="max_seq_len"):
             eng.submit("long", np.arange(2, 20), 4)
+        assert eng.prefiller.paged and eng.decoder.paged
+        # the dense re-gather mode is ported: the switch builds it
         monkeypatch.setenv("MMLSPARK_TPU_PAGED_ATTN", "0")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            _engine(model)
+        dense = _engine(model)
+        assert not dense.prefiller.paged and not dense.decoder.paged
         monkeypatch.delenv("MMLSPARK_TPU_PAGED_ATTN")
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             LLMEngine(model)
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             generate(model, np.array([[3, 4]], np.int32), max_new_tokens=1)
+
+
+class TestDenseMode:
+    def test_gather_and_take_equal_jax(self):
+        rng = np.random.default_rng(21)
+        NB, BL, H, hd, S, MB = 7, 4, 2, 8, 3, 3
+        pools = [tuple(rng.normal(size=(NB, BL, H, hd)).astype(np.float32)
+                       for _ in range(2)) for _ in range(2)]
+        rows = np.array([[3, 1, 0], [2, 5, 6], [0, 0, 0]], np.int64)
+        pos = np.array([[2, 3], [9, 10], [0, 1]], np.int64)
+        want = jgather_dense(jax.tree.map(jnp.asarray, pools),
+                             jnp.asarray(rows))
+        # the port's pools carry K3's head dim (32): zero columns past hd
+        padded = [tuple(torch.nn.functional.pad(torch.from_numpy(a),
+                                                (0, 32 - hd)) for a in layer)
+                  for layer in pools]
+        got = gather_dense(padded, torch.from_numpy(rows), head_dim=hd)
+        for (gk, gv), (wk, wv) in zip(got, want):
+            assert gk.shape == (S, H, MB * BL, hd)
+            np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+            np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+        want_t = jtake_positions(want, jnp.asarray(pos))
+        got_t = take_positions(got, torch.from_numpy(pos))
+        for (gk, gv), (wk, wv) in zip(got_t, want_t):
+            assert gk.shape == (S, 2, H, hd)
+            np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+            np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+    @pytest.mark.parametrize("spec", ["plain", "draft", "self_draft"])
+    def test_dense_tokens_equal_paged_and_count_bytes(self, lm, draft,
+                                                      spec, monkeypatch):
+        jm, variables, model = lm
+        prompts = _prompts(seed=6, sizes=(7, 3, 5))
+        kw = dict(slots=2, max_seq_len=16, prefill_batch=2)
+        if spec != "plain":
+            kw.update(draft_module=model if spec == "self_draft" else draft,
+                      spec_k=2)
+        paged = _serve(_engine(model, **kw), prompts)
+        calls = []
+        real = port_llm.paged_window_attention
+        monkeypatch.setattr(port_llm, "paged_window_attention",
+                            lambda *a: calls.append(1) or real(*a))
+        monkeypatch.setenv("MMLSPARK_TPU_PAGED_ATTN", "0")
+        reg = MetricsRegistry()
+        eng = _engine(model, registry=reg, **kw)
+        dense = _serve(eng, prompts)
+        assert calls == []                       # K3 never ran
+        ref = _ref(model, prompts)
+        for i in ref:
+            np.testing.assert_array_equal(dense[i], paged[i])
+            np.testing.assert_array_equal(dense[i], ref[i])
+        if spec == "plain":
+            jeng = JLLMEngine(jm, variables, block_len=4,
+                              registry=JRegistry(), **kw)
+            assert not jeng.decoder.paged
+            want = _serve(jeng, prompts)
+            for i in ref:
+                np.testing.assert_array_equal(dense[i], want[i])
+        # one gather of every model's chains per prefill batch and decode
+        # step: 2 (k, v) x depth 1 x rows x 4 blocks x 4 positions x width
+        # 16 x 4 bytes
+        h = reg.metrics("gen_decode_attn_seconds")[0]
+        models = 1 if spec == "plain" else 2
+        per_row = models * 2 * 1 * 4 * 4 * 16 * 4
+        c = reg.metrics("kv_dense_gather_bytes_total")[0]
+        for phase, rows in (("prefill", 2), ("decode", 2)):
+            n = h.count(service="llm", phase=phase)
+            assert n > 0
+            assert c.value(service="llm", phase=phase) == n * rows * per_row
