@@ -281,7 +281,34 @@ kernels build), then:
     re-gather mode) and then paged in the same process: K3 and its combine
     0 launches, ``kv_dense_gather_bytes_total`` one gather per prefill
     batch and per decode step, tokens/s beside the paged mode's, every
-    token re-scored.
+    token re-scored;
+29. runs ``ImageFeaturizer(modelName="ResNet50")``'s model at full width:
+    a seeded torchvision-layout ResNet-50 state dict (every BatchNorm scale
+    and running statistic non-zero) through ``resnet_from_torch``, 1,024
+    seeded uint8 BGR images of 256 x 256, ``autoResize`` to 224, minibatches
+    of 64: bf16 images/s (median of 3 warm transforms), the
+    ``last_transform_stats``, the top device kernels and the busy share
+    (``torch.profiler``); holds bf16 against f32 (TF32 off) by per-row
+    cosine and max |diff|, the card's f32 against the port on the CPU (8
+    rows, 1e-4), the resize against its formula in numpy (a resize without
+    antialiasing must fail), and ``cutOutputLayers=2`` (``stage4``) against
+    a numpy reshape of the model's NHWC endpoint (the endpoints in NCHW
+    order must fail);
+30. the same for ViT-B/16 (``vit_from_torch``; ``block12`` as the cut
+    layer), with LayerNorm eps 1e-5 as the planted fault that must fail the
+    CPU hold;
+31. ``ImageFeaturizer(quantize=True)`` on phase 29's model: images/s beside
+    bf16, the pooled mean cosine against f32 (>= 0.99), conv_init's int32
+    product bit-equal on the card, the CPU and in int64 from the same int8
+    inputs, and 8 rows' features the same alone and among 56 outlier rows;
+32. an ``ImageTransformer`` chain (resize, crop, colorFormat, flip, blur,
+    gaussianKernel, threshold) and ``UnrollImage`` over the images, card
+    against ``device="cpu"`` (1e-5); ``save_converted`` then
+    ``ImageFeaturizer(modelName="ResNet50")`` through ``ModelDownloader``,
+    bit-equal to phase 29; a ``TextEncoderBase`` checkpoint by name
+    (bit-equal to ``model=``) and with ``quantize=True`` (cosine against
+    f32 >= 0.99). Every vision phase fails if K1, K2 or K3 launches, or a
+    plain version runs.
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -290,7 +317,7 @@ its seconds. The last two lines are the kernels' JSON record and
 first check, and ``--phases`` runs some of the phase groups after the build
 (``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
 12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21,
-``breadth3``: 22-23, ``textgen``: 24-28).
+``breadth3``: 22-23, ``textgen``: 24-28, ``vision``: 29-32).
 """
 
 from __future__ import annotations
@@ -4677,8 +4704,626 @@ def textgen_phases(torch, k1, k2, k3, dev, bw, flush, texts, lengths,
             "continuous_launches_per_step": continuous}
 
 
+# ----------------------------------------------------------------- vision
+
+# phases 29-32: the DL inference slice at full width. 1,024 seeded uint8 BGR
+# images of 256 x 256, resized to the zoo's 224 by ImageFeaturizer's
+# autoResize, minibatches of 64; seeded torchvision-layout ResNet-50 and
+# ViT-B/16 state dicts through the port's converters
+VISION_IMAGES, VISION_SRC, VISION_BATCH = 1024, 256, 64
+VISION_RUNS = 3               # warm transforms timed (median)
+VISION_CPU_ROWS = 8           # rows held against the port on the CPU
+VISION_F32_RTOL = 1e-4        # card f32 against the CPU, of the largest value
+RESIZE_ATOL = 5e-3            # the card's resize against the numpy formula
+CUT_RTOL = 1e-6               # a cut layer against the model's own endpoint
+QUANT_COS_MIN = 0.99          # tests/test_quantize.py:45, the JAX bound
+CHAIN_RTOL = 1e-5             # ImageTransformer/UnrollImage, card vs CPU
+# bf16 against f32 on the card: the smallest per-row cosine and max |diff|
+# over the largest f32 value. Over 4 weight and 2 image seeds
+# (tools/vision_bf16_agreement.py, PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W) ResNet-50 read 0.9999906-0.9999925 and 4.373e-3-5.330e-3,
+# ViT-B/16 0.9999384-0.9999456 and 1.555e-2-2.047e-2: the limits leave
+# 2.5x on 1 - cosine and ~2x on max |diff|
+VISION_BF16_LIMITS = {"ResNet50": (0.99997, 0.012),
+                      "ViT_B_16": (0.99985, 0.045)}
+
+
+def vision_images(n: int = VISION_IMAGES, seed: int = 29) -> np.ndarray:
+    """``n`` seeded uint8 BGR images of ``VISION_SRC`` squared: smooth
+    gradients (a random affine ramp per channel) plus uniform noise of
+    +-48, clipped to 0-255, so resizing has both low and high frequencies
+    to keep or alias."""
+    rng = np.random.default_rng(seed)
+    ax = np.linspace(0.0, 1.0, VISION_SRC, dtype=np.float32)
+    out = np.empty((n, VISION_SRC, VISION_SRC, 3), np.uint8)
+    for i in range(n):
+        a = rng.uniform(-128, 128, (2, 3)).astype(np.float32)
+        base = rng.uniform(64, 192, 3).astype(np.float32)
+        img = base + ax[:, None, None] * a[0] + ax[None, :, None] * a[1]
+        img += rng.uniform(-48, 48, img.shape).astype(np.float32)
+        out[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return out
+
+
+def resnet50_state_dict(torch, seed: int = 0) -> dict:
+    """A torchvision ResNet-50 state dict (``conv1``, ``bn1``,
+    ``layer<L>.<B>.conv<k>``/``bn<k>``/``downsample``, ``fc``, the
+    ``num_batches_tracked`` buffers the converter drops) with He-normal
+    convs (the stem's scaled by 1/128 for 0-255 pixels), every BatchNorm
+    scale non-zero (each block's last in [0.1, 0.3], the others in
+    [0.5, 1.0]), non-zero running statistics and biases."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape, std):
+        return torch.randn(*shape, generator=gen) * std
+
+    def uniform(n, lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen)
+
+    sd = {}
+
+    def conv(name, cout, cin, k, scale=1.0):
+        sd[f"{name}.weight"] = normal(cout, cin, k, k, std=scale * (
+            2.0 / (cin * k * k)) ** 0.5)
+
+    def bn(name, c, last=False):
+        sd[f"{name}.weight"] = uniform(c, 0.1, 0.3) if last \
+            else uniform(c, 0.5, 1.0)
+        sd[f"{name}.bias"] = normal(c, std=0.05)
+        sd[f"{name}.running_mean"] = normal(c, std=0.1)
+        sd[f"{name}.running_var"] = uniform(c, 0.5, 1.5)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7, scale=1 / 128)
+    bn("bn1", 64)
+    cin = 64
+    for li, n in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** li
+        for bj in range(n):
+            t = f"layer{li + 1}.{bj}"
+            conv(f"{t}.conv1", f, cin, 1)
+            bn(f"{t}.bn1", f)
+            conv(f"{t}.conv2", f, f, 3)
+            bn(f"{t}.bn2", f)
+            conv(f"{t}.conv3", 4 * f, f, 1)
+            bn(f"{t}.bn3", 4 * f, last=True)
+            if bj == 0:
+                conv(f"{t}.downsample.0", 4 * f, cin, 1)
+                bn(f"{t}.downsample.1", 4 * f)
+            cin = 4 * f
+    sd["fc.weight"] = normal(1000, 2048, std=0.01)
+    sd["fc.bias"] = normal(1000, std=0.01)
+    return sd
+
+
+def vit_b16_state_dict(torch, seed: int = 0) -> dict:
+    """A torchvision ``vit_b_16`` state dict (``conv_proj``,
+    ``class_token``, ``encoder.pos_embedding``, ``encoder.layers.
+    encoder_layer_i`` with the fused ``in_proj_weight``, ``mlp.0``/``mlp.3``,
+    ``encoder.ln``, ``heads.head``): patch embeddings of std ~0.03 on
+    0-255 pixels, a non-zero class token and positions (std 0.02), q/k/v
+    and ``mlp.0`` lecun-scaled, and the residual branches' output
+    projections scaled so each block adds ~0.01 std, the residual stream's
+    scale in pretrained ViTs' early layers; LayerNorms near 1/0."""
+    gen = torch.Generator().manual_seed(seed)
+    W, M, depth = 768, 3072, 12
+
+    def normal(*shape, std):
+        return torch.randn(*shape, generator=gen) * std
+
+    sd = {"conv_proj.weight": normal(W, 3, 16, 16, std=7.4e-6),
+          "conv_proj.bias": normal(W, std=0.01),
+          "class_token": normal(1, 1, W, std=0.02),
+          "encoder.pos_embedding": normal(1, 197, W, std=0.02)}
+
+    def ln(name):
+        sd[f"{name}.weight"] = 1.0 + normal(W, std=0.1)
+        sd[f"{name}.bias"] = normal(W, std=0.02)
+
+    for i in range(depth):
+        t = f"encoder.layers.encoder_layer_{i}"
+        ln(f"{t}.ln_1")
+        sd[f"{t}.self_attention.in_proj_weight"] = normal(
+            3 * W, W, std=W ** -0.5)
+        sd[f"{t}.self_attention.in_proj_bias"] = normal(3 * W, std=0.02)
+        sd[f"{t}.self_attention.out_proj.weight"] = normal(
+            W, W, std=0.01 * W ** -0.5)
+        sd[f"{t}.self_attention.out_proj.bias"] = normal(W, std=0.002)
+        ln(f"{t}.ln_2")
+        sd[f"{t}.mlp.0.weight"] = normal(M, W, std=W ** -0.5)
+        sd[f"{t}.mlp.0.bias"] = normal(M, std=0.02)
+        sd[f"{t}.mlp.3.weight"] = normal(W, M, std=0.02 * M ** -0.5)
+        sd[f"{t}.mlp.3.bias"] = normal(W, std=0.002)
+    ln("encoder.ln")
+    sd["heads.head.weight"] = normal(1000, W, std=0.02)
+    sd["heads.head.bias"] = normal(1000, std=0.01)
+    return sd
+
+
+def resize_reference(images: np.ndarray, size: int) -> np.ndarray:
+    """``jax.image.resize(method="linear")`` in float64 numpy, written from
+    its definition (a triangle kernel widened by the scale when
+    downsampling, each output's weights normalised), independent of the
+    port's ``image/ops.py``."""
+    def weights(n_in, n_out):
+        scale = n_out / n_in
+        support = max(1.0 / scale, 1.0)
+        centre = (np.arange(n_out) + 0.5) / scale - 0.5
+        w = np.maximum(0.0, 1.0 - np.abs(
+            centre[None, :] - np.arange(n_in)[:, None]) / support)
+        return w / w.sum(0, keepdims=True)
+
+    x = images.astype(np.float64)
+    x = np.einsum("nhwc,ho->nowc", x, weights(x.shape[1], size))
+    return np.einsum("nhwc,wp->nhpc", x, weights(x.shape[2], size))
+
+
+# each record of the kernels line, and the wrapper counters its launches
+# are read from
+VISION_COUNTERS = {
+    "hist": ("hist_cuda",),
+    "flash": ("flash_cuda",), "flash_bert": ("flash_cuda",),
+    "flash_causal": ("flash_causal_cuda",),
+    "flash_lse": ("flash_lse_cuda",),
+    "flash_lse_causal": ("flash_lse_cuda.causal",),
+    "flash_bwd_dq": ("flash_dq_cuda",),
+    "flash_bwd_dq_causal": ("flash_dq_cuda.causal",),
+    "flash_bwd_dkv": ("flash_dkv_cuda",),
+    "flash_bwd_dkv_causal": ("flash_dkv_cuda.causal",),
+    "paged_attention": ("paged_decode_cuda",),
+    "paged_attention_window": ("paged_cuda",),
+    "paged_attention_combine": ("paged_cuda.combine",
+                                "paged_decode_cuda.combine")}
+
+
+class VisionGuard:
+    """``with VisionGuard(k1, k2, k3, phase, totals):`` sets every kernel's
+    launch counts to 0 and counts the plain versions' calls; on exit it
+    fails if any kernel launched or any plain version ran (the vision path
+    runs no Pallas kernel's counterpart). ``.counts`` keeps the launches
+    read, one entry for each counter :data:`VISION_COUNTERS` names, and
+    adds them into ``totals``."""
+
+    def __init__(self, k1, k2, k3, phase: str, totals: dict):
+        self.phase, self.totals = phase, totals
+        self.wrappers = {"hist_cuda": k1.hist_cuda}
+        self.wrappers.update({n: getattr(k2, n) for n in (
+            "flash_cuda", "flash_causal_cuda", "flash_lse_cuda",
+            "flash_dq_cuda", "flash_dkv_cuda")})
+        self.wrappers.update({n: getattr(k3, n) for n in (
+            "paged_cuda", "paged_decode_cuda")})
+        self.plain = [(k1, "hist_torch")] + [(k2, n) for n in (
+            "flash_torch", "flash_lse_torch", "flash_dq_torch",
+            "flash_dkv_torch")] + [(k3, "paged_torch")]
+
+    def __enter__(self):
+        reset(self.wrappers)
+        for fn in self.wrappers.values():
+            if hasattr(fn, "causal_launches"):
+                fn.causal_launches = 0
+        self.calls, self.saved = [0], []
+        for module, name in self.plain:
+            original = getattr(module, name)
+
+            def counted(*a, _f=original, **kw):
+                self.calls[0] += 1
+                return _f(*a, **kw)
+            self.saved.append((module, name, original))
+            setattr(module, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, original in self.saved:
+            setattr(module, name, original)
+        if exc[0] is not None:
+            return False
+        self.counts = {}
+        for n, fn in self.wrappers.items():
+            self.counts[n] = fn.launches
+            for attr, suffix in (("combine_launches", ".combine"),
+                                 ("causal_launches", ".causal")):
+                if hasattr(fn, attr):
+                    self.counts[n + suffix] = getattr(fn, attr)
+        for n, c in self.counts.items():
+            self.totals[n] = self.totals.get(n, 0) + c
+        if any(self.counts.values()) or self.calls[0]:
+            fail(f"{self.phase}: the vision path launched a kernel "
+                 f"{ {n: c for n, c in self.counts.items() if c} } or "
+                 f"called a plain version {self.calls[0]} times")
+        print(f"{self.phase}: K1, K2a-K2e and K3 launches 0, plain-version "
+              "calls 0")
+        return False
+
+
+def profile_transform(torch, fn, unprofiled_s: float, phase: str, k=8):
+    """Device time, busy share (device time over the unprofiled call's
+    wall seconds) and the top ``k`` device kernels and copies over one
+    call of ``fn``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.device_time)
+    device_us = sum(sum(v) for v in by_name.values())
+    print(f"{phase}: device time {device_us / 1e3:.3f} ms in "
+          f"{sum(len(v) for v in by_name.values())} kernels and copies; "
+          f"busy share {device_us / 1e6 / unprofiled_s:.3f} of the "
+          f"unprofiled {unprofiled_s:.4f} s")
+    for name, times in sorted(by_name.items(),
+                              key=lambda kv: -sum(kv[1]))[:k]:
+        print(f"  {sum(times) / 1e3:9.3f} ms  {len(times):5d} x  "
+              f"{name[:90]}")
+    return device_us / 1e3
+
+
+def row_agreement(got: np.ndarray, want: np.ndarray) -> tuple:
+    """(min per-row cosine, max |diff| over the largest |want|)."""
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    cos = (g * w).sum(1) / np.maximum(
+        np.linalg.norm(g, axis=1) * np.linalg.norm(w, axis=1), 1e-30)
+    return float(cos.min()), float(np.abs(g - w).max() / np.abs(w).max())
+
+
+def timed_transforms(torch, stage, df, phase: str, label: str):
+    """A warm-up, then ``VISION_RUNS`` timed transforms (each returns host
+    arrays, so it ends synchronized). Returns (features, median s)."""
+    stage.transform(df)
+    times = []
+    for _ in range(VISION_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = stage.transform(df)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    s = float(np.median(times))
+    feats = out[stage.getOutputCol()]
+    if not np.isfinite(feats).all():
+        fail(f"{phase}: {label}: {(~np.isfinite(feats)).sum()} non-finite "
+             "features")
+    print(f"{phase}: {label}: warm transform {s:.4f} s, median of "
+          f"{VISION_RUNS} ({', '.join(f'{t:.4f}' for t in times)} s): "
+          f"{len(df) / s:,.1f} images/s; last_transform_stats "
+          f"{stage.last_transform_stats}")
+    return feats, s
+
+
+def hold_rows(phase: str, what: str, got, want, rtol: float,
+              must_fail: bool = False) -> float:
+    """max |got - want| within ``rtol`` of the largest |want|; with
+    ``must_fail`` a planted fault that has to break that limit."""
+    err = float(np.abs(got.astype(np.float64) - want).max()
+                / np.abs(want).max())
+    ok = err <= rtol
+    print(f"{phase}: {what}: max |diff| {err:.3e} of the largest value "
+          f"(limit {rtol:g}){' — planted fault' if must_fail else ''}")
+    if ok == must_fail:
+        fail(f"{phase}: {what}: {err:.3e} {'within' if ok else 'past'} "
+             f"{rtol:g}")
+    return err
+
+
+def backbone_phase(torch, guard, dev, images, args, name: str,
+                   phase: str) -> dict:
+    """Phase 29 (``ResNet50``) or 30 (``ViT_B_16``): ``ImageFeaturizer``
+    over the seeded weights, bf16 timed and profiled, then held against
+    f32 on the card, the port on the CPU, a cut layer and planted faults.
+    Returns the bf16 model, its schema, features and images/s."""
+    import copy
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.image import ImageFeaturizer, ResizeImageTransformer
+    from mmlspark_torch.models import LoadedModel, get_model, module_from_torch
+    schema = get_model(name)
+    t0 = time.perf_counter()
+    sd = (resnet50_state_dict if name == "ResNet50"
+          else vit_b16_state_dict)(torch, args.vision_seed)
+    models = {dt: module_from_torch(sd, name, dtype=getattr(torch, dt))
+              for dt in ("bfloat16", "float32")}
+    print(f"{phase}: {name}, seeded torchvision state dict ({len(sd)} "
+          f"entries, {sum(v.numel() for v in sd.values()):,} values) "
+          f"converted in {time.perf_counter() - t0:.2f} s")
+    df = DataFrame({"image": images})
+    n = len(images)
+
+    def featurizer(model, **kw):
+        return ImageFeaturizer(model=LoadedModel(schema, model),
+                               miniBatchSize=VISION_BATCH, **kw)
+
+    with guard(phase):
+        stage = featurizer(models["bfloat16"])
+        bf16, bf16_s = timed_transforms(torch, stage, df, phase, "bf16")
+        width = models["float32"].head.weight.shape[1]
+        if bf16.shape != (n, width):
+            fail(f"{phase}: pooled features {bf16.shape}, expected "
+                 f"{(n, width)}")
+        profile_transform(torch, lambda: stage.transform(df), bf16_s, phase)
+        f32, f32_s = timed_transforms(
+            torch, featurizer(models["float32"]), df, phase, "f32 (TF32 off)")
+        cos, rel = row_agreement(bf16, f32)
+        floor, ceiling = VISION_BF16_LIMITS[name]
+        print(f"{phase}: bf16 against f32: min per-row cosine {cos:.7f} "
+              f"(floor {floor}), max |diff| {rel:.3e} of the largest "
+              f"(limit {ceiling})")
+        if cos < floor or rel > ceiling:
+            fail(f"{phase}: bf16 against f32 outside "
+                 f"({floor}, {ceiling})")
+
+        # the card's f32 against the port on the CPU
+        rows = images[:VISION_CPU_ROWS]
+        cpu_model = copy.deepcopy(models["float32"]).cpu()
+        cpu = ImageFeaturizer(model=LoadedModel(schema, cpu_model),
+                              miniBatchSize=VISION_CPU_ROWS, device="cpu") \
+            .transform(DataFrame({"image": rows}))["features"]
+        hold_rows(phase, f"card f32 against device='cpu' on "
+                  f"{VISION_CPU_ROWS} rows", f32[:VISION_CPU_ROWS], cpu,
+                  VISION_F32_RTOL)
+
+        # the resize against its formula in numpy, and a bilinear resize
+        # without antialiasing as a planted fault
+        resized = ResizeImageTransformer(
+            height=224, width=224).transform(
+                DataFrame({"image": rows}))["image"]
+        want = resize_reference(rows, 224)
+        err = float(np.abs(resized - want).max())
+        print(f"{phase}: resize 256 -> 224 against the numpy formula: max "
+              f"|diff| {err:.2e} on 0-255 (limit {RESIZE_ATOL})")
+        if err > RESIZE_ATOL:
+            fail(f"{phase}: resize {err} past {RESIZE_ATOL}")
+        plain = torch.nn.functional.interpolate(
+            torch.from_numpy(rows).to(dev).float().permute(0, 3, 1, 2),
+            size=(224, 224), mode="bilinear", align_corners=False,
+            antialias=False).permute(0, 2, 3, 1).cpu().numpy()
+        err = float(np.abs(plain - want).max())
+        print(f"{phase}: a resize without antialiasing: max |diff| "
+              f"{err:.2f} — planted fault")
+        if err <= RESIZE_ATOL:
+            fail(f"{phase}: the unantialiased resize passed the hold")
+
+        # a cut layer: the featurizer's flattened endpoint against the
+        # model's own on the same resized, bf16-narrowed minibatch
+        endpoint = schema.layer_names[-3]
+        batch = images[:VISION_BATCH]
+        cut = featurizer(models["bfloat16"], cutOutputLayers=2).transform(
+            DataFrame({"image": batch}))["features"]
+        x = torch.from_numpy(ResizeImageTransformer(
+            height=224, width=224).transform(DataFrame({"image": batch}))[
+                "image"]).to(torch.bfloat16).to(dev)
+        with torch.inference_mode():
+            direct = models["bfloat16"].to(dev)(x)[endpoint].float() \
+                .cpu().numpy()
+        print(f"{phase}: cutOutputLayers=2 is {endpoint!r}, "
+              f"{tuple(direct.shape[1:])} a row")
+        hold_rows(phase, f"cutOutputLayers=2 against a numpy reshape of "
+                  f"{endpoint}", cut, direct.reshape(len(batch), -1),
+                  CUT_RTOL)
+        fault = copy.deepcopy(models["bfloat16"])
+        if name == "ResNet50":
+            # stage endpoints handed out in NCHW order
+            forward = fault.forward
+
+            def nchw(x, train=False, _f=forward):
+                out = _f(x, train)
+                return {k: v.permute(0, 3, 1, 2) if k.startswith("stage")
+                        else v for k, v in out.items()}
+            fault.forward = nchw
+            got = featurizer(fault, cutOutputLayers=2).transform(
+                DataFrame({"image": batch}))["features"]
+            hold_rows(phase, "stage4 endpoints in NCHW order", got,
+                      direct.reshape(len(batch), -1), CUT_RTOL,
+                      must_fail=True)
+        else:
+            # LayerNorm eps 1e-5 (torch's default) in place of flax's 1e-6
+            fault = copy.deepcopy(models["float32"])
+            for m in fault.modules():
+                if isinstance(m, torch.nn.LayerNorm):
+                    m.eps = 1e-5
+            got = featurizer(fault).transform(
+                DataFrame({"image": rows}))["features"]
+            hold_rows(phase, "LayerNorm eps 1e-5, card f32 against the CPU",
+                      got, cpu, VISION_F32_RTOL, must_fail=True)
+        del fault
+    torch.cuda.empty_cache()
+    return {"schema": schema, "bf16": models["bfloat16"],
+            "f32": models["float32"], "features": bf16,
+            "f32_features": f32, "images_per_s": n / bf16_s}
+
+
+def quantized_phase(torch, guard, dev, images, r29) -> None:
+    """Phase 31: ``ImageFeaturizer(quantize=True)`` on phase 29's model:
+    images/s beside bf16; the pooled cosine against f32; conv_init's int32
+    product bit-equal on the card and the CPU from the same int8 inputs;
+    a row's features the same with and without outlier neighbours."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.image import ImageFeaturizer, ResizeImageTransformer
+    from mmlspark_torch.models import (LoadedModel, cosine_fidelity,
+                                       quantize_resnet)
+    from mmlspark_torch.models.quantize import (_im2col, _quantize_rows,
+                                                int8_matmul)
+    phase = "phase 31"
+    df = DataFrame({"image": images})
+    with guard(phase):
+        stage = ImageFeaturizer(model=LoadedModel(r29["schema"], r29["bf16"]),
+                                quantize=True, miniBatchSize=VISION_BATCH)
+        q, q_s = timed_transforms(torch, stage, df, phase, "int8")
+        print(f"{phase}: int8 {len(images) / q_s:,.1f} images/s against "
+              f"bf16 {r29['images_per_s']:,.1f} "
+              f"({len(images) / q_s / r29['images_per_s']:.3f}x)")
+        profile_transform(torch, lambda: stage.transform(df), q_s, phase)
+        mean_cos = cosine_fidelity(q, r29["f32_features"])
+        min_cos, rel = row_agreement(q, r29["f32_features"])
+        print(f"{phase}: int8 against f32: mean per-row cosine "
+              f"{mean_cos:.6f} (floor {QUANT_COS_MIN}), min {min_cos:.6f}, "
+              f"max |diff| {rel:.3e} of the largest")
+        if mean_cos < QUANT_COS_MIN:
+            fail(f"{phase}: int8 fidelity {mean_cos} below {QUANT_COS_MIN}")
+
+        qf, qp = quantize_resnet(r29["bf16"].to(dev))
+        rows = images[:VISION_CPU_ROWS]
+        x = torch.from_numpy(ResizeImageTransformer(
+            height=224, width=224).transform(DataFrame({"image": rows}))[
+                "image"]).to(dev)
+        xq, _ = _quantize_rows(x)
+        patches, _ = _im2col(xq, 7, 7, 2, 3)
+        wq = qp["conv_init"][0]
+        w2 = wq.reshape(-1, wq.shape[-1])
+        card = int8_matmul(patches, w2).cpu()
+        host = int8_matmul(patches.cpu(), w2.cpu())
+        exact = patches.cpu().long() @ w2.cpu().long()
+        print(f"{phase}: conv_init int32 product {tuple(card.shape)}, "
+              f"|sum| up to {int(exact.abs().max()):,}: card == CPU "
+              f"{torch.equal(card, host)}, == int64 "
+              f"{torch.equal(card.long(), exact)}")
+        if not (torch.equal(card, host) and torch.equal(card.long(), exact)):
+            fail(f"{phase}: conv_init's int32 product differs between the "
+                 "card, the CPU and int64")
+        noise = 100.0 * torch.randn(
+            (VISION_BATCH - len(rows),) + tuple(x.shape[1:]),
+            generator=torch.Generator(device=dev).manual_seed(31),
+            device=dev)
+        with torch.inference_mode():
+            alone = qf(qp, x)
+            mixed = qf(qp, torch.cat([x, noise]))[:len(rows)]
+        same = torch.equal(alone, mixed)
+        err = float((alone - mixed).abs().max() / alone.abs().max())
+        print(f"{phase}: {len(rows)} rows alone against the same rows among "
+              f"{len(noise)} outlier neighbours: bit-equal {same}, max "
+              f"|diff| {err:.3e}")
+        if err > CUT_RTOL:
+            fail(f"{phase}: a row's features depend on its neighbours")
+
+
+def stages_phase(torch, guard, images, texts, r29) -> None:
+    """Phase 32: the ``ImageTransformer`` chain and ``UnrollImage`` on the
+    card against ``device="cpu"``; ``save_converted`` and
+    ``ModelDownloader`` by name against phase 29's model; a
+    ``TextEncoderBase`` checkpoint by name, plain and quantized."""
+    import shutil
+    import tempfile
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import TextEncoderFeaturizer
+    from mmlspark_torch.featurize import TokenIdEncoder
+    from mmlspark_torch.image import (ImageFeaturizer, ImageTransformer,
+                                      UnrollImage)
+    from mmlspark_torch.models import (LoadedModel, ModelDownloader,
+                                       cosine_fidelity, get_model,
+                                       save_converted)
+    phase = "phase 32"
+    df = DataFrame({"image": images})
+    chain = ImageTransformer(inputCol="image", outputCol="t") \
+        .resize(224, 224).crop(8, 8, 200, 200).colorFormat("bgr2rgb") \
+        .flip(1).blur(3, 3).gaussianKernel(5, 0.0) \
+        .threshold(200.0, 255.0, "trunc")
+    unroll = UnrollImage(inputCol="t")
+    store = tempfile.mkdtemp(prefix="vision_models_")
+    before = os.environ.get("MMLSPARK_TPU_MODEL_DIR")
+    try:
+        with guard(phase):
+            unroll.transform(chain.transform(df))
+            times = []
+            for _ in range(VISION_RUNS):
+                t0 = time.perf_counter()
+                card = unroll.transform(chain.transform(df))["unrolled"]
+                times.append(time.perf_counter() - t0)
+            s = float(np.median(times))
+            print(f"{phase}: ImageTransformer (resize, crop, colorFormat, "
+                  f"flip, blur, gaussianKernel, threshold) + UnrollImage "
+                  f"{card.shape}: {s:.4f} s, {len(images) / s:,.1f} "
+                  "images/s")
+            chain.setDevice("cpu")
+            unroll.setDevice("cpu")
+            t0 = time.perf_counter()
+            host = unroll.transform(chain.transform(df))["unrolled"]
+            print(f"{phase}: the same on device='cpu' in "
+                  f"{time.perf_counter() - t0:.2f} s")
+            hold_rows(phase, "chain + UnrollImage, card against CPU", card,
+                      host, CHAIN_RTOL)
+
+            save_converted(r29["bf16"], "ResNet50", store)
+            os.environ["MMLSPARK_TPU_MODEL_DIR"] = store
+            t0 = time.perf_counter()
+            by_name = ImageFeaturizer(modelName="ResNet50",
+                                      miniBatchSize=VISION_BATCH) \
+                .transform(df)["features"]
+            same = np.array_equal(by_name, r29["features"])
+            print(f"{phase}: save_converted + ImageFeaturizer("
+                  f"modelName='ResNet50') in {time.perf_counter() - t0:.2f} "
+                  f"s: features bit-equal to phase 29's {same}")
+            if not same:
+                fail(f"{phase}: the model reloaded by name gives other "
+                     "features")
+
+            schema = get_model("TextEncoderBase")
+            enc = schema.builder(generator=torch.Generator().manual_seed(32))
+            save_converted(enc, "TextEncoderBase", store)
+            docs = np.asarray([" ".join(t.split()[:64 + i % 64])
+                               for i, t in enumerate(texts)], object)
+            ids = TokenIdEncoder(maxLength=schema.input_size,
+                                 vocabSize=32768).transform(
+                DataFrame({"text": docs}))
+            kw = dict(seqChunk=schema.input_size)
+            named = TextEncoderFeaturizer(modelName="TextEncoderBase", **kw) \
+                .transform(ids)["features"]
+            direct = TextEncoderFeaturizer(model=LoadedModel(schema, enc),
+                                           **kw).transform(ids)["features"]
+            f32 = ModelDownloader().download_by_name(
+                "TextEncoderBase", dtype="float32")
+            ref = TextEncoderFeaturizer(model=f32, **kw).transform(ids)[
+                "features"]
+            stage = TextEncoderFeaturizer(modelName="TextEncoderBase",
+                                          quantize=True, **kw)
+            q = stage.transform(ids)["features"]
+            t0 = time.perf_counter()
+            stage.transform(ids)
+            q_s = time.perf_counter() - t0
+            cos = cosine_fidelity(q, ref)
+            print(f"{phase}: TextEncoderFeaturizer(modelName="
+                  f"'TextEncoderBase') on {len(docs)} rows of "
+                  f"{schema.input_size}: bit-equal to model= "
+                  f"{np.array_equal(named, direct)}; quantize=True "
+                  f"{q_s:.4f} s, mean cosine against f32 {cos:.6f} (floor "
+                  f"{QUANT_COS_MIN})")
+            if not np.array_equal(named, direct) or cos < QUANT_COS_MIN:
+                fail(f"{phase}: TextEncoderBase by name or quantized")
+    finally:
+        if before is None:
+            os.environ.pop("MMLSPARK_TPU_MODEL_DIR", None)
+        else:
+            os.environ["MMLSPARK_TPU_MODEL_DIR"] = before
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def vision_phases(torch, k1, k2, k3, dev, texts, args) -> dict:
+    """Phases 29-32. Returns the launches each kernel counter read over the
+    group, summed over the phases' guards (which fail on any launch)."""
+    totals = {}
+
+    def guard(phase):
+        return VisionGuard(k1, k2, k3, phase, totals)
+    t0 = time.perf_counter()
+    images = vision_images()
+    print(f"vision: {len(images)} seeded uint8 BGR images of {VISION_SRC} x "
+          f"{VISION_SRC} in {time.perf_counter() - t0:.2f} s")
+    with Phase("phase 29"):
+        r29 = backbone_phase(torch, guard, dev, images, args,
+                             "ResNet50", "phase 29")
+    with Phase("phase 30"):
+        backbone_phase(torch, guard, dev, images, args, "ViT_B_16",
+                       "phase 30")
+        torch.cuda.empty_cache()
+    with Phase("phase 31"):
+        quantized_phase(torch, guard, dev, images, r29)
+    with Phase("phase 32"):
+        stages_phase(torch, guard, images, texts, r29)
+    print(f"vision (phases 29-32): {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
-                "breadth", "breadth2", "breadth3", "textgen")
+                "breadth", "breadth2", "breadth3", "textgen", "vision")
 
 
 class Phase:
@@ -4705,11 +5350,15 @@ def main() -> None:
     ap.add_argument("--train-steps", type=int, default=5)
     ap.add_argument("--new-tokens", type=int, default=GEN_NEW,
                     help="tokens generated per prompt in phases 10-11")
+    ap.add_argument("--vision-seed", type=int, default=0,
+                    help="seed of phases 29-30's ResNet-50 and ViT-B/16 "
+                    "weights")
     ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
                     help="phase groups to run after the build: gbdt (2-4), "
                     "text (5-6), train (7-8), llm (9-11), causal (12-13), "
                     "featurize (14-15), breadth (16-18), breadth2 "
-                    "(19-21), breadth3 (22-23), textgen (24-28)")
+                    "(19-21), breadth3 (22-23), textgen (24-28), vision "
+                    "(29-32)")
     args = ap.parse_args()
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
@@ -4811,6 +5460,14 @@ def main() -> None:
             if rec["name"] == "flash_causal":
                 rec["continuous_launches_per_step"] = \
                     tg["continuous_launches_per_step"]
+    if "vision" in groups:
+        vision = vision_phases(torch, k1, k2, k3, dev, texts, args)
+        for rec in records:
+            if rec["name"] not in VISION_COUNTERS:
+                fail(f"vision: no launch counter for the {rec['name']} "
+                     "record")
+            rec["vision_launches"] = sum(
+                vision[c] for c in VISION_COUNTERS[rec["name"]])
 
     print(card)
     print(json.dumps({"kernels": records}))

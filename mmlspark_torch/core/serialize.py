@@ -12,9 +12,10 @@ port's modules mirror its paths), so the JAX package's loader finds its own
 class, and ``"library"`` says which package wrote it. The port resolves such
 a name to its own registered class by the bare class name, importing at
 most its own mirror module, never the JAX package. A complex param that the
-JAX package pickled holds objects of that package: the port reads one of
-them, ``TextEncoderFeaturizer.model`` (a ``LoadedModel`` of a text
-encoder), through ``foreign_pickle``, which maps the few globals such a
+JAX package pickled holds objects of that package: the port reads the
+``model`` of ``TextEncoderFeaturizer``, ``ImageFeaturizer`` and ``TPUModel``
+(a ``LoadedModel`` of a text encoder, ResNet or ViT) through
+``foreign_pickle``, which maps the few globals such a
 payload names to stand-ins of its own and imports none of them; any other
 raises ``NotImplementedError`` naming the class it holds.
 """
@@ -39,8 +40,9 @@ def register_stage(cls: type) -> None:
 
 
 _REFERENCE, _PORT = "mmlspark_tpu", "mmlspark_torch"
-# the one complex param whose JAX-pickled payload the port reads
-_FOREIGN_MODEL = ("TextEncoderFeaturizer", "model")
+# the complex params whose JAX-pickled payload the port reads
+_FOREIGN_MODELS = {("TextEncoderFeaturizer", "model"),
+                   ("ImageFeaturizer", "model"), ("TPUModel", "model")}
 
 
 def saved_class_name(cls: type) -> str:
@@ -129,13 +131,13 @@ class SaveLoadMixin:
 
 
 def _load_foreign(cls: type, name: str, where: str) -> Any:
-    """A complex param the JAX package pickled: ``TextEncoderFeaturizer.model``
-    through ``foreign_pickle`` (a global outside its list raises
-    ``UnpicklingError``), any other ``NotImplementedError`` naming the class
+    """A complex param the JAX package pickled: a ``model`` of
+    :data:`_FOREIGN_MODELS` through ``foreign_pickle`` (a global outside its
+    list raises ``UnpicklingError``), any other ``NotImplementedError`` naming the class
     the payload holds (or the first global the port does not read)."""
     with open(os.path.join(where, "value.pkl"), "rb") as f:
         data = f.read()
-    if (cls.__name__, name) == _FOREIGN_MODEL:
+    if (cls.__name__, name) in _FOREIGN_MODELS:
         return foreign_pickle.loaded_model_from_record(
             foreign_pickle.loads(data))
     try:
@@ -145,7 +147,7 @@ def _load_foreign(cls: type, name: str, where: str) -> Any:
     raise NotImplementedError(
         f"{cls.__name__}.{name} at {where}: the JAX package pickled "
         f"{held}; the port reads a JAX-pickled complex param only for "
-        f"{'.'.join(_FOREIGN_MODEL)}")
+        f"{', '.join(sorted('.'.join(m) for m in _FOREIGN_MODELS))}")
 
 
 def load_stage(path: str) -> Any:

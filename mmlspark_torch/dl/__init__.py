@@ -8,6 +8,7 @@ from .flash_attention import (flash_attention_lse, flash_bwd_cuda,
                               flash_bwd_torch, flash_causal_cuda, flash_cuda,
                               flash_lse_cuda, flash_lse_torch, flash_torch)
 from .generate import ContinuousGenerator, TextGenerator, generate
+from .model import TPUModel
 from .paged_attention import (paged_cuda, paged_decode_cuda, paged_torch,
                               paged_window_attention)
 from .paged_kv import (TRASH_BLOCK, OutOfBlocks, PagedKVManager,
@@ -24,7 +25,7 @@ from .train import TrainState, make_train_step, softmax_xent, train_epoch
 __all__ = ["BertEncoder", "ContinuousGenerator", "EncoderBlock",
            "MaskedLMModel",
            "OutOfBlocks", "PagedKVManager", "SequenceHandle", "TRASH_BLOCK",
-           "TextEncoder", "TextEncoderFeaturizer", "TextGenerator",
+           "TPUModel", "TextEncoder", "TextEncoderFeaturizer", "TextGenerator",
            "TrainState", "assert_causal", "encoder_variables",
            "flash_attention_lse", "flash_bwd_cuda", "flash_bwd_torch",
            "flash_causal_cuda", "flash_cuda", "flash_lse_cuda",

@@ -30,14 +30,18 @@ stored in f32 and cast to the compute dtype (bf16 by default) at each use,
 LayerNorm in f32 with eps 1e-6, the tanh GELU, sinusoidal positions in
 f32 cast to the compute dtype.
 
-Not ported yet: ``ring``/``ulysses`` attention with the parallel slice (item 10);
-``quantize`` and ``modelName`` with the DL model slice (item 6).
+``modelName`` resolves a zoo entry through ``models.ModelDownloader`` (a
+checkpoint must exist: no random init behind a pretrained name), and
+``quantize=True`` embeds through ``models.quantize_text_encoder`` (int8
+dense layers, dense attention only). Not ported yet: ``ring``/``ulysses``
+attention with the parallel slice (item 10).
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import os
 from typing import Callable
 
 import numpy as np
@@ -54,11 +58,6 @@ from .flash_attention import flash_attention
 
 LATER_SHARDED = ("ring and ulysses attention over a mesh come with the "
                  "parallel slice (ROADMAP.md §1 item 10)")
-LATER_ZOO = ("zoo text models by name (modelName, ModelDownloader) come "
-             "with the DL model slice (ROADMAP.md §1 item 6); pass model= "
-             "a LoadedModel")
-LATER_QUANT = ("the int8 quantized encoder (quantize=True) comes with the DL "
-               "model slice (ROADMAP.md §1 item 6)")
 
 LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to ±2
 
@@ -392,6 +391,10 @@ def make_attention_fn(impl: str = "dense", block_size: int | None = None,
                      "ulysses_flash")
 
 
+def _pooled(module, ids):
+    return module(ids)["pooled"]
+
+
 class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
     """Pipeline stage: tokenized text → pooled transformer embeddings
     ([n, W] float32), the port of the JAX package's stage with the same
@@ -403,10 +406,13 @@ class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
     ``TextEncoder`` (``models.convert.text_encoder_from_flax`` brings the
     JAX package's weights across) or an ingested ``BertEncoder``
     (``models.convert.bert_encoder_from_torch``), rebuilt with the
-    requested attention;
+    requested attention; or ``modelName=`` a zoo entry saved with
+    ``models.save_converted`` (read by ``models.ModelDownloader``);
     otherwise drawn from ``torch.Generator().manual_seed(seed)`` with
     flax's initialiser distributions — not the JAX package's bits, so pass
-    ``model=`` for the same embeddings in both packages.
+    ``model=`` for the same embeddings in both packages. ``quantize=True``
+    embeds a plain ``TextEncoder`` through ``models.quantize_text_encoder``
+    (dense attention only; ``pallas`` or ``blockwise`` raise).
     """
 
     attentionImpl = Param("attentionImpl",
@@ -449,19 +455,26 @@ class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
         super().__init__(**kwargs)
         self._setDefault(inputCol="tokens", outputCol="features")
 
-    def _encoder(self) -> tuple[TextEncoder, torch.device]:
+    def _encoder(self) -> tuple[Callable, torch.device]:
+        """The embedding function (token ids on the device → pooled [N, W])
+        and the device, built once per configuration."""
         dev = resolve_device(self.get("device"))
         loaded = self.get("model")
         key = (dev, id(loaded), self.get("attentionImpl"),
                self.get("vocabSize"), self.get("width"), self.get("depth"),
-               self.get("heads"), self.get("seed"))
+               self.get("heads"), self.get("seed"), self.get("modelName"),
+               self.get("quantize"),
+               os.environ.get("MMLSPARK_TPU_MODEL_DIR", ""))
         if self._cache is not None and self._cache[0] == key:
             return self._cache[1], dev
-        if self.get("quantize"):
-            raise NotImplementedError(LATER_QUANT)
-        if loaded is None and self.get("modelName"):
-            raise NotImplementedError(LATER_ZOO)
         attn = make_attention_fn(self.get("attentionImpl"))
+        if loaded is None and self.get("modelName"):
+            from ..models.zoo import ModelDownloader
+            # an explicitly named zoo model fails loudly without its
+            # checkpoint: random weights behind a pretrained name would
+            # quietly drop quality to the random-init floor
+            loaded = ModelDownloader().download_by_name(
+                self.get("modelName"), allow_random_init=False)
         if loaded is not None:
             from .bert import BertEncoder       # bert imports this module
             if not isinstance(loaded.module, (TextEncoder, BertEncoder)):
@@ -484,11 +497,21 @@ class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
                 depth=self.get("depth"), attention_fn=attn,
                 generator=torch.Generator().manual_seed(self.get("seed")))
         module = module.to(dev).eval()
-        self._cache = (key, module)
-        return module, dev
+        if self.get("quantize"):
+            from ..models.quantize import quantize_text_encoder
+            if type(module) is not TextEncoder:
+                raise ValueError(
+                    "quantize=True supports plain TextEncoder models only "
+                    f"(got {type(module).__name__})")
+            q_forward, qparams = quantize_text_encoder(module)
+            embed = functools.partial(q_forward, qparams)
+        else:
+            embed = functools.partial(_pooled, module)
+        self._cache = (key, embed)
+        return embed, dev
 
     def _transform(self, df):
-        module, dev = self._encoder()
+        embed, dev = self._encoder()
         rows = list(df[self.get("inputCol")])
         chunk = self.get("seqChunk")
         T = max((len(r) for r in rows), default=1)
@@ -498,6 +521,6 @@ class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
             ids[i, :len(r)] = np.asarray(r, np.int32)
         ids_dev = torch.from_numpy(ids).to(dev)
         with torch.inference_mode():
-            pooled = module(ids_dev)["pooled"]
+            pooled = embed(ids_dev)
         return df.with_column(self.get("outputCol"),
                               pooled.float().cpu().numpy())

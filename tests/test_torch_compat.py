@@ -49,7 +49,9 @@ import numpy as np
 import pytest
 import torch
 
+import mmlspark_tpu.dl.model as jdlmodel
 import mmlspark_tpu.dl.text_encoder as jte
+import mmlspark_tpu.image as jimage
 import mmlspark_tpu.featurize as jfeat
 import mmlspark_tpu.featurize.text as jtext
 import mmlspark_tpu.stages as jstages
@@ -73,7 +75,9 @@ from mmlspark_torch.core import DataFrame, foreign_pickle, load_stage
 from mmlspark_torch.core import serialize
 from mmlspark_torch.core.serialize import resolve_stage_class
 import mmlspark_torch.featurize as tfeat
+import mmlspark_torch.image as timage
 import mmlspark_torch.stages as tstages
+import mmlspark_torch.dl as tdl
 from mmlspark_torch.dl import TextEncoderFeaturizer
 from mmlspark_torch.featurize import TokenIdEncoder
 from mmlspark_torch.lightgbm import (Booster, LightGBMClassificationModel,
@@ -113,6 +117,10 @@ PAIRS.update({name: (getattr(tfeat, name), getattr(jfeat, name))
 PAIRS.update({name: (getattr(tstages, name), getattr(jstages, name))
               for name in jstages.__all__
               if name != "DynamicBufferedBatcher"})   # not a stage
+# the DL inference slice: every image stage and TPUModel
+PAIRS.update({name: (getattr(timage, name), getattr(jimage, name))
+              for name in jimage.__all__ if name != "images_to_batch"})
+PAIRS["TPUModel"] = (tdl.TPUModel, jdlmodel.TPUModel)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -636,3 +644,105 @@ def test_featurize_stages_load_across_packages(tmp_path):
     np.testing.assert_array_equal(
         np.asarray(jm.transform(fr["featurize"])["features"]),
         got["port_features"])
+
+
+# The DL inference slice across packages: image stages the JAX package
+# saved (an ImageTransformer chain, an ImageFeaturizer by zoo name, and
+# ImageFeaturizer/TPUModel holding real flax ResNet and ViT variables),
+# loaded and run by the port with no JAX module imported.
+VISION_SIDE = r"""
+import sys
+import numpy as np
+import torch
+from mmlspark_torch.core import DataFrame, load_stage
+from mmlspark_torch.dl import TPUModel
+from mmlspark_torch.image import ImageFeaturizer, ImageTransformer
+
+root = sys.argv[1]
+imgs = np.load(root + "/images.npy")
+df = DataFrame({"image": imgs})
+out = {}
+chain = load_stage(root + "/jax/chain")
+assert type(chain) is ImageTransformer, type(chain)
+chain.setDevice("cpu")
+out["chain"] = chain.transform(df)["out"]
+named = load_stage(root + "/jax/named")
+assert type(named) is ImageFeaturizer and named.getDevice() == "cuda"
+out["named"] = np.asarray([named.getCutOutputLayers(),
+                           named.getMiniBatchSize()])
+assert named.getModelName() == "ViT_B_16", named.getModelName()
+for name in ("resnet", "vit"):
+    stage = load_stage(root + "/jax/" + name)
+    assert type(stage) is ImageFeaturizer, type(stage)
+    stage.setDevice("cpu")
+    net = stage.get("model").module
+    assert str(net.dtype) == "torch.float32", net.dtype
+    out[name] = stage.transform(df)["features"]
+tpu = load_stage(root + "/jax/tpu")
+assert type(tpu) is TPUModel, type(tpu)
+tpu.setDevice("cpu")
+out["tpu"] = tpu.transform(DataFrame({"image": imgs[:, :32, :32]}))["output"]
+np.savez(root + "/port_out.npz", **out)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "mmlspark_tpu"))
+assert not bad, bad
+print("VISION_SIDE_OK")
+"""
+
+
+def test_image_stages_load_across_packages(tmp_path):
+    from mmlspark_tpu.models.resnet import BottleneckBlock as JBottleneck
+    from mmlspark_tpu.models.resnet import ResNet as JResNet
+    from mmlspark_tpu.models.vit import ViT as JViT
+    from mmlspark_tpu.models.zoo import ModelSchema as JModelSchema
+    root = str(tmp_path)
+    imgs = np.random.default_rng(3).integers(0, 256, (3, 40, 36, 3)) \
+        .astype(np.uint8)
+    np.save(os.path.join(root, "images.npy"), imgs)
+    jdf = JDataFrame({"image": imgs})
+    want = {}
+    chain = jimage.ImageTransformer(inputCol="image", outputCol="out") \
+        .resize(20, 24).crop(1, 1, 16, 16).colorFormat("gray").flip(0) \
+        .blur(3, 3).threshold(120.0, 255.0, "trunc")
+    chain.save(os.path.join(root, "jax", "chain"))
+    want["chain"] = np.asarray(chain.transform(jdf)["out"])
+    jimage.ImageFeaturizer(modelName="ViT_B_16", cutOutputLayers=2,
+                           miniBatchSize=8).save(
+        os.path.join(root, "jax", "named"))
+    resnet = JResNet(stage_sizes=(1, 1), block=JBottleneck, width=8,
+                     num_classes=4, dtype=jnp.float32)
+    vit = JViT(patch=4, width=32, depth=1, heads=4, mlp_dim=64,
+               num_classes=3, dtype=jnp.float32)
+    for name, net, size, layers in (
+            ("resnet", resnet, 32, ("stage1", "stage2", "pooled", "logits")),
+            ("vit", vit, 16, ("block1", "pooled", "logits"))):
+        variables = jax.device_get(jax.jit(net.init, static_argnums=2)(
+            jax.random.PRNGKey(5), jnp.zeros((1, size, size, 3)), False))
+        variables = jax.tree.map(          # no zero scale or class token
+            lambda a: np.asarray(a) + 0.05, variables)
+        loaded = JLoadedModel(JModelSchema(name=name, input_size=size,
+                                           layer_names=layers),
+                              net, variables)
+        stage = jimage.ImageFeaturizer(model=loaded, miniBatchSize=2)
+        stage.save(os.path.join(root, "jax", name))
+        want[name] = np.asarray(stage.transform(jdf)["features"])
+        if name == "resnet":
+            tpu = jdlmodel.TPUModel(model=loaded, inputCol="image",
+                                    outputNode="stage2", minibatchSize=2)
+            tpu.save(os.path.join(root, "jax", "tpu"))
+            want["tpu"] = np.asarray(tpu.transform(JDataFrame(
+                {"image": imgs[:, :32, :32]}))["output"])
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    run = subprocess.run([sys.executable, "-c", VISION_SIDE, root], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0 and "VISION_SIDE_OK" in run.stdout, \
+        run.stdout + run.stderr
+    got = np.load(os.path.join(root, "port_out.npz"))
+    np.testing.assert_allclose(got["chain"], want["chain"], rtol=0,
+                               atol=5e-3)
+    np.testing.assert_array_equal(got["named"], [2, 8])
+    for name in ("resnet", "vit", "tpu"):
+        np.testing.assert_allclose(got[name], want[name], rtol=0,
+                                   atol=FEAT_ATOL * np.abs(want[name]).max())

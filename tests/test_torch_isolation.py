@@ -258,6 +258,89 @@ def test_slice_runs_without_importing_jax():
     assert "ISOLATED" in proc.stdout
 
 
+VISION_SCRIPT = r"""
+import os
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+from mmlspark_torch import DataFrame
+from mmlspark_torch.image import (ImageFeaturizer, ImageSetAugmenter,
+                                  ImageTransformer, ResizeImageTransformer,
+                                  UnrollImage)
+from mmlspark_torch.io import BinaryFileReader, FileStreamSource
+from mmlspark_torch.models import (LoadedModel, ModelDownloader, ModelSchema,
+                                   ResNet, ViT, quantize_resnet,
+                                   save_converted)
+from mmlspark_torch.models.resnet import BottleneckBlock
+
+torch.manual_seed(0)
+g = torch.Generator().manual_seed(1)
+imgs = np.random.default_rng(2).integers(0, 256, (5, 40, 36, 3)).astype(
+    np.uint8)
+df = DataFrame({"image": imgs})
+layers = ("stage1", "stage2", "pooled", "logits")
+net = ResNet((1, 1), BottleneckBlock, num_classes=4, width=8,
+             dtype=torch.bfloat16, generator=g)
+for m in net.modules():
+    if hasattr(m, "scale"):
+        m.scale.data.uniform_(0.5, 1.5, generator=g)
+loaded = LoadedModel(ModelSchema(name="tiny", input_size=32,
+                                 layer_names=layers), net)
+for cut in range(4):
+    f = ImageFeaturizer(model=loaded, cutOutputLayers=cut, miniBatchSize=2,
+                        device="cpu").transform(df)["features"]
+    assert f.shape[0] == 5 and np.isfinite(f).all(), (cut, f.shape)
+q = ImageFeaturizer(model=loaded, quantize=True, miniBatchSize=2,
+                    device="cpu").transform(df)["features"]
+assert q.shape == (5, 64) and np.isfinite(q).all()
+vit = ViT(patch=4, width=32, depth=1, heads=4, mlp_dim=64, num_classes=3,
+          image_size=16, generator=g)
+v = ImageFeaturizer(model=LoadedModel(ModelSchema(
+    name="v", input_size=16, layer_names=("block1", "pooled", "logits")),
+    vit), device="cpu").transform(df)["features"]
+assert v.shape == (5, 32) and np.isfinite(v).all()
+chain = ImageTransformer(inputCol="image", outputCol="t", device="cpu") \
+    .resize(16, 16).colorFormat("bgr2rgb").flip(1).blur(3, 3) \
+    .gaussianKernel(3, 0.0).threshold(100.0, 255.0)
+out = chain.transform(df)
+out = ResizeImageTransformer(inputCol="t", outputCol="t", height=8,
+                             width=8, device="cpu").transform(out)
+out = UnrollImage(inputCol="t", device="cpu").transform(out)
+assert out["unrolled"].shape == (5, 8 * 8 * 3)
+assert ImageSetAugmenter(device="cpu").transform(df).num_rows == 10
+root = tempfile.mkdtemp()
+save_converted(net, "ResNet50", root)
+open(os.path.join(root, "blob.bin"), "wb").write(b"123")
+assert BinaryFileReader(inspect_zip=False).read(root).num_rows == 3
+assert FileStreamSource(root, glob="*.bin").next_batch().num_rows == 1
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not bad, bad
+print("ISOLATED vision")
+""" % (FORBIDDEN,)
+
+
+def test_vision_slice_runs_without_importing_jax():
+    """ImageFeaturizer (ResNet at every cut, the int8 path, ViT), the image
+    stages, the model store and the readers in a process with no JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"          # see one_torch_thread
+    proc = subprocess.run([sys.executable, "-c", VISION_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ISOLATED vision" in proc.stdout
+
+
+# modules the DL inference slice added; the scan below must reach each
+VISION_SLICE = ["models/resnet.py", "models/vit.py", "models/quantize.py",
+                "models/convert.py", "models/zoo.py", "dl/model.py",
+                "image/__init__.py", "image/ops.py", "image/transforms.py",
+                "image/stages.py", "image/featurizer.py", "io/__init__.py",
+                "io/binary.py", "io/image_source.py",
+                "core/foreign_pickle.py"]
 # modules the GBDT breadth slice added; the scan below must reach each
 GBDT_BREADTH = ["lightgbm/sparse.py", "lightgbm/ranker_objective.py",
                 "lightgbm/shap.py", "parallel/collectives.py",
@@ -290,6 +373,7 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "profile_torch_train.py")
     yield os.path.join(REPO, "tools", "profile_torch_llm.py")
     yield os.path.join(REPO, "tools", "shard_gbdt.py")
+    yield os.path.join(REPO, "tools", "vision_bf16_agreement.py")
 
 
 def _imported_modules(path):
@@ -321,6 +405,7 @@ def test_static_scan_finds_no_jax_import():
     assert set(FEATURIZE_SLICE) <= scanned, set(FEATURIZE_SLICE) - scanned
     assert set(GBDT_BREADTH) <= scanned, set(GBDT_BREADTH) - scanned
     assert set(TEXTGEN_SLICE) <= scanned, set(TEXTGEN_SLICE) - scanned
+    assert set(VISION_SLICE) <= scanned, set(VISION_SLICE) - scanned
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -373,6 +458,14 @@ def _device_stages():
     """Every stage with a ``device`` Param, at its default, and a frame it
     would compute on."""
     from mmlspark_torch import featurize as f, stages as s
+    from mmlspark_torch import image as im
+    from mmlspark_torch.dl import TPUModel
+    from mmlspark_torch.models import LoadedModel, ModelSchema, ResNet
+    from mmlspark_torch.models.resnet import BasicBlock
+    net = ResNet((1,), BasicBlock, num_classes=2, width=4)
+    tiny = LoadedModel(ModelSchema(name="tiny", input_size=8, layer_names=(
+        "stage1", "pooled", "logits")), net)
+    pics = DataFrame({"image": np.zeros((2, 6, 6, 3), np.uint8)})
     x = np.asarray([1.0, np.nan, 3.0])
     toks = np.empty(2, object)
     toks[:] = [["a", "b"], ["b", "a"]]
@@ -403,6 +496,14 @@ def _device_stages():
                           num),
         "StratifiedRepartition": (s.StratifiedRepartition(
             labelCol="i").transform, num),
+        "ImageFeaturizer": (im.ImageFeaturizer(model=tiny).transform,
+                            pics),
+        "ImageTransformer": (im.ImageTransformer().flip(1).transform, pics),
+        "ResizeImageTransformer": (im.ResizeImageTransformer(
+            height=4, width=4).transform, pics),
+        "UnrollImage": (im.UnrollImage().transform, pics),
+        "ImageSetAugmenter": (im.ImageSetAugmenter().transform, pics),
+        "TPUModel": (TPUModel(model=net, inputCol="image").transform, pics),
         "LightGBMRegressor": (LightGBMRegressor(
             numIterations=1, minDataInLeaf=1).fit, DataFrame(
             {"features": np.ones((3, 1), np.float32),

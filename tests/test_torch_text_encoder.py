@@ -275,10 +275,13 @@ class TestFeaturizer:
         df = DataFrame({"tokens": padded_ids(seed=7)})
         small = dict(vocabSize=1000, width=32, depth=1, heads=2,
                      device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            TextEncoderFeaturizer(quantize=True, **small).transform(df)
-        with pytest.raises(NotImplementedError, match="item 6"):
+        # a zoo name without its checkpoint refuses random weights
+        monkeypatch.delenv("MMLSPARK_TPU_MODEL_DIR", raising=False)
+        with pytest.raises(FileNotFoundError, match="allow_random_init"):
             TextEncoderFeaturizer(modelName="TextEncoderBase",
+                                  **small).transform(df)
+        with pytest.raises(ValueError, match="dense attention only"):
+            TextEncoderFeaturizer(quantize=True, attentionImpl="pallas",
                                   **small).transform(df)
         with pytest.raises(NotImplementedError, match="item 10"):
             TextEncoderFeaturizer(mesh=object(), **small)
