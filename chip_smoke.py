@@ -35,8 +35,13 @@ kernels build), then:
    and at a ragged T=300 at head dims 16, 32, 64, 96, 128, 192, 256, 320
    and 512 in bf16 and f32 (16, 96, 192 and 320 zero-padded to the
    kernel's 32, 128, 256 and 384; above 256 in bf16 and 128 in f32 on the
-   wide instances, split over D); times the wide instances beside their
-   plain versions, their bounds and SDPA (no limit); times the kernel,
+   wide kernels, split over D as ``wide_plan`` says), and at T=200 at bf16
+   1024 and 2048 and f32 1024 (clusters of 4-16 CTAs) and at bf16 2176
+   and f32 1152 (the split kernels beyond a cluster), most keys valid;
+   the wide K2a with one CTA's share of S left out of the cluster's sum
+   (a planted fault, bf16 1024 and f32 512: clusters of 4) must fail that
+   hold; times the wide kernels beside their plain versions,
+   their bounds and SDPA (no limit); times the kernel,
    the plain version and ``scaled_dot_product_attention`` (the library
    yardstick only) beside the bound;
 6. runs the text path at full width: 32 seeded documents of 1,024-2,048
@@ -55,8 +60,10 @@ kernels build), then:
    masked row, whose outputs and gradients must be exactly 0), with a
    nonzero lse cotangent, at a ragged T=2000 in f32, and at a ragged T=300
    at head dims 32, 64, 96 (padded), 128, 192 (padded), 256, 320 (padded)
-   and 512 in bf16 and f32; checks that two K2d/K2e launches on the same
-   inputs are bit-equal, at the wide head dims too; times the wide
+   and 512 in bf16 and f32, and at phase 5's T=200 head dims (bf16 1024,
+   2048 and 2176, f32 1024 and 1152); checks that two K2d/K2e launches on
+   the same inputs are bit-equal, at the wide head dims too (bf16 2048:
+   K2e in clusters of 16 CTAs); times the wide
    instances beside their plain versions, bounds and SDPA's forward and
    backward (no limit), and each kernel, its plain
    version and ``scaled_dot_product_attention``'s forward and backward (the
@@ -80,8 +87,8 @@ kernels build), then:
    ``[1, 8, 8192, 64]``), the ``generate`` prefill ``[32, 8, 128, 64]``,
    phase 7's document mask with one fully masked row, offsets ``(2048, 0)``
    (every key reachable) and ``(0, 2048)`` (exactly 0), a ragged T=2000 in
-   f32 and head dims 32/64/128/192/256/320/512 at T=300 (bf16 and f32);
-   holds K3 through ``paged_window_attention``'s choice (the split-KV
+   f32 and head dims 32/64/128/192/256/320/512 at T=300 (bf16 and f32)
+   and phase 5's T=200 head dims at offsets (5, 23); holds K3 through ``paged_window_attention``'s choice (the split-KV
    decode kernel ``paged_decode_cuda`` up to 16 window rows, the window
    kernel ``paged_cuda`` above) against ``paged_torch`` at ``w`` = 1, 5 and
    128 over 32 slots of seeded context lengths (``BL`` 16, shuffled chains
@@ -89,7 +96,8 @@ kernels build), then:
    at ``w`` = 5 with ``BL`` 8 and 128, at a one-chunk table, and at ``w =
    4096`` over one 4096-token chain of ``BL`` 128, in both dtypes and at
    head dims 32, 128, 16 (pools padded to 32, as the engine allocates them),
-   256, 192 (pools padded to 256), 320 (padded to 384) and 512, and holds
+   256, 192 (pools padded to 256), 320 (padded to 384), 512 and 1024
+   (clusters of 4 CTAs in bf16, 8 in f32), and holds
    the window kernel, called directly, on every one of those cases too (so
    each of its instances meets a case); holds the window kernel on windows
    wider than 16 rows at the engine's prefill shapes (``w`` = 192 with one
@@ -106,7 +114,10 @@ kernels build), then:
    beforehand), the window kernel with its plan and CTAs at the engine's
    prefill shapes, the split one and the long prompt, the decode kernel
    beside the window kernel at the decode and verify windows, and the
-   per-kernel device times from ``torch.profiler``;
+   per-kernel device times from ``torch.profiler``; times the window
+   kernel's wide route (pools at hd 512 in bf16 and 256 in f32, ``w`` =
+   128 over 32 slots) beside its plain version, bound and SDPA on the
+   gathered cache;
 10. runs ``generate`` at full width: the causal LM of ``bench.py:896-930``
     (the encoder shape above with an f32 LM head, seeded weights, causal
     ``pallas`` attention) on 32 seeded prompts of 129 tokens with 128 new
@@ -138,7 +149,8 @@ kernels build), then:
     masked row, a nonzero lse cotangent) at offsets ``(0, 0)``,
     ``(2048, 0)``, ``(100, 37)`` and ``(0, 2048)`` (o, dq, dk, dv exactly 0
     and lse -1e30 wherever no pair is allowed), at a ragged T=2000 in f32
-    and at head dims 32/64/128/192/256/320/512 at T=300 (bf16 and f32),
+    and at head dims 32/64/128/192/256/320/512 at T=300 (bf16 and f32)
+    and at phase 5's T=200 head dims at offsets (5, 23),
     checks the causal K2d/K2e bit-equal over two launches, at the wide head
     dims too; times the wide instances beside their plain versions, bounds
     and SDPA (no limit), and each beside
@@ -342,6 +354,7 @@ F32_EPS = float(np.finfo(np.float32).eps)
 SUM_TOL_EPS = 64
 H100_BUS_BITS = 5120          # HBM3 interface of the H100 (NVIDIA data sheet)
 F32_PEAK_FLOPS = 67e12        # H100 SXM, non-tensor-core f32 (data sheet)
+TF32_PEAK_FLOPS = 495e12      # H100 SXM, dense TF32 tensor cores (data sheet)
 FIT_RUNS = 3                  # warm fits timed in phase 3 (median reported)
 BF16_PEAK_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores (data sheet)
 BF16_EPS = 2.0 ** -7          # bf16 spacing at 1 (8 significand bits)
@@ -523,7 +536,8 @@ def check_hist(torch, k1, name, bins, vals, B, count=None):
 _KERNEL = re.compile(r"(hist_partial|flash_fwd_bf16|flash_fwd_f32|"
                      r"bwd_dq_bf16|bwd_dkv_bf16|bwd_dq_f32|bwd_dkv_f32|"
                      r"paged_fwd_bf16|paged_f32|paged_decode|paged_combine|"
-                     r"wide_fwd|wide_dq|wide_dkv)I(\w*?)E+v|(hist_reduce)")
+                     r"wide_fwd|wide_dq|wide_dkv|split_fwd|split_dq|"
+                     r"split_dkv)I(\w*?)E+v|(hist_reduce)")
 
 
 def _template_args(mangled: str) -> list[str]:
@@ -532,7 +546,8 @@ def _template_args(mangled: str) -> list[str]:
     (dense/paged), then the integers (head dim, flags, window rows)."""
     dtype = ("bf16" if "__nv_bfloat16" in mangled else
              "f32" if mangled.startswith("f") else None)
-    src = [k.lower() for k in ("Dense", "Paged") if f"NS_5{k}E" in mangled]
+    src = [k.lower() for k in ("Dense", "Paged")
+           if re.search(rf"NS_\d+{k}(Keys)?[EI]", mangled)]
     args = ([dtype] if dtype else []) + src + re.findall(r"L[ib](\d+)",
                                                          mangled)
     return args or [{"h": "u8", "i": "i32"}.get(mangled, mangled)]
@@ -569,8 +584,8 @@ def ptxas_summary(log: str) -> list[str]:
 # ptxas spill bytes (stores, loads) each instance may show: what the bf16
 # backward redesign left (PERF.md §6); any other instance, the bf16
 # forward's and K3's window kernel's included, none, and the decode
-# kernel's, its combine's and the wide instances' are listed at none. More
-# fails phase 1.
+# kernel's, its combine's and the wide kernels' (the cluster instances and
+# the split ones beyond them) are listed at none. More fails phase 1.
 SPILL_LIMITS = {"bwd_dkv_bf16<32,0>": (4, 4), "bwd_dkv_bf16<32,1>": (8, 20),
                 "bwd_dkv_bf16<64,0>": (4, 4), "bwd_dkv_bf16<128,1>": (64, 104),
                 "bwd_dkv_bf16<256,0>": (4, 4), "bwd_dkv_bf16<256,1>": (4, 4),
@@ -579,7 +594,9 @@ SPILL_LIMITS = {"bwd_dkv_bf16<32,0>": (4, 4), "bwd_dkv_bf16<32,1>": (8, 20),
                 **{f"{k}<{t}{src}>": (0, 0) for t in ("bf16", "f32")
                    for k, src in (("paged_combine", ""), ("wide_dq", ""),
                                   ("wide_dkv", ""), ("wide_fwd", ",dense"),
-                                  ("wide_fwd", ",paged"))}}
+                                  ("wide_fwd", ",paged"), ("split_dq", ""),
+                                  ("split_dkv", ""), ("split_fwd", ",dense"),
+                                  ("split_fwd", ",paged"))}}
 
 
 def start_builds(builders: dict) -> dict:
@@ -644,6 +661,9 @@ def check_flash(torch, k2, name, q, k, v, mask, rtol, atol):
     if not torch.isfinite(got).all():
         fail(f"K2a {name}: non-finite output")
     empty = ~mask.any(1)
+    if bool(empty.all()):
+        fail(f"K2a {name}: every row is fully masked; the hold would "
+             "compare zeros with zeros")
     if not (got[empty] == 0).all():
         fail(f"K2a {name}: a fully masked row is not exactly 0")
     diff = (got.float() - want.float()).abs()
@@ -749,6 +769,20 @@ def text_phases(torch, k1, k2, dev, bw, flush, texts, lengths):
                         *x, mask_f[:2, :300],
                         FLASH_BF16_RTOL if bf16 else 0.0,
                         FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL)
+    # the wider clusters (4-16 CTAs) and the split kernels beyond them
+    mask_h = wide_hold_mask(torch, dev)
+    for d, dtype, label in wide_held(torch):
+        x = [torch.randn(2, 2, 200, d, generator=gen, device=dev,
+                         dtype=dtype) for _ in range(3)]
+        bf16 = dtype == torch.bfloat16
+        check_flash(torch, k2, f"{str(dtype)[6:]} B=2 H=2 T=200 D={d} "
+                    f"({label})", *x, mask_h,
+                    FLASH_BF16_RTOL if bf16 else 0.0,
+                    FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL)
+    for d, dtype in WIDE_FAULT_DIMS:
+        wide_fault(torch, k2, [torch.randn(
+            2, 2, 200, d, generator=gen, device=dev, dtype=getattr(
+                torch, dtype)) for _ in range(3)], mask_h)
     for x, mask_w in wide_inputs(torch, gen, dev, 3):
         time_wide(torch, "phase 5", "K2a", x, lambda: k2.flash_cuda(
             *x, mask_w), lambda: k2.flash_torch(*x, mask_w),
@@ -874,6 +908,36 @@ HEAD_DIMS_HELD = (16, 32, 64, 96, 128, 192, 256, 320, 512)
 # the wide instances' timed shape: [B, H, T] at D = 512 in bf16 and 256 in
 # f32 (their widths on the card); times are recorded, with no limit
 WIDE_TIMED = (2, 8, 1024)
+# head dims held beside HEAD_DIMS_HELD in phases 5, 7, 9 and 12: the
+# wider clusters (flash_attention.wide_plan: bf16 1024 in 4 CTAs, 8 in
+# K2e; bf16 2048 in 8, K2e in 16; f32 1024 in 8) and the split kernels
+# beyond them (bf16 2176, f32 1152)
+WIDE_HELD = ((1024, "bfloat16"), (2048, "bfloat16"), (1024, "float32"),
+             (2176, "bfloat16"), (1152, "float32"))
+# the wide forward's planted fault: clusters of 4 CTAs in both dtypes
+WIDE_FAULT_DIMS = ((1024, "bfloat16"), (512, "float32"))
+
+
+def wide_held(torch):
+    """(D, dtype, route label) of each of WIDE_HELD: the CTAs of the
+    forward's clusters and of K2e's, or the split kernels."""
+    from mmlspark_torch.dl.flash_attention import wide_plan
+    for d, name in WIDE_HELD:
+        dtype = getattr(torch, name)
+        fwd, dkv = (wide_plan(d, dtype, kernel).ctas
+                    for kernel in ("fwd", "dkv"))
+        yield d, dtype, (f"{fwd}-CTA clusters, K2e {dkv}" if fwd
+                         else "split")
+
+
+def wide_hold_mask(torch, dev, T=200):
+    """A [2, T] key mask for the wide holds: most keys valid, the first
+    row's last half and the second row's first 7 keys not (key tiles with
+    no valid key, and partly valid ones)."""
+    mask = torch.ones(2, T, dtype=torch.bool, device=dev)
+    mask[0, T // 2:] = False
+    mask[1, :7] = False
+    return mask
 
 
 def wide_inputs(torch, gen, dev, n):
@@ -913,25 +977,71 @@ def wide_sdpa(torch, x, mask, causal=False, dout=None, flush=None):
 
 
 def time_wide(torch, phase, kid, x, run, plain, ops_per_d, n_tensors, bw,
-              flush, library_ms):
-    """Time a wide-head-dim instance on ``x`` beside its plain version, its
-    bound (``ops_per_d`` x D operations at the card's peak for the dtype:
-    989 TFLOP/s bf16, 67 TFLOP/s f32; ``n_tensors`` [B, H, T, D] tensors
-    moved) and ``library_ms`` (SDPA's time on the same inputs, from
-    :func:`wide_sdpa`). Prints the line; no limit is set."""
+              flush, library_ms, nbytes=None):
+    """Time a wide-head-dim kernel on ``x`` beside its plain version, its
+    bound (``ops_per_d`` x D operations at the peak of the engine that
+    runs them: 989 TFLOP/s for bf16 on wgmma; for f32 in 3xTF32 on the
+    tensor cores, three TF32 products each at 495 TFLOP/s, on the split
+    kernels 67 TFLOP/s on the CUDA cores; ``n_tensors`` [B, H, T, D]
+    tensors moved, or ``nbytes``) and ``library_ms`` (SDPA's time on the
+    same inputs, from :func:`wide_sdpa`). Prints the line with the plan
+    the kernel was launched with (``flash_attention.wide_plan``); no
+    limit is set. Returns the kernel's ms."""
+    from mmlspark_torch.dl.flash_attention import wide_plan
     B, H, T, D = x[0].shape
     ms = time_ms(run, torch, runs=10, flush=flush)
     plain_ms = time_ms(plain, torch, runs=3, warmup=1, flush=flush)
-    f32 = x[0].dtype == torch.float32
     ops = ops_per_d * D
-    nbytes = n_tensors * B * H * T * D * x[0].element_size()
-    bound_ms, by = bound(ops, nbytes, bw,
-                         F32_PEAK_FLOPS if f32 else BF16_PEAK_FLOPS)
+    if nbytes is None:
+        nbytes = n_tensors * B * H * T * D * x[0].element_size()
+    kernel = "dkv" if "K2e" in kid else "dq" if "K2d" in kid else "fwd"
+    plan = wide_plan(D, x[0].dtype, kernel)
+    if x[0].dtype != torch.float32:
+        peak, rate = BF16_PEAK_FLOPS, "989 TFLOP/s, wgmma"
+    elif plan.ctas:
+        peak, rate = TF32_PEAK_FLOPS / 3, "495 / 3 TFLOP/s, 3xTF32"
+    else:
+        peak, rate = F32_PEAK_FLOPS, "67 TFLOP/s, CUDA cores"
+    bound_ms, by = bound(ops, nbytes, bw, peak)
+    split = (f"{plan.ctas}-CTA clusters, {plan.units} units of {plan.unit}"
+             if plan.ctas else f"{plan.units} chunks of {plan.unit}")
     print(f"{phase}: wide {kid} {str(x[0].dtype)[6:]} [{B}, {H}, {T}, {D}] "
-          f"({D // 128} chunks of 128): {ms:.4f} ms; plain {plain_ms:.4f} "
+          f"({split}): {ms:.4f} ms; plain {plain_ms:.4f} "
           f"ms; bound {bound_ms:.4f} ms by {by} ({ops / 1e9:.1f} GFLOP at "
-          f"{67 if f32 else 989} TFLOP/s); scaled_dot_product_attention "
+          f"{rate}); scaled_dot_product_attention "
           f"{library_ms:.4f} ms; median of CUDA-event runs, L2 flushed")
+    return ms
+
+
+def wide_fault(torch, k2, x, mask):
+    """The wide forward's planted fault: K2a with one CTA's share of S
+    left out of the cluster's sum (rank ctas // 2: its columns of q
+    zeroed, what every other CTA sums without the share it reads from
+    that CTA) must fall outside phase 5's hold of the plain version.
+    Fails the run if it does not."""
+    from mmlspark_torch.dl.flash_attention import wide_plan
+    q, k, v = x
+    plan = wide_plan(q.shape[-1], q.dtype)
+    if plan.ctas < 3:
+        fail(f"phase 5: the planted fault needs a cluster of more than two "
+             f"CTAs, D={q.shape[-1]} has {plan.ctas}")
+    rank = plan.ctas // 2
+    faulty_q = q.clone()
+    faulty_q[..., 2 * rank * plan.unit:2 * (rank + 1) * plan.unit] = 0
+    got = k2.flash_cuda(faulty_q, k, v, mask).float()
+    want = k2.flash_torch(q, k, v, mask).float()
+    bf16 = q.dtype == torch.bfloat16
+    rtol = FLASH_BF16_RTOL if bf16 else 0.0
+    atol = FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL
+    torch.cuda.synchronize()
+    out = int(((got - want).abs() > atol + rtol * want.abs()).sum())
+    name = f"{str(q.dtype)[6:]} D={q.shape[-1]} ({plan.ctas}-CTA clusters)"
+    if out == 0:
+        fail(f"phase 5: wide K2a {name} with CTA {rank}'s share of S left "
+             "out passes the hold: it cannot tell a faulty cluster sum")
+    print(f"phase 5: planted fault (wide K2a {name}, CTA {rank}'s share of "
+          f"S left out): {out} of {got.numel()} elements outside the hold, "
+          "as it must")
 
 
 def compare_grads(phase, name, got, dense, verbose):
@@ -983,6 +1093,9 @@ def check_training_kernels(torch, k2, name, q, k, v, dout, mask,
                           > q_off + T - 1)[None, :]
     else:
         empty, unseen = (~mask.any(1, keepdim=True)).expand(B, T), ~mask
+    if not causal and bool(empty.all()):   # (causal offsets may, on purpose)
+        fail(f"{fwd} {name}: no row has an allowed key; the hold would "
+             "compare zeros with zeros")
     lse_r, want_r = lse.transpose(1, 2), want_lse.transpose(1, 2)
     err_f = max(hold(torch, f"{fwd} o {name}", o, want_o,
                      FLASH_BF16_RTOL if bf16 else 0.0,
@@ -1174,6 +1287,17 @@ def train_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
             if d in (256, 512) and (d == 512) == (dtype == torch.bfloat16):
                 deterministic(torch, k2, f"phase 7 ({name}, wide)", *x[:3],
                               x[3], mask_f[:2, :300], False)
+    mask_h = wide_hold_mask(torch, dev)
+    for d, dtype, label in wide_held(torch):  # wider clusters, then split
+        x = [torch.randn(2, 2, 200, d, generator=gen, device=dev,
+                         dtype=dtype) for _ in range(4)]
+        name = f"{str(dtype)[6:]} B=2 H=2 T=200 D={d} ({label})"
+        check_training_kernels(
+            torch, k2, name, *x, mask_h,
+            torch.randn(2, 2, 200, generator=gen, device=dev))
+        if d == 2048:                  # K2e in clusters of 16 CTAs
+            deterministic(torch, k2, f"phase 7 ({name})", *x[:3], x[3],
+                          mask_h, False)
     deterministic(torch, k2, "phase 7", q, k, v, dout, mask, False)
     wide_training_times(torch, k2, "phase 7", dev, gen, bw, flush, False)
 
@@ -1676,6 +1800,11 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
                          mask_f[:2, :300])
             check_causal(torch, k2, f"{name} offsets (100, 37)", *x,
                          mask_f[:2, :300], 100, 37)
+    mask_h = wide_hold_mask(torch, dev)
+    for d, dtype, label in wide_held(torch):
+        x = fused_qkv(torch, gen, dev, 2, 200, 2, d, dtype)
+        check_causal(torch, k2, f"{str(dtype)[6:]} [2, 2, 200, {d}] "
+                     f"({label}) offsets (5, 23)", *x, mask_h, 5, 23)
 
     def time_causal(label, q, k, v, runs=25):
         B, _, T, _ = q.shape
@@ -1745,6 +1874,8 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
               128, 16, 32, 320, False, False),
              ("w=64 S=8 BL=16 hd=512 (window)", 77, 8, 64, 16, 32, 512, False,
               False),
+             ("w=64 S=4 BL=16 hd=1024 (window, 4- and 8-CTA clusters)", 78,
+              4, 64, 16, 16, 1024, False, False),
              # the window kernel at the engine's own prefill shapes (phase
              # 11's tables: 18 blocks of 16), a warm suffix over a long
              # cached prefix (the plan splits the chain), short block
@@ -1837,8 +1968,41 @@ def llm_kernel_phase(torch, k2, k3, dev, bw, flush, lengths):
                       ("window", ("paged_window",))):
         for rid in ids:
             records[rid]["max_abs_err"] = k3_err[kind]
+    wide_window_times(torch, k3, dev, H, bw, flush)
     return [k2c, records["paged_decode"], records["paged_combine"],
             records["paged_window"]]
+
+
+def wide_window_times(torch, k3, dev, H, bw, flush):
+    """Time K3's window kernel on its wide route (pools at hd 512 in bf16,
+    256 in f32) at the prefill window's shape (w = 128 over 32 slots of up
+    to 4,096 positions) beside its plain version, its bound (the reached
+    K/V blocks, q and o; 4 x pairs x hd operations) and SDPA on a cache
+    gathered before the clock starts."""
+    import torch.nn.functional as F
+    S, w, BL, MB = 32, 128, 16, 256
+    for hd, dtype in ((512, torch.bfloat16), (256, torch.float32)):
+        c = paged_case(torch, dev, 63, S, w, BL, MB, H, hd, dtype)
+        args = (c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"])
+        NB, L = c["k_pool"].shape[0], MB * BL
+        idx = (c["rows"].long()[:, :, None] * BL
+               + torch.arange(BL, device=dev)).reshape(S, L)
+        kd, vd = (t.view(NB * BL, H, hd)[idx].transpose(1, 2).contiguous()
+                  for t in (c["k_pool"], c["v_pool"]))
+        lim = c["pos"].long()[:, None] + torch.arange(w, device=dev)
+        allowed = (torch.arange(L, device=dev) <= lim[:, :, None])[:, None]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            c["q"], kd, vd, attn_mask=allowed), torch, runs=10, flush=flush)
+        del kd, vd, allowed
+        pos = c["pos"].cpu().numpy().astype(np.int64) * c["active"]
+        pairs = int(H * (w * (pos + 1) + w * (w - 1) // 2)[c["active"]].sum())
+        es = c["q"].element_size()
+        nbytes = (2 * int(c["nblk"].sum()) * BL * H * hd * es
+                  + 2 * S * H * w * hd * es)
+        time_wide(torch, "phase 9", "K3 window", [c["q"]],
+                  lambda: k3.paged_cuda(*args), lambda: k3.paged_torch(*args),
+                  4 * pairs, 0, bw, flush, lib_ms, nbytes=nbytes)
+        del c
 
 
 def device_ms(torch, fn, names, runs=10, flush=None, warm=True):
@@ -2510,6 +2674,14 @@ def causal_kernel_phase(torch, k2, dev, bw, flush, lengths, B):
             if d in (256, 512) and (d == 512) == (dtype == torch.bfloat16):
                 deterministic(torch, k2, f"phase 12 ({name}, wide)", *x,
                               dout_x, mask_f[:2, :300], True)
+    mask_h = wide_hold_mask(torch, dev)
+    for d, dtype, label in wide_held(torch):  # wider clusters, then split
+        x = fused_qkv(torch, gen, dev, 2, 200, 2, d, dtype)
+        check_training_kernels(
+            torch, k2, f"{str(dtype)[6:]} [2, 2, 200, {d}] ({label}) "
+            "offsets (5, 23)", *x, torch.randn(2, 2, 200, d, generator=gen,
+                                               device=dev, dtype=dtype),
+            mask_h, torch.randn(2, 2, 200, generator=gen, device=dev), 5, 23)
     deterministic(torch, k2, "phase 12", q, k, v, dout, mask, True)
     wide_training_times(torch, k2, "phase 12", dev, gen, bw, flush, True)
 

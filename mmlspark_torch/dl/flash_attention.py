@@ -58,17 +58,20 @@ Head dims: the kernels of ``flash_attn.cu`` and ``flash_bwd.cu`` are built
 for D = 32, 64, 128 and 256 in bf16 and up to 128 in f32 (the f32 kernels,
 the tight check, keep their tiles in static shared memory). The wrappers
 run any D: up to 256 at the next of those, above 256 at the next multiple
-of 128 (:func:`kernel_head_dim`), zero-padding q, k, v (and dO) on D
-(:func:`pad_head_dim`) and scaling by the true ``D^-0.5``; zero columns
-leave every ``q·k`` unchanged and give zero output columns, which are
-sliced off the outputs and the gradients. A head dim wider than the widest
-instance built for its dtype (256 in bf16, :data:`F32_HEAD_DIM_MAX` in
-f32) runs on the wide instances of ``csrc/attn_wide.cu``: the same kernels
-split over D in chunks of :data:`WIDE_CHUNK` columns (see the source). The
-reference pads every head dim to 128 lanes the same way
-(``pallas_attention.py:19-21``). The plain versions take ``scale`` too, so
-the tests can hold the padding against the unpadded computation on the
-CPU.
+of :data:`WIDE_CHUNK` (:func:`kernel_head_dim`), zero-padding q, k, v (and
+dO) on D (:func:`pad_head_dim`) and scaling by the true ``D^-0.5``; zero
+columns leave every ``q·k`` unchanged and give zero output columns, which
+are sliced off the outputs and the gradients. A head dim wider than the
+widest instance built for its dtype (256 in bf16, :data:`F32_HEAD_DIM_MAX`
+in f32) runs on the wide kernels of ``csrc/attn_wide.cu``, which split D
+as :func:`wide_plan` says: into units of 128 columns in bf16 and 64 in f32,
+two a CTA (bf16's K2e one), in a thread-block cluster that sums each CTA's
+partial scores (up to :data:`WIDE_UNITS_MAX` units: D <= 2048 in bf16,
+1024 in f32), and wider into chunks of :data:`WIDE_CHUNK` columns that
+each recompute the scores (see the source). The reference pads every head dim to 128 lanes
+the same way (``pallas_attention.py:19-21``). The plain versions take
+``scale`` too, so the tests can hold the padding against the unpadded
+computation on the CPU.
 
 Not ported here: the TPU's block-size resolution and autotune lookup,
 which size blocks for VMEM.
@@ -78,6 +81,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -87,7 +91,9 @@ from ..parallel.ring_attention import blockwise_attention
 
 HEAD_DIMS = (32, 64, 128, 256)   # the bf16 instances of the main kernels
 F32_HEAD_DIM_MAX = 128    # the widest f32 instance (the tight check)
-WIDE_CHUNK = 128          # the D chunk of the wide instances
+WIDE_CHUNK = 128          # the padding step above 256; the split chunk
+WIDE_UNITS_MAX = 16       # units of a wide cluster (its CTAs: 8, or 16
+                          # at one unit a CTA, the H100's largest)
 NEG = -1e30               # the TPU kernel's additive mask value
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _ALIGN = 16               # the kernels stage rows as 16-byte vectors
@@ -98,7 +104,8 @@ _LOADER = CudaLoader("mmlspark_flash", ["dl/csrc/flash_attn.cu"],
                               "dl/csrc/flash_fwd.cuh"))
 _LOADER_BWD = CudaLoader("mmlspark_flash_bwd", ["dl/csrc/flash_bwd.cu"],
                          headers=("dl/csrc/flash_common.cuh",))
-_LOADER_WIDE = CudaLoader("mmlspark_attn_wide", ["dl/csrc/attn_wide.cu"])
+_LOADER_WIDE = CudaLoader("mmlspark_attn_wide", ["dl/csrc/attn_wide.cu"],
+                          headers=("dl/csrc/flash_common.cuh",))
 
 def _check_inputs(q, k, v, key_mask) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -151,9 +158,39 @@ def kernel_head_dim(D: int) -> int:
 def wide_head_dim(D: int, dtype: torch.dtype) -> bool:
     """True when the kernel head dim ``D`` is wider than the widest
     instance built for ``dtype`` (256 in bf16, :data:`F32_HEAD_DIM_MAX` in
-    f32): it then runs on the wide instances, split over D."""
+    f32): it then runs on the wide kernels, as :func:`wide_plan` says."""
     return D > (F32_HEAD_DIM_MAX if dtype == torch.float32
                 else HEAD_DIMS[-1])
+
+
+class WidePlan(NamedTuple):
+    """How a wide kernel runs a kernel head dim: ``route`` "cluster" (D in
+    ``units`` of ``unit`` columns, a consumer warpgroup each, in clusters
+    of ``ctas`` CTAs that sum their partial scores) or "split" (``units``
+    chunks of ``unit`` columns, each recomputing the scores; ``ctas`` 0).
+    ``ctas`` is what the launcher is handed and launches."""
+    route: str
+    unit: int
+    units: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=64)
+def wide_plan(D: int, dtype: torch.dtype, kernel: str = "fwd") -> WidePlan:
+    """The split of a kernel head dim ``D`` (a multiple of
+    :data:`WIDE_CHUNK`) for the wide ``kernel`` ("fwd": K2a-K2c and K3's
+    window, "dq": K2d, "dkv": K2e) in ``dtype``: units of one warpgroup's
+    256 bytes a row (128 columns in bf16, 64 in f32) in a cluster while
+    there are at most :data:`WIDE_UNITS_MAX` (D <= 2048 in bf16, 1024 in
+    f32), two a CTA (bf16's K2e one: its dK and dV take a warpgroup's
+    registers); wider, the split kernels in chunks of :data:`WIDE_CHUNK`
+    columns."""
+    unit = 64 if dtype == torch.float32 else 128
+    units = D // unit
+    if D % unit == 0 and units <= WIDE_UNITS_MAX:
+        per_cta = 1 if kernel == "dkv" and dtype == torch.bfloat16 else 2
+        return WidePlan("cluster", unit, units, -(-units // per_cta))
+    return WidePlan("split", WIDE_CHUNK, D // WIDE_CHUNK, 0)
 
 
 def pad_head_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -312,6 +349,8 @@ _FWD_ARGS = [
     _c_ll, ctypes.c_float,                              # mask stride, scale
     _c_int, _c_ll, _c_ll,                       # causal, q_offset, k_offset
     _c_int, _c_void_p]                                      # device, stream
+# the wide launchers take wide_plan's CTAs (0: split) before the device
+_WIDE_FWD_ARGS = [*_FWD_ARGS[:-2], _c_int, *_FWD_ARGS[-2:]]
 _BWD_ARGS = [
     _c_int,                                                 # 0 = dq, 1 = dk/dv
     *[_c_void_p] * 10,                  # q k v dO mask lse dsum dq dk dv
@@ -319,6 +358,7 @@ _BWD_ARGS = [
     ctypes.POINTER(_c_ll), _c_ll, ctypes.c_float,   # strides, mask, scale
     _c_int, _c_ll, _c_ll,                       # causal, q_offset, k_offset
     _c_int, _c_void_p]                                      # device, stream
+_WIDE_BWD_ARGS = [*_BWD_ARGS[:-2], _c_int, *_BWD_ARGS[-2:]]
 
 
 @functools.lru_cache(maxsize=None)
@@ -362,11 +402,11 @@ def kernel_design() -> str:
 @functools.lru_cache(maxsize=None)
 def _library_wide() -> ctypes.CDLL:
     lib = _LOADER_WIDE.load()
-    lib.mmlspark_wide_flash_launch.argtypes = _FWD_ARGS
-    lib.mmlspark_wide_bwd_launch.argtypes = _BWD_ARGS
+    lib.mmlspark_wide_flash_launch.argtypes = _WIDE_FWD_ARGS
+    lib.mmlspark_wide_bwd_launch.argtypes = _WIDE_BWD_ARGS
     lib.mmlspark_wide_paged_launch.argtypes = [
-        *[_c_void_p] * 6, *[_c_int] * 8, *[_c_ll] * 6, ctypes.c_float, _c_int,
-        _c_void_p]                           # as mmlspark_paged_launch's
+        *[_c_void_p] * 6, *[_c_int] * 8, *[_c_ll] * 6, ctypes.c_float,
+        _c_int, _c_int, _c_void_p]          # ..., scale, ctas, device
     for fn in (lib.mmlspark_wide_flash_launch, lib.mmlspark_wide_bwd_launch,
                lib.mmlspark_wide_paged_launch):
         fn.restype = _c_int
@@ -441,6 +481,13 @@ def _mask_arg(key_mask, T):
     return mask, mask.stride(0)
 
 
+def _wide_ctas(wide: bool, D: int, dtype: torch.dtype,
+               kernel: str = "fwd") -> tuple:
+    """The wide launchers' extra argument: :func:`wide_plan`'s CTAs of a
+    cluster (0: the split kernels); none for the built instances."""
+    return (wide_plan(D, dtype, kernel).ctas,) if wide else ()
+
+
 def _error_string(lib, wide: bool, err: int, bwd: bool = False) -> str:
     fn = (lib.mmlspark_wide_error_string if wide
           else lib.mmlspark_flash_bwd_error_string if bwd
@@ -474,7 +521,7 @@ def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
         _DTYPE_CODES[q.dtype], B, H, T, Dk,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], mask_sb, D ** -0.5, int(causal), int(q_offset),
-        int(k_offset), q.device.index,
+        int(k_offset), *_wide_ctas(wide, Dk, q.dtype), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         kid = ("K2c-lse" if with_lse else "K2c") if causal else \
@@ -588,7 +635,9 @@ def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
         _DTYPE_CODES[q.dtype], B, H, T, Dk,
         (ctypes.c_longlong * 21)(*strides), mask_sb, D ** -0.5,
         int(causal), int(q_offset), int(k_offset),
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+        *_wide_ctas(wide, Dk, q.dtype, "dkv" if dkv else "dq"),
+        q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"{'causal ' if causal else ''}{'K2e' if dkv else 'K2d'} "

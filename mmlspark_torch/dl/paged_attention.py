@@ -55,7 +55,8 @@ takes pools wider than q: q is zero-padded to the pools' width, scores are
 scaled by q's true ``hd^-0.5`` and the output is sliced back to hd. The
 decode kernel loops over the pools' head dim and takes any of them; the
 window kernel's instances stop at 256 in bf16 and 128 in f32, and wider
-pools run on its wide instance in ``csrc/attn_wide.cu``, split over hd.
+pools run on its wide instance in ``csrc/attn_wide.cu``, split over hd as
+``flash_attention.wide_plan`` says.
 """
 
 from __future__ import annotations
@@ -67,8 +68,8 @@ from typing import NamedTuple
 import torch
 
 from ..native.loader import CudaLoader
-from .flash_attention import (_library_wide, _unpad, kernel_head_dim,
-                              pad_head_dim, wide_head_dim)
+from .flash_attention import (_library_wide, _unpad, _wide_ctas,
+                              kernel_head_dim, pad_head_dim, wide_head_dim)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _ALIGN = 16               # the kernels stage rows as 16-byte vectors
 NEG = -1e30               # the kernels' masked score
@@ -379,8 +380,8 @@ def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             rows.data_ptr(), pos.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], S, H, w, hd, NB, BL, rows.shape[1],
-            *q.stride()[:3], *out.stride()[:3], d ** -0.5, q.device.index,
-            stream)
+            *q.stride()[:3], *out.stride()[:3], d ** -0.5,
+            *_wide_ctas(True, hd, q.dtype), q.device.index, stream)
         if err != 0:
             raise RuntimeError(
                 "K3 paged-attention window kernel launch failed (wide head "

@@ -2,14 +2,20 @@
 run zero-padded to the next kernel head dim (32, 128, 256, 384), scaled by
 the true ``hd^-0.5``, and sliced back; 256 and 512 run as they are. A head
 dim wider than the widest instance built for its dtype (256 in bf16, 128 in
-f32) runs on the wide instances (``csrc/attn_wide.cu``), split over D in
-chunks of 128 columns.
+f32) runs on the wide kernels (``csrc/attn_wide.cu``), split over D as
+``wide_plan`` says: units of 128 columns in bf16 and 64 in f32 summed in a
+cluster (two a CTA, up to 16 units), and wider heads in chunks of 128
+columns.
 
 Held on the CPU, in f32:
 - ``kernel_head_dim``: 1-32 → 32, 33-64 → 64, 65-128 → 128, 129-256 →
   256, above the next multiple of 128 (257-384 → 384, 385-512 → 512), with
   no upper limit; f32 above 128 is not refused: it passes the checks and
   reaches the wide instances;
+- ``wide_plan`` at every kernel head dim from 384 to 2,048 in bf16 and from
+  256 to 1,024 in f32 takes the cluster kernels (two units a CTA, bf16's
+  K2e one, at most 16 CTAs), wider ones the split kernels, and refuses
+  none;
 - ``pad_head_dim`` followed by the plain versions (forward, lse, the fused
   backward, K3) equals the plain versions unpadded, at hd 16 and 96, with
   the key mask and causal at offsets: atol 1e-6 (zero columns add exact
@@ -18,9 +24,10 @@ Held on the CPU, in f32:
   ``flash_attention_lse`` under grad run ``_launch_forward`` and
   ``_launch_backward`` against a stand-in for the compiled libraries that
   computes each launch with the plain version from the pointers, strides,
-  head dim and scale it is handed, and each wide launch chunk by chunk as
-  the kernels split D (S, and dP, over every chunk; each output chunk
-  apart; the lse from chunk 0 only); o, lse and dq/dk/dv equal the
+  head dim and scale it is handed, and each wide launch unit by unit as
+  ``wide_plan`` splits D, the CTAs it is handed checked against the
+  plan (S, and dP, over the whole D; each output unit apart; the lse from
+  unit 0 only); o, lse and dq/dk/dv equal the
   unpadded plain versions (atol 1e-5), and the stand-in saw only kernel
   head dims, the true scale, and the wide library exactly where the head
   dim is wider than the f32 instances;
@@ -115,6 +122,35 @@ def test_kernel_head_dim():
         == [False, False, True]
 
 
+def test_wide_plan_routes_every_head_dim_to_a_hand_written_kernel():
+    for dtype, top in ((torch.bfloat16, 2048), (torch.float32, 1024)):
+        low = 384 if dtype == torch.bfloat16 else 256
+        unit = 128 if dtype == torch.bfloat16 else 64
+        for D in range(low, 4096 + 1, k2.WIDE_CHUNK):
+            assert k2.wide_head_dim(D, dtype)
+            for kernel in ("fwd", "dq", "dkv"):
+                plan = k2.wide_plan(D, dtype, kernel)
+                if D <= top:      # a cluster of at most 16 units sums S
+                    # two units a CTA, bf16's K2e one
+                    per_cta = 1 if (kernel, dtype) == ("dkv",
+                                                       torch.bfloat16) else 2
+                    assert plan == k2.WidePlan("cluster", unit, D // unit,
+                                               -(-D // unit // per_cta))
+                    assert plan.units <= k2.WIDE_UNITS_MAX
+                    assert plan.ctas <= 16          # the H100's largest
+                else:             # wider: the split kernels, never a plain
+                    assert plan == k2.WidePlan("split", k2.WIDE_CHUNK,
+                                               D // k2.WIDE_CHUNK, 0)
+    assert k2.wide_plan(512, torch.bfloat16).ctas == 2
+    assert k2.wide_plan(384, torch.bfloat16).ctas == 2      # 3 units
+    assert k2.wide_plan(512, torch.bfloat16, "dkv").ctas == 4
+    assert k2.wide_plan(2048, torch.bfloat16, "dkv").ctas == 16
+    assert k2.wide_plan(2048, torch.bfloat16, "dq").ctas == 8
+    assert k2.wide_plan(256, torch.float32, "dkv").ctas == 2
+    assert k2.wide_plan(2176, torch.bfloat16).route == "split"
+    assert k2.wide_plan(1152, torch.float32).route == "split"
+
+
 def _on_card(*ts):
     """Stand-ins that pass the kernels' device check (layout only)."""
     return [types.SimpleNamespace(
@@ -127,9 +163,9 @@ def _on_card(*ts):
 def test_f32_kernels_refuse_head_dims_above_128(kernel_route, hd):
     """The name is that of the refusal this test once pinned; it now checks
     the repair, and does not expect a refusal: f32 above head dim 128
-    passes the kernels' checks and reaches the wide instances (two
-    128-column chunks at kernel head dim 256), equal to the plain
-    version."""
+    passes the kernels' checks and reaches the wide instances (four
+    64-column units in a cluster of two CTAs at kernel head dim 256),
+    equal to the plain version."""
     q, k, v, _, mask = qkv(hd, T=12, seed=hd)
     k2._check_kernel_inputs("flash_cuda", *_on_card(q, k, v))
     k2._check_kernel_inputs("flash_cuda", *_on_card(
@@ -248,41 +284,50 @@ class _FakeLibrary:
             _view(dq, shape, (*st[4], 1))[...] = gq.numpy()
         return 0
 
-    # the wide instances: the same launches split over D in chunks of
-    # WIDE_CHUNK columns, each chunk's CTAs reducing S (and dP) over every
-    # chunk and writing only their own
+    # the wide kernels: the same launches split over D as wide_plan says
+    # (the CTAs they are handed checked against the plan, and that they
+    # cover D's units two a CTA, as the launchers check), the scores (and
+    # dP) over the whole D and each output unit from its own columns
+    def _units(self, D, ctas, kernel):
+        plan = k2.wide_plan(D, torch.float32, kernel)
+        assert ctas == plan.ctas
+        assert plan.unit * plan.units == D
+        if ctas:
+            assert 2 * (ctas - 1) < plan.units <= 2 * ctas
+        self.wide.add(D)
+        self.dims.add(D)
+        return [slice(c, c + plan.unit) for c in range(0, D, plan.unit)]
+
     def mmlspark_wide_flash_launch(self, q, k, v, mask, o, lse, dtype, B, H,
                                    T, D, *rest):
         strides = [rest[i:i + 3] for i in range(0, 12, 3)]
-        mask_sb, scale, causal, q_off, k_off = rest[12:17]
-        assert dtype == 1 and D % k2.WIDE_CHUNK == 0
-        self.wide.add(D)
-        self.dims.add(D)
+        mask_sb, scale, causal, q_off, k_off, ctas = rest[12:18]
+        assert dtype == 1
+        units = self._units(D, ctas, "fwd")
         self.scales.add(scale)
         shape = (B, H, T, D)
         q_, k_, v_ = (torch.from_numpy(np.array(_view(p, shape, (*st, 1))))
                       for p, st in zip((q, k, v), strides))
         m = self._mask(mask, B, T, mask_sb)
         out = _view(o, shape, (*strides[3], 1))
-        for c in range(0, D, k2.WIDE_CHUNK):
-            cols = slice(c, c + k2.WIDE_CHUNK)
-            # the chunk's output: full-D scores, its own V columns
+        for i, cols in enumerate(units):
+            # the unit's output: full-D scores, its own V columns
+            n = cols.stop - cols.start
             oc, l = k2.flash_lse_torch(q_, k_, v_[..., cols].contiguous()
-                                       .repeat(1, 1, 1, D // k2.WIDE_CHUNK),
-                                       m, causal=bool(causal),
-                                       q_offset=q_off, k_offset=k_off,
-                                       scale=scale)
-            out[..., cols] = oc[..., :k2.WIDE_CHUNK].numpy()
-            if lse is not None and c == 0:
+                                       .repeat(1, 1, 1, D // n), m,
+                                       causal=bool(causal), q_offset=q_off,
+                                       k_offset=k_off, scale=scale)
+            out[..., cols] = oc[..., :n].numpy()
+            if lse is not None and i == 0:
                 _view(lse, (B * H * T,), (1,))[...] = l.reshape(-1).numpy()
         return 0
 
     def mmlspark_wide_bwd_launch(self, dkv, q, k, v, dout, mask, lse, dsum,
                                  dq, dk, dv, dtype, B, H, T, D, strides,
-                                 mask_sb, scale, causal, q_off, k_off, *_):
-        assert dtype == 1 and D % k2.WIDE_CHUNK == 0
-        self.wide.add(D)
-        self.dims.add(D)
+                                 mask_sb, scale, causal, q_off, k_off,
+                                 ctas, *_):
+        assert dtype == 1
+        units = self._units(D, ctas, "dkv" if dkv else "dq")
         self.scales.add(scale)
         shape = (B, H, T, D)
         st = [tuple(strides[i:i + 3]) for i in range(0, 21, 3)]
@@ -293,11 +338,10 @@ class _FakeLibrary:
         pos = dict(causal=bool(causal), q_offset=q_off, k_offset=k_off,
                    scale=scale)
         m = self._mask(mask, B, T, mask_sb)
-        # p and ds from every chunk (they need the whole D), then each
-        # output chunk from its own columns
+        # p and ds over the whole D, then each output unit from its own
+        # columns
         p, ds = k2._plain_grads_of_scores(*ins[:3], m, ins[3], *rows, **pos)
-        for c in range(0, D, k2.WIDE_CHUNK):
-            cols = slice(c, c + k2.WIDE_CHUNK)
+        for cols in units:
             if dkv:
                 gk = torch.einsum("bhqk,bhqd->bhkd", ds, ins[0][..., cols])
                 gv = torch.einsum("bhqk,bhqd->bhkd", p, ins[3][..., cols])
