@@ -320,7 +320,27 @@ kernels build), then:
     bit-equal to phase 29; a ``TextEncoderBase`` checkpoint by name
     (bit-equal to ``model=``) and with ``quantize=True`` (cosine against
     f32 >= 0.99). Every vision phase fails if K1, K2 or K3 launches, or a
-    plain version runs.
+    plain version runs;
+33. drives the observability plane (``mmlspark_torch.obs``) on phases 3,
+    8 and 11's data and models: phase 3's fit under a ``SpanCollector``
+    (one ``lightgbm.fit`` span with a ``boosting_round`` child per
+    iteration, the rounds' seconds within the fit's, the round histogram
+    filled once a round, phase 3's K1 launches and no plain call) beside
+    the same fit untraced; a ``torch.profiler`` capture
+    (``XprofCaptures.region``) around one warm fit and one decode round of
+    phase 11's 16-slot engine, whose exported K1 and K3 kernel events must
+    equal the wrappers' launch deltas times the kernels a launch runs, with
+    the ``device=True`` span names in it; ``device_memory_stats()`` against
+    ``torch.cuda.memory_allocated``/``mem_get_info`` and a host-only
+    process's scrape with the card visible, which must leave
+    ``torch.cuda.is_initialized()`` False (and must see the context the
+    same process then makes); phase 8's masked-LM step counted through the kernels and through
+    the plain versions on the card (``obs.attribution.count_cost``: the
+    counts must be equal) and its MFU against the H100 peak row, in (0,
+    1.05]; a ``Timer``-wrapped transform of phase 3's model (synced, device
+    seconds > 0, dispatch + device within 5 % of wall); and phase 11's
+    ``compile_tracker`` stats after round 3 with the signatures that
+    arrived after ``mark_steady``.
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -329,7 +349,8 @@ its seconds. The last two lines are the kernels' JSON record and
 first check, and ``--phases`` runs some of the phase groups after the build
 (``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
 12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21,
-``breadth3``: 22-23, ``textgen``: 24-28, ``vision``: 29-32).
+``breadth3``: 22-23, ``textgen``: 24-28, ``vision``: 29-32, ``obs``: 33,
+which needs ``gbdt``, ``train`` and ``llm``).
 """
 
 from __future__ import annotations
@@ -444,6 +465,38 @@ REMAT_GRAD_REL_MAX = 1e-5
 # draft's width-1 walks and the target's width-5 walk round differently, so
 # a near-tie may part them
 SPEC_ACCEPT_MIN = 0.9
+
+
+# what phases 3, 8 and 11 leave for phase 33 (their frame, models, engine)
+OBS: dict = {}
+# phase 33: a Timer's dispatch + device seconds against the wall around it
+TIMER_WALL_SHARE = 0.05
+# phase 33: MFU above 1 is a wrong count or a wrong clock
+MFU_MAX = 1.05
+# phase 33: a host-only process's scrape, with the card visible, must not
+# create a context; the same scrape after the process makes one (a
+# tensor on the card) must see it, or the check could not fail
+HOST_SCRAPE = r"""
+import json
+import torch
+import mmlspark_torch.obs as obs
+
+
+def scrape():
+    stats = obs.device_memory_stats()
+    obs.memory_profiler.update()
+    obs.fleet_health.tick()
+    obs.registry.exposition()
+    return {"stats": stats, "initialized": torch.cuda.is_initialized(),
+            "mem_gauges": any(k.startswith("mem_hbm_")
+                              for k in obs.registry.snapshot())}
+
+
+host = scrape()
+torch.cuda.init()
+x = torch.ones(1024, device="cuda")
+print(json.dumps({"host": host, "card": scrape()}))
+"""
 
 
 def fail(msg: str) -> None:
@@ -940,13 +993,16 @@ def wide_hold_mask(torch, dev, T=200):
     return mask
 
 
-def wide_inputs(torch, gen, dev, n):
-    """``n`` tensors [B, H, T, D] of WIDE_TIMED at D = 512 in bf16 and 256
-    in f32, each with a key mask (the first row's last 100 keys invalid)."""
+def wide_inputs(torch, gen, dev, n, dims=((512, "bfloat16"),
+                                          (256, "float32"))):
+    """``n`` tensors [B, H, T, D] of WIDE_TIMED at each (D, dtype) of
+    ``dims`` (by default D = 512 in bf16 and 256 in f32), each with a key
+    mask (the first row's last 100 keys invalid)."""
     B, H, T = WIDE_TIMED
     mask = torch.ones(B, T, dtype=torch.bool, device=dev)
     mask[0, -100:] = False
-    for d, dtype in ((512, torch.bfloat16), (256, torch.float32)):
+    for d, name in dims:
+        dtype = getattr(torch, name)
         yield [torch.randn(B, H, T, d, generator=gen, device=dev,
                            dtype=dtype) for _ in range(n)], mask
 
@@ -976,14 +1032,22 @@ def wide_sdpa(torch, x, mask, causal=False, dout=None, flush=None):
     return sdpa_times(torch, *x[:3], dout, flush, attn_mask=allowed)
 
 
+def wide_peak(torch, dtype):
+    """The peak a wide-head-dim kernel's bound takes for ``dtype``, and its
+    label: 989 TFLOP/s for bf16 (the tensor cores); for f32 the card's
+    fastest f32-exact product, 3xTF32 (three TF32 products each at 495
+    TFLOP/s), whichever engine the kernel runs on (the split kernels run
+    on the CUDA cores at 67 TFLOP/s)."""
+    if dtype == torch.float32:
+        return TF32_PEAK_FLOPS / 3, "495 / 3 TFLOP/s, 3xTF32"
+    return BF16_PEAK_FLOPS, "989 TFLOP/s, bf16 tensor cores"
+
+
 def time_wide(torch, phase, kid, x, run, plain, ops_per_d, n_tensors, bw,
               flush, library_ms, nbytes=None):
     """Time a wide-head-dim kernel on ``x`` beside its plain version, its
-    bound (``ops_per_d`` x D operations at the peak of the engine that
-    runs them: 989 TFLOP/s for bf16 on wgmma; for f32 in 3xTF32 on the
-    tensor cores, three TF32 products each at 495 TFLOP/s, on the split
-    kernels 67 TFLOP/s on the CUDA cores; ``n_tensors`` [B, H, T, D]
-    tensors moved, or ``nbytes``) and ``library_ms`` (SDPA's time on the
+    bound (``ops_per_d`` x D operations at :func:`wide_peak`'s rate;
+    ``n_tensors`` [B, H, T, D] tensors moved, or ``nbytes``) and ``library_ms`` (SDPA's time on the
     same inputs, from :func:`wide_sdpa`). Prints the line with the plan
     the kernel was launched with (``flash_attention.wide_plan``); no
     limit is set. Returns the kernel's ms."""
@@ -996,12 +1060,7 @@ def time_wide(torch, phase, kid, x, run, plain, ops_per_d, n_tensors, bw,
         nbytes = n_tensors * B * H * T * D * x[0].element_size()
     kernel = "dkv" if "K2e" in kid else "dq" if "K2d" in kid else "fwd"
     plan = wide_plan(D, x[0].dtype, kernel)
-    if x[0].dtype != torch.float32:
-        peak, rate = BF16_PEAK_FLOPS, "989 TFLOP/s, wgmma"
-    elif plan.ctas:
-        peak, rate = TF32_PEAK_FLOPS / 3, "495 / 3 TFLOP/s, 3xTF32"
-    else:
-        peak, rate = F32_PEAK_FLOPS, "67 TFLOP/s, CUDA cores"
+    peak, rate = wide_peak(torch, x[0].dtype)
     bound_ms, by = bound(ops, nbytes, bw, peak)
     split = (f"{plan.ctas}-CTA clusters, {plan.units} units of {plan.unit}"
              if plan.ctas else f"{plan.units} chunks of {plan.unit}")
@@ -1405,6 +1464,7 @@ def train_phases(torch, k1, k2, dev, bw, flush, texts, lengths, args):
           f"{t_copy * 1e3:.3f} ms")
     for r, kid in zip(records, KERNEL_IDS[False]):
         r["launches"] = counts[-1][kid] // S
+    OBS.update(masked_lm=model, masked_lm_ids=ids)
 
     # one step's loss and gradients through the kernels against autograd
     # through dense attention, on the same weights and batch
@@ -1587,6 +1647,8 @@ def gbdt_phases(torch, k1, dev, bw, flush, args):
     cpu_raw = model.booster.raw_scores(small, device="cpu")
     if not np.allclose(gpu_raw, cpu_raw, rtol=0, atol=1e-5):
         fail("scoring on the card and on the CPU disagree beyond 1e-5")
+    OBS.update(gbdt_df=df, gbdt_kw=kw, gbdt_model=model,
+               gbdt_launches=launches)
     print(f"phase 3: fit {fit_s:.3f} s warm, median of {FIT_RUNS} "
           f"({', '.join(f'{t:.3f}' for t in fit_times)} s; "
           f"{n * iters / fit_s:,.0f} "
@@ -2421,6 +2483,14 @@ def engine_phase(torch, k2, k3, dev, args, model, dense, prompts, gen_out):
           f"kernel and its combine {depth} per decode step), K2c 0; {same} "
           f"of {len(prompts)} sequences identical to phase 10's")
     hold_rescore(torch, "phase 11: round 3", dense, seqs, GEN_T, dev)
+    from mmlspark_torch.obs import compile_tracker
+    mine = f"_{svc}_"
+    OBS.update(engine=eng, engine_step_ms=(dec1[1] - dec0[1]) / max(st, 1)
+               * 1e3, engine_compiles={
+        n: st for n, st in compile_tracker.stats().items() if mine in n},
+        engine_late={n: sigs for n, sigs in
+                     compile_tracker.runtime_signatures().items()
+                     if mine in n})
     del eng
 
     # self-draft speculation, k = 4, on 8 prompts
@@ -5494,8 +5564,346 @@ def vision_phases(torch, k1, k2, k3, dev, texts, args) -> dict:
     return totals
 
 
+def kernel_events(trace_path: str) -> tuple:
+    """The kernel events of an exported ``torch.profiler`` trace, the
+    user-annotation events (``record_function`` regions) and the names of
+    every event: ``(kernels, annotations, names)``."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    notes = [e for e in events if e.get("cat") == "user_annotation"
+             and "dur" in e]
+    return kernels, notes, {e.get("name") for e in events}
+
+
+def region_share(kernels, region) -> dict:
+    """What a capture shows for one annotated region (its user annotation
+    event): kernels whose start falls inside it, their device time, the
+    region's wall and the busy share, and the three longest kernels."""
+    t0, t1 = region["ts"], region["ts"] + region["dur"]
+    inside = [e for e in kernels if t0 <= e["ts"] <= t1]
+    busy_us = sum(e.get("dur", 0) for e in inside)
+    by_name: dict = {}
+    for e in inside:
+        short = re.split(r"[<(]", re.sub(r"^void |\(anonymous namespace\)::",
+                                         "", e["name"]))[0]
+        by_name[short] = by_name.get(short, 0) + e.get("dur", 0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return {"kernels": len(inside), "device_ms": busy_us / 1e3,
+            "wall_ms": (t1 - t0) / 1e3, "busy": busy_us / max(t1 - t0, 1),
+            "top": [(n, round(us / 1e3, 3)) for n, us in top]}
+
+
+def obs_phase(torch, k1, k2, k3, dev, card) -> None:
+    """Phase 33: the observability plane on the card, over phases 3, 8 and
+    11's data and models (module docstring, item 33)."""
+    import gc
+    import shutil
+    import statistics
+    import tempfile
+
+    from mmlspark_torch.dl import mask_batch, masked_xent
+    from mmlspark_torch.dl.train import TrainState, make_train_step
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+    from mmlspark_torch.obs import (CompileTracker, MetricsRegistry,
+                                    SpanCollector, XprofCaptures,
+                                    compile_tracker, device_memory_stats,
+                                    memory_profiler, peak_spec, registry,
+                                    step_profiler, tracer)
+    from mmlspark_torch.obs.attribution import count_cost
+    from mmlspark_torch.stages import Timer
+    phase = "phase 33"
+    # the host-only scrape runs beside the rest (a process takes seconds to
+    # start), with the card visible
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    scrape = subprocess.Popen(
+        [sys.executable, "-c", HOST_SCRAPE], env=env, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        df, kw = OBS["gbdt_df"], OBS["gbdt_kw"]
+        iters = kw["numIterations"]
+
+        # ---- GBDT spans: the fit under a collector, beside it untraced
+        rounds_h = registry.histogram("lightgbm_boosting_round_seconds")
+        plain, restore = counting_plain(k1)
+        traced, untraced = [], []
+        try:
+            for run in range(2):
+                before = rounds_h.count(mode="fused")
+                k1.hist_cuda.launches = 0
+                t0 = time.perf_counter()
+                with SpanCollector() as col:
+                    LightGBMClassifier(**kw).fit(df)
+                    torch.cuda.synchronize()
+                traced.append(time.perf_counter() - t0)
+                spans = col.spans()
+                fits = [sp for sp in spans if sp["name"] == "lightgbm.fit"]
+                rounds = [sp for sp in spans
+                          if sp["name"] == "boosting_round"]
+                hist_n = rounds_h.count(mode="fused") - before
+                if (len(fits) != 1 or len(rounds) != iters
+                        or hist_n != iters or any(
+                            r["parentId"] != fits[0]["spanId"]
+                            for r in rounds)):
+                    fail(f"{phase}: {len(fits)} lightgbm.fit span(s), "
+                         f"{len(rounds)} boosting_round, round histogram "
+                         f"+{hist_n}: expected 1 fit with {iters} rounds "
+                         f"under it and +{iters}")
+                rsum = sum(r["seconds"] for r in rounds)
+                if rsum > fits[0]["seconds"]:
+                    fail(f"{phase}: the rounds' {rsum:.4f} s exceed the "
+                         f"fit's {fits[0]['seconds']:.4f} s")
+                if k1.hist_cuda.launches != OBS["gbdt_launches"] or plain[0]:
+                    fail(f"{phase}: the traced fit launched K1 "
+                         f"{k1.hist_cuda.launches} times (phase 3: "
+                         f"{OBS['gbdt_launches']}) with {plain[0]} plain "
+                         "calls")
+                t0 = time.perf_counter()
+                LightGBMClassifier(**kw).fit(df)
+                torch.cuda.synchronize()
+                untraced.append(time.perf_counter() - t0)
+        finally:
+            restore()
+        print(f"{phase}: GBDT fit under a SpanCollector: 1 lightgbm.fit "
+              f"span ({fits[0]['attrs']}), {len(rounds)} boosting_round "
+              f"children, rounds {rsum:.4f} s of the fit's "
+              f"{fits[0]['seconds']:.4f} s, round histogram +{hist_n}, "
+              f"{OBS['gbdt_launches']} K1 launches, 0 plain calls; fit "
+              f"traced {statistics.median(traced):.3f} s, untraced "
+              f"{statistics.median(untraced):.3f} s (medians of 2, "
+              f"{', '.join(f'{t:.3f}' for t in traced + untraced)} s; "
+              f"no limit) [{card}]")
+
+        # ---- a capture around one warm fit and one decode round
+        eng = OBS["engine"]
+        vocab = TEXT_SHAPE["vocab"]
+        rng = np.random.default_rng(33)
+        prompts = [rng.integers(2, vocab, size=GEN_T) for _ in range(16)]
+        wrappers = (k1.hist_cuda, k3.paged_decode_cuda, k3.paged_cuda)
+        before = [(fn.launches, getattr(fn, "combine_launches", 0))
+                  for fn in wrappers]
+        root = tempfile.mkdtemp(prefix="chip_smoke_xprof_")
+        t0 = time.perf_counter()
+        with XprofCaptures(root=root).region("fit_and_decode") as cap:
+            with tracer.span("chip_smoke.fit", device=True):
+                LightGBMClassifier(**kw).fit(df)
+                torch.cuda.synchronize()
+            with tracer.span("chip_smoke.decode_round", device=True):
+                for i, p in enumerate(prompts):
+                    eng.submit(f"obs-{i}", p, 8)
+                eng.run_until_drained()
+                torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        (k1_n, _), (dec_n, dec_c), (win_n, win_c) = [
+            (fn.launches - b[0], getattr(fn, "combine_launches", 0) - b[1])
+            for fn, b in zip(wrappers, before)]
+        t0 = time.perf_counter()
+        kernels, notes, names = kernel_events(cap["trace"])
+        parse_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(cap["trace"]) / 1e6
+
+        def n_of(*keys):
+            return sum(1 for e in kernels if any(k in e["name"]
+                                                 for k in keys))
+        got = {"hist_partial": n_of("hist_partial"),
+               "hist_reduce": n_of("hist_reduce"),
+               "paged_decode": n_of("paged_decode"),
+               "paged_combine": n_of("paged_combine"),
+               "paged window": n_of("paged_fwd", "paged_f32")}
+        want = {"hist_partial": k1_n, "hist_reduce": k1_n,
+                "paged_decode": dec_n, "paged_combine": dec_c + win_c,
+                "paged window": win_n}
+        if not cap["device"] or got != want or k1_n == 0 or dec_n == 0:
+            fail(f"{phase}: the capture's kernel events {got}, expected "
+                 f"{want} from the wrappers' launch deltas (device "
+                 f"activity {cap['device']})")
+        missing = {"chip_smoke.fit", "chip_smoke.decode_round"} - names
+        if missing:
+            fail(f"{phase}: the device=True spans {sorted(missing)} are not "
+                 "in the capture")
+        regions = {e["name"]: e for e in notes}
+        fit_r = region_share(kernels, regions["chip_smoke.fit"])
+        dec_r = region_share(kernels, regions["chip_smoke.decode_round"])
+        shutil.rmtree(root, ignore_errors=True)
+        print(f"{phase}: torch.profiler capture (XprofCaptures.region, CPU "
+              f"and CUDA activity) around one warm fit and one decode round "
+              f"(16 prompts of {GEN_T}, 8 new each) of phase 11's engine: "
+              f"{capture_s:.2f} s with the export, trace {size_mb:.1f} MB "
+              f"parsed in {parse_s:.2f} s; kernel events {got} = the "
+              f"wrappers' launch deltas (K1 {k1_n} x 2 kernels, K3 decode "
+              f"{dec_n} + combine {dec_c + win_c}, window {win_n}) [{card}]")
+        for label, r in (("fit", fit_r), ("decode round", dec_r)):
+            print(f"{phase}: capture, {label}: {r['kernels']} kernels, "
+                  f"{r['device_ms']:.3f} ms of device time in "
+                  f"{r['wall_ms']:.3f} ms of wall (busy {r['busy']:.3f}); "
+                  f"longest {r['top']} [{card}]")
+
+        # ---- device memory against the allocator, at one moment
+        torch.cuda.synchronize()
+        stats = device_memory_stats()
+        alloc = torch.cuda.memory_allocated(0)
+        total = torch.cuda.mem_get_info(0)[1]
+        peak = torch.cuda.max_memory_allocated(0)
+        mine = [r for r in stats if r["device"] == "0"]
+        if (len(mine) != 1 or mine[0]["bytes_in_use"] != alloc
+                or mine[0]["bytes_limit"] != total
+                or mine[0]["peak_bytes_in_use"] != peak):
+            fail(f"{phase}: device_memory_stats() {stats} against "
+                 f"memory_allocated {alloc}, max_memory_allocated {peak}, "
+                 f"mem_get_info total {total}")
+        memory_profiler.update()
+        gauge = registry.snapshot().get(
+            'mem_hbm_bytes_in_use{device="0"}')
+        if gauge != alloc:
+            fail(f"{phase}: mem_hbm_bytes_in_use {gauge}, allocated {alloc}")
+        print(f"{phase}: device_memory_stats() = memory_allocated "
+              f"{alloc:,} B, peak {peak:,} B, limit {total:,} B "
+              f"(mem_get_info) [{card}]")
+
+        # ---- phase 8's masked-LM step: counted on both routes, and MFU
+        model, ids = OBS["masked_lm"], OBS["masked_lm_ids"]
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+        state = TrainState(model=model, optimizer=opt)
+        step = make_train_step(model, opt, loss_fn=masked_xent,
+                               fetch="logits")
+        rng = np.random.default_rng(8)
+        rows = ids[rng.integers(0, len(ids), size=TRAIN_BATCH)]
+        x, y = (torch.from_numpy(a).to(dev) for a in mask_batch(
+            rows, rng, mask_id=TEXT_SHAPE["vocab"] - 1))
+        state, _ = step(state, x, y)                 # AdamW's state
+        torch.cuda.synchronize()
+        launches = (k2.flash_lse_cuda.launches, k2.flash_dq_cuda.launches,
+                    k2.flash_dkv_cuda.launches)
+        with count_cost() as card_count:
+            state, _ = step(state, x, y)
+            torch.cuda.synchronize()
+        depth = TEXT_SHAPE["depth"]
+        ran = tuple(fn.launches - b for fn, b in zip(
+            (k2.flash_lse_cuda, k2.flash_dq_cuda, k2.flash_dkv_cuda),
+            launches))
+        if ran != (depth, depth, depth):
+            fail(f"{phase}: the counted step launched K2b/K2d/K2e {ran}, "
+                 f"expected {depth} each")
+        real_route = k2._route
+        k2._route = lambda q, impl: False
+        try:
+            with count_cost() as plain_count:
+                state, _ = step(state, x, y)
+                torch.cuda.synchronize()
+        finally:
+            k2._route = real_route
+        card_c = (card_count.flops, card_count.bytes)
+        plain_c = (plain_count.flops, plain_count.bytes)
+        if card_c != plain_c or card_count.flops <= 0:
+            fail(f"{phase}: the step counts {card_c} (FLOPs, bytes) "
+                 f"through the kernels and {plain_c} through the plain "
+                 "versions")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            state, _ = step(state, x, y)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step_s = statistics.median(times)
+        spec = peak_spec()
+        mfu = step_profiler.record_mfu("pretrain_masked_lm",
+                                       card_count.flops, step_s)
+        if spec.platform != "gpu-h100" or not 0 < mfu <= MFU_MAX:
+            fail(f"{phase}: MFU {mfu} against {spec} (expected the "
+                 f"gpu-h100 row and (0, {MFU_MAX}])")
+        print(f"{phase}: pretrain_masked_lm step (batch {TRAIN_BATCH} x "
+              f"T={TEXT_T}, {TEXT_SHAPE}, AdamW): "
+              f"{card_count.flops / 1e12:.4f} TFLOP and "
+              f"{card_count.bytes / 1e9:.3f} GB counted through the kernels"
+              f" = through the plain versions on the card (the kernels' "
+              f"formulas {card_count.analytic_flops / 1e12:.4f} TFLOP of "
+              f"it); step {step_s:.4f} s (median of 5: "
+              f"{', '.join(f'{t:.4f}' for t in times)}); MFU {mfu:.4f} "
+              f"against {spec.peak_flops / 1e12:.0f} TFLOP/s "
+              f"({spec.platform}); roofline "
+              f"{spec.roofline_seconds(*card_c) * 1e3:.3f} ms [{card}]")
+        del state, opt, step, x, y
+
+        # ---- a Timer around phase 3's model's transform (the step's
+        # tensors collected first, so no collection lands in the window)
+        gc.collect()
+        torch.cuda.synchronize()
+        timer = Timer(stage=OBS["gbdt_model"])
+        timer.transform(df)                          # warm
+        t0 = time.perf_counter()
+        timer.transform(df)
+        wall = time.perf_counter() - t0
+        split = timer.lastDispatch + timer.lastDevice
+        if (not timer.lastSynced or timer.lastDevice <= 0
+                or abs(split - wall) > TIMER_WALL_SHARE * wall):
+            fail(f"{phase}: Timer synced {timer.lastSynced}, dispatch "
+                 f"{timer.lastDispatch:.6f} s + device "
+                 f"{timer.lastDevice:.6f} s against {wall:.6f} s of wall")
+        print(f"{phase}: Timer(LightGBMClassificationModel).transform of "
+              f"{len(df['label']):,} rows: dispatch "
+              f"{timer.lastDispatch:.6f} s + device {timer.lastDevice:.6f} "
+              f"s = {split:.6f} s of {wall:.6f} s wall, synced [{card}]")
+
+        # ---- the engine's compiles after round 3, and what tracking costs
+        # a decode step: the same wrapper (a tracker of its own) around a
+        # bare function, on the engine's step arguments, against the bare
+        # function, in alternating runs
+        print(f"{phase}: phase 11's compile_tracker after round 3: "
+              f"{OBS['engine_compiles']}; signatures after mark_steady: "
+              f"{OBS['engine_late'] or 'none'}")
+        dec = eng.decoder
+        step_args = (dec.kv.block_rows([None] * dec.slots, dec.max_blocks),
+                     dec.last, dec.ptr, dec.end, dec.active.copy())
+
+        def bare(*_):
+            return None
+        tracked = CompileTracker(registry=MetricsRegistry()).track(
+            bare, name="chip_smoke_probe")
+        calls, costs = 2540, []
+        for _ in range(5):
+            run_s = []
+            for fn in (bare, tracked):
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn(*step_args)
+                run_s.append(time.perf_counter() - t0)
+            costs.append((run_s[1] - run_s[0]) / calls * 1e6)
+        cost_us = float(np.median(costs))
+        print(f"{phase}: compile_tracker's own cost per decode step: "
+              f"{cost_us:.3f} us (median of 5 alternating runs of "
+              f"{calls:,} calls on the engine's step arguments, host clock: "
+              f"{', '.join(f'{c:.3f}' for c in costs)} us), "
+              f"{cost_us / 1e3 / OBS['engine_step_ms'] * 100:.4f} % of "
+              f"round 3's {OBS['engine_step_ms']:.3f} ms per step [{card}]")
+
+        # ---- the host-only scrape
+        out, err = scrape.communicate(timeout=120)
+    finally:
+        if scrape.poll() is None:
+            scrape.kill()
+            scrape.wait()
+    if scrape.returncode != 0:
+        fail(f"{phase}: the host-only scrape failed: {err[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    host, card = got["host"], got["card"]
+    if host != {"stats": [], "initialized": False, "mem_gauges": False}:
+        fail(f"{phase}: a host-only process's scrape gave {host}: expected "
+             "no stats, no mem_hbm_ gauges and CUDA uninitialized")
+    if not (card["initialized"] and card["mem_gauges"] and card["stats"]
+            and card["stats"][0].get("bytes_in_use", 0) >= 4096):
+        fail(f"{phase}: after torch.cuda.init() and a tensor on the card the "
+             f"same scrape gave {card}: the host-only check cannot fail")
+    print(f"{phase}: a host-only process's scrape (card visible): "
+          "device_memory_stats() [], no mem_hbm_ gauge, "
+          "torch.cuda.is_initialized() False; after torch.cuda.init() and a "
+          f"4,096-byte tensor the same scrape: initialized True, "
+          f"{card['stats']}")
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
-                "breadth", "breadth2", "breadth3", "textgen", "vision")
+                "breadth", "breadth2", "breadth3", "textgen", "vision",
+                "obs")
 
 
 class Phase:
@@ -5530,11 +5938,15 @@ def main() -> None:
                     "text (5-6), train (7-8), llm (9-11), causal (12-13), "
                     "featurize (14-15), breadth (16-18), breadth2 "
                     "(19-21), breadth3 (22-23), textgen (24-28), vision "
-                    "(29-32)")
+                    "(29-32), obs (33: needs gbdt, train and llm); train "
+                    "needs text")
     args = ap.parse_args()
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
         fail(f"--phases {args.phases}: groups are {', '.join(PHASE_GROUPS)}")
+    if "train" in groups and "text" not in groups:
+        fail(f"--phases {args.phases}: train (7-8) needs text (5-6): phase "
+             "8 serves its trunk as phase 6's TextEncoderLong")
 
     import torch
     if not torch.cuda.is_available():
@@ -5640,6 +6052,13 @@ def main() -> None:
                      "record")
             rec["vision_launches"] = sum(
                 vision[c] for c in VISION_COUNTERS[rec["name"]])
+
+    if "obs" in groups:
+        if not {"gbdt", "train", "llm"} <= groups:
+            fail("phase 33 (obs) needs the gbdt, train and llm groups: it "
+                 "reuses phases 3, 8 and 11's data and models")
+        with Phase("phase 33"):
+            obs_phase(torch, k1, k2, k3, dev, card)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -97,7 +97,9 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_gbdt_shards.py", "test_torch_bert.py",
               "test_torch_checkpoint.py", "test_torch_textgen.py",
               "test_torch_vision_models.py", "test_torch_convert_vision.py",
-              "test_torch_quantize.py", "test_torch_image.py"],
+              "test_torch_quantize.py", "test_torch_image.py",
+              "test_torch_obs.py", "test_torch_obs_profile.py",
+              "test_torch_obs_fleet.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

@@ -6,8 +6,12 @@ each fit/transform/predict, plus error events with the exception. Here it is a
 context manager so the wrapped region is timed as well (the reference pairs
 this with its ``Timer`` stage; we fold wall time into the event).
 
-The JAX package also opens a tracer span per call; the port's tracing plane
-comes with the observability slice, so events here carry no trace ids.
+Each ``log_call`` region is also an obs tracer span (``obs.tracing``)
+named ``Class.method``: the event carries ``traceId``/``spanId``/``parentId``,
+and any spans opened inside the call — boosting rounds, profiled steps —
+nest under it in the same JSON sink. The span itself emits no separate
+line here (the stage event IS the span record), so consumers see one event
+per call, with trace linkage, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import contextlib
 import json
 import logging
 import time
+
+from ..obs.tracing import tracer as _tracer
 
 logger = logging.getLogger("mmlspark_torch.telemetry")
 
@@ -39,11 +45,24 @@ class BasicLogging:
     @contextlib.contextmanager
     def log_call(self, method: str):
         start = time.perf_counter()
+        # the span carries parentage for anything traced inside the call;
+        # emission stays with _log_event below (one line per call)
+        span = _tracer.start_span(f"{type(self).__name__}.{method}",
+                                  uid=getattr(self, "uid", None))
+        link = {"traceId": span.trace_id, "spanId": span.span_id,
+                "parentId": span.parent_id}
         try:
             yield
         except BaseException as e:
+            # BaseException, not Exception: a KeyboardInterrupt thrown
+            # into the region must still end the span, or the ambient
+            # contextvar keeps pointing at it and every later span in
+            # this thread parents under a dead trace
+            _tracer.end_span(span, error=e, emit=False)
             self._log_event(method, error=repr(e),
-                            seconds=time.perf_counter() - start)
+                            seconds=time.perf_counter() - start, **link)
             raise
         else:
-            self._log_event(method, seconds=time.perf_counter() - start)
+            _tracer.end_span(span, emit=False)
+            self._log_event(method, seconds=time.perf_counter() - start,
+                            **link)

@@ -6,17 +6,21 @@ df``) composed into ``Pipeline``s (see SURVEY §1). The port keeps that exact
 surface; stages run eagerly, their tensor work in PyTorch on the device each
 stage resolves.
 
-The JAX package's fused-segment protocol (``Transformer._trace``) and its
-pipeline profiler hook belong to its XLA compile plane; their counterparts
-come with the port's compile slice.
+``PipelineModel.transform`` carries the JAX package's opt-in per-stage
+profiler (``obs.profile.enable_pipeline_profiling`` or
+``MMLSPARK_TPU_PROFILE_PIPELINE=1``); the default path is untouched. The
+fused-segment protocol (``Transformer._trace``) belongs to the JAX
+package's XLA compile plane; its counterpart comes with the port's compile
+slice.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+from ..obs.profile import pipeline_profiler as _pipeline_profiler
 from .dataframe import DataFrame
-from .param import Params, StageListParam
+from .param import Params, StageListParam, StageParam
 from .logging import BasicLogging
 from .serialize import SaveLoadMixin, register_stage
 
@@ -106,9 +110,37 @@ class PipelineModel(Model):
 
     def _transform(self, df: DataFrame) -> DataFrame:
         cur = df
+        prof = _pipeline_profiler()
+        if prof is None:
+            for stage in self.getOrDefault("stages"):
+                cur = stage.transform(cur)
+            return cur
+        # per-stage host-dispatch vs device-execute attribution (opt-in):
+        # the synchronize after each stage is the measurement, and it
+        # serializes the queued device work, which is why the default
+        # path stays untouched
         for stage in self.getOrDefault("stages"):
-            cur = stage.transform(cur)
+            with prof.step(type(stage).__name__) as h:
+                cur = h.done(stage.transform(cur), cuda_devices(stage))
         return cur
+
+
+def cuda_devices(stage) -> set:
+    """The CUDA devices ``stage`` and the stages it holds (stage and
+    stage-list params) compute on, by their ``device`` params."""
+    found, todo = set(), [stage]
+    while todo:
+        s = todo.pop()
+        for p in type(s).params():
+            value = s.get(p)
+            if p.name == "device" and value is not None \
+                    and str(value).startswith("cuda"):
+                found.add(str(value))
+            elif isinstance(p, StageParam) and value is not None:
+                todo.append(value)
+            elif isinstance(p, StageListParam):
+                todo.extend(value or [])
+    return found
 
 
 # ---------------------------------------------------------------- fluent API

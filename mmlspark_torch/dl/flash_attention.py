@@ -87,6 +87,7 @@ import torch
 import torch.nn.functional as F
 
 from ..native.loader import CudaLoader
+from ..obs.attribution import analytic_cost
 from ..parallel.ring_attention import blockwise_attention
 
 HEAD_DIMS = (32, 64, 128, 256)   # the bf16 instances of the main kernels
@@ -224,6 +225,61 @@ def _scale(q, scale):
     return q.shape[-1] ** -0.5 if scale is None else scale
 
 
+# ------------------------------------------------- the kernels' own counts
+# what obs.attribution counts for one call, on either route: the kernels'
+# formulas over the allowed (query, key) pairs P (the bounds of PERF.md),
+# with each input read once and each output written once
+
+def allowed_pairs(q, key_mask=None, causal=False, q_offset=0,
+                  k_offset=0) -> int:
+    """The allowed (query, key) pairs over all heads: ``H x`` the pairs
+    of the key mask (all keys without one) and, with ``causal``,
+    ``k_offset + c <= q_offset + r``."""
+    B, H, T, _ = q.shape
+    valid = (torch.ones(B, T, dtype=torch.bool, device=q.device)
+             if key_mask is None else key_mask.bool())
+    if not causal:
+        return H * T * int(valid.sum())
+    m = torch.arange(T, device=q.device) + (int(k_offset) - int(q_offset))
+    rows = (T - m.clamp(min=0)).clamp(min=0)      # rows r >= m of key c
+    return H * int((valid * rows).sum())
+
+
+def _tensor_bytes(q) -> int:
+    return q.numel() * q.element_size()
+
+
+def _mask_bytes(key_mask) -> int:
+    return 0 if key_mask is None else key_mask.numel() * \
+        key_mask.element_size()
+
+
+def _cost_forward(lse: bool, causal_always: bool = False):
+    """Forward (K2a/K2b/K2c/K2c-lse): 4·P·D, q, k, v and o (and the f32
+    lse rows) moved once."""
+    def cost(q, k, v, key_mask=None, *, causal=False, q_offset=0,
+             k_offset=0, **_):
+        pairs = allowed_pairs(q, key_mask, causal or causal_always,
+                              q_offset, k_offset)
+        rows = q.shape[0] * q.shape[1] * q.shape[2] * 4 if lse else 0
+        return (4 * pairs * q.shape[-1],
+                4 * _tensor_bytes(q) + rows + _mask_bytes(key_mask))
+    return cost
+
+
+def _cost_backward(dkv: bool):
+    """K2d: 6·P·D, q, k, v, dO, dq and two f32 rows moved once; K2e:
+    8·P·D, with dk and dv in place of dq."""
+    def cost(q, k, v, key_mask, dout, lse, dsum, *, causal=False,
+             q_offset=0, k_offset=0, **_):
+        pairs = allowed_pairs(q, key_mask, causal, q_offset, k_offset)
+        rows = q.shape[0] * q.shape[1] * q.shape[2] * 4
+        return ((8 if dkv else 6) * pairs * q.shape[-1],
+                (6 if dkv else 5) * _tensor_bytes(q) + 2 * rows
+                + _mask_bytes(key_mask))
+    return cost
+
+
 def _plain_forward(q, k, v, key_mask, causal=False, q_offset=0,
                    k_offset=0, scale=None):
     """The forward in f32 all at once (one k-block of the TPU kernel): the
@@ -245,6 +301,18 @@ def _plain_forward(q, k, v, key_mask, causal=False, q_offset=0,
     return (acc / l.clamp_min(1e-35)).to(v.dtype), m, l
 
 
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the layout its kernel hands back: a ``[B, H, T, D]`` view
+    of a ``[B, T, H, kernel_head_dim(D)]`` buffer. The operations after a
+    plain version are then those after its kernel, and a count of the
+    program is the same on both routes."""
+    B, H, T, D = t.shape
+    buf = torch.empty(B, T, H, kernel_head_dim(D), dtype=t.dtype,
+                      device=t.device)
+    return _unpad(buf.permute(0, 2, 1, 3), D).copy_(t)
+
+
+@analytic_cost(_cost_forward(False))
 def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 key_mask: torch.Tensor | None = None, *,
                 causal: bool = False, q_offset: int = 0,
@@ -252,11 +320,12 @@ def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 ) -> torch.Tensor:
     """Plain PyTorch K2a (and, with ``causal``, K2c): the whole score
     matrix in f32 at once, with the kernel's masking and casting (one
-    k-block of the TPU kernel)."""
-    return _plain_forward(q, k, v, key_mask, causal, q_offset, k_offset,
-                          scale)[0]
+    k-block of the TPU kernel), in the kernel's output layout."""
+    return _kernel_layout(_plain_forward(q, k, v, key_mask, causal,
+                                         q_offset, k_offset, scale)[0])
 
 
+@analytic_cost(_cost_forward(True))
 def flash_lse_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_mask: torch.Tensor | None = None, *,
                     causal: bool = False, q_offset: int = 0,
@@ -267,7 +336,7 @@ def flash_lse_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     1e-35))`` ``[B, H, T]`` (``-1e30`` for a row with no allowed key)."""
     o, m, l = _plain_forward(q, k, v, key_mask, causal, q_offset, k_offset,
                              scale)
-    return o, (m + torch.log(l.clamp_min(1e-35)))[..., 0]
+    return _kernel_layout(o), (m + torch.log(l.clamp_min(1e-35)))[..., 0]
 
 
 def _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum, causal=False,
@@ -288,6 +357,7 @@ def _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum, causal=False,
     return p, p * (dp - dsum[..., None]) * scale
 
 
+@analytic_cost(_cost_backward(False))
 def flash_dq_torch(q, k, v, key_mask, dout, lse, dsum, *,
                    causal: bool = False, q_offset: int = 0,
                    k_offset: int = 0, scale: float | None = None
@@ -295,10 +365,12 @@ def flash_dq_torch(q, k, v, key_mask, dout, lse, dsum, *,
     """Plain PyTorch K2d: ``dq = ds.astype(k) · k`` in q's dtype."""
     _, ds = _plain_grads_of_scores(q, k, v, key_mask, dout, lse, dsum,
                                    causal, q_offset, k_offset, scale)
-    return torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
-                        k.float()).to(q.dtype)
+    return _kernel_layout(torch.einsum("bhqk,bhkd->bhqd",
+                                       ds.to(k.dtype).float(),
+                                       k.float()).to(q.dtype))
 
 
+@analytic_cost(_cost_backward(True))
 def flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum, *,
                     causal: bool = False, q_offset: int = 0,
                     k_offset: int = 0, scale: float | None = None
@@ -310,7 +382,7 @@ def flash_dkv_torch(q, k, v, key_mask, dout, lse, dsum, *,
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
                       dout.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return _kernel_layout(dk.to(k.dtype)), _kernel_layout(dv.to(v.dtype))
 
 
 def flash_dsum(o: torch.Tensor, dout: torch.Tensor,
@@ -533,6 +605,7 @@ def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
     return _unpad(out, D), lse
 
 
+@analytic_cost(_cost_forward(False))
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                key_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K2a (``csrc/flash_attn.cu``) on PyTorch's current stream: the
@@ -561,6 +634,7 @@ def _count(wrapper, causal: bool) -> None:
         wrapper.launches += 1
 
 
+@analytic_cost(_cost_forward(True))
 def flash_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_mask: torch.Tensor | None = None, *,
                    causal: bool = False, q_offset: int = 0,
@@ -581,6 +655,7 @@ def flash_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_lse_cuda.launches = flash_lse_cuda.causal_launches = 0
 
 
+@analytic_cost(_cost_forward(False, causal_always=True))
 def flash_causal_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       key_mask: torch.Tensor | None = None, *,
                       q_offset: int = 0, k_offset: int = 0) -> torch.Tensor:
@@ -647,6 +722,7 @@ def _launch_backward(fn: str, dkv: bool, q, k, v, key_mask, dout, lse,
     return tuple(_unpad(t, D) for t in outs)
 
 
+@analytic_cost(_cost_backward(False))
 def flash_dq_cuda(q, k, v, key_mask, dout, lse, dsum, *,
                   causal: bool = False, q_offset: int = 0,
                   k_offset: int = 0) -> torch.Tensor:
@@ -662,6 +738,7 @@ def flash_dq_cuda(q, k, v, key_mask, dout, lse, dsum, *,
 flash_dq_cuda.launches = flash_dq_cuda.causal_launches = 0
 
 
+@analytic_cost(_cost_backward(True))
 def flash_dkv_cuda(q, k, v, key_mask, dout, lse, dsum, *,
                    causal: bool = False, q_offset: int = 0,
                    k_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:

@@ -68,6 +68,7 @@ from typing import NamedTuple
 import torch
 
 from ..native.loader import CudaLoader
+from ..obs.attribution import analytic_cost
 from .flash_attention import (_library_wide, _unpad, _wide_ctas,
                               kernel_head_dim, pad_head_dim, wide_head_dim)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -107,6 +108,22 @@ def _check_inputs(q, k_pool, v_pool, rows, pos) -> None:
         raise ValueError("q, the pools, rows and pos must be on one device")
 
 
+def _paged_cost(q, k_pool, v_pool, rows, pos):
+    """What obs.attribution counts for one K3 call, on either route (the
+    bound of PERF.md): 4·P·hd over each slot's allowed pairs
+    ``w·(pos + 1) + w·(w - 1)/2`` per head, and the K/V blocks each chain
+    reaches, q and o moved once."""
+    S, H, w, d = q.shape
+    NB, BL, _, hd = k_pool.shape
+    p = pos.long()
+    pairs = H * int((w * (p + 1) + w * (w - 1) // 2).sum())
+    blocks = int(((p + w + BL - 1) // BL).clamp(max=rows.shape[1]).sum())
+    return (4 * pairs * d,
+            2 * blocks * BL * H * hd * k_pool.element_size()
+            + 2 * S * H * w * d * q.element_size())
+
+
+@analytic_cost(_paged_cost)
 def paged_torch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                 rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K3: gather each chain through the table, then dense
@@ -343,6 +360,7 @@ def _check_card(fn: str, q, k_pool, v_pool) -> None:
                              "aligned")
 
 
+@analytic_cost(_paged_cost)
 def paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Launch K3's window kernel (``csrc/paged_attn.cu``; pools wider than
@@ -479,6 +497,7 @@ def window_plan_of(q: torch.Tensor, k_pool: torch.Tensor,
                        _sm_count(q.device.index))
 
 
+@analytic_cost(_paged_cost)
 def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                       v_pool: torch.Tensor, rows: torch.Tensor,
                       pos: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ..native.loader import CudaLoader
+from ..obs.attribution import analytic_cost
 
 STAGE_BYTES = 16 * 1024   # bins and vals of one stage
 STAGES = 4                # stages a CTA streams through (csrc/hist.cu)
@@ -91,6 +92,18 @@ def _check_inputs(bins: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"num_bins must be >= 1, got {num_bins}")
 
 
+def _hist_cost(bins, vals, *, num_bins, count=None, **_):
+    """What obs.attribution counts for one K1 call, on either route (the
+    bound of PERF.md): 3 adds for each of the rows' F bins, the bins and
+    the rows' three values read once, the histogram written once."""
+    n, F = bins.shape
+    if count is not None:
+        n = max(0, min(int(count), n))
+    return (3 * n * F,
+            n * F * bins.element_size() + n * 12 + F * int(num_bins) * 12)
+
+
+@analytic_cost(_hist_cost)
 def hist_torch(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
                count: int | torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch histogram: one ``index_add_`` over ``f*B + bin`` keys
@@ -157,6 +170,14 @@ def build_kernel() -> str:
     return _LOADER.build_log()
 
 
+def _check_card(bins: torch.Tensor) -> None:
+    if bins.device.type != "cuda":
+        raise ValueError(
+            f"hist_cuda needs CUDA tensors, got {bins.device}; use "
+            "hist_torch (or hist) for CPU tensors")
+
+
+@analytic_cost(_hist_cost)
 def hist_cuda(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
               count: int | torch.Tensor | None = None) -> torch.Tensor:
     """Launch K1 (``csrc/hist.cu``: the per-CTA partial histograms, then
@@ -164,10 +185,7 @@ def hist_cuda(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
     one launch. Raises for tensors that are not on a CUDA device, and when
     the kernels do not build or do not launch."""
     _check_inputs(bins, vals, num_bins)
-    if bins.device.type != "cuda":
-        raise ValueError(
-            f"hist_cuda needs CUDA tensors, got {bins.device}; use "
-            "hist_torch (or hist) for CPU tensors")
+    _check_card(bins)
     n, F = bins.shape
     B = int(num_bins)
     if n == 0 or F == 0:

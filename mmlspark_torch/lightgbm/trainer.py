@@ -52,6 +52,8 @@ import torch
 
 from ..core.utils import stable_sigmoid
 from ..device import resolve_device, synchronize
+from ..obs import registry as _obs
+from ..obs.tracing import tracer as _tracer
 from ..parallel.collectives import allreduce, group_rank, group_size
 from ..parallel.sharding import pad_rows
 from .binning import bin_features, bin_upper_value, compute_bin_boundaries
@@ -496,7 +498,27 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
     evals: list[dict] = []
     best_iter, best_metric, rounds_no_improve = -1, None, 0
 
+    # ---- observability: the boosting loop is a span tree (lightgbm.fit →
+    # boosting_round) in the JSON telemetry sink, and every round's host
+    # wall time lands in the process-wide per-round histogram, with the
+    # JAX package's names. Spans are non-current with explicit parentage:
+    # a loop body with breaks must not own ambient context. Each round is
+    # one iteration (the JAX package's per-iteration path; the port has no
+    # scan chunks), and every mode is "fused" (no stepwise DART here).
+    _round_hist = _obs.histogram(
+        "lightgbm_boosting_round_seconds",
+        "host wall seconds per boosting round (chunked rounds record "
+        "one sample per scan chunk), by dispatch mode")
+    _round_mode = "fused"
+    _fit_span = _tracer.start_span(
+        "lightgbm.fit", current=False, objective=cfg.objective,
+        boosting=cfg.boosting_type, iterations=cfg.num_iterations,
+        rows=n_real, features=F)
+
     for it in range(cfg.num_iterations):
+        _round_span = _tracer.start_span(
+            "boosting_round", parent=_fit_span, current=False,
+            iteration=it, mode=_round_mode)
         if delegate is not None:
             # rf averages unshrunk trees: no learning-rate schedule
             rate = None if is_rf else delegate.get_learning_rate(it)
@@ -620,9 +642,13 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
                 rounds_no_improve += 1
             if (cfg.early_stopping_round > 0
                     and rounds_no_improve >= cfg.early_stopping_round):
+                _round_hist.observe(
+                    _tracer.end_span(_round_span).seconds, mode=_round_mode)
                 break
         if delegate is not None:
             delegate.after_train_iteration(it)
+        _round_hist.observe(_tracer.end_span(_round_span).seconds,
+                            mode=_round_mode)
 
     trees = [t.to_numpy() for t in dev_trees]
     t2 = time.perf_counter()
@@ -638,6 +664,11 @@ def train(x, y: np.ndarray, w: np.ndarray | None,
         booster.best_iteration = best_iter + prior_iters
     if _debug_capture is not None:
         _debug_capture["scores"] = assemble(scores)[:n_real].cpu().numpy()
+    # span ends only on the success path: an exception mid-fit drops the
+    # (non-current) span unemitted, which cannot corrupt ambient context
+    _fit_span.set_attr("trees", len(dev_trees))
+    _fit_span.set_attr("best_iteration", best_iter)
+    _tracer.end_span(_fit_span)
     return TrainResult(booster=booster, trees=trees,
                        seconds={"binning": t1 - t0, "boosting": t2 - t1},
                        evals=evals, best_iteration=best_iter)

@@ -39,10 +39,15 @@ Obs: ``gen_ttft_seconds{reuse=cold|warm}``, ``gen_tokens_total``,
 ``gen_spec_accept_ratio``, ``gen_spec_rejected_total``,
 ``gen_decode_steps_total``, ``gen_decode_attn_seconds{phase}`` and
 ``kv_dense_gather_bytes_total{phase}`` here, the ``kv_*`` families in
-``dl.paged_kv``, in the port's registry.
+``dl.paged_kv``, in the port's registry. Every device step runs through
+``obs.compile_tracker`` under the JAX package's program names
+(``llm_prefill_<service>_w<w>_b<P>``, ``llm_decode_<attn>_<service>_S<S>_k<k>``):
+a new input signature counts as a compile. ``warm`` records each program's
+cost per execution in ``obs.cost_attribution`` (one counted call,
+``record_call``) and declares the tracker's steady state; every finished
+sequence appends a feature row (``obs.feature_log``, schema v6).
 
-Not ported yet (ROADMAP.md §1 item 9): AOT fingerprints (``core/aot.py``),
-the compile tracker's steady state, cost attribution and the feature log.
+Not ported yet: AOT fingerprints (``core/aot.py``); ``warm`` returns ``{}``.
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ from ..dl.paged_kv import (OutOfBlocks, PagedKVManager,
                            paged_attention_enabled, pool_block_bytes,
                            scatter_positions, take_positions)
 from ..obs import registry as _default_registry
+from ..obs.attribution import cost_attribution
+from ..obs.profile import compile_tracker, feature_log
 from ..sched.continuous import SlotScheduler
 
 __all__ = ["LLMEngine", "PrefillExecutor", "DecodeExecutor",
@@ -267,8 +274,21 @@ class PrefillExecutor:
         self._gather_bytes = sum(
             _dense_gather_bytes(m, self.batch, self.max_blocks, kv.block_len)
             for m in (module, draft_module) if m is not None)
+        self._programs: dict = {}
+
+    def _program(self, w: int):
+        """The tracked prefill step for window bucket ``w``."""
+        prog = self._programs.get(w)
+        if prog is None:
+            prog = self._programs[w] = compile_tracker.track(
+                self._device_run,
+                name=f"llm_prefill_{self.service}_w{w}_b{self.batch}")
+        return prog
 
     def _run(self, rows, toks, pos, lens) -> np.ndarray:
+        return self._program(toks.shape[1])(rows, toks, pos, lens)
+
+    def _device_run(self, rows, toks, pos, lens) -> np.ndarray:
         """One batch: host arrays in, the first tokens [P] out."""
         rows, toks, pos, lens = _upload(self.device, rows, toks, pos, lens)
         w = toks.shape[1]
@@ -328,13 +348,18 @@ class PrefillExecutor:
 
     def warm(self, windows=(1,)) -> None:
         """Run one batch per window bucket against the trash block only
-        (every row padded): builds the kernels and warms the libraries."""
+        (every row padded): builds the kernels, warms the libraries and
+        records each program's cost (``cost_attribution.record_call``)
+        before ``compile_tracker.mark_steady()``."""
         P = self.batch
         for w in windows:
             w = _bucket_window(w)
-            self._run(np.zeros((P, self.max_blocks), np.int64),
-                      np.zeros((P, w), np.int64), np.zeros(P, np.int64),
-                      np.zeros(P, np.int64))
+            prog = self._program(w)
+            cost_attribution.record_call(
+                prog.__tracked_label__, prog,
+                np.zeros((P, self.max_blocks), np.int32),
+                np.zeros((P, w), np.int64), np.zeros(P, np.int64),
+                np.zeros(P, np.int64), service=self.service)
 
 
 class DecodeExecutor:
@@ -372,6 +397,10 @@ class DecodeExecutor:
         self._gather_bytes = sum(
             _dense_gather_bytes(m, self.slots, self.max_blocks, kv.block_len)
             for m in (module, draft_module) if m is not None)
+        attn = "paged" if self.paged else "dense"
+        self._program = compile_tracker.track(
+            self._device_run, name=f"llm_decode_{attn}_{self.service}_"
+                                   f"S{self.slots}_k{self.spec_k}")
         # host-side slot state (the engine owns seq metadata)
         self.seq_ids: list = [None] * self.slots
         self.ptr = np.ones(self.slots, np.int64)    # committed tokens
@@ -439,6 +468,9 @@ class DecodeExecutor:
         return committed, n_new, n_acc
 
     def _run(self, rows, last, ptr, end, active) -> np.ndarray:
+        return self._program(rows, last, ptr, end, active)
+
+    def _device_run(self, rows, last, ptr, end, active) -> np.ndarray:
         """One step on the device; returns ``[S, k + 3]`` on the host: the
         committed tokens, the count committed, the count accepted."""
         rows, last, ptr, end, active = _upload(self.device, rows, last, ptr,
@@ -505,11 +537,16 @@ class DecodeExecutor:
 
     def warm(self) -> None:
         """Run the step once with every slot inactive (every write lands in
-        the trash block): builds the kernels and warms the libraries."""
+        the trash block): builds the kernels, warms the libraries and
+        records the program's cost (``cost_attribution.record_call``)
+        before ``compile_tracker.mark_steady()``."""
         S = self.slots
-        self._run(np.zeros((S, self.max_blocks), np.int64),
-                  np.zeros(S, np.int64), np.ones(S, np.int64),
-                  np.full(S, 2, np.int64), np.zeros(S, np.int64))
+        cost_attribution.record_call(
+            self._program.__tracked_label__, self._program,
+            np.zeros((S, self.max_blocks), np.int32),
+            np.zeros(S, np.int64), np.ones(S, np.int64),
+            np.full(S, 2, np.int64), np.zeros(S, bool),
+            service=self.service)
 
 
 # ------------------------------------------------------------------ engine
@@ -728,6 +765,19 @@ class LLMEngine:
     def _finish(self, seq_id) -> np.ndarray:
         meta = self._meta.pop(seq_id)
         self.kv.release(seq_id)
+        total_len = min(len(meta.prompt) + 1 + len(meta.generated),
+                        len(meta.prompt) + meta.max_new_tokens)
+        a_flops, a_bytes = cost_attribution.service_cost(self.service)
+        feature_log.record(
+            service=self.service, route="decode",
+            batch=self.decoder.slots,
+            bucket=_bucket_window(len(meta.prompt)),
+            queue_depth=self.sched.pending_count,
+            decode_steps=meta.decode_steps,
+            prefill_tokens=meta.prefill_tokens,
+            context_blocks=-(-total_len // self.block_len),
+            execute_ms=(self.clock() - meta.t_submit) * 1e3,
+            analytic_flops=a_flops, analytic_bytes=a_bytes)
         # prompt + [prefill's first token] + decode commits, trimmed to the
         # budget (the decode step clamps a final speculative burst already)
         full = meta.prompt + [int(meta.first_token)] + \
@@ -736,16 +786,19 @@ class LLMEngine:
                           np.int32)
 
     # -- warmup --------------------------------------------------------------
-    def warm(self, prefill_windows=(1,)) -> dict:
+    def warm(self, prefill_windows=(1,), mark_steady: bool = True
+             ) -> dict:
         """Run both phases once against the trash block: prefill for the
-        given window buckets, then the decode step. This builds the kernels
-        and warms the libraries before the first request. Returns ``{}``:
-        the JAX engine returns its programs' AOT fingerprints and can
-        declare the compile tracker's steady state (``mark_steady``), but
-        eager PyTorch compiles no programs, and the port's AOT store and
-        compile tracker come with ROADMAP.md §1 item 9."""
+        given window buckets, then the decode step. This builds the kernels,
+        warms the libraries and records each program's cost
+        (``obs.cost_attribution``) before the first request, and optionally
+        declares the compile tracker's steady state. Returns ``{}``: the JAX
+        engine returns its programs' AOT fingerprints, and the port has no
+        AOT store yet."""
         self.prefiller.warm(prefill_windows)
         self.decoder.warm()
+        if mark_steady:
+            compile_tracker.mark_steady()
         return {}
 
     def run_until_drained(self) -> dict:

@@ -8,12 +8,11 @@ paths; its fused-segment forms (``_trace``) belong to the compile slice.
 
 from __future__ import annotations
 
-import time
-
-from ..core import (Estimator, Param, StageListParam, StageParam,
-                    Transformer, TypeConverters as TC, UDFParam)
+from ..core import (Estimator, Param, StageParam, Transformer,
+                    TypeConverters as TC, UDFParam)
 from ..core.contracts import HasInputCol, HasInputCols, HasOutputCol
 from ..core.dataframe import object_column
+from ..core.pipeline import cuda_devices as _cuda_devices
 
 
 class DropColumns(Transformer):
@@ -129,12 +128,17 @@ class Explode(Transformer, HasInputCol, HasOutputCol):
 class Timer(Transformer):
     """Wrap a stage and log its wall time (reference ``stages/Timer.scala``).
 
-    ``lastDuration`` is the seconds from the call to the wrapped stage's
-    device work being done: after the stage returns (``lastDispatch``, the
-    host's share) the timer waits with ``torch.cuda.synchronize`` on every
-    CUDA device the stage and the stages inside it run on, as the JAX
-    package's timer waits with ``block_until_ready``; a host-only stage
-    waits for nothing. Both numbers go to the telemetry log.
+    Measurement runs through the obs
+    :class:`~mmlspark_torch.obs.profile.StepProfiler`, as in the JAX
+    package, so a timed stage also lands in the ``profile_step_seconds``
+    host-dispatch vs device-execute split and emits dispatch/device child
+    spans under the ambient trace. ``lastDuration`` is the seconds from the
+    call to the wrapped stage's device work being done: after the stage
+    returns (``lastDispatch``, the host's share) the profiler waits with
+    ``torch.cuda.synchronize`` on every CUDA device the stage and the
+    stages inside it run on (``lastDevice``, with ``lastSynced`` True), as
+    the JAX package's timer waits with ``block_until_ready``; a host-only
+    stage waits for nothing. The numbers go to the telemetry log.
     """
 
     stage = StageParam("stage", "stage to time")
@@ -143,42 +147,27 @@ class Timer(Transformer):
 
     lastDuration: float | None = None
     lastDispatch: float | None = None
+    lastDevice: float | None = None
+    lastSynced: bool | None = None
 
     def _transform(self, df):
+        from ..obs.profile import step_profiler
         inner = self.get("stage")
-        t0 = time.perf_counter()
-        if isinstance(inner, Estimator):
-            fitted = inner.fit(df)
-            out = fitted.transform(df)
-            devices = _cuda_devices(inner) | _cuda_devices(fitted)
-        else:
-            out = inner.transform(df)
-            devices = _cuda_devices(inner)
-        self.lastDispatch = time.perf_counter() - t0
-        if devices:
-            import torch
-            for dev in devices:
-                torch.cuda.synchronize(dev)
-        self.lastDuration = time.perf_counter() - t0
+        with step_profiler.step(type(inner).__name__) as h:
+            if isinstance(inner, Estimator):
+                fitted = inner.fit(df)
+                out = fitted.transform(df)
+                devices = _cuda_devices(inner) | _cuda_devices(fitted)
+            else:
+                out = inner.transform(df)
+                devices = _cuda_devices(inner)
+            h.done(out, devices)
+        self.lastDispatch = h.dispatch_seconds
+        self.lastDevice = h.device_seconds
+        self.lastDuration = h.seconds
+        self.lastSynced = h.synced
         self._log_event("timer", stage=type(inner).__name__,
                         seconds=self.lastDuration,
-                        dispatch_seconds=self.lastDispatch)
+                        dispatch_seconds=self.lastDispatch,
+                        device_seconds=self.lastDevice, synced=h.synced)
         return out
-
-
-def _cuda_devices(stage) -> set:
-    """The CUDA devices ``stage`` and the stages it holds (stage and
-    stage-list params) compute on, by their ``device`` params."""
-    found, todo = set(), [stage]
-    while todo:
-        s = todo.pop()
-        for p in type(s).params():
-            value = s.get(p)
-            if p.name == "device" and value is not None \
-                    and str(value).startswith("cuda"):
-                found.add(str(value))
-            elif isinstance(p, StageParam) and value is not None:
-                todo.append(value)
-            elif isinstance(p, StageListParam):
-                todo.extend(value or [])
-    return found

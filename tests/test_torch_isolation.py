@@ -21,6 +21,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
 SLICE_SCRIPT = r"""
 import sys
 import numpy as np
+import torch
+
+# torch seeds its default generator from the OS at start-up: the modules
+# built below without a generator would draw new weights in every run
+torch.manual_seed(0)
 from mmlspark_torch import DataFrame
 from mmlspark_torch.lightgbm import LightGBMClassifier
 from mmlspark_torch.train import ComputeModelStatistics
@@ -214,7 +219,24 @@ cgen = ContinuousGenerator(lm, slots=1, max_len=8, device="cpu",
 cgen.submit("a", prompts[0], 3)
 cgen.submit("b", prompts[1, :3], 3)
 rows = cgen.run_until_drained()
-np.testing.assert_array_equal(rows["a"][:7], ref[0])
+# the continuous batcher's contract: generate(use_cache=False)'s tokens
+nocache = generate(lm, prompts, max_new_tokens=3, device="cpu",
+                   use_cache=False)
+np.testing.assert_array_equal(rows["a"][:7], nocache[0])
+np.testing.assert_array_equal(rows["b"][:6], nocache[1, :6])
+# generate's cached bf16 path rounds apart from the re-encoding one and
+# parts from it at near-ties: every token it chose, re-scored with the
+# re-encoding forward on its own output, lies within 0.05 of the best
+# logit (0 where the paths agree; at a parting, the top-2 margin). Over 60
+# seeded weight sets the two paths' logits differed by at most 0.025 at a
+# position, so a parting's margin stays under twice that.
+with torch.inference_mode():
+    lg = lm(torch.from_numpy(ref).long())["logits"].float()
+    lg[..., 0] = -float("inf")                # generation never emits pad
+gaps = [float(lg[b, j - 1].max() - lg[b, j - 1, ref[b, j]])
+        for b, start in enumerate((4, 3)) for j in range(start, start + 3)]
+print("cached generate re-scored: largest gap", max(gaps))
+assert max(gaps) <= 0.05, gaps
 spec, rate = generate_speculative(lm, lm, prompts[:1], max_new_tokens=3,
                                   k=2, device="cpu")
 np.testing.assert_array_equal(spec[0], ref[0])
@@ -229,6 +251,27 @@ dense = LLMEngine(lm, slots=2, block_len=4, max_seq_len=16,
 del os.environ["MMLSPARK_TPU_PAGED_ATTN"]
 dense.submit("a", prompts[0], 3)
 np.testing.assert_array_equal(dense.run_until_drained()["a"], ref[0])
+import json
+from mmlspark_torch import obs
+
+with obs.SpanCollector() as col:
+    LightGBMClassifier(device="cpu", numIterations=2, numLeaves=7).fit(df)
+names = [sp["name"] for sp in col.spans()]
+assert names == ["boosting_round"] * 2 + ["lightgbm.fit"], names
+assert json.loads(json.dumps(obs.chrome_trace(col.spans())))
+info = obs.cost_attribution.record_call("iso_mm", lambda a: a @ a,
+                                        torch.ones(8, 8))
+assert info["flops"] == 2 * 8 ** 3, info
+warm = LLMEngine(lm, slots=2, block_len=4, max_seq_len=16,
+                 registry=MetricsRegistry(), device="cpu", service="iso")
+assert warm.warm() == {} and obs.compile_tracker.steady
+assert obs.cost_attribution.service_cost("iso")[0] > 0
+obs.compile_tracker.unmark_steady()
+assert obs.device_memory_stats() == [] and not torch.cuda.is_initialized()
+with obs.XprofCaptures(root=tempfile.mkdtemp()).region("iso") as cap:
+    obs.step_profiler.record_mfu("iso", 1e6, 1e-3)
+assert cap["device"] is False and os.path.exists(cap["trace"]), cap
+assert "lightgbm_boosting_round_seconds" in obs.registry.exposition()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad

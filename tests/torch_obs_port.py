@@ -1,0 +1,49 @@
+"""Runs a JAX-package obs test module's scenarios against the port.
+
+``port_reference_tests("test_fleet.py", exclude)`` reads the reference test
+module, points its ``mmlspark_tpu.obs`` imports (and the telemetry logger's
+name) at ``mmlspark_torch.obs``, executes it as a module of its own and
+returns its test classes and fixtures, less the tests named in
+``exclude`` (``"TestClass.test_name"``). A test module that does
+``globals().update(port_reference_tests(...))`` then collects the same
+scenarios, on the same inputs and with the same assertions, against the
+port: what the reference checks of its own package, the port is held to.
+Everything else the module imports (numpy, the JAX package's non-obs
+modules) stays as it is.
+"""
+
+import os
+import types
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+
+_REWRITES = (("mmlspark_tpu.obs", "mmlspark_torch.obs"),
+             ("mmlspark_tpu.telemetry", "mmlspark_torch.telemetry"))
+
+
+def port_reference_tests(name: str, exclude=()) -> dict:
+    path = os.path.join(TESTS, name)
+    with open(path) as f:
+        src = f.read()
+    for old, new in _REWRITES:
+        src = src.replace(old, new)
+    mod = types.ModuleType(f"torch_port_of_{name[:-3]}")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    ns = mod.__dict__
+    for qual in exclude:
+        if "." in qual:
+            cls, meth = qual.split(".")
+            delattr(ns[cls], meth)
+        else:
+            del ns[qual]
+    out = {}
+    for key, value in ns.items():
+        if key.startswith("__"):
+            continue
+        if isinstance(value, type) and key.startswith("Test"):
+            if not any(a.startswith("test") for a in vars(value)):
+                continue
+            value.__module__ = mod.__name__
+        out[key] = value
+    return out
