@@ -340,7 +340,33 @@ kernels build), then:
     1.05]; a ``Timer``-wrapped transform of phase 3's model (synced, device
     seconds > 0, dispatch + device within 5 % of wall); and phase 11's
     ``compile_tracker`` stats after round 3 with the signatures that
-    arrived after ``mark_steady``.
+    arrived after ``mark_steady``;
+34. serves BERT-base (phase 24's seeded bf16 weights) through
+    ``TextEncoderFeaturizer`` on K2a behind ``RequestScheduler`` with
+    ``Tenancy`` (a gold tenant and a best-effort one with the reference's
+    queue share, the reference's tier deadlines, the reference overload
+    scenario's 0.2 s deadline, a queue of 512): 1,500 seeded single
+    documents of 64-512 WordPiece tokens, half gold, offered on a seeded
+    Poisson schedule at twice the sustainable rate (full batches of 32 a
+    second, measured in the phase's warm pass, which runs every batch shape
+    twice and lands its second pass as FeatureLog rows that fit the shared
+    cost model); one executor thread pulls ``next_batch(max_batch=32)``,
+    runs the featurizer, feeds the estimator and records a FeatureLog row
+    a batch. Fails unless every request is answered or shed with one of
+    the reference's reasons and a ``Retry-After`` > 0, the queue depth
+    stays within its bound, no request is dispatched after its deadline,
+    the registry's ``sched_admitted_total``/``sched_shed_total`` equal the
+    phase's counts, K2a launched 12 times a batch, every served row agrees
+    with the dense route within phase 24's bf16 limits, and gold's answered
+    share is at least best effort's; prints each tenant's p50/p99, the
+    batches, the EWMA beside the measured batch time, the cost model's and
+    the EWMA's MAE over the last third of the batches and K2a's share of
+    the executor's time. The same schedule through a scheduler whose
+    expiry check is off (a planted fault) must break the deadline check.
+    Last, ``CheckpointManager`` saves the encoder, a second save under a
+    ``checkpoint.write`` drop must raise ``InjectedDrop`` and leave the
+    store as it was, and ``restore()`` must give the first state back
+    bit-equal on the card.
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -350,7 +376,7 @@ first check, and ``--phases`` runs some of the phase groups after the build
 (``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
 12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21,
 ``breadth3``: 22-23, ``textgen``: 24-28, ``vision``: 29-32, ``obs``: 33,
-which needs ``gbdt``, ``train`` and ``llm``).
+which needs ``gbdt``, ``train`` and ``llm``, ``control``: 34).
 """
 
 from __future__ import annotations
@@ -4396,38 +4422,20 @@ def wordpiece_vocab(texts) -> list:
                     for i in range(BERT_BASE["vocab"] - len(vocab))]
 
 
-def bert_phase(torch, k1, k2, dev, bw, flush, texts, lengths):
-    """Phase 24: BERT-base through ``TextEncoderFeaturizer`` and K2a.
-    Returns K2a's record at this path's shape for the kernels line."""
+def k2a_at_bert_shape(torch, k2, dev, bw, flush, rows, phase, seed) -> dict:
+    """K2a against its plain version at BERT-base's attention shape (the
+    key mask of the padded token rows ``rows`` with the last row fully
+    masked, bf16 and f32), then its bf16 time beside the plain version's,
+    ``scaled_dot_product_attention``'s and the bound. Returns those numbers
+    under the kernels line's keys."""
     import torch.nn.functional as F
-    from mmlspark_torch.core import DataFrame
-    from mmlspark_torch.dl import TextEncoderFeaturizer
-    from mmlspark_torch.featurize import WordPieceTokenizerModel
-    from mmlspark_torch.models import (LoadedModel, bert_encoder_from_torch,
-                                       register_bert_encoder)
-    B, T = len(texts), BERT_BASE["max_len"]
-    H, W = BERT_BASE["heads"], BERT_BASE["width"]
-    D = W // H
-
-    # the documents' first fifth, so rows spread under the 512 positions
-    docs = np.asarray([" ".join(t.split()[:n // 5])
-                       for t, n in zip(texts, lengths)], object)
-    tok = WordPieceTokenizerModel.from_vocab(wordpiece_vocab(texts),
-                                             maxLength=T, inputCol="text")
-    t0 = time.perf_counter()
-    ids = tok.transform(DataFrame({"text": docs}))
-    tokenize_s = time.perf_counter() - t0
-    rows = np.asarray(ids["tokens"], np.int32)
-    n_tok = (rows != 0).sum(1)
-    print(f"phase 24: WordPiece over a {BERT_BASE['vocab']:,}-entry vocab: "
-          f"{B} documents in {tokenize_s:.3f} s, {int(n_tok.sum()):,} "
-          f"tokens, {int(n_tok.min())}-{int(n_tok.max())} a row of {T}")
-
-    # K2a against its plain version at this path's attention shape
+    B, T = rows.shape
+    H = BERT_BASE["heads"]
+    D = BERT_BASE["width"] // H
     mask = torch.from_numpy(rows != 0).to(dev)
     mask_e = mask.clone()
     mask_e[-1] = False                            # one fully masked row
-    gen = torch.Generator(device=dev).manual_seed(24)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev,
@@ -4450,11 +4458,41 @@ def bert_phase(torch, k1, k2, dev, bw, flush, texts, lengths):
             bound_ms, bound_by = bound(
                 4 * H * D * T * valid,
                 2 * (2 * B * H * T * D + 2 * H * D * valid) + B * T, bw)
-    print(f"phase 24: K2a {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+    print(f"{phase}: K2a {ms:.4f} ms; plain {plain_ms:.4f} ms; "
           f"scaled_dot_product_attention {library_ms:.4f} ms; bound "
           f"{bound_ms:.4f} ms by {bound_by} ({valid} valid keys); bf16, "
           f"median of CUDA-event runs, L2 flushed")
-    del q, k, v
+    return {"max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def bert_phase(torch, k1, k2, dev, bw, flush, texts, lengths):
+    """Phase 24: BERT-base through ``TextEncoderFeaturizer`` and K2a.
+    Returns K2a's record at this path's shape for the kernels line."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import TextEncoderFeaturizer
+    from mmlspark_torch.featurize import WordPieceTokenizerModel
+    from mmlspark_torch.models import (LoadedModel, bert_encoder_from_torch,
+                                       register_bert_encoder)
+    B, T = len(texts), BERT_BASE["max_len"]
+    H, W = BERT_BASE["heads"], BERT_BASE["width"]
+
+    # the documents' first fifth, so rows spread under the 512 positions
+    docs = np.asarray([" ".join(t.split()[:n // 5])
+                       for t, n in zip(texts, lengths)], object)
+    tok = WordPieceTokenizerModel.from_vocab(wordpiece_vocab(texts),
+                                             maxLength=T, inputCol="text")
+    t0 = time.perf_counter()
+    ids = tok.transform(DataFrame({"text": docs}))
+    tokenize_s = time.perf_counter() - t0
+    rows = np.asarray(ids["tokens"], np.int32)
+    n_tok = (rows != 0).sum(1)
+    print(f"phase 24: WordPiece over a {BERT_BASE['vocab']:,}-entry vocab: "
+          f"{B} documents in {tokenize_s:.3f} s, {int(n_tok.sum()):,} "
+          f"tokens, {int(n_tok.min())}-{int(n_tok.max())} a row of {T}")
+
+    k2a = k2a_at_bert_shape(torch, k2, dev, bw, flush, rows, "phase 24", 24)
 
     # the converter on the HF layout, then the featurizer: bf16 (timed),
     # then f32 (held with phase 6's limits)
@@ -4515,10 +4553,7 @@ def bert_phase(torch, k1, k2, dev, bw, flush, texts, lengths):
     return {"name": "flash_bert", "route": "cuda",
             "source": "mmlspark_torch/dl/csrc/flash_attn.cu",
             "replaces": "mmlspark_tpu/dl/pallas_attention.py:77",
-            "launches": k2a_launches,
-            "max_abs_err": max(errs.values()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "launches": k2a_launches, **k2a}
 
 
 def resume_phase(torch, k2, dev, texts, args) -> int:
@@ -5105,6 +5140,7 @@ def resize_reference(images: np.ndarray, size: int) -> np.ndarray:
 VISION_COUNTERS = {
     "hist": ("hist_cuda",),
     "flash": ("flash_cuda",), "flash_bert": ("flash_cuda",),
+    "flash_control": ("flash_cuda",),
     "flash_causal": ("flash_causal_cuda",),
     "flash_lse": ("flash_lse_cuda",),
     "flash_lse_causal": ("flash_lse_cuda.causal",),
@@ -5901,9 +5937,554 @@ def obs_phase(torch, k1, k2, k3, dev, card) -> None:
           f"{card['stats']}")
 
 
+# phase 34: the control plane (ROADMAP.md §1 item 9b) serving BERT-base on
+# K2a behind the scheduler, as the reference's overload scenario
+# (mmlspark_tpu/testing/benchmarks.py overload_scenario) with a real executor
+CONTROL_SERVICE = "control-bert"
+CONTROL_REQUESTS = 1500
+CONTROL_TOKENS = (64, 512)    # WordPiece tokens a request, uniform
+CONTROL_BATCH = 32            # the executor's next_batch(max_batch=...)
+CONTROL_RATE_FACTOR = 2.0     # offered load over the sustainable rate
+CONTROL_RATE_BATCHES = 8      # full warm batches timed for that rate
+CONTROL_DEADLINE = 0.2        # the reference overload scenario's deadline_s
+CONTROL_MAX_QUEUE = 512       # 16 full batches (the reference: 8 of 8)
+CONTROL_GOLD_SHARE = 0.5      # requests drawn for the gold tenant
+CONTROL_BE_QUEUE_SHARE = 0.25  # best-effort's queue share (the reference's)
+CONTROL_SEED = 34
+# the served rows against the dense route (raw floor, centred floor, max
+# |diff|): phase 24's floors; its max |diff| of 5e-3 was read over 32 rows,
+# and over this traffic's ~750-1,500 rows every reading exceeds it. Over 4
+# weight and 4 request seeds (tools/control_bf16_agreement.py, NVIDIA H100
+# 80GB HBM3, 700 W) K2a against dense read raw >= 0.9999971, centred >=
+# 0.9997525, max |diff| 0.0072-0.0087, each bf16 route 0.0135-0.0168 from
+# float32 (K2a no farther than dense), and the key mask dropped centred <=
+# -0.066, max |diff| >= 1.45: max |diff| is held at 1.4x the worst reading.
+CONTROL_POOLED_LIMITS = BERT_BF16_POOLED_LIMITS[:2] + (0.0125,)
+# every shed reason of the reference's admission, expiry and tenancy
+SHED_REASONS = frozenset({"queue_full", "deadline", "inflight", "expired",
+                          "tenant_rate", "tenant_inflight", "tenant_queue"})
+
+
+def padded_rows(rows, width=None) -> np.ndarray:
+    """Token rows of different lengths as one [n, T] id matrix, zero-padded
+    to ``width`` or, as ``TextEncoderFeaturizer`` pads them, to a multiple
+    of its ``seqChunk`` (128)."""
+    T = width or -(-max(len(r) for r in rows) // 128) * 128
+    out = np.zeros((len(rows), T), np.int32)
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    return out
+
+
+class ControlRequest:
+    """One single-document request: its token ids, its tenant, the
+    latch-once reply the scheduler's ``on_done`` hook rides on, and what
+    the phase reads back (``status``, ``reason``, ``retry_after``, the
+    reply time)."""
+
+    def __init__(self, rid: int, tokens: np.ndarray, tenant: str):
+        self.rid = rid
+        self.tokens = tokens
+        self.tenant = tenant
+        self.on_done = None
+        self.submitted = self.done_at = None
+        self.status = self.reason = self.retry_after = None
+
+    def finish(self, status: int, reason=None, retry_after=None) -> None:
+        if self.status is not None:
+            fail(f"phase 34: request {self.rid} answered twice")
+        self.status, self.reason, self.retry_after = \
+            status, reason, retry_after
+        self.done_at = time.monotonic()
+        cb, self.on_done = self.on_done, None
+        if cb is not None:
+            cb()
+
+
+def control_traffic(texts, seed=CONTROL_SEED):
+    """The phase's traffic: 256 seeded windows of 512 words from ``texts``
+    through WordPiece, then ``CONTROL_REQUESTS`` single documents of 64-512
+    tokens (a window cut to its drawn length, ``[CLS]`` first and ``[SEP]``
+    last), whether each is the gold tenant's, and their Poisson arrival
+    offsets in units of one over the rate. Returns ``(tokens, gold,
+    arrivals, windows)``."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.featurize import WordPieceTokenizerModel
+    T = BERT_BASE["max_len"]
+    rng = np.random.default_rng(seed)
+    starts = [(int(d), int(rng.integers(0, len(texts[d].split()) - T)))
+              for d in rng.integers(0, len(texts), 256)]
+    vocab = wordpiece_vocab(texts)
+    tok = WordPieceTokenizerModel.from_vocab(vocab, maxLength=T,
+                                             inputCol="text")
+    windows = np.asarray(tok.transform(DataFrame({"text": np.asarray(
+        [" ".join(texts[d].split()[o:o + T]) for d, o in starts],
+        object)}))["tokens"], np.int32)
+    if (windows == 0).any():
+        fail("phase 34: a 512-word window gave fewer than 512 tokens")
+    n = CONTROL_REQUESTS
+    lengths = rng.integers(CONTROL_TOKENS[0], CONTROL_TOKENS[1] + 1, n)
+    picks = rng.integers(0, len(windows), n)
+    gold = rng.random(n) < CONTROL_GOLD_SHARE
+    gaps = rng.exponential(1.0, n)
+    tokens = []
+    for L, p in zip(lengths, picks):
+        row = windows[p][:L].copy()
+        row[-1] = vocab.index("[SEP]")
+        tokens.append(row)
+    return tokens, gold, np.cumsum(gaps) - gaps[0], windows
+
+
+def serve_schedule(sched, execute, tokens, gold, arrivals, rate, tenants):
+    """Offer ``tokens`` to ``sched`` on the seeded arrival schedule at
+    ``rate`` requests a second (the submitting thread wakes at most once a
+    millisecond and submits what is due as one burst) while one executor
+    thread pulls batches and runs ``execute``. Returns the requests, the
+    executed batches, what was seen at intake and at dispatch, and the
+    seconds the offer took."""
+    import threading
+    from mmlspark_torch.sched import Shed
+    from mmlspark_torch.sched.policy import now
+
+    reqs = [ControlRequest(i, t, tenants[0] if g else tenants[1])
+            for i, (t, g) in enumerate(zip(tokens, gold))]
+    seen = {"depth": 0, "late": 0, "admitted": 0, "intake": {}}
+    batches = []
+    stop = threading.Event()
+    errors = []
+
+    def executor():
+        try:
+            while not (stop.is_set() and sched.qsize() == 0):
+                batch = sched.next_batch(max_batch=CONTROL_BATCH,
+                                         max_wait=0.05)
+                if not batch:
+                    continue
+                t_dispatch = now()
+                seen["late"] += sum(1 for r in batch
+                                    if getattr(r, "deadline", None)
+                                    is not None and r.deadline < t_dispatch)
+                batches.append(execute(batch))
+                for r in batch:
+                    r.finish(200)
+                seen["depth"] = max(seen["depth"], sched.qsize())
+        except BaseException as e:      # surfaced by the caller
+            errors.append(e)
+
+    worker = threading.Thread(target=executor, daemon=True)
+    worker.start()
+    t0 = time.perf_counter()
+    i = 0
+    while i < len(reqs):
+        due = (time.perf_counter() - t0) * rate
+        while i < len(reqs) and arrivals[i] <= due:
+            r = reqs[i]
+            r.submitted = time.monotonic()
+            try:
+                sched.submit(r, tenant=r.tenant)
+                seen["admitted"] += 1
+            except Shed as e:
+                r.finish(e.status, e.reason, e.retry_after)
+                seen["intake"][e.reason] = seen["intake"].get(e.reason, 0) + 1
+            seen["depth"] = max(seen["depth"], sched.qsize())
+            i += 1
+        if i < len(reqs):
+            # a tick of at least a millisecond: the due requests go in as
+            # one burst
+            time.sleep(max((arrivals[i] - due) / rate, 1e-3))
+    offered_s = time.perf_counter() - t0
+    stop.set()
+    sched.wake()
+    worker.join(timeout=120)
+    if worker.is_alive() or errors:
+        fail(f"phase 34: the executor thread "
+             f"{'hung' if worker.is_alive() else f'raised {errors[0]!r}'}")
+    return reqs, batches, seen, offered_s
+
+
+def control_phase(torch, k2, dev, bw, flush, texts, card,
+                  need_record: bool) -> dict:
+    """Phase 34: the control plane on the card (module docstring, item
+    34). Returns K2a's launches on the path and, when ``need_record``, its
+    record at this path's shape for the kernels line."""
+    import os
+    import shutil
+    import tempfile
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import TextEncoderFeaturizer, TrainState
+    from mmlspark_torch.dl.checkpoint import CheckpointManager
+    from mmlspark_torch.models import (LoadedModel, bert_encoder_from_torch,
+                                       register_bert_encoder)
+    from mmlspark_torch.obs import cost_attribution, feature_log, registry
+    from mmlspark_torch.perf.costmodel import enabled, shared_cost_model
+    from mmlspark_torch.resilience import FaultRule, InjectedDrop, faults
+    from mmlspark_torch.sched import (BEST_EFFORT, GOLD, RequestScheduler,
+                                      ServiceTimeEstimator, Tenancy,
+                                      TenantQuota, bucket_of)
+    from mmlspark_torch.testing.benchmarks import _pctl
+
+    if not enabled():
+        fail("phase 34: MMLSPARK_TPU_COSTMODEL=0 turns the cost model off")
+    T = BERT_BASE["max_len"]
+    H, W, depth = BERT_BASE["heads"], BERT_BASE["width"], BERT_BASE["depth"]
+    tenants = ("acme", "free")          # gold, best effort
+
+    t0 = time.perf_counter()
+    tokens, gold, arrivals, windows = control_traffic(texts)
+    print(f"phase 34: WordPiece over {len(windows)} windows of {T} words "
+          f"in {time.perf_counter() - t0:.2f} s; {len(tokens)} requests of "
+          f"{min(map(len, tokens))}-{max(map(len, tokens))} tokens, "
+          f"{int(gold.sum())} gold")
+
+    # the model: phase 24's BERT-base, bf16, through K2a
+    schema = register_bert_encoder("BertBaseControl", seq_len=T, **BERT_BASE)
+    module = bert_encoder_from_torch(
+        bert_state_dict(torch), config={"num_attention_heads": H},
+        dtype=torch.bfloat16).to(dev)
+    kw = dict(model=LoadedModel(schema, module), inputCol="tokens",
+              seqChunk=128)
+    stage = TextEncoderFeaturizer(attentionImpl="pallas", **kw)
+
+    def frame(rows):
+        col = np.empty(len(rows), object)
+        col[:] = rows
+        return DataFrame({"tokens": col})
+
+    sched_box = {}
+    cm = shared_cost_model()
+    # the service's analytic cost per execution, as the reference's
+    # serving path reads it from the attribution table (schema v6)
+    cost_attribution.record_call(
+        "bert-base-32x512", stage.transform, frame(
+            [windows[i] for i in range(CONTROL_BATCH)]),
+        service=CONTROL_SERVICE)
+    a_flops, a_bytes = cost_attribution.service_cost(CONTROL_SERVICE)
+    # the warm passes feed the service's EWMA (registry state, shared with
+    # the scheduler's estimator below), as the reference primes it
+    warm_est = ServiceTimeEstimator(CONTROL_SERVICE)
+
+    def execute(batch, record=True):
+        """The executor's work on one batch: the featurizer on the card,
+        the estimator fed the measured time, one FeatureLog row."""
+        sched = sched_box.get("sched")
+        est = sched.estimator if sched is not None else warm_est
+        n = len(batch)
+        rows = [r.tokens for r in batch]
+        pred_model = cm.predict_batch_ms(CONTROL_SERVICE, n, count=False)
+        pred_ewma = est._ewma_estimate(n)
+        t0 = time.perf_counter()
+        out = stage.transform(frame(rows))["features"]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if record:
+            est.observe(n, seconds)
+            waits = [getattr(r, "queue_wait", None) or 0.0 for r in batch]
+            feature_log.record(
+                service=CONTROL_SERVICE, route="/", batch=n,
+                bucket=bucket_of(n), padded_batch=bucket_of(n),
+                queue_depth=sched.qsize() if sched is not None else 0,
+                queue_ms=round(1e3 * sum(waits) / n, 4),
+                execute_ms=round(seconds * 1e3, 4),
+                entity_bytes=4 * sum(len(r) for r in rows),
+                compiled_segments=None, analytic_flops=a_flops,
+                analytic_bytes=a_bytes, trace_id=None)
+        return {"rows": rows, "pooled": out, "seconds": seconds,
+                "model_ms": pred_model, "ewma_ms": None if pred_ewma is None
+                else pred_ewma * 1e3}
+
+    # warm every shape the executor can meet (batch 1-32, T a multiple of
+    # 128) twice; the second pass lands as FeatureLog rows
+    t0 = time.perf_counter()
+    by_chunk = {c: np.flatnonzero(np.maximum(
+        (np.asarray([len(t) for t in tokens]) + 127) // 128, 1) == c)
+        for c in range(1, T // 128 + 1)}
+    for record in (False, True):
+        for c, idx in by_chunk.items():
+            for n in range(1, CONTROL_BATCH + 1):
+                execute([ControlRequest(i, tokens[i], "") for i in idx[:n]],
+                        record=record)
+    warm_s = time.perf_counter() - t0
+    full = [execute([ControlRequest(i, tokens[i], "")
+                     for i in range(j * CONTROL_BATCH,
+                                    (j + 1) * CONTROL_BATCH)],
+                    record=False)["seconds"]
+            for j in range(CONTROL_RATE_BATCHES)]
+    full_s = float(np.median(full))
+    rate = CONTROL_BATCH / full_s
+    cm.maybe_refresh(min_new=0)
+    fit = cm._models.get((CONTROL_SERVICE, ""))
+    if fit is None:
+        fail("phase 34: the cost model did not fit on the warm pass's rows")
+    print(f"phase 34: warmed {CONTROL_BATCH * len(by_chunk)} batch shapes "
+          f"twice in {warm_s:.2f} s; sustainable rate {rate:,.1f} seqs/s "
+          f"(full batches of {CONTROL_BATCH}: median "
+          f"{full_s * 1e3:.3f} ms over {CONTROL_RATE_BATCHES}); cost model "
+          f"fitted on {fit['n']} FeatureLog rows of the service, train MAE "
+          f"{fit['train_mae_ms']:.3f} ms")
+
+    def scheduler(cls):
+        tenancy = Tenancy(CONTROL_SERVICE, quotas={
+            tenants[0]: TenantQuota(tier=GOLD),
+            tenants[1]: TenantQuota(tier=BEST_EFFORT,
+                                    queue_share=CONTROL_BE_QUEUE_SHARE)},
+            tier_deadlines={"gold": 0.6, "silver": 1.2})
+        shed = []
+
+        def on_shed(item, reason, retry_after):
+            shed.append(item)
+            item.finish(429, reason, retry_after)
+        s = cls(CONTROL_SERVICE, max_queue=CONTROL_MAX_QUEUE,
+                deadline=CONTROL_DEADLINE, tenancy=tenancy, on_shed=on_shed)
+        if s.estimator.cost_model is not cm:
+            fail("phase 34: the scheduler did not attach the shared cost "
+                 "model")
+        sched_box["sched"] = s
+        return s, shed
+
+    def counts(snap):
+        adm = sum(v for k, v in snap.items()
+                  if k.startswith("sched_admitted_total{")
+                  and f'service="{CONTROL_SERVICE}"' in k)
+        shed = {}
+        for k, v in snap.items():
+            if k.startswith("sched_shed_total{") and \
+                    f'service="{CONTROL_SERVICE}"' in k:
+                reason = re.search(r'reason="([^"]+)"', k).group(1)
+                shed[reason] = shed.get(reason, 0) + v
+        return adm, shed
+
+    # ---- the timed pass
+    sched, shed_after = scheduler(RequestScheduler)
+    before = counts(registry.snapshot())
+    obs_key = ('sched_service_observations_total{bucket="32",'
+               f'service="{CONTROL_SERVICE}"}}')
+    ewma_before = (sched.estimator._ewma_estimate(CONTROL_BATCH),
+                   registry.snapshot().get(obs_key, 0.0))
+    offered_rate = CONTROL_RATE_FACTOR * rate
+    k2.flash_cuda.launches = 0
+    t0 = time.perf_counter()
+    reqs, batches, seen, offered_s = serve_schedule(
+        sched, execute, tokens, gold, arrivals, offered_rate, tenants)
+    wall_s = time.perf_counter() - t0
+    launches = k2.flash_cuda.launches
+    after = counts(registry.snapshot())
+
+    answered = [r for r in reqs if r.status == 200]
+    intake = sum(seen["intake"].values())
+    n_batches = len(batches)
+    print(f"phase 34: {len(reqs)} requests offered at "
+          f"{offered_rate:,.1f}/s ({CONTROL_RATE_FACTOR}x) over "
+          f"{offered_s:.3f} s, done in {wall_s:.3f} s: {len(answered)} "
+          f"answered, {intake} shed at intake {seen['intake']}, "
+          f"{len(shed_after)} shed after queueing; {n_batches} batches of "
+          f"mean size {len(answered) / max(n_batches, 1):.2f}; queue depth "
+          f"max {seen['depth']} of {CONTROL_MAX_QUEUE}")
+    # every request accounted for, every shed with a reason and Retry-After
+    if len(answered) + intake + len(shed_after) != len(reqs) or \
+            any(r.status is None for r in reqs):
+        fail(f"phase 34: {len(answered)} answered + {intake} + "
+             f"{len(shed_after)} shed != {len(reqs)} offered")
+    for r in reqs:
+        if r.status != 200 and (r.reason not in SHED_REASONS
+                                or not r.retry_after or r.retry_after <= 0):
+            fail(f"phase 34: request {r.rid} shed with reason {r.reason!r} "
+                 f"and Retry-After {r.retry_after!r}")
+    if seen["depth"] > CONTROL_MAX_QUEUE:
+        fail(f"phase 34: queue depth {seen['depth']} > {CONTROL_MAX_QUEUE}")
+    if seen["late"]:
+        fail(f"phase 34: {seen['late']} requests dispatched after their "
+             "deadline")
+    reg_admitted = after[0] - before[0]
+    reg_shed = {k: v - before[1].get(k, 0) for k, v in after[1].items()
+                if v - before[1].get(k, 0)}
+    own_shed = dict(seen["intake"])
+    for r in shed_after:
+        own_shed[r.reason] = own_shed.get(r.reason, 0) + 1
+    print(f"phase 34: registry sched_admitted_total {reg_admitted:g}, "
+          f"sched_shed_total {reg_shed}; the phase's {seen['admitted']} and "
+          f"{own_shed}")
+    if reg_admitted != seen["admitted"] or reg_shed != own_shed:
+        fail("phase 34: the registry's sched_* series disagree with the "
+             "phase's counts")
+    if launches != depth * n_batches:
+        fail(f"phase 34: {launches} K2a launches over {n_batches} batches: "
+             f"expected {depth} a batch")
+    # tenancy under overload
+    share = {}
+    for tenant in tenants:
+        mine = [r for r in reqs if r.tenant == tenant]
+        ok = [r.done_at - r.submitted for r in mine if r.status == 200]
+        share[tenant] = len(ok) / max(len(mine), 1)
+        lat = sorted(ok)
+        print(f"phase 34: tenant {tenant} "
+              f"({'gold' if tenant == tenants[0] else 'best_effort'}): "
+              f"{len(mine)} offered, {len(ok)} answered "
+              f"({100 * share[tenant]:.1f} %), latency p50 "
+              f"{_pctl(lat, 0.5) * 1e3:.2f} ms, p99 "
+              f"{_pctl(lat, 0.99) * 1e3:.2f} ms")
+    if share[tenants[0]] < share[tenants[1]]:
+        fail("phase 34: gold's answered share is below best effort's")
+
+    # the service-time brains against the measured batch times
+    measured = np.asarray([b["seconds"] * 1e3 for b in batches])
+    full_ms = [b["seconds"] * 1e3 for b in batches
+               if len(b["rows"]) == CONTROL_BATCH]
+    ewma32 = sched.estimator._ewma_estimate(CONTROL_BATCH)
+    print(f"phase 34: estimator EWMA for a batch of {CONTROL_BATCH}: "
+          f"{ewma_before[0] * 1e3:.3f} ms before the pass, "
+          f"{ewma32 * 1e3:.3f} ms after "
+          f"{registry.snapshot().get(obs_key, 0.0) - ewma_before[1]:g} "
+          f"observations; measured full batches median "
+          f"{np.median(full_ms) if full_ms else float('nan'):.3f} ms "
+          f"({len(full_ms)} of them); executor batch times p50 "
+          f"{np.median(measured):.3f} ms, max {measured.max():.3f} ms")
+    tail = batches[-max(n_batches // 3, 1):]
+    m_err = [abs(b["model_ms"] - b["seconds"] * 1e3) for b in tail
+             if b["model_ms"] is not None]
+    e_err = [abs(b["ewma_ms"] - b["seconds"] * 1e3) for b in tail
+             if b["ewma_ms"] is not None]
+    print(f"phase 34: over the last {len(tail)} batches, cost-model MAE "
+          f"{np.mean(m_err) if m_err else float('nan'):.3f} ms "
+          f"({len(m_err)} priced), EWMA MAE "
+          f"{np.mean(e_err) if e_err else float('nan'):.3f} ms "
+          f"({len(e_err)} priced); cost model gated: "
+          f"{cm.predict_batch_ms(CONTROL_SERVICE, 1, count=False) is None}")
+
+    # every answered row against the dense route on the same batches
+    dense_stage = TextEncoderFeaturizer(attentionImpl="dense", **kw)
+    k2.flash_cuda.launches = 0
+    dense = np.concatenate([dense_stage.transform(frame(b["rows"]))
+                            ["features"] for b in batches])
+    if k2.flash_cuda.launches:
+        fail("phase 34: the dense route launched K2a")
+    pooled = np.concatenate([b["pooled"] for b in batches])
+    if pooled.shape != (len(answered), W) or not np.isfinite(pooled).all():
+        fail(f"phase 34: pooled rows {pooled.shape}, "
+             f"{(~np.isfinite(pooled)).sum()} non-finite")
+    short = np.asarray([len(r) for b in batches for r in b["rows"]]) <= 128
+    print(f"phase 34: rows of <= 128 tokens ({int(short.sum())}): max "
+          f"|diff| {np.abs(pooled[short] - dense[short]).max():.4g}; longer "
+          f"({int((~short).sum())}): "
+          f"{np.abs(pooled[~short] - dense[~short]).max():.4g}")
+    if not pooled_agreement("phase 34: served rows", pooled, dense,
+                            CONTROL_POOLED_LIMITS):
+        fail("phase 34: the served rows disagree with the dense route "
+             "beyond the stated limits")
+    no_mask = module.with_attention(
+        lambda q, k, v, key_mask=None: k2.flash_cuda(q, k, v, None))
+    with torch.inference_mode():
+        faulty = np.concatenate([no_mask.to(dev).eval()(torch.from_numpy(
+            padded_rows(b["rows"])).to(dev))["pooled"].float().cpu().numpy()
+            for b in batches])
+    if pooled_agreement("phase 34: planted fault (key mask dropped)",
+                        faulty, dense, CONTROL_POOLED_LIMITS):
+        fail("phase 34: the served-row limits pass K2a with the key mask "
+             "dropped: they cannot tell a faulty attention")
+    del dense_stage, no_mask
+
+    # K2a's share of the executor's wall time: the executed batches again,
+    # alone, each K2a launch between its own pair of CUDA events
+    k2a_ms = []
+    plain = k2.flash_cuda
+
+    def timed(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain(*a, **k)
+        end.record()
+        k2a_ms.append((start, end))
+        return out
+    timed.launches = 0                  # the wrapper counts into it
+    k2.flash_cuda = timed
+    alone = []
+    try:
+        for b in batches:
+            t0 = time.perf_counter()
+            stage.transform(frame(b["rows"]))
+            torch.cuda.synchronize()
+            alone.append(time.perf_counter() - t0)
+    finally:
+        k2.flash_cuda = plain
+    k2a_total = sum(s.elapsed_time(e) for s, e in k2a_ms)
+    print(f"phase 34: K2a {k2a_total:.2f} ms of the executor's "
+          f"{measured.sum():.2f} ms over the same {n_batches} batches "
+          f"({100 * k2a_total / measured.sum():.1f} %); the batches replayed "
+          f"alone: {1e3 * sum(alone):.2f} ms, p50 "
+          f"{1e3 * np.median(alone):.3f} ms; {card}")
+
+    # a planted fault: the same schedule through a scheduler whose expiry
+    # check is off must break the deadline check
+    class NoExpiry(RequestScheduler):
+        @staticmethod
+        def _expired(item, est_service=0.0):
+            return False
+
+    bad, _ = scheduler(NoExpiry)
+    _, _, bad_seen, _ = serve_schedule(bad, lambda b: execute(
+        b, record=False), tokens, gold, arrivals, offered_rate, tenants)
+    print(f"phase 34: planted fault (expiry check off): "
+          f"{bad_seen['late']} requests dispatched after their deadline")
+    if not bad_seen["late"]:
+        fail("phase 34: the deadline check passes a scheduler whose expiry "
+             "check is off: it cannot tell a faulty scheduler")
+    sched_box.clear()
+
+    # a torn save leaves the store intact
+    root = tempfile.mkdtemp(prefix="control_ckpt_")
+    try:
+        state = TrainState(module, torch.optim.SGD(module.parameters(),
+                                                   lr=0.0), 1)
+        mgr = CheckpointManager(root)
+        mgr.save(state)
+        first = {k: v.clone() for k, v in module.state_dict().items()}
+        listing = sorted(os.listdir(root))
+        with torch.no_grad():
+            for p in module.parameters():
+                p.add_(1.0)
+        with faults(CONTROL_SEED, [FaultRule(point="checkpoint.write",
+                                             kind="drop", times=1)]):
+            try:
+                mgr.save(state, step=2)
+                fail("phase 34: the armed checkpoint.write drop did not "
+                     "tear the save")
+            except InjectedDrop:
+                pass
+        if mgr.all_steps() != [1] or sorted(os.listdir(root)) != listing:
+            fail(f"phase 34: the torn save changed the store: "
+                 f"{sorted(os.listdir(root))}")
+        mgr.restore(target=state)
+        moved = [k for k, v in module.state_dict().items()
+                 if v.device != dev or not torch.equal(v, first[k])]
+        if moved:
+            fail(f"phase 34: restore() after the torn save differs in "
+                 f"{moved[:3]}")
+        print(f"phase 34: a torn save (checkpoint.write drop) raised "
+              f"InjectedDrop and left steps {mgr.all_steps()}; restore() "
+              f"gave back all {len(first)} tensors bit-equal on the card")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    out = {"launches": launches}
+    if need_record:
+        biggest = max((b["rows"] for b in batches), key=len)
+        out["record"] = {"name": "flash_control", "route": "cuda",
+                         "source": "mmlspark_torch/dl/csrc/flash_attn.cu",
+                         "replaces": "mmlspark_tpu/dl/pallas_attention.py:77",
+                         "launches": launches,
+                         **k2a_at_bert_shape(torch, k2, dev, bw, flush,
+                                             padded_rows(biggest, T),
+                                             "phase 34", 34)}
+    del stage, module, kw
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
                 "breadth", "breadth2", "breadth3", "textgen", "vision",
-                "obs")
+                "obs", "control")
+# the kernels line's K2a records, which gain phase 34's launches
+K2A_RECORDS = ("flash", "flash_bert", "flash_control")
 
 
 class Phase:
@@ -5938,8 +6519,8 @@ def main() -> None:
                     "text (5-6), train (7-8), llm (9-11), causal (12-13), "
                     "featurize (14-15), breadth (16-18), breadth2 "
                     "(19-21), breadth3 (22-23), textgen (24-28), vision "
-                    "(29-32), obs (33: needs gbdt, train and llm); train "
-                    "needs text")
+                    "(29-32), obs (33: needs gbdt, train and llm), "
+                    "control (34); train needs text")
     args = ap.parse_args()
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
@@ -6059,6 +6640,17 @@ def main() -> None:
                  "reuses phases 3, 8 and 11's data and models")
         with Phase("phase 33"):
             obs_phase(torch, k1, k2, k3, dev, card)
+
+    if "control" in groups:
+        with Phase("phase 34"):
+            control = control_phase(
+                torch, k2, dev, bw, flush, texts, card,
+                need_record=not any(rec["name"] in K2A_RECORDS
+                                    for rec in records))
+        records += [control["record"]] if "record" in control else []
+        for rec in records:
+            if rec["name"] in K2A_RECORDS:
+                rec["control_launches"] = control["launches"]
 
     print(card)
     print(json.dumps({"kernels": records}))

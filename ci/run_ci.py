@@ -99,7 +99,9 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_vision_models.py", "test_torch_convert_vision.py",
               "test_torch_quantize.py", "test_torch_image.py",
               "test_torch_obs.py", "test_torch_obs_profile.py",
-              "test_torch_obs_fleet.py"],
+              "test_torch_obs_fleet.py", "test_torch_resilience.py",
+              "test_torch_sched.py", "test_torch_tenancy.py",
+              "test_torch_costmodel.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

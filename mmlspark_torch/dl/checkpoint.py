@@ -13,9 +13,10 @@ an invisible orphan (swept by the next save), never a half-written step.
 Listing skips an empty step directory (a torn copy from a non-atomic
 writer) and a resume-latest ``restore`` skips one that does not load; both
 are counted in ``resilience_checkpoint_skipped_total`` (reason ``partial``
-or ``corrupt``) in the port's registry. The reference's
-``checkpoint.write`` fault-injection point comes with the port's
-``resilience/`` (ROADMAP.md §1 item 9).
+or ``corrupt``) in the port's registry. The ``checkpoint.write``
+fault-injection point (``resilience.faults``, keyed by the step) sits
+between the write and the rename, where the reference has it: a ``drop``
+there raises ``InjectedDrop`` and leaves the store as it was.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import uuid
 import torch
 
 from ..obs import registry as _obs
+from ..resilience.faults import injector as _faults
 from .train import TrainState
 
 _LOG = logging.getLogger("mmlspark_torch.dl.checkpoint")
@@ -88,7 +90,10 @@ class CheckpointManager:
     def save(self, state: TrainState, step: int | None = None) -> str:
         """Atomic save of ``state`` (its model's and optimizer's
         ``state_dict``s and ``step``) as ``step_NNN`` (``state.step`` by
-        default). Returns the step directory."""
+        default). Returns the step directory. The ``checkpoint.write``
+        injection point fires between the temp-dir write and the rename:
+        a save it tears leaves no ``step_*`` directory and no ``.tmp-*``
+        orphan."""
         step = int(state.step) if step is None else int(step)
         final = self._step_dir(step)
         tmp = os.path.join(self.directory,
@@ -98,6 +103,9 @@ class CheckpointManager:
             _write({"model": state.model.state_dict(),
                     "optimizer": state.optimizer.state_dict(),
                     "step": step}, os.path.join(tmp, STATE_FILE))
+            # the fault point sits where a real crash tears a non-atomic
+            # writer: after the write, before the rename
+            _faults.apply("checkpoint.write", key=str(step))
             if os.path.isdir(final):
                 shutil.rmtree(final)
             os.replace(tmp, final)

@@ -1,0 +1,471 @@
+"""The scenario harness of the control plane's reference tests (the
+port's own copy of the parts of the JAX package's ``testing/benchmarks.py``
+that ROADMAP.md §1 item 9b's tests call): the synthetic overload scenario
+of the request scheduler, the cost model's FeatureLog rows and holdout
+scenario, and the cost-attribution scenario. Each returns the same dict,
+with the same keys, as the reference's on the same arguments.
+
+The scenarios that need the serving fronts, the mesh or the autoscaler
+exist and raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
+
+Import is stdlib + obs only; numpy and torch are imported where a
+scenario needs them.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from math import ceil as _ceil
+
+
+class _SynthRequest:
+    """A scheduler item for the overload scenario: carries the latch the
+    arrival thread waits on plus the attributes the sched subsystem
+    decorates (route/deadline/tenant/on_done)."""
+
+    __slots__ = ("submitted", "done_at", "status", "route", "deadline",
+                 "tenant", "cost", "on_done", "span", "queue_wait",
+                 "_event")
+
+    def __init__(self):
+        self.submitted = time.monotonic()
+        self.done_at = None
+        self.status = None
+        self.route = "/"
+        self.deadline = None
+        self.tenant = ""        # quota/tier bucket (sched.tenancy)
+        self.cost = 0.0         # synthetic per-item service seconds
+        self.on_done = None
+        self.span = None        # request span (tracing scenarios)
+        self.queue_wait = None  # stamped by the scheduler at pop
+        self._event = threading.Event()
+
+    def reply(self, status: int) -> bool:
+        # reply-exactly-once latch, same contract as serving's
+        # CachedRequest (the scheduler's expiry shed path calls this)
+        if self._event.is_set():
+            return False
+        self.status = status
+        self.done_at = time.monotonic()
+        self._event.set()
+        cb, self.on_done = self.on_done, None
+        if cb is not None:
+            cb()
+        return True
+
+
+def overload_scenario(*, service: str = "overload-bench",
+                      deadline_s: float = 0.2,
+                      item_service_s: float = 0.004,
+                      max_queue: int = 64,
+                      max_batch: int = 8,
+                      rate_factor: float = 2.0,
+                      n_requests: int = 400,
+                      registry=None) -> dict:
+    """Synthetic overload benchmark for the sched subsystem: offer load at ``rate_factor``× the sustainable rate
+    into a :class:`~mmlspark_torch.sched.RequestScheduler` backed by a
+    deterministic executor (``item_service_s`` seconds per request,
+    batched up to ``max_batch``), then read the ``sched_*`` series back
+    from the obs registry.
+
+    A correct scheduler under 2× overload must (a) bound the queue —
+    admission sheds BEFORE depth runs away, (b) keep the latency of
+    requests it chose to admit within the deadline budget — expiry
+    sheds fire before execution, never after — and (c) shed the excess
+    as 429s rather than timing everyone out. The returned dict carries
+    the measured p99/max depth plus the registry readings
+    (``sched_admitted_total``, ``sched_shed_total`` by reason,
+    ``sched_queue_wait_seconds`` count) so benches can bank and tests
+    can assert on either surface.
+    """
+    from ..obs.metrics import registry as _default
+    from ..sched import RequestScheduler, Shed
+
+    reg = registry if registry is not None else _default
+    shed_answered: list[_SynthRequest] = []
+    sched = RequestScheduler(
+        service, max_queue=max_queue, deadline=deadline_s, registry=reg,
+        on_shed=lambda item, reason, retry_after:
+            (shed_answered.append(item), item.reply(429)))
+    done: list[_SynthRequest] = []
+    stop = threading.Event()
+    depth_high = [0]
+
+    def executor():
+        while not stop.is_set() or sched.qsize():
+            batch = sched.next_batch(max_batch=max_batch, max_wait=0.05)
+            if not batch:
+                continue
+            t0 = time.monotonic()
+            time.sleep(item_service_s * len(batch))  # deterministic work
+            sched.estimator.observe(len(batch),
+                                    time.monotonic() - t0)
+            for item in batch:
+                item.reply(200)
+                done.append(item)
+
+    worker = threading.Thread(target=executor, daemon=True)
+    worker.start()
+    interval = item_service_s / rate_factor
+    admitted = shed_at_intake = 0
+    # prime the service-time EWMA so predictive admission has a model
+    # from the first request (a cold registry sheds nothing until the
+    # first batch lands)
+    sched.estimator.observe(1, item_service_s)
+    for _ in range(n_requests):
+        req = _SynthRequest()
+        try:
+            sched.submit(req)
+            admitted += 1
+        except Shed:
+            shed_at_intake += 1
+        depth_high[0] = max(depth_high[0], sched.qsize())
+        time.sleep(interval)
+    stop.set()
+    sched.wake()
+    worker.join(timeout=10)
+    lat = sorted((r.done_at - r.submitted) for r in done
+                 if r.done_at is not None)
+    snap = reg.snapshot()
+
+    def _series(prefix: str) -> dict:
+        return {k: v for k, v in snap.items()
+                if k.startswith(prefix) and f'service="{service}"' in k}
+
+    return {
+        "offered": n_requests,
+        "admitted": admitted,
+        "answered_200": len(lat),
+        "shed_at_intake": shed_at_intake,
+        "shed_after_queueing": len(shed_answered),
+        "deadline_s": deadline_s,
+        "max_queue": max_queue,
+        "max_depth_seen": depth_high[0],
+        # nearest-rank percentiles: ceil(q*n)-1 — int(n*0.99)-1 would
+        # sit one rank low and hide exactly the tail samples a
+        # deadline-SLO acceptance check exists to catch
+        "p50_s": lat[max(_ceil(0.50 * len(lat)) - 1, 0)]
+        if lat else float("nan"),
+        "p99_s": lat[max(_ceil(0.99 * len(lat)) - 1, 0)]
+        if lat else float("nan"),
+        "sched_admitted_total": _series("sched_admitted_total"),
+        "sched_shed_total": _series("sched_shed_total"),
+        "sched_queue_wait_count": _series("sched_queue_wait_seconds_count"),
+    }
+
+
+def _pctl(sorted_vals: list, q: float) -> float:
+    if not sorted_vals:
+        return float("nan")
+    return sorted_vals[max(_ceil(q * len(sorted_vals)) - 1, 0)]
+
+
+# ------------------------------------------------- learned cost model
+def synth_feature_rows(n_rows: int = 1200, *, seed: int = 5,
+                       service: str = "costmodel-bench") -> list[dict]:
+    """Deterministic FeatureLog-shaped rows with a known cost
+    structure: three routes whose execute time depends on the padding
+    bucket AND the entity size — the per-request signal a per-bucket
+    EWMA cannot see, which is exactly where the learned model earns its
+    keep. Noise is seeded; two calls produce identical rows."""
+    import numpy as np
+
+    from ..obs.profile import FEATURE_SCHEMA_VERSION
+    from ..sched.policy import bucket_of
+
+    rng = np.random.default_rng(seed)
+    # route -> (base_ms, per-padded-row ms, per-KB ms)
+    routes = {"/feat": (0.8, 0.05, 0.030),
+              "/gbdt": (2.0, 0.15, 0.004),
+              "/gen": (5.0, 0.40, 0.012)}
+    names = sorted(routes)
+    rows = []
+    for i in range(n_rows):
+        route = names[int(rng.integers(0, len(names)))]
+        base, per_row, per_kb = routes[route]
+        batch = int(rng.integers(1, 65))
+        bucket = bucket_of(batch)
+        entity_kb = float(rng.uniform(0.5, 200.0))
+        depth = float(max(rng.normal(8.0, 4.0), 0.0))
+        ms = (base + per_row * bucket + per_kb * entity_kb
+              + float(rng.normal(0.0, 0.15)))
+        rows.append({
+            "service": service, "route": route, "batch": batch,
+            "bucket": bucket, "padded_batch": bucket,
+            "entity_bytes": entity_kb * 1024.0, "queue_depth": depth,
+            "queue_ms": depth * 0.5, "execute_ms": max(ms, 0.05),
+            "schema_version": FEATURE_SCHEMA_VERSION,
+            "platform": "synthetic",
+        })
+    return rows
+
+
+def costmodel_scenario(*, n_rows: int = 1200, seed: int = 5,
+                       holdout: float = 0.25, registry=None) -> dict:
+    """Learned-cost-model acceptance: train on the first
+    (1 - holdout) of a synthetic FeatureLog stream, score BOTH brains
+    on the held-out tail — the model predicts per row (bucket + entity
+    bytes + depth), the EWMA baseline is a ``ServiceTimeEstimator`` fed
+    the same training stream in arrival order, exactly as the scheduler
+    trains it today. Banked: both MAEs and ``model_beats_ewma``."""
+    from ..obs.metrics import registry as _default
+    from ..perf.costmodel import CostModel
+    from ..sched.policy import ServiceTimeEstimator
+
+    reg = registry if registry is not None else _default
+    service = "costmodel-bench"
+    rows = synth_feature_rows(n_rows, seed=seed, service=service)
+    n_train = int(len(rows) * (1.0 - holdout))
+    train, held = rows[:n_train], rows[n_train:]
+
+    model = CostModel(min_rows=32, registry=reg)
+    used = model.fit(train)
+
+    ewma = ServiceTimeEstimator(service, registry=reg)
+    for r in train:
+        ewma.observe(r["batch"], r["execute_ms"] / 1e3)
+
+    model_abs, ewma_abs = [], []
+    for r in held:
+        actual = r["execute_ms"]
+        pred = model.predict_batch_ms(
+            service, r["batch"], route=r["route"],
+            entity_bytes=r["entity_bytes"],
+            queue_depth=r["queue_depth"], count=False)
+        if pred is not None:
+            model_abs.append(abs(pred - actual))
+        est = ewma.estimate(r["batch"])
+        if est is not None:
+            ewma_abs.append(abs(est * 1e3 - actual))
+    model_mae = (sum(model_abs) / len(model_abs)
+                 if model_abs else float("nan"))
+    ewma_mae = (sum(ewma_abs) / len(ewma_abs)
+                if ewma_abs else float("nan"))
+
+    # the fallback gate, exercised: a cold model must answer None
+    cold = CostModel(min_rows=32, registry=reg)
+    cold_pred = cold.predict_batch_ms(service, 8)
+    return {
+        "n_train": len(train), "n_holdout": len(held),
+        "rows_used": used,
+        "model_mae_ms": model_mae,
+        "ewma_mae_ms": ewma_mae,
+        "model_beats_ewma": bool(model_mae < ewma_mae),
+        "model_covered": len(model_abs),
+        "cold_falls_back": bool(cold_pred is None),
+    }
+
+
+def synth_attribution_rows(n_rows: int = 1200, *, seed: int = 29,
+                           service: str = "attr-bench") -> list[dict]:
+    """Schema-v6 FeatureLog-shaped rows where part of the cost rides
+    the ANALYTIC columns: each row's ``analytic_flops``/``analytic_
+    bytes`` vary with the program variant that served it (seeded,
+    independent of the other features), and ``execute_ms`` includes a
+    per-Tflop term — the signal only a v6-aware model can price.
+    Deterministic: two calls with one seed produce identical rows."""
+    import numpy as np
+
+    from ..obs.profile import FEATURE_SCHEMA_VERSION
+    from ..sched.policy import bucket_of
+
+    rng = np.random.default_rng(seed)
+    routes = {"/feat": (0.8, 0.05), "/gen": (5.0, 0.40)}
+    names = sorted(routes)
+    ms_per_tflop = 2.5
+    rows = []
+    for _ in range(n_rows):
+        route = names[int(rng.integers(0, len(names)))]
+        base, per_row = routes[route]
+        batch = int(rng.integers(1, 65))
+        bucket = bucket_of(batch)
+        depth = float(max(rng.normal(8.0, 4.0), 0.0))
+        tflops = float(rng.uniform(0.2, 6.0))
+        gbytes = tflops * float(rng.uniform(0.05, 0.15))
+        ms = (base + per_row * bucket + ms_per_tflop * tflops
+              + float(rng.normal(0.0, 0.15)))
+        rows.append({
+            "service": service, "route": route, "batch": batch,
+            "bucket": bucket, "padded_batch": bucket,
+            "entity_bytes": 1024.0, "queue_depth": depth,
+            "execute_ms": max(ms, 0.05),
+            "analytic_flops": tflops * 1e12,
+            "analytic_bytes": gbytes * 1e9,
+            "schema_version": FEATURE_SCHEMA_VERSION,
+            "platform": "synthetic",
+        })
+    return rows
+
+
+def attribution_scenario(*, seed: int = 29, n_rows: int = 1200,
+                         holdout: float = 0.25, ticks: int = 12,
+                         registry=None) -> dict:
+    """Cost-attribution acceptance, three banked pieces:
+
+    1. **Roofline placement** — two real programs run once on the
+       analytic path (a 256x256 matmul and a wide elementwise add),
+       cost-analyzed and placed against the CPU :class:`PeakSpec`: the
+       matmul must read compute-bound, the add memory-bound, and every
+       utilization share <= 1.0 by construction.
+    2. **Goodput under seeded chaos** — a private registry is driven
+       through a deterministic tick schedule (useful step seconds
+       every tick; seeded waste bursts: spec rejects, eager fallbacks,
+       sheds, expirations, a runtime compile, a straggler window) and
+       a :class:`~..obs.goodput.GoodputLedger` prices it. Banked: the
+       final ratio, the itemized waste taxonomy, and the per-tick
+       ratio trace (bit-identical per seed).
+    3. **v6 model value** — the ridge cost model trained on rows whose
+       cost partly rides the analytic columns must beat (or match) the
+       SAME model trained with those columns stripped (the v5
+       baseline) on held-out MAE.
+    """
+    import numpy as np
+
+    from ..obs.attribution import CostAttribution, peak_spec
+    from ..obs.goodput import GoodputLedger, WASTE_CAUSES
+    from ..obs.metrics import MetricsRegistry
+    from ..perf.costmodel import CostModel
+
+    # -- 1: roofline placement off real programs -------------------------
+    # The reference compiles these two programs with XLA and reads
+    # cost_analysis; the port runs them once on the CPU under
+    # obs.attribution.count_cost (record_call) and places what it counted.
+    import torch
+
+    reg = registry if registry is not None else MetricsRegistry()
+    attr = CostAttribution(registry=reg)
+    rooflines: dict[str, dict] = {}
+    a = torch.ones((256, 256), dtype=torch.float32)
+    big = torch.ones((4, 1 << 20), dtype=torch.float32)
+    programs = {
+        "attr_matmul_256": (lambda m: m @ m, a),
+        "attr_add_wide": (lambda v: v + 1.0, big),
+    }
+    for name, (fn, arg) in programs.items():
+        info = attr.record_call(name, fn, arg, service="attr-bench",
+                                platform="cpu")
+        rooflines[name] = {
+            "bound": info["bound"],
+            "flops": info["flops"],
+            "bytes": info["bytes"],
+            "utilization_compute": round(
+                info["compute_seconds"]
+                / max(info["roofline_seconds"], 1e-18), 6),
+            "utilization_memory": round(
+                info["memory_seconds"]
+                / max(info["roofline_seconds"], 1e-18), 6),
+        }
+
+    # -- 2: goodput ledger under a seeded chaos schedule -----------------
+    rng = np.random.default_rng(seed)
+    greg = MetricsRegistry()
+    ledger = GoodputLedger(registry=greg)
+    h_step = greg.histogram("profile_step_seconds", "synthetic steps")
+    h_decode = greg.histogram("gen_decode_attn_seconds", "synthetic")
+    h_compile = greg.histogram("profile_compile_seconds", "synthetic")
+    c_tokens = greg.counter("gen_tokens_total", "synthetic")
+    c_spec = greg.counter("gen_spec_rejected_total", "synthetic")
+    c_fallback = greg.counter("pipeline_fused_fallback_total",
+                              "synthetic")
+    c_shed = greg.counter("sched_shed_total", "synthetic")
+    c_expired = greg.counter("sched_continuous_expired_total",
+                             "synthetic")
+    c_compiles = greg.counter("profile_runtime_compiles_total",
+                              "synthetic")
+    g_straggler = greg.gauge("fleet_straggler_score", "synthetic")
+    ledger.tick()  # baseline
+    ratio_trace = []
+    for t in range(ticks):
+        h_step.observe(0.010, stage="train")
+        for _ in range(8):
+            h_decode.observe(0.002, service="attr-bench")
+            c_tokens.inc(1, service="attr-bench")
+        if rng.random() < 0.5:
+            c_spec.inc(int(rng.integers(1, 6)), service="attr-bench")
+        if rng.random() < 0.3:
+            c_fallback.inc(1, segment="seg0")
+        if rng.random() < 0.3:
+            c_shed.inc(int(rng.integers(1, 4)), reason="backpressure")
+        if rng.random() < 0.2:
+            c_expired.inc(1, service="attr-bench")
+        if t == ticks // 2:
+            c_compiles.inc(1, fn="late_fn")
+            h_compile.observe(0.5, fn="late_fn")
+        g_straggler.set(3.0 if t >= ticks - 3 else 0.0, worker="w1")
+        payload = ledger.tick()
+        ratio_trace.append(round(payload["goodput_ratio"], 6))
+    waste = {c: round(payload["waste_seconds"][c], 6)
+             for c in WASTE_CAUSES}
+
+    # -- 3: v6 analytic columns vs the v5 baseline on held-out MAE -------
+    service = "attr-bench"
+    rows = synth_attribution_rows(n_rows, seed=seed, service=service)
+    n_train = int(len(rows) * (1.0 - holdout))
+    train, held = rows[:n_train], rows[n_train:]
+    stripped = [{k: v for k, v in r.items()
+                 if k not in ("analytic_flops", "analytic_bytes")}
+                for r in train]
+    m_v6 = CostModel(min_rows=32, registry=MetricsRegistry())
+    m_v6.fit(train)
+    m_v5 = CostModel(min_rows=32, registry=MetricsRegistry())
+    m_v5.fit(stripped)
+    v6_abs, v5_abs = [], []
+    for r in held:
+        actual = r["execute_ms"]
+        for model, acc in ((m_v6, v6_abs), (m_v5, v5_abs)):
+            pred = model.predict_batch_ms(
+                service, r["batch"], route=r["route"],
+                entity_bytes=r["entity_bytes"],
+                queue_depth=r["queue_depth"], count=False)
+            if pred is not None:
+                acc.append(abs(pred - actual))
+    v6_mae = sum(v6_abs) / len(v6_abs) if v6_abs else float("nan")
+    v5_mae = sum(v5_abs) / len(v5_abs) if v5_abs else float("nan")
+
+    return {
+        "seed": seed,
+        "platform_spec": {
+            "platform": peak_spec("cpu").platform,
+            "peak_flops": peak_spec("cpu").peak_flops,
+            "hbm_bytes_per_s": peak_spec("cpu").hbm_bytes_per_s,
+        },
+        "rooflines": rooflines,
+        "matmul_compute_bound": bool(
+            rooflines.get("attr_matmul_256", {}).get("bound")
+            == "compute"),
+        "add_memory_bound": bool(
+            rooflines.get("attr_add_wide", {}).get("bound")
+            == "memory"),
+        "utilization_max": max(
+            [u for r in rooflines.values()
+             for u in (r["utilization_compute"],
+                       r["utilization_memory"])], default=0.0),
+        "goodput_ratio": ratio_trace[-1] if ratio_trace else None,
+        "goodput_ratio_trace": ratio_trace,
+        "goodput_waste_seconds": waste,
+        "goodput_waste_itemized": bool(
+            sum(1 for v in waste.values() if v > 0) >= 4),
+        "v6_mae_ms": v6_mae,
+        "v5_mae_ms": v5_mae,
+        "v6_no_worse": bool(v6_mae <= v5_mae * 1.001),
+    }
+
+
+def _later(name: str, item: str, what: str):
+    def scenario(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} needs {what}: ROADMAP.md §1 item {item}")
+    scenario.__name__ = scenario.__qualname__ = name
+    scenario.__doc__ = (f"Not ported yet: {what} come with ROADMAP.md "
+                        f"§1 item {item}.")
+    return scenario
+
+
+autoscale_lead_scenario = _later("autoscale_lead_scenario", "9d",
+                                 "the autoscaler")
+mixed_tenant_scenario = _later("mixed_tenant_scenario", "9d",
+                               "the autoscaler and the serving mesh")
+chaos_scenario = _later("chaos_scenario", "9d",
+                        "the serving fronts, the mesh and the HTTP client")

@@ -272,6 +272,41 @@ with obs.XprofCaptures(root=tempfile.mkdtemp()).region("iso") as cap:
     obs.step_profiler.record_mfu("iso", 1e6, 1e-3)
 assert cap["device"] is False and os.path.exists(cap["trace"]), cap
 assert "lightgbm_boosting_round_seconds" in obs.registry.exposition()
+from mmlspark_torch import perf, resilience, sched
+from mmlspark_torch.dl import TrainState
+from mmlspark_torch.dl.checkpoint import CheckpointManager
+from mmlspark_torch.testing.benchmarks import synth_feature_rows
+
+ten = sched.Tenancy("iso", quotas={
+    "g": sched.TenantQuota(tier=sched.GOLD),
+    "b": sched.TenantQuota(tier=sched.BEST_EFFORT, rate=1.0, burst=1.0)},
+    tier_deadlines={sched.GOLD: 5.0}, registry=MetricsRegistry())
+rs = sched.RequestScheduler("iso", max_queue=8, tenancy=ten,
+                            registry=MetricsRegistry())
+for tenant in ("b", "g"):
+    rs.submit(type("I", (), {})(), tenant=tenant)
+try:
+    rs.submit(type("I", (), {})(), tenant="b")
+    raise AssertionError("the rate quota did not shed")
+except sched.Shed as e:
+    assert (e.reason, e.status) == ("tenant_rate", 429), e.reason
+assert sorted(i.tenant for i in rs.next_batch(max_batch=4,
+                                               max_wait=0)) == ["b", "g"]
+cm = perf.CostModel(min_rows=16, registry=MetricsRegistry())
+assert cm.fit(synth_feature_rows(128)) == 128
+assert cm.predict_batch_ms("costmodel-bench", 8) is not None
+ck = CheckpointManager(tempfile.mkdtemp())
+net = torch.nn.Linear(2, 2)
+st = TrainState(net, torch.optim.SGD(net.parameters(), lr=0.1), 1)
+ck.save(st)
+with resilience.faults(0, [resilience.FaultRule(
+        point="checkpoint.write", kind="drop")]):
+    try:
+        ck.save(st, step=2)
+        raise AssertionError("the armed checkpoint.write did not fire")
+    except resilience.InjectedDrop:
+        pass
+assert ck.all_steps() == [1]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -388,6 +423,13 @@ VISION_SLICE = ["models/resnet.py", "models/vit.py", "models/quantize.py",
 GBDT_BREADTH = ["lightgbm/sparse.py", "lightgbm/ranker_objective.py",
                 "lightgbm/shap.py", "parallel/collectives.py",
                 "parallel/sharding.py"]
+# modules the control-plane slice added; the scan below must reach each
+CONTROL_SLICE = ["resilience/__init__.py", "resilience/faults.py",
+                 "resilience/retry.py", "resilience/breaker.py",
+                 "sched/policy.py", "sched/scheduler.py",
+                 "sched/tenancy.py", "perf/__init__.py",
+                 "perf/costmodel.py", "testing/__init__.py",
+                 "testing/benchmarks.py"]
 # modules the text-generation slice added or finished; the scan below must
 # reach each
 TEXTGEN_SLICE = ["dl/bert.py", "dl/checkpoint.py", "dl/speculative.py",
@@ -417,6 +459,7 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "profile_torch_llm.py")
     yield os.path.join(REPO, "tools", "shard_gbdt.py")
     yield os.path.join(REPO, "tools", "vision_bf16_agreement.py")
+    yield os.path.join(REPO, "tools", "control_bf16_agreement.py")
 
 
 def _imported_modules(path):
@@ -449,6 +492,7 @@ def test_static_scan_finds_no_jax_import():
     assert set(GBDT_BREADTH) <= scanned, set(GBDT_BREADTH) - scanned
     assert set(TEXTGEN_SLICE) <= scanned, set(TEXTGEN_SLICE) - scanned
     assert set(VISION_SLICE) <= scanned, set(VISION_SLICE) - scanned
+    assert set(CONTROL_SLICE) <= scanned, set(CONTROL_SLICE) - scanned
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -4,8 +4,9 @@ attribution, and their wiring into the GBDT fit, every stage call and
 ``Timer``.
 
 Every scenario of ``test_obs.py``, ``test_obs_memory.py`` and
-``test_attribution.py`` that needs no serving front, scheduler, AOT store,
-autoscaler, cost model or benchmark harness runs against the port on the
+``test_attribution.py`` that needs no serving front, AOT store or
+autoscaler runs against the port (the cost model and the attribution
+scenario included, through the port's ``perf`` and ``testing``) on the
 same inputs and with the same assertions (``torch_obs_port``); the ones
 whose subject differs in the port (JAX's backend guard, the TPU peak rows,
 ``cost_analysis``) have port versions here, and the rest are listed in
@@ -85,14 +86,7 @@ globals().update(port_reference_tests("test_attribution.py", (
     "TestXprofCaptures.test_no_jax_degrades_to_503_with_reason",
     # the serving fronts (item 9d)
     "TestDebugRoutesBothFronts.test_python_front",
-    "TestDebugRoutesBothFronts.test_native_front",
-    # the learned cost model and its scenario harness (item 9b)
-    "TestCostModelV6.test_analytic_columns_train_and_price",
-    "TestCostModelV6.test_rows_without_analytic_columns_train_as_zero",
-    "TestCostModelV6.test_pre_v6_theta_still_predicts",
-    "TestCostModelV6.test_save_load_roundtrip_keeps_v6_features",
-    "TestAttributionScenario."
-    "test_scenario_is_seeded_and_banks_the_acceptance")))
+    "TestDebugRoutesBothFronts.test_native_front")))
 
 PKGS = (jobs, tobs)
 

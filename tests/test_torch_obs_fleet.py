@@ -3,10 +3,10 @@
 JAX package's.
 
 Every scenario of ``test_fleet.py``, ``test_timeseries.py`` and
-``test_regression.py`` that needs no serving, scheduler, autoscale or
-benchmark-harness module runs against the port on the same inputs and with
-the same assertions (``torch_obs_port``); the rest are listed in
-ROADMAP.md. Then both packages run the same seeded inputs and their
+``test_regression.py`` that needs no serving, autoscale or chaos-harness
+module runs against the port (tenancy and the cost model included) on the
+same inputs and with the same assertions (``torch_obs_port``); the rest
+are listed in ROADMAP.md. Then both packages run the same seeded inputs and their
 answers must be equal exactly: timeseries queries and quantiles, CUSUM
 decisions, ``compare_benches`` verdicts and the regression CLI's report,
 goodput ledgers, ``parse_exposition`` and the fleet's merged exposition.
@@ -28,9 +28,7 @@ from mmlspark_tpu.obs import regression as jreg
 from torch_obs_port import port_reference_tests
 
 globals().update(port_reference_tests("test_fleet.py", (
-    # the scheduler's tenancy tiers (ROADMAP item 9b)
-    "TestBurnRateMonitor.test_tenancy_budget_wiring",
-    # the serving fronts, mesh and autoscaler (item 9d)
+    # the serving fronts, mesh and autoscaler (ROADMAP item 9d)
     "TestServedRoutes.test_scope_fleet_carries_remote_samples",
     "TestServedRoutes.test_debug_fleet_and_healthz",
     "TestMeshFleetChannel.test_worker_heartbeat_pushes_fleet_source",
@@ -39,9 +37,6 @@ globals().update(port_reference_tests("test_fleet.py", (
     "TestAutoscalerStragglerReplace.test_read_signals_counts_flagged_ranks",
     "TestFlightRecorderMultiSource."
     "test_thread_worker_payload_never_drains_shared_recorder",
-    # the learned cost model (item 9b)
-    "TestCostModelSchemaWindow.test_v2_and_v3_rows_both_fit",
-    "TestCostModelSchemaWindow.test_v1_rows_still_skip_loudly",
     # the chaos harness of the JAX package's benchmarks (item 9d)
     "TestFleetChaosScenario."
     "test_straggler_flag_replace_and_healthz_trajectory")))

@@ -1,8 +1,9 @@
 """The port's profiler plane (``mmlspark_torch/obs/profile.py``, propagation
 and export) against the JAX package's.
 
-Every scenario of ``test_obs_profile.py`` that needs no scheduler, serving
-front, load generator or benchmark harness runs against the port on the
+Every scenario of ``test_obs_profile.py`` that needs no serving front,
+load generator or chaos harness runs against the port (the scheduler's
+trace handoff included) on the
 same inputs and with the same assertions (``torch_obs_port``). The
 scenarios whose subject is ``jax.jit`` or a jax array have port versions
 here: ``CompileTracker.track`` keyed on torch input signatures (the
@@ -32,8 +33,6 @@ from mmlspark_torch.stages import RenameColumn, SelectColumns
 from torch_obs_port import port_reference_tests
 
 globals().update(port_reference_tests("test_obs_profile.py", (
-    # the request scheduler (ROADMAP item 9b)
-    "TestPropagation.test_scheduler_thread_handoff_preserves_trace",
     # jax.jit call sites: the port's tracker is tested below; compat.jit
     # and the train step's jit are the compile slice's (item 9c)
     "TestCompileTracker.test_flags_shape_unstable_fn_and_counts_hits",

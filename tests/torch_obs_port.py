@@ -1,15 +1,19 @@
-"""Runs a JAX-package obs test module's scenarios against the port.
+"""Runs a JAX-package test module's scenarios against the port.
 
 ``port_reference_tests("test_fleet.py", exclude)`` reads the reference test
-module, points its ``mmlspark_tpu.obs`` imports (and the telemetry logger's
-name) at ``mmlspark_torch.obs``, executes it as a module of its own and
+module, points its imports of the modules the port has (``obs``, the
+telemetry logger's name, ``sched``, ``resilience``, ``perf.costmodel``,
+``stages`` and ``testing.benchmarks``) at ``mmlspark_torch``, executes it
+as a module of its own and
 returns its test classes and fixtures, less the tests named in
 ``exclude`` (``"TestClass.test_name"``). A test module that does
 ``globals().update(port_reference_tests(...))`` then collects the same
 scenarios, on the same inputs and with the same assertions, against the
 port: what the reference checks of its own package, the port is held to.
-Everything else the module imports (numpy, the JAX package's non-obs
-modules) stays as it is.
+Everything else the module imports (numpy, the JAX package's other
+modules) stays as it is. A rewritten name is a prefix of a dotted path, so
+``mmlspark_tpu.sched`` also carries ``mmlspark_tpu.sched.policy`` and the
+``"mmlspark_tpu.sched"`` logger across.
 """
 
 import os
@@ -18,7 +22,13 @@ import types
 TESTS = os.path.dirname(os.path.abspath(__file__))
 
 _REWRITES = (("mmlspark_tpu.obs", "mmlspark_torch.obs"),
-             ("mmlspark_tpu.telemetry", "mmlspark_torch.telemetry"))
+             ("mmlspark_tpu.telemetry", "mmlspark_torch.telemetry"),
+             ("mmlspark_tpu.sched", "mmlspark_torch.sched"),
+             ("mmlspark_tpu.resilience", "mmlspark_torch.resilience"),
+             ("mmlspark_tpu.perf.costmodel", "mmlspark_torch.perf.costmodel"),
+             ("mmlspark_tpu.stages", "mmlspark_torch.stages"),
+             ("mmlspark_tpu.testing.benchmarks",
+              "mmlspark_torch.testing.benchmarks"))
 
 
 def port_reference_tests(name: str, exclude=()) -> dict:
