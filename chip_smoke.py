@@ -367,6 +367,27 @@ kernels build), then:
     ``checkpoint.write`` drop must raise ``InjectedDrop`` and leave the
     store as it was, and ``restore()`` must give the first state back
     bit-equal on the card.
+35. compiles the SURVEY §7.3 chain on numeric columns (``CleanMissingData``
+    Mean → ``Featurize`` → ``LightGBMClassifier``, fitted on 500,000 x 30
+    float32 features with ~5 % NaN; 620 K1 launches, no plain call) on a
+    4,096-row example: the plan must be one fused segment of the two
+    featurize models and the GBDT model eagerly; five compiled and five
+    eager transforms of the 500,000 rows in turn (integer and bookkeeping
+    columns equal, floats within 1e-6 relative, AUC within 1e-6; the
+    median times printed), the tracker at one compile and five calls, no
+    fallback, and the segment's body run on device tensors under
+    ``torch.cuda.set_sync_debug_mode("error")``. Then builds an AOT store
+    at a fresh root (the 500,000-row bucket and the K1, K2a-K2c, K3 window
+    and K3 decode libraries) and boots a fresh ``python3`` from it with an
+    empty kernel build directory: phase 11's engine (``warm()``'s
+    fingerprints named as the JAX engine's and equal to this process's),
+    ``warm_aot``, then a round of 16 prompts, the 500,000-row transform
+    and ``generate`` on 4 prompts, with no nvcc, no runtime compile, store
+    hits and no miss, bit-equal output and the same tokens as this
+    process; the seconds from process start to the first token, cold (no
+    store, empty build directory) and warm; last, one byte of K3 decode's
+    stored library flipped must give one loud miss, one rebuild, one
+    backfill and the same tokens.
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -376,7 +397,8 @@ first check, and ``--phases`` runs some of the phase groups after the build
 (``gbdt``: 2-4, ``text``: 5-6, ``train``: 7-8, ``llm``: 9-11, ``causal``:
 12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21,
 ``breadth3``: 22-23, ``textgen``: 24-28, ``vision``: 29-32, ``obs``: 33,
-which needs ``gbdt``, ``train`` and ``llm``, ``control``: 34).
+which needs ``gbdt``, ``train`` and ``llm``, ``control``: 34,
+``compile``: 35).
 """
 
 from __future__ import annotations
@@ -6480,9 +6502,508 @@ def control_phase(torch, k2, dev, bw, flush, texts, card,
     return out
 
 
+# ------------------------------------------------------------ compile (35)
+COMPILE_ROWS = 500_000        # the SURVEY §7.3 chain's rows (phase 14's)
+COMPILE_FEATURES = 30         # float32 feature columns, no strings
+COMPILE_NAN = 0.05            # share of NaN cells
+COMPILE_SEED = 35
+COMPILE_EXAMPLE = 4096        # rows of the example the plan compiles on
+COMPILE_RUNS = 5              # compiled and eager transforms, in turn
+COMPILE_RTOL = 1e-6           # float columns, compiled against eager
+COMPILE_AUC_ATOL = 1e-6
+COMPILE_SERVICE = "chain"
+# the libraries the store carries: K1, K2a-K2c, K3's window, K3's decode
+COMPILE_LIBRARIES = ("mmlspark_hist", "mmlspark_flash", "mmlspark_paged",
+                     "mmlspark_paged_decode")
+BOOT_PROMPTS = 16             # phase 11's engine: one round of 16 prompts
+BOOT_NEW = 16                 # new tokens a prompt
+BOOT_GEN = 4                  # prompts through generate (K2c)
+BOOT_TIMEOUT = 420            # seconds a booted child may take
+
+
+def compile_frame(rows: int):
+    """500,000 x 30 float32 features with ~5 % NaN and a label from a
+    margin of the first four plus noise, made from ``COMPILE_SEED``."""
+    rng = np.random.default_rng(COMPILE_SEED)
+    x = rng.normal(size=(rows, COMPILE_FEATURES)).astype(np.float32)
+    margin = x[:, :4].sum(1) + x[:, 4] * x[:, 5] + rng.normal(size=rows)
+    x[rng.random(x.shape) < COMPILE_NAN] = np.nan
+    cols = {f"f{i:02d}": x[:, i].copy() for i in range(COMPILE_FEATURES)}
+    cols["label"] = (margin > 0).astype(np.float32)
+    return cols
+
+
+def column_digest(df) -> dict:
+    """sha256 of each column's dtype, shape and bytes."""
+    import hashlib
+    out = {}
+    for c in df.columns:
+        a = np.ascontiguousarray(df[c])
+        h = hashlib.sha256(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+        out[c] = h.hexdigest()
+    return out
+
+
+def boot_engine(torch, model, dev, registry):
+    """Phase 11's engine shape: 16 slots, block_len 16, paged K3."""
+    from mmlspark_torch.serving import LLMEngine
+    return LLMEngine(model, slots=16, block_len=16, max_seq_len=18 * 16,
+                     num_blocks=1 + 2 * 16 * 18, prefill_batch=4,
+                     registry=registry, device=dev)
+
+
+def boot_prompts():
+    vocab = TEXT_SHAPE["vocab"]
+    rng = np.random.default_rng(COMPILE_SEED)
+    return rng.integers(2, vocab, size=(BOOT_PROMPTS, GEN_T)) \
+        .astype(np.int32)
+
+
+def boot_windows():
+    from mmlspark_torch.serving.llm import _bucket_window
+    return (_bucket_window(GEN_T), 1)
+
+
+def jax_engine_names(service="llm", prefill_batch=4, slots=16, spec_k=0):
+    """The program names the JAX engine gives this configuration
+    (``mmlspark_tpu/serving/llm.py``: ``llm_prefill_<service>_w<w>_b<P>``,
+    ``llm_decode_<attn>_<service>_S<S>_k<k>``; both packages' names are
+    held equal on the CPU by ``tests/test_torch_aot.py``)."""
+    return sorted([f"llm_prefill_{service}_w{w}_b{prefill_batch}"
+                   for w in boot_windows()] +
+                  [f"llm_decode_paged_{service}_S{slots}_k{spec_k}"])
+
+
+def serve_round(eng, prompts, t_spawn=None):
+    """Submit the round, step until drained. Returns the tokens by
+    sequence and the wall-clock time (``time.time()``) when the first
+    step, which runs the first prefill and copies its first tokens to the
+    host, returned."""
+    for i, p in enumerate(prompts):
+        eng.submit(f"b{i}", p, BOOT_NEW)
+    first = None
+    done = {}
+    while len(done) < len(prompts):
+        for seq_id, toks in eng.step():
+            done[seq_id] = [int(t) for t in toks]
+        if first is None:
+            first = time.time()
+    return {k: done[k] for k in sorted(done)}, first
+
+
+def boot_child(spec_path: str) -> None:
+    """A fresh process booting the compile slice's serving path (run by
+    phase 35 as ``python3 chip_smoke.py --boot-child <spec.json>``): with
+    the spec's AOT store installed (or none), the engine warmed, the saved
+    chain compiled and ``warm_aot``-ed, then a round through the engine;
+    in mode "warm" also the 500,000-row transform and ``generate``.
+    Prints one JSON report (the seconds from the spawn to each stage's
+    end in ``marks``)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    nvcc_calls = []
+    real_popen = subprocess.Popen
+
+    class Watched(real_popen):
+        """Every nvcc this process starts, recorded."""
+
+        def __init__(self, args, *a, **k):
+            argv = args if isinstance(args, (list, tuple)) else [args]
+            if argv and os.path.basename(str(argv[0])) == "nvcc":
+                nvcc_calls.append([str(x) for x in argv[:2]])
+            super().__init__(args, *a, **k)
+    subprocess.Popen = Watched
+
+    import torch
+    from mmlspark_torch.core import aot, load_stage
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import generate
+    from mmlspark_torch.native.loader import CudaLoader
+    from mmlspark_torch.obs import MetricsRegistry, compile_tracker, registry
+    import mmlspark_torch.dl.flash_attention as k2
+    import mmlspark_torch.dl.paged_attention as k3
+    import mmlspark_torch.lightgbm.hist as k1
+    from mmlspark_torch.device import resolve_device
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spec.get("store"):
+        aot.install(aot.AotStore(spec["store"]))
+    report = {"mode": spec["mode"]}
+    marks = {"imports": time.time()}
+
+    model = lm_model(torch, "pallas").to(dev).eval()
+    marks["model"] = time.time()
+    eng = boot_engine(torch, model, dev, MetricsRegistry())
+    report["fps"] = {k: list(v) for k, v in eng.warm(
+        prefill_windows=boot_windows(), mark_steady=False).items()}
+    marks["engine warm"] = time.time()
+    chain = load_stage(spec["model"])
+    cols = compile_frame(COMPILE_ROWS)
+    df = DataFrame(cols)
+    cp = chain.compile(df.take(list(range(COMPILE_EXAMPLE))),
+                       service=COMPILE_SERVICE, device=dev)
+    report["warmed"] = cp.warm_aot()
+    marks["pipeline warm"] = time.time()
+    compile_tracker.mark_steady()
+    for fn in (k2.flash_causal_cuda, k3.paged_cuda, k3.paged_decode_cuda):
+        fn.launches = 0
+        if hasattr(fn, "combine_launches"):
+            fn.combine_launches = 0
+    prompts = boot_prompts()
+    report["tokens"], first = serve_round(eng, prompts)
+    marks["first token"] = first
+    report["first_token_s"] = first - spec["t_spawn"]
+    report["marks"] = {k: v - spec["t_spawn"] for k, v in marks.items()}
+    report["k3_window"] = k3.paged_cuda.launches
+    report["k3_decode"] = k3.paged_decode_cuda.launches
+    report["k3_combine"] = k3.paged_decode_cuda.combine_launches + \
+        k3.paged_cuda.combine_launches
+    if spec["mode"] == "warm":
+        t = time.perf_counter()
+        out = cp.transform(df)
+        torch.cuda.synchronize()
+        report["transform_s"] = time.perf_counter() - t
+        report["digest"] = column_digest(out)
+        out = generate(model, prompts[:BOOT_GEN], max_new_tokens=8)
+        report["gen_tokens"] = out.tolist()
+        report["k2c"] = k2.flash_causal_cuda.launches
+        k1.build_kernel()              # K1's library from the store too
+    store = aot.active_store()
+    report["store"] = store.root if store is not None else None
+    report["runtime_compiles"] = compile_tracker.runtime_compiles()
+    report["runtime_compiled"] = compile_tracker.runtime_compiled()
+    compile_tracker.unmark_steady()
+    snap = registry.snapshot()
+    report["hits"] = {k: v for k, v in snap.items()
+                      if k.startswith("aot_store_hit_total")}
+    report["misses"] = {k: v for k, v in snap.items()
+                        if k.startswith("aot_store_miss_total")}
+    report["backfills"] = sum(v for k, v in snap.items()
+                              if k.startswith("aot_store_backfill_total"))
+    report["nvcc_calls"] = nvcc_calls
+    report["nvcc_runs"] = CudaLoader.nvcc_runs
+    report["loaded"] = sorted(CudaLoader._loaded)
+    print(json.dumps(report))
+
+
+def run_boot_child(spec: dict, tmp: str) -> dict:
+    """Run ``boot_child`` in a fresh ``python3``; returns its report."""
+    path = os.path.join(tmp, f"spec-{spec['mode']}.json")
+    env = dict(os.environ)
+    env["MMLSPARK_TORCH_BUILD_DIR"] = spec["build_dir"]
+    # the store's switch points inside this phase's own directory: at the
+    # spec's store, or (cold) at a path that does not exist, so warm_aot
+    # can auto-install no store left on the machine by another run
+    env["MMLSPARK_TPU_AOT_STORE"] = spec["store"] or os.path.join(
+        tmp, f"no-store-{spec['mode']}")
+    spec["t_spawn"] = time.time()
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--boot-child", path],
+        capture_output=True, text=True, env=env, timeout=BOOT_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"phase 35: the {spec['mode']} child exited "
+             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-6000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def miss_reasons(report) -> dict:
+    out = {}
+    for k, v in report["misses"].items():
+        reason = k.split('reason="')[1].split('"')[0]
+        out[reason] = out.get(reason, 0) + int(v)
+    return out
+
+
+def compile_phase(torch, k1, k2, k3, dev, card) -> dict:
+    """Phase 35: the compile slice. (a) The SURVEY §7.3 chain on numeric
+    columns, compiled: one fused segment and the GBDT model eagerly,
+    compiled against eager, the tracker, no fallback, no synchronisation
+    in a traced form; (b) the AOT store with (a)'s bucket and the K1,
+    K2a-K2c and K3 libraries, a fresh process served from it (no nvcc,
+    no runtime compile, bit-equal) and a corrupted library (one loud
+    miss, a rebuild); (c) phase 11's engine booted from the store in that
+    process (fingerprints named as the JAX engine's, the same tokens, the
+    first token's seconds cold and warm). Returns phase 35's launches."""
+    import shutil
+    import tempfile
+
+    from mmlspark_torch.core import DataFrame, Pipeline, aot
+    from mmlspark_torch.dl import generate
+    from mmlspark_torch.featurize import CleanMissingData, Featurize
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+    from mmlspark_torch.obs import (MetricsRegistry, compile_tracker,
+                                    registry)
+    from mmlspark_torch.train import ComputeModelStatistics
+
+    # ---- (a) the fused main path
+    t0 = time.perf_counter()
+    cols = compile_frame(COMPILE_ROWS)
+    names = [c for c in cols if c != "label"]
+    df = DataFrame(cols)
+    nan_share = float(np.mean([np.isnan(cols[c]).mean() for c in names]))
+    print(f"phase 35: frame {COMPILE_ROWS:,} rows x {len(names)} float32 "
+          f"features ({nan_share:.2%} NaN), made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pipe = Pipeline(stages=[
+        CleanMissingData(inputCols=names, cleaningMode="Mean"),
+        Featurize(inputCols=names, outputCol="features"),
+        LightGBMClassifier(numIterations=20, numLeaves=31, maxBin=255,
+                           learningRate=0.1)])
+    plain_calls, restore = counting_plain(k1)
+    try:
+        k1.hist_cuda.launches = 0
+        t = time.perf_counter()
+        chain = pipe.fit(df)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        k1_launches = k1.hist_cuda.launches
+    finally:
+        restore()
+    if k1_launches != 620 or plain_calls[0]:
+        fail(f"phase 35: K1 launches in the chain fit {k1_launches}, plain "
+             f"histogram calls {plain_calls[0]}: expected 620 and 0")
+    print(f"phase 35: chain fit {fit_s:.3f} s (CleanMissingData Mean, "
+          f"Featurize, LightGBMClassifier 20 iterations, 31 leaves, 255 "
+          f"bins), K1 launches {k1_launches}, plain histogram calls 0")
+    example = df.take(list(range(COMPILE_EXAMPLE)))
+    t = time.perf_counter()
+    cp = chain.compile(example, service=COMPILE_SERVICE)
+    compile_s = time.perf_counter() - t
+    plan = cp.describe()
+    print(f"phase 35: compiled on {COMPILE_EXAMPLE:,} rows in "
+          f"{compile_s:.3f} s: {plan}")
+    seg_name = f"{COMPILE_SERVICE}:seg0"
+    want_plan = [{"kind": "fused", "segment": seg_name,
+                  "stages": ["CleanMissingDataModel", "FeaturizeModel"]},
+                 {"kind": "eager", "stage": "LightGBMClassificationModel"}]
+    if plan != want_plan:
+        fail(f"phase 35: plan {plan}, expected {want_plan}")
+    seg = cp.plan[0]
+    fb_key = f'pipeline_fused_fallback_total{{segment="{seg_name}"}}'
+    fb0 = registry.snapshot().get(fb_key, 0)
+    fused_t, eager_t = [], []
+    for _ in range(COMPILE_RUNS):
+        t = time.perf_counter()
+        got = cp.transform(df)
+        torch.cuda.synchronize()
+        fused_t.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        want = chain.transform(df)
+        torch.cuda.synchronize()
+        eager_t.append(time.perf_counter() - t)
+    if got.columns != want.columns:
+        fail(f"phase 35: compiled columns {got.columns}, eager "
+             f"{want.columns}")
+    worst = 0.0
+    for c in got.columns:
+        a, b = np.asarray(got[c]), np.asarray(want[c])
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"phase 35: column {c!r} {a.dtype}{a.shape} compiled, "
+                 f"{b.dtype}{b.shape} eager")
+        if a.dtype.kind == "f":
+            fin = np.isfinite(b)
+            if not np.array_equal(np.isnan(a), np.isnan(b)) or \
+                    not np.array_equal(a[~fin], b[~fin]):
+                fail(f"phase 35: column {c!r} non-finite cells differ")
+            rel = float(np.max(np.abs(a[fin] - b[fin]) /
+                               np.maximum(np.abs(b[fin]), 1e-30),
+                               initial=0.0))
+            worst = max(worst, rel)
+            if rel > COMPILE_RTOL:
+                fail(f"phase 35: column {c!r} compiled against eager "
+                     f"{rel:.3e} relative (limit {COMPILE_RTOL})")
+        elif not np.array_equal(a, b):
+            fail(f"phase 35: column {c!r} compiled differs from eager")
+    auc = [float(ComputeModelStatistics(labelCol="label").transform(x)
+                 ["AUC"][0]) for x in (got, want)]
+    if abs(auc[0] - auc[1]) > COMPILE_AUC_ATOL or not 0.75 < auc[1] <= 1:
+        fail(f"phase 35: AUC compiled {auc[0]} eager {auc[1]} (within "
+             f"{COMPILE_AUC_ATOL}, in (0.75, 1])")
+    comp, calls = compile_tracker.compiles(seg_name), \
+        compile_tracker.calls(seg_name)
+    fb = registry.snapshot().get(fb_key, 0) - fb0
+    if (comp, calls, fb) != (1, COMPILE_RUNS, 0):
+        fail(f"phase 35: tracker compiles {comp}, calls {calls}, fallbacks "
+             f"{fb}: expected 1, {COMPILE_RUNS}, 0")
+    print(f"phase 35: {len(got.columns)} columns compiled against eager: "
+          f"integers and bookkeeping equal, floats within {worst:.2e} "
+          f"relative (limit {COMPILE_RTOL}); AUC {auc[0]:.6f} / "
+          f"{auc[1]:.6f}; tracker compiles {comp}, calls {calls}; "
+          f"fallbacks {fb}")
+    print(f"phase 35: transform of {COMPILE_ROWS:,} rows, median of "
+          f"{COMPILE_RUNS} in turn: compiled {np.median(fused_t):.4f} s "
+          f"({', '.join(f'{s:.4f}' for s in fused_t)}), eager "
+          f"{np.median(eager_t):.4f} s "
+          f"({', '.join(f'{s:.4f}' for s in eager_t)}); {card}")
+    # the segment's body on device tensors with every synchronisation an
+    # error: no traced form may wait on the card
+    from mmlspark_torch.core.compile import trace_columns, upload
+    d_host, p_host = seg._split(trace_columns(df))
+    d_dev, _ = upload(d_host, seg.device)
+    p_dev, _ = upload(p_host, seg.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        body = seg.call_device(d_dev, p_dev)
+    except RuntimeError as e:
+        fail(f"phase 35: a traced form synchronised: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if tuple(body["features"].shape) != (COMPILE_ROWS, len(names)):
+        fail(f"phase 35: the body's features {tuple(body['features'].shape)}")
+    print("phase 35: the segment's body ran on device tensors under "
+          "torch.cuda.set_sync_debug_mode('error'): no synchronisation")
+
+    # ---- (b) the store, (c) the engine booted from it
+    tmp = tempfile.mkdtemp(prefix="mmlspark_torch_phase35_")
+    try:
+        root = os.path.join(tmp, "store")
+        store = aot.AotStore(root)
+        t = time.perf_counter()
+        records = aot.build_pipeline(cp, df, store)
+        libs = aot.build_libraries(store, COMPILE_LIBRARIES,
+                                   log=lambda *_: None)
+        build_s = time.perf_counter() - t
+        if not (len(records) == 1 and records[0]["built"]):
+            fail(f"phase 35: build_pipeline records {records}")
+        seg_meta = [m for m in store.entries() if m["tier"] == "program"]
+        print(f"phase 35: store built in {build_s:.2f} s at a fresh root: "
+              f"{store.stats()['tiers']}; segment {seg_name} bucket cost "
+              f"{seg_meta[0]['cost']}; libraries "
+              + ", ".join(f"{r['library']} {r['bytes']:,} B" for r in libs)
+              + f"; versions {aot.runtime_versions()}")
+        model_dir = os.path.join(tmp, "chain")
+        chain.save(model_dir)
+
+        # the parent's round and generate: the reference the child is
+        # held to
+        model = lm_model(torch, "pallas").to(dev).eval()
+        eng = boot_engine(torch, model, dev, MetricsRegistry())
+        fps = eng.warm(prefill_windows=boot_windows(), mark_steady=False)
+        if sorted(fps) != jax_engine_names():
+            fail(f"phase 35: engine programs {sorted(fps)}, the JAX "
+                 f"engine's {jax_engine_names()}")
+        prompts = boot_prompts()
+        ref_tokens, _ = serve_round(eng, prompts)
+        ref_gen = generate(model, prompts[:BOOT_GEN],
+                           max_new_tokens=8).tolist()
+        # the child serves the saved chain: its GBDT text moves scores by
+        # an ulp against the fitted model, so the parent's reference is
+        # the same saved chain, compiled and run here
+        from mmlspark_torch.core import load_stage
+        ref_digest = column_digest(load_stage(model_dir).compile(
+            example, service=COMPILE_SERVICE).transform(df))
+        del eng, model
+        torch.cuda.empty_cache()
+
+        warm = run_boot_child({"mode": "warm", "store": root,
+                               "model": model_dir,
+                               "build_dir": os.path.join(tmp, "b-warm")},
+                              tmp)
+        fps_json = {k: list(v) for k, v in fps.items()}
+        misses = miss_reasons(warm)
+        problems = []
+        if warm["nvcc_calls"] or warm["nvcc_runs"]:
+            problems.append(f"nvcc ran: {warm['nvcc_calls']}")
+        if warm["runtime_compiles"]:
+            problems.append(f"runtime compiles {warm['runtime_compiled']}")
+        if not warm["hits"] or misses:
+            problems.append(f"hits {warm['hits']}, misses {misses}")
+        if warm["warmed"] != 1:
+            problems.append(f"warmed {warm['warmed']} buckets")
+        if warm["digest"] != ref_digest:
+            problems.append("the transform differs from the parent's: "
+                            + str([c for c in ref_digest
+                                   if warm["digest"].get(c)
+                                   != ref_digest[c]]))
+        if warm["fps"] != fps_json:
+            problems.append(f"fingerprints {warm['fps']} != {fps_json}")
+        if warm["tokens"] != ref_tokens or warm["gen_tokens"] != ref_gen:
+            problems.append("tokens differ from the parent's round")
+        if not set(COMPILE_LIBRARIES) <= set(warm["loaded"]):
+            problems.append(f"libraries loaded {warm['loaded']}")
+        if not (warm["k2c"] and warm["k3_window"] and warm["k3_decode"]):
+            problems.append(f"launches K2c {warm['k2c']}, K3 window "
+                            f"{warm['k3_window']}, decode "
+                            f"{warm['k3_decode']}")
+        if problems:
+            fail("phase 35: the process booted from the store: "
+                 + "; ".join(problems))
+        lib_hits = sorted(k.split('segment="lib:')[1].split('"')[0]
+                          for k in warm["hits"] if 'tier="library"' in k)
+        print(f"phase 35: a fresh python3 with an empty build directory "
+              f"and the store: nvcc 0, runtime compiles 0, store hits "
+              f"{int(sum(warm['hits'].values()))} ({len(lib_hits)} "
+              f"libraries: {', '.join(lib_hits)}; {warm['warmed']} "
+              f"bucket), misses 0; the 500,000-row transform "
+              f"({warm['transform_s']:.3f} s) bit-equal to the parent's; "
+              f"{len(fps)} engine programs named as the JAX engine's, "
+              f"fingerprints equal to the parent's; {BOOT_PROMPTS} prompts "
+              f"x {BOOT_NEW} tokens and generate's {BOOT_GEN} x 8 equal "
+              f"to the parent's; launches K2c {warm['k2c']}, K3 window "
+              f"{warm['k3_window']}, K3 decode {warm['k3_decode']}")
+
+        cold = run_boot_child({"mode": "cold", "store": None,
+                               "model": model_dir,
+                               "build_dir": os.path.join(tmp, "b-cold")},
+                              tmp)
+        if cold["tokens"] != ref_tokens or not cold["nvcc_runs"] or \
+                cold["store"] is not None or cold["warmed"] or cold["hits"]:
+            fail(f"phase 35: the cold child: nvcc runs {cold['nvcc_runs']},"
+                 f" tokens equal {cold['tokens'] == ref_tokens}, store "
+                 f"{cold['store']}, warmed {cold['warmed']}, hits "
+                 f"{cold['hits']}: expected a build, no store, no hit")
+        for rep in (cold, warm):
+            print(f"phase 35: {rep['mode']} boot, seconds from the spawn: "
+                  + ", ".join(f"{k} {v:.2f}"
+                              for k, v in rep["marks"].items()))
+        print(f"phase 35: process start to the first token: cold (no "
+              f"store, empty build directory, {cold['nvcc_runs']} nvcc "
+              f"builds) {cold['first_token_s']:.2f} s, warm (store) "
+              f"{warm['first_token_s']:.2f} s; {card}")
+
+        # a flipped byte in K3 decode's stored library: one loud miss, a
+        # rebuild with nvcc, a backfill, the same tokens
+        lib = [m for m in store.entries()
+               if m.get("library") == "mmlspark_paged_decode"][0]
+        path = os.path.join(lib["_dir"], "lib.so")
+        blob = bytearray(open(path, "rb").read())
+        blob[len(blob) // 2] ^= 0xFF
+        with open(path, "wb") as f:
+            f.write(bytes(blob))
+        bad = run_boot_child({"mode": "corrupt", "store": root,
+                              "model": model_dir,
+                              "build_dir": os.path.join(tmp, "b-bad")},
+                             tmp)
+        reasons = miss_reasons(bad)
+        if reasons != {"corrupt": 1} or bad["nvcc_runs"] != 1 or \
+                bad["backfills"] != 1 or bad["tokens"] != ref_tokens:
+            fail(f"phase 35: corrupted library: misses {reasons}, nvcc "
+                 f"runs {bad['nvcc_runs']}, backfills {bad['backfills']}, "
+                 f"tokens equal {bad['tokens'] == ref_tokens}: expected "
+                 "one corrupt miss, one rebuild, one backfill")
+        blob2 = open(path, "rb").read()
+        print(f"phase 35: one byte of K3 decode's stored library flipped: "
+              f"one loud miss {reasons}, {bad['nvcc_runs']} nvcc rebuild, "
+              f"backfilled ({'new bytes' if blob2 != bytes(blob) else 'same'}"
+              f"), the same tokens; first token "
+              f"{bad['first_token_s']:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"hist": k1_launches, "flash_causal": warm["k2c"],
+            "paged_attention_window": warm["k3_window"],
+            "paged_attention": warm["k3_decode"],
+            "paged_attention_combine": warm["k3_combine"]}
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
                 "breadth", "breadth2", "breadth3", "textgen", "vision",
-                "obs", "control")
+                "obs", "control", "compile")
 # the kernels line's K2a records, which gain phase 34's launches
 K2A_RECORDS = ("flash", "flash_bert", "flash_control")
 
@@ -6520,8 +7041,13 @@ def main() -> None:
                     "featurize (14-15), breadth (16-18), breadth2 "
                     "(19-21), breadth3 (22-23), textgen (24-28), vision "
                     "(29-32), obs (33: needs gbdt, train and llm), "
-                    "control (34); train needs text")
+                    "control (34), compile (35); train needs text")
+    ap.add_argument("--boot-child", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.boot_child:
+        boot_child(args.boot_child)
+        return
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
         fail(f"--phases {args.phases}: groups are {', '.join(PHASE_GROUPS)}")
@@ -6651,6 +7177,13 @@ def main() -> None:
         for rec in records:
             if rec["name"] in K2A_RECORDS:
                 rec["control_launches"] = control["launches"]
+
+    if "compile" in groups:
+        with Phase("phase 35"):
+            launches = compile_phase(torch, k1, k2, k3, dev, card)
+        for rec in records:
+            if rec["name"] in launches:
+                rec["compile_launches"] = launches[rec["name"]]
 
     print(card)
     print(json.dumps({"kernels": records}))

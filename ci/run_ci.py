@@ -101,7 +101,8 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_obs.py", "test_torch_obs_profile.py",
               "test_torch_obs_fleet.py", "test_torch_resilience.py",
               "test_torch_sched.py", "test_torch_tenancy.py",
-              "test_torch_costmodel.py"],
+              "test_torch_costmodel.py", "test_torch_compile.py",
+              "test_torch_aot.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

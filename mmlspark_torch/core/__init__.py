@@ -6,6 +6,7 @@ from .param import (Param, Params, ComplexParam, TypeConverters,
 from .pipeline import (PipelineStage, Transformer, Estimator, Model, Pipeline,
                        PipelineModel, ml_transform, ml_fit)
 from .serialize import load_stage, register_stage
+from .compile import CompiledPipeline, compile_pipeline
 from .utils import (ClusterUtil, StopWatch, as_2d_features,
                     find_unused_column_name, retry_with_timeout,
                     stable_sigmoid)
@@ -18,6 +19,7 @@ __all__ = [
     "StageParam", "StageListParam", "UDFParam",
     "PipelineStage", "Transformer", "Estimator", "Model", "Pipeline",
     "PipelineModel", "ml_transform", "ml_fit",
+    "CompiledPipeline", "compile_pipeline",
     "load_stage", "register_stage",
     "ClusterUtil", "StopWatch", "retry_with_timeout",
     "find_unused_column_name", "as_2d_features", "stable_sigmoid",

@@ -85,6 +85,19 @@ def jittable_dtype(dtype) -> bool:
     return getattr(dtype, "kind", "") in "biuf"
 
 
+def readable_dtype(dtype) -> bool:
+    """Can a traced form (``core/compile.py``) compute on the VALUES of a
+    column of this dtype? Numeric and bool, less the unsigned types wider
+    than a byte. torch has few operations on uint16/uint32/uint64, so a
+    fused segment carries such a column as the bits of the signed type of
+    its width: exact for a column passed through, but a traced form
+    reading one would see another type than the eager transform does, so
+    it stays eager."""
+    dtype = np.dtype(dtype)
+    return jittable_dtype(dtype) and \
+        not (dtype.kind == "u" and dtype.itemsize > 1)
+
+
 def to_host(values: Any) -> np.ndarray:
     """Materialize ``values`` on the host as numpy: a torch tensor on any
     device is copied back (the device→host sync); numpy is free."""

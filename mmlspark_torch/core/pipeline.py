@@ -9,9 +9,9 @@ stage resolves.
 ``PipelineModel.transform`` carries the JAX package's opt-in per-stage
 profiler (``obs.profile.enable_pipeline_profiling`` or
 ``MMLSPARK_TPU_PROFILE_PIPELINE=1``); the default path is untouched. The
-fused-segment protocol (``Transformer._trace``) belongs to the JAX
-package's XLA compile plane; its counterpart comes with the port's compile
-slice.
+traceable-stage protocol (``Transformer._trace``) is the JAX package's: a
+stage's traced form runs on device tensors inside a fused segment of
+``core/compile.py`` (``PipelineModel.compile``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,55 @@ class PipelineStage(Params, BasicLogging, SaveLoadMixin):
 
 
 class Transformer(PipelineStage):
+    # ------------------------------------------- traceable-stage protocol
+    # A stage that can run inside a fused segment (core/compile.py)
+    # exposes ``_trace(columns) -> columns``: a function of torch tensors
+    # over a dict of numeric columns on the segment's device (strings and
+    # ragged cells never enter a segment). The contract, the JAX
+    # package's:
+    #
+    # - no host ops and no synchronisation: no numpy calls, no ``.item()``,
+    #   ``.cpu()`` or ``.tolist()`` of a tensor, no I/O, no clock, no
+    #   Python control flow on tensor values;
+    # - static shapes: output shapes are a function of the input shapes
+    #   and the stage's params, never of the values;
+    # - ``_trace_ok(schema, n_rows)`` is the static-shape contract check:
+    #   given ``{col: (dtype, trailing_shape)}`` and the row count, the
+    #   stage says whether THIS configuration can trace;
+    # - each output column has the dtype the stage's eager transform
+    #   gives it (the JAX package's 32-bit narrowing does not apply).
+    #
+    # Default = ``_trace`` absent → host-bound: the pipeline compiler runs
+    # the stage eagerly and splits the fused segment around it.
+    _trace = None
+
+    #: set True by stages whose _trace changes the row count (mini-
+    #: batchers, FlattenBatch): they can only fuse when EVERY column is
+    #: in the traced dict — a host-carried column could not be re-
+    #: attached to a different-length frame.
+    _trace_changes_rows = False
+
+    def supports_trace(self, schema: dict, n_rows: int | None = None
+                       ) -> bool:
+        """Can this stage instance run inside a fused segment for a frame
+        with this ``schema`` (``DataFrame.schema``)?"""
+        if getattr(type(self), "_trace", None) is None:
+            return False
+        try:
+            return bool(self._trace_ok(schema, n_rows))
+        except Exception:
+            return False
+
+    def _trace_ok(self, schema: dict, n_rows: int | None) -> bool:
+        """Per-stage static-shape contract; override to veto configs."""
+        return True
+
+    def _post_host(self, df: DataFrame) -> DataFrame:
+        """Host-side metadata hook applied after a fused segment that
+        contained this stage (partition counts, column metadata —
+        things that live on the DataFrame, not in the tensors)."""
+        return df
+
     def transform(self, df: DataFrame) -> DataFrame:
         with self.log_call("transform"):
             return self._transform(df)
@@ -123,6 +172,23 @@ class PipelineModel(Model):
             with prof.step(type(stage).__name__) as h:
                 cur = h.done(stage.transform(cur), cuda_devices(stage))
         return cur
+
+    def compile(self, example_df: DataFrame, *, mesh=None, rules=None,
+                donate: bool = True, service: str = "pipeline",
+                device=None):
+        """Lower this pipeline into a :class:`~.compile.CompiledPipeline`:
+        maximal runs of traceable stages fuse into segments that upload
+        each numeric column once, run every stage's traced form on
+        ``device`` (CUDA unless ``"cpu"`` is asked for) and bring the
+        outputs back in one batched copy; host-bound stages run eagerly
+        between segments. ``example_df`` drives schema propagation —
+        segment grouping needs each stage's OUTPUT schema, so the example
+        is transformed once at compile time. ``mesh``/``rules`` raise
+        ``NotImplementedError`` (ROADMAP.md §1 item 10)."""
+        from .compile import compile_pipeline
+        return compile_pipeline(self, example_df, mesh=mesh, rules=rules,
+                                donate=donate, service=service,
+                                device=device)
 
 
 def cuda_devices(stage) -> set:

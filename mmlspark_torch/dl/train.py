@@ -7,7 +7,9 @@ and an optax state; here the state holds an ``nn.Module`` (which carries
 its parameters) and a ``torch.optim.Optimizer``, and the step runs eagerly:
 forward, loss, ``backward``, ``optimizer.step()``. Kernel launches queue on
 the device's stream, so the host returns from a step before the device
-finishes it, as JAX's asynchronous dispatch does.
+finishes it, as JAX's asynchronous dispatch does. The step goes through
+``obs.compile_tracker`` as ``train_step``, as the JAX package's jitted step
+does (a new input signature counts as a compile).
 
 Not ported yet: the mesh half (``partition_train_state``,
 ``make_partitioned_train_step``, ``shard_train_state``, a ``mesh``
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..obs.profile import compile_tracker
 
 LATER_MESH = ("sharded training over a mesh comes with the parallel slice "
               "(ROADMAP.md §1 item 10)")
@@ -96,7 +100,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         state.step += 1
         return state, loss.detach()
 
-    return step
+    return compile_tracker.track(step, name="train_step")
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -6,7 +6,8 @@ values learned on train data apply to test data.
 
 The port of ``mmlspark_tpu/featurize/clean_missing_data.py``: the fills are
 fitted and applied in torch on the stage's ``device``, on float32 columns
-as in the JAX package. Median is the mean of the two middle values for an
+as in the JAX package; inside a fused segment the model's traced form is
+the same ``where(isnan(x), fill, x)`` on device tensors. Median is the mean of the two middle values for an
 even count, as ``jnp.median`` gives it (``torch.median`` would return the
 lower one).
 """
@@ -17,7 +18,9 @@ import numpy as np
 import torch
 
 from ..core import Estimator, Model, Param, TypeConverters as TC
+from ..core.compile import run_traced
 from ..core.contracts import HasDevice, HasInputCols, HasOutputCols
+from ..core.dataframe import readable_dtype
 from .featurize import _numeric_means
 
 MEAN, MEDIAN, CUSTOM = "Mean", "Median", "Custom"
@@ -67,12 +70,23 @@ class CleanMissingDataModel(Model, HasInputCols, HasOutputCols, HasDevice):
         return self.get("outputCols") or self.getInputCols()
 
     def _transform(self, df):
-        dev = self._device()
-        fills = self.getFillValues()
+        host = run_traced(self, {c: np.asarray(df[c], np.float32)
+                                 for c in self.getInputCols()},
+                          self._device())
         cur = df
-        for in_col, out_col in zip(self.getInputCols(), self._out_cols()):
-            arr = torch.as_tensor(np.asarray(df[in_col], np.float32)).to(dev)
-            fill = torch.tensor(np.float32(fills[in_col]), device=dev)
-            cur = cur.with_column(out_col,
-                                  torch.where(torch.isnan(arr), fill, arr))
+        for out_col in self._out_cols():
+            cur = cur.with_column(out_col, host[out_col])
         return cur
+
+    def _trace_ok(self, schema, n_rows):
+        return all(c in schema and readable_dtype(schema[c][0])
+                   for c in self.getInputCols())
+
+    def _trace(self, cols):
+        fills = self.getFillValues()
+        out = dict(cols)
+        for in_col, out_col in zip(self.getInputCols(), self._out_cols()):
+            x = cols[in_col].to(torch.float32)
+            out[out_col] = torch.where(torch.isnan(x),
+                                       float(np.float32(fills[in_col])), x)
+        return out

@@ -6,7 +6,9 @@ target type (boolean/byte/short/integer/long/float/double/string/date).
 The port of ``mmlspark_tpu/featurize/data_conversion.py``'s eager path:
 numeric targets are exact numpy dtype casts on the host (float64 stays
 float64), string/date targets are host conversions (``date`` imports pandas
-when it runs).
+when it runs). Inside a fused segment a numeric target is a cast of the
+device tensor to the same dtype (the JAX package's traced casts narrow
+long/double to 32 bits; the port's do not).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 
 from ..core import Transformer, Param, TypeConverters as TC
 from ..core.contracts import HasInputCols
-from ..core.dataframe import object_column
+from ..core.dataframe import object_column, readable_dtype
 
 _CONVERSIONS = {
     "boolean": np.bool_,
@@ -28,6 +30,10 @@ _CONVERSIONS = {
     "string": object,
     "date": "datetime64[s]",
 }
+
+# targets a traced segment can produce (dtype casts on the device tensor)
+_TRACEABLE_TARGETS = ("boolean", "byte", "short", "integer", "long",
+                      "float", "double")
 
 
 class DataConversion(Transformer, HasInputCols):
@@ -58,3 +64,17 @@ class DataConversion(Transformer, HasInputCols):
                 out = arr.astype(_CONVERSIONS[target])
             cur = cur.with_column(col, out)
         return cur
+
+    def _trace_ok(self, schema, n_rows):
+        return self.getConvertTo() in _TRACEABLE_TARGETS and all(
+            c in schema and readable_dtype(schema[c][0])
+            for c in self.getInputCols())
+
+    def _trace(self, cols):
+        import torch
+        target = getattr(torch, str(np.dtype(
+            _CONVERSIONS[self.getConvertTo()])))
+        out = dict(cols)
+        for col in self.getInputCols():
+            out[col] = cols[col].to(target)
+        return out

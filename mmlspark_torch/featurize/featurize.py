@@ -11,7 +11,9 @@ vector flattening and the final concatenation run in torch on the stage's
 ``device``; string one-hot and hash encodings are host work in
 ``_hostenc``. Every value lands on the JAX package's float32 lattice: host
 columns are cast as its ``jnp.asarray`` casts them (``device_lattice``)
-before they reach the device.
+before they reach the device. A fitted model whose plan is numeric/vector
+only carries a traced form (the same casts, on device tensors) and fuses
+into segments of ``core/compile.py``.
 """
 
 from __future__ import annotations
@@ -23,10 +25,14 @@ import torch
 
 from ..core import Estimator, Model, Param, TypeConverters as TC
 from ..core.contracts import HasDevice, HasInputCols, HasOutputCol
-from ..core.dataframe import device_lattice, to_host
+from ..core.compile import tensor_lattice
+from ..core.dataframe import device_lattice, readable_dtype, to_host
 from ._hostenc import encode_hash, encode_onehot, stable_hash
 
 _ = stable_hash  # re-exported for callers that hashed through this module
+
+# encodings a fused segment can run: no host string work
+_TRACEABLE_KINDS = ("numeric", "vector")
 
 
 def _numeric_means(cols: list[np.ndarray], dev) -> list[float]:
@@ -169,16 +175,16 @@ class FeaturizeModel(Model, HasInputCols, HasOutputCol, HasDevice):
         for spec in self.getEncodingPlan():
             arr = df[spec["col"]]
             kind = spec["kind"]
-            if kind == "numeric":
-                vals = torch.as_tensor(
-                    device_lattice(arr).astype(np.float32)).to(dev)
-                fill = torch.tensor(np.float32(spec["fill"]), device=dev)
-                blocks.append(torch.where(torch.isnan(vals), fill,
-                                          vals).reshape(-1, 1))
+            if kind in _TRACEABLE_KINDS:
+                # the traced form's block, on the host column as the JAX
+                # package's jnp.asarray would give it
+                host = device_lattice(arr).astype(np.float32) \
+                    if kind == "numeric" else \
+                    self._vector_block(arr, n, spec)
+                blocks.append(self._device_block(
+                    spec, torch.as_tensor(host).to(dev)))
                 continue
-            if kind == "vector":
-                host = self._vector_block(arr, n, spec)
-            elif kind == "onehot":
+            if kind == "onehot":
                 t0 = time.perf_counter()
                 host = encode_onehot(arr, spec["levels"], spec["width"])
                 host_s += time.perf_counter() - t0
@@ -202,3 +208,39 @@ class FeaturizeModel(Model, HasInputCols, HasOutputCol, HasDevice):
         from ..core import ColumnMetadata
         return ColumnMetadata.attach(df, self.getOutputCol(),
                                      {"slot_names": self.slot_names()})
+
+    def _trace_ok(self, schema, n_rows):
+        plan = self.getEncodingPlan() or []
+        return bool(plan) and all(
+            spec["kind"] in _TRACEABLE_KINDS
+            and spec["col"] in schema
+            and readable_dtype(schema[spec["col"]][0])
+            for spec in plan)
+
+    @staticmethod
+    def _device_block(spec: dict, x):
+        """One numeric or vector column's block of the features, on a
+        device tensor: the eager transform's and the traced form's."""
+        x = tensor_lattice(x).to(torch.float32)
+        if spec["kind"] == "numeric":
+            vals = x.reshape(-1, 1)
+            return torch.where(torch.isnan(vals),
+                               float(np.float32(spec["fill"])), vals)
+        mat = x.reshape(x.shape[0], -1)
+        if mat.shape[1] != spec["width"]:
+            raise ValueError(
+                f"vector column {spec['col']!r} width {mat.shape[1]} "
+                f"!= fitted width {spec['width']}")
+        return mat
+
+    def _trace(self, cols):
+        out = dict(cols)
+        out[self.getOutputCol()] = torch.cat(
+            [self._device_block(spec, cols[spec["col"]])
+             for spec in self.getEncodingPlan()], dim=1)
+        return out
+
+    def _post_host(self, df):
+        # fused segments rebuild the frame without column metadata;
+        # re-attach the slot names the traced output carries implicitly
+        return self._attach_meta(df)

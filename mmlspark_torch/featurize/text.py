@@ -21,7 +21,9 @@ import torch
 
 from ..core import (Estimator, Model, Param, StageListParam, Transformer,
                     TypeConverters as TC)
+from ..core.compile import device_constant, run_traced
 from ..core.contracts import HasDevice, HasInputCol, HasOutputCol
+from ..core.dataframe import readable_dtype
 from ..vw.murmur import murmur3_32
 
 
@@ -182,16 +184,38 @@ class IDF(Estimator, HasInputCol, HasOutputCol, HasDevice):
 class IDFModel(Model, HasInputCol, HasOutputCol, HasDevice):
     """Fitted IDF reweighting: the tf·idf product runs in torch on the
     stage's ``device`` (the fitted frequencies live in the ``idf``
-    param)."""
+    param), and as a traced form inside a fused segment."""
 
     idf = Param("idf", "inverse document frequencies")
 
     def _transform(self, df):
-        dev = self._device()
-        tf = df.tensor(self.getInputCol(), device=dev, dtype=torch.float32)
-        idf = torch.as_tensor(np.asarray(self.get("idf"), np.float32),
-                              device=dev)
-        return df.with_column(self.getOutputCol(), tf * idf)
+        ic, oc = self.getInputCol(), self.getOutputCol()
+        tf = df[ic]
+        if tf.dtype == object:
+            tf = np.stack([np.asarray(v) for v in tf])
+        host = run_traced(self, {ic: np.asarray(tf, np.float32)},
+                          self._device())
+        return df.with_column(oc, host[oc])
+
+    def _trace_ok(self, schema, n_rows):
+        ic = self.getInputCol()
+        if ic not in schema or not readable_dtype(schema[ic][0]):
+            return False
+        trailing = schema[ic][1]
+        # elementwise against a [width] vector: the column's last axis
+        # must match the fitted width (broadcast would silently produce
+        # garbage on a mismatched matrix)
+        idf = self.get("idf")
+        width = int(np.size(idf)) if idf is not None else 0
+        return len(trailing) == 1 and width > 0 \
+            and trailing[0] == width
+
+    def _trace(self, cols):
+        out = dict(cols)
+        tf = cols[self.getInputCol()].to(torch.float32)
+        idf = device_constant(self.get("idf"), np.float32, tf.device)
+        out[self.getOutputCol()] = tf * idf
+        return out
 
 
 class TextFeaturizer(Estimator, HasInputCol, HasOutputCol, HasDevice):

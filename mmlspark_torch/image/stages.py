@@ -4,9 +4,9 @@
 Reference ``image/`` package: ``ResizeImageTransformer.scala``,
 ``UnrollImage.scala`` (image → flat vector in CHW order),
 ``ImageSetAugmenter.scala`` (left/right flip augmentation). Each computes
-on its ``device`` and hands the column back to the host. (The JAX
-package's fused ``_trace`` forms come with the compile plane, ROADMAP.md §1
-item 9.)
+on its ``device`` and hands the column back to the host. ``UnrollImage``
+also carries the reference's traced form: a stacked numeric NHWC column
+unrolls on the device inside a fused segment (``core/compile.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from ..core import Param, Transformer, TypeConverters as TC
+from ..core.compile import run_traced
 from ..core.contracts import HasDevice, HasInputCol, HasOutputCol
+from ..core.dataframe import readable_dtype
 from . import ops
 from .transforms import images_to_batch
 
@@ -65,16 +67,27 @@ class UnrollImage(Transformer, HasInputCol, HasOutputCol, HasDevice):
         super().__init__(**kwargs)
         self._setDefault(inputCol="image", outputCol="unrolled")
 
-    @staticmethod
-    def _unroll(batch: torch.Tensor) -> torch.Tensor:
-        """NHWC → [n, C·H·W]."""
-        return batch.permute(0, 3, 1, 2).reshape(batch.shape[0], -1)
-
     def _transform(self, df):
-        batch, _ = images_to_batch(df[self.getInputCol()])
-        x = torch.from_numpy(batch).to(self._device())
-        return df.with_column(self.getOutputCol(),
-                              self._unroll(x).cpu().numpy())
+        ic, oc = self.getInputCol(), self.getOutputCol()
+        batch, _ = images_to_batch(df[ic])
+        host = run_traced(self, {ic: batch}, self._device())
+        return df.with_column(oc, host[oc])
+
+    def _trace_ok(self, schema, n_rows):
+        ic = self.getInputCol()
+        # the traced form needs an already-stacked numeric NHWC column
+        # (trailing [H, W, C]); object columns stay on the eager path,
+        # where images_to_batch stacks (and grayscale-expands) on host
+        return ic in schema and readable_dtype(schema[ic][0]) \
+            and len(schema[ic][1]) == 3
+
+    def _trace(self, cols):
+        out = dict(cols)
+        batch = cols[self.getInputCol()].to(torch.float32)
+        # NHWC → [n, C·H·W]
+        out[self.getOutputCol()] = batch.permute(0, 3, 1, 2).reshape(
+            batch.shape[0], -1)
+        return out
 
 
 class UnrollBinaryImage(Transformer, HasInputCol, HasOutputCol, HasDevice):

@@ -69,8 +69,10 @@ def _signature(args, kwargs) -> tuple:
         if isinstance(x, (list, tuple)):
             return (type(x).__name__, tuple(leaf(v) for v in x))
         if isinstance(x, dict):
-            return ("dict", tuple((k, leaf(v))
-                                  for k, v in sorted(x.items(), key=str)))
+            # sorted by key alone: str() of an item would format its
+            # value, and formatting a CUDA tensor copies it to the host
+            return ("dict", tuple((k, leaf(v)) for k, v in sorted(
+                x.items(), key=lambda kv: str(kv[0]))))
         return type(x).__name__
     return (tuple(leaf(a) for a in args),
             tuple((k, leaf(v)) for k, v in sorted(kwargs.items())))

@@ -504,8 +504,8 @@ def bucket_build_priority(service: str, buckets, log=None,
     """Order padding buckets by predicted traffic value — observed
     request share × predicted execute cost — most valuable first, so an
     interrupted or time-boxed AOT build covers the hot path before the
-    long tail (the JAX package's ``core.aot.build_registered`` consults
-    this; the port's AOT store comes with ROADMAP.md §1 item 9c).
+    long tail (``core.aot._bucket_build_order`` consults this for
+    ``core.aot.build_registered``, as in the JAX package).
 
     Returns ``[]`` when the FeatureLog holds no rows for the service —
     the caller keeps its deterministic ascending order then."""

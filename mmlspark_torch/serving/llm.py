@@ -45,9 +45,10 @@ Obs: ``gen_ttft_seconds{reuse=cold|warm}``, ``gen_tokens_total``,
 a new input signature counts as a compile. ``warm`` records each program's
 cost per execution in ``obs.cost_attribution`` (one counted call,
 ``record_call``) and declares the tracker's steady state; every finished
-sequence appends a feature row (``obs.feature_log``, schema v6).
-
-Not ported yet: AOT fingerprints (``core/aot.py``); ``warm`` returns ``{}``.
+sequence appends a feature row (``obs.feature_log``, schema v6). Each
+program carries the JAX engine's AOT fingerprint (``core.aot.fingerprints``
+over the same key fields, with the port's ``runtime_versions``), and
+``warm`` returns them all.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core import aot
 from ..device import resolve_device
 from ..dl.paged_attention import paged_window_attention
 from ..dl.paged_kv import (OutOfBlocks, PagedKVManager,
@@ -246,6 +248,16 @@ def _attn_histogram(reg):
 
 # --------------------------------------------------------------- executors
 
+def _encoder_key(module) -> dict:
+    """Static fingerprint fragment for a causal-LM module: everything
+    that changes the program besides the batch shapes (the JAX engine's
+    fields)."""
+    enc = module.encoder
+    return {"vocab": enc.vocab, "width": enc.width, "depth": enc.depth,
+            "heads": enc.heads, "mlp_dim": enc.mlp_dim,
+            "dtype": str(enc.dtype).replace("torch.", "")}
+
+
 class PrefillExecutor:
     """Fills KV blocks for admitted prompts in padding-bucketed batches:
     the paged window walk over each prompt's SUFFIX (past the prefix-reused
@@ -275,15 +287,32 @@ class PrefillExecutor:
             _dense_gather_bytes(m, self.batch, self.max_blocks, kv.block_len)
             for m in (module, draft_module) if m is not None)
         self._programs: dict = {}
+        self._fps: dict[str, tuple[str, str]] = {}
 
     def _program(self, w: int):
-        """The tracked prefill step for window bucket ``w``."""
+        """The tracked prefill step for window bucket ``w``, with its AOT
+        fingerprint (the JAX engine's program name and key fields)."""
         prog = self._programs.get(w)
         if prog is None:
+            name = f"llm_prefill_{self.service}_w{w}_b{self.batch}"
             prog = self._programs[w] = compile_tracker.track(
-                self._device_run,
-                name=f"llm_prefill_{self.service}_w{w}_b{self.batch}")
+                self._device_run, name=name)
+            key = {"phase": "prefill", "service": self.service,
+                   "window": w, "batch": self.batch,
+                   "attn": "paged" if self.paged else "dense",
+                   "max_blocks": self.max_blocks,
+                   "block_len": self.kv.block_len,
+                   "encoder": _encoder_key(self.module),
+                   "draft": None if self.draft_module is None
+                   else _encoder_key(self.draft_module),
+                   "versions": aot.runtime_versions()}
+            self._fps[name] = aot.fingerprints(key, [], [])
         return prog
+
+    def aot_fingerprints(self) -> dict:
+        """program name -> (static_fp, full_fp) for every program built
+        so far — the identity a warmed worker advertises."""
+        return dict(self._fps)
 
     def _run(self, rows, toks, pos, lens) -> np.ndarray:
         return self._program(toks.shape[1])(rows, toks, pos, lens)
@@ -398,15 +427,26 @@ class DecodeExecutor:
             _dense_gather_bytes(m, self.slots, self.max_blocks, kv.block_len)
             for m in (module, draft_module) if m is not None)
         attn = "paged" if self.paged else "dense"
-        self._program = compile_tracker.track(
-            self._device_run, name=f"llm_decode_{attn}_{self.service}_"
-                                   f"S{self.slots}_k{self.spec_k}")
+        name = f"llm_decode_{attn}_{self.service}_S{self.slots}_k{self.spec_k}"
+        self._program = compile_tracker.track(self._device_run, name=name)
+        key = {"phase": "decode", "service": self.service,
+               "slots": self.slots, "spec_k": self.spec_k, "attn": attn,
+               "max_blocks": self.max_blocks,
+               "block_len": self.kv.block_len,
+               "encoder": _encoder_key(module),
+               "draft": None if draft_module is None
+               else _encoder_key(draft_module),
+               "versions": aot.runtime_versions()}
+        self._fps = {name: aot.fingerprints(key, [], [])}
         # host-side slot state (the engine owns seq metadata)
         self.seq_ids: list = [None] * self.slots
         self.ptr = np.ones(self.slots, np.int64)    # committed tokens
         self.end = np.ones(self.slots, np.int64)    # commit cap
         self.last = np.zeros(self.slots, np.int64)  # token @ ptr-1
         self.active = np.zeros(self.slots, bool)
+
+    def aot_fingerprints(self) -> dict:
+        return dict(self._fps)
 
     @property
     def free_slots(self) -> int:
@@ -792,14 +832,16 @@ class LLMEngine:
         given window buckets, then the decode step. This builds the kernels,
         warms the libraries and records each program's cost
         (``obs.cost_attribution``) before the first request, and optionally
-        declares the compile tracker's steady state. Returns ``{}``: the JAX
-        engine returns its programs' AOT fingerprints, and the port has no
-        AOT store yet."""
+        declares the compile tracker's steady state. With an AOT store
+        installed the kernels' libraries load from it (no nvcc). Returns
+        the union of both executors' AOT fingerprints, named and keyed as
+        the JAX engine's."""
         self.prefiller.warm(prefill_windows)
         self.decoder.warm()
         if mark_steady:
             compile_tracker.mark_steady()
-        return {}
+        return {**self.prefiller.aot_fingerprints(),
+                **self.decoder.aot_fingerprints()}
 
     def run_until_drained(self) -> dict:
         """Step until every submitted sequence completes or expires;

@@ -2,8 +2,10 @@
 
 Reference ``stages/`` (SURVEY §2.9): the ~20 utility transformers every
 pipeline uses — column selection/renaming, UDFs, lambdas, repartitioning,
-caching, timing. The port of ``mmlspark_tpu/stages/basic.py``'s eager
-paths; its fused-segment forms (``_trace``) belong to the compile slice.
+caching, timing. The port of ``mmlspark_tpu/stages/basic.py``: the eager
+paths and the traced forms (``_trace``, on device tensors inside a fused
+segment of ``core/compile.py``) with the reference's ``_trace_ok``
+contracts.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 from ..core import (Estimator, Param, StageParam, Transformer,
                     TypeConverters as TC, UDFParam)
 from ..core.contracts import HasInputCol, HasInputCols, HasOutputCol
-from ..core.dataframe import object_column
+from ..core.dataframe import jittable_dtype, object_column, readable_dtype
 from ..core.pipeline import cuda_devices as _cuda_devices
 
 
@@ -23,6 +25,15 @@ class DropColumns(Transformer):
         present = [c for c in self.getCols() if c in df.columns]
         return df.drop(*present) if present else df
 
+    def _trace_ok(self, schema, n_rows):
+        # a dropped host-carried column would survive the segment
+        return all(jittable_dtype(schema[c][0])
+                   for c in self.getCols() if c in schema)
+
+    def _trace(self, cols):
+        drop = set(self.getCols())
+        return {c: v for c, v in cols.items() if c not in drop}
+
 
 class SelectColumns(Transformer):
     cols = Param("cols", "columns to keep", TC.toListString)
@@ -30,10 +41,27 @@ class SelectColumns(Transformer):
     def _transform(self, df):
         return df.select(*self.getCols())
 
+    def _trace_ok(self, schema, n_rows):
+        # selecting implicitly drops the rest — every column must be in
+        # the traced dict for the effect to be complete
+        return all(jittable_dtype(dt) for dt, _ in schema.values()) \
+            and all(c in schema for c in self.getCols())
+
+    def _trace(self, cols):
+        return {c: cols[c] for c in self.getCols()}
+
 
 class RenameColumn(Transformer, HasInputCol, HasOutputCol):
     def _transform(self, df):
         return df.with_column_renamed(self.getInputCol(), self.getOutputCol())
+
+    def _trace_ok(self, schema, n_rows):
+        ic = self.getInputCol()
+        return ic in schema and jittable_dtype(schema[ic][0])
+
+    def _trace(self, cols):
+        old, new = self.getInputCol(), self.getOutputCol()
+        return {(new if c == old else c): v for c, v in cols.items()}
 
 
 class UDFTransformer(Transformer, HasInputCol, HasInputCols, HasOutputCol):
@@ -41,9 +69,10 @@ class UDFTransformer(Transformer, HasInputCol, HasInputCols, HasOutputCol):
     ``stages/UDFTransformer.scala``). The function receives numpy arrays
     (whole-column, not per-row — columnar by design).
 
-    ``jitSafe`` is the JAX package's fusion flag (the udf is pure array
-    math with static shapes); the port runs every stage eagerly and keeps
-    it for the shared Param surface and save format."""
+    ``jitSafe=True`` declares the function pure array math with static
+    output shapes, letting the pipeline compiler fuse this stage into a
+    segment: the udf then receives torch tensors on the segment's device
+    (operators and methods numpy and torch share work on both)."""
 
     udf = UDFParam("udf", "function(column_array...) -> column_array")
     jitSafe = Param("jitSafe",
@@ -58,6 +87,21 @@ class UDFTransformer(Transformer, HasInputCol, HasInputCols, HasOutputCol):
         else:
             args = [df[self.getInputCol()]]
         return df.with_column(self.getOutputCol(), fn(*args))
+
+    def _in_cols(self):
+        return self.getInputCols() if self.isSet("inputCols") \
+            else [self.getInputCol()]
+
+    def _trace_ok(self, schema, n_rows):
+        return self.get("jitSafe") and all(
+            c in schema and readable_dtype(schema[c][0])
+            for c in self._in_cols())
+
+    def _trace(self, cols):
+        out = dict(cols)
+        out[self.getOutputCol()] = self.get("udf")(
+            *[cols[c] for c in self._in_cols()])
+        return out
 
 
 class Lambda(Transformer):
@@ -96,6 +140,12 @@ class Repartition(Transformer):
             return df
         return df.repartition(self.getN())
 
+    def _trace(self, cols):
+        return cols  # partition count is host metadata, not tensor data
+
+    def _post_host(self, df):
+        return df if self.getDisable() else df.repartition(self.getN())
+
 
 class Cacher(Transformer):
     disable = Param("disable", "no-op passthrough", TC.toBoolean,
@@ -104,13 +154,17 @@ class Cacher(Transformer):
     def _transform(self, df):
         return df if self.getDisable() else df.cache()
 
+    def _trace(self, cols):
+        return cols  # cache() is a host-side no-op on materialized data
+
 
 class Explode(Transformer, HasInputCol, HasOutputCol):
     """Explode a list column into one row per element (reference
     ``stages/Explode.scala``).
 
     Output length is the SUM of per-row list lengths — data-dependent,
-    host work by nature."""
+    so no static-shape ``_trace`` exists and the pipeline compiler splits
+    fused segments around it."""
 
     def _transform(self, df):
         col = df[self.getInputCol()]

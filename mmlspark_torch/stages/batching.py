@@ -6,10 +6,11 @@ batch rows into list-valued rows so downstream stages amortize per-call cost
 un-batches. ``DynamicBufferedBatcher`` adaptively sizes batches from a
 producer queue — the key serving-latency mechanism.
 
-The port of ``mmlspark_tpu/stages/batching.py``'s eager paths: batching
-slices host views of the columns and un-batching concatenates on the host
-in each column's own dtype, as there. Its fused-segment reshapes
-(``_trace``) belong to the compile slice.
+The port of ``mmlspark_tpu/stages/batching.py``: batching slices host
+views of the columns and un-batching concatenates on the host in each
+column's own dtype, as there; inside a fused segment (``core/compile.py``)
+the uniform batchers and ``FlattenBatch`` are reshapes of the device
+tensors (``_trace``).
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from typing import Iterator
 import numpy as np
 
 from ..core import DataFrame, Transformer, Param, TypeConverters as TC
-from ..core.dataframe import (argsort_host, concat_host, object_column,
-                              repeat_rows, to_host)
+from ..core.dataframe import (argsort_host, concat_host, jittable_dtype,
+                              object_column, repeat_rows, to_host)
 
 
 def _batch_df(df: DataFrame, bounds: list[tuple[int, int]]) -> DataFrame:
@@ -39,10 +40,26 @@ def _batch_df(df: DataFrame, bounds: list[tuple[int, int]]) -> DataFrame:
     return out
 
 
+def _uniform_batch_trace(cols: dict, size: int) -> dict:
+    """The traced mini-batch: [n, ...] → [n/size, size, ...] (or one
+    [1, n, ...] batch when size >= n). Static shapes — n is known when
+    the segment runs, so the reshape is a view, no copy."""
+    out = {}
+    for c, v in cols.items():
+        n = v.shape[0]
+        if size >= n:
+            out[c] = v[None]
+        else:
+            out[c] = v.reshape((n // size, size) + tuple(v.shape[1:]))
+    return out
+
+
 class FixedMiniBatchTransformer(Transformer):
     batchSize = Param("batchSize", "rows per batch", TC.toInt, default=10)
     maxBufferSize = Param("maxBufferSize", "kept for API parity", TC.toInt,
                           default=1 << 20)
+
+    _trace_changes_rows = True
 
     def _transform(self, df):
         size = self.getBatchSize()
@@ -50,21 +67,43 @@ class FixedMiniBatchTransformer(Transformer):
         bounds = [(i, min(i + size, n)) for i in range(0, n, size)]
         return _batch_df(df, bounds)
 
+    def _trace_ok(self, schema, n_rows):
+        if not n_rows:
+            return False
+        size = self.getBatchSize()
+        return size >= n_rows or n_rows % size == 0
+
+    def _trace(self, cols):
+        return _uniform_batch_trace(cols, self.getBatchSize())
+
 
 class DynamicMiniBatchTransformer(Transformer):
     """One batch per partition (the dynamic batcher consumes whatever is
     available — in columnar form, a partition is 'what's available').
     The batch cells are views of the columns, wrapped in an object
-    column."""
+    column; the traced form is a pure ``[n, ...] → [1, n, ...]`` view."""
 
     maxBatchSize = Param("maxBatchSize", "upper bound on batch size",
                          TC.toInt, default=1 << 30)
+
+    _trace_changes_rows = True
 
     def _transform(self, df):
         size = min(self.getMaxBatchSize(), max(df.num_rows, 1))
         n = df.num_rows
         bounds = [(i, min(i + size, n)) for i in range(0, n, size)] or []
         return _batch_df(df, bounds)
+
+    def _trace_ok(self, schema, n_rows):
+        if not n_rows:
+            return False
+        size = min(self.getMaxBatchSize(), max(n_rows, 1))
+        return size >= n_rows or n_rows % size == 0
+
+    def _trace(self, cols):
+        n = max((v.shape[0] for v in cols.values()), default=1)
+        return _uniform_batch_trace(
+            cols, min(self.getMaxBatchSize(), max(n, 1)))
 
 
 class TimeIntervalMiniBatchTransformer(Transformer):
@@ -79,6 +118,8 @@ class TimeIntervalMiniBatchTransformer(Transformer):
                          TC.toString)
     maxBatchSize = Param("maxBatchSize", "upper bound on batch size",
                          TC.toInt, default=1 << 30)
+
+    _trace_changes_rows = True
 
     def _transform(self, df):
         n = df.num_rows
@@ -102,9 +143,19 @@ class TimeIntervalMiniBatchTransformer(Transformer):
                 start = i
         return _batch_df(sorted_df, bounds)
 
+    def _trace_ok(self, schema, n_rows):
+        # window boundaries are data-dependent; only the no-timestamp
+        # single-batch form has static shapes
+        return bool(n_rows) and not self.isSet("timestampCol")
+
+    def _trace(self, cols):
+        return {c: v[None] for c, v in cols.items()}
+
 
 class FlattenBatch(Transformer):
     """Inverse of the mini-batchers: list-valued rows → one row per element."""
+
+    _trace_changes_rows = True
 
     def _transform(self, df):
         cols = df.columns
@@ -139,6 +190,17 @@ class FlattenBatch(Transformer):
         out = DataFrame(data)
         out.num_partitions = df.num_partitions
         return out
+
+    def _trace_ok(self, schema, n_rows):
+        # the traced form merges the two leading axes of every column:
+        # all columns must be batched (trailing shape present)
+        return bool(schema) and all(
+            jittable_dtype(dt) and len(shape) >= 1
+            for dt, shape in schema.values())
+
+    def _trace(self, cols):
+        return {c: v.reshape((-1,) + tuple(v.shape[2:]))
+                for c, v in cols.items()}
 
 
 class DynamicBufferedBatcher:
@@ -217,4 +279,10 @@ class PartitionConsolidator(Transformer):
     to a single partition while preserving rows."""
 
     def _transform(self, df):
+        return df.repartition(1)
+
+    def _trace(self, cols):
+        return cols  # partition collapse is host metadata
+
+    def _post_host(self, df):
         return df.repartition(1)

@@ -3,10 +3,11 @@
 Reference ``stages/``: SummarizeData, ClassBalancer, StratifiedRepartition,
 EnsembleByKey, TextPreprocessor, UnicodeNormalize (SURVEY §2.9).
 
-The port of ``mmlspark_tpu/stages/misc.py``'s eager paths. The shuffle of
+The port of ``mmlspark_tpu/stages/misc.py``. The shuffle of
 ``StratifiedRepartition`` and the group means of ``EnsembleByKey`` run in
 torch on the stage's ``device``; profiling, class weights and string
-normalization are host work, as there.
+normalization are host work, as there. ``ClassBalancerModel`` carries the
+reference's traced form (a searchsorted lookup on device tensors).
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from ..core import DataFrame, Estimator, Model, Transformer, Param, \
     TypeConverters as TC
 from ..core.contracts import (HasDevice, HasInputCol, HasLabelCol,
                               HasOutputCol, HasSeed)
-from ..core.dataframe import (quantile_host, to_host, to_host_list,
-                              unique_host)
+from ..core.compile import device_constant
+from ..core.dataframe import (f32_exact, quantile_host, readable_dtype,
+                              to_host, to_host_list, unique_host)
 
 
 class SummarizeData(Transformer):
@@ -138,6 +140,37 @@ class ClassBalancerModel(Model, HasInputCol):
         vals = col if col.dtype == object else to_host_list(col)
         return df.with_column(self.getOutputCol(),
                               [w[str(v)] for v in vals])
+
+    def _trace_ok(self, schema, n_rows):
+        ic = self.getInputCol()
+        if ic not in schema or not readable_dtype(schema[ic][0]):
+            return False
+        try:
+            keys = [float(k) for k in self.getWeights()]
+        except (TypeError, ValueError):
+            return False  # non-numeric class labels: host dict lookup
+        # keys that don't survive a float32 round-trip would collide
+        # with a neighbor (ints ≥ 2**24) in the JAX package's traced
+        # searchsorted: the same veto keeps both packages' plans equal
+        return all(f32_exact(k) for k in keys)
+
+    def _trace(self, cols):
+        items = sorted((float(k), float(v))
+                       for k, v in self.getWeights().items())
+        x = cols[self.getInputCol()]
+        # float64, as the eager lookup's Python floats
+        keys = device_constant([k for k, _ in items], np.float64, x.device)
+        vals = device_constant([v for _, v in items], np.float64, x.device)
+        xf = x.to(torch.float64)
+        idx = torch.searchsorted(keys, xf).clamp(0, len(items) - 1)
+        out = dict(cols)
+        # a traced form cannot raise on an unseen label the way the eager
+        # dict lookup does (KeyError) — gate on an exact key match and
+        # emit NaN instead of silently borrowing the nearest class's
+        # weight; NaN poisons downstream losses loudly
+        out[self.getOutputCol()] = torch.where(keys[idx] == xf, vals[idx],
+                                               float("nan"))
+        return out
 
 
 class StratifiedRepartition(Transformer, HasLabelCol, HasSeed, HasDevice):

@@ -39,8 +39,6 @@ from torch_obs_port import port_reference_tests
 globals().update(port_reference_tests("test_perf.py", (
     # the autoscaler (ROADMAP item 9d)
     "TestPredictiveAutoscale",
-    # the AOT store's build order (item 9c)
-    "TestBuildPriority.test_aot_build_order_fallback",
     # the kernels' autotuner and tuned registry (item 9c)
     "TestAutotune",
     "TestPagedAutotune",
@@ -49,7 +47,9 @@ globals().update(port_reference_tests("test_perf.py", (
     # the serving front's feature rows (item 9d)
     "TestFeatureLogSchema.test_serving_rows_carry_v2_fields",
     # the mixed-tenant autoscaling acceptance (item 9d)
-    "TestPredictiveMixedTenant")))
+    "TestPredictiveMixedTenant"), rewrites=(
+    # the AOT store's build order runs against the port's store
+    ("mmlspark_tpu.core.aot", "mmlspark_torch.core.aot"),)))
 
 SVC = "costmodel-bench"
 REL = 1e-9

@@ -264,7 +264,10 @@ info = obs.cost_attribution.record_call("iso_mm", lambda a: a @ a,
 assert info["flops"] == 2 * 8 ** 3, info
 warm = LLMEngine(lm, slots=2, block_len=4, max_seq_len=16,
                  registry=MetricsRegistry(), device="cpu", service="iso")
-assert warm.warm() == {} and obs.compile_tracker.steady
+fps = warm.warm()
+assert sorted(fps) == ["llm_decode_paged_iso_S2_k0",
+                       "llm_prefill_iso_w1_b" + str(warm.prefiller.batch)], fps
+assert obs.compile_tracker.steady
 assert obs.cost_attribution.service_cost("iso")[0] > 0
 obs.compile_tracker.unmark_steady()
 assert obs.device_memory_stats() == [] and not torch.cuda.is_initialized()
@@ -307,6 +310,37 @@ with resilience.faults(0, [resilience.FaultRule(
     except resilience.InjectedDrop:
         pass
 assert ck.all_steps() == [1]
+from mmlspark_torch.core import aot, compile_pipeline
+from mmlspark_torch.featurize import CleanMissingData, Featurize
+from mmlspark_torch.stages import DropColumns
+
+rng = np.random.default_rng(4)
+xs = rng.normal(size=(32, 3)).astype(np.float32)
+xs[::5, 1] = np.nan
+frame = DataFrame({"x0": xs[:, 0], "x1": xs[:, 1], "x2": xs[:, 2],
+                   "k": np.arange(32)})
+names = ["x0", "x1", "x2"]
+cmd = CleanMissingData(inputCols=names, device="cpu").fit(frame)
+fzm = Featurize(inputCols=names, device="cpu").fit(cmd.transform(frame))
+chain = [cmd, fzm, DropColumns(cols=["k"])]
+cp = compile_pipeline(chain, frame, device="cpu", service="iso")
+assert [p["kind"] for p in cp.describe()] == ["fused"], cp.describe()
+eager = DropColumns(cols=["k"]).transform(fzm.transform(cmd.transform(frame)))
+fused = cp.transform(frame)
+for c in eager.columns:
+    assert np.array_equal(eager[c], fused[c], equal_nan=True), c
+store = aot.AotStore(tempfile.mkdtemp())
+assert aot.build_pipeline(cp, frame, store)[0]["built"]
+aot.install(store)
+cp2 = compile_pipeline(chain, frame, device="cpu", service="iso")
+assert cp2.warm_aot() == 1
+obs.compile_tracker.mark_steady()
+again = cp2.transform(frame)
+assert obs.compile_tracker.runtime_compiles() == 0
+obs.compile_tracker.unmark_steady()
+aot.uninstall()
+for c in eager.columns:
+    assert np.array_equal(again[c], fused[c], equal_nan=True), c
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -424,6 +458,9 @@ GBDT_BREADTH = ["lightgbm/sparse.py", "lightgbm/ranker_objective.py",
                 "lightgbm/shap.py", "parallel/collectives.py",
                 "parallel/sharding.py"]
 # modules the control-plane slice added; the scan below must reach each
+COMPILE_SLICE = ["core/compile.py", "core/aot.py", "core/pipeline.py",
+                 "native/loader.py", "serving/llm.py",
+                 "testing/benchmarks.py"]
 CONTROL_SLICE = ["resilience/__init__.py", "resilience/faults.py",
                  "resilience/retry.py", "resilience/breaker.py",
                  "sched/policy.py", "sched/scheduler.py",
@@ -460,6 +497,7 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "shard_gbdt.py")
     yield os.path.join(REPO, "tools", "vision_bf16_agreement.py")
     yield os.path.join(REPO, "tools", "control_bf16_agreement.py")
+    yield os.path.join(REPO, "tools", "time_fused_segment.py")
 
 
 def _imported_modules(path):
@@ -493,6 +531,7 @@ def test_static_scan_finds_no_jax_import():
     assert set(TEXTGEN_SLICE) <= scanned, set(TEXTGEN_SLICE) - scanned
     assert set(VISION_SLICE) <= scanned, set(VISION_SLICE) - scanned
     assert set(CONTROL_SLICE) <= scanned, set(CONTROL_SLICE) - scanned
+    assert set(COMPILE_SLICE) <= scanned, set(COMPILE_SLICE) - scanned
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -215,7 +215,13 @@ class TestSurface:
     def test_warm_device_and_left_out_modes(self, lm, monkeypatch):
         model = lm[2]
         eng = _engine(model, slots=2, max_seq_len=16)
-        assert eng.warm(prefill_windows=(1, 4)) == {}
+        fps = eng.warm(prefill_windows=(1, 4))
+        P = eng.prefiller.batch
+        # the JAX engine's program names, each with its AOT fingerprints
+        assert sorted(fps) == ["llm_decode_paged_llm_S2_k0",
+                               f"llm_prefill_llm_w1_b{P}",
+                               f"llm_prefill_llm_w4_b{P}"]
+        assert all(len(fp) == 64 for pair in fps.values() for fp in pair)
         assert eng.kv.stats()["used"] == 0         # warm writes only trash
         got = _serve(eng, _prompts(seed=13, sizes=(3, 6)))
         assert len(got) == 2

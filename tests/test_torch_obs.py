@@ -78,17 +78,36 @@ globals().update(port_reference_tests("test_attribution.py", (
     "TestPeakSpec.test_env_overrides_win_over_table",
     # XLA cost_analysis: the port counts a call (record_call, below)
     "TestCostAttribution.test_matmul_bound_segment_cpu_analytic_path",
-    # the AOT store (item 9c)
-    "TestAotCostPersistence.test_build_persists_cost_and_warm_reexports",
     # the JAX engine: the port's engine below
     "TestLLMWarmAttribution.test_warm_records_prefill_and_decode_programs",
     # JAX's backend guard: a port capture records host activity instead
     "TestXprofCaptures.test_no_jax_degrades_to_503_with_reason",
     # the serving fronts (item 9d)
     "TestDebugRoutesBothFronts.test_python_front",
-    "TestDebugRoutesBothFronts.test_native_front")))
+    "TestDebugRoutesBothFronts.test_native_front"), rewrites=(
+    # TestAotCostPersistence builds and warms the port's AOT store
+    ("mmlspark_tpu.core", "mmlspark_torch.core"),
+    ("mmlspark_tpu.featurize", "mmlspark_torch.featurize"))))
 
 PKGS = (jobs, tobs)
+
+
+@pytest.fixture(autouse=True)
+def _aot_scenario_on_cpu(request, monkeypatch):
+    """TestAotCostPersistence compiles at the port's default device:
+    point ``resolve_device`` at the CPU for it (the CUDA default itself
+    is held in ``test_torch_compile.py``)."""
+    if request.cls is not None and \
+            request.cls.__name__ == "TestAotCostPersistence":
+        import mmlspark_torch.device as tdevice
+        real = tdevice.resolve_device
+
+        def on_cpu(device=None):
+            if device is None or torch.device(device).type == "cuda":
+                return torch.device("cpu")
+            return real(device)
+        monkeypatch.setattr(tdevice, "resolve_device", on_cpu)
+    yield
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -667,7 +686,9 @@ def test_engine_warm_records_prefill_and_decode_programs():
     eng = LLMEngine(lm, slots=2, block_len=4, max_seq_len=16,
                     service="attr-llm", registry=tobs.MetricsRegistry(),
                     device="cpu")
-    assert eng.warm(prefill_windows=(4,), mark_steady=False) == {}
+    fps = eng.warm(prefill_windows=(4,), mark_steady=False)
+    assert sorted(fps) == ["llm_decode_paged_attr-llm_S2_k0",
+                           "llm_prefill_attr-llm_w4_b2"]
     progs = tobs.cost_attribution.programs()
     prefill = [p for p in progs if p.startswith("llm_prefill_attr-llm")]
     decode = [p for p in progs

@@ -33,8 +33,8 @@ from mmlspark_torch.stages import RenameColumn, SelectColumns
 from torch_obs_port import port_reference_tests
 
 globals().update(port_reference_tests("test_obs_profile.py", (
-    # jax.jit call sites: the port's tracker is tested below; compat.jit
-    # and the train step's jit are the compile slice's (item 9c)
+    # jax.jit call sites, jax arrays and flax: the port's versions of the
+    # three scenarios are TestCompileTracker below
     "TestCompileTracker.test_flags_shape_unstable_fn_and_counts_hits",
     "TestCompileTracker.test_jit_kwargs_and_result_pass_through",
     "TestCompileTracker.test_train_step_is_tracked",
@@ -114,6 +114,21 @@ class TestPortCompileTracker:
         f(torch.ones(2, 3), 1, k=[np.zeros(4, np.int64)])  # a list
         assert tracker.compiles("sig") == 4
 
+    def test_dict_signature_never_formats_values(self):
+        """A dict argument's signature sorts by key alone: formatting a
+        CUDA tensor value to sort would copy it to the host (the fused
+        segments' bodies take dicts of device tensors)."""
+        class Unprintable:
+            shape, dtype, device = (3,), torch.float32, "cuda:0"
+
+            def __repr__(self):
+                raise AssertionError("a value was formatted")
+        sig = tprofile._signature(({"b": Unprintable(), "a": 1},), {})
+        assert sig == ((("dict", (("a", "int"),
+                                  ("b", ((3,), "torch.float32",
+                                         "cuda:0")))),),
+                       ())
+
     def test_result_and_errors_pass_through(self):
         tracker = CompileTracker(registry=tobs.MetricsRegistry())
         f = tracker.track(name="passthrough")(lambda x: x * 2)
@@ -147,6 +162,88 @@ class TestPortCompileTracker:
             'profile_runtime_compiles_total{fn="step"}'] == 1
         tracker.unmark_steady()
         assert tracker.runtime_compiled() == {}
+
+
+class TestCompileTracker:
+    """``test_obs_profile.py``'s three scenarios on the port: the
+    decorator form, the process-wide tracker behind the port's compiled
+    call sites (a fused segment, the train step), results passing
+    through."""
+
+    def test_flags_shape_unstable_fn_and_counts_hits(self):
+        reg = tobs.MetricsRegistry()
+        tracker = CompileTracker(registry=reg)
+
+        @tracker.track(name="unstable")
+        def unstable(x):
+            return (x * 2).sum()
+
+        @tracker.track
+        def stable(x):
+            return x + 1
+        for n in (4, 8, 16):  # novel shape every call
+            unstable(torch.ones(n))
+        for _ in range(3):
+            stable(torch.ones(4))
+        assert tracker.compiles("unstable") >= 2
+        assert tracker.unstable() == {"unstable":
+                                      tracker.compiles("unstable")}
+        assert tracker.compiles("stable") == 1
+        snap = reg.snapshot()
+        assert snap['profile_jit_calls_total{fn="stable",'
+                    'outcome="hit"}'] == 2
+        assert snap['profile_jit_calls_total{fn="stable",'
+                    'outcome="miss"}'] == 1
+        assert snap['profile_compiles_total{fn="unstable"}'] >= 2
+        assert snap['profile_compile_seconds_count{fn="unstable"}'] \
+            >= 2
+        # a fused segment routes through the process-wide tracker with
+        # the same semantics (the call-site surface the compiler uses)
+        from mmlspark_torch.core import compile_pipeline
+        from mmlspark_torch.stages import UDFTransformer
+        df = DataFrame({"v": np.ones(2, np.float32)})
+        cp = compile_pipeline([UDFTransformer(
+            inputCol="v", outputCol="o", jitSafe=True,
+            udf=lambda x: x * 3)], df, service="compat_smoke_fn",
+            device="cpu")
+        cp.transform(df)
+        assert tobs.compile_tracker.compiles("compat_smoke_fn:seg0") == 1
+
+    def test_jit_kwargs_and_result_pass_through(self):
+        tracker = CompileTracker(registry=tobs.MetricsRegistry())
+
+        def double(x, *, scale=2.0):
+            return x * scale
+        f = tracker.track(double, name="passthrough")
+        out = f(torch.tensor([1.0, 2.0]))
+        assert np.allclose(np.asarray(out), [2.0, 4.0])
+        assert np.allclose(np.asarray(f(torch.ones(1), scale=3.0)), [3.0])
+        # the escape hatch: the wrapped function itself
+        assert f.__wrapped__ is double
+
+    def test_train_step_is_tracked(self):
+        """``dl.make_train_step`` routes through the tracker: one compile,
+        then hits — steady-state training shows zero recompiles."""
+        from mmlspark_torch.dl import TrainState, make_train_step
+
+        class Tiny(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.dense = torch.nn.Linear(5, 3)
+
+            def forward(self, x, train=True):
+                return self.dense(x)
+
+        net = Tiny()
+        opt = torch.optim.SGD(net.parameters(), lr=0.1)
+        state = TrainState(net, opt)
+        step = make_train_step(net, opt)
+        before = tobs.compile_tracker.compiles("train_step")
+        x = torch.zeros(4, 5)
+        y = torch.zeros(4, dtype=torch.int64)
+        state, _ = step(state, x, y)
+        state, _ = step(state, x, y)
+        assert tobs.compile_tracker.compiles("train_step") == before + 1
 
 
 def test_engine_steps_are_tracked_and_steady():

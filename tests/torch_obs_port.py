@@ -13,7 +13,9 @@ port: what the reference checks of its own package, the port is held to.
 Everything else the module imports (numpy, the JAX package's other
 modules) stays as it is. A rewritten name is a prefix of a dotted path, so
 ``mmlspark_tpu.sched`` also carries ``mmlspark_tpu.sched.policy`` and the
-``"mmlspark_tpu.sched"`` logger across.
+``"mmlspark_tpu.sched"`` logger across. ``rewrites=`` adds pairs for one
+module (the compile slice's tests point ``mmlspark_tpu.core`` and
+``mmlspark_tpu.featurize`` at the port too).
 """
 
 import os
@@ -31,11 +33,13 @@ _REWRITES = (("mmlspark_tpu.obs", "mmlspark_torch.obs"),
               "mmlspark_torch.testing.benchmarks"))
 
 
-def port_reference_tests(name: str, exclude=()) -> dict:
+def port_reference_tests(name: str, exclude=(), rewrites=()) -> dict:
+    """``rewrites``: more (JAX package prefix, port prefix) pairs for this
+    module, applied before the shared ones."""
     path = os.path.join(TESTS, name)
     with open(path) as f:
         src = f.read()
-    for old, new in _REWRITES:
+    for old, new in (*rewrites, *_REWRITES):
         src = src.replace(old, new)
     mod = types.ModuleType(f"torch_port_of_{name[:-3]}")
     mod.__file__ = path
