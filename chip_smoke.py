@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 
 It builds every CUDA kernel of the port from the checkout's sources (one
 nvcc per source, all started together: K1, the forward, the backward, K3's
-window kernel, K3's split-KV decode kernel with its combine, and the wide-
-head-dim instances; phases 2-4 need only K1 and run while the attention
-kernels build), then:
+window kernel, K3's split-KV decode kernel with its combine, the wide-
+head-dim instances and, for phase 36, the forward's tuned instances;
+phases 2-4 need only K1 and run while the attention kernels build), then:
 
 1. prints the build times, each kernel's ptxas lines (registers, shared
    memory, spills; a spill above ``SPILL_LIMITS`` fails, so any in the
@@ -388,6 +388,30 @@ kernels build), then:
     store, empty build directory) and warm; last, one byte of K3 decode's
     stored library flipped must give one loud miss, one rebuild, one
     backfill and the same tokens.
+36. tunes the kernels' tiles (``perf.autotune``; the run's registry is a
+    fresh file named by ``MMLSPARK_TPU_TUNE_STORE``, set at the start for
+    the run and its children, and phases 1-35 must have found no winner
+    in it): K1 at phase 3's ``[500,000, 28]`` u8 bins with 256 bins
+    (``feat_block`` x ``block_rows``), K2a at BERT-base's ``[32, 12, 512,
+    64]`` bf16 and K2c at the generate prefill's ``[32, 8, 128, 64]``
+    (``block_k`` x ``stages``: the default instance and
+    ``csrc/flash_tuned.cu``'s) and K3's decode kernel at phase 9's decode
+    row (32 slots, ``BL`` 16, 256 blocks, 8 heads of 64, bf16: ``chunk``
+    x ``stage_positions``). Every candidate is first held against its
+    plain version at the tolerance of that kernel's check, then timed by
+    the tuner (one warm launch, then the best of 20 between CUDA events,
+    L2 flushed); any discard fails. Each winner is timed against the
+    default tiles in 16 alternating turns (each the median of 5 launches
+    timed as the tuner times them). A fresh ``python3`` (``--tune-
+    child``) loads the registry at import and runs a BERT-base transform,
+    phase 3's fit, a 16-slot engine round over a 4,096-position table and
+    ``generate`` on 4 prompts, tuned and then with the table cleared: every
+    tuned key must be hit tuned and none untuned, the launch counts equal,
+    the pooled rows within phase 24's bf16 limits, the AUCs within 1e-3
+    and every token within phase 11's re-score limit. The kernels line's
+    K1, ``flash_bert``, ``flash_causal`` and ``paged_attention`` records
+    gain a ``tuned`` entry (the winner's tiles, its time and the
+    default's).
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -398,7 +422,7 @@ first check, and ``--phases`` runs some of the phase groups after the build
 12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21,
 ``breadth3``: 22-23, ``textgen``: 24-28, ``vision``: 29-32, ``obs``: 33,
 which needs ``gbdt``, ``train`` and ``llm``, ``control``: 34,
-``compile``: 35).
+``compile``: 35, ``tune``: 36).
 """
 
 from __future__ import annotations
@@ -608,11 +632,12 @@ def memory_bandwidth(torch) -> tuple[float, str]:
         f"nvidia-smi clocks.max.memory {mhz:.0f} MHz x {H100_BUS_BITS} bit"
 
 
-def check_hist(torch, k1, name, bins, vals, B, count=None):
-    """Hold hist_cuda against hist_torch on one input; returns the largest
-    grad/hess difference."""
+def check_hist(torch, k1, name, bins, vals, B, count=None, tiles=None):
+    """Hold hist_cuda (at ``tiles``, its ``feat_block``/``block_rows``, if
+    given) against hist_torch on one input; returns the largest grad/hess
+    difference."""
     want = k1.hist_torch(bins, vals, num_bins=B, count=count)
-    got = k1.hist_cuda(bins, vals, num_bins=B, count=count)
+    got = k1.hist_cuda(bins, vals, num_bins=B, count=count, **(tiles or {}))
     scale = k1.hist_torch(bins, vals.abs(), num_bins=B, count=count)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
@@ -635,6 +660,7 @@ def check_hist(torch, k1, name, bins, vals, B, count=None):
 
 
 _KERNEL = re.compile(r"(hist_partial|flash_fwd_bf16|flash_fwd_f32|"
+                     r"flash_fwd_tuned|"
                      r"bwd_dq_bf16|bwd_dkv_bf16|bwd_dq_f32|bwd_dkv_f32|"
                      r"paged_fwd_bf16|paged_f32|paged_decode|paged_combine|"
                      r"wide_fwd|wide_dq|wide_dkv|split_fwd|split_dq|"
@@ -750,11 +776,12 @@ def make_documents(n: int, seed: int = 5):
     return texts, lengths
 
 
-def check_flash(torch, k2, name, q, k, v, mask, rtol, atol):
-    """Hold flash_cuda against flash_torch on one input; rows whose mask is
-    all False must be exactly 0. Returns the largest |difference|."""
+def check_flash(torch, k2, name, q, k, v, mask, rtol, atol, tiles=None):
+    """Hold flash_cuda (at ``tiles``, its ``block_k``/``stages``, if given)
+    against flash_torch on one input; rows whose mask is all False must be
+    exactly 0. Returns the largest |difference|."""
     want = k2.flash_torch(q, k, v, mask)
-    got = k2.flash_cuda(q, k, v, mask)
+    got = k2.flash_cuda(q, k, v, mask, **(tiles or {}))
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"K2a {name}: {got.dtype} {tuple(got.shape)} vs plain "
@@ -1178,28 +1205,27 @@ def compare_grads(phase, name, got, dense, verbose):
     return ok
 
 
-def check_training_kernels(torch, k2, name, q, k, v, dout, mask,
-                           dlse=None, q_off=None, k_off=0):
-    """Hold K2b, K2d and K2e against their plain versions on one input, or
-    with ``q_off`` given their causal branches (K2c-lse, causal K2d and K2e)
-    at the offsets ``(q_off, k_off)``. Rows with no allowed key must have o
-    and dq exactly 0 and lse exactly -1e30; keys no row may see (invalid,
-    or when causal after every row's position) dk and dv exactly 0.
-    Returns the largest |difference| of each kernel (the forward's over o
-    and lse)."""
+def check_lse_forward(torch, k2, name, q, k, v, mask, q_off=None, k_off=0,
+                      tiles=None):
+    """Hold K2b (``flash_lse_cuda``, at ``tiles``, its ``block_k``/
+    ``stages``, if given), or with ``q_off`` given K2c-lse at the offsets
+    ``(q_off, k_off)``, against ``flash_lse_torch``: o at the forward's
+    tolerance, the lse within LSE_ATOL. Rows with no allowed key must have
+    o exactly 0 and lse exactly -1e30. Returns o, the lse, the rows with
+    no allowed key and the largest |difference| over o and lse."""
     bf16 = q.dtype == torch.bfloat16
     causal = q_off is not None
     pos = dict(causal=causal, q_offset=q_off or 0, k_offset=k_off)
-    fwd, kd, ke = KERNEL_IDS[causal]
+    fwd = KERNEL_IDS[causal][0]
     B, _, T, _ = q.shape
-    o, lse = k2.flash_lse_cuda(q, k, v, mask, **pos)
+    o, lse = k2.flash_lse_cuda(q, k, v, mask, **pos, **(tiles or {}))
     want_o, want_lse = k2.flash_lse_torch(q, k, v, mask, **pos)
+    keys = (torch.ones(B, T, dtype=torch.bool, device=q.device)
+            if mask is None else mask)
     if causal:
-        empty = causal_empty_rows(torch, mask, B, T, q_off, k_off, q.device)
-        unseen = ~mask | (k_off + torch.arange(T, device=q.device)
-                          > q_off + T - 1)[None, :]
+        empty = causal_empty_rows(torch, keys, B, T, q_off, k_off, q.device)
     else:
-        empty, unseen = (~mask.any(1, keepdim=True)).expand(B, T), ~mask
+        empty = (~keys.any(1, keepdim=True)).expand(B, T)
     if not causal and bool(empty.all()):   # (causal offsets may, on purpose)
         fail(f"{fwd} {name}: no row has an allowed key; the hold would "
              "compare zeros with zeros")
@@ -1213,6 +1239,30 @@ def check_training_kernels(torch, k2, name, q, k, v, dout, mask,
             and (lse_r[empty] == -1e30).all()):
         fail(f"{fwd} {name}: a row with no allowed key has o not exactly 0 "
              "or lse not -1e30")
+    return o, lse, empty, err_f
+
+
+def check_training_kernels(torch, k2, name, q, k, v, dout, mask,
+                           dlse=None, q_off=None, k_off=0):
+    """Hold K2b, K2d and K2e against their plain versions on one input, or
+    with ``q_off`` given their causal branches (K2c-lse, causal K2d and K2e)
+    at the offsets ``(q_off, k_off)``. Rows with no allowed key must have o
+    and dq exactly 0 and lse exactly -1e30; keys no row may see (invalid,
+    or when causal after every row's position) dk and dv exactly 0.
+    Returns the largest |difference| of each kernel (the forward's over o
+    and lse)."""
+    bf16 = q.dtype == torch.bfloat16
+    causal = q_off is not None
+    pos = dict(causal=causal, q_offset=q_off or 0, k_offset=k_off)
+    fwd, kd, ke = KERNEL_IDS[causal]
+    T = q.shape[2]
+    o, lse, empty, err_f = check_lse_forward(torch, k2, name, q, k, v, mask,
+                                             q_off, k_off)
+    if causal:
+        unseen = ~mask | (k_off + torch.arange(T, device=q.device)
+                          > q_off + T - 1)[None, :]
+    else:
+        unseen = ~mask
     # the backward from the kernel's own o and lse, as training runs it
     dsum = k2.flash_dsum(o, dout, dlse)
     rtol, of_max = ((BWD_BF16_RTOL, BWD_BF16_ATOL_OF_MAX) if bf16
@@ -1765,14 +1815,16 @@ def fused_qkv(torch, gen, dev, B, T, H, D, dtype):
                  for a in qkv.split(H * D, dim=-1))
 
 
-def check_causal(torch, k2, name, q, k, v, mask, q_off=0, k_off=0):
-    """Hold K2c against the causal plain version on one input; rows with no
-    allowed key must be exactly 0. Returns the largest |difference|."""
+def check_causal(torch, k2, name, q, k, v, mask, q_off=0, k_off=0,
+                 tiles=None):
+    """Hold K2c (at ``tiles``, if given) against the causal plain version
+    on one input; rows with no allowed key must be exactly 0. Returns the
+    largest |difference|."""
     bf16 = q.dtype == torch.bfloat16
     want = k2.flash_torch(q, k, v, mask, causal=True, q_offset=q_off,
                           k_offset=k_off)
     got = k2.flash_causal_cuda(q, k, v, mask, q_offset=q_off,
-                               k_offset=k_off)
+                               k_offset=k_off, **(tiles or {}))
     err = hold(torch, f"K2c {name}", got, want,
                FLASH_BF16_RTOL if bf16 else 0.0,
                FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL)
@@ -7001,9 +7053,391 @@ def compile_phase(torch, k1, k2, k3, dev, card) -> dict:
             "paged_attention_combine": warm["k3_combine"]}
 
 
+TUNE_REPS = 20                # timed launches a candidate (best of)
+TUNE_PAIRS = 16               # winner/default turns, alternating
+TUNE_SEED = 36
+TUNE_DECODE = dict(S=32, w=1, BL=16, MB=256, H=8, hd=64)  # phase 9's row
+TUNE_ENGINE_SEQ = TUNE_DECODE["BL"] * TUNE_DECODE["MB"]   # the same table
+TUNE_ENGINE_SLOTS = 16        # the tuned child's engine
+TUNE_TIMEOUT = 300            # seconds the tuned child may take
+TUNE_AUC_ATOL = 1e-3          # the tuned fit's AUC against the untuned one
+
+
+def tuned_keys(rows: int) -> dict:
+    """The registry keys phase 36 tunes, by record: K1 at phase 3's fit,
+    K2a at BERT-base's attention, K2c at the generate prefill and K3's
+    decode kernel at phase 9's decode row."""
+    from mmlspark_torch.perf import autotune
+    d = TUNE_DECODE
+    return {"hist": ("hist", autotune.hist_key(rows, 28, 256)),
+            "flash_bert": ("flash_attention", autotune.attn_key(
+                BERT_BASE["max_len"], 64, False)),
+            "flash_causal": ("flash_attention", autotune.attn_key(
+                GEN_T - 1, 64, True)),
+            "paged_attention": ("paged_attn", autotune.paged_key(
+                d["BL"] * d["MB"], d["hd"], d["w"]))}
+
+
+def report_search(name, rec) -> dict:
+    """Print every candidate's time of one search; fail on a discard or
+    no winner. Returns the winner's tiles."""
+    for t in rec["trials"]:
+        tiles = {k: v for k, v in t.items() if k not in ("ms", "discarded")}
+        print(f"phase 36: {name} {tiles}: "
+              + (f"{t['ms']:.4f} ms" if t["ms"] is not None
+                 else f"DISCARDED ({t['discarded']})"))
+    if rec["winner"] is None or rec["valid"] != rec["candidates"]:
+        fail(f"phase 36: {name}: {rec['valid']} of {rec['candidates']} "
+             "candidates timed; every candidate was held against its plain "
+             "version first, so a discard is a fault of the kernel")
+    return {k: v for k, v in rec["winner"].items() if k != "ms"}
+
+
+def fwd_tiles(cfg) -> dict:
+    """The forward wrappers' tile arguments of one candidate (its q tile
+    is the CTA's 128 rows, no argument)."""
+    if cfg["block_q"] != 128:
+        fail(f"phase 36: a forward candidate with block_q {cfg['block_q']}")
+    return {"block_k": cfg["block_k"], "stages": cfg["stages"]}
+
+
+def decode_tiles(cfg) -> dict:
+    """The decode wrapper's tile arguments of one candidate: the chunk its
+    grid target gives at the slot count tuned, and its stage."""
+    return {"chunk": cfg["chunk"], "stage_positions": cfg["stage_positions"]}
+
+
+def alternating(autotune, default, winner) -> tuple:
+    """Median device ms of ``default`` and ``winner`` over TUNE_PAIRS turns
+    taken in alternating order (default first, then winner first, ...),
+    each turn the median of 5 launches timed as the tuner times them
+    (``autotune.device_times``: L2 flushed, the host's launch work outside
+    the events): both read under the same clocks and neighbours."""
+    times = {0: [], 1: []}
+    for i in range(TUNE_PAIRS):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            times[j].append(float(np.median(autotune.device_times(
+                (default, winner)[j], 5))))
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
+def tune_phase(torch, k1, k2, k3, dev, args) -> dict:
+    """Phase 36: the kernels' tile search on the card. Every candidate of
+    K1, K2a (BERT-base), K2c (the generate prefill) and K3's decode kernel
+    is held against its plain version, then ``perf.autotune`` times them
+    all and persists the winners into the run's registry; each winner is
+    timed against the default tiles in alternating turns; a fresh process
+    that loads the registry at import then runs a BERT-base transform, a
+    GBDT fit, a 16-slot engine round and ``generate`` tuned and untuned.
+    Returns the ``tuned`` entries of the kernels line, by record."""
+    from mmlspark_torch.perf import autotune
+    path = autotune.registry_path()
+    if os.path.exists(path):
+        fail(f"phase 36: a registry exists at {path} before the search")
+    gen = torch.Generator(device=dev).manual_seed(TUNE_SEED)
+    keys = tuned_keys(args.rows)
+    entries = {}
+
+    # K1 at phase 3's fit
+    n, F, B = args.rows, 28, 256
+    bins = torch.randint(0, B, (n, F), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    vals = torch.randn(n, 3, generator=gen, device=dev)
+    vals[:, 2] = 1.0
+    cands = autotune.hist_candidates(n, F, B)
+    for c in cands:
+        check_hist(torch, k1, f"phase 36 {c}", bins, vals, B, tiles=c)
+    rec = autotune.tune_hist(n, F, B, reps=TUNE_REPS, seed=TUNE_SEED)
+    best = report_search(f"K1 [{n}, {F}] B={B}", rec)
+    d_ms, w_ms = alternating(
+        autotune, lambda: k1.hist_cuda(bins, vals, num_bins=B, **cands[0]),
+        lambda: k1.hist_cuda(bins, vals, num_bins=B, **best))
+    entries["hist"] = (best, w_ms, cands[0], d_ms)
+    del bins, vals
+
+    # K2a at BERT-base's attention (the key mask of ragged rows, one fully
+    # masked) and K2c at the generate prefill
+    H, D, T = BERT_BASE["heads"], 64, BERT_BASE["max_len"]
+    Bq = args.docs
+    q, k, v = (torch.randn(Bq, H, T, D, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    lens = torch.randint(64, T + 1, (Bq,), generator=gen, device=dev)
+    lens[-1] = 0
+    mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    cands = autotune.attention_candidates(T, D)
+    # the winner serves every forward instance at its key: K2a and K2b
+    for c in cands:
+        check_flash(torch, k2, f"phase 36 BERT-base {c}", q, k, v, mask,
+                    FLASH_BF16_RTOL, FLASH_BF16_ATOL, tiles=fwd_tiles(c))
+        err = check_lse_forward(torch, k2, f"phase 36 BERT-base {c}", q, k,
+                                v, mask, tiles=fwd_tiles(c))[-1]
+        print(f"K2b phase 36 BERT-base {c}: max |diff| o/lse {err:.3g}")
+    # timed on the same ragged rows, the traffic the tiles serve
+    rec = autotune.tune_attention(T, D, batch=Bq, heads=H, reps=TUNE_REPS,
+                                  seed=TUNE_SEED,
+                                  key_lengths=lens.tolist())
+    best = report_search(f"K2a [{Bq}, {H}, {T}, {D}]", rec)
+    tiles, dflt = fwd_tiles(best), fwd_tiles(cands[0])
+    d_ms, w_ms = alternating(
+        autotune, lambda: k2.flash_cuda(q, k, v, mask, **dflt),
+        lambda: k2.flash_cuda(q, k, v, mask, **tiles))
+    entries["flash_bert"] = (best, w_ms, cands[0], d_ms)
+    Tp, Hc = GEN_T - 1, TEXT_SHAPE["heads"]
+    q, k, v = (torch.randn(GEN_BATCH, Hc, Tp, D, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    cands = autotune.attention_candidates(Tp, D, causal=True)
+    # K2c and K2c-lse, which causal training runs at this key
+    for c in cands:
+        check_causal(torch, k2, f"phase 36 prefill {c}", q, k, v, None,
+                     tiles=fwd_tiles(c))
+        err = check_lse_forward(torch, k2, f"phase 36 prefill {c}", q, k, v,
+                                None, q_off=0, tiles=fwd_tiles(c))[-1]
+        print(f"K2c-lse phase 36 prefill {c}: max |diff| o/lse {err:.3g}")
+    rec = autotune.tune_attention(Tp, D, causal=True, batch=GEN_BATCH,
+                                  heads=Hc, reps=TUNE_REPS, seed=TUNE_SEED)
+    best = report_search(f"K2c [{GEN_BATCH}, {Hc}, {Tp}, {D}]", rec)
+    tiles, dflt = fwd_tiles(best), fwd_tiles(cands[0])
+    d_ms, w_ms = alternating(
+        autotune, lambda: k2.flash_causal_cuda(q, k, v, **dflt),
+        lambda: k2.flash_causal_cuda(q, k, v, **tiles))
+    entries["flash_causal"] = (best, w_ms, cands[0], d_ms)
+    del q, k, v, mask
+
+    # K3's decode kernel at phase 9's decode row
+    d = TUNE_DECODE
+    c = paged_case(torch, dev, TUNE_SEED, d["S"], d["w"], d["BL"], d["MB"],
+                   d["H"], d["hd"], torch.bfloat16, full=True)
+    kargs = (c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"])
+    want = k3.paged_torch(*kargs)
+    act = torch.from_numpy(c["active"]).to(dev)
+    cands = autotune.paged_candidates(d["BL"] * d["MB"], d["BL"], d["H"],
+                                      d["hd"], w=d["w"], slots=d["S"])
+    for cfg in cands:
+        got = k3.paged_decode_cuda(*kargs, **decode_tiles(cfg))
+        err = hold(torch, f"K3 decode phase 36 {cfg}", got[act], want[act],
+                   PAGED_BF16_RTOL, PAGED_BF16_ATOL)
+        if not (got[~act] == 0).all():
+            fail(f"phase 36: K3 decode {cfg}: an all-trash slot is not 0")
+        print(f"K3 decode phase 36 {cfg}: max |diff| {err:.3g}")
+    rec = autotune.tune_paged_attention(
+        d["BL"] * d["MB"], d["BL"], d["H"], d["hd"], w=d["w"], slots=d["S"],
+        reps=TUNE_REPS, seed=TUNE_SEED)
+    best = report_search(f"K3 decode S={d['S']} context "
+                         f"{d['BL'] * d['MB']}", rec)
+    d_ms, w_ms = alternating(
+        autotune, lambda: k3.paged_decode_cuda(*kargs, **decode_tiles(
+            cands[0])),
+        lambda: k3.paged_decode_cuda(*kargs, **decode_tiles(best)))
+    entries["paged_attention"] = (best, w_ms, cands[0], d_ms)
+    del c, kargs, want
+    # the same key at the tuned child's 16 slots: the winner's grid target
+    # cut at 16 slots (the wrapper's own resolution) against the plan's own
+    S16 = TUNE_ENGINE_SLOTS
+    c = paged_case(torch, dev, TUNE_SEED + 1, S16, d["w"], d["BL"], d["MB"],
+                   d["H"], d["hd"], torch.bfloat16, full=True)
+    kargs = (c["q"], c["k_pool"], c["v_pool"], c["rows"], c["pos"])
+    act = torch.from_numpy(c["active"]).to(dev)
+    plan0 = k3.decode_plan(S16, d["H"], d["w"], d["hd"], d["BL"], d["MB"], 2,
+                           k3._sm_count(c["q"].device.index))
+    tuned16 = k3.plan_of(c["q"], c["k_pool"], c["rows"])
+    err = hold(torch, f"K3 decode phase 36 S={S16} {tuned16}",
+               k3.paged_decode_cuda(*kargs)[act],
+               k3.paged_torch(*kargs)[act], PAGED_BF16_RTOL, PAGED_BF16_ATOL)
+    d16, w16 = alternating(
+        autotune, lambda: k3.paged_decode_cuda(
+            *kargs, chunk=plan0.L, stage_positions=plan0.P),
+        lambda: k3.paged_decode_cuda(*kargs))
+    print(f"phase 36: K3 decode at {S16} slots: the winner's target cuts "
+          f"chunks of {tuned16.L} ({tuned16.ctas} CTAs), {w16:.4f} ms, "
+          f"against the plan's {plan0.L} ({plan0.ctas} CTAs), {d16:.4f} ms "
+          f"(alternating turns; ratio {w16 / d16:.4f}); max |diff| "
+          f"{err:.3g}")
+    at16 = {"slots": S16, "chunk": tuned16.L, "ms": w16,
+            "default_chunk": plan0.L, "default_ms": d16}
+    del c, kargs
+
+    out = {}
+    for name, (best, w_ms, dflt, d_ms) in entries.items():
+        kernel, key = keys[name]
+        print(f"phase 36: {name} {key}: winner {best} {w_ms:.4f} ms, "
+              f"default {dflt} {d_ms:.4f} ms (medians of {TUNE_PAIRS} "
+              f"alternating turns, each the median of 5 launches, L2 "
+              f"flushed; ratio {w_ms / d_ms:.4f})")
+        out[name] = {"key": key, "tiles": best, "ms": w_ms,
+                     "default": dflt, "default_ms": d_ms}
+    out["paged_attention"]["engine_slots"] = at16
+    if autotune.load(path) != len(set(keys.values())):
+        fail(f"phase 36: the registry at {path} holds "
+             f"{len(autotune._WINNERS)} winners, not {len(keys)}")
+
+    # a fresh process: the registry loads at import; tuned, then untuned
+    spec = {"rows": args.rows, "iterations": args.iterations,
+            "docs": args.docs, "keys": {n_: list(kk)
+                                        for n_, kk in keys.items()}}
+    spec_path = path + ".child.json"
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--tune-child",
+         spec_path], capture_output=True, text=True, timeout=TUNE_TIMEOUT)
+    print(proc.stdout.rstrip())
+    if proc.returncode != 0:
+        fail(f"phase 36: the tuned child exited {proc.returncode}:\n"
+             f"{proc.stderr[-6000:]}")
+    print(f"phase 36: the tuned child took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tune_child(spec_path: str) -> None:
+    """Phase 36's fresh process (``python3 chip_smoke.py --tune-child
+    <spec>``): the port loads the run's registry at import; a BERT-base
+    transform, a GBDT fit at phase 3's shape, a 16-slot engine round over a
+    4,096-position table and ``generate`` run first tuned, then with the
+    table cleared. Each tuned key the path reaches must be hit (and none
+    untuned), the launch counts equal, the pooled rows within phase 24's
+    limits, the AUCs within 1e-3 and every token within phase 11's
+    re-score limit. Fails on any of them; prints a summary."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    import torch
+    from mmlspark_torch.perf import autotune
+    loaded = dict(autotune._WINNERS)
+    import mmlspark_torch.dl.flash_attention as k2
+    import mmlspark_torch.dl.paged_attention as k3
+    import mmlspark_torch.lightgbm.hist as k1
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import TextEncoderFeaturizer, generate
+    from mmlspark_torch.featurize import WordPieceTokenizerModel
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+    from mmlspark_torch.models import (LoadedModel, bert_encoder_from_torch,
+                                       register_bert_encoder)
+    from mmlspark_torch.obs import MetricsRegistry
+    from mmlspark_torch.serving import LLMEngine
+    from mmlspark_torch.train import ComputeModelStatistics
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    want_keys = {f"{kernel}|{key}|cuda" for kernel, key in
+                 spec["keys"].values()}
+    if set(loaded) != want_keys:
+        fail(f"phase 36 child: loaded {sorted(loaded)} at import, expected "
+             f"{sorted(want_keys)}")
+
+    hit_keys = set()
+    consult = autotune.kernel_winner
+
+    def recording(kernel, shape_key, platform):
+        w = consult(kernel, shape_key, platform)
+        if w is not None:
+            hit_keys.add(f"{kernel}|{shape_key}|{platform}")
+        return w
+    autotune.kernel_winner = recording
+
+    texts, lengths = make_documents(spec["docs"])
+    T = BERT_BASE["max_len"]
+    docs = np.asarray([" ".join(t.split()[:n // 5])
+                       for t, n in zip(texts, lengths)], object)
+    ids = WordPieceTokenizerModel.from_vocab(
+        wordpiece_vocab(texts), maxLength=T, inputCol="text").transform(
+        DataFrame({"text": docs}))
+    schema = register_bert_encoder("BertBase", seq_len=T, **BERT_BASE)
+    bert = bert_encoder_from_torch(
+        bert_state_dict(torch), config={"num_attention_heads":
+                                        BERT_BASE["heads"]},
+        dtype=torch.bfloat16)
+    stage = TextEncoderFeaturizer(attentionImpl="pallas", seqChunk=128,
+                                  model=LoadedModel(schema, bert),
+                                  inputCol="tokens")
+    feats, labels = higgs_like(spec["rows"])
+    df = DataFrame({"features": feats, "label": labels})
+    kw = dict(numIterations=spec["iterations"], numLeaves=31, maxBin=255,
+              learningRate=0.1)
+    lm = lm_model(torch, "pallas").to(dev).eval()
+    dense = lm_model(torch, "dense").to(dev).eval()
+    prompts = boot_prompts()
+    generate(lm, prompts[:BOOT_GEN], max_new_tokens=8)  # the probe, once
+    counters = {"K1": k1.hist_cuda, "K2a": k2.flash_cuda,
+                "K2c": k2.flash_causal_cuda, "K3 window": k3.paged_cuda,
+                "K3 decode": k3.paged_decode_cuda}
+
+    runs = {}
+    for mode in ("tuned", "untuned"):
+        if mode == "untuned":
+            autotune.clear()
+        hit_keys.clear()
+        reset(counters)
+        k3.paged_decode_cuda.combine_launches = 0
+        t0 = time.perf_counter()
+        pooled = stage.transform(ids)["features"]
+        model = LightGBMClassifier(**kw).fit(df)
+        auc = float(ComputeModelStatistics(labelCol="label").transform(
+            model.transform(df))["AUC"][0])
+        eng = LLMEngine(lm, slots=TUNE_ENGINE_SLOTS,
+                        block_len=TUNE_DECODE["BL"],
+                        max_seq_len=TUNE_ENGINE_SEQ,
+                        num_blocks=1 + TUNE_ENGINE_SLOTS * TUNE_DECODE["MB"],
+                        prefill_batch=4, registry=MetricsRegistry(),
+                        device=dev)
+        for i, p_ in enumerate(prompts):
+            eng.submit(i, p_, BOOT_NEW)
+        out = eng.run_until_drained()
+        seqs = np.stack([out[i] for i in range(len(prompts))])
+        gen_out = generate(lm, prompts[:BOOT_GEN], max_new_tokens=8)
+        torch.cuda.synchronize()
+        launches = {**counts(counters),
+                    "K3 combine": k3.paged_decode_cuda.combine_launches}
+        runs[mode] = dict(pooled=pooled, auc=auc, seqs=seqs, gen=gen_out,
+                          launches=launches, hits=set(hit_keys),
+                          seconds=time.perf_counter() - t0)
+        del eng
+        print(f"phase 36 child: {mode}: {runs[mode]['seconds']:.2f} s, "
+              f"launches {launches}, AUC {auc:.6f}, winners hit "
+              f"{sorted(hit_keys)}")
+        # the cut the engine's decode launches ran: the winner's grid
+        # target at 16 slots, or the plan's own
+        plan = k3.decode_tiles(
+            TUNE_ENGINE_SLOTS, TEXT_SHAPE["heads"], 1,
+            TEXT_SHAPE["width"] // TEXT_SHAPE["heads"], TUNE_DECODE["BL"],
+            TUNE_DECODE["MB"], 2,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        print(f"phase 36 child: {mode}: the engine's K3 decode plan {plan}")
+        hold_rescore(torch, f"phase 36 child: {mode} engine round", dense,
+                     seqs, GEN_T, dev)
+        hold_rescore(torch, f"phase 36 child: {mode} generate", dense,
+                     gen_out, GEN_T, dev)
+    tuned, untuned = runs["tuned"], runs["untuned"]
+    if tuned["hits"] != want_keys:
+        fail(f"phase 36 child: tuned run hit {sorted(tuned['hits'])}, "
+             f"expected every tuned key {sorted(want_keys)}")
+    if untuned["hits"]:
+        fail(f"phase 36 child: untuned run hit {sorted(untuned['hits'])}")
+    if tuned["launches"] != untuned["launches"]:
+        fail(f"phase 36 child: launches tuned {tuned['launches']} vs "
+             f"untuned {untuned['launches']}")
+    cos, ccos, delta = agreement(tuned["pooled"], untuned["pooled"])
+    lim = BERT_BF16_POOLED_LIMITS
+    print(f"phase 36 child: BERT-base pooled rows, tuned against untuned: "
+          f"per-row cosine min {cos:.7f} (floor {lim[0]}), centred "
+          f"{ccos:.7f} (floor {lim[1]}), max |diff| {delta:.4g} (limit "
+          f"{lim[2]})")
+    if cos < lim[0] or ccos < lim[1] or delta > lim[2]:
+        fail("phase 36 child: tuned and untuned pooled rows disagree "
+             "beyond phase 24's limits")
+    if abs(tuned["auc"] - untuned["auc"]) > TUNE_AUC_ATOL:
+        fail(f"phase 36 child: AUC tuned {tuned['auc']:.6f} vs untuned "
+             f"{untuned['auc']:.6f} (limit {TUNE_AUC_ATOL})")
+    same = int(sum(np.array_equal(a, b) for a, b in
+                   zip(tuned["seqs"], untuned["seqs"])))
+    print(f"phase 36 child: {same} of {len(prompts)} engine sequences and "
+          f"{int(np.array_equal(tuned['gen'], untuned['gen']))} generate "
+          f"batch identical tuned and untuned; AUC {tuned['auc']:.6f} vs "
+          f"{untuned['auc']:.6f}; launches equal {tuned['launches']}")
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
                 "breadth", "breadth2", "breadth3", "textgen", "vision",
-                "obs", "control", "compile")
+                "obs", "control", "compile", "tune")
 # the kernels line's K2a records, which gain phase 34's launches
 K2A_RECORDS = ("flash", "flash_bert", "flash_control")
 
@@ -7041,13 +7475,35 @@ def main() -> None:
                     "featurize (14-15), breadth (16-18), breadth2 "
                     "(19-21), breadth3 (22-23), textgen (24-28), vision "
                     "(29-32), obs (33: needs gbdt, train and llm), "
-                    "control (34), compile (35); train needs text")
+                    "control (34), compile (35), tune (36); train needs "
+                    "text")
     ap.add_argument("--boot-child", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tune-child", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.boot_child:
         boot_child(args.boot_child)
         return
+    if args.tune_child:
+        tune_child(args.tune_child)
+        return
+    # the tile registry of this run and its children: a fresh file that
+    # only phase 36 writes, so that a registry left in the per-user default
+    # can never steer phases 1-35
+    import shutil
+    import tempfile
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune-")
+    os.environ["MMLSPARK_TPU_TUNE_STORE"] = os.path.join(tune_dir,
+                                                         "autotune.json")
+    try:
+        run(args)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run(args) -> None:
+    """Phases 1-36 of the groups ``args.phases`` names."""
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
         fail(f"--phases {args.phases}: groups are {', '.join(PHASE_GROUPS)}")
@@ -7079,7 +7535,7 @@ def main() -> None:
     # build
     t0 = time.perf_counter()
     k1_name = "K1 (lightgbm/csrc/hist.cu)"
-    builds = start_builds({
+    build_fns = {
         k1_name: k1.build_kernel,
         "K2a, K2b, K2c (dl/csrc/flash_attn.cu)": k2.build_kernel,
         "K2d, K2e (dl/csrc/flash_bwd.cu)": k2.build_bwd_kernel,
@@ -7087,7 +7543,11 @@ def main() -> None:
         "K3 decode and combine (dl/csrc/paged_decode.cu)":
             k3.build_decode_kernel,
         "K2a-K2e and K3 window, wide head dims (dl/csrc/attn_wide.cu)":
-            k2.build_wide_kernel})
+            k2.build_wide_kernel}
+    if "tune" in groups:
+        build_fns["K2a, K2b, K2c tuned tiles (dl/csrc/flash_tuned.cu)"] = \
+            k2.build_tuned_kernel
+    builds = start_builds(build_fns)
     print("phase 1: building every kernel (sm_90a), one nvcc each, at once")
     finish_builds({k1_name: builds.pop(k1_name)})
     print(card)
@@ -7184,6 +7644,21 @@ def main() -> None:
         for rec in records:
             if rec["name"] in launches:
                 rec["compile_launches"] = launches[rec["name"]]
+
+    # no winner may have steered phases 1-35: the run's registry is empty
+    from mmlspark_torch.perf import autotune
+    stats = autotune.lookup_stats()
+    print(f"tile winners looked up in phases 1-35: {stats}")
+    if any(stats["hits"].values()):
+        fail(f"phases 1-35 found a tuned winner ({stats['hits']}): they "
+             "must run the untuned kernels")
+
+    if "tune" in groups:
+        with Phase("phase 36"):
+            tuned = tune_phase(torch, k1, k2, k3, dev, args)
+        for rec in records:
+            if rec["name"] in tuned:
+                rec["tuned"] = tuned[rec["name"]]
 
     print(card)
     print(json.dumps({"kernels": records}))

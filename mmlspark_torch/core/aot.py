@@ -9,7 +9,10 @@ each hand-written kernel's library (``native/loader.py``). So the store
 keeps exactly those libraries, beside one entry per fused-segment bucket
 (``core/compile.py``'s :class:`~.compile.FusedSegment`) that carries the
 bucket's program description and its analytic cost, and that warm loading
-runs once on zeros so the first request pays nothing.
+runs once on zeros so the first request pays nothing. The forward's tuned
+tile instances (``mmlspark_flash_tuned``, loaded only where a tuned winner
+of ``perf.autotune`` asks for one) are a library entry like the others,
+so a worker that boots with a registry and a store runs no nvcc either.
 
 The store is a content-addressed directory tree::
 

@@ -31,18 +31,28 @@ constexpr int kBQ = 128;  // query rows per work item: 64 per warpgroup
 // with setmaxnreg at D = 256, see Tile): one CTA per SM
 constexpr int kConsumerThreads = 2 * kWgThreads;
 
-// shared-memory layout of one head dim: two Q buffers, then STAGES of
-// (K, V), then each stage's four validity words, then the barriers
-template <int D>
+// keys per tile by default: 64 at D = 128 keeps the score and output
+// accumulators (BK/2 + D/2 registers a thread) small; 128-key tiles
+// spilled at D = 128 in the one 3-warpgroup attempt (flash_attn.cu's note);
+// 32 at D = 256, where the output accumulator alone is 128 registers
+constexpr int default_bk(int D) { return D == 256 ? 32 : D == 128 ? 64 : 128; }
+// stages in flight by default: 4; 3 at D = 256, where two Q buffers take
+// 128 KB
+constexpr int default_stages(int D) { return D == 256 ? 3 : 4; }
+
+// shared-memory layout of one head dim, key tile and ring depth: two Q
+// buffers, then STAGES of (K, V), then each stage's four validity words,
+// then the barriers. `Tile<D>` is the default tile of D, which every
+// library but the tuned forward's (flash_tuned.cu) runs.
+template <int D, int BK_ = default_bk(D), int STAGES_ = default_stages(D)>
 struct Tile : Swz<D> {
-  // keys per tile: 64 at D = 128 keeps the score and output accumulators
-  // (BK/2 + D/2 registers a thread) small; 128-key tiles spilled at
-  // D = 128 in the one 3-warpgroup attempt (flash_attn.cu's note); 32 at
-  // D = 256, where the output accumulator alone is 128 registers
-  static constexpr int BK = D == 256 ? 32 : D == 128 ? 64 : 128;
+  static constexpr int BK = BK_;
+  // wgmma's n of S = Q K^T, and at most the stage's four validity words
+  static_assert(BK == 32 || BK == 64 || BK == 128,
+                "key tiles of 32, 64 or 128 keys");
   static constexpr int NW = BK / 32;          // validity words per tile
-  // 4 stages in flight; 3 at D = 256, where two Q buffers take 128 KB
-  static constexpr int STAGES = D == 256 ? 3 : 4;
+  static constexpr int STAGES = STAGES_;
+  static_assert(STAGES >= 2, "a ring of at least two stages");
   static constexpr int Q_BYTES = kBQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one of K or V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
@@ -78,17 +88,15 @@ __device__ __forceinline__ int row_limit(const Item& it, int row) {
                                           : static_cast<int>(lim);
 }
 
-// O += P V over one key tile in steps of 16 keys, V read MN-major from the
-// stage at `vs`; started and committed as one group
-template <int D>
+// O += P V over one key tile of BK keys in steps of 16 keys, V read
+// MN-major from the stage at `vs`; started and committed as one group
+template <int D, int BK>
 __device__ __forceinline__ void pv_products(float (&acc)[D / 2],
-                                            const uint32_t (&pa)[Tile<D>::BK /
-                                                                 16][4],
+                                            const uint32_t (&pa)[BK / 16][4],
                                             uint32_t vs) {
-  using C = Tile<D>;
 #pragma unroll
-  for (int kk = 0; kk < C::BK / 16; ++kk)
-    wgmma_rs<D, D>(acc, pa[kk], vs, C::BK, kk, 0);
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<D, D>(acc, pa[kk], vs, BK, kk, 0);
   wg_commit();
 }
 
@@ -105,12 +113,13 @@ __device__ __forceinline__ void consumer_regs_to() {
 }
 
 // The kernel body: `tq` maps q as [B, H, T, D] in boxes of kBQ rows, `tk`
-// and `tv` whatever the source's copy_tile reads.
+// and `tv` whatever the source's copy_tile reads, in tiles of the source's
+// `Src::C` (a Tile of D).
 template <int D, class Src>
 __device__ __forceinline__ void fwd_bf16_body(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     const typename Src::Params& p) {
-  using C = Tile<D>;
+  using C = typename Src::C;
   constexpr int BK = C::BK;
   constexpr bool kCausal = Src::kCausal;
   extern __shared__ uint8_t smem_raw[];
@@ -323,7 +332,7 @@ __device__ __forceinline__ void fwd_bf16_body(
         keep(acc);
         keep(pa);
         wg_fence();
-        pv_products<D>(acc, pa, vs);
+        pv_products<D, BK>(acc, pa, vs);
         wg_wait0();
         keep(acc);
         keep(pa);

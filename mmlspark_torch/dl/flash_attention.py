@@ -73,8 +73,19 @@ the same way (``pallas_attention.py:19-21``). The plain versions take
 ``scale`` too, so the tests can hold the padding against the unpadded
 computation on the CPU.
 
-Not ported here: the TPU's block-size resolution and autotune lookup,
-which size blocks for VMEM.
+Tiles: the bf16 forward (K2a, K2b, K2c, K2c-lse) runs each head dim at
+its default tile (:func:`forward_instances`: q tiles of :data:`BLOCK_Q`
+rows, a key tile and a TMA ring depth that are template arguments of the
+kernel), or, at D = 64, at one of :data:`TUNED_TILES`, built into a
+library of their own (``csrc/flash_tuned.cu``) that a process with no
+tuned winner never builds or loads. ``flash_cuda``, ``flash_lse_cuda`` and
+``flash_causal_cuda`` take ``block_k=`` and ``stages=``; without them the
+tiles come from ``perf.autotune``'s winner for the call's shape on the card
+(``attn_key(T, D, causal)``), else the default (:func:`forward_tiles`),
+the port of the reference's ``_resolve_blocks`` (``pallas_attention.py:
+628-662``). An explicit tile that is not an instance raises ``ValueError``;
+a winner that is not falls back to the default. The backward (K2d, K2e),
+the f32 path and the wide route keep their own tiles.
 """
 
 from __future__ import annotations
@@ -89,6 +100,7 @@ import torch.nn.functional as F
 from ..native.loader import CudaLoader
 from ..obs.attribution import analytic_cost
 from ..parallel.ring_attention import blockwise_attention
+from ..perf import autotune as _autotune
 
 HEAD_DIMS = (32, 64, 128, 256)   # the bf16 instances of the main kernels
 F32_HEAD_DIM_MAX = 128    # the widest f32 instance (the tight check)
@@ -99,10 +111,18 @@ NEG = -1e30               # the TPU kernel's additive mask value
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _ALIGN = 16               # the kernels stage rows as 16-byte vectors
 BWD_IMPLS = ("auto", "pallas", "blockwise")
+BLOCK_Q = 128             # the bf16 forward's q tile: two warpgroups of 64
+SMEM_MAX = 232448         # dynamic shared memory a CTA may opt into
+TUNED_HEAD_DIM = 64       # the head dim of flash_tuned.cu's instances
+# (key tile, ring stages) of flash_tuned.cu's instances, its TILE(...) list
+TUNED_TILES = ((128, 3), (128, 2), (64, 4), (64, 3), (64, 2))
 
+_FWD_HEADERS = ("dl/csrc/flash_common.cuh", "dl/csrc/flash_fwd.cuh",
+                "dl/csrc/flash_dense.cuh")
 _LOADER = CudaLoader("mmlspark_flash", ["dl/csrc/flash_attn.cu"],
-                     headers=("dl/csrc/flash_common.cuh",
-                              "dl/csrc/flash_fwd.cuh"))
+                     headers=_FWD_HEADERS)
+_LOADER_TUNED = CudaLoader("mmlspark_flash_tuned",
+                           ["dl/csrc/flash_tuned.cu"], headers=_FWD_HEADERS)
 _LOADER_BWD = CudaLoader("mmlspark_flash_bwd", ["dl/csrc/flash_bwd.cu"],
                          headers=("dl/csrc/flash_common.cuh",))
 _LOADER_WIDE = CudaLoader("mmlspark_attn_wide", ["dl/csrc/attn_wide.cu"],
@@ -204,6 +224,71 @@ def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
     """The first ``D`` columns of a kernel output (``t`` itself when it has
     no padding: indexing costs the host a few microseconds a call)."""
     return t if t.shape[-1] == D else t[..., :D]
+
+
+# ------------------------------------------------------------ tiles
+
+def default_tile(D: int) -> tuple[int, int]:
+    """(key tile, ring stages) of the bf16 forward's default instance at
+    kernel head dim D (``flash_fwd.cuh``'s ``default_bk``,
+    ``default_stages``): 128 keys and 4 stages, 64 keys at D = 128, 32
+    keys and 3 stages at D = 256."""
+    return (32 if D == 256 else 64 if D == 128 else 128,
+            3 if D == 256 else 4)
+
+
+def forward_smem(D: int, block_k: int, stages: int) -> int:
+    """Dynamic shared memory of the bf16 forward's CTA at this tile
+    (``Tile::SMEM``): the swizzle slack, two Q buffers, the ring of K and V
+    tiles, the stages' validity words and the barriers."""
+    return (1024 + 2 * BLOCK_Q * D * 2 + stages * 2 * block_k * D * 2
+            + stages * 16 + (2 * stages + 4) * 8)
+
+
+def forward_instances(D: int, itemsize: int = 2) -> list[tuple]:
+    """The (block_q, block_k, stages) tiles the forward is built at for
+    kernel head dim D: in bf16 (``itemsize`` 2) the default
+    (:func:`default_tile`) first, then at D = :data:`TUNED_HEAD_DIM`
+    :data:`TUNED_TILES`; f32 and the wide head dims have their route's
+    own tiles alone, ``(None, None, None)``."""
+    if itemsize != 2 or D not in HEAD_DIMS:
+        return [(None, None, None)]
+    tiles = [default_tile(D)]
+    if D == TUNED_HEAD_DIM:
+        tiles += [t for t in TUNED_TILES
+                  if forward_smem(D, *t) <= SMEM_MAX]
+    return [(BLOCK_Q, bk, st) for bk, st in tiles]
+
+
+@functools.lru_cache(maxsize=256)
+def _instance(D: int, block_q, block_k, stages) -> tuple[int, int]:
+    """The (key tile, stages) of the bf16 instance at D that these tiles
+    name (``None``: the default's); raises ``ValueError`` for one that is
+    not built."""
+    bk0, st0 = default_tile(D)
+    tile = (BLOCK_Q, bk0 if block_k is None else block_k,
+            st0 if stages is None else stages)
+    if block_q not in (None, BLOCK_Q) or tile not in forward_instances(D):
+        raise ValueError(
+            f"no bf16 forward instance at D = {D} with block_q {block_q}, "
+            f"block_k {block_k}, stages {stages}: built are "
+            f"{forward_instances(D)} (block_q, block_k, stages)")
+    return tile[1:]
+
+
+def forward_tiles(T: int, D: int, causal: bool = False,
+                  block_k: int | None = None,
+                  stages: int | None = None) -> tuple[int, int]:
+    """The (key tile, ring stages) a bf16 forward launch at kernel head dim
+    D runs with: the caller's, else ``perf.autotune``'s winner for
+    ``attn_key(T, D, causal)`` on the card, else the default. An explicit
+    tile that is not an instance raises ``ValueError``; a winner that is
+    not gives the default."""
+    return _autotune.resolve(
+        "flash_attention", _autotune.attn_key(T, D, causal),
+        lambda block_q, block_k, stages: _instance(D, block_q, block_k,
+                                                   stages),
+        block_q=None, block_k=block_k, stages=stages)
 
 
 # ------------------------------------------------------------ plain versions
@@ -423,6 +508,10 @@ _FWD_ARGS = [
     _c_int, _c_void_p]                                      # device, stream
 # the wide launchers take wide_plan's CTAs (0: split) before the device
 _WIDE_FWD_ARGS = [*_FWD_ARGS[:-2], _c_int, *_FWD_ARGS[-2:]]
+# the tuned launcher: bf16 only (no dtype), the key tile and stages before
+# the device
+_TUNED_ARGS = [*_FWD_ARGS[:6], *_FWD_ARGS[7:-2], _c_int, _c_int,
+               *_FWD_ARGS[-2:]]
 _BWD_ARGS = [
     _c_int,                                                 # 0 = dq, 1 = dk/dv
     *[_c_void_p] * 10,                  # q k v dO mask lse dsum dq dk dv
@@ -457,12 +546,30 @@ def _library_bwd() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _library_tuned() -> ctypes.CDLL:
+    lib = _LOADER_TUNED.load()
+    lib.mmlspark_flash_tuned_launch.argtypes = _TUNED_ARGS
+    lib.mmlspark_flash_tuned_launch.restype = _c_int
+    lib.mmlspark_flash_tuned_error_string.argtypes = [_c_int]
+    lib.mmlspark_flash_tuned_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build_kernel() -> str:
     """Build (if needed) and load K2a/K2b/K2c; returns nvcc's output for the
     build (registers, shared memory, spills), or "" if it was built
     earlier."""
     _library()
     return _LOADER.build_log()
+
+
+def build_tuned_kernel() -> str:
+    """Build (if needed) and load the forward's tuned instances
+    (``csrc/flash_tuned.cu``); returns nvcc's output as
+    :func:`build_kernel` does."""
+    _library_tuned()
+    return _LOADER_TUNED.build_log()
 
 
 def kernel_design() -> str:
@@ -569,56 +676,78 @@ def _error_string(lib, wide: bool, err: int, bwd: bool = False) -> str:
 
 def _launch_forward(fn: str, q, k, v, key_mask, with_lse: bool,
                     causal: bool = False, q_offset: int = 0,
-                    k_offset: int = 0):
+                    k_offset: int = 0, block_k: int | None = None,
+                    stages: int | None = None):
     _check_inputs(q, k, v, key_mask)
     _check_kernel_inputs(fn, q, k, v)
     D = q.shape[-1]
     Dk = kernel_head_dim(D)
+    wide = wide_head_dim(Dk, q.dtype)
+    tiled = q.dtype == torch.bfloat16 and not wide
+    if not tiled and (block_k is not None or stages is not None):
+        raise ValueError(f"{fn}: block_k and stages pick a bf16 forward "
+                         f"instance; {q.dtype} at head dim {Dk} runs its "
+                         "route's own tiles")
     q, k, v = (pad_head_dim(t, Dk) for t in (q, k, v))
     B, H, T, _ = q.shape
+    tile = (forward_tiles(T, Dk, causal, block_k, stages) if tiled
+            else None)
     out = _heads_last(q, v.dtype)
     lse = (torch.empty(B, H, T, dtype=torch.float32, device=q.device)
            if with_lse else None)
     if T == 0 or B * H == 0:
         return _unpad(out, D), lse
     mask, mask_sb = _mask_arg(key_mask, T)
-    wide = wide_head_dim(Dk, q.dtype)
-    lib = _library_wide() if wide else _library()
-    launch = (lib.mmlspark_wide_flash_launch if wide
-              else lib.mmlspark_flash_launch)
-    err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, H, T, Dk,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], mask_sb, D ** -0.5, int(causal), int(q_offset),
-        int(k_offset), *_wide_ctas(wide, Dk, q.dtype), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    tuned = tile is not None and tile != default_tile(Dk)
+    lib = (_library_wide() if wide else _library_tuned() if tuned
+           else _library())
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    rest = (B, H, T, Dk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], mask_sb, D ** -0.5, int(causal),
+            int(q_offset), int(k_offset))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if tuned:
+        err = lib.mmlspark_flash_tuned_launch(*args, *rest, *tile,
+                                              q.device.index, stream)
+    else:
+        launch = (lib.mmlspark_wide_flash_launch if wide
+                  else lib.mmlspark_flash_launch)
+        err = launch(*args, _DTYPE_CODES[q.dtype], *rest,
+                     *_wide_ctas(wide, Dk, q.dtype), q.device.index, stream)
     if err != 0:
         kid = ("K2c-lse" if with_lse else "K2c") if causal else \
             "K2b" if with_lse else "K2a"
-        raise RuntimeError(
-            f"{kid} flash-attention kernel launch failed"
-            f"{' (wide head dim)' if wide else ''}: "
-            f"{_error_string(lib, wide, err)} (cudaError {err})")
+        where = (" (wide head dim)" if wide else
+                 f" (tuned instance block_k {tile[0]}, stages {tile[1]})"
+                 if tuned else "")
+        message = (lib.mmlspark_flash_tuned_error_string(err).decode()
+                   if tuned else _error_string(lib, wide, err))
+        raise RuntimeError(f"{kid} flash-attention kernel launch failed"
+                           f"{where}: {message} (cudaError {err})")
     return _unpad(out, D), lse
 
 
 @analytic_cost(_cost_forward(False))
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               key_mask: torch.Tensor | None = None) -> torch.Tensor:
+               key_mask: torch.Tensor | None = None, *,
+               block_k: int | None = None,
+               stages: int | None = None) -> torch.Tensor:
     """Launch K2a (``csrc/flash_attn.cu``) on PyTorch's current stream: the
     forward alone, with no autograd graph (:func:`flash_attention` takes the
     autograd Function under grad). Raises for tensors that are not on a
     CUDA device, for a dtype other than bf16/f32, and when the kernel does
     not build or launch. Other head dims run zero-padded to
     :func:`kernel_head_dim`, and those wider than the built instances on
-    the wide ones (split over D).
+    the wide ones (split over D). ``block_k`` and ``stages`` pick the bf16
+    instance (:func:`forward_tiles`: else the tuned winner, else the
+    default).
 
     Returns a ``[B, H, T, D]`` view of a ``[B, T, H, D]`` buffer, so the
     caller's head merge is a free reshape."""
-    out, _ = _launch_forward("flash_cuda", q, k, v, key_mask, False)
+    out, _ = _launch_forward("flash_cuda", q, k, v, key_mask, False,
+                             block_k=block_k, stages=stages)
     flash_cuda.launches += 1
     return out
 
@@ -638,16 +767,17 @@ def _count(wrapper, causal: bool) -> None:
 def flash_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_mask: torch.Tensor | None = None, *,
                    causal: bool = False, q_offset: int = 0,
-                   k_offset: int = 0
+                   k_offset: int = 0, block_k: int | None = None,
+                   stages: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2b, or with ``causal`` K2c-lse (K2c's kernel with the lse
     flag, which also stands for causal K2b): :func:`flash_cuda`'s or
     :func:`flash_causal_cuda`'s output and the f32 row logsumexp
     ``[B, H, T]`` (contiguous), which the fused backward reads. Counts
     non-causal launches in ``.launches`` and causal ones in
-    ``.causal_launches``."""
+    ``.causal_launches``. ``block_k``/``stages`` as :func:`flash_cuda`."""
     out, lse = _launch_forward("flash_lse_cuda", q, k, v, key_mask, True,
-                               causal, q_offset, k_offset)
+                               causal, q_offset, k_offset, block_k, stages)
     _count(flash_lse_cuda, causal)
     return out, lse
 
@@ -658,14 +788,17 @@ flash_lse_cuda.launches = flash_lse_cuda.causal_launches = 0
 @analytic_cost(_cost_forward(False, causal_always=True))
 def flash_causal_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       key_mask: torch.Tensor | None = None, *,
-                      q_offset: int = 0, k_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0, k_offset: int = 0,
+                      block_k: int | None = None,
+                      stages: int | None = None) -> torch.Tensor:
     """Launch K2c (``csrc/flash_attn.cu``, K2a's kernel with the causal
     flag): the causal forward with global positions ``q_offset + r`` and
     ``k_offset + c``, each q tile visiting only the key tiles it can reach.
     No autograd graph. Raises as :func:`flash_cuda` does. Counts its own
-    launches, apart from K2a's."""
+    launches, apart from K2a's. ``block_k``/``stages`` as
+    :func:`flash_cuda`."""
     out, _ = _launch_forward("flash_causal_cuda", q, k, v, key_mask, False,
-                             True, q_offset, k_offset)
+                             True, q_offset, k_offset, block_k, stages)
     flash_causal_cuda.launches += 1
     return out
 

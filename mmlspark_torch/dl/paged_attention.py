@@ -37,6 +37,17 @@ with the pure-lax ``_paged_reference`` off the TPU. Here:
   above, the plain version for CPU tensors. A build or launch failure
   raises; nothing falls back.
 
+Tiles: :func:`paged_decode_cuda` cuts a call by :func:`decode_plan`; its
+``chunk`` (the chain positions a CTA reduces, ``L``) and
+``stage_positions`` (the positions a stage copies, ``P``) come from the
+caller, else from ``perf.autotune``'s winner for ``paged_key(MB * BL, hd,
+w)`` on the card, else the plan's own (:func:`decode_tiles`). A winner
+names its chunk as a grid target (``ctas_per_sm``), which each call cuts
+into a chunk length at its own slot count, since one key serves every
+slot count. An explicit tile that does not fit raises ``ValueError``; a
+winner that does not fit falls back to the plan's own. The window kernel
+keeps its plan.
+
 Contract: q ``[S, H, w, hd]`` holds w query rows per slot at global
 positions ``pos[s] + i``; ``k_pool``/``v_pool`` are one layer's pools
 ``[NB, BL, H, hd]`` (the window's own k/v already scattered); ``rows``
@@ -69,6 +80,7 @@ import torch
 
 from ..native.loader import CudaLoader
 from ..obs.attribution import analytic_cost
+from ..perf import autotune as _autotune
 from .flash_attention import (_library_wide, _unpad, _wide_ctas,
                               kernel_head_dim, pad_head_dim, wide_head_dim)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -155,6 +167,11 @@ _STAGE_BYTES = 16384      # K (and V) bytes of one stage of the decode kernel
 _STAGE_POSITIONS = 16     # chain positions of a stage, at most
 _MAX_WARPS = 8            # consumer warps of a decode CTA
 _CTAS_PER_SM = 2          # the grid the plan aims at
+_MAX_CTAS_PER_SM = 32     # resident CTAs an H100 SM holds, at most
+_DECODE_STAGES = 3        # stages of the decode kernel's ring (kStages)
+_SMEM_MAX = 232448        # dynamic shared memory a CTA may opt into
+_COMBINE_SMEM = 48 * 1024  # static shared memory of the combine's CTA
+_COMBINE_THREADS = 256    # the combine's CTA (kCombineThreads)
 
 
 class DecodePlan(NamedTuple):
@@ -174,31 +191,63 @@ class DecodePlan(NamedTuple):
     ctas: int
 
 
+def decode_chunk(cap: int, rows: int, n_sm: int,
+                 ctas_per_sm: int = _CTAS_PER_SM) -> int:
+    """The chunk length (a multiple of 16 chain positions) that cuts a
+    table of ``cap`` positions so that ``rows`` CTA rows (slots x head
+    groups x column groups) times the chunks come near ``ctas_per_sm``
+    CTAs per SM; one chunk where the rows alone fill that."""
+    per_slot = max(1, -(-ctas_per_sm * n_sm // rows))
+    L = max(_STAGE_POSITIONS, -(-cap // per_slot))
+    return -(-L // _STAGE_POSITIONS) * _STAGE_POSITIONS
+
+
 @functools.lru_cache(maxsize=256)
 def decode_plan(S: int, H: int, w: int, D: int, BL: int, MB: int,
-                elem_size: int, n_sm: int) -> DecodePlan:
+                elem_size: int, n_sm: int, L: int | None = None,
+                P: int | None = None,
+                ctas_per_sm: int = _CTAS_PER_SM) -> DecodePlan:
     """The decode kernel's plan from the shape alone (no data: the same
     shapes give the same plan, so a call's result does not depend on its
     timing or its positions). A CTA holds whole heads of its slot (all H
     where one position of them fits a stage) and up to 128 output columns
     a warp (64 above 8 rows); the chain of ``MB * BL`` positions is cut
     into chunks of a multiple of 16 positions so that the grid has
-    about ``2 * n_sm`` CTAs, one chunk where the slots alone fill it."""
+    about ``ctas_per_sm * n_sm`` CTAs (two a SM unless the caller names
+    another target), one chunk where the slots alone fill it. ``L`` (a
+    multiple of 16 and of the stage) and ``P`` (1 to 16 positions)
+    replace the plan's chunk and stage, and raise ``ValueError`` where the
+    kernel could not take them (its shared memory, or more chunks than the
+    combine's), as a target outside 1 to 32 CTAs a SM does."""
+    if not 1 <= ctas_per_sm <= _MAX_CTAS_PER_SM:
+        raise ValueError(f"ctas_per_sm={ctas_per_sm}: an SM holds 1 to "
+                         f"{_MAX_CTAS_PER_SM} CTAs")
     dv = 128 if w <= 8 else 64
     dch = -(-D // dv)
     dpc = min(dch, _MAX_WARPS)
     hg = min(H, _MAX_WARPS // dpc) if dpc == dch else 1
     while hg > 1 and hg * D * elem_size > _STAGE_BYTES:
         hg -= 1
-    P = _STAGE_POSITIONS
-    while P > 1 and P * hg * D * elem_size > _STAGE_BYTES:
-        P //= 2
+    if P is None:
+        P = _STAGE_POSITIONS
+        while P > 1 and P * hg * D * elem_size > _STAGE_BYTES:
+            P //= 2
+    elif not (1 <= P <= _STAGE_POSITIONS and 128 + _DECODE_STAGES * 2 * P
+              * hg * D * elem_size + 2 * _DECODE_STAGES * 8 <= _SMEM_MAX):
+        raise ValueError(f"P={P}: a stage holds 1 to {_STAGE_POSITIONS} "
+                         f"positions of {hg} heads of {D} within "
+                         f"{_SMEM_MAX} B of shared memory")
     n_hg, n_dg = -(-H // hg), -(-dch // dpc)
     cap = MB * BL
-    per_slot = max(1, -(-_CTAS_PER_SM * n_sm // (S * n_hg * n_dg)))
-    L = max(_STAGE_POSITIONS, -(-cap // per_slot))
-    L = -(-L // _STAGE_POSITIONS) * _STAGE_POSITIONS
+    if L is None:
+        L = decode_chunk(cap, S * n_hg * n_dg, n_sm, ctas_per_sm)
+    elif L < _STAGE_POSITIONS or L % _STAGE_POSITIONS or L % P:
+        raise ValueError(f"L={L}: a chunk is a positive multiple of "
+                         f"{_STAGE_POSITIONS} positions and of P={P}")
     n_chunks = -(-cap // L)
+    if n_chunks > 1 and (n_chunks + _COMBINE_THREADS) * 4 > _COMBINE_SMEM:
+        raise ValueError(f"L={L}: {n_chunks} chunks of a {cap}-position "
+                         "table exceed the combine's shared memory")
     return DecodePlan(hg, n_hg, dpc, n_dg, dch, P, L, n_chunks,
                       S * n_hg * n_dg * n_chunks)
 
@@ -477,14 +526,36 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan_of(q: torch.Tensor, k_pool: torch.Tensor,
-            rows: torch.Tensor) -> DecodePlan:
-    """:func:`decode_plan` for a call on these tensors (q at the pools'
+def plan_of(q: torch.Tensor, k_pool: torch.Tensor, rows: torch.Tensor,
+            chunk: int | None = None,
+            stage_positions: int | None = None) -> DecodePlan:
+    """:func:`decode_tiles` for a call on these tensors (q at the pools'
     width) on q's card."""
     S, H, w, _ = q.shape
     NB, BL, _, hd = k_pool.shape
-    return decode_plan(S, H, w, hd, BL, rows.shape[1], q.element_size(),
-                       _sm_count(q.device.index))
+    return decode_tiles(S, H, w, hd, BL, rows.shape[1], q.element_size(),
+                        _sm_count(q.device.index), chunk=chunk,
+                        stage_positions=stage_positions)
+
+
+def decode_tiles(S: int, H: int, w: int, D: int, BL: int, MB: int,
+                 elem_size: int, n_sm: int, *, chunk: int | None = None,
+                 stage_positions: int | None = None) -> DecodePlan:
+    """The plan a decode launch runs: :func:`decode_plan` with the caller's
+    ``chunk`` (L) and ``stage_positions`` (P), else those of
+    ``perf.autotune``'s winner for ``paged_key(MB * BL, D, w)`` on the
+    card, else its own. The winner's chunk is its grid target
+    (``ctas_per_sm``), cut into a chunk length at this call's ``S``: the
+    key holds no slot count, and a length tuned at one would cut another's
+    grid short or long. An explicit tile that does not fit raises
+    ``ValueError``; a winner that does not gives the plan's own."""
+    return _autotune.resolve(
+        "paged_attn", _autotune.paged_key(MB * BL, D, w),
+        lambda ctas_per_sm, stage_positions: decode_plan(
+            S, H, w, D, BL, MB, elem_size, n_sm, chunk, stage_positions,
+            _CTAS_PER_SM if ctas_per_sm is None else ctas_per_sm),
+        ctas_per_sm=None if chunk is None else _CTAS_PER_SM,
+        stage_positions=stage_positions)
 
 
 def window_plan_of(q: torch.Tensor, k_pool: torch.Tensor,
@@ -500,12 +571,15 @@ def window_plan_of(q: torch.Tensor, k_pool: torch.Tensor,
 @analytic_cost(_paged_cost)
 def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                       v_pool: torch.Tensor, rows: torch.Tensor,
-                      pos: torch.Tensor) -> torch.Tensor:
+                      pos: torch.Tensor, *, chunk: int | None = None,
+                      stage_positions: int | None = None) -> torch.Tensor:
     """Launch K3's split-KV decode kernel (``csrc/paged_decode.cu``) on
     PyTorch's current stream, for windows of up to
     :data:`DECODE_MAX_ROWS` rows, and, when :func:`decode_plan` cuts the
-    chain into more than one chunk, the combine after it. Raises as
-    :func:`paged_cuda` does, and for a wider window. Counts its launches in
+    chain into more than one chunk, the combine after it. ``chunk`` and
+    ``stage_positions`` cut it (:func:`decode_tiles`: else the tuned
+    winner, else the plan's own). Raises as :func:`paged_cuda` does, for a
+    wider window and for tiles that do not fit. Counts its launches in
     ``.launches`` and the combine's in ``.combine_launches``.
 
     Returns a ``[S, H, w, hd]`` view of a ``[S, w, H, hd]`` buffer."""
@@ -525,7 +599,7 @@ def paged_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if S * H * w == 0:
         return _unpad(out, d)
     NB, BL = k_pool.shape[:2]
-    plan = plan_of(q, k_pool, rows)
+    plan = plan_of(q, k_pool, rows, chunk, stage_positions)
     scratch, part_acc, part_ml = _partials(q, plan.n_chunks)
     lib = _decode_library()
     err = lib.mmlspark_paged_decode_launch(
@@ -563,7 +637,9 @@ def paged_window_attention(q: torch.Tensor, k_pool: torch.Tensor,
     and the verify window) take the split-KV decode kernel and wider ones
     (prefill) the window kernel; CPU tensors take the plain version.
     The TPU kernel's tiling knobs (``block_kv``, ``slots_tile``) are not
-    carried over: the CUDA kernels size their own tiles."""
+    carried over: the decode kernel takes its cut from the tuned winner
+    or its plan (``paged_decode_cuda``'s ``chunk``/``stage_positions`` set
+    it by hand), the window kernel from its plan."""
     if not _route(q):
         return paged_torch(q, k_pool, v_pool, rows, pos)
     fn = paged_decode_cuda if q.shape[2] <= DECODE_MAX_ROWS else paged_cuda

@@ -16,6 +16,13 @@ one scatter-add elsewhere (``engine.py:300-303``). Here:
 - :func:`hist` picks one: the kernel for CUDA tensors, the plain version
   for CPU tensors. A build or launch failure raises; nothing falls back.
 
+Tiles: :func:`hist_cuda` cuts a call by :func:`hist_plan`; its
+``feat_block`` (the plan's ``fb``) and ``block_rows`` (the rows a stage
+streams) come from the caller, else from ``perf.autotune``'s winner for
+``hist_key(n, F, num_bins)`` on the card, else the plan's own
+(:func:`hist_tiles`). An explicit tile that does not fit raises
+``ValueError``; a winner that does not fit falls back to the plan's own.
+
 Contract of all three: bins uint8 or int32 ``[n, F]``, vals float32
 ``[n, 3]`` (pre-masked) → float32 ``[F, num_bins, 3]``. Bin ids outside
 ``[0, num_bins)`` add nothing. Rows at or past ``count`` (an int or a
@@ -32,6 +39,7 @@ import torch
 
 from ..native.loader import CudaLoader
 from ..obs.attribution import analytic_cost
+from ..perf import autotune as _autotune
 
 STAGE_BYTES = 16 * 1024   # bins and vals of one stage
 STAGES = 4                # stages a CTA streams through (csrc/hist.cu)
@@ -51,26 +59,57 @@ class HistPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def hist_plan(n: int, F: int, B: int, bin_bytes: int,
-              n_sm: int) -> HistPlan:
+def hist_plan(n: int, F: int, B: int, bin_bytes: int, n_sm: int,
+              fb: int | None = None,
+              stage_rows: int | None = None) -> HistPlan:
     """K1's plan from the shape alone: stages of about
     :data:`STAGE_BYTES`; every feature in one CTA where its histogram
     (``F * B * 16`` bytes) fits beside the stages, else blocks of
-    features; about one CTA per SM in all, over contiguous row ranges."""
+    features; about one CTA per SM in all, over contiguous row ranges.
+    ``fb`` and ``stage_rows`` (a multiple of 16; a stage never holds more
+    rows than a CTA's range) replace the plan's own, and raise
+    ``ValueError`` where the kernel could not take them (shared memory
+    beyond :data:`SMEM_LIMIT`)."""
     row_bytes = F * bin_bytes + 12
-    stage_rows = max(16, STAGE_BYTES // row_bytes // 16 * 16)
+    if stage_rows is None:
+        stage_rows = max(16, STAGE_BYTES // row_bytes // 16 * 16)
+    elif stage_rows < 16 or stage_rows % 16:
+        raise ValueError(f"stage_rows must be a positive multiple of 16, "
+                         f"got {stage_rows}")
     room = SMEM_LIMIT - STAGES * (stage_rows * row_bytes + 8) - 16
-    fb = min(F, room // (B * 16))
-    if fb < 1:
+    fit = min(F, room // (B * 16))
+    if fit < 1:
         raise ValueError(f"num_bins={B} needs {B * 16} B of shared memory "
-                         f"per feature beside {STAGES} stages of {F} "
-                         "features; "
+                         f"per feature beside {STAGES} stages of "
+                         f"{stage_rows} rows of {F} features; "
                          f"{max(room, 0)} B are left of {SMEM_LIMIT}")
+    if fb is None:
+        fb = fit
+    elif not 1 <= fb <= fit:
+        raise ValueError(f"fb={fb}: 1 to {fit} features of {B} bins fit "
+                         f"beside {STAGES} stages of {stage_rows} rows")
     n_fb = -(-F // fb)
     grid_x = max(1, min(-(-n // 16), n_sm // n_fb))
     rows_per_cta = -(-(-(-n // grid_x)) // 16) * 16
     return HistPlan(fb, n_fb, -(-n // rows_per_cta), rows_per_cta,
                     min(stage_rows, rows_per_cta))
+
+
+def hist_tiles(n: int, F: int, B: int, bin_bytes: int, n_sm: int, *,
+               feat_block: int | None = None,
+               block_rows: int | None = None) -> HistPlan:
+    """The plan a K1 call runs: :func:`hist_plan` with the caller's
+    ``feat_block``/``block_rows``, else those of ``perf.autotune``'s winner
+    for this shape on the card, else its own. An explicit tile that does
+    not fit raises ``ValueError``; a winner that does not gives the plan's
+    own. One dict read beside the cached plan: a new winner takes effect
+    at the next call."""
+    return _autotune.resolve(
+        "hist", _autotune.hist_key(n, F, B),
+        lambda feat_block, block_rows: hist_plan(n, F, B, bin_bytes, n_sm,
+                                                 feat_block, block_rows),
+        feat_block=feat_block, block_rows=block_rows)
+
 
 _LOADER = CudaLoader("mmlspark_hist", ["lightgbm/csrc/hist.cu"])
 
@@ -179,11 +218,15 @@ def _check_card(bins: torch.Tensor) -> None:
 
 @analytic_cost(_hist_cost)
 def hist_cuda(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
-              count: int | torch.Tensor | None = None) -> torch.Tensor:
+              count: int | torch.Tensor | None = None,
+              feat_block: int | None = None,
+              block_rows: int | None = None) -> torch.Tensor:
     """Launch K1 (``csrc/hist.cu``: the per-CTA partial histograms, then
     their sum in CTA order) on PyTorch's current stream; one call counts
-    one launch. Raises for tensors that are not on a CUDA device, and when
-    the kernels do not build or do not launch."""
+    one launch. ``feat_block``/``block_rows`` cut it (:func:`hist_tiles`:
+    else the tuned winner, else the plan's own). Raises for tensors that
+    are not on a CUDA device, for tiles that do not fit, and when the
+    kernels do not build or do not launch."""
     _check_inputs(bins, vals, num_bins)
     _check_card(bins)
     n, F = bins.shape
@@ -202,8 +245,9 @@ def hist_cuda(bins: torch.Tensor, vals: torch.Tensor, *, num_bins: int,
     elif count is not None:
         count_host = max(0, min(int(count), n))
     props = torch.cuda.get_device_properties(bins.device)
-    plan = hist_plan(n, F, B, bins.element_size(),
-                     props.multi_processor_count)
+    plan = hist_tiles(n, F, B, bins.element_size(),
+                      props.multi_processor_count, feat_block=feat_block,
+                      block_rows=block_rows)
     part = torch.empty(plan.grid_x, F * B * 3, dtype=torch.float32,
                        device=bins.device)
     out = torch.empty(F, B, 3, dtype=torch.float32, device=bins.device)

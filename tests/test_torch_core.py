@@ -90,9 +90,10 @@ def test_compute_model_statistics_matches_reference(kind):
 
 
 def test_cuda_loader_keys_builds_by_the_headers_too(tmp_path):
-    """A header the kernel sources include (``flash_common.cuh``, and the
-    forward's body ``flash_fwd.cuh``) changes the library's build key as
-    the sources do, so an edit to it rebuilds every library that includes
+    """A header the kernel sources include (``flash_common.cuh``, the
+    forward's body ``flash_fwd.cuh`` and the dense forward's source and
+    launcher ``flash_dense.cuh``) changes the library's build key as the
+    sources do, so an edit to it rebuilds every library that includes
     it."""
     from mmlspark_torch.dl import flash_attention, paged_attention
     from mmlspark_torch.native.loader import CudaLoader
@@ -105,7 +106,9 @@ def test_cuda_loader_keys_builds_by_the_headers_too(tmp_path):
     hdr.write_text("// two\n")
     assert loader.so_path() != first
     both = ["flash_common.cuh", "flash_fwd.cuh"]
-    for lib, want in ((flash_attention._LOADER, both),
+    dense = [*both, "flash_dense.cuh"]
+    for lib, want in ((flash_attention._LOADER, dense),
+                      (flash_attention._LOADER_TUNED, dense),
                       (flash_attention._LOADER_BWD, ["flash_common.cuh"]),
                       (paged_attention._LOADER, both),
                       (paged_attention._LOADER_DECODE, ["flash_common.cuh"])):

@@ -1,13 +1,15 @@
 """The port's learned cost model (``mmlspark_torch/perf/costmodel.py``) and
 its scenario harness against the JAX package's.
 
-Every scenario of ``test_perf.py`` that needs no autoscaler, AOT store,
-autotuner or serving front runs against the port on the same inputs and
-with the same assertions (``torch_obs_port``); the excluded ones are named
-below by ROADMAP item. Then both packages fit the same
-``synth_feature_rows`` (the rows themselves must be equal) and must agree:
-every prediction within a relative 1e-9 (numpy's solve on the same
-float64 inputs; the test reports when they come out bit-equal), the same
+Every scenario of ``test_perf.py`` that needs no autoscaler or serving
+front, and reads no TPU kernel's own tiles, runs against the port on the
+same inputs and with the same assertions (``torch_obs_port``): the
+autotuner's search, registry and CLI among them; the excluded ones are
+named below by ROADMAP item or by their port versions. Then both packages
+fit the same ``synth_feature_rows`` (the rows themselves must be equal)
+and must agree: every prediction within a relative 1e-9 (numpy's solve
+on the same float64 inputs; the test reports when they come out
+bit-equal), the same
 rows used and skipped, the same estimator answers through
 ``ServiceTimeEstimator``, the same gate flips and build order. A model
 file saved by the JAX package loads in the port and predicts the same,
@@ -27,6 +29,7 @@ import mmlspark_torch.perf as tperf
 import mmlspark_torch.perf.costmodel as tcm
 import mmlspark_torch.sched.policy as tpolicy
 import mmlspark_torch.testing.benchmarks as tbench
+import mmlspark_tpu.perf.autotune as jautotune
 import mmlspark_tpu.perf.costmodel as jcm
 import mmlspark_tpu.sched.policy as jpolicy
 import mmlspark_tpu.testing.benchmarks as jbench
@@ -39,17 +42,21 @@ from torch_obs_port import port_reference_tests
 globals().update(port_reference_tests("test_perf.py", (
     # the autoscaler (ROADMAP item 9d)
     "TestPredictiveAutoscale",
-    # the kernels' autotuner and tuned registry (item 9c)
-    "TestAutotune",
+    # the autotuner's scenarios that read the TPU kernels' own tiles (VMEM
+    # budget, block_kv x slots_tile, the Pallas kernels consulting the
+    # registry): their port versions, on the CUDA kernels' limits and
+    # tiles, are in test_torch_autotune.py
+    "TestAutotune.test_attention_candidates_respect_vmem_budget",
     "TestPagedAutotune",
     "TestKernelsConsultRegistry",
-    "test_perf_imports_without_jax",
     # the serving front's feature rows (item 9d)
     "TestFeatureLogSchema.test_serving_rows_carry_v2_fields",
     # the mixed-tenant autoscaling acceptance (item 9d)
     "TestPredictiveMixedTenant"), rewrites=(
     # the AOT store's build order runs against the port's store
-    ("mmlspark_tpu.core.aot", "mmlspark_torch.core.aot"),)))
+    ("mmlspark_tpu.core.aot", "mmlspark_torch.core.aot"),
+    # the autotuner (its CLI too) and the no-JAX import run on the port's
+    ("mmlspark_tpu.perf", "mmlspark_torch.perf"))))
 
 SVC = "costmodel-bench"
 REL = 1e-9
@@ -89,8 +96,9 @@ def test_public_names_equal_reference():
     assert tcm.FEATURES == jcm.FEATURES
     assert tcm.ACCEPTED_SCHEMA_VERSIONS == jcm.ACCEPTED_SCHEMA_VERSIONS
     assert tcm.MODEL_VERSION == jcm.MODEL_VERSION
-    with pytest.raises(NotImplementedError, match="9c"):
-        tperf.autotune.kernel_winner("hist", "x", "cpu")
+    assert tperf.autotune.__all__ == jautotune.__all__
+    assert tperf.autotune.REGISTRY_VERSION == jautotune.REGISTRY_VERSION
+    assert tperf.autotune.kernel_winner("hist", "x", "cpu") is None
 
 
 def test_harness_rows_equal():

@@ -2,6 +2,7 @@
 and it never moves to the CPU unless asked."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -467,6 +468,11 @@ CONTROL_SLICE = ["resilience/__init__.py", "resilience/faults.py",
                  "sched/tenancy.py", "perf/__init__.py",
                  "perf/costmodel.py", "testing/__init__.py",
                  "testing/benchmarks.py"]
+# modules the tile-search slice added or finished; the scan below must
+# reach each
+AUTOTUNE_SLICE = ["perf/__init__.py", "perf/autotune.py",
+                  "lightgbm/hist.py", "dl/flash_attention.py",
+                  "dl/paged_attention.py"]
 # modules the text-generation slice added or finished; the scan below must
 # reach each
 TEXTGEN_SLICE = ["dl/bert.py", "dl/checkpoint.py", "dl/speculative.py",
@@ -521,6 +527,40 @@ def _imported_modules(path):
                 yield node.args[0].value
 
 
+AUTOTUNE_SCRIPT = r"""
+import sys
+
+from mmlspark_torch.perf import autotune
+
+# the registry the environment names was loaded at import
+w = autotune.kernel_winner("hist", "n4096-F16-B32", "cuda")
+assert w == {"feat_block": 8, "block_rows": 64, "ms": 1.0}, w
+assert autotune.kernel_winner("hist", "n4096-F16-B32", "cpu") is None
+assert autotune.load(autotune.registry_path()) == 1
+assert autotune.lookup_stats()["hits"] == {"hist": 1}
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not bad, bad
+print("ISOLATED autotune")
+""" % (FORBIDDEN + ("torch",),)
+
+
+def test_autotune_imports_no_jax_and_no_torch(tmp_path):
+    """Importing the tuner, its boot-time load of the registry
+    ``MMLSPARK_TPU_TUNE_STORE`` names, ``kernel_winner`` and ``load`` pull
+    in no JAX, nothing of the JAX package and no torch."""
+    path = tmp_path / "autotune.json"
+    path.write_text(json.dumps({"version": 1, "winners": {
+        "hist|n4096-F16-B32|cuda": {"feat_block": 8, "block_rows": 64,
+                                    "ms": 1.0}}}))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["MMLSPARK_TPU_TUNE_STORE"] = str(path)
+    proc = subprocess.run([sys.executable, "-c", AUTOTUNE_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ISOLATED autotune" in proc.stdout
+
+
 def test_static_scan_finds_no_jax_import():
     sources = list(_port_sources())
     assert any(p.endswith("chip_smoke.py") for p in sources)
@@ -532,6 +572,7 @@ def test_static_scan_finds_no_jax_import():
     assert set(VISION_SLICE) <= scanned, set(VISION_SLICE) - scanned
     assert set(CONTROL_SLICE) <= scanned, set(CONTROL_SLICE) - scanned
     assert set(COMPILE_SLICE) <= scanned, set(COMPILE_SLICE) - scanned
+    assert set(AUTOTUNE_SLICE) <= scanned, set(AUTOTUNE_SLICE) - scanned
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
