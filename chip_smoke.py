@@ -390,8 +390,8 @@ phases 2-4 need only K1 and run while the attention kernels build), then:
     backfill and the same tokens.
 36. tunes the kernels' tiles (``perf.autotune``; the run's registry is a
     fresh file named by ``MMLSPARK_TPU_TUNE_STORE``, set at the start for
-    the run and its children, and phases 1-35 must have found no winner
-    in it): K1 at phase 3's ``[500,000, 28]`` u8 bins with 256 bins
+    the run and its children, and phases 1-35 and 37 must have found no
+    winner in it): K1 at phase 3's ``[500,000, 28]`` u8 bins with 256 bins
     (``feat_block`` x ``block_rows``), K2a at BERT-base's ``[32, 12, 512,
     64]`` bf16 and K2c at the generate prefill's ``[32, 8, 128, 64]``
     (``block_k`` x ``stages``: the default instance and
@@ -412,6 +412,26 @@ phases 2-4 need only K1 and run while the attention kernels build), then:
     K1, ``flash_bert``, ``flash_causal`` and ``paged_attention`` records
     gain a ``tuned`` entry (the winner's tiles, its time and the
     default's).
+37. serves two models over HTTP on both of the port's fronts, the
+    threaded Python ``ServingServer`` and the epoll ``NativeServingServer``
+    (each named; ``backend="auto"`` is never used, and the host libraries
+    are built with g++ beside the kernels in phase 1): phase 35's chain,
+    fitted here (620 K1 launches before any server starts) and served
+    through ``ServingStream.compile_pipeline`` (one fused segment of the
+    two featurize models, the GBDT model eagerly), and BERT-base (phase
+    24's seeded bf16 weights, ``TextEncoderFeaturizer`` on K2a) through
+    ``serving_query``. On each front 256 distinct chain rows and 64 of
+    phase 34's requests (64-512 tokens) go through the port's
+    ``AsyncClient`` at concurrency 16: every reply a 200, the chain's
+    probabilities within 1e-6 relative of the direct transform (phase 35's
+    limit) and the pooled rows within phase 24's limits of the direct
+    transform. Then ``loadgen.run_load`` closed-loop (16 connections,
+    warm-up 20, sized for at least 5 s a run) prints rows/s, p50/p99,
+    ``shed_rate`` and errors, which must be 0. K1 makes no launch while
+    serving and K2a exactly 12 per executor transform; the kernels line's
+    K2a records gain ``serving_launches`` (or, run alone, the phase adds
+    ``flash_serving`` at its own shape). It runs before the winner check,
+    on the untuned kernels.
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -422,7 +442,7 @@ first check, and ``--phases`` runs some of the phase groups after the build
 12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21,
 ``breadth3``: 22-23, ``textgen``: 24-28, ``vision``: 29-32, ``obs``: 33,
 which needs ``gbdt``, ``train`` and ``llm``, ``control``: 34,
-``compile``: 35, ``tune``: 36).
+``compile``: 35, ``tune``: 36, ``serving``: 37).
 """
 
 from __future__ import annotations
@@ -7435,11 +7455,362 @@ def tune_child(spec_path: str) -> None:
           f"{untuned['auc']:.6f}; launches equal {tuned['launches']}")
 
 
+# ------------------------------------------------------------ serving (37)
+SERVING_CONC = 16             # AsyncClient concurrency, loadgen connections
+SERVING_CHAIN_ROWS = 256      # distinct chain rows held against the transform
+SERVING_BERT_REQUESTS = 64    # distinct BERT-base requests (phase 34's)
+SERVING_WARMUP = 20           # loadgen's warm-up requests a connection
+SERVING_LOAD_S = 5.0          # seconds a loadgen run must last at least
+SERVING_PROBE = 20            # requests a connection in the sizing probe
+SERVING_MAX_NREQ = 20_000     # requests a connection, at most
+SERVING_FRONTS = ("python", "native")     # named: phase 37 never uses auto
+
+
+def chain_request(names):
+    """A stage turning each request body (a JSON list of the chain's
+    feature values, NaN allowed) into the chain's float32 columns
+    ``names``: the served chain's first, host-bound item."""
+    from mmlspark_torch.core import Transformer
+
+    class ChainRequest(Transformer):
+        def _transform(self, frame):
+            v = np.asarray([json.loads(r.entity) for r in frame["request"]],
+                           np.float32).reshape(len(frame), len(names))
+            for i, c in enumerate(names):
+                frame = frame.with_column(c, np.ascontiguousarray(v[:, i]))
+            return frame
+
+    return ChainRequest()
+
+
+def serving_chain(torch):
+    """Phase 35's chain (CleanMissingData Mean → Featurize →
+    LightGBMClassifier, 20 iterations) fitted on the card on
+    ``compile_frame(COMPILE_ROWS)``. Returns ``(chain, cols, names)``."""
+    from mmlspark_torch.core import DataFrame, Pipeline
+    from mmlspark_torch.featurize import CleanMissingData, Featurize
+    from mmlspark_torch.lightgbm import LightGBMClassifier
+    cols = compile_frame(COMPILE_ROWS)
+    names = [c for c in cols if c != "label"]
+    chain = Pipeline(stages=[
+        CleanMissingData(inputCols=names, cleaningMode="Mean"),
+        Featurize(inputCols=names, outputCol="features"),
+        LightGBMClassifier(numIterations=20, numLeaves=31, maxBin=255,
+                           learningRate=0.1)]).fit(DataFrame(cols))
+    torch.cuda.synchronize()
+    return chain, cols, names
+
+
+def serving_bert(torch, dev, name):
+    """Phase 24's BERT-base (seeded bf16 weights) behind
+    ``TextEncoderFeaturizer(attentionImpl="pallas")`` on K2a, its model
+    registered as ``name``. Returns ``(stage, module)``."""
+    from mmlspark_torch.dl import TextEncoderFeaturizer
+    from mmlspark_torch.models import (LoadedModel, bert_encoder_from_torch,
+                                       register_bert_encoder)
+    schema = register_bert_encoder(name, seq_len=BERT_BASE["max_len"],
+                                   **BERT_BASE)
+    module = bert_encoder_from_torch(
+        bert_state_dict(torch), config={"num_attention_heads":
+                                        BERT_BASE["heads"]},
+        dtype=torch.bfloat16).to(dev)
+    return TextEncoderFeaturizer(attentionImpl="pallas", inputCol="tokens",
+                                 seqChunk=128,
+                                 model=LoadedModel(schema, module)), module
+
+
+def executor_share(query, alone, label) -> None:
+    """Print the executor's transform times over the served batches (from
+    ``query``'s timed ``transform_fn``) beside the same transform run
+    alone on a batch of the median served size (``alone(n)``: seconds)."""
+    sizes = np.asarray(query.transform_fn.sizes)
+    secs = np.asarray(query.transform_fn.seconds)
+    n = int(np.median(sizes))
+    solo = float(np.median([alone(n) for _ in range(10)]))
+    print(f"phase 37: {label}: {len(secs)} executor transforms, mean "
+          f"{sizes.mean():.2f} rows, median {np.median(secs) * 1e3:.3f} ms "
+          f"(p90 {np.percentile(secs, 90) * 1e3:.3f} ms), "
+          f"{secs.sum():.3f} s in all; the same transform alone on {n} "
+          f"rows {solo * 1e3:.3f} ms (median of 10)")
+
+
+def timed_transform(query) -> None:
+    """Wrap ``query.transform_fn`` so that it records each batch's size
+    and seconds (the executor reads the attribute at every batch)."""
+    fn = query.transform_fn
+
+    def timed(df):
+        t0 = time.perf_counter()
+        out = fn(df)
+        timed.seconds.append(time.perf_counter() - t0)
+        timed.sizes.append(len(df))
+        return out
+    timed.seconds, timed.sizes = [], []
+    timed.compiled_segments = getattr(fn, "compiled_segments", None)
+    query.transform_fn = timed
+
+
+def serving_load(run_load, host, port, path, payload, label) -> dict:
+    """``run_load`` closed-loop over ``SERVING_CONC`` connections with
+    ``SERVING_WARMUP`` warm-up requests each, sized from a short probe so
+    that the run lasts at least ``SERVING_LOAD_S`` seconds. Fails on any
+    error, shed or non-200 status."""
+    r = run_load(host, port, payload, nconn=SERVING_CONC,
+                 nreq=SERVING_WARMUP + SERVING_PROBE, path=path,
+                 warmup=SERVING_WARMUP)
+    rate = r["completed_rps"]
+    for _ in range(3):
+        nreq = min(SERVING_WARMUP + int(np.ceil(
+            1.3 * SERVING_LOAD_S * rate / SERVING_CONC)), SERVING_MAX_NREQ)
+        r = run_load(host, port, payload, nconn=SERVING_CONC, nreq=nreq,
+                     path=path, warmup=SERVING_WARMUP)
+        r["seconds"] = SERVING_CONC * nreq / r["completed_rps"]
+        r["nreq"] = nreq
+        if r["errors"] or r["shed"] or r["transport_errors"]:
+            fail(f"phase 37: {label}: loadgen errors {r['errors']} (shed "
+                 f"{r['shed']}, rejected {r['rejected']}, transport "
+                 f"{r['transport_errors']}): every status must be 200")
+        if r["seconds"] >= SERVING_LOAD_S or nreq == SERVING_MAX_NREQ:
+            break
+        rate = r["completed_rps"]
+    if r["seconds"] < SERVING_LOAD_S:
+        fail(f"phase 37: {label}: the loadgen run lasted {r['seconds']:.2f} "
+             f"s (< {SERVING_LOAD_S})")
+    print(f"phase 37: {label}: loadgen {SERVING_CONC} connections x "
+          f"{r['nreq']} requests (warm-up {SERVING_WARMUP}) over "
+          f"{r['seconds']:.2f} s: {r['throughput_rps']:,.1f} rows/s, p50 "
+          f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms (loaded p99 "
+          f"{r['loaded_p99_ms']:.3f} ms), shed_rate {r['shed_rate']:g}, "
+          f"errors {r['errors']}")
+    return r
+
+
+def serving_phase(torch, k1, k2, dev, bw, flush, texts, card,
+                  need_record: bool) -> dict:
+    """Phase 37: the serving fronts on the card (module docstring, item
+    37). Returns K2a's launches over the served BERT-base transforms and,
+    when ``need_record``, its record at this path's shape."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.io.http import (AsyncClient, HTTPRequestData,
+                                        string_to_response)
+    from mmlspark_torch.serving.dsl import ServingStream
+    from mmlspark_torch.serving.loadgen import run_load
+    from mmlspark_torch.serving.native_front import NativeServingServer
+    from mmlspark_torch.serving.server import ServingServer, serving_query
+
+    def post(address, path, bodies):
+        """Distinct requests through the port's AsyncClient; every reply
+        must be a 200. Returns the reply bodies in order."""
+        url = f"http://{address[0]}:{address[1]}{path}"
+        out = AsyncClient(concurrency=SERVING_CONC, timeout=60.0).send(
+            [HTTPRequestData(url=url, method="POST", entity=b,
+                             headers={"Content-Type": "application/json"})
+             for b in bodies])
+        bad = [r.status_code for r in out if r.status_code != 200]
+        if bad:
+            fail(f"phase 37: {len(bad)} of {len(out)} replies not 200: "
+                 f"{sorted(set(bad))}")
+        return [r.entity for r in out]
+
+    # ---- the compiled GBDT chain: phase 35's, fitted here; its 620 K1
+    # launches come before any server starts
+    t0 = time.perf_counter()
+    k1.hist_cuda.launches = 0
+    chain, cols, names = serving_chain(torch)
+    if k1.hist_cuda.launches != 620:
+        fail(f"phase 37: the chain fit made {k1.hist_cuda.launches} K1 "
+             "launches: expected 620")
+    x = np.stack([cols[c][:SERVING_CHAIN_ROWS] for c in names], 1)
+    direct = np.asarray(chain.transform(DataFrame(
+        {c: x[:, i].copy() for i, c in enumerate(names)}))
+        ["probability"])[:, 1]
+    print(f"phase 37: chain fitted on {COMPILE_ROWS:,} rows x {len(names)} "
+          f"float32 features (phase 35's) with 620 K1 launches in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    bodies = [json.dumps(r.tolist()).encode() for r in x]
+    ex = np.empty(SERVING_CONC, object)
+    ex_req = np.empty(SERVING_CONC, object)
+    ex[:] = [str(i) for i in range(SERVING_CONC)]
+    ex_req[:] = [HTTPRequestData(method="POST", entity=b)
+                 for b in bodies[:SERVING_CONC]]
+    example = DataFrame({"id": ex, "request": ex_req})
+
+    # ---- BERT-base on K2a: phase 34's module and traffic
+    t0 = time.perf_counter()
+    T = BERT_BASE["max_len"]
+    depth = BERT_BASE["depth"]
+    tokens = control_traffic(texts)[0]
+    stage, module = serving_bert(torch, dev, "BertBaseServing")
+
+    def frame_of(rows):
+        col = np.empty(len(rows), object)
+        col[:] = rows
+        return DataFrame({"tokens": col})
+
+    served = tokens[:SERVING_BERT_REQUESTS]
+    want_pooled = np.asarray(stage.transform(frame_of(served))["features"])
+    transforms = [0]
+
+    def embed(df):
+        """The executor's work: one featurizer transform a batch, its
+        pooled rows copied to the host once (the stage's output)."""
+        pooled = np.asarray(stage.transform(frame_of(
+            [np.asarray(json.loads(r.entity), np.int32)
+             for r in df["request"]]))["features"])
+        transforms[0] += 1
+        replies = np.empty(len(df), object)
+        replies[:] = [string_to_response(json.dumps(v.tolist()),
+                                         content_type="application/json")
+                      for v in pooled]
+        return df.with_column("reply", replies)
+
+    bert_bodies = [json.dumps(t.tolist()).encode() for t in served]
+    mid = int(np.argmin([abs(len(t) - sum(CONTROL_TOKENS) // 2)
+                         for t in tokens]))
+    bert_payload = json.dumps(tokens[mid].tolist()).encode()
+    print(f"phase 37: BERT-base (bf16, phase 24's seeded weights) and "
+          f"{len(tokens)} requests of {min(map(len, tokens))}-"
+          f"{max(map(len, tokens))} tokens in "
+          f"{time.perf_counter() - t0:.2f} s; loadgen payload "
+          f"{len(tokens[mid])} tokens")
+
+    k1.hist_cuda.launches = 0
+    k2a_total = 0
+    results = {}
+    for backend in SERVING_FRONTS:
+        cls = NativeServingServer if backend == "native" else ServingServer
+        # the compiled chain through the DSL, on this front
+        t0 = time.perf_counter()
+        stream = ServingStream(cls(f"chain-{backend}", api_path="/chain"))
+        stream.transform(chain_request(names))
+        for s in chain.getOrDefault("stages"):
+            stream.transform(s)
+        stream.compile_pipeline(example, service=f"chain-{backend}")
+        plan = stream._stages[0].describe()
+        q = stream.with_reply(lambda v: float(v[1]),
+                              input_col="probability").start()
+        run_chain = q.transform_fn
+        timed_transform(q)
+        try:
+            if type(q.server) is not cls:
+                fail(f"phase 37: the chain's front is "
+                     f"{type(q.server).__name__}, not {cls.__name__}")
+            fused = [p for p in plan if p["kind"] == "fused"]
+            if len(fused) != 1 or fused[0]["stages"] != [
+                    "CleanMissingDataModel", "FeaturizeModel"]:
+                fail(f"phase 37: the served chain's plan {plan}")
+            got = np.asarray([json.loads(e) for e in post(
+                q.server.address, "/chain", bodies)])
+            rel = np.abs(got - direct) / np.maximum(np.abs(direct), 1e-30)
+            print(f"phase 37: chain on the {backend} front: "
+                  f"{len(got)} rows against the direct transform, max "
+                  f"|diff| {np.abs(got - direct).max():.3g}, max relative "
+                  f"{rel.max():.3g} (limit {COMPILE_RTOL}); plan {plan}")
+            if not np.isfinite(got).all() or rel.max() > COMPILE_RTOL:
+                fail(f"phase 37: chain replies on the {backend} front "
+                     f"differ from the direct transform beyond "
+                     f"{COMPILE_RTOL} relative")
+            results[("chain", backend)] = serving_load(
+                run_load, *q.server.address, "/chain", bodies[0],
+                f"chain on the {backend} front")
+        finally:
+            q.stop()
+
+        def chain_alone(n):
+            frame = DataFrame({"id": np.asarray([str(i) for i in range(n)],
+                                                object),
+                               "request": np.asarray(
+                                   [HTTPRequestData(method="POST",
+                                                    entity=bodies[0])] * n,
+                                   object)})
+            t = time.perf_counter()
+            run_chain(frame)
+            return time.perf_counter() - t
+        executor_share(q, chain_alone, f"chain on the {backend} front")
+        print(f"phase 37: chain on the {backend} front: "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # BERT-base through serving_query, on this front
+        t0 = time.perf_counter()
+        k2.flash_cuda.launches = 0
+        transforms[0] = 0
+        q = serving_query(f"bert-{backend}", embed, backend=backend)
+        timed_transform(q)
+        try:
+            if type(q.server) is not cls:
+                fail(f"phase 37: BERT-base's front is "
+                     f"{type(q.server).__name__}, not {cls.__name__}")
+            got = np.asarray([json.loads(e) for e in post(
+                q.server.address, "/", bert_bodies)], np.float32)
+            if got.shape != want_pooled.shape:
+                fail(f"phase 37: BERT-base replies {got.shape}, direct "
+                     f"{want_pooled.shape}")
+            cos, ccos, delta = agreement(got, want_pooled)
+            lim = BERT_BF16_POOLED_LIMITS
+            print(f"phase 37: BERT-base on the {backend} front: {len(got)} "
+                  f"replies against the direct transform: per-row cosine "
+                  f"min {cos:.7f} (floor {lim[0]}), centred {ccos:.7f} "
+                  f"(floor {lim[1]}), max |diff| {delta:.4g} (limit "
+                  f"{lim[2]})")
+            if cos < lim[0] or ccos < lim[1] or delta > lim[2] or \
+                    not np.isfinite(got).all():
+                fail(f"phase 37: BERT-base replies on the {backend} front "
+                     "differ from the direct transform beyond phase 24's "
+                     "limits")
+            results[("bert", backend)] = serving_load(
+                run_load, *q.server.address, "/", bert_payload,
+                f"BERT-base on the {backend} front")
+        finally:
+            q.stop()
+        launches, served = k2.flash_cuda.launches, transforms[0]
+
+        def bert_alone(n):
+            frame = DataFrame({"id": np.asarray([str(i) for i in range(n)],
+                                                object),
+                               "request": np.asarray(
+                                   [HTTPRequestData(method="POST",
+                                                    entity=bert_payload)]
+                                   * n, object)})
+            t = time.perf_counter()
+            embed(frame)
+            return time.perf_counter() - t
+        executor_share(q, bert_alone, f"BERT-base on the {backend} front")
+        print(f"phase 37: BERT-base on the {backend} front: K2a launches "
+              f"{launches} over {served} executor transforms "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if not served or launches != depth * served:
+            fail(f"phase 37: {launches} K2a launches over {served} "
+                 f"transforms on the {backend} front: expected {depth} a "
+                 "transform")
+        k2a_total += launches
+    if k1.hist_cuda.launches:
+        fail(f"phase 37: {k1.hist_cuda.launches} K1 launches while serving")
+    print(f"phase 37: K1 launches while serving 0; K2a {k2a_total}")
+    for (model, backend), r in sorted(results.items()):
+        print(f"phase 37: {model:5s} {backend:6s} front: "
+              f"{r['throughput_rps']:,.1f} rows/s, p50 {r['p50_ms']:.3f} "
+              f"ms, p99 {r['p99_ms']:.3f} ms; {card}")
+
+    out = {"launches": k2a_total}
+    if need_record:
+        out["record"] = {"name": "flash_serving", "route": "cuda",
+                         "source": "mmlspark_torch/dl/csrc/flash_attn.cu",
+                         "replaces": "mmlspark_tpu/dl/pallas_attention.py:77",
+                         "launches": k2a_total,
+                         **k2a_at_bert_shape(torch, k2, dev, bw, flush,
+                                             padded_rows(served, T),
+                                             "phase 37", 37)}
+    del stage, module, chain
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
                 "breadth", "breadth2", "breadth3", "textgen", "vision",
-                "obs", "control", "compile", "tune")
-# the kernels line's K2a records, which gain phase 34's launches
-K2A_RECORDS = ("flash", "flash_bert", "flash_control")
+                "obs", "control", "compile", "tune", "serving")
+# the kernels line's K2a records, which gain phases 34 and 37's launches
+K2A_RECORDS = ("flash", "flash_bert", "flash_control", "flash_serving")
 
 
 class Phase:
@@ -7475,8 +7846,8 @@ def main() -> None:
                     "featurize (14-15), breadth (16-18), breadth2 "
                     "(19-21), breadth3 (22-23), textgen (24-28), vision "
                     "(29-32), obs (33: needs gbdt, train and llm), "
-                    "control (34), compile (35), tune (36); train needs "
-                    "text")
+                    "control (34), compile (35), tune (36), serving (37); "
+                    "train needs text")
     ap.add_argument("--boot-child", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)
     ap.add_argument("--tune-child", default=None, metavar="SPEC",
@@ -7490,7 +7861,7 @@ def main() -> None:
         return
     # the tile registry of this run and its children: a fresh file that
     # only phase 36 writes, so that a registry left in the per-user default
-    # can never steer phases 1-35
+    # can never steer phases 1-35 and 37
     import shutil
     import tempfile
     tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune-")
@@ -7503,7 +7874,7 @@ def main() -> None:
 
 
 def run(args) -> None:
-    """Phases 1-36 of the groups ``args.phases`` names."""
+    """Phases 1-37 of the groups ``args.phases`` names."""
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
         fail(f"--phases {args.phases}: groups are {', '.join(PHASE_GROUPS)}")
@@ -7547,6 +7918,16 @@ def run(args) -> None:
     if "tune" in groups:
         build_fns["K2a, K2b, K2c tuned tiles (dl/csrc/flash_tuned.cu)"] = \
             k2.build_tuned_kernel
+    if "serving" in groups:
+        from mmlspark_torch.native.loader import (NativeLoader,
+                                                  require_httpfront)
+
+        def build_host():
+            require_httpfront()
+            NativeLoader("loadgen", ["loadgen.cpp"]).load()
+            return ""
+        build_fns["host: the epoll front and the load generator "
+                  "(native/src/httpfront.cpp, loadgen.cpp; g++)"] = build_host
     builds = start_builds(build_fns)
     print("phase 1: building every kernel (sm_90a), one nvcc each, at once")
     finish_builds({k1_name: builds.pop(k1_name)})
@@ -7645,13 +8026,25 @@ def run(args) -> None:
             if rec["name"] in launches:
                 rec["compile_launches"] = launches[rec["name"]]
 
-    # no winner may have steered phases 1-35: the run's registry is empty
+    if "serving" in groups:
+        with Phase("phase 37"):
+            serving = serving_phase(
+                torch, k1, k2, dev, bw, flush, texts, card,
+                need_record=not any(rec["name"] in K2A_RECORDS
+                                    for rec in records))
+        records += [serving["record"]] if "record" in serving else []
+        for rec in records:
+            if rec["name"] in K2A_RECORDS:
+                rec["serving_launches"] = serving["launches"]
+
+    # no winner may have steered phases 1-35 and 37: the run's registry is
+    # empty until phase 36 writes it
     from mmlspark_torch.perf import autotune
     stats = autotune.lookup_stats()
-    print(f"tile winners looked up in phases 1-35: {stats}")
+    print(f"tile winners looked up in phases 1-35 and 37: {stats}")
     if any(stats["hits"].values()):
-        fail(f"phases 1-35 found a tuned winner ({stats['hits']}): they "
-             "must run the untuned kernels")
+        fail(f"phases 1-35 and 37 found a tuned winner ({stats['hits']}): "
+             "they must run the untuned kernels")
 
     if "tune" in groups:
         with Phase("phase 36"):

@@ -102,7 +102,9 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_obs_fleet.py", "test_torch_resilience.py",
               "test_torch_sched.py", "test_torch_tenancy.py",
               "test_torch_costmodel.py", "test_torch_compile.py",
-              "test_torch_aot.py", "test_torch_autotune.py"],
+              "test_torch_aot.py", "test_torch_autotune.py",
+              "test_torch_http_serving.py", "test_torch_serving_native.py",
+              "test_torch_serving.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

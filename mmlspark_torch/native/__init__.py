@@ -1,3 +1,5 @@
-from .loader import CudaLoader, find_nvcc
+from .loader import (CudaLoader, NativeBuildError, NativeLoader, find_nvcc,
+                     get_httpfront, require_httpfront)
 
-__all__ = ["CudaLoader", "find_nvcc"]
+__all__ = ["CudaLoader", "NativeBuildError", "NativeLoader", "find_nvcc",
+           "get_httpfront", "require_httpfront"]

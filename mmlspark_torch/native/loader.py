@@ -16,6 +16,15 @@ runs no nvcc. A corrupt or mismatched stored library is a loud miss
 Unlike the JAX package's optional host libraries, a kernel the port runs has
 no fallback: a missing ``nvcc`` or a failed build raises
 :class:`KernelBuildError`.
+
+Beside it, :class:`NativeLoader` builds the host C++ libraries of the
+serving plane (``native/src/httpfront.cpp``, the epoll front, and
+``loadgen.cpp``, the closed-loop load generator) with ``g++`` into the same
+build directory, keyed by the sources' hash, the flags and the host CPU
+(``-march=native``). A failed build raises :class:`NativeBuildError` with
+the compiler's output; :func:`get_httpfront` keeps the reference's
+``None`` for callers that fall back (``serving_query(backend="auto")``),
+and :func:`require_httpfront` raises that error for those that must not.
 """
 
 from __future__ import annotations
@@ -23,11 +32,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 #: the target every library is built for (``NVCC_FLAGS``' ``-gencode``)
 TARGET_ARCH = "sm_90a"
@@ -65,10 +76,81 @@ def find_nvcc() -> str:
         "from source on first use")
 
 
-class CudaLoader:
+class _SharedLibrary:
+    """One shared library built from sources on first use and loaded once a
+    process; what the CUDA and the host loaders share. A subclass gives
+    ``name``, ``sources``, ``source_hash()`` and ``build(so_path)``, and
+    its own ``_guard``/``_locks``/``_loaded`` tables."""
+
+    _guard: threading.Lock
+    _locks: dict[str, threading.Lock]
+    _loaded: dict[str, ctypes.CDLL]
+
+    def so_path(self) -> str:
+        return os.path.join(build_dir(),
+                            f"lib{self.name}_{self.source_hash()[:16]}.so")
+
+    def _compile(self, so_path: str, argv: list[str], error: type) -> None:
+        """Run the compiler ``argv`` into a per-process temp file, published
+        with os.replace so concurrent builders never load a half-written
+        library; the compiler's output is kept beside it as ``<lib>.log``.
+        A failed compile raises ``error`` with that output."""
+        os.makedirs(os.path.dirname(so_path), exist_ok=True)
+        tmp = f"{so_path}.{os.getpid()}.build"
+        cmd = [*argv, "-o", tmp]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise error(
+                    f"{os.path.basename(argv[0])} failed building "
+                    f"{self.name} (exit {proc.returncode}):\n"
+                    f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            with open(f"{so_path}.log", "w") as f:
+                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            os.replace(tmp, so_path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+    def ensure_built(self) -> str:
+        so = self.so_path()
+        if not os.path.exists(so):
+            self.build(so)
+        return so
+
+    def load(self) -> ctypes.CDLL:
+        # one lock per library, so different libraries build in parallel
+        with self._guard:
+            lock = self._locks.setdefault(self.name, threading.Lock())
+        with lock:
+            lib = self._loaded.get(self.name)
+            if lib is not None:
+                return lib
+            lib = ctypes.CDLL(self.ensure_built())
+            self._loaded[self.name] = lib
+            return lib
+
+    def forget(self) -> None:
+        """Drop this process's load of the library (the next ``load``
+        opens it again, building it if it is gone)."""
+        with self._guard:
+            lock = self._locks.setdefault(self.name, threading.Lock())
+        with lock:
+            self._loaded.pop(self.name, None)
+
+    def build_log(self) -> str:
+        """What the compiler printed when it built this library ("" if the
+        library came from an earlier process's build that left no log)."""
+        log = f"{self.so_path()}.log"
+        if not os.path.exists(log):
+            return ""
+        with open(log) as f:
+            return f.read()
+
+
+class CudaLoader(_SharedLibrary):
     """Build and load one shared library from CUDA sources in the package."""
 
-    # one lock per library, so different kernels build in parallel
     _guard = threading.Lock()
     _locks: dict[str, threading.Lock] = {}
     _loaded: dict[str, ctypes.CDLL] = {}
@@ -91,39 +173,15 @@ class CudaLoader:
     def source_hash(self) -> str:
         """sha256 of the sources, the headers they include and the flags:
         what decides the library's bytes, with the compiler's version."""
-        h = hashlib.sha256()
-        for s in self.sources + self.headers:
-            with open(s, "rb") as f:
-                h.update(f.read())
-        h.update(" ".join(self.flags).encode())
-        return h.hexdigest()
-
-    def so_path(self) -> str:
-        return os.path.join(build_dir(),
-                            f"lib{self.name}_{self.source_hash()[:16]}.so")
+        return _hash(self.sources + self.headers, " ".join(self.flags))
 
     def build(self, so_path: str) -> None:
-        """nvcc into a per-process temp file, published with os.replace so
-        concurrent builders never load a half-written library. The
-        compiler's output (``-Xptxas -v``: registers, shared memory,
-        spills) is kept beside the library as ``<lib>.log``."""
-        os.makedirs(os.path.dirname(so_path), exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.build"
-        cmd = [find_nvcc(), *self.flags, *self.sources, "-o", tmp]
-        try:
-            CudaLoader.nvcc_runs += 1
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed building {self.name} "
-                    f"(exit {proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}{proc.stderr}")
-            with open(f"{so_path}.log", "w") as f:
-                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            os.replace(tmp, so_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        """nvcc (``-Xptxas -v``: registers, shared memory and spills land
+        in the build log), then a copy into the installed AOT store."""
+        nvcc = find_nvcc()
+        CudaLoader.nvcc_runs += 1
+        self._compile(so_path, [nvcc, *self.flags, *self.sources],
+                      KernelBuildError)
         store = _active_store()
         if store is not None:
             store.save_library(self, so_path, backfill=True)
@@ -138,27 +196,132 @@ class CudaLoader:
                 self.build(so)
         return so
 
-    def load(self) -> ctypes.CDLL:
-        with CudaLoader._guard:
-            lock = CudaLoader._locks.setdefault(self.name, threading.Lock())
-        with lock:
-            lib = CudaLoader._loaded.get(self.name)
-            if lib is not None:
-                return lib
-            lib = ctypes.CDLL(self.ensure_built())
-            CudaLoader._loaded[self.name] = lib
-            return lib
 
-    def build_log(self) -> str:
-        """What nvcc printed when it built this library ("" if the library
-        came from an earlier process's build that left no log)."""
-        log = f"{self.so_path()}.log"
-        if not os.path.exists(log):
-            return ""
-        with open(log) as f:
-            return f.read()
+def _hash(paths: list[str], *extras: str) -> str:
+    """sha256 of the files' bytes, then of the extra strings."""
+    h = hashlib.sha256()
+    for s in paths:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    for e in extras:
+        h.update(e.encode())
+    return h.hexdigest()
 
 
 def _active_store():
     from ..core import aot
     return aot.active_store()
+
+
+# ------------------------------------------------------------ host C++ build
+#: the host libraries' g++ flags (the JAX package's ``NativeLoader``'s)
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+              "-pthread")
+
+
+class NativeBuildError(RuntimeError):
+    """g++ is missing or failed: a host library cannot be built."""
+
+
+def _host_cpu() -> str:
+    """The CPU ``-march=native`` compiles for: a library built on one
+    machine is never loaded on another whose CPU differs."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.machine() + platform.processor()
+
+
+class NativeLoader(_SharedLibrary):
+    """Build and load one host shared library from C++ sources in
+    ``native/src`` (the reference's ``NativeLoader``) with g++."""
+
+    _guard = threading.Lock()
+    _locks: dict[str, threading.Lock] = {}
+    _loaded: dict[str, ctypes.CDLL] = {}
+
+    def __init__(self, name: str, sources: list[str]):
+        self.name = name
+        self.sources = [os.path.join(SRC_DIR, s) for s in sources]
+        self.flags = HOST_FLAGS
+
+    def source_hash(self) -> str:
+        """sha256 of the sources, the flags and the host CPU."""
+        return _hash(self.sources, " ".join(self.flags), _host_cpu())
+
+    def build(self, so_path: str) -> None:
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise NativeBuildError(
+                f"g++ not found on PATH: the host library {self.name} of "
+                "mmlspark_torch is built from source on first use")
+        self._compile(so_path, [cxx, *self.flags, *self.sources],
+                      NativeBuildError)
+
+
+#: the epoll front's loader (a test may swap it for one that fails)
+HTTPFRONT = NativeLoader("httpfront", ["httpfront.cpp"])
+_httpfront: list = []       # [lib] or [NativeBuildError] once tried
+_httpfront_lock = threading.Lock()
+
+
+def _configure_httpfront(lib) -> None:
+    i64 = ctypes.c_int64
+    u64 = ctypes.c_uint64
+    lib.hf_start.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)]
+    lib.hf_start.restype = i64
+    lib.hf_poll.argtypes = [i64, ctypes.POINTER(u64), i64, ctypes.c_int]
+    lib.hf_poll.restype = i64
+    lib.hf_req_info.argtypes = [i64, u64, ctypes.c_char_p, i64,
+                                ctypes.c_char_p, i64, ctypes.POINTER(i64),
+                                ctypes.POINTER(i64)]
+    lib.hf_req_info.restype = ctypes.c_int
+    lib.hf_req_body.argtypes = [i64, u64, ctypes.c_char_p]
+    lib.hf_req_body.restype = i64
+    lib.hf_req_headers.argtypes = [i64, u64, ctypes.c_char_p]
+    lib.hf_req_headers.restype = i64
+    lib.hf_reply.argtypes = [i64, u64, ctypes.c_int, ctypes.c_char_p,
+                             ctypes.c_char_p, i64]
+    lib.hf_reply.restype = ctypes.c_int
+    lib.hf_stop.argtypes = [i64]
+    lib.hf_stop.restype = None
+
+
+def require_httpfront() -> ctypes.CDLL:
+    """The native epoll HTTP front (``httpfront.cpp``), built at first use;
+    raises :class:`NativeBuildError` (g++'s output included) when it
+    cannot be built, every time it is asked for."""
+    with _httpfront_lock:
+        if not _httpfront:
+            try:
+                lib = HTTPFRONT.load()
+                _configure_httpfront(lib)
+                _httpfront.append(lib)
+            except NativeBuildError as e:
+                _httpfront.append(e)
+        got = _httpfront[0]
+    if isinstance(got, NativeBuildError):
+        raise got
+    return got
+
+
+def get_httpfront():
+    """The native epoll HTTP front, or None when it cannot be built (the
+    reference's contract, for callers that fall back to the Python
+    front)."""
+    try:
+        return require_httpfront()
+    except NativeBuildError:
+        return None
+
+
+def reset_httpfront() -> None:
+    """Forget the front's build outcome (the next call builds again)."""
+    with _httpfront_lock:
+        _httpfront.clear()
+        HTTPFRONT.forget()

@@ -34,8 +34,9 @@ point                   where it fires
 ======================  ====================================================
 
 In the port, ``checkpoint.write`` is probed by
-``dl/checkpoint.CheckpointManager.save``; the HTTP, mesh, worker and
-serving-executor points arrive with those layers (ROADMAP.md §1 items 9d
+``dl/checkpoint.CheckpointManager.save`` and ``http.send`` by
+``io/http/clients.send_request``; the mesh, worker and serving-executor
+(``model.bad``) points arrive with those layers (ROADMAP.md §1 items 9d-2
 and 11), and the names stay the reference's so one rule set arms both.
 
 Fault kinds: ``latency`` (sleep then continue), ``error`` (the hook

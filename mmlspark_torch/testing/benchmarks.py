@@ -6,9 +6,12 @@ holdout scenario, the cost-attribution scenario, and the whole-pipeline
 fusion scenario with the AOT store's benchmark spec. Each returns the same
 dict, with the same keys, as the reference's on the same arguments.
 
-The scenarios that need the serving fronts, the mesh or the autoscaler
-exist and raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+The serving plane's scenarios of ROADMAP.md §1 item 9d-1 are here too:
+the tracing and recorder overhead guards, the regression sentinel's chaos
+replay and the LLM engine's serving and decode scenarios (on the port's
+engine, at ``device=``). The scenarios that need the mesh or the
+autoscaler exist and raise ``NotImplementedError`` naming the ROADMAP item
+that brings them (9d-2).
 
 Import is stdlib + obs only; numpy and torch are imported where a
 scenario needs them.
@@ -634,6 +637,578 @@ def _aot_bench_spec(n_rows: int, width: int, seed: int = 9, device=None):
     return stages, df
 
 
+# ------------------------------------------------ serving-plane scenarios
+def _device(device):
+    """``device`` resolved at call time (CUDA unless "cpu")."""
+    from ..device import resolve_device
+    return resolve_device(device)
+
+
+def _tiny_causal_lm(vocab: int):
+    """The LLM scenarios' causal LM (width 32, depth 1, heads 2, mlp 64,
+    f32, dense causal attention), its weights drawn from a seeded
+    ``torch.Generator``: the same architecture as the JAX package's, not
+    the same bits."""
+    import torch
+
+    from ..dl import MaskedLMModel, TextEncoder
+    from ..dl.text_encoder import make_attention_fn
+
+    gen = torch.Generator().manual_seed(0)
+    enc = TextEncoder(vocab=vocab, width=32, depth=1, heads=2, mlp_dim=64,
+                      dtype=torch.float32,
+                      attention_fn=make_attention_fn("dense", causal=True),
+                      generator=gen)
+    return MaskedLMModel(enc, generator=gen)
+
+
+def tracing_overhead_scenario(*, service: str = "tracing-bench",
+                              n_requests: int = 200,
+                              item_service_s: float = 0.005,
+                              max_batch: int = 8,
+                              reps: int = 3,
+                              registry=None) -> dict:
+    """Profiler-overhead guard : the same synthetic
+    serving pipeline (RequestScheduler + deterministic executor — no
+    HTTP socket, so loopback jitter cannot masquerade as tracing cost)
+    measured with the full tracing+profiler stack OFF vs ON, asserting
+    the instrumented p99 stays within 5%% of bare.
+
+    ON means everything a traced serving request pays: a request span
+    per item, the scheduler's ``sched.queue`` child span, a retroactive
+    execute span, a cost-model feature-log record, a ``StepProfiler``
+    step around each executor batch, and a flight-recorder
+    ``note_request`` per reply. The modes run INTERLEAVED (off, on,
+    off, on, ...) and each mode keeps its best-of-``reps`` p99 — the
+    same min-of-runs discipline bench.py's loaded rows use: the
+    per-rep minimum is the deterministic floor (service time + any
+    instrumentation cost), so host contention and sleep jitter — which
+    hit both modes but not symmetrically within one rep — cannot
+    manufacture or mask overhead. Returns both p99s, ``overhead_pct``,
+    and ``within_bound`` (the 5%% contract — asserted by the test AND
+    banked in the bench JSON).
+    """
+    from ..obs.export import flight_recorder
+    from ..obs.profile import StepProfiler, feature_log
+    from ..obs.metrics import registry as _default
+    from ..obs.tracing import tracer
+    from ..sched import RequestScheduler
+
+    reg = registry if registry is not None else _default
+    profiler = StepProfiler(service=service, registry=reg)
+    flight_recorder.install()
+
+    def one_run(traced: bool) -> float:
+        sched = RequestScheduler(f"{service}-{'on' if traced else 'off'}",
+                                 registry=reg)
+        done: list[_SynthRequest] = []
+        stop = threading.Event()
+
+        def executor():
+            while not stop.is_set() or sched.qsize():
+                batch = sched.next_batch(max_batch=max_batch,
+                                         max_wait=0.05)
+                if not batch:
+                    continue
+                if traced:
+                    with profiler.step("tracing-bench.batch") as h:
+                        time.sleep(item_service_s * len(batch))
+                        h.done(None)
+                else:
+                    time.sleep(item_service_s * len(batch))
+                for item in batch:
+                    span = getattr(item, "span", None)
+                    if span is not None:
+                        tracer.emit_span(
+                            "serving.execute", parent=span,
+                            seconds=item_service_s * len(batch),
+                            service=service, rows=len(batch))
+                        feature_log.record(
+                            service=service, route="/",
+                            batch=len(batch),
+                            queue_ms=(getattr(item, "queue_wait", 0.0)
+                                      or 0.0) * 1e3,
+                            execute_ms=item_service_s * len(batch)
+                            * 1e3, trace_id=span.trace_id)
+                    item.reply(200)
+                    if span is not None:
+                        span.set_attr("status", 200)
+                        tracer.end_span(span)
+                        flight_recorder.note_request(
+                            span.trace_id,
+                            time.monotonic() - item.submitted,
+                            status=200)
+                    done.append(item)
+
+        worker = threading.Thread(target=executor, daemon=True)
+        worker.start()
+        # pace BELOW saturation: the executor's cost is linear in batch
+        # size here, so an overloaded run would measure queue growth —
+        # the one thing that is NOT tracing overhead — in both modes
+        interval = item_service_s * 1.5
+        for _ in range(n_requests):
+            req = _SynthRequest()
+            if traced:
+                req.span = tracer.start_span(
+                    "serving.request", parent=None, current=False,
+                    service=service, route="/")
+            try:
+                sched.submit(req)
+            except Exception:
+                req.reply(503)
+            time.sleep(interval)
+        stop.set()
+        sched.wake()
+        worker.join(timeout=20)
+        lat = sorted((r.done_at - r.submitted) for r in done
+                     if r.done_at is not None and r.status == 200)
+        if not lat:
+            return float("nan")
+        return lat[max(_ceil(0.99 * len(lat)) - 1, 0)]
+
+    offs, ons = [], []
+    for _ in range(reps):
+        offs.append(one_run(False))
+        ons.append(one_run(True))
+    p99_off, p99_on = min(offs), min(ons)
+    overhead_pct = (p99_on - p99_off) / p99_off * 100.0
+    return {
+        "n_requests": n_requests,
+        "item_service_s": item_service_s,
+        "reps": reps,
+        "p99_off_s": p99_off,
+        "p99_on_s": p99_on,
+        "overhead_pct": overhead_pct,
+        "bound_pct": 5.0,
+        "within_bound": overhead_pct <= 5.0,
+        "feature_records": len(feature_log),
+    }
+
+
+def recorder_overhead_scenario(*, service: str = "recorder-bench",
+                               n_requests: int = 600,
+                               item_service_s: float = 0.002,
+                               max_batch: int = 8,
+                               reps: int = 3,
+                               record_interval_s: float = 1.0,
+                               registry_gauges: int = 120,
+                               registry=None) -> dict:
+    """History-plane overhead guard: the same synthetic
+    serving pipeline as :func:`tracing_overhead_scenario` (scheduler +
+    deterministic executor, no HTTP socket) measured with the
+    time-series :class:`~mmlspark_torch.obs.timeseries.Recorder` thread
+    OFF vs ON at its production cadence (1 s), over a registry
+    pre-seeded with ``registry_gauges`` extra gauge series so the
+    snapshot walks a production-scale sample surface.
+
+    The 1%% verdict is NOT read off the end-to-end p99 delta — a 1%%
+    effect (~30 us here) sits below the host's run-to-run p99 drift,
+    so an e2e diff would be a coin flip (the tracing guard's 5%% bound
+    is already at that noise floor). Instead the bound is decomposed
+    into two precisely measurable parts, and the e2e OFF/ON p99s ride
+    along as reported context only:
+
+    * ``overhead_pct`` — the recorder's amortized per-request share of
+      p99: median synchronous tick cost (timed directly, us
+      precision) x ``interarrival / record_interval_s``, over the
+      pipeline's best-of-``reps`` bare p99.
+    * ``affected_fraction`` — the collision geometry: a tick delays at
+      most ~2 in-flight requests, so
+      ``2 * interarrival / record_interval_s`` of requests can feel a
+      tick at all. Kept below the 1%% tail cut, a colliding tick
+      cannot reach the p99 statistic — the p99 request is a
+      non-collided one paying only the amortized share."""
+    from ..obs.metrics import MetricsRegistry
+    from ..obs.timeseries import Recorder, TimeSeriesStore
+    from ..sched import RequestScheduler
+
+    reg = registry if registry is not None else MetricsRegistry()
+    pad = reg.gauge("profile_bench_pad",
+                    "synthetic sample surface for the overhead guard")
+    for i in range(max(int(registry_gauges), 0)):
+        pad.set(float(i), idx=str(i))
+
+    def one_run(recording: bool) -> float:
+        sched = RequestScheduler(
+            f"{service}-{'on' if recording else 'off'}", registry=reg)
+        rec = None
+        if recording:
+            rec = Recorder(TimeSeriesStore(reg), reg)
+            rec.start(record_interval_s)
+        done: list[_SynthRequest] = []
+        stop = threading.Event()
+
+        def executor():
+            while not stop.is_set() or sched.qsize():
+                batch = sched.next_batch(max_batch=max_batch,
+                                         max_wait=0.05)
+                if not batch:
+                    continue
+                time.sleep(item_service_s * len(batch))
+                for item in batch:
+                    item.reply(200)
+                    done.append(item)
+
+        worker = threading.Thread(target=executor, daemon=True)
+        worker.start()
+        interval = item_service_s * 1.5
+        try:
+            for _ in range(n_requests):
+                req = _SynthRequest()
+                try:
+                    sched.submit(req)
+                except Exception:
+                    req.reply(503)
+                time.sleep(interval)
+            stop.set()
+            sched.wake()
+            worker.join(timeout=20)
+        finally:
+            if rec is not None:
+                rec.stop()
+        lat = sorted((r.done_at - r.submitted) for r in done
+                     if r.done_at is not None and r.status == 200)
+        if not lat:
+            return float("nan")
+        return lat[max(_ceil(0.99 * len(lat)) - 1, 0)]
+
+    offs, ons = [], []
+    for _ in range(reps):
+        offs.append(one_run(False))
+        ons.append(one_run(True))
+    p99_off, p99_on = min(offs), min(ons)
+
+    costs = []
+    probe = Recorder(TimeSeriesStore(reg), reg)
+    for _ in range(50):
+        t0 = time.perf_counter()
+        probe.tick()
+        costs.append(time.perf_counter() - t0)
+    costs.sort()
+    tick_cost_s = costs[len(costs) // 2]
+
+    interarrival = item_service_s * 1.5
+    amortized_s = tick_cost_s * interarrival / record_interval_s
+    overhead_pct = amortized_s / p99_off * 100.0
+    affected_fraction = 2.0 * interarrival / record_interval_s
+    return {
+        "n_requests": n_requests,
+        "item_service_s": item_service_s,
+        "reps": reps,
+        "record_interval_s": record_interval_s,
+        "registry_gauges": registry_gauges,
+        "p99_off_s": p99_off,
+        "p99_on_s": p99_on,
+        "tick_cost_s": tick_cost_s,
+        "amortized_per_request_s": amortized_s,
+        "affected_fraction": affected_fraction,
+        "overhead_pct": overhead_pct,
+        "bound_pct": 1.0,
+        "within_bound": (overhead_pct <= 1.0
+                         and affected_fraction <= 0.01),
+    }
+
+
+def regression_chaos_scenario(*, service: str = "regression-bench",
+                              seed: int = 23, chaos: bool = True,
+                              warmup: int = 8, inject_after: int = 12,
+                              max_ticks: int = 40,
+                              base_step_s: float = 0.010,
+                              slow_factor: float = 6.0,
+                              sustain_ticks: int = 3) -> dict:
+    """Live perf-regression acceptance: a seeded synthetic
+    training loop exports ``profile_mfu`` each tick; the recorder
+    samples it into a private store and the CUSUM sentinel watches.
+    With ``chaos=True`` a ``worker.slow`` fault (the resilience
+    plane's persistent-degradation path, ``factor=slow_factor``) arms
+    after ``inject_after`` ticks — MFU steps down by that factor and
+    the sentinel must flip ``obs_regression_active{series=
+    profile_mfu}`` within 20 recorder ticks of the step, after which
+    ``FleetHealth`` (sentinel attached) reads DEGRADED. With
+    ``chaos=False`` the identical replay must alarm exactly never —
+    the detector is a pure fold over the value sequence, so the
+    healthy trajectory is bit-identical run to run."""
+    from ..obs.fleet import FleetAggregator, FleetHealth
+    from ..obs.metrics import MetricsRegistry
+    from ..obs.regression import RegressionSentinel, SeriesWatch, _pull_mfu
+    from ..obs.timeseries import Recorder, TimeSeriesStore
+    from ..resilience import FaultRule, faults
+
+    reg = MetricsRegistry()
+    store = TimeSeriesStore(reg)
+    recorder = Recorder(store, reg)
+    sent = RegressionSentinel(store, reg, watches=[
+        SeriesWatch("profile_mfu", _pull_mfu, direction="lower_bad",
+                    warmup=warmup)], sustain_ticks=sustain_ticks)
+    health = FleetHealth(FleetAggregator(reg), registry=reg,
+                         service=service, store=store)
+    health.attach_sentinel(sent)
+    g_mfu = reg.gauge("profile_mfu", "model FLOP utilization, by stage")
+    from ..obs.attribution import peak_spec
+    peak_flops = peak_spec("cpu").peak_flops   # the 1 Tflop/s cpu row
+    flops_per_step = base_step_s * peak_flops * 0.42   # healthy MFU 0.42
+
+    rules = []
+    if chaos:
+        rules = [FaultRule(point="worker.slow", kind="slow",
+                           match="trainer", times=1, after=inject_after,
+                           factor=slow_factor)]
+    step_at = None
+    alarm_tick = None
+    degraded_tick = None
+    events = 0
+    mfu_trace: list = []
+    with faults(seed, rules):
+        from ..resilience.faults import injector
+        for t in range(max_ticks):
+            injector.apply("worker.slow", "trainer")
+            slow = injector.degradation("trainer")
+            if slow > 1.0 and step_at is None:
+                step_at = t
+            step_s = base_step_s * slow
+            mfu = flops_per_step / (peak_flops * step_s)
+            mfu_trace.append(round(mfu, 4))
+            g_mfu.set(mfu, stage="train")
+            recorder.tick()
+            active = sent.tick()
+            verdict = health.tick()
+            if active and alarm_tick is None:
+                alarm_tick = t
+            if verdict == "degraded" and degraded_tick is None:
+                degraded_tick = t
+            if alarm_tick is not None and degraded_tick is not None \
+                    and t >= alarm_tick + sustain_ticks:
+                break
+        snap = reg.snapshot()
+        events = int(sum(v for k, v in snap.items()
+                         if k.startswith("obs_regression_events_total")))
+    return {
+        "chaos": chaos,
+        "seed": seed,
+        "mfu_healthy": mfu_trace[0] if mfu_trace else None,
+        "mfu_degraded": mfu_trace[-1] if mfu_trace else None,
+        "step_at_tick": step_at,
+        "alarm_tick": alarm_tick,
+        "ticks_to_alarm": (alarm_tick - step_at
+                           if alarm_tick is not None and step_at is not None
+                           else None),
+        "degraded_tick": degraded_tick,
+        "events": events,
+        "verdict_end": health.verdict(),
+        "mfu_trace": mfu_trace,
+    }
+
+
+def llm_serving_scenario(*, service: str = "llm-bench", slots: int = 2,
+                         block_len: int = 4, spec_k: int = 0,
+                         n_prompts: int = 4, prompt_len: int = 12,
+                         max_new_tokens: int = 6, vocab: int = 64,
+                         seed: int = 17, registry=None,
+                         device=None) -> dict:
+    """Generation benchmark for the LLM serving engine: warm a tiny causal LM's prefill+decode programs (weights from a
+    seeded ``torch.Generator``, on ``device``: CUDA unless "cpu"), serve
+    a repeated-prefix workload through
+    :class:`~mmlspark_torch.serving.llm.LLMEngine`, and read the
+    ``gen_*``/``kv_*`` series back from the obs registry.
+
+    Three rounds over the SAME ``n_prompts`` prompts (shared
+    ``block_len``-aligned prefix, distinct tails). Rounds 1-2 submit
+    one sequence at a time and drain — TTFT is pure prefill, no
+    slot-queue wait folded in: round 1 prefills cold, round 2 must hit
+    the refcounted prefix cache, and the quantile split by the
+    ``reuse`` label separates ``ttft_cold_p50_ms`` from
+    ``ttft_warm_p50_ms`` (the measured TTFT improvement the paged
+    cache exists to buy — a full-prompt hit prefills a 1-token
+    suffix). TTFT quantiles are read BEFORE round 3 — the batched
+    throughput round (all prompts at once, continuous batching), whose
+    queue waits would otherwise pollute the warm column — which is
+    what ``tokens_per_s`` measures. The whole serving run executes
+    inside CompileTracker steady state, so a single runtime compile on
+    a warmed worker fails the scenario rather than hiding in the
+    latency columns.
+
+    Returns tokens/sec, TTFT percentiles (registry
+    ``gen_ttft_seconds`` quantiles split by the ``reuse`` label),
+    prefix hit rate, spec-acceptance ratio (``spec_k > 0``), AOT
+    fingerprint count, and the per-sequence outputs — callers bank the
+    numbers and tests assert on either surface.
+    """
+    import numpy as np
+
+    from ..obs.metrics import registry as _default
+    from ..obs.profile import compile_tracker
+    from ..serving.llm import LLMEngine, _bucket_window
+
+    reg = registry if registry is not None else _default
+    module = _tiny_causal_lm(vocab)
+    rng = np.random.default_rng(seed)
+    # shared prefix covering whole blocks (reuse is whole-chunk only),
+    # distinct per-prompt tails
+    shared = rng.integers(2, vocab, size=prompt_len - block_len)
+    prompts = [list(map(int, np.concatenate(
+        [shared, rng.integers(2, vocab, size=block_len)])))
+        for _ in range(n_prompts)]
+
+    engine = LLMEngine(
+        module, draft_module=module if spec_k else None,
+        slots=slots, block_len=block_len,
+        max_seq_len=prompt_len + max_new_tokens + block_len,
+        spec_k=spec_k, service=service, registry=reg,
+        device=_device(device))
+    windows = sorted({_bucket_window(len(p)) for p in prompts}
+                     | {_bucket_window(block_len)} | {1})
+    fps = engine.warm(prefill_windows=tuple(windows), mark_steady=True)
+    try:
+        outputs = {}
+        # rounds 1-2: one sequence in flight at a time, so the TTFT
+        # histogram holds pure submit→prefill→first-token latencies
+        for rnd, reuse in ((0, "cold"), (1, "warm")):
+            for i, p in enumerate(prompts):
+                engine.submit(f"r{rnd}-s{i}", p, max_new_tokens)
+                outputs.update(engine.run_until_drained())
+        h = reg.metrics("gen_ttft_seconds")[0]
+        ttft_ms = {
+            "ttft_cold_p50_ms": h.quantile(0.5, service=service,
+                                           reuse="cold") * 1e3,
+            "ttft_warm_p50_ms": h.quantile(0.5, service=service,
+                                           reuse="warm") * 1e3,
+            "ttft_p99_ms": max(h.quantile(0.99, service=service,
+                                          reuse=r) for r in
+                               ("cold", "warm")) * 1e3,
+        }
+        # round 3: everything at once — continuous batching throughput
+        t0 = time.monotonic()
+        for i, p in enumerate(prompts):
+            engine.submit(f"rt-s{i}", p, max_new_tokens)
+        batch_out = engine.run_until_drained()
+        wall_s = time.monotonic() - t0
+        outputs.update(batch_out)
+        compile_tracker.assert_steady_state()
+        steady_ok = True
+    finally:
+        compile_tracker.unmark_steady()
+
+    kv = engine.kv.stats()
+    snap = reg.snapshot()
+
+    def _sum(prefix: str) -> float:
+        return sum(v for k, v in snap.items()
+                   if k.startswith(prefix)
+                   and f'service="{service}"' in k)
+
+    hits = _sum("kv_prefix_hits_total")
+    misses = _sum("kv_prefix_misses_total")
+    # throughput counts round 3's committed tokens (decode commits plus
+    # the prefill-produced first token per sequence) over round 3 wall
+    batch_tokens = sum(len(v) for v in batch_out.values()) \
+        - sum(len(p) for p in prompts)
+    gen_tokens = int(_sum("gen_tokens_total")) \
+        + len(outputs)   # + the prefill-produced first tokens
+    return {
+        "sequences": len(outputs),
+        "gen_tokens": gen_tokens,
+        "wall_s": wall_s,
+        "tokens_per_s": batch_tokens / max(wall_s, 1e-9),
+        **ttft_ms,
+        "prefix_hits": int(hits),
+        "prefix_misses": int(misses),
+        "prefix_hit_rate": hits / max(hits + misses, 1),
+        "tokens_reused": int(_sum("kv_prefix_tokens_reused_total")),
+        "spec_accept_ratio": _sum("gen_spec_accept_ratio")
+        if spec_k else None,
+        "decode_steps": int(_sum("gen_decode_steps_total")),
+        "kv_blocks": kv["blocks"],
+        "kv_cached": kv["cached"],
+        "aot_fingerprints": len(fps),
+        "steady_state_ok": steady_ok,
+        "outputs": {k: [int(t) for t in v] for k, v in outputs.items()},
+    }
+
+
+def llm_decode_scenario(*, service: str = "llm-decode-bench",
+                        context_tokens: int = 4096,
+                        block_len: int = 128,
+                        max_new_tokens: int = 32, slots: int = 1,
+                        vocab: int = 64, seed: int = 23,
+                        registry=None, device=None) -> dict:
+    """Long-context decode-throughput bench:
+    steady-state tokens/sec of the decode executor at ``context_tokens``
+    of resident KV — the regime the paged-attention kernel exists for,
+    where the old path re-gathered the whole dense cache every step.
+
+    One sequence fills ``context_tokens - max_new_tokens`` prompt
+    tokens, then the timed window covers ONLY the drained decode steps
+    (the first engine boundary — prefill + first decode step — runs
+    before the clock starts, so prefill cost never pollutes the decode
+    number). Runs inside CompileTracker steady state: a runtime compile
+    mid-decode fails the scenario. The path's identity rides along in
+    the numbers — ``dense_gather_bytes`` is exactly 0 on the paged
+    path and the old path's per-step re-gather total behind
+    ``MMLSPARK_TPU_PAGED_ATTN=0`` — so the side-by-side bank
+    (``bench_llm_decode``) can prove which kernel produced which
+    column. The engine runs on ``device`` (CUDA unless "cpu")."""
+    import numpy as np
+
+    from ..dl.paged_kv import paged_attention_enabled
+    from ..obs.metrics import registry as _default
+    from ..obs.profile import compile_tracker
+    from ..serving.llm import LLMEngine, _bucket_window
+
+    reg = registry if registry is not None else _default
+    module = _tiny_causal_lm(vocab)
+    rng = np.random.default_rng(seed)
+    prompt_len = int(context_tokens) - int(max_new_tokens)
+    prompt = [int(t) for t in rng.integers(2, vocab, size=prompt_len)]
+
+    engine = LLMEngine(module, slots=slots,
+                       block_len=block_len, max_seq_len=context_tokens,
+                       service=service, registry=reg,
+                       device=_device(device))
+    windows = sorted({_bucket_window(prompt_len), 1})
+    fps = engine.warm(prefill_windows=tuple(windows), mark_steady=True)
+    try:
+        engine.submit("ctx0", prompt, max_new_tokens)
+        engine.step()            # admit + prefill + first decode step
+        snap0 = reg.snapshot()
+
+        def _sum(snapshot, prefix):
+            return sum(v for k, v in snapshot.items()
+                       if k.startswith(prefix)
+                       and f'service="{service}"' in k)
+
+        tok0 = _sum(snap0, "gen_tokens_total")
+        t0 = time.monotonic()
+        outputs = engine.run_until_drained()
+        decode_wall_s = time.monotonic() - t0
+        compile_tracker.assert_steady_state()
+        steady_ok = True
+    finally:
+        compile_tracker.unmark_steady()
+
+    snap = reg.snapshot()
+    decode_tokens = _sum(snap, "gen_tokens_total") - tok0
+    gather_bytes = _sum(snap, "kv_dense_gather_bytes_total")
+    attn_decode_s = sum(
+        v for k, v in snap.items()
+        if k.startswith("gen_decode_attn_seconds_sum")
+        and f'service="{service}"' in k and 'phase="decode"' in k)
+    steps = _sum(snap, "gen_decode_steps_total")
+    return {
+        "context_tokens": int(context_tokens),
+        "context_blocks": -(-int(context_tokens) // int(block_len)),
+        "paged_attention": bool(paged_attention_enabled()),
+        "decode_tokens": int(decode_tokens),
+        "decode_wall_s": decode_wall_s,
+        "tokens_per_s": decode_tokens / max(decode_wall_s, 1e-9),
+        "dense_gather_bytes": int(gather_bytes),
+        "attn_ms_per_step": (attn_decode_s / max(steps, 1)) * 1e3,
+        "decode_steps": int(steps),
+        "aot_fingerprints": len(fps),
+        "steady_state_ok": steady_ok,
+        "outputs": {k: [int(t) for t in v] for k, v in outputs.items()},
+    }
+
+
 def _later(name: str, item: str, what: str):
     def scenario(*args, **kwargs):
         raise NotImplementedError(
@@ -644,11 +1219,14 @@ def _later(name: str, item: str, what: str):
     return scenario
 
 
-autoscale_lead_scenario = _later("autoscale_lead_scenario", "9d",
+autoscale_lead_scenario = _later("autoscale_lead_scenario", "9d-2",
                                  "the autoscaler")
-mixed_tenant_scenario = _later("mixed_tenant_scenario", "9d",
+mixed_tenant_scenario = _later("mixed_tenant_scenario", "9d-2",
                                "the autoscaler and the serving mesh")
-aot_scale_up_scenario = _later("aot_scale_up_scenario", "9d",
-                               "the autoscaler and the serving fronts")
-chaos_scenario = _later("chaos_scenario", "9d",
-                        "the serving fronts, the mesh and the HTTP client")
+aot_scale_up_scenario = _later("aot_scale_up_scenario", "9d-2",
+                               "the autoscaler and the worker pool")
+chaos_scenario = _later("chaos_scenario", "9d-2",
+                        "the serving mesh")
+fleet_chaos_scenario = _later("fleet_chaos_scenario", "9d-2",
+                              "the serving mesh and the autoscaler")
+rollout_scenario = _later("rollout_scenario", "9d-2", "the deploy plane")

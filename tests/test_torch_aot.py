@@ -1,8 +1,8 @@
 """The port's AOT store (``mmlspark_torch/core/aot.py``) on the CPU.
 
-The scenarios of ``test_aot.py`` that need neither the serving fronts nor
-the autoscaler (ROADMAP.md §1 item 9d) nor ``scrubbed_cpu_env`` (item 10)
-run against the port with the same names, inputs and assertions:
+The scenarios of ``test_aot.py`` that need neither the autoscaler
+(ROADMAP.md §1 item 9d-2) nor ``scrubbed_cpu_env`` (item 10) run against
+the port with the same names, inputs and assertions:
 ``TestFingerprints`` (stable across processes and torch-free, param and
 bucket moves, callables refused, fitted state), ``TestStore`` (build then
 load bit-equal with zero runtime compiles, a request-path miss that
@@ -362,8 +362,10 @@ class TestStore:
 
 # ------------------------------------------- the serving half's store part
 class TestServingIntegration:
-    """The scenarios of the reference's class that need no serving DSL:
-    a ``run`` callable carrying its stages, the build CLI's body."""
+    """The scenarios of the reference's class that need no autoscaler: a
+    ``run`` callable carrying its stages, the serving DSL's
+    ``compile_pipeline(aot_buckets=)`` registration, the build CLI's
+    body."""
 
     def test_warm_walks_dsl_run_closure(self, tmp_path):
         stages, df = _spec()
@@ -378,6 +380,23 @@ class TestServingIntegration:
         compile_tracker.mark_steady()
         run(df)
         assert compile_tracker.runtime_compiles() == 0
+
+    def test_dsl_compile_pipeline_registers_buildable(self):
+        from mmlspark_torch.serving.dsl import read_stream
+        stages, df = _spec()
+        stream = (read_stream().server()
+                  .address("127.0.0.1", 0, "aot-reg-test").load())
+        try:
+            for s in stages:
+                stream.transform(s)
+            stream.compile_pipeline(df, aot_buckets=(4, 8), device="cpu")
+            assert "aot-reg-test" in aot.buildable_services()
+            spec = aot._BUILDERS["aot-reg-test"]()
+            assert spec["buckets"] == (4, 8)
+            assert spec["stages"] == stages
+        finally:
+            aot._BUILDERS.pop("aot-reg-test", None)
+            stream.server._httpd.server_close()
 
     def test_build_registered_covers_buckets(self, tmp_path):
         stages, df = _spec()

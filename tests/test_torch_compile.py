@@ -1,9 +1,9 @@
 """The port's pipeline compiler (``mmlspark_torch/core/compile.py`` and the
 stages' traced forms) against the JAX package's, on the CPU.
 
-Every scenario of ``test_pipeline_compile.py`` that needs neither the
-serving fronts (item 9d) nor the JAX package's traceability report (item
-11) runs against the port (``torch_obs_port`` with ``mmlspark_tpu.core``
+Every scenario of ``test_pipeline_compile.py`` that needs no traceability
+report (the JAX package's, item 11) runs against the port (the serving
+DSL's fused path included) (``torch_obs_port`` with ``mmlspark_tpu.core``
 and ``mmlspark_tpu.featurize`` pointed at the port too), on the same
 inputs and with the same assertions. Those scenarios build their stages
 at their default device; the fixture ``cpu_default`` points the port's
@@ -87,10 +87,11 @@ with cpu_default():
         "TestFusedEagerEquivalence.test_trace_matches_transform",
         # numpy into _trace: the port's version (a tensor) is below
         "TestFitExactness.test_class_balancer_trace_unseen_label_is_nan",
-        # the serving DSL (ROADMAP.md §1 item 9d)
-        "TestServingFusedPath",
         # the JAX package's traceability report (item 11)
         "TestTraceableRatchet"), rewrites=(
+        # TestServingFusedPath serves through the port's DSL
+        ("mmlspark_tpu.serving", "mmlspark_torch.serving"),
+        ("mmlspark_tpu.io.http", "mmlspark_torch.io.http"),
         ("mmlspark_tpu.core", "mmlspark_torch.core"),
         ("mmlspark_tpu.featurize", "mmlspark_torch.featurize"))))
     PORT_CASES = {name: (stage, df) for name, stage, df in _stage_cases()}

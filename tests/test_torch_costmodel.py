@@ -1,10 +1,10 @@
 """The port's learned cost model (``mmlspark_torch/perf/costmodel.py``) and
 its scenario harness against the JAX package's.
 
-Every scenario of ``test_perf.py`` that needs no autoscaler or serving
-front, and reads no TPU kernel's own tiles, runs against the port on the
-same inputs and with the same assertions (``torch_obs_port``): the
-autotuner's search, registry and CLI among them; the excluded ones are
+Every scenario of ``test_perf.py`` that needs no autoscaler, and reads no
+TPU kernel's own tiles, runs against the port on the same inputs and with
+the same assertions (``torch_obs_port``): the autotuner's search, registry
+and CLI, and the serving front's feature rows, among them; the excluded ones are
 named below by ROADMAP item or by their port versions. Then both packages
 fit the same ``synth_feature_rows`` (the rows themselves must be equal)
 and must agree: every prediction within a relative 1e-9 (numpy's solve
@@ -40,7 +40,7 @@ from mmlspark_tpu.obs.profile import FeatureLog as JFeatureLog
 from torch_obs_port import port_reference_tests
 
 globals().update(port_reference_tests("test_perf.py", (
-    # the autoscaler (ROADMAP item 9d)
+    # the autoscaler (ROADMAP item 9d-2)
     "TestPredictiveAutoscale",
     # the autotuner's scenarios that read the TPU kernels' own tiles (VMEM
     # budget, block_kv x slots_tile, the Pallas kernels consulting the
@@ -49,10 +49,11 @@ globals().update(port_reference_tests("test_perf.py", (
     "TestAutotune.test_attention_candidates_respect_vmem_budget",
     "TestPagedAutotune",
     "TestKernelsConsultRegistry",
-    # the serving front's feature rows (item 9d)
-    "TestFeatureLogSchema.test_serving_rows_carry_v2_fields",
-    # the mixed-tenant autoscaling acceptance (item 9d)
+    # the mixed-tenant autoscaling acceptance (item 9d-2)
     "TestPredictiveMixedTenant"), rewrites=(
+    # the serving front's feature rows: the port's threaded front
+    ("mmlspark_tpu.serving", "mmlspark_torch.serving"),
+    ("mmlspark_tpu.io.http", "mmlspark_torch.io.http"),
     # the AOT store's build order runs against the port's store
     ("mmlspark_tpu.core.aot", "mmlspark_torch.core.aot"),
     # the autotuner (its CLI too) and the no-JAX import run on the port's
@@ -262,5 +263,5 @@ class TestScenarioParity:
 @pytest.mark.parametrize("name", ["autoscale_lead_scenario",
                                   "mixed_tenant_scenario", "chaos_scenario"])
 def test_later_scenarios_name_their_item(name):
-    with pytest.raises(NotImplementedError, match="9d"):
+    with pytest.raises(NotImplementedError, match="9d-2"):
         getattr(tbench, name)()

@@ -489,6 +489,17 @@ FEATURIZE_SLICE = [
     "stages/batching.py", "stages/misc.py"]
 
 
+# modules the serving-fronts slice added; the scan below must reach each
+SERVING_SLICE = ["serving/__init__.py", "serving/server.py",
+                 "serving/native_front.py", "serving/dsl.py",
+                 "serving/udfs.py", "serving/loadgen.py",
+                 "io/http/__init__.py", "io/http/schema.py",
+                 "io/http/shared.py", "io/http/clients.py",
+                 "io/http/transformer.py", "io/http/port_forwarding.py",
+                 "native/__init__.py", "native/loader.py",
+                 "testing/benchmarks.py"]
+
+
 def _port_sources():
     root = os.path.join(REPO, "mmlspark_torch")
     for d, _, files in os.walk(root):
@@ -504,6 +515,7 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "vision_bf16_agreement.py")
     yield os.path.join(REPO, "tools", "control_bf16_agreement.py")
     yield os.path.join(REPO, "tools", "time_fused_segment.py")
+    yield os.path.join(REPO, "tools", "profile_torch_serving.py")
 
 
 def _imported_modules(path):
@@ -525,6 +537,86 @@ def _imported_modules(path):
             name = getattr(fn, "attr", getattr(fn, "id", ""))
             if name in ("import_module", "__import__"):
                 yield node.args[0].value
+
+
+SERVING_SCRIPT = r"""
+import json
+import sys
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+from mmlspark_torch.core import DataFrame
+from mmlspark_torch.io.http import (AsyncClient, HTTPRequestData,
+                                    string_to_response)
+from mmlspark_torch.lightgbm import LightGBMRegressor
+from mmlspark_torch.serving import read_stream, serving_query
+from mmlspark_torch.serving.loadgen import run_load
+from mmlspark_torch.serving.native_front import NativeServingServer
+
+rng = np.random.default_rng(0)
+x = rng.normal(size=(300, 4)).astype(np.float32)
+model = LightGBMRegressor(numIterations=5, device="cpu").fit(
+    DataFrame({"features": x, "label": x @ np.ones(4, np.float32)}))
+want = np.asarray(model.transform(DataFrame({"features": x[:8]}))[
+    "prediction"])
+
+
+def score(df):
+    feats = np.stack([np.asarray(json.loads(r.entity), np.float32)
+                      for r in df["request"]])
+    pred = np.asarray(model.transform(DataFrame({"features": feats}))[
+        "prediction"])
+    replies = np.empty(len(df), object)
+    replies[:] = [string_to_response(json.dumps(float(p))) for p in pred]
+    return df.with_column("reply", replies)
+
+
+for backend in ("python", "native"):
+    q = serving_query("iso-" + backend, score, backend=backend)
+    try:
+        assert (type(q.server) is NativeServingServer) == \
+            (backend == "native")
+        host, port = q.server.address
+        out = AsyncClient(concurrency=4).send([HTTPRequestData(
+            url=f"http://{host}:{port}/", method="POST",
+            entity=json.dumps(r.tolist()).encode()) for r in x[:8]])
+        got = [json.loads(r.entity) for r in out]
+        np.testing.assert_array_equal(got, want.astype(np.float64))
+        r = run_load(host, port, json.dumps(x[0].tolist()).encode(),
+                     nconn=2, nreq=10, warmup=2)
+        assert r["errors"] == 0, r
+    finally:
+        q.stop()
+q = (read_stream().server().address("127.0.0.1", 0, "iso").load()
+     .transform(lambda df: df.with_column("value", np.asarray(
+         [len(r.entity or b"") for r in df["request"]])))
+     .with_reply(lambda v: {"n": int(v)}).start())
+try:
+    host, port = q.server.address
+    out = AsyncClient().send([HTTPRequestData(
+        url=f"http://{host}:{port}/iso", method="POST", entity=b"abc")])
+    assert json.loads(out[0].entity) == {"n": 3}
+finally:
+    q.stop()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not bad, bad
+print("ISOLATED serving")
+""" % (FORBIDDEN,)
+
+
+def test_serving_fronts_run_without_importing_jax():
+    """A fitted GBDT served through both fronts (its replies equal its
+    direct transform), the load generator and the DSL, in a process with
+    no JAX and nothing of the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"          # see one_torch_thread
+    proc = subprocess.run([sys.executable, "-c", SERVING_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ISOLATED serving" in proc.stdout
 
 
 AUTOTUNE_SCRIPT = r"""
@@ -573,6 +665,7 @@ def test_static_scan_finds_no_jax_import():
     assert set(CONTROL_SLICE) <= scanned, set(CONTROL_SLICE) - scanned
     assert set(COMPILE_SLICE) <= scanned, set(COMPILE_SLICE) - scanned
     assert set(AUTOTUNE_SLICE) <= scanned, set(AUTOTUNE_SLICE) - scanned
+    assert set(SERVING_SLICE) <= scanned, set(SERVING_SLICE) - scanned
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

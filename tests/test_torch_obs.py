@@ -4,8 +4,9 @@ attribution, and their wiring into the GBDT fit, every stage call and
 ``Timer``.
 
 Every scenario of ``test_obs.py``, ``test_obs_memory.py`` and
-``test_attribution.py`` that needs no serving front, AOT store or
-autoscaler runs against the port (the cost model and the attribution
+``test_attribution.py`` that needs no serving mesh or autoscaler runs
+against the port (the serving fronts' scenarios through the port's
+``serving`` and ``io.http``) (the cost model and the attribution
 scenario included, through the port's ``perf`` and ``testing``) on the
 same inputs and with the same assertions (``torch_obs_port``); the ones
 whose subject differs in the port (JAX's backend guard, the TPU peak rows,
@@ -59,17 +60,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 globals().update(port_reference_tests("test_obs.py", (
     # the JAX package's deprecated utils.profiling path: no counterpart
     "TestTracing.test_profiling_reexport",
-    # the serving fronts (ROADMAP item 9d)
-    "TestServingEndToEnd.test_metrics_route_and_worker_pool_spans",
-    "TestServingEndToEnd.test_metrics_route_404s_do_not_queue",
     # the port's fit: test_fit_span_tree_matches_jax below
-    "TestLightGBMSpans.test_fit_produces_nested_boosting_round_spans")))
+    "TestLightGBMSpans.test_fit_produces_nested_boosting_round_spans"),
+    rewrites=(
+    # TestServingEndToEnd serves through the port's threaded front
+    ("mmlspark_tpu.serving", "mmlspark_torch.serving"),
+    ("mmlspark_tpu.io.http", "mmlspark_torch.io.http"))))
 globals().update(port_reference_tests("test_obs_memory.py", (
     # JAX's backend guard: the port's is CUDA's, tested below
     "TestDegradation.test_no_jax_import_returns_empty_never_raises",
     "TestDegradation.test_cpu_devices_without_memory_stats_skipped",
     "TestDegradation.test_raising_memory_stats_tolerated",
-    # the autoscaler (item 9d)
+    # the autoscaler (item 9d-2)
     "TestHooks.test_scale_up_notes_memory_event")))
 globals().update(port_reference_tests("test_attribution.py", (
     # the TPU rows: the port's table has the H100's (TestPortPeakSpec)
@@ -81,10 +83,12 @@ globals().update(port_reference_tests("test_attribution.py", (
     # the JAX engine: the port's engine below
     "TestLLMWarmAttribution.test_warm_records_prefill_and_decode_programs",
     # JAX's backend guard: a port capture records host activity instead
-    "TestXprofCaptures.test_no_jax_degrades_to_503_with_reason",
-    # the serving fronts (item 9d)
-    "TestDebugRoutesBothFronts.test_python_front",
-    "TestDebugRoutesBothFronts.test_native_front"), rewrites=(
+    "TestXprofCaptures.test_no_jax_degrades_to_503_with_reason"),
+    rewrites=(
+    # TestDebugRoutesBothFronts serves through both of the port's fronts
+    ("mmlspark_tpu.serving", "mmlspark_torch.serving"),
+    ("mmlspark_tpu.io.http", "mmlspark_torch.io.http"),
+    ("mmlspark_tpu.native", "mmlspark_torch.native"),
     # TestAotCostPersistence builds and warms the port's AOT store
     ("mmlspark_tpu.core", "mmlspark_torch.core"),
     ("mmlspark_tpu.featurize", "mmlspark_torch.featurize"))))

@@ -3,8 +3,9 @@
 JAX package's.
 
 Every scenario of ``test_fleet.py``, ``test_timeseries.py`` and
-``test_regression.py`` that needs no serving, autoscale or chaos-harness
-module runs against the port (tenancy and the cost model included) on the
+``test_regression.py`` that needs no serving mesh or autoscaler runs
+against the port (the served routes on both of the port's fronts, the
+recorder's overhead guard and the regression chaos replay included) (tenancy and the cost model included) on the
 same inputs and with the same assertions (``torch_obs_port``); the rest
 are listed in ROADMAP.md. Then both packages run the same seeded inputs and their
 answers must be equal exactly: timeseries queries and quantiles, CUSUM
@@ -27,27 +28,25 @@ from mmlspark_torch.obs import regression as treg
 from mmlspark_tpu.obs import regression as jreg
 from torch_obs_port import port_reference_tests
 
+_SERVING = (("mmlspark_tpu.serving", "mmlspark_torch.serving"),
+            ("mmlspark_tpu.io.http", "mmlspark_torch.io.http"),
+            ("mmlspark_tpu.native", "mmlspark_torch.native"))
+
 globals().update(port_reference_tests("test_fleet.py", (
-    # the serving fronts, mesh and autoscaler (ROADMAP item 9d)
-    "TestServedRoutes.test_scope_fleet_carries_remote_samples",
-    "TestServedRoutes.test_debug_fleet_and_healthz",
+    # the serving mesh and the autoscaler (ROADMAP item 9d-2)
     "TestMeshFleetChannel.test_worker_heartbeat_pushes_fleet_source",
     "TestMeshFleetChannel.test_pick_least_loaded_avoids_flagged",
     "TestAutoscalerStragglerReplace.test_rising_edge_replaces_once",
     "TestAutoscalerStragglerReplace.test_read_signals_counts_flagged_ranks",
     "TestFlightRecorderMultiSource."
     "test_thread_worker_payload_never_drains_shared_recorder",
-    # the chaos harness of the JAX package's benchmarks (item 9d)
+    # the fleet chaos harness needs the mesh and the autoscaler (9d-2)
     "TestFleetChaosScenario."
-    "test_straggler_flag_replace_and_healthz_trajectory")))
-globals().update(port_reference_tests("test_timeseries.py", (
-    "TestTimelineRoute.test_timeline_on_python_front",
-    "TestTimelineRoute.test_timeline_on_native_front",
-    "TestRecorderOverheadGuard.test_recorder_overhead_within_1pct")))
-globals().update(port_reference_tests("test_regression.py", (
-    "TestRegressionChaosScenario.test_seeded_fault_flips_alarm_within_20_ticks",
-    "TestRegressionChaosScenario.test_healthy_replay_alarms_exactly_never",
-    "TestRegressionChaosScenario.test_bit_deterministic_across_runs")))
+    "test_straggler_flag_replace_and_healthz_trajectory"),
+    rewrites=_SERVING))
+globals().update(port_reference_tests("test_timeseries.py",
+                                      rewrites=_SERVING))
+globals().update(port_reference_tests("test_regression.py"))
 
 PKGS = (jobs, tobs)
 

@@ -1,9 +1,10 @@
 """The port's profiler plane (``mmlspark_torch/obs/profile.py``, propagation
 and export) against the JAX package's.
 
-Every scenario of ``test_obs_profile.py`` that needs no serving front,
-load generator or chaos harness runs against the port (the scheduler's
-trace handoff included) on the
+Every scenario of ``test_obs_profile.py`` that needs no serving mesh
+runs against the port (the scheduler's trace handoff, the serving
+executor's feature rows, the load generator's trace ids and the tracing
+overhead guard included) on the
 same inputs and with the same assertions (``torch_obs_port``). The
 scenarios whose subject is ``jax.jit`` or a jax array have port versions
 here: ``CompileTracker.track`` keyed on torch input signatures (the
@@ -41,17 +42,16 @@ globals().update(port_reference_tests("test_obs_profile.py", (
     # jax arrays and the JAX stages: port versions below
     "TestStepProfiler.test_dispatch_device_split_and_spans",
     "TestStepProfiler.test_pipeline_profiling_hook",
-    # the serving fronts and the load generator (item 9d)
-    "TestFeatureLog.test_serving_executor_records_features",
-    "TestLoadgenTraceIds.test_summarize_reports_p99_slowest_trace_ids",
-    "TestLoadgenTraceIds.test_summarize_trace_ids_respect_warmup_offset",
-    "TestLoadgenTraceIds.test_summarize_without_prefix_keeps_quiet",
     # the JAX package's deprecated utils.profiling path: no counterpart
     "TestDeprecationShim.test_utils_profiling_warns_and_reexports",
     "TestDeprecationShim.test_utils_package_import_does_not_warn",
-    # the JAX package's benchmark harness (item 9d)
-    "TestOverheadGuard.test_tracing_profiler_overhead_within_5pct",
-    "TestChaosTraceAcceptance.test_chaos_run_yields_complete_span_trees")))
+    # the chaos harness needs the serving mesh (ROADMAP item 9d-2)
+    "TestChaosTraceAcceptance.test_chaos_run_yields_complete_span_trees"),
+    rewrites=(
+    # the executor's feature rows and the load generator's trace ids:
+    # the port's serving front and loadgen
+    ("mmlspark_tpu.serving", "mmlspark_torch.serving"),
+    ("mmlspark_tpu.io.http", "mmlspark_torch.io.http"))))
 
 
 @pytest.fixture(autouse=True, scope="module")

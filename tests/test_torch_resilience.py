@@ -1,9 +1,9 @@
 """The port's resilience plane (``mmlspark_torch/resilience``) against the
 JAX package's.
 
-Every scenario of ``test_resilience.py`` that needs no HTTP client,
-cognitive service, serving mesh or load generator runs against the port on
-the same inputs and with the same assertions (``torch_obs_port``); the
+Every scenario of ``test_resilience.py`` that needs no cognitive service
+or serving mesh runs against the port (the HTTP client's deadline budget
+and the load generator's retry split included) on the same inputs and with the same assertions (``torch_obs_port``); the
 excluded ones are named below by ROADMAP item. Then both packages run the
 same inputs and must agree exactly: ``RetryPolicy(seed=...)`` delay
 sequences (under one scripted clock where a deadline gates them), the
@@ -31,19 +31,21 @@ from mmlspark_tpu.resilience import retry as jretry
 from torch_obs_port import port_reference_tests
 
 globals().update(port_reference_tests("test_resilience.py", (
-    # the HTTP client's send_request (ROADMAP item 11)
-    "TestSendRequestDeadline",
     # the cognitive services (item 11)
     "TestCognitiveBreaker",
     # the JAX dl imports: the JAX CheckpointManager probes the JAX
     # package's injector and counts in its registry; the port's manager
     # is held to the same contract below (TestPortAtomicCheckpoint)
     "TestAtomicCheckpoint",
-    # the serving registry, mesh, chaos harness and load generator (9d)
+    # the serving registry, mesh and chaos harness (item 9d-2)
     "TestFailureDetection",
     "TestChaosLeaseReplay",
-    "TestChaosScenario",
-    "TestLoadgenRetrySplit")))
+    "TestChaosScenario"), rewrites=(
+    # TestSendRequestDeadline: the port's HTTP client (io/http); and
+    # TestLoadgenRetrySplit: the port's load generator (loadgen.cpp)
+    ("mmlspark_tpu.io.http", "mmlspark_torch.io.http"),
+    ("mmlspark_tpu.serving.loadgen", "mmlspark_torch.serving.loadgen"),
+    ("mmlspark_tpu.native", "mmlspark_torch.native"))))
 
 PKGS = ((jres, JRegistry, jretry), (tres, TRegistry, tretry))
 

@@ -1,11 +1,12 @@
 """The port's request scheduler, admission control and service-time
 estimator (``mmlspark_torch/sched``) against the JAX package's.
 
-Every scenario of ``test_sched.py`` that needs no serving front, load
-generator or JAX model runs against the port on the same inputs and with
-the same assertions (``torch_obs_port``: the overload benchmark, the
-batching brain through the port's ``DynamicBufferedBatcher`` and the
-no-JAX import included); the excluded ones are named below by ROADMAP
+Every scenario of ``test_sched.py`` that needs no serving mesh or JAX
+model runs against the port on the same inputs and with the same
+assertions (``torch_obs_port``: the overload benchmark, the batching brain
+through the port's ``DynamicBufferedBatcher``, the serving fronts' 429s,
+expiry and abandon latch, the load generator's shaping and the no-JAX
+import included); the excluded ones are named below by ROADMAP
 item. Then both packages run the same scripted inputs under one scripted
 clock (each package's ``policy``, ``scheduler`` and ``tenancy`` modules
 read ``now`` from it; the scheduler imports ``now`` by name, so its copy
@@ -24,17 +25,17 @@ from mmlspark_tpu.obs.metrics import MetricsRegistry as JRegistry
 from torch_obs_port import port_reference_tests
 
 globals().update(port_reference_tests("test_sched.py", (
-    # the serving fronts and the mesh's least-loaded routing (ROADMAP
-    # item 9d)
-    "TestServingIntegration",
+    # the serving mesh's least-loaded routing (ROADMAP item 9d-2)
     "TestLeastLoadedRouting",
     # the JAX dl imports: the JAX ContinuousGenerator drives the JAX
     # package's SlotScheduler (the port's engine is held in
     # test_torch_textgen.py and test_torch_llm_serving.py)
     "TestContinuousBatching.test_continuous_matches_generate_greedy",
-    "TestContinuousBatching.test_continuous_validates_prompts",
-    # the load generator (item 9d)
-    "TestLoadgenShaping")))
+    "TestContinuousBatching.test_continuous_validates_prompts"), rewrites=(
+    # TestServingIntegration and TestLoadgenShaping: the port's serving
+    # fronts and load generator
+    ("mmlspark_tpu.serving", "mmlspark_torch.serving"),
+    ("mmlspark_tpu.io.http", "mmlspark_torch.io.http"))))
 
 
 class Clock:

@@ -1,8 +1,9 @@
 """The port's tenancy (``mmlspark_torch/sched/tenancy.py``) against the JAX
 package's.
 
-Every scenario of ``test_tenancy.py`` that needs no serving front, mesh or
-load generator runs against the port on the same inputs and with the same
+Every scenario of ``test_tenancy.py`` that needs no serving mesh runs
+against the port (the load generator's per-tenant split and its
+``X-Tenant`` stamping included) on the same inputs and with the same
 assertions (``torch_obs_port``); the excluded ones are named below by
 ROADMAP item. Then both packages run the same scripted inputs under one
 scripted clock per package (``policy``, ``scheduler`` and ``tenancy`` read
@@ -23,10 +24,13 @@ from test_torch_sched import ScriptItem, run_both, scripted  # noqa: F401
 from torch_obs_port import port_reference_tests
 
 globals().update(port_reference_tests("test_tenancy.py", (
-    # the serving fronts and the mesh's lease payload (ROADMAP item 9d)
-    "TestServingTenancy",
-    # the load generator (item 9d)
-    "TestLoadgenTenants")))
+    # the serving mesh's lease payload (ROADMAP item 9d-2)
+    "TestServingTenancy.test_tenant_rides_the_lease_payload",), rewrites=(
+    # TestServingTenancy: the port's threaded front with tenancy=;
+    # TestLoadgenTenants: the port's load generator (loadgen.cpp)
+    ("mmlspark_tpu.serving", "mmlspark_torch.serving"),
+    ("mmlspark_tpu.io.http", "mmlspark_torch.io.http"),
+    ("mmlspark_tpu.native", "mmlspark_torch.native"))))
 
 
 def test_tier_tables_equal_reference():
