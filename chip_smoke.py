@@ -465,6 +465,32 @@ phases 2-4 need only K1 and run while the attention kernels build), then:
     version stamped at reply time, the executor picking the version at
     execute time. The kernels line's
     K2a records gain ``mesh_launches`` (the child's and this process's).
+39. runs sequence and tensor parallelism (``mmlspark_torch.parallel``) in
+    2 ranks on the card over gloo, spawned once, at full width (it runs
+    before phase 36, so no tuned winner steers it): (a) one masked-LM step
+    of phase 8's model at batch 8 x T=2048 (1,024 a rank) through
+    ``make_attention_fn("ring_flash")`` over sp = 2, K2b, K2d and K2e 16
+    each a rank (8 blocks x 2 ring steps), its loss and per-parameter
+    gradients held against one rank's ``pallas`` step with phase 8's
+    limits, each rank's peak memory beside the one rank's; (b) the same
+    for phase 13's causal LM through the causal ring (K2c-lse, causal K2d
+    and K2e 16 each a rank), and one fully masked ring step (rank 0's
+    queries against rank 1's keys) that must give o = 0, lse = -1e30 and
+    zero gradients; (c) phase 24's BERT-base through ``ulysses_flash``
+    over sp = 2 (6 of 12 heads a rank, K2a 12 a rank a transform) on its
+    32 documents, the pooled rows within phase 24's bf16 limits of one
+    rank's ``pallas`` rows; (d) a tp = 2 step's gradients (K2b, K2d, K2e 8
+    each a rank on 4 of 8 heads) against one rank's,
+    ``pretrain_masked_lm(mesh=MeshSpec(dp=1, tp=2), dtype_policy=...)``
+    for 3 steps, each loss within 1e-3 relative of one rank's and every
+    block still its placement after them, and ``TextEncoderFeaturizer(
+    mesh=MeshSpec(dp=2))`` over BERT-base on 33 documents (one padding
+    row): 33 rows within phase 24's limits. Ring attention is held against
+    one rank's kernel at the attention level, causal and not. Four planted
+    faults must each fail their check: ``k_offset`` taken as 0 in the
+    causal ring, one side of the lse merge dropped, a tp gradient not
+    summed, the padding row kept. The kernels line's K2a, K2b, K2c-lse,
+    K2d and K2e records gain ``parallel_launches`` (a rank's).
 
 Any failed build, launch or comparison exits non-zero. Each phase prints
 its seconds. The last two lines are the kernels' JSON record and
@@ -475,7 +501,8 @@ first check, and ``--phases`` runs some of the phase groups after the build
 12-13, ``featurize``: 14-15, ``breadth``: 16-18, ``breadth2``: 19-21,
 ``breadth3``: 22-23, ``textgen``: 24-28, ``vision``: 29-32, ``obs``: 33,
 which needs ``gbdt``, ``train`` and ``llm``, ``control``: 34,
-``compile``: 35, ``tune``: 36, ``serving``: 37, ``mesh``: 38).
+``compile``: 35, ``tune``: 36, ``serving``: 37, ``mesh``: 38,
+``parallel``: 39).
 """
 
 from __future__ import annotations
@@ -1238,11 +1265,12 @@ def wide_fault(torch, k2, x, mask):
           "as it must")
 
 
-def compare_grads(phase, name, got, dense, verbose):
+def compare_grads(phase, name, got, dense, verbose, against="dense"):
     """Hold one step's (loss, {parameter: gradient}) ``got`` against
-    ``dense``'s: per-parameter ||dg||/||g|| and cosine, and |dloss|, within
-    GRAD_REL_MAX, GRAD_COS_MIN and LOSS_ABS_MAX. Prints the worst of each
-    (with ``verbose`` every parameter's) and returns whether they pass."""
+    ``dense``'s (a reference step, named by ``against``): per-parameter
+    ||dg||/||g|| and cosine, and |dloss|, within GRAD_REL_MAX, GRAD_COS_MIN
+    and LOSS_ABS_MAX. Prints the worst of each (with ``verbose`` every
+    parameter's) and returns whether they pass."""
     (loss, grads), (loss_d, grads_d) = got, dense
     worst_rel, worst_cos = 0.0, 1.0
     for n, gd in grads_d.items():
@@ -1256,7 +1284,7 @@ def compare_grads(phase, name, got, dense, verbose):
     dl = abs(loss - loss_d)
     ok = (worst_rel <= GRAD_REL_MAX and worst_cos >= GRAD_COS_MIN
           and dl <= LOSS_ABS_MAX)
-    print(f"{phase}: {name} vs dense: loss {loss:.6f} vs {loss_d:.6f} "
+    print(f"{phase}: {name} vs {against}: loss {loss:.6f} vs {loss_d:.6f} "
           f"(|diff| {dl:.3g}, limit {LOSS_ABS_MAX}); over "
           f"{len(grads_d)} parameter tensors worst ||dg||/||g|| "
           f"{worst_rel:.3e} (limit {GRAD_REL_MAX}), worst cosine "
@@ -8670,9 +8698,546 @@ def mesh_phase(torch, k1, k2, dev, texts, card) -> dict:
         torch.cuda.empty_cache()
 
 
+PARALLEL_RANKS = 2            # phase 39: ranks on the one card (gloo)
+PARALLEL_TIMEOUT = 240.0      # seconds the ranks may take in all
+PARALLEL_TP_STEPS = 3         # tp pretraining steps held against one rank
+PARALLEL_LOSS_RTOL = 1e-3     # each of those steps' loss, relative
+PARALLEL_DP_DOCS = 33         # the dp featurizer's documents: one pad row
+PARALLEL_ATTN_OF_MAX = 2 ** -6  # ring attention against one rank's kernel:
+# max |diff| over max |o| at bf16 (two bf16 partials merged in f32 and
+# rounded once more; a planted fault moves o by O(max |o|))
+PARALLEL_MAX_S = 75.0         # phase 39 alone
+
+
+def bert_rows(texts, lengths) -> np.ndarray:
+    """Phase 24's WordPiece rows of ``texts`` (their first fifth)."""
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.featurize import WordPieceTokenizerModel
+    docs = np.asarray([" ".join(t.split()[:n // 5])
+                       for t, n in zip(texts, lengths)], object)
+    tok = WordPieceTokenizerModel.from_vocab(
+        wordpiece_vocab(texts), maxLength=BERT_BASE["max_len"],
+        inputCol="text")
+    return np.asarray(tok.transform(DataFrame({"text": docs}))["tokens"],
+                      np.int32)
+
+
+def bert_base_loaded(torch, dtype):
+    """Phase 24's seeded BERT-base as a ``LoadedModel`` in ``dtype``."""
+    from mmlspark_torch.models import (LoadedModel, bert_encoder_from_torch,
+                                       register_bert_encoder)
+    module = bert_encoder_from_torch(
+        bert_state_dict(torch), config={"num_attention_heads":
+                                        BERT_BASE["heads"]}, dtype=dtype)
+    schema = register_bert_encoder("BertBase", seq_len=BERT_BASE["max_len"],
+                                   **BERT_BASE)
+    return LoadedModel(schema, module)
+
+
+def gathered_grads(torch, model, shardings) -> dict:
+    """{parameter: f32 gradient} with each sharded block all-gathered."""
+    from mmlspark_torch.parallel.partition import gather_local
+    out = {}
+    for n, p in model.named_parameters():
+        sh = (shardings or {}).get("params/" + n.replace(".", "/"))
+        g = p.grad if sh is None else gather_local(p.grad, sh)
+        out[n] = g.float()
+    return out
+
+
+def ring_against_one(torch, k2, mesh, q, k, v, mask, causal, impl="flash"):
+    """max |ring - one rank's kernel| / max |one rank's| for the ring over
+    ``mesh``'s sp axis on this rank's blocks of q, k, v, mask (every rank
+    holds the whole tensors)."""
+    from mmlspark_torch.parallel import make_ring_attention
+    from mmlspark_torch.parallel.collectives import allgather
+    from mmlspark_torch.parallel.mesh import axis_rank, axis_size
+    n, r = axis_size(mesh, "sp"), axis_rank(mesh, "sp")
+    t = q.shape[2] // n
+    sl = slice(r * t, (r + 1) * t)
+    with torch.inference_mode():
+        o = make_ring_attention(mesh, causal=causal, local_impl=impl)(
+            q[:, :, sl], k[:, :, sl], v[:, :, sl], mask[:, sl])
+        o = allgather(o, "sp", mesh=mesh, gather_axis=2).float()
+        want = k2.flash_attention(q, k, v, key_mask=mask,
+                                  causal=causal).float()
+    return float((o - want).abs().max() / want.abs().max())
+
+
+def parallel_work(torch, rank, world, device, cfg) -> dict:
+    """One rank's share of phase 39 (see :func:`parallel_phase`). Rank 0
+    also runs the one-rank references while the others wait."""
+    import copy
+
+    import torch.distributed as dist
+    import mmlspark_torch.dl.flash_attention as k2
+    import mmlspark_torch.dl.train as train
+    import mmlspark_torch.parallel.ring_attention as ring
+    import mmlspark_torch.parallel.sharding as sharding
+    from mmlspark_torch.core import DataFrame
+    from mmlspark_torch.dl import (MaskedLMModel, TextEncoder,
+                                   TextEncoderFeaturizer, TrainState,
+                                   make_attention_fn, make_train_step,
+                                   mask_batch, masked_xent,
+                                   pretrain_masked_lm)
+    from mmlspark_torch.dl.pretrain import sharded_masked_xent
+    from mmlspark_torch.featurize import TokenIdEncoder
+    from mmlspark_torch.parallel import (DtypePolicy, MeshSpec, build_mesh,
+                                         partition_rules_for)
+
+    cuda = device == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else \
+        torch.device("cpu")
+    shape, T, B = cfg["text_shape"], cfg["T"], cfg["B"]
+    vocab, depth = shape["vocab"], shape["depth"]
+    tp_spec = MeshSpec(**cfg.get("tp_mesh", {"dp": 1, "tp": world}))
+    mesh_sp = build_mesh(MeshSpec(dp=1, sp=world), device=device)
+    mesh_tp = build_mesh(tp_spec, device=device)
+    out = {"problems": [], "seconds": {}, "counts": {}, "peak": {}}
+    lead = rank == 0
+
+    def problem(msg):
+        if lead:
+            out["problems"].append(msg)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else 0
+
+    counters = causal_counters(k2)
+
+    def timed(name, fn):
+        """fn() with the launch counters zeroed before and read after."""
+        zero_counts(counters)
+        reset_peak()
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["counts"][name] = {k: v for k, v in read_counts(counters).items()
+                               if v}
+        out["peak"][name] = peak()
+        return result
+
+    def one_step(model, loss_fn, x, y, mesh=None, placed=None):
+        """One step at learning rate 0 (the gradients stay in .grad)."""
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        state = TrainState(model, opt)
+        if placed is not None:
+            state, sh = train.partition_train_state(state, mesh, placed)
+            step = train.make_partitioned_train_step(
+                model, opt, mesh, sh, loss_fn=loss_fn, fetch="logits")
+        else:
+            step = make_train_step(model, opt, loss_fn=loss_fn,
+                                   fetch="logits", mesh=mesh)
+        return state, (lambda: step(state, x, y)[1])
+
+    def hold_grads(name, got, ref):
+        if lead and not compare_grads("phase 39", name, got, ref, False,
+                                      against="one rank's pallas step"):
+            problem(f"{name}: gradients outside the limits of one rank's")
+
+    texts, lengths = make_documents(cfg["docs"])
+    # ---- (a) masked LM, ring_flash over sp: phase 8's model and batch
+    ids = np.asarray(TokenIdEncoder(maxLength=T, vocabSize=vocab - 1)
+                     .transform(DataFrame({"text": texts}))["tokens"])
+    rng = np.random.default_rng(0)
+    rows = ids[rng.integers(0, len(ids), size=B)]
+    x, y = (torch.from_numpy(a).to(dev)
+            for a in mask_batch(rows, rng, mask_id=vocab - 1))
+    gen = torch.Generator().manual_seed(0)
+    base = MaskedLMModel(TextEncoder(
+        **shape, attention_fn=make_attention_fn("pallas"), generator=gen),
+        gen)
+
+    def with_attn(model, attn):
+        m = copy.deepcopy(model)
+        m.encoder = m.encoder.with_attention(attn)
+        return m.to(dev)
+
+    m = with_attn(base, make_attention_fn("ring_flash", mesh=mesh_sp))
+    _, run = one_step(m, sharded_masked_xent(mesh_sp), x, y, mesh=mesh_sp)
+    run()                                                   # warm
+    loss = float(timed("ring_mlm", run))
+    ring_grads = (loss, {n: p.grad.float() for n, p in m.named_parameters()})
+    del m
+    ref = None
+    if lead:
+        m = copy.deepcopy(base).to(dev)
+        _, run = one_step(m, masked_xent, x, y)
+        run()
+        loss_ref = float(timed("one_rank_mlm", run))
+        ref = (loss_ref, {n: p.grad.float() for n, p in m.named_parameters()})
+        del m
+        hold_grads(f"(a) ring_flash masked LM over sp={world}", ring_grads,
+                   ref)
+    del ring_grads
+    dist.barrier()
+
+    # ---- (d) tp = 2: one step's gradients (and a tp gradient left
+    # unreduced), then pretrain_masked_lm over MeshSpec(dp=1, tp=2)
+    rules = partition_rules_for("TextEncoderLM")
+    m = copy.deepcopy(base).to(dev)
+    state, run = one_step(m, sharded_masked_xent(mesh_tp), x, y,
+                          mesh=mesh_tp, placed=rules)
+    loss = float(timed("tp_step", run))
+    got = (loss, gathered_grads(torch, m, state.shardings))
+    hold_grads(f"(d) {tp_spec} step", got, ref)
+    del m, got, state
+    real_reduce = train._reduce_grads
+
+    def unreduced_tp(model, shardings, mesh):
+        """The planted fault: gradients summed over every replicating axis
+        but tp."""
+        from torch.distributed.tensor import Replicate
+        from mmlspark_torch.parallel.collectives import allreduce
+        from mmlspark_torch.parallel.mesh import axis_group, axis_names
+        for n, p in model.named_parameters():
+            sh = shardings["params/" + n.replace(".", "/")]
+            for i, a in enumerate(axis_names(mesh)):
+                if a != "tp" and isinstance(sh.placements[i], Replicate):
+                    p.grad.copy_(allreduce(p.grad, axis_group(mesh, a)))
+
+    train._reduce_grads = unreduced_tp
+    try:
+        m = copy.deepcopy(base).to(dev)
+        state, run = one_step(m, sharded_masked_xent(mesh_tp), x, y,
+                              mesh=mesh_tp, placed=rules)
+        got = (float(run()), gathered_grads(torch, m, state.shardings))
+    finally:
+        train._reduce_grads = real_reduce
+    if lead and compare_grads("phase 39", "planted fault (tp gradient not "
+                              "reduced)", got, ref, False,
+                              against="one rank's pallas step"):
+        problem("(d) the gradient limits pass a tp step whose replicated "
+                "gradients are not summed over tp")
+    del m, got, state, ref
+    policy = DtypePolicy()
+    m = copy.deepcopy(base).to(dev)
+    state0 = {}
+
+    def tp_pretrain():
+        st, losses = pretrain_masked_lm(
+            m, ids, steps=PARALLEL_TP_STEPS, batch_size=B, seed=0,
+            mesh=tp_spec, dtype_policy=policy, device=device)
+        state0["state"] = st
+        return losses
+    tp_losses = timed("tp_pretrain", tp_pretrain)
+    st = state0.pop("state")
+    full = {n: tuple(p.shape) for n, p in base.named_parameters()}
+    for n, p in st.model.named_parameters():
+        sh = st.shardings["params/" + n.replace(".", "/")]
+        if tuple(p.shape) != sh.local_shape(full[n]):
+            problem(f"(d) {n}: local block {tuple(p.shape)} after "
+                    f"{PARALLEL_TP_STEPS} steps, placed as "
+                    f"{sh.local_shape(full[n])}")
+        if any(v.shape != p.shape for v in st.optimizer.state[p].values()
+               if v.dim() > 0):
+            problem(f"(d) {n}: optimizer moments off the parameter's block")
+    out["tp_sharded"] = sum(1 for n, sh in st.shardings.items()
+                            if n.startswith("params/")
+                            and any(e is not None for e in sh.spec))
+    out["tp_losses"] = tp_losses
+    del m, st
+    if lead:
+        m = copy.deepcopy(base).to(dev)
+        _, one = pretrain_masked_lm(m, ids, steps=PARALLEL_TP_STEPS,
+                                    batch_size=B, seed=0, device=device)
+        out["one_rank_losses"] = one
+        rel = max(abs(a - b) / abs(b) for a, b in zip(tp_losses, one))
+        out["tp_loss_rel"] = rel
+        if rel > PARALLEL_LOSS_RTOL:
+            problem(f"(d) {tp_spec} losses {tp_losses} against one "
+                    f"rank's {one}: relative {rel:.3g} > "
+                    f"{PARALLEL_LOSS_RTOL}")
+        del m
+    del base
+    dist.barrier()
+
+    # ---- (b) causal LM, causal ring_flash over sp: phase 13's model
+    ids_c = np.asarray(TokenIdEncoder(maxLength=T + 1, vocabSize=vocab)
+                       .transform(DataFrame({"text": texts}))["tokens"])
+    rng = np.random.default_rng(0)
+    rows = ids_c[rng.integers(0, len(ids_c), size=B)]
+    x = torch.from_numpy(rows[:, :-1]).to(dev)
+    y = torch.from_numpy(np.where(rows[:, 1:] != 0, rows[:, 1:], -1)
+                         .astype(np.int32)).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    base = MaskedLMModel(TextEncoder(
+        **shape, attention_fn=make_attention_fn("pallas", causal=True),
+        generator=gen), gen)
+    m = with_attn(base, make_attention_fn("ring_flash", mesh=mesh_sp,
+                                          causal=True))
+    _, run = one_step(m, sharded_masked_xent(mesh_sp), x, y, mesh=mesh_sp)
+    run()
+    loss = float(timed("ring_causal", run))
+    got = (loss, {n: p.grad.float() for n, p in m.named_parameters()})
+    del m
+    if lead:
+        m = copy.deepcopy(base).to(dev)
+        _, run = one_step(m, masked_xent, x, y)
+        ref = (float(run()), {n: p.grad.float()
+                              for n, p in m.named_parameters()})
+        hold_grads(f"(b) causal ring_flash LM over sp={world}", got, ref)
+        del m, ref
+        # a fully masked ring step: rank 0's queries against rank 1's keys
+        t = T // world
+        g = torch.Generator(device=dev).manual_seed(39)
+        q, k, v = (torch.randn(B, shape["heads"], t,
+                               shape["width"] // shape["heads"],
+                               generator=g, device=dev,
+                               dtype=torch.bfloat16).requires_grad_()
+                   for _ in range(3))
+        o, lse = k2.flash_attention_lse(q, k, v, causal=True, q_offset=0,
+                                        k_offset=t)
+        (o.float().sum() + lse.sum() * 0.0).backward()
+        sentinel = torch.full_like(lse, -1e30)
+        out["masked_step"] = dict(
+            o_zero=bool((o == 0).all()), lse_sentinel=bool(
+                (lse == sentinel).all()),
+            grads_zero=all(bool((a.grad == 0).all()) for a in (q, k, v)))
+        if not all(out["masked_step"].values()):
+            problem(f"(b) a fully masked ring step gave "
+                    f"{out['masked_step']}: expected o = 0, lse = -1e30 and "
+                    "zero gradients")
+    del got, base
+    dist.barrier()
+
+    # ---- attention-level ring holds and two planted faults
+    g = torch.Generator(device=dev).manual_seed(40)
+    H, D = shape["heads"], shape["width"] // shape["heads"]
+    q, k, v = (torch.randn(B, H, T, D, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    mask = (torch.arange(T, device=dev)[None, :]
+            < torch.from_numpy(np.minimum(lengths[:B], T)).to(dev)[:, None])
+    errs = {name: ring_against_one(torch, k2, mesh_sp, q, k, v, mask, c)
+            for name, c in (("non-causal", False), ("causal", True))}
+    real_lse, real_merge = k2.flash_attention_lse, ring._merge
+
+    def k_offset_zero(*a, **kw):
+        return real_lse(*a, **dict(kw, k_offset=0))
+    k2.flash_attention_lse = k_offset_zero
+    try:
+        errs["fault: k_offset 0, causal"] = ring_against_one(
+            torch, k2, mesh_sp, q, k, v, mask, True)
+    finally:
+        k2.flash_attention_lse = real_lse
+    ring._merge = lambda o, lse, o_i, lse_i: (o_i.float(), lse_i)
+    try:
+        errs["fault: lse merge keeps one side"] = ring_against_one(
+            torch, k2, mesh_sp, q, k, v, mask, False)
+    finally:
+        ring._merge = real_merge
+    out["attention"] = errs
+    for name, e in errs.items():
+        if (e > PARALLEL_ATTN_OF_MAX) != name.startswith("fault"):
+            problem(f"ring attention, {name}: max |diff| / max |o| {e:.3g} "
+                    f"against the limit {PARALLEL_ATTN_OF_MAX:.3g}")
+    del q, k, v
+
+    # ---- (c) BERT-base through ulysses_flash over sp, and (d) the dp
+    # featurizer over 33 documents
+    texts_b, lengths_b = make_documents(PARALLEL_DP_DOCS)
+    rows_b = bert_rows(texts_b, lengths_b)
+    df32 = DataFrame({"tokens": list(rows_b[:cfg["docs"]])})
+    df33 = DataFrame({"tokens": list(rows_b)})
+    loaded = bert_base_loaded(torch, torch.bfloat16)
+    kw = dict(model=loaded, inputCol="tokens", seqChunk=128, device=device)
+    uly = TextEncoderFeaturizer(attentionImpl="ulysses_flash", mesh=mesh_sp,
+                                **kw)
+    uly.transform(df32)
+    pooled_u = timed("ulysses_bert",
+                     lambda: uly.transform(df32)["features"])
+    dpf = TextEncoderFeaturizer(attentionImpl="pallas",
+                                mesh=MeshSpec(dp=world), **kw)
+    pooled_d = timed("dp_featurizer", lambda: dpf.transform(df33)[
+        "features"])
+    real_unpad = sharding.unpad_rows
+    sharding.unpad_rows = lambda a, n: a
+    try:
+        # the frame refuses a column longer than itself
+        faulty = len(TextEncoderFeaturizer(attentionImpl="pallas",
+                                           mesh=MeshSpec(dp=world), **kw)
+                     .transform(df33)["features"])
+    except ValueError as e:
+        faulty = f"refused: {e}"
+    finally:
+        sharding.unpad_rows = real_unpad
+    out["dp_rows"] = (len(pooled_d), faulty)
+    if len(pooled_d) != PARALLEL_DP_DOCS:
+        problem(f"(d) the dp featurizer gave {len(pooled_d)} rows for "
+                f"{PARALLEL_DP_DOCS} documents")
+    if faulty == PARALLEL_DP_DOCS:
+        problem("(d) a featurizer that keeps its padding row passes")
+    if lead:
+        one = TextEncoderFeaturizer(attentionImpl="pallas", **kw)
+        ref32 = one.transform(df32)["features"]
+        ref33 = one.transform(df33)["features"]
+        out["agreement"] = {"ulysses": agreement(pooled_u, ref32),
+                            "dp": agreement(pooled_d, ref33)}
+        if not pooled_agreement("phase 39 (c) ulysses_flash BERT-base",
+                                pooled_u, ref32, BERT_BF16_POOLED_LIMITS):
+            problem("(c) ulysses_flash rows outside phase 24's limits")
+        if not pooled_agreement("phase 39 (d) dp featurizer", pooled_d,
+                                ref33, BERT_BF16_POOLED_LIMITS):
+            problem("(d) the dp featurizer's rows outside phase 24's limits")
+    from mmlspark_torch.parallel import collectives
+    out["staged"] = (collectives.staged.copies, collectives.staged.bytes)
+    return out
+
+
+def parallel_rank(rank, world, port, out_dir, device, cfg):
+    """One rank of phase 39: joins the group over ``cfg["backend"]`` (rank
+    r on card r modulo the cards there are: all on card 0 of a one-card
+    machine), runs :func:`parallel_work` and writes its record."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(cfg.get("backend", "gloo"),
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = parallel_work(torch, rank, world, device, cfg)
+        with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(torch, args, device="cuda", cfg=None,
+                   world=PARALLEL_RANKS, backend="gloo") -> dict:
+    """Phase 39: sequence and tensor parallelism with 2 ranks on the card
+    over gloo (NCCL refuses two ranks on one card; ``tools/
+    parallel_nccl.py`` runs the same scenarios on 4 cards over NCCL).
+    (a) one masked-LM step through ``ring_flash`` (K2b, K2d, K2e a ring
+    step) against one rank's ``pallas`` step; (b) the causal LM through the
+    causal ring (K2c-lse, causal K2d/K2e) and a fully masked ring step;
+    (c) BERT-base through ``ulysses_flash`` (K2a on 6 of 12 heads); (d) a
+    tp = 2 step's gradients, ``pretrain_masked_lm`` over tp = 2 under a
+    dtype policy against one rank, and the dp featurizer on 33 documents;
+    planted faults (k_offset 0 in the causal ring, one side of the lse
+    merge dropped, a tp gradient not reduced, the padding row kept) must
+    fail their checks. Returns the per-rank launch counts for the kernels
+    line."""
+    import pickle
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+
+    cfg = dict(cfg or dict(text_shape=TEXT_SHAPE, T=TEXT_T, B=args.batch,
+                           docs=args.docs), backend=backend)
+    print(f"phase 39: {world} ranks on {device} over {backend}; tp mesh "
+          f"{cfg.get('tp_mesh', {'dp': 1, 'tp': world})}; masked and "
+          f"causal LM {cfg['text_shape']} at batch {cfg['B']} x "
+          f"T={cfg['T']} ({cfg['T'] // world} a rank); BERT-base on "
+          f"{cfg['docs']} and {PARALLEL_DP_DOCS} documents")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(parallel_rank,
+                                 args=(world, port, d, device, cfg),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.perf_counter() + PARALLEL_TIMEOUT
+        try:
+            while not ctx.join(timeout=max(deadline - time.perf_counter(),
+                                           0.1)):
+                if time.perf_counter() > deadline:
+                    fail(f"phase 39: ranks still running after "
+                         f"{PARALLEL_TIMEOUT} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            fail(f"phase 39: a rank failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(world):
+            with open(f"{d}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    spawn_s = time.perf_counter() - t0
+    lead = ranks[0]
+    depth = cfg["text_shape"]["depth"]
+    bert_depth = BERT_BASE["depth"]
+    launch = int(cfg.get("launches", device == "cuda"))
+    want = {"ring_mlm": {"K2b": world * depth, "K2d": world * depth,
+                         "K2e": world * depth},
+            "ring_causal": {"K2c-lse": world * depth,
+                            "causal K2d": world * depth,
+                            "causal K2e": world * depth},
+            "tp_step": {"K2b": depth, "K2d": depth, "K2e": depth},
+            "tp_pretrain": {k: depth * PARALLEL_TP_STEPS
+                            for k in ("K2b", "K2d", "K2e")},
+            "ulysses_bert": {"K2a": bert_depth},
+            "dp_featurizer": {"K2a": bert_depth}}
+    problems = list(lead["problems"])
+    for r, rec in enumerate(ranks):
+        for name, counts in want.items():
+            got = rec["counts"].get(name, {})
+            expect = {k: v for k, v in counts.items()} if launch else {}
+            print(f"phase 39: rank {r} {name}: {rec['seconds'][name]:.3f} s, "
+                  f"launches {got}, peak {rec['peak'][name] / 2**30:.2f} GiB")
+            if got != expect:
+                problems.append(f"rank {r} {name}: launches {got}, expected "
+                                f"{expect}")
+    print(f"phase 39: rank 0's one-rank masked-LM step (the reference): "
+          f"{lead['seconds']['one_rank_mlm']:.3f} s, peak "
+          f"{lead['peak']['one_rank_mlm'] / 2**30:.2f} GiB")
+    print(f"phase 39: ring attention against one rank's kernel, max |diff| "
+          f"/ max |o| (limit {PARALLEL_ATTN_OF_MAX:.4g}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in lead["attention"].items()))
+    print(f"phase 39: (b) a fully masked ring step: {lead['masked_step']}")
+    print(f"phase 39: (d) tp pretraining losses {lead['tp_losses']} vs "
+          f"one rank {lead['one_rank_losses']} (worst relative "
+          f"{lead['tp_loss_rel']:.3g}, limit {PARALLEL_LOSS_RTOL}); "
+          f"{lead['tp_sharded']} parameters sharded; dp featurizer rows "
+          f"{lead['dp_rows'][0]} (with the padding row kept: "
+          f"{lead['dp_rows'][1]})")
+    print(f"phase 39: host staging ({backend} on {device}) per rank: "
+          f"{[rec['staged'] for rec in ranks]} (copies, bytes); spawn to "
+          f"the ranks' end {spawn_s:.1f} s")
+    if problems:
+        fail("phase 39: " + "; ".join(problems))
+    counts = {name: lead["counts"][name] for name in want}
+    return {"flash": counts["ulysses_bert"].get("K2a", 0),
+            "flash_lse": {"ring_flash masked LM step":
+                          counts["ring_mlm"].get("K2b", 0),
+                          "tp pretraining step":
+                          counts["tp_step"].get("K2b", 0)},
+            "flash_bwd_dq": {"ring_flash masked LM step":
+                             counts["ring_mlm"].get("K2d", 0),
+                             "tp pretraining step":
+                             counts["tp_step"].get("K2d", 0)},
+            "flash_bwd_dkv": {"ring_flash masked LM step":
+                              counts["ring_mlm"].get("K2e", 0),
+                              "tp pretraining step":
+                              counts["tp_step"].get("K2e", 0)},
+            "flash_lse_causal": counts["ring_causal"].get("K2c-lse", 0),
+            "flash_bwd_dq_causal":
+                counts["ring_causal"].get("causal K2d", 0),
+            "flash_bwd_dkv_causal":
+                counts["ring_causal"].get("causal K2e", 0),
+            "seconds": spawn_s}
+
+
 PHASE_GROUPS = ("gbdt", "text", "train", "llm", "causal", "featurize",
                 "breadth", "breadth2", "breadth3", "textgen", "vision",
-                "obs", "control", "compile", "tune", "serving", "mesh")
+                "obs", "control", "compile", "tune", "serving", "mesh",
+                "parallel")
 # the kernels line's K2a records, which gain phases 34 and 37's launches
 K2A_RECORDS = ("flash", "flash_bert", "flash_control", "flash_serving")
 
@@ -8711,7 +9276,7 @@ def main() -> None:
                     "(19-21), breadth3 (22-23), textgen (24-28), vision "
                     "(29-32), obs (33: needs gbdt, train and llm), "
                     "control (34), compile (35), tune (36), serving (37), "
-                    "mesh (38); train needs text")
+                    "mesh (38), parallel (39); train needs text")
     ap.add_argument("--boot-child", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)
     ap.add_argument("--tune-child", default=None, metavar="SPEC",
@@ -8743,7 +9308,7 @@ def main() -> None:
 
 
 def run(args) -> None:
-    """Phases 1-38 of the groups ``args.phases`` names."""
+    """Phases 1-39 of the groups ``args.phases`` names."""
     groups = set(args.phases.split(","))
     if not groups <= set(PHASE_GROUPS):
         fail(f"--phases {args.phases}: groups are {', '.join(PHASE_GROUPS)}")
@@ -8923,13 +9488,27 @@ def run(args) -> None:
             if rec["name"] in K2A_RECORDS + ("flash_mesh",):
                 rec["mesh_launches"] = mesh["launches"]
 
-    # no winner may have steered phases 1-35, 37 and 38: the run's
-    # registry is empty until phase 36 writes it
+    if "parallel" in groups:
+        t_par = time.perf_counter()
+        with Phase("phase 39"):
+            parallel = parallel_phase(torch, args)
+        par_s = time.perf_counter() - t_par
+        if par_s > PARALLEL_MAX_S:
+            fail(f"phase 39 took {par_s:.1f} s, over its {PARALLEL_MAX_S} s")
+        for rec in records:
+            name = "flash" if rec["name"] in K2A_RECORDS + ("flash_mesh",) \
+                else rec["name"]
+            if name in parallel:
+                rec["parallel_launches"] = parallel[name]
+
+    # no winner may have steered phases 1-35 and 37-39: the run's
+    # registry is empty until phase 36 writes it (phase 39's ranks read
+    # the same registry file)
     from mmlspark_torch.perf import autotune
     stats = autotune.lookup_stats()
-    print(f"tile winners looked up in phases 1-35, 37 and 38: {stats}")
+    print(f"tile winners looked up in phases 1-35 and 37-39: {stats}")
     if any(stats["hits"].values()):
-        fail(f"phases 1-35, 37 and 38 found a tuned winner "
+        fail(f"phases 1-35 and 37-39 found a tuned winner "
              f"({stats['hits']}): they must run the untuned kernels")
 
     if "tune" in groups:

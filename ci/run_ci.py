@@ -105,7 +105,8 @@ PACKAGES: dict[str, list[str]] = {
               "test_torch_aot.py", "test_torch_autotune.py",
               "test_torch_http_serving.py", "test_torch_serving_native.py",
               "test_torch_serving.py", "test_torch_serving_mesh.py",
-              "test_torch_autoscale.py", "test_torch_deploy.py"],
+              "test_torch_autoscale.py", "test_torch_deploy.py",
+              "test_torch_parallel.py", "test_torch_partition.py"],
 }
 
 # traceable-count ratchet (ISSUE 10): the analysis gate fails if the

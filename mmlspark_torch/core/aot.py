@@ -383,14 +383,14 @@ def _sha(payload) -> str:
 
 
 def mesh_descriptor(mesh) -> list | None:
-    """A mesh's fingerprint-relevant identity. The port runs no mesh
-    until ROADMAP.md §1 item 10, so every segment fingerprints None
-    here."""
+    """A mesh's fingerprint-relevant identity. Compiled segments run on
+    no mesh until ROADMAP.md §1 item 10-2, so every segment fingerprints
+    None here."""
     if mesh is None:
         return None
     raise NotImplementedError(
-        "a mesh in an AOT fingerprint: meshes come with ROADMAP.md §1 "
-        "item 10")
+        "a mesh in an AOT fingerprint: compiled segments over a mesh come "
+        "with ROADMAP.md §1 item 10-2")
 
 
 def _canon_rules(rules) -> list | None:

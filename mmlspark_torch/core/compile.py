@@ -26,7 +26,7 @@ would.
 Segments run on one device, resolved as every entry point of the port
 resolves it (``mmlspark_torch/device.py``): CUDA, or a raise when there is
 no GPU, unless the caller asks for ``"cpu"``. Partition rules (``mesh`` /
-``rules``) come with ROADMAP.md §1 item 10 and raise until then.
+``rules``) come with ROADMAP.md §1 item 10-2 and raise until then.
 
 Import is torch-free; planning and running a segment import torch.
 """
@@ -51,7 +51,8 @@ def _registry():
 def _no_partition_rules(what: str):
     raise NotImplementedError(
         f"{what}: partition rules over a mesh (the JAX package's "
-        "parallel/partition.py) come with ROADMAP.md §1 item 10")
+        "parallel/partition.py) over a compiled pipeline come with "
+        "ROADMAP.md §1 item 10-2")
 
 
 def trace_columns(df: DataFrame) -> dict:
@@ -384,7 +385,7 @@ class FusedSegment:
         """Execute the fused body on device tensors the caller holds and
         return device tensors (no host crossing, no eager fallback). The
         reference runs this over GLOBAL arrays of a multi-process mesh;
-        a segment with a mesh raises until ROADMAP.md §1 item 10."""
+        a segment with a mesh raises until ROADMAP.md §1 item 10-2."""
         if self.mesh is not None:
             _no_partition_rules("FusedSegment.run_sharded over a mesh")
         donated, dropped = self._split(dict(columns))

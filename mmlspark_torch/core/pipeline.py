@@ -184,7 +184,7 @@ class PipelineModel(Model):
         between segments. ``example_df`` drives schema propagation —
         segment grouping needs each stage's OUTPUT schema, so the example
         is transformed once at compile time. ``mesh``/``rules`` raise
-        ``NotImplementedError`` (ROADMAP.md §1 item 10)."""
+        ``NotImplementedError`` (ROADMAP.md §1 item 10-2)."""
         from .compile import compile_pipeline
         return compile_pipeline(self, example_df, mesh=mesh, rules=rules,
                                 donate=donate, service=service,

@@ -18,9 +18,15 @@ Output contract as ``TextEncoder``'s, ``{"tokens": [N, T, W] in dtype,
 (the tanh-projected first position, BERT's sentence vector), so
 ``TextEncoderFeaturizer`` runs either module. Attention is pluggable as in
 ``TextEncoder`` (``make_attention_fn``); it has no parameters, so
-``with_attention`` keeps the weights. The JAX module's
-``constrain_activation`` is the identity without a mesh; sharding comes
-with the parallel slice (ROADMAP.md §1 item 10).
+``with_attention`` keeps the weights.
+
+Sequence and tensor parallelism as in ``TextEncoder``: with a
+sequence-sharding attention (ring, Ulysses) the module takes one rank's
+block of the sequence, looks up the positions of its global offset, sums
+the mean pool over the axis and takes ``cls`` from the axis's first rank;
+under a mesh in scope with ``tp`` > 1 each block attends on its share of
+the heads (``text_encoder.head_parallel``). ``BertEncoder``'s partition
+rules register here, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,7 +39,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .text_encoder import Dense, _dense_attention
+from ..parallel.mesh import axis_size
+from ..parallel.partition import (DtypePolicy, constrain_activation,
+                                  register_partition_rules)
+from .text_encoder import (Dense, _dense_attention, head_parallel,
+                           seq_offset, seq_shard, seq_sum)
 
 LN_EPS = 1e-12                    # BERT's layer_norm_eps
 
@@ -65,8 +75,8 @@ class BertBlock(nn.Module):
         def split(a):
             return a.view(B, T, self.heads, hd).transpose(1, 2)
 
-        o = self.attention_fn(split(self.q(x)), split(self.k(x)),
-                              split(self.v(x)), key_mask)
+        o = head_parallel(self.attention_fn, split(self.q(x)),
+                          split(self.k(x)), split(self.v(x)), key_mask)
         o = o.transpose(1, 2).reshape(B, T, W).to(self.dtype)
         x = self.ln_att((x + self.out(o)).float()).to(self.dtype)
         h = F.gelu(self.mlp_1(x), approximate="none")
@@ -140,27 +150,64 @@ class BertEncoder(nn.Module):
 
     def forward(self, ids, train: bool = False, type_ids=None):
         """``train`` is the JAX module's flag; there is no dropout, so both
-        modes compute the same function. ``type_ids`` default to 0."""
+        modes compute the same function. ``type_ids`` default to 0. With a
+        sequence-sharding attention ``ids`` is this rank's block."""
         T = ids.shape[1]
-        if T > self.max_len:
+        shard = seq_shard(self.attention_fn)
+        offset = seq_offset(self.attention_fn, T)
+        total = T * (1 if shard is None else axis_size(*shard))
+        if total > self.max_len:
             raise ValueError(
-                f"sequence length {T} exceeds this checkpoint's learned "
+                f"sequence length {total} exceeds this checkpoint's learned "
                 f"position table ({self.max_len}); truncate or chunk "
                 "upstream (WordPieceTokenizerModel maxLength)")
-        pos = torch.arange(T, device=ids.device)
+        pos = offset + torch.arange(T, device=ids.device)
         typ = torch.zeros_like(ids) if type_ids is None else type_ids
         x = (self.word(ids).to(self.dtype) + self.pos(pos).to(self.dtype)[None]
              + self.typ(typ).to(self.dtype))
-        x = self.embed_ln(x.float()).to(self.dtype)
+        x = constrain_activation(self.embed_ln(x.float()).to(self.dtype),
+                                 "BertEncoder")
         key_mask = ids != 0
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             x = (checkpoint(block, x, key_mask, use_reentrant=False)
                  if remat else block(x, key_mask))
+            x = constrain_activation(x, "BertEncoder")
         mask = key_mask.float()[..., None]
-        pooled = (x.float() * mask).sum(1) / mask.sum(1).clamp_min(1.0)
-        out = {"tokens": x, "pooled": pooled, "cls": x[:, 0].float()}
+        pooled = seq_sum((x.float() * mask).sum(1), self.attention_fn) \
+            / seq_sum(mask.sum(1), self.attention_fn).clamp_min(1.0)
+        first = x[:, 0]
+        if shard is not None:
+            # the first token lives on the axis's first rank: a sum of it
+            # there and zeros elsewhere hands it to every rank
+            first = seq_sum(first if offset == 0 else torch.zeros_like(first),
+                            self.attention_fn)
+        out = {"tokens": x, "pooled": pooled, "cls": first.float()}
         if self.pooler:
             out["cls_pooled"] = torch.tanh(
-                self.pooler_dense(x[:, 0])).float()
+                self.pooler_dense(first)).float()
         return out
+
+
+# Partition rules for BertEncoder, the JAX package's (bert.py:160-181) on
+# the port's names (torch weights [out, in], each kernel spec reversed):
+# vocab-sharded word embedding, q/k/v and mlp_1 column-parallel, out and
+# mlp_2 row-parallel, everything per-channel replicated.
+register_partition_rules("BertEncoder", [
+    (r"word/weight", ("tp", None)),
+    (r"(pos|typ)/weight", ()),
+    (r"(embed_ln|ln_att|ln_ffn)/(weight|bias)", ()),
+    (r"(q|k|v)/weight", ("tp", None)),
+    (r"(q|k|v)/bias", ("tp",)),
+    (r"out/weight", (None, "tp")),
+    (r"out/bias", ()),
+    (r"mlp_1/weight", ("tp", None)),
+    (r"mlp_1/bias", ("tp",)),
+    (r"mlp_2/weight", (None, "tp")),
+    (r"mlp_2/bias", ()),
+    (r"pooler_dense/(weight|bias)", ()),
+],
+    dtype_policy=DtypePolicy(param_dtype="float32",
+                             compute_dtype="bfloat16",
+                             grad_accum_dtype="float32"),
+    activation_spec=("dp",))

@@ -27,8 +27,16 @@ weights across), and training updates it in place.
 the paged engine run, and :func:`assert_causal` is the causality probe that
 guards them.
 
-Not ported yet: ``mesh`` and ``dtype_policy`` (the parallel slice, item
-10).
+``mesh`` (a ``DeviceMesh`` or a ``parallel.MeshSpec`` over the process
+group; every rank runs the same call): the LM is placed by the
+``TextEncoderLM`` partition rules and trained by
+``train.make_partitioned_train_step``, batches over ``dp`` (the batch must
+divide by it) and, with a ring or Ulysses attention, the sequence over
+``sp``; the masked cross-entropy sums its terms and counts over ``dp`` and
+``sp``, so it is the whole batch's, as the JAX package's pjit'd step
+computes it. ``dtype_policy`` (f32 storage, bf16 compute, f32 gradient
+accumulation by default) rides along; without a mesh it runs on a one-rank
+mesh, so the policy is applied, not dropped.
 """
 
 from __future__ import annotations
@@ -41,11 +49,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .text_encoder import Dense, TextEncoder
-from .train import TrainState, make_train_step, train_epoch
-
-LATER_MESH = ("pretraining over a mesh (mesh, dtype_policy) comes with the "
-              "parallel slice (ROADMAP.md §1 item 10)")
+from ..parallel.partition import (DtypePolicy, activation_spec_for,
+                                  dtype_policy_for, partition_rules_for,
+                                  register_partition_rules)
+from .text_encoder import Dense, TextEncoder, seq_shard
+from .train import (TrainState, make_partitioned_train_step,
+                    make_train_step, partition_train_state, train_epoch)
 
 
 class MaskedLMModel(nn.Module):
@@ -89,6 +98,18 @@ class MaskedLMModel(nn.Module):
         return self.lm_head(self.encoder.decode_window_blocks(x, caches, pos))
 
 
+# Partition rules for the pretraining LM: the trunk's (paths under
+# ``encoder/`` still hit them: re.search is unanchored) plus the LM head,
+# column-parallel over the vocab (its torch weight is [V, W]).
+register_partition_rules("TextEncoderLM", (
+    *partition_rules_for("TextEncoder"),
+    (r"lm_head/weight", ("tp", None)),
+    (r"lm_head/bias", ("tp",)),
+),
+    dtype_policy=dtype_policy_for("TextEncoder") or DtypePolicy(),
+    activation_spec=activation_spec_for("TextEncoder") or ("dp",))
+
+
 def masked_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Cross-entropy over positions with ``labels >= 0`` (−1 = ignore:
     unmasked or pad), in f32. Mean over the masked positions only."""
@@ -96,6 +117,24 @@ def masked_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = F.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
     return -(ll * valid).sum() / valid.sum().clamp_min(1)
+
+
+def sharded_masked_xent(mesh) -> Callable:
+    """:func:`masked_xent` of the whole batch from each rank's rows and
+    sequence block: the sum and the count are summed over ``dp`` and
+    ``sp`` (the sum differentiably), so every rank holds the same loss."""
+    from ..parallel.collectives import allreduce
+
+    def loss(logits, labels):
+        valid = labels >= 0
+        logp = F.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+        num, count = -(ll * valid).sum(), valid.sum().float()
+        for axis in ("dp", "sp"):
+            num = allreduce(num, axis, mesh=mesh)
+            count = allreduce(count, axis, mesh=mesh)
+        return num / count.clamp_min(1)
+    return loss
 
 
 def mask_batch(ids: np.ndarray, rng: np.random.Generator, *,
@@ -151,8 +190,8 @@ def pretrain_masked_lm(encoder: TextEncoder | MaskedLMModel,
 
     Returns the train state (the model, the optimizer, the step count) and
     the per-batch losses; :func:`encoder_variables` lifts the trunk."""
-    model, dev, ids = _lm_setup(encoder, ids, seed, device, mesh,
-                                dtype_policy)
+    model, dev, ids, mesh = _lm_setup(encoder, ids, seed, device, mesh,
+                                      dtype_policy)
     vocab = model.encoder.vocab
     if mask_id is None:
         mask_id = vocab - 1
@@ -168,28 +207,59 @@ def pretrain_masked_lm(encoder: TextEncoder | MaskedLMModel,
             yield mask_batch(rows, rng, mask_id=mask_id,
                              mask_frac=mask_frac)
 
-    return _train(model, dev, batches(), optimizer, learning_rate)
+    return _train(model, dev, batches(), optimizer, learning_rate, mesh,
+                  dtype_policy, batch_size)
 
 
 def _lm_setup(encoder, ids, seed, device, mesh, dtype_policy):
-    """What both pretraining entry points start with: the refusals, the
-    device, the token rows as int32 and the LM (``encoder`` itself when it
-    is a ``MaskedLMModel``, else a new head drawn from ``seed``) on the
-    device."""
-    if mesh is not None or dtype_policy is not None:
-        raise NotImplementedError(LATER_MESH)
+    """What both pretraining entry points start with: the device, the mesh
+    (a one-rank one for a dtype policy without a mesh), the token rows as
+    int32 and the LM (``encoder`` itself when it is a ``MaskedLMModel``,
+    else a new head drawn from ``seed``) on the device."""
     dev = resolve_device(device)
     model = encoder if isinstance(encoder, MaskedLMModel) else \
         MaskedLMModel(encoder, torch.Generator().manual_seed(seed))
-    return model.to(dev), dev, np.asarray(ids, np.int32)
+    if mesh is None and dtype_policy is not None:
+        from ..parallel.mesh import MeshSpec
+        mesh = MeshSpec(dp=1)
+    if mesh is not None:
+        from ..parallel.mesh import as_mesh
+        mesh = as_mesh(mesh, dev.type)
+    return model.to(dev), dev, np.asarray(ids, np.int32), mesh
 
 
-def _train(model, dev, batches, optimizer, learning_rate):
-    """Train ``model`` in place over host batches with ``masked_xent``."""
+def _mesh_step_and_state(model, opt, mesh, dtype_policy, batch_size):
+    """The step and state for both objectives: the plain step without a
+    mesh; on one, the checks (a ``dp`` axis, a batch it divides), the LM
+    placed per the ``TextEncoderLM`` rules and the partitioned step with
+    the whole batch's masked cross-entropy."""
+    state = TrainState(model=model, optimizer=opt)
+    if mesh is None:
+        return make_train_step(model, opt, loss_fn=masked_xent,
+                               fetch="logits"), state
+    from ..parallel.mesh import axis_names, axis_size
+    if "dp" not in axis_names(mesh):
+        raise ValueError(f"pretraining shards batches over axis 'dp'; mesh "
+                         f"has {axis_names(mesh)}")
+    if batch_size % axis_size(mesh, "dp"):
+        raise ValueError(f"batch_size={batch_size} must divide by the dp "
+                         f"axis ({axis_size(mesh, 'dp')})")
+    state, shardings = partition_train_state(
+        state, mesh, partition_rules_for("TextEncoderLM"),
+        dtype_policy=dtype_policy)
+    step = make_partitioned_train_step(
+        model, opt, mesh, shardings, fetch="logits",
+        loss_fn=sharded_masked_xent(mesh), dtype_policy=dtype_policy)
+    return step, state
+
+
+def _train(model, dev, batches, optimizer, learning_rate, mesh=None,
+           dtype_policy=None, batch_size=1):
+    """Train ``model`` in place over host batches (masked cross-entropy)."""
     opt = (optimizer or default_optimizer(learning_rate))(
         list(model.parameters()))
-    state = TrainState(model=model, optimizer=opt)
-    step = make_train_step(model, opt, loss_fn=masked_xent, fetch="logits")
+    step, state = _mesh_step_and_state(model, opt, mesh, dtype_policy,
+                                       batch_size)
     return train_epoch(step, state, batches, device=dev)
 
 
@@ -224,8 +294,8 @@ def pretrain_causal_lm(encoder: TextEncoder | MaskedLMModel,
     ``x = rows[:, :-1]`` against ``y = rows[:, 1:]`` with pad set to -1:
     the JAX package's batches, bit for bit. With ``pallas`` attention every
     block's forward runs K2c-lse and its backward causal K2d and K2e."""
-    model, dev, ids = _lm_setup(encoder, ids, seed, device, mesh,
-                                dtype_policy)
+    model, dev, ids, mesh = _lm_setup(encoder, ids, seed, device, mesh,
+                                      dtype_policy)
     assert_causal(model, ids[:1], model.encoder.vocab)
     rng = np.random.default_rng(seed)
 
@@ -235,7 +305,8 @@ def pretrain_causal_lm(encoder: TextEncoder | MaskedLMModel,
             y = np.where(rows[:, 1:] != 0, rows[:, 1:], -1).astype(np.int32)
             yield rows[:, :-1], y
 
-    return _train(model, dev, batches(), optimizer, learning_rate)
+    return _train(model, dev, batches(), optimizer, learning_rate, mesh,
+                  dtype_policy, batch_size)
 
 
 CAUSAL_DRIFT_MAX = 1e-4
@@ -248,17 +319,32 @@ def assert_causal(module: MaskedLMModel, sample_ids, vocab: int) -> float:
     where causality is required (generation), which would otherwise
     condition on its own padding silently. Runs two forwards on the
     module's device under ``torch.inference_mode()``; returns the drift
-    (0.0 when ``sample_ids`` has fewer than two positions)."""
+    (0.0 when ``sample_ids`` has fewer than two positions). With a
+    sequence-sharding attention every rank of its axis runs the probe on
+    its block and the drift is the largest over the axis."""
     probe = np.asarray(sample_ids, np.int32)[:1].copy()
     if probe.shape[1] < 2:
         return 0.0
     probe2 = probe.copy()
     probe2[0, -1] = (probe2[0, -1] % (vocab - 2)) + 1
     dev = next(module.parameters()).device
+    shard = seq_shard(module.encoder.attention_fn)
+    cut = slice(0, probe.shape[1])
+    if shard is not None:
+        from ..parallel.mesh import axis_rank, axis_size
+        t = probe.shape[1] // axis_size(*shard)
+        cut = slice(axis_rank(*shard) * t, (axis_rank(*shard) + 1) * t)
     with torch.inference_mode():
-        base = module(torch.from_numpy(probe).to(dev))["logits"]
-        alt = module(torch.from_numpy(probe2).to(dev))["logits"]
-        drift = float((base[0, :-1] - alt[0, :-1]).abs().max())
+        base = module(torch.from_numpy(probe[:, cut]).to(dev))["logits"]
+        alt = module(torch.from_numpy(probe2[:, cut]).to(dev))["logits"]
+        last = probe.shape[1] - 1 - cut.start      # the perturbed column
+        keep = [c for c in range(base.shape[1]) if c != last]
+        drift = (base[0, keep] - alt[0, keep]).abs().max() if keep else \
+            torch.zeros((), device=dev)
+        if shard is not None:
+            from ..parallel.collectives import allreduce
+            drift = allreduce(drift.float(), shard[1], "max", mesh=shard[0])
+        drift = float(drift)
     if drift > CAUSAL_DRIFT_MAX:
         raise ValueError(
             "encoder attends to FUTURE positions (logit drift "

@@ -11,7 +11,10 @@ compact pre-LN transformer encoder whose attention implementation is pluggable
   that is the forward K2a; under grad (training, ``dl/pretrain.py``) the
   forward that saves the lse (K2b) and the fused backward (K2d, K2e), and
   with ``causal=True`` their causal branches (K2c-lse, causal K2d/K2e);
-- ``blockwise`` — single-device flash-style blocks in plain PyTorch.
+- ``blockwise`` — single-device flash-style blocks in plain PyTorch;
+- ``ring``/``ring_flash`` and ``ulysses``/``ulysses_flash`` — attention
+  over a sequence sharded along a mesh axis (``parallel.ring_attention``,
+  ``parallel.ulysses``), with plain or kernel (``_flash``) local attention.
 
 Every implementation takes ``causal`` (``make_attention_fn(impl,
 causal=True)``): lower-triangular masking, the decoder pattern; the
@@ -33,8 +36,17 @@ f32 cast to the compute dtype.
 ``modelName`` resolves a zoo entry through ``models.ModelDownloader`` (a
 checkpoint must exist: no random init behind a pretrained name), and
 ``quantize=True`` embeds through ``models.quantize_text_encoder`` (int8
-dense layers, dense attention only). Not ported yet: ``ring``/``ulysses``
-attention with the parallel slice (item 10).
+dense layers, dense attention only).
+
+Sequence and tensor parallelism: an encoder whose attention is sequence-
+sharded (ring or Ulysses over a mesh's ``sp`` axis) takes one rank's block
+of the sequence, adds the sinusoidal positions of its global offset, and
+sums the masked mean pool over the axis, so ``pooled`` is the whole
+sequence's on every rank. Under a mesh in scope (``parallel.mesh_scope``;
+the sharded train step enters one) with ``tp`` > 1, each block attends on
+its rank's share of the heads and all-gathers the heads' outputs
+(:func:`head_parallel`). ``constrain_activation`` marks the block
+boundaries where the JAX package constrains activations.
 """
 
 from __future__ import annotations
@@ -53,11 +65,12 @@ from torch.utils.checkpoint import checkpoint
 from ..core import ComplexParam, Param, Transformer, TypeConverters as TC
 from ..core.contracts import HasInputCol, HasOutputCol
 from ..device import resolve_device
+from ..parallel.partition import (DtypePolicy, constrain_activation,
+                                  register_partition_rules)
 from ..parallel.ring_attention import blockwise_attention
 from .flash_attention import flash_attention
 
-LATER_SHARDED = ("ring and ulysses attention over a mesh come with the "
-                 "parallel slice (ROADMAP.md §1 item 10)")
+SHARDED_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
 
 LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to ±2
 
@@ -87,6 +100,51 @@ def _window_positions(pos, B: int, w: int, device) -> torch.Tensor:
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((B,), pos, device=device)
     return pos[:, None] + torch.arange(w, device=device)
+
+
+def seq_shard(attention_fn):
+    """``(mesh, axis)`` when ``attention_fn`` shards the sequence over a
+    mesh axis of more than one rank (ring, Ulysses), else ``None``."""
+    from ..parallel.mesh import axis_size
+    mesh = getattr(attention_fn, "mesh", None)
+    axis = getattr(attention_fn, "seq_axis", None)
+    if mesh is None or axis is None or axis_size(mesh, axis) <= 1:
+        return None
+    return mesh, axis
+
+
+def seq_offset(attention_fn, T: int) -> int:
+    """The global position of this rank's first token (0 unsharded)."""
+    from ..parallel.mesh import axis_rank
+    shard = seq_shard(attention_fn)
+    return 0 if shard is None else axis_rank(*shard) * T
+
+
+def seq_sum(x, attention_fn):
+    """``x`` summed over the sequence-sharding axis (the identity
+    unsharded): a sum over the whole sequence from each rank's part."""
+    from ..parallel.collectives import allreduce
+    shard = seq_shard(attention_fn)
+    return x if shard is None else allreduce(x, shard[1], mesh=shard[0])
+
+
+def head_parallel(attention_fn, q, k, v, key_mask):
+    """``attention_fn`` on this rank's ``tp`` share of the heads, the
+    heads' outputs all-gathered (the backward reduce-scatters), under the
+    mesh in scope; the plain call without one or with ``tp`` = 1."""
+    from ..parallel.collectives import allgather
+    from ..parallel.mesh import axis_rank, axis_size, current_mesh
+    mesh = current_mesh()
+    n = 1 if mesh is None else axis_size(mesh, "tp")
+    if n <= 1:
+        return attention_fn(q, k, v, key_mask)
+    H = q.shape[1]
+    if H % n:
+        raise ValueError(f"{H} heads do not divide over tp={n}")
+    r, h = axis_rank(mesh, "tp"), H // n
+    sl = slice(r * h, (r + 1) * h)
+    o = attention_fn(q[:, sl], k[:, sl], v[:, sl], key_mask)
+    return allgather(o, "tp", mesh=mesh, gather_axis=1)
 
 
 class Dense(nn.Module):
@@ -158,7 +216,8 @@ class EncoderBlock(nn.Module):
     def attend(self, x, key_mask=None):
         """The attention residual: x + out(attention(qkv(ln_1 x)))."""
         q, k, v = self._project_qkv(x)
-        return x + self._merge_out(self.attention_fn(q, k, v, key_mask))
+        return x + self._merge_out(
+            head_parallel(self.attention_fn, q, k, v, key_mask))
 
     def pre_ffn_norm(self, x):
         """ln_2 alone."""
@@ -289,9 +348,10 @@ class TextEncoder(nn.Module):
         return torch.cat([torch.sin(ang), torch.cos(ang)],
                          dim=-1).to(self.dtype)
 
-    def embed_ids(self, ids):
-        """Embedding + fixed sinusoidal positions → [N, T, W] block input."""
-        pos = torch.arange(ids.shape[1], device=ids.device)
+    def embed_ids(self, ids, offset: int = 0):
+        """Embedding + fixed sinusoidal positions → [N, T, W] block input;
+        ``offset`` is the global position of the first column."""
+        pos = offset + torch.arange(ids.shape[1], device=ids.device)
         return self.embed(ids).to(self.dtype) + self.positions(pos)[None]
 
     def embed_token(self, tok, pos: int):
@@ -332,22 +392,52 @@ class TextEncoder(nn.Module):
         return caches
 
     def finalize(self, x, ids):
-        """Final LN + masked mean pool over non-pad tokens, in f32."""
+        """Final LN + masked mean pool over non-pad tokens, in f32 (over
+        the whole sequence when it is sharded)."""
         x = self.ln(x.float())
         mask = (ids != 0).float()[..., None]
-        pooled = (x * mask).sum(1) / mask.sum(1).clamp_min(1.0)
-        return {"tokens": x, "pooled": pooled}
+        total = seq_sum((x * mask).sum(1), self.attention_fn)
+        count = seq_sum(mask.sum(1), self.attention_fn)
+        return {"tokens": x, "pooled": total / count.clamp_min(1.0)}
 
     def forward(self, ids, train: bool = False):
         """``train`` is the JAX module's flag; the encoder has no dropout,
-        so both modes compute the same function."""
-        x = self.embed_ids(ids)
+        so both modes compute the same function. With a sequence-sharding
+        attention ``ids`` is this rank's block of the sequence."""
+        x = constrain_activation(
+            self.embed_ids(ids, seq_offset(self.attention_fn, ids.shape[1])),
+            "TextEncoder")
         key_mask = ids != 0
         remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
             x = (checkpoint(block, x, key_mask, use_reentrant=False)
                  if remat else block(x, key_mask))
+            x = constrain_activation(x, "TextEncoder")
         return self.finalize(x, ids)
+
+
+# Partition rules for TextEncoder, the JAX package's (text_encoder.py:
+# 332-355) on the port's names: a torch weight is [out, in] where the flax
+# kernel is [in, out], so each kernel spec reverses (the same layout after
+# the converter's transpose). Vocab-sharded embedding, fused qkv and mlp_1
+# column-parallel, out and mlp_2 row-parallel.
+register_partition_rules("TextEncoder", [
+    (r"embed/weight", ("tp", None)),
+    (r"(ln_1|ln_2)/(weight|bias)", ()),
+    (r"(^|/)ln/(weight|bias)", ()),
+    (r"qkv/weight", ("tp", None)),
+    (r"qkv/bias", ("tp",)),
+    (r"out/weight", (None, "tp")),
+    (r"out/bias", ()),
+    (r"mlp_1/weight", ("tp", None)),
+    (r"mlp_1/bias", ("tp",)),
+    (r"mlp_2/weight", (None, "tp")),
+    (r"mlp_2/bias", ()),
+],
+    dtype_policy=DtypePolicy(param_dtype="float32",
+                             compute_dtype="bfloat16",
+                             grad_accum_dtype="float32"),
+    activation_spec=("dp",))
 
 
 def _flash_fn(q, k, v, key_mask=None, *, causal: bool = False):
@@ -361,7 +451,8 @@ def _blockwise_fn(q, k, v, key_mask=None, *, block_size: int = 512,
 
 
 def make_attention_fn(impl: str = "dense", block_size: int | None = None,
-                      causal: bool = False) -> Callable:
+                      causal: bool = False, mesh=None,
+                      axis: str = "sp") -> Callable:
     """Resolve an attention implementation by name: ``dense``, ``pallas``
     (the flash kernels, differentiable through the fused backward; the port
     sizes its own blocks, so ``block_size`` applies to ``blockwise`` only)
@@ -370,9 +461,14 @@ def make_attention_fn(impl: str = "dense", block_size: int | None = None,
     the causal forward that saves the lse, K2c-lse, with the causal fused
     backward, K2d and K2e, so a causal LM trains through the kernels). The
     returned functions
-    pickle, so a stage holding an encoder saves. The JAX version's
-    ``mesh``/``axis`` (ring, ulysses) come with the parallel slice
-    (ROADMAP.md §1 item 10)."""
+    pickle, so a stage holding an encoder saves.
+
+    ``ring``/``ring_flash`` and ``ulysses``/``ulysses_flash`` need ``mesh``
+    (a ``DeviceMesh`` or a ``parallel.MeshSpec``) whose ``axis`` shards the
+    sequence; the returned function takes one rank's ``[B, H, T/n, D]``
+    blocks. ``_flash`` runs the kernels locally: a ring step's
+    ``flash_attention_lse`` (K2b, K2c-lse when causal; K2d/K2e under grad),
+    Ulysses' ``flash_attention`` on its heads (K2a, K2c when causal)."""
     if impl == "dense":
         return functools.partial(_dense_attention, causal=True) if causal \
             else _dense_attention
@@ -383,9 +479,20 @@ def make_attention_fn(impl: str = "dense", block_size: int | None = None,
         return functools.partial(_blockwise_fn,
                                  block_size=block_size or 512,
                                  causal=causal)
-    if impl in ("ring", "ring_flash", "ulysses", "ulysses_flash"):
-        raise NotImplementedError(f"attention impl {impl!r}: "
-                                  f"{LATER_SHARDED}")
+    if impl in ("ring", "ring_flash"):
+        from ..parallel.ring_attention import make_ring_attention
+        if mesh is None:
+            raise ValueError("ring attention needs a mesh")
+        return make_ring_attention(
+            mesh, causal=causal, axis=axis,
+            local_impl="flash" if impl == "ring_flash" else "blockwise")
+    if impl in ("ulysses", "ulysses_flash"):
+        from ..parallel.ulysses import make_ulysses_attention
+        if mesh is None:
+            raise ValueError("ulysses attention needs a mesh")
+        return make_ulysses_attention(
+            mesh, axis=axis, causal=causal, block_size=block_size,
+            local_impl="flash" if impl == "ulysses_flash" else "blockwise")
     raise ValueError(f"unknown attention impl {impl!r}; expected "
                      "dense|pallas|blockwise|ring|ring_flash|ulysses|"
                      "ulysses_flash")
@@ -413,6 +520,15 @@ class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
     ``model=`` for the same embeddings in both packages. ``quantize=True``
     embeds a plain ``TextEncoder`` through ``models.quantize_text_encoder``
     (dense attention only; ``pallas`` or ``blockwise`` raise).
+
+    ``mesh`` (a ``DeviceMesh`` or a ``parallel.MeshSpec`` over the process
+    group; runtime wiring, not saved): every rank of the mesh transforms
+    the same frame. Rows pad to a multiple of the ``dp`` size with pad id
+    0 and each rank embeds the rows of its ``dp`` coordinate; with
+    ``sp`` > 1 the sequence stays sharded over ``sp`` (the attention must
+    be a ring or Ulysses one, built over the mesh); the pooled rows are
+    all-gathered over ``dp`` and the padding rows dropped, so every rank
+    returns the whole frame's features.
     """
 
     attentionImpl = Param("attentionImpl",
@@ -446,28 +562,33 @@ class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
     device = Param("device", "torch device: 'cuda' (default) or 'cpu'",
                    TC.toString, default="cuda")
 
-    # class-level default: load_stage rebuilds stages without __init__
+    # class-level defaults: load_stage rebuilds stages without __init__
     _cache: tuple | None = None
+    _mesh = None
 
     def __init__(self, mesh=None, **kwargs):
-        if mesh is not None:
-            raise NotImplementedError(f"a mesh: {LATER_SHARDED}")
         super().__init__(**kwargs)
         self._setDefault(inputCol="tokens", outputCol="features")
+        self._mesh = mesh
 
     def _encoder(self) -> tuple[Callable, torch.device]:
         """The embedding function (token ids on the device → pooled [N, W])
         and the device, built once per configuration."""
         dev = resolve_device(self.get("device"))
         loaded = self.get("model")
-        key = (dev, id(loaded), self.get("attentionImpl"),
+        if self._mesh is not None:
+            from ..parallel.mesh import as_mesh
+            self._mesh = as_mesh(self._mesh, dev.type)
+        key = (dev, id(loaded), id(self._mesh), self.get("attentionImpl"),
                self.get("vocabSize"), self.get("width"), self.get("depth"),
                self.get("heads"), self.get("seed"), self.get("modelName"),
                self.get("quantize"),
                os.environ.get("MMLSPARK_TPU_MODEL_DIR", ""))
         if self._cache is not None and self._cache[0] == key:
             return self._cache[1], dev
-        attn = make_attention_fn(self.get("attentionImpl"))
+        impl = self.get("attentionImpl")
+        attn = make_attention_fn(
+            impl, mesh=self._mesh if impl in SHARDED_IMPLS else None)
         if loaded is None and self.get("modelName"):
             from ..models.zoo import ModelDownloader
             # an explicitly named zoo model fails loudly without its
@@ -519,8 +640,39 @@ class TextEncoderFeaturizer(Transformer, HasInputCol, HasOutputCol):
         ids = np.zeros((len(rows), T), np.int32)
         for i, r in enumerate(rows):
             ids[i, :len(r)] = np.asarray(r, np.int32)
-        ids_dev = torch.from_numpy(ids).to(dev)
-        with torch.inference_mode():
-            pooled = embed(ids_dev)
+        if self._mesh is not None:
+            pooled = self._sharded(embed, ids, dev)
+        else:
+            with torch.inference_mode():
+                pooled = embed(torch.from_numpy(ids).to(dev))
         return df.with_column(self.get("outputCol"),
                               pooled.float().cpu().numpy())
+
+    def _sharded(self, embed, ids: np.ndarray, dev) -> torch.Tensor:
+        """The pooled rows of ``ids`` over the mesh (class docstring)."""
+        from ..parallel.collectives import allgather
+        from ..parallel.mesh import axis_rank, axis_size
+        from ..parallel.sharding import pad_rows, unpad_rows
+        mesh, n_real = self._mesh, len(ids)
+        dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
+        if sp > 1 and self.get("attentionImpl") not in SHARDED_IMPLS:
+            raise ValueError(
+                f"a mesh with sp={sp} shards the sequence: attentionImpl "
+                f"must be one of {SHARDED_IMPLS}, not "
+                f"{self.get('attentionImpl')!r}")
+        ids, _ = pad_rows(ids, dp, pad_value=0)
+        rows = len(ids) // dp
+        r = axis_rank(mesh, "dp")
+        block = ids[r * rows:(r + 1) * rows]
+        if sp > 1:
+            if block.shape[1] % sp:
+                raise ValueError(f"sequence length {block.shape[1]} must "
+                                 f"divide by sp={sp} (seqChunk)")
+            t = block.shape[1] // sp
+            s = axis_rank(mesh, "sp")
+            block = block[:, s * t:(s + 1) * t]
+        with torch.inference_mode():
+            pooled = embed(torch.from_numpy(np.ascontiguousarray(block))
+                           .to(dev))
+            pooled = allgather(pooled, "dp", mesh=mesh)
+        return unpad_rows(pooled, n_real)

@@ -43,6 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..dl.text_encoder import LECUN_TRUNC, Dense
+from ..parallel.partition import DtypePolicy, register_partition_rules
 
 BN_EPS = 1e-5                # flax BatchNorm's default
 BN_MOMENTUM = 0.9
@@ -146,7 +147,9 @@ class _Block(nn.Module):
             self.add_module(f"BatchNorm_{n}", BatchNorm(out, dtype))
 
     def _widths(self, cin: int, filters: int) -> list:
-        raise NotImplementedError
+        raise NotImplementedError(
+            f"{type(self).__name__}: a block type lists its convolutions' "
+            "(in, out) widths")
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -259,6 +262,24 @@ class ResNet(nn.Module):
                 if isinstance(m, BatchNorm):
                     m.commit()
         return endpoints
+
+
+# Partition rules for the ResNet family, the JAX package's (resnet.py:
+# 149-164) on the port's names: conv weights are OIHW here (HWIO in flax),
+# so the out-channel dim the flax spec ("tp",) shards is dim 0; the head's
+# torch weight is [out, in]. BatchNorm scales, biases and statistics
+# replicate.
+register_partition_rules("ResNet", [
+    (r"(bn_init|BatchNorm_\d+)/(scale|bias|mean|var)", ()),
+    (r"conv_init/weight", ("tp", None, None, None)),
+    (r"Conv_\d+/weight", ("tp", None, None, None)),
+    (r"head/weight", ("tp", None)),
+    (r"head/bias", ()),
+],
+    dtype_policy=DtypePolicy(param_dtype="float32",
+                             compute_dtype="bfloat16",
+                             grad_accum_dtype="float32"),
+    activation_spec=("dp",))
 
 
 def ResNet18(num_classes=1000, dtype=torch.bfloat16, remat=False,

@@ -29,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..dl.text_encoder import Dense, _layer_norm
+from ..parallel.partition import DtypePolicy, register_partition_rules
 from .resnet import Conv
 
 
@@ -152,6 +153,32 @@ class ViT(nn.Module):
         endpoints["pooled"] = x[:, 0]
         endpoints["logits"] = self.head(x[:, 0].to(self.dtype)).float()
         return endpoints
+
+
+# Partition rules for the ViT family, the JAX package's (vit.py:136-158) on
+# the port's names (torch weights [out, in], conv_proj OIHW): q/k/v and
+# mlp_1 column-parallel, out and mlp_2 row-parallel.
+register_partition_rules("ViT", [
+    (r"(class_token|pos_embedding)", ()),
+    (r"conv_proj/weight", ("tp", None, None, None)),
+    (r"conv_proj/bias", ("tp",)),
+    (r"(ln_1|ln_2)/(weight|bias)", ()),
+    (r"(^|/)ln/(weight|bias)", ()),
+    (r"attn/(q|k|v)/weight", ("tp", None)),
+    (r"attn/(q|k|v)/bias", ("tp",)),
+    (r"attn/out/weight", (None, "tp")),
+    (r"attn/out/bias", ()),
+    (r"mlp_1/weight", ("tp", None)),
+    (r"mlp_1/bias", ("tp",)),
+    (r"mlp_2/weight", (None, "tp")),
+    (r"mlp_2/bias", ()),
+    (r"head/weight", ("tp", None)),
+    (r"head/bias", ()),
+],
+    dtype_policy=DtypePolicy(param_dtype="float32",
+                             compute_dtype="bfloat16",
+                             grad_accum_dtype="float32"),
+    activation_spec=("dp",))
 
 
 def ViT_B_16(num_classes=1000, dtype=torch.bfloat16, remat=False,

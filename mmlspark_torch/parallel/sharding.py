@@ -7,6 +7,11 @@ partitions opt out of the collective ring (``lightgbm/TrainUtils.scala:
 instead, so rows are padded to a multiple of the shard count and carry a
 validity mask; every reduction honours the mask, so a pad row is the
 moral equivalent of an ignored partition.
+
+A JAX ``NamedSharding`` is the placements a ``DTensor`` carries here
+(:func:`replicated`, :func:`batch_sharding`), and :func:`shard_batch` gives
+each rank its own block of the padded rows, a plain tensor on the mesh's
+device: one process a rank holds only its block.
 """
 
 from __future__ import annotations
@@ -40,3 +45,53 @@ def pad_rows(arrays, multiple: int, pad_value=0.0):
     mask = np.ones(n + n_pad, np.float32)
     mask[n:] = 0.0
     return (out[0] if single else out), mask
+
+
+def _placements(mesh, axis=None, dim: int = 0) -> tuple:
+    from torch.distributed.tensor import Replicate, Shard
+    axes = () if axis is None else ((axis,) if isinstance(axis, str)
+                                    else tuple(axis))
+    return tuple(Shard(dim) if a in axes else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def replicated(mesh) -> tuple:
+    """Placements of a tensor every rank holds whole."""
+    return _placements(mesh)
+
+
+def batch_sharding(mesh, axis: str = "dp", ndim: int = 2) -> tuple:
+    """Placements of rows sharded over ``axis``, other dims replicated
+    (``ndim`` is the JAX signature's; placements do not depend on it)."""
+    return _placements(mesh, axis)
+
+
+def unpad_rows(array, n_real: int):
+    return array[:n_real]
+
+
+def shard_batch(mesh, arrays, axis: str = "dp", pad_value=0.0):
+    """Pad rows to a multiple of the ``axis`` size and keep this rank's
+    block, on the mesh's device. Returns ``(blocks, mask_block, n_real)``:
+    ``n_real`` the rows before padding, ``mask_block`` this rank's slice of
+    the f32 validity mask."""
+    import torch
+    from .mesh import axis_rank, axis_size
+    from .partition import _mesh_device
+
+    single = not isinstance(arrays, (list, tuple))
+    arrs = [arrays] if single else list(arrays)
+    n_real = next(a.shape[0] for a in arrs if a is not None)
+    axes = [axis] if isinstance(axis, str) else list(axis)
+    size, idx = 1, 0
+    for a in axes:                  # row-major over the named axes
+        idx = idx * axis_size(mesh, a) + axis_rank(mesh, a)
+        size *= axis_size(mesh, a)
+    padded, mask = pad_rows(arrs, size, pad_value)
+    rows = len(mask) // size
+    sl = slice(idx * rows, (idx + 1) * rows)
+    dev = _mesh_device(mesh)
+    out = [None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a[sl])).to(dev) for a in padded]
+    mask_dev = torch.from_numpy(mask[sl]).to(dev)
+    return (out[0] if single else out), mask_dev, n_real

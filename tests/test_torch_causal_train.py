@@ -411,7 +411,7 @@ class TestPretrainCausalLM:
         with pytest.raises(ValueError, match="FUTURE"):
             pretrain_causal_lm(enc, ids, steps=1, batch_size=2,
                                device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             pretrain_causal_lm(enc, ids, mesh=object(), device="cpu")
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

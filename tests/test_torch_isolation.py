@@ -504,6 +504,15 @@ MESH_SLICE = ["serving/distributed.py", "serving/autoscale.py",
               "serving/deploy.py", "serving/server.py", "serving/dsl.py",
               "core/aot.py", "core/utils.py", "testing/benchmarks.py"]
 
+# modules the sequence and tensor parallel slice added or finished; the
+# scan below must reach each
+PARALLEL_SLICE = ["parallel/__init__.py", "parallel/mesh.py",
+                  "parallel/partition.py", "parallel/collectives.py",
+                  "parallel/sharding.py", "parallel/ring_attention.py",
+                  "parallel/ulysses.py", "dl/train.py", "dl/pretrain.py",
+                  "dl/text_encoder.py", "dl/bert.py", "models/resnet.py",
+                  "models/vit.py"]
+
 
 def _port_sources():
     root = os.path.join(REPO, "mmlspark_torch")
@@ -521,6 +530,8 @@ def _port_sources():
     yield os.path.join(REPO, "tools", "control_bf16_agreement.py")
     yield os.path.join(REPO, "tools", "time_fused_segment.py")
     yield os.path.join(REPO, "tools", "profile_torch_serving.py")
+    yield os.path.join(REPO, "tools", "parallel_nccl.py")
+    yield os.path.join(REPO, "tools", "probe_gloo_cuda.py")
 
 
 def _imported_modules(path):
@@ -658,6 +669,50 @@ def test_autotune_imports_no_jax_and_no_torch(tmp_path):
     assert "ISOLATED autotune" in proc.stdout
 
 
+PARALLEL_SCRIPT = r"""
+import sys
+
+import torch
+
+import mmlspark_torch.parallel as par
+from mmlspark_torch.dl import bert, pretrain, text_encoder, train  # noqa
+from mmlspark_torch.models import resnet, vit  # noqa
+from mmlspark_torch.parallel import ring_attention, ulysses  # noqa
+
+for name in par.__all__:
+    fn = getattr(par, name)
+    if name in par.LATER:
+        try:
+            fn()
+        except NotImplementedError as e:
+            assert "item 10-2" in str(e), e
+        else:
+            raise AssertionError(name)
+assert par.registered_rule_sets() == ["BertEncoder", "ResNet",
+                                      "TextEncoder", "TextEncoderLM",
+                                      "ViT"], par.registered_rule_sets()
+assert not torch.distributed.is_initialized()
+assert not torch.cuda.is_initialized()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not bad, bad
+print("ISOLATED parallel")
+""" % (FORBIDDEN,)
+
+
+def test_parallel_slice_imports_without_jax_or_a_group():
+    """Importing the parallel package, every name of its surface (the
+    item 10-2 stubs raise naming it) and the modules that register rule
+    sets starts no process group and no CUDA context, and pulls in no JAX
+    and nothing of the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ISOLATED parallel" in proc.stdout
+
+
 def test_static_scan_finds_no_jax_import():
     sources = list(_port_sources())
     assert any(p.endswith("chip_smoke.py") for p in sources)
@@ -672,6 +727,7 @@ def test_static_scan_finds_no_jax_import():
     assert set(AUTOTUNE_SLICE) <= scanned, set(AUTOTUNE_SLICE) - scanned
     assert set(SERVING_SLICE) <= scanned, set(SERVING_SLICE) - scanned
     assert set(MESH_SLICE) <= scanned, set(MESH_SLICE) - scanned
+    assert set(PARALLEL_SLICE) <= scanned, set(PARALLEL_SLICE) - scanned
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -355,14 +355,18 @@ class TestRaises:
     def test_not_ported_yet(self, monkeypatch, tmp_path):
         ids = np.ones((2, 8), np.int32)
         enc = TextEncoder(**ARCH, dtype=torch.float32)
-        for fn, item in ((port_train.partition_train_state, "item 10"),
-                         (port_train.make_partitioned_train_step, "item 10"),
-                         (port_train.shard_train_state, "item 10")):
-            with pytest.raises(NotImplementedError, match=item):
-                fn(enc, ids)
+        # the mesh half is ported (tests/test_torch_partition.py): it
+        # refuses what is not a mesh
+        state = TrainState(enc, torch.optim.SGD(enc.parameters(), lr=0.1))
+        for fn, args in ((port_train.partition_train_state, (state, ids, ())),
+                         (port_train.make_partitioned_train_step,
+                          (enc, state.optimizer, ids, {})),
+                         (port_train.shard_train_state, (state, ids))):
+            with pytest.raises(TypeError, match="DeviceMesh"):
+                fn(*args)
         # checkpoints are ported (tests/test_torch_checkpoint.py)
         assert CheckpointManager(str(tmp_path)).latest_step() is None
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             pretrain_masked_lm(enc, ids, mesh=object(), device="cpu")
         model = MaskedLMModel(enc)
         # the causality probe is ported (the LLM slice): this bidirectional
@@ -386,7 +390,7 @@ class TestRaises:
         with pytest.raises(ValueError, match="must divide by accum_steps"):
             step(TrainState(model, opt), torch.from_numpy(ids[:1]),
                  torch.from_numpy(ids[:1]))
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make_train_step(model, opt, mesh=object())
         assert TextEncoder(**ARCH, remat=True).remat
         with pytest.raises(ValueError, match="mask_id"):

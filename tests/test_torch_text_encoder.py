@@ -283,10 +283,12 @@ class TestFeaturizer:
         with pytest.raises(ValueError, match="dense attention only"):
             TextEncoderFeaturizer(quantize=True, attentionImpl="pallas",
                                   **small).transform(df)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            TextEncoderFeaturizer(mesh=object(), **small)
+        # the sharded paths are ported (tests/test_torch_parallel.py):
+        # what is not a mesh is refused, and a sharded impl needs one
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            TextEncoderFeaturizer(mesh=object(), **small).transform(df)
         for impl in ("ring", "ring_flash", "ulysses", "ulysses_flash"):
-            with pytest.raises(NotImplementedError, match="item 10"):
+            with pytest.raises(ValueError, match="needs a mesh"):
                 TextEncoderFeaturizer(attentionImpl=impl,
                                       **small).transform(df)
         with pytest.raises(ValueError, match="unknown attention"):
